@@ -1,0 +1,174 @@
+// Felsenstein pruning forward walk for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_kernel
+// (its grouped walk _walk_tree_grouped, the contraction _contract/_vpu_matmul
+// and the exact power-of-two rescale _block_rescale). It computes what that
+// kernel computes, not a block-by-block copy of it: for every internal node in
+// post-order,
+//     y_c = P_c . x_c            for each child c,
+//     x_n = prod_c y_c,
+//     m   = max(max_i x_n[i], FLT_MIN),  x_n *= 2^-floor(log2 m),
+//     e_n = sum_c e_c + floor(log2 m)    (an exact integer count, kept in f32),
+// and it returns the root partials and the root exponent count. The caller
+// turns the count into ln units (x ln 2) in float64.
+//
+// Design. One thread owns one (batch b, rate category k, site) column and
+// walks the whole tree for it, so there is no synchronisation at all: a
+// thread only ever reads partials it wrote itself. Grid is
+// (ceil(sites / 256), K, B) with 256 threads per block. Node partials live in
+// device memory with sites minor and states innermost,
+//     leaves  (n_leaves, sites, S)          -- the JAX function's own layout
+//     scratch (B, K, n_nodes - n_leaves, sites, S), indexed by id - n_leaves
+//     scratch_e (B, K, n_nodes - n_leaves, sites)
+//     root    (B, K, sites, S),  root_e (B, K, sites)
+// so at S = 4 each thread moves one aligned 16-byte vector per node and a warp
+// touches 512 contiguous bytes: fully coalesced, with no state or site
+// padding (the ragged site edge is masked by the early return). P is read
+// through the read-only path: all threads of a block read the same P entries,
+// which the hardware broadcasts. Padding children (id 0 beyond counts[i]) are
+// never read.
+//
+// What bounds it on an H100: bytes. Per node and site it reads 2 x S floats of
+// children (plus their exponents) and writes S + 1 floats, against about
+// 2 x S^2 flops: at S = 4 that is ~40 bytes for ~64 flops, far below the
+// card's ~20 flops/byte ridge for f32 on CUDA cores. The design keeps the
+// node's S values in registers between the child loads and the single store,
+// so each partial crosses memory exactly once each way, and the scratch of a
+// B = 1 flagship walk (4 categories x 63 internal nodes x 1024 sites x 5
+// floats) fits in the 50 MB L2. Keeping intermediate nodes out of device memory entirely (a
+// register/shared-memory stack, as the TPU slot kernel does in VMEM) is the
+// next step and a later change.
+
+#include <cfloat>
+#include <cstddef>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int S>
+__device__ __forceinline__ void load_states(const float* __restrict__ src,
+                                            float (&x)[S]) {
+  if constexpr (S == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < S; ++j) x[j] = src[j];
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void store_states(float* __restrict__ dst,
+                                             const float (&x)[S]) {
+  if constexpr (S == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < S; ++j) dst[j] = x[j];
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+pruning_forward_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S, S)
+                       const float* __restrict__ leaves,    // (n_leaves, sites, S)
+                       const int* __restrict__ order,       // (n_int,)
+                       const int* __restrict__ children,    // (n_int, cmax)
+                       const int* __restrict__ counts,      // (n_int,)
+                       float* __restrict__ scratch,         // (B, K, n_inner, sites, S)
+                       float* __restrict__ scratch_e,       // (B, K, n_inner, sites)
+                       float* __restrict__ root,            // (B, K, sites, S)
+                       float* __restrict__ root_e,          // (B, K, sites)
+                       int K, int n_nodes, int n_leaves, int n_int, int cmax,
+                       int sites) {
+  const int site = blockIdx.x * kThreads + threadIdx.x;
+  if (site >= sites) return;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  float* __restrict__ xs = scratch + bk * n_inner * sites * S;
+  float* __restrict__ es = scratch_e + bk * n_inner * sites;
+  // P for (b, node, k) starts at pb + node * K * S * S
+  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
+  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
+
+  for (int i = 0; i < n_int; ++i) {
+    const int node = __ldg(order + i);
+    const int cnt = __ldg(counts + i);
+    float acc[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) acc[r] = 1.0f;
+    float e = 0.0f;
+    for (int c = 0; c < cnt; ++c) {
+      const int child = __ldg(children + i * cmax + c);
+      float x[S];
+      if (child < n_leaves) {
+        load_states<S>(leaves + (static_cast<size_t>(child) * sites + site) * S, x);
+      } else {
+        const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
+        load_states<S>(xs + row * S, x);
+        e += es[row];
+      }
+      const float* __restrict__ pc = pb + child * p_node_stride;
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        float y = 0.0f;
+#pragma unroll
+        for (int j = 0; j < S; ++j) y = fmaf(__ldg(pc + r * S + j), x[j], y);
+        acc[r] *= y;
+      }
+    }
+    // exact power-of-two rescale, bit for bit ops/pruning.pow2_rescale
+    float m = FLT_MIN;
+#pragma unroll
+    for (int r = 0; r < S; ++r) m = fmaxf(m, acc[r]);
+    int eb = (__float_as_int(m) >> 23) & 0xFF;
+    eb = min(max(eb, 1), 253);
+    const float scale = __int_as_float((254 - eb) << 23);
+#pragma unroll
+    for (int r = 0; r < S; ++r) acc[r] *= scale;
+    e += static_cast<float>(eb - 127);
+
+    if (i == n_int - 1) {  // the root is last in post-order
+      store_states<S>(root + (bk * sites + site) * S, acc);
+      root_e[bk * sites + site] = e;
+    } else {
+      const size_t row = static_cast<size_t>(node - n_leaves) * sites + site;
+      store_states<S>(xs + row * S, acc);
+      es[row] = e;
+    }
+  }
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
+// Pointers are device pointers to contiguous float32 / int32 buffers laid out
+// as documented above; the caller allocates every buffer.
+extern "C" int pruning_forward_f32(const void* p, const void* leaves,
+                                   const void* order, const void* children,
+                                   const void* counts, void* scratch,
+                                   void* scratch_e, void* root, void* root_e,
+                                   int B, int K, int S, int n_nodes,
+                                   int n_leaves, int n_int, int cmax, int sites,
+                                   void* stream) {
+  if (S != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
+  pruning_forward_kernel<4><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(leaves),
+      static_cast<const int*>(order), static_cast<const int*>(children),
+      static_cast<const int*>(counts), static_cast<float*>(scratch),
+      static_cast<float*>(scratch_e), static_cast<float*>(root),
+      static_cast<float*>(root_e), K, n_nodes, n_leaves, n_int, cmax, sites);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,426 @@
+"""Likelihood engine: models x rate mixtures x trees -> logL(params)
+(PyTorch port of ``phylo_utils_tpu.likelihood``, value paths only).
+
+The engine holds static data (compiled schedule, encoded patterns, on one
+explicit device) and evaluates ``logL(params)`` where params is a dict
+``{'branch_lengths', 'model', 'alpha'?, 'pinv'?}`` of tensors. Pruners:
+``"torch"`` (level-batched plain PyTorch, ``ops.pruning.make_prune_fn``) and
+``"cuda"`` (the hand-written pruning kernel, ``ops.cuda_pruning``; CPU
+tensors take its plain-PyTorch walk). Gradients are not ported yet (ROADMAP
+A5, A6, A9) and raise.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from phylo_utils_tpu_torch import io as pio
+from phylo_utils_tpu_torch import trees as ptrees
+from phylo_utils_tpu_torch.models.base import Model
+from phylo_utils_tpu_torch.ops.cuda_pruning import make_fused_loglik_fn
+from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
+from phylo_utils_tpu_torch.ops.pmatrix import (
+    extend_p_identity,
+    p_matrices_reversible,
+    transition_matrices,
+)
+from phylo_utils_tpu_torch.ops.pruning import (
+    invariant_site_likelihood,
+    make_prune_fn,
+    mixture_loglik,
+    mixture_loglik_from_ll,
+)
+
+__all__ = ["LikelihoodEngine", "rate_categories", "mixture_rates_and_p"]
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _canonical_dtype(dtype) -> torch.dtype:
+    if dtype is None:
+        return torch.float64
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = _DTYPES.get(np.dtype(dtype).name)
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, not {dtype!r}")
+    return out
+
+
+def rate_categories(engine, params, dtype, rates=None):
+    """(rates, cat_weights) for the engine's RATE mixture (gamma/FreeRate/
+    none). ``rates``: precomputed gamma category rates (cached by parameter
+    value, see ``LikelihoodEngine.model_rates``); only valid for the
+    equal-weight gamma mixture."""
+    ncat, device = engine.ncat, engine.device
+    if rates is not None and ncat > 1:
+        rates = torch.as_tensor(rates, dtype=dtype, device=device)
+        return rates, torch.full((ncat,), 1.0 / ncat, dtype=dtype,
+                                 device=device)
+    if ncat > 1 and engine.rate_model == "free":
+        cat_weights = params["cat_weights"].to(dtype)
+        cat_weights = cat_weights / cat_weights.sum()
+        rates = params["rates"].to(dtype)
+        rates = rates / (cat_weights * rates).sum()       # weighted mean 1
+    elif ncat > 1:
+        # cast alpha UP first: an f32 discretization error is coherent
+        # across every site
+        rates = discrete_gamma(params["alpha"].to(dtype), ncat, engine.median)
+        cat_weights = torch.full((ncat,), 1.0 / ncat, dtype=dtype,
+                                 device=device)
+    else:
+        rates = torch.ones((1,), dtype=dtype, device=device)
+        cat_weights = torch.ones((1,), dtype=dtype, device=device)
+    return rates, cat_weights
+
+
+def mixture_rates_and_p(engine, params, dtype, eig=None, rates=None):
+    """Shared mixture construction: (rates, cat_weights, p, freqs).
+
+    ``p`` is (..., n_nodes, K, S, S), with the leading dims of
+    ``params['branch_lengths']`` (..., n_real_nodes) as a batch. ``eig``: a
+    precomputed ``Eigen`` for the current model parameters; P(t) is then
+    reconstructed from it (e^{lambda t} in ``dtype``, the reconstruct in the
+    engine's dtype) instead of re-decomposing Q.
+    """
+    rates, cat_weights = rate_categories(engine, params, dtype, rates=rates)
+    t = params["branch_lengths"].to(dtype)
+    ts = t[..., :, None] * rates                           # (..., n_nodes, K)
+    if eig is not None:
+        freqs = eig.freqs.to(dtype)
+        p = transition_matrices(eig, ts, out_dtype=engine.dtype)
+    elif engine.model.reversible:
+        sym, freqs = engine.model.build_parts(params["model"], dtype=dtype,
+                                              device=engine.device)
+        p = p_matrices_reversible(sym, freqs, ts)
+    else:
+        eig = engine.model.eigen(params["model"], dtype=dtype,
+                                 device=engine.device)
+        freqs = eig.freqs
+        p = transition_matrices(eig, ts)
+    # identity blocks for binarization pseudo-nodes (no-op on binary trees)
+    p = extend_p_identity(p, engine.schedule.n_nodes)
+    return rates, cat_weights, p, freqs
+
+
+def _value_key(t) -> bytes:
+    return torch.as_tensor(t).detach().cpu().numpy().tobytes()
+
+
+class LikelihoodEngine:
+    """Likelihood evaluator for one (topology, model) pair on one device.
+
+    Parameters
+    ----------
+    tree : Tree or newick str
+    alignment : dict name->seq, or CompressedAlignment
+    model : Model
+    ncat : rate categories (1 = no rate heterogeneity)
+    invariant_sites : add a +I mixture component (param 'pinv')
+    median : use median instead of mean gamma discretization
+    dtype : partials dtype (None = float64). With float32, P(t) build, root
+        reduction and mixing still run in float64.
+    compress : collapse identical columns to weighted patterns
+    pruner : "torch" (plain PyTorch) or "cuda" (the CUDA pruning kernel on
+        CUDA tensors, its plain-PyTorch walk on CPU tensors)
+    rate_model : "gamma" (param 'alpha') or "free" (FreeRate: 'rates' and
+        'cat_weights' are free, rates renormalized to weighted mean 1)
+    device : torch device for every tensor of the engine ("cpu" default;
+        never chosen automatically)
+    """
+
+    def __init__(
+        self,
+        tree: Union[ptrees.Tree, str],
+        alignment: Union[Mapping[str, str], pio.CompressedAlignment],
+        model: Model,
+        ncat: int = 1,
+        invariant_sites: bool = False,
+        median: bool = False,
+        dtype=None,
+        compress: bool = True,
+        pruner: str = "torch",
+        rate_model: str = "gamma",
+        device="cpu",
+    ):
+        if isinstance(tree, str):
+            tree = pio.parse_newick(tree)
+        self.tree = tree
+        self.model = model
+        self.ncat = int(ncat)
+        self.median = bool(median)
+        if rate_model not in ("gamma", "free"):
+            raise ValueError(f"unknown rate_model {rate_model!r}")
+        self.rate_model = rate_model
+        self.invariant_sites = bool(invariant_sites)
+        self.dtype = _canonical_dtype(dtype)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"device={device!r} requested but "
+                    "torch.cuda.is_available() is False"
+                )
+            # float32 products must stay full float32: TF32 keeps ~3
+            # decimal digits, far outside the 1e-6 logL budget
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        elif self.device.type != "cpu":
+            raise ValueError(f"device must be cpu or cuda, not {device!r}")
+
+        # Precision plan: partials stay in `dtype` through the pruning walk
+        # (that's where the work is); P(t) construction, the root
+        # reduction, rate-category mixing and the final weighted pattern
+        # sum run in float64.
+        self._reduce_dtype = torch.float64
+
+        if isinstance(alignment, pio.CompressedAlignment):
+            ca = alignment
+        elif compress:
+            ca = pio.compress_patterns(alignment, model.alphabet,
+                                       dtype=np.float64)
+        else:
+            from phylo_utils_tpu_torch.alphabets import encode_alignment
+
+            names, arr = encode_alignment(alignment, model.alphabet)
+            ca = pio.CompressedAlignment(
+                names=tuple(names),
+                partials=arr,
+                weights=np.ones(arr.shape[1]),
+                site_to_pattern=np.arange(arr.shape[1], dtype=np.int32),
+            )
+        self._compressed = ca
+
+        missing = set(tree.leaf_names) - set(ca.names)
+        if missing:
+            raise ValueError(f"alignment is missing taxa {sorted(missing)}")
+        if ca.partials.shape[2] != model.n_states:
+            raise ValueError(
+                f"alignment encodes {ca.partials.shape[2]} states but model "
+                f"{model.name!r} has {model.n_states} (wrong alphabet?)"
+            )
+        order = [ca.names.index(n) for n in tree.leaf_names]
+        leaf_partials = ca.partials[order]          # (n_leaves, P, S)
+
+        self.schedule = ptrees.compile_schedule(tree)
+        self._prune = None
+        self._fused_ll = None
+        if pruner == "cuda":
+            if self.dtype == torch.float64:
+                warnings.warn(
+                    "pruner='cuda' computes partials in float32; results "
+                    "carry f32 precision. Use pruner='torch' for full-f64 "
+                    "parity runs.",
+                    stacklevel=2,
+                )
+            self._fused_ll = make_fused_loglik_fn(self.schedule)
+        elif pruner == "torch":
+            self._prune = make_prune_fn(self.schedule)
+        else:
+            raise ValueError(
+                f"unknown pruner {pruner!r}; use 'torch' or 'cuda'"
+            )
+        self.pruner = pruner
+
+        self._leaf_partials = torch.as_tensor(
+            np.ascontiguousarray(leaf_partials), dtype=self.dtype,
+            device=self.device,
+        )
+        self._weights = torch.as_tensor(ca.weights, dtype=self.dtype,
+                                        device=self.device)
+        self._eig_cache_key = None
+        self._eig_cache = None
+        self._rates_cache_key = None
+        self._rates_cache = None
+
+    def model_eigen(self, full_params):
+        """Eigen system for ``full_params['model']`` on the engine's device,
+        cached by parameter VALUE (the eigendecomposition lives with the
+        model and is not redone per evaluation)."""
+        key = tuple((k, _value_key(v))
+                    for k, v in sorted(full_params["model"].items()))
+        if key != self._eig_cache_key:
+            self._eig_cache = self.model.eigen(
+                full_params["model"], dtype=self._reduce_dtype,
+                device=self.device,
+            )
+            self._eig_cache_key = key
+        return self._eig_cache
+
+    def model_rates(self, full_params):
+        """Discrete-gamma category rates for ``full_params['alpha']`` on the
+        engine's device, computed in float64 on the host and cached by
+        parameter VALUE. None when the rates are not a function of alpha
+        alone (FreeRate / no rate heterogeneity)."""
+        if (self.ncat <= 1 or self.rate_model != "gamma"
+                or "alpha" not in full_params):
+            return None
+        key = (_value_key(full_params["alpha"]), self.ncat, self.median)
+        if key != self._rates_cache_key:
+            alpha = full_params["alpha"].detach().to("cpu", torch.float64)
+            self._rates_cache = discrete_gamma(
+                alpha, self.ncat, self.median
+            ).to(device=self.device, dtype=self._reduce_dtype)
+            self._rates_cache_key = key
+        return self._rates_cache
+
+    # -- parameters ---------------------------------------------------------
+
+    def _tensor(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+    def default_params(self) -> Dict:
+        params: Dict = {
+            "branch_lengths": self._tensor(self.tree.lengths),
+            "model": self.model.defaults(self.dtype, self.device),
+        }
+        if self.ncat > 1:
+            if self.rate_model == "free":
+                params["rates"] = torch.linspace(
+                    0.2, 2.0, self.ncat, dtype=self.dtype, device=self.device
+                )
+                params["cat_weights"] = torch.full(
+                    (self.ncat,), 1.0 / self.ncat, dtype=self.dtype,
+                    device=self.device,
+                )
+            else:
+                params["alpha"] = self._tensor(0.5)
+        if self.invariant_sites:
+            params["pinv"] = self._tensor(0.2)
+        return params
+
+    def _full_params(self, params: Optional[Mapping]) -> Dict:
+        full = self.default_params()
+        if params:
+            for k, v in params.items():
+                if k not in full:
+                    # typos would otherwise be SILENTLY ignored (the key
+                    # is stored but nothing reads it) — e.g. "aplha"
+                    raise ValueError(
+                        f"unknown parameter {k!r} for this engine; "
+                        f"available: {sorted(full.keys())}"
+                    )
+                if k == "model":
+                    unknown = set(v) - set(full["model"])
+                    if unknown:
+                        raise ValueError(
+                            f"unknown model parameter(s) {sorted(unknown)} "
+                            f"for {self.model.name}; available: "
+                            f"{sorted(full['model'].keys())}"
+                        )
+                    full["model"] = {**full["model"], **{
+                        kk: self._tensor(vv) for kk, vv in v.items()
+                    }}
+                else:
+                    full[k] = self._tensor(v)
+        return full
+
+    # -- core computation ----------------------------------------------------
+
+    def _loglik_fn(self, params, leaf_partials, weights, eig=None,
+                   rates=None):
+        dtype, rdt = self.dtype, self._reduce_dtype
+        # P(t), rates, weights, freqs built in the high-precision dtype;
+        # only the pruning pass itself runs in `dtype`.
+        _, cat_weights, p, freqs = mixture_rates_and_p(
+            self, params, rdt, eig=eig, rates=rates
+        )
+        pinv = params.get("pinv") if self.invariant_sites else None
+        inv = (
+            invariant_site_likelihood(leaf_partials.to(rdt), freqs)
+            if self.invariant_sites
+            else None
+        )
+        if self._fused_ll is not None:
+            # per-category sitewise logL straight from the walk (root
+            # reduction fused)
+            ll = self._fused_ll(p.to(dtype), leaf_partials, freqs)
+            return mixture_loglik_from_ll(
+                ll, cat_weights, weights.to(rdt), pinv=pinv, inv_lik=inv
+            )
+        root_partials, root_logscale = self._prune(p.to(dtype), leaf_partials)
+        return mixture_loglik(
+            root_partials.to(rdt), root_logscale.to(rdt), freqs,
+            cat_weights, weights.to(rdt), pinv=pinv, inv_lik=inv,
+        )
+
+    # -- public API ----------------------------------------------------------
+
+    def _eval(self, full, branch_lengths=None):
+        """(total, sitewise) through the cached eigen system and gamma
+        rates; ``branch_lengths`` (B, n_nodes) replaces the parameter with
+        a batch."""
+        with torch.no_grad():
+            eig = self.model_eigen(full)
+            rates = self.model_rates(full)
+            if branch_lengths is not None:
+                full = {**full, "branch_lengths": branch_lengths}
+            return self._loglik_fn(full, self._leaf_partials, self._weights,
+                                   eig=eig, rates=rates)
+
+    def loglikelihood(self, params: Optional[Mapping] = None) -> float:
+        total, _ = self._eval(self._full_params(params))
+        return float(total)
+
+    def sitewise_loglikelihoods(
+        self, params: Optional[Mapping] = None, per_pattern: bool = False
+    ) -> np.ndarray:
+        """Per-site (or per-pattern) log-likelihoods, float64."""
+        _, sw = self._eval(self._full_params(params))
+        sw = sw.to("cpu", torch.float64).numpy()[: self._compressed.n_patterns]
+        if per_pattern:
+            return sw
+        return sw[self._compressed.site_to_pattern]
+
+    def loglikelihood_many(
+        self, branch_length_sets, params: Optional[Mapping] = None
+    ) -> np.ndarray:
+        """logL for MANY branch-length vectors under one fixed model.
+
+        ``branch_length_sets``: (B, n_nodes). All B evaluations run as one
+        batched pass (the walk takes the batch as a launch axis); the model
+        eigendecomposition and gamma rates are computed once.
+        """
+        bl = self._tensor(branch_length_sets)
+        if bl.dim() != 2 or bl.shape[1] != len(self.tree.lengths):
+            raise ValueError(
+                f"branch_length_sets must be (B, {len(self.tree.lengths)}); "
+                f"got {tuple(bl.shape)}"
+            )
+        total, _ = self._eval(self._full_params(params), branch_lengths=bl)
+        return total.to("cpu", torch.float64).numpy()
+
+    def gradient(self, params: Optional[Mapping] = None) -> Dict:
+        raise NotImplementedError(
+            "gradients are not ported yet: they need the reverse rule for "
+            "P(t) (ROADMAP A5), d/dalpha of the discrete gamma (A6) and the "
+            "saveall/reverse kernels (B2/B3, A9)"
+        )
+
+    def value_and_grad(self, params: Optional[Mapping] = None):
+        return self.gradient(params)
+
+    def bootstrap_loglikelihoods(
+        self,
+        n_replicates: int,
+        params: Optional[Mapping] = None,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Nonparametric-bootstrap logL for ``n_replicates`` resamples.
+
+        Sites are resampled with replacement, which on a pattern-compressed
+        engine only changes the pattern weights: the pruning pass runs once
+        and each replicate is a weighted sum of the sitewise vector.
+        """
+        _, sw = self._eval(self._full_params(params))
+        n_pat = self._compressed.n_patterns
+        sw = sw.to("cpu", torch.float64).numpy()[:n_pat]
+        w = np.asarray(self._compressed.weights, np.float64)[:n_pat]
+        n_sites = int(w.sum())
+        rng = np.random.default_rng(seed)
+        boot_w = rng.multinomial(n_sites, w / n_sites, size=n_replicates)
+        return boot_w @ sw
