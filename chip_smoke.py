@@ -2,27 +2,44 @@
 """Drive the PyTorch/CUDA port (``phylo_utils_tpu_torch``) on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-CUDA pruning kernel from ``phylo_utils_tpu_torch/csrc`` and runs, in order,
-printing one line per phase:
+CUDA kernels from ``phylo_utils_tpu_torch/csrc`` (one ``nvcc`` per source,
+all at once) and runs, in order, printing one line per phase:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the ``nvcc`` build, with its wall time;
-3. the kernel against its plain-PyTorch walk on the card, at the flagship
-   shapes (64 taxa, 4 categories, 1024 and 1000 sites, B = 1 and 64) and on
-   a 512-taxon caterpillar tree;
+3. the forward kernel against its plain-PyTorch walk on the card, at the
+   flagship shapes (64 taxa, 4 categories, 1024 and 1000 sites, B = 1 and
+   64) and on a 512-taxon caterpillar tree;
 4. the flagship engine (64 taxa, 1024 sites, GTR+G4+I, f32 ``pruner="cuda"``)
    against the port's own f64 ``pruner="torch"`` path, single and batched;
 5. the same at 64 taxa x 100,000 sites;
 6. ``EngineServer`` on localhost answering /health, /loglik, /sitewise and
    /bootstrap with the engine's values;
-7. kernel time against the plain walk's time (CUDA events), plus the
-   engine's evaluation time with each pruner.
+7. the saveall kernel against its plain version at phase 3's shapes, its
+   root row bit-identical to the forward kernel's root;
+8. the reverse kernel against its plain version at the same shapes (dP and
+   the leaves' cotangent), dP bit-identical across two launches;
+9. flagship ``value_and_grad`` (f32 ``pruner="cuda"``) against the f64
+   ``pruner="torch"`` autograd: B = 1, a batch of 64 branch-length sets,
+   and 64 taxa x 100,000 sites; a value call then launches only the forward
+   kernel;
+10. ``optimize.fit`` at BASELINE config 5's shape (128 taxa, GTR+G4, 1024
+    sites simulated on the tree, every parameter free), 15 L-BFGS steps;
+    its logL rises, equals the engine's at the returned params, and agrees
+    with the f64 engine there;
+11. the server's /gradient and /fit against the engine and ``fit``;
+12. each kernel's time against its plain version's (CUDA events, in turns:
+    plain, kernel, kernel, plain), the engine's evaluation and
+    ``value_and_grad`` times with each pruner, and fit steps per second.
 
 Every check raises, so any failure exits non-zero without the final line.
-The kernel launch count is reset just before phase 4 and read after phase 6:
-it counts the launches of the main path only. The last two lines are a JSON
-record of the kernel and ``{"ok": true, "device": {...}}``.
+The launch counts are set to 0 just before phase 4 and read after phase 6
+(the serving path), and set to 0 just before phase 9 and read after phase
+11 (the gradient and fit path); the kernel-against-plain phases are not
+counted. The last two lines are a JSON record of the kernels and
+``{"ok": true, "device": {...}}``.
 """
+import functools
 import json
 import math
 import subprocess
@@ -40,6 +57,17 @@ FLAGSHIP_PARAMS = {
     "pinv": 0.1,
 }
 LOGL_RTOL = 1e-6          # f32 partials vs the f64 path (BASELINE metric)
+# f32 walk against the f64 autograd, per gradient leaf, x max|g| (the JAX
+# package holds its Pallas gradients to its XLA ones at this bound)
+GRAD_TOL = 5e-4
+# kernel against plain version, x max|dP|: the same f32 products, but P^T gy
+# and the dP site sums are summed in another order
+REVERSE_TOL = 1e-4
+
+# shapes (the flagship and BASELINE config 5)
+DEVICE = "cuda"
+TAXA, SITES, BATCH, BIG_SITES, CATERPILLAR = 64, 1024, 64, 100_000, 512
+CONFIG5_TAXA, FIT_STEPS = 128, 15
 
 
 def _fail(msg):
@@ -60,6 +88,40 @@ def _caterpillar(n, brlen):
     return "(" * (n - 1) + f"t0:{brlen}" + "".join(
         f",t{i}:{brlen})" + (f":{brlen}" if i < n - 1 else "")
         for i in range(1, n)) + ";"
+
+
+def _simulate(tree, p_edges, n_sites, freqs, rng):
+    """DNA sites evolved down ``tree``: ``p_edges`` (n_nodes, K, 4, 4) float64
+    numpy transition matrices per edge and rate category; each site draws a
+    category, the root draws from ``freqs``."""
+    import numpy as np
+
+    k = p_edges.shape[1]
+    cat = rng.integers(0, k, n_sites)
+    states = np.zeros((tree.n_nodes, n_sites), np.int64)
+    states[tree.root] = rng.choice(4, n_sites, p=freqs)
+    for node in range(tree.n_nodes - 1, -1, -1):  # ids are post-order
+        for child in tree.children[node]:
+            cum = np.cumsum(p_edges[child, cat, states[node]], axis=1)
+            u = rng.random(n_sites)[:, None] * cum[:, -1:]
+            states[child] = (u > cum).sum(axis=1)
+    chars = np.frombuffer(b"ACGT", np.uint8)[states[:tree.n_leaves]]
+    return {name: chars[i].tobytes().decode()
+            for i, name in enumerate(tree.leaf_names)}
+
+
+def _max_rel(got, want):
+    """max |got - want| / max |want| over all entries."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-300))
+
+
+def _grad_errors(got, want):
+    from phylo_utils_tpu_torch.convert import flatten_params
+
+    paths, g = flatten_params(got)
+    _, w = flatten_params(want)
+    return {".".join(p): _max_rel(a, b) for p, a, b in zip(paths, g, w)}
 
 
 def main():
@@ -84,6 +146,10 @@ def main():
         WalkSchedule,
         forward_walk,
         forward_walk_reference,
+        reverse_walk,
+        reverse_walk_reference,
+        saveall_walk,
+        saveall_walk_reference,
     )
     from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
     from phylo_utils_tpu_torch.ops.pmatrix import (
@@ -91,11 +157,20 @@ def main():
         transition_matrices,
     )
     from phylo_utils_tpu_torch.ops.pruning import LN2
+    from phylo_utils_tpu_torch.optimize import fit
     from phylo_utils_tpu_torch.server import EngineServer
     from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
+    counters = ("LAUNCHES", "SAVEALL_LAUNCHES", "REVERSE_LAUNCHES")
+
+    def reset_counts():
+        for name in counters:
+            setattr(cuda_pruning, name, 0)
+
+    def read_counts():
+        return {name: getattr(cuda_pruning, name) for name in counters}
 
     # 1. the card ------------------------------------------------------------
     smi = subprocess.run(
@@ -115,7 +190,7 @@ def main():
     _emit(2, build_s=round(time.perf_counter() - t0, 3), built=info["built"],
           library=str(Path(info["path"]).relative_to(REPO)), ptxas=ptxas)
 
-    # 3. kernel vs plain walk on the card ------------------------------------
+    # 3. forward kernel vs plain walk on the card ----------------------------
     freqs = torch.tensor(FLAGSHIP_PARAMS["model"]["freqs"],
                          dtype=torch.float64, device=dev)
     eig = models.GTR.eigen(FLAGSHIP_PARAMS["model"], dtype=torch.float64,
@@ -141,14 +216,14 @@ def main():
     def site_ll(root_p, root_e):
         return torch.log(root_p.double() @ freqs) + root_e.double() * LN2
 
-    flagship_tree = random_tree(64, seed=0)
+    flagship_tree = random_tree(TAXA, seed=0)
     cases = [("flagship", flagship_tree, s, b)
-             for b in (1, 64) for s in (1024, 1000)]
-    cases.append(("caterpillar512", parse_newick(_caterpillar(512, 0.3)),
-                  1024, 1))
+             for b in (1, BATCH) for s in (SITES, SITES - 24)]
+    cases.append((f"caterpillar{CATERPILLAR}",
+                  parse_newick(_caterpillar(CATERPILLAR, 0.3)), SITES, 1))
     max_err = 0.0
     errors = {}
-    timing_inputs = {}
+    case_inputs = {}
     for name, tree, sites, batch in cases:
         walk, p, leaves = walk_inputs(tree, sites, batch)
         kp, ke = forward_walk(p, leaves, walk)
@@ -163,22 +238,24 @@ def main():
         tol = len(walk.order) * 2.0 ** -21
         _check(err <= tol, f"{name} B={batch} sites={sites}: kernel vs "
                f"plain walk max |dlogL| {err:.3e} > {tol:.3e}")
-        errors[f"{name}_B{batch}_S{sites}"] = err
+        key = f"{name}_B{batch}_S{sites}"
+        errors[key] = err
         max_err = max(max_err, err)
-        if name == "flagship" and sites == 1024:
-            timing_inputs[batch] = (walk, p, leaves)
+        case_inputs[key] = (walk, p, leaves)
     _emit(3, max_abs_err=errors)
+    timing_inputs = {b: case_inputs[f"flagship_B{b}_S{SITES}"]
+                     for b in (1, BATCH)}
 
     # 4. flagship engine, main path ------------------------------------------
     rng_aln = np.random.default_rng(1)
-    aln = {n: "".join(rng_aln.choice(list("ACGT"), size=1024))
+    aln = {n: "".join(rng_aln.choice(list("ACGT"), size=SITES))
            for n in flagship_tree.leaf_names}
-    kw = dict(ncat=4, invariant_sites=True, device="cuda")
+    kw = dict(ncat=4, invariant_sites=True, device=DEVICE)
     eng = LikelihoodEngine(flagship_tree, aln, models.GTR,
                            dtype=torch.float32, pruner="cuda", **kw)
     ref = LikelihoodEngine(flagship_tree, aln, models.GTR,
                            dtype=torch.float64, pruner="torch", **kw)
-    cuda_pruning.LAUNCHES = 0
+    reset_counts()
     ll = eng.loglikelihood(FLAGSHIP_PARAMS)
     _check(cuda_pruning.LAUNCHES > 0, "the engine did not launch the kernel")
     ll_ref = ref.loglikelihood(FLAGSHIP_PARAMS)
@@ -187,13 +264,13 @@ def main():
            f"flagship logL {ll} vs f64 {ll_ref}: rel {rel:.3e}")
     sw = eng.sitewise_loglikelihoods(FLAGSHIP_PARAMS)
     sw_ref = ref.sitewise_loglikelihoods(FLAGSHIP_PARAMS)
-    _check(sw.shape == (1024,) and np.isfinite(sw).all(), "bad sitewise")
+    _check(sw.shape == (SITES,) and np.isfinite(sw).all(), "bad sitewise")
     bl = np.asarray(flagship_tree.lengths) * np.random.default_rng(3).uniform(
-        0.5, 2.0, (64, 1))
+        0.5, 2.0, (BATCH, 1))
     many = eng.loglikelihood_many(bl, FLAGSHIP_PARAMS)
     many_ref = ref.loglikelihood_many(bl, FLAGSHIP_PARAMS)
     rel_many = float(np.max(np.abs(many - many_ref) / np.abs(many_ref)))
-    _check(many.shape == (64,) and rel_many <= LOGL_RTOL,
+    _check(many.shape == (BATCH,) and rel_many <= LOGL_RTOL,
            f"loglikelihood_many rel {rel_many:.3e}")
     _emit(4, loglik=ll, loglik_f64=ll_ref, rel_err=rel,
           sitewise_max_abs_err=float(np.max(np.abs(sw - sw_ref))),
@@ -202,7 +279,7 @@ def main():
     # 5. realistic scale: 64 taxa x 100,000 sites ----------------------------
     rng_big = np.random.default_rng(2)
     chars = np.frombuffer(b"ACGT", np.uint8)[
-        rng_big.integers(0, 4, (64, 100_000))]
+        rng_big.integers(0, 4, (TAXA, BIG_SITES))]
     aln_big = {n: chars[i].tobytes().decode()
                for i, n in enumerate(flagship_tree.leaf_names)}
     big = LikelihoodEngine(flagship_tree, aln_big, models.GTR,
@@ -220,46 +297,210 @@ def main():
            f"100k-site logL {ll_big} vs f64 {ll_big_ref}: rel {rel_big:.3e}")
     _emit(5, patterns=big._compressed.n_patterns, loglik=ll_big,
           loglik_f64=ll_big_ref, rel_err=rel_big, eval_ms_host=big_ms)
-    del big, big_ref
 
     # 6. server --------------------------------------------------------------
+    def post(base, route, body):
+        req = urllib.request.Request(
+            base + route, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
     srv = EngineServer(eng, port=0)
-    port = srv.start()
+    base = f"http://127.0.0.1:{srv.start()}"
     try:
-        base = f"http://127.0.0.1:{port}"
-
-        def post(route, body):
-            req = urllib.request.Request(
-                base + route, data=json.dumps(body).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=120) as r:
-                return json.loads(r.read())
-
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
         _check(health["status"] == "ok" and health["device_name"] == kind,
                f"bad /health {health}")
-        got = post("/loglik", {"params": FLAGSHIP_PARAMS})["loglik"]
+        got = post(base, "/loglik", {"params": FLAGSHIP_PARAMS})["loglik"]
         _check(abs(got - ll) <= 1e-12 * abs(ll), f"/loglik {got} != {ll}")
-        got_sw = np.asarray(post("/sitewise",
+        got_sw = np.asarray(post(base, "/sitewise",
                                  {"params": FLAGSHIP_PARAMS})["sitewise"])
         _check(got_sw.shape == sw.shape
                and float(np.max(np.abs(got_sw - sw))) <= 1e-9,
                "/sitewise disagrees with the engine")
-        boots = np.asarray(post("/bootstrap", {"n": 100, "seed": 4,
-                                               "params": FLAGSHIP_PARAMS})
-                           ["logliks"])
+        boots = np.asarray(post(base, "/bootstrap",
+                                {"n": 100, "seed": 4,
+                                 "params": FLAGSHIP_PARAMS})["logliks"])
         want_boots = eng.bootstrap_loglikelihoods(100, FLAGSHIP_PARAMS, seed=4)
         _check(boots.shape == (100,) and np.allclose(boots, want_boots,
                                                      rtol=1e-12, atol=0),
                "/bootstrap disagrees with the engine")
     finally:
         srv.stop()
-    main_launches = cuda_pruning.LAUNCHES
+    serve_counts = read_counts()
     _emit(6, health=health, loglik=got, sitewise_n=int(got_sw.shape[0]),
-          bootstrap_mean=float(boots.mean()), launches=main_launches)
+          bootstrap_mean=float(boots.mean()), launches=serve_counts)
 
-    # 7. timing --------------------------------------------------------------
+    # 7. saveall kernel vs its plain version and the forward root -----------
+    b2_err, b2_max = {}, 0.0
+    for key, (walk, p, leaves) in case_inputs.items():
+        rx, re = saveall_walk(p, leaves, walk)
+        kp, ke = forward_walk(p, leaves, walk)
+        torch.cuda.synchronize()
+        row = walk.root - walk.n_leaves
+        _check(torch.equal(rx[..., row, :, :], kp)
+               and torch.equal(re[..., row, :], ke),
+               f"{key}: the saveall root row is not the forward kernel's")
+        wx, we = saveall_walk_reference(p, leaves, walk)
+        # compare x 2^(e - e_plain) with x_plain: an exponent may flip by
+        # one at a power of two with the partials scaled to compensate
+        shifted = rx.double() * torch.exp2((re - we).double())[..., None]
+        err = float((shifted - wx.double()).abs().max())
+        tol = len(walk.order) * 2.0 ** -21   # rescaled partials are < 2
+        _check(err <= tol and bool(torch.isfinite(rx).all()),
+               f"{key}: saveall vs plain max |dx| {err:.3e} > {tol:.3e}")
+        b2_err[key] = err
+        b2_max = max(b2_max, err)
+    _emit(7, max_abs_err=b2_err)
+
+    # 8. reverse kernel vs its plain version --------------------------------
+    f32_freqs = freqs.float()
+    b3_err, b3_max = {}, 0.0
+    for key, (walk, p, leaves) in case_inputs.items():
+        rx, re = saveall_walk(p, leaves, walk)
+        row = walk.root - walk.n_leaves
+        dot = torch.einsum("...ksi,i->...ks", rx[..., row, :, :].double(),
+                           freqs)
+        weights = torch.as_tensor(
+            rng.integers(0, 4, dot.shape[-1]), dtype=torch.float64,
+            device=dev)                  # pattern weights, zeros included
+        lam = (weights / dot).float().contiguous()
+        dp, dl = reverse_walk(p, leaves, rx, re, lam, f32_freqs, walk,
+                              want_dleaf=True)
+        dp2, _ = reverse_walk(p, leaves, rx, re, lam, f32_freqs, walk)
+        torch.cuda.synchronize()
+        _check(torch.equal(dp, dp2), f"{key}: dP differs between launches")
+        wp, wl = reverse_walk_reference(p, leaves, rx, re, lam, f32_freqs,
+                                        walk, want_dleaf=True)
+        rel_p, rel_l = _max_rel(dp, wp), _max_rel(dl, wl)
+        _check(bool(torch.isfinite(dp).all()) and rel_p <= REVERSE_TOL
+               and rel_l <= REVERSE_TOL,
+               f"{key}: reverse vs plain dP {rel_p:.3e}, dleaf {rel_l:.3e} "
+               f"(x max|g|) > {REVERSE_TOL}")
+        abs_err = float((dp.double() - wp.double()).abs().max())
+        b3_err[key] = {"dP_abs": abs_err, "dP_rel_max": rel_p,
+                       "dleaf_rel_max": rel_l}
+        b3_max = max(b3_max, abs_err)
+    _emit(8, errors=b3_err, deterministic=True)
+
+    # 9. engine value_and_grad, main path -----------------------------------
+    reset_counts()
+    v, g = eng.value_and_grad(FLAGSHIP_PARAMS)
+    _check(cuda_pruning.SAVEALL_LAUNCHES > 0
+           and cuda_pruning.REVERSE_LAUNCHES > 0,
+           f"value_and_grad did not run the gradient kernels: {read_counts()}")
+    v_ref, g_ref = ref.value_and_grad(FLAGSHIP_PARAMS)
+    rel_v = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+    g_err = _grad_errors(g, g_ref)
+    _check(rel_v <= LOGL_RTOL and max(g_err.values()) <= GRAD_TOL,
+           f"value_and_grad: value rel {rel_v:.3e}, grads {g_err}")
+    vm, gm = eng.value_and_grad_many(bl, FLAGSHIP_PARAMS)
+    vm_ref, gm_ref = ref.value_and_grad_many(bl, FLAGSHIP_PARAMS)
+    rel_vm = float(((vm - vm_ref).abs() / vm_ref.abs()).max())
+    gm_err = _grad_errors(gm, gm_ref)
+    _check(rel_vm <= LOGL_RTOL and max(gm_err.values()) <= GRAD_TOL,
+           f"value_and_grad_many: value rel {rel_vm:.3e}, grads {gm_err}")
+    vb, gb = big.value_and_grad(FLAGSHIP_PARAMS)
+    vb_ref, gb_ref = big_ref.value_and_grad(FLAGSHIP_PARAMS)
+    rel_vb = abs(float(vb) - float(vb_ref)) / abs(float(vb_ref))
+    gb_err = _grad_errors(gb, gb_ref)
+    _check(rel_vb <= LOGL_RTOL and max(gb_err.values()) <= GRAD_TOL,
+           f"100k-site value_and_grad: value rel {rel_vb:.3e}, "
+           f"grads {gb_err}")
+    del big, big_ref
+    before = read_counts()
+    eng.loglikelihood(FLAGSHIP_PARAMS)
+    after = read_counts()
+    _check(after["LAUNCHES"] > before["LAUNCHES"]
+           and after["SAVEALL_LAUNCHES"] == before["SAVEALL_LAUNCHES"]
+           and after["REVERSE_LAUNCHES"] == before["REVERSE_LAUNCHES"],
+           f"a value call launched {before} -> {after}")
+    _emit(9, value_rel_err=rel_v, grad_rel_err=g_err,
+          many_B64_value_rel_err=rel_vm, many_B64_grad_rel_err=gm_err,
+          big_value_rel_err=rel_vb, big_grad_rel_err=gb_err,
+          launches=read_counts())
+
+    # 10. fit at BASELINE config 5's shape ----------------------------------
+    tree5 = random_tree(CONFIG5_TAXA, seed=5)
+    true5 = {"model": {"rates": [1.3, 4.1, 0.8, 1.1, 3.7, 1.0],
+                       "freqs": [0.28, 0.22, 0.24, 0.26]}, "alpha": 0.6}
+    eig5 = models.GTR.eigen(true5["model"])
+    p5 = transition_matrices(
+        eig5, torch.as_tensor(np.asarray(tree5.lengths))[:, None]
+        * discrete_gamma(torch.tensor(true5["alpha"], dtype=torch.float64),
+                         4)).numpy()
+    aln5 = _simulate(tree5, p5, SITES, np.asarray(true5["model"]["freqs"]),
+                     np.random.default_rng(6))
+    kw5 = dict(ncat=4, device=DEVICE)
+    fit_eng = LikelihoodEngine(tree5, aln5, models.GTR, dtype=torch.float32,
+                               pruner="cuda", **kw5)
+    fit_ref = LikelihoodEngine(tree5, aln5, models.GTR, dtype=torch.float64,
+                               pruner="torch", **kw5)
+    start5 = fit_eng.loglikelihood()
+    # warm the path: the first optimizer step of a process imports parts
+    # of torch it had not loaded (seconds on the host)
+    t0 = time.perf_counter()
+    fit(fit_eng, max_steps=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = fit(fit_eng, max_steps=FIT_STEPS, patience=10 ** 6)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    again = fit_eng.loglikelihood(res.params)
+    ll5_ref = fit_ref.loglikelihood(res.params)
+    rel5 = abs(res.loglik - ll5_ref) / abs(ll5_ref)
+    _check(res.n_steps == FIT_STEPS and float(res.trace.max()) > start5
+           and res.loglik > start5,
+           f"fit did not raise logL: start {start5}, trace {res.trace}")
+    _check(res.loglik == again,
+           f"fit logL {res.loglik} != engine at its params {again}")
+    _check(rel5 <= LOGL_RTOL,
+           f"fit logL {res.loglik} vs f64 engine {ll5_ref}: rel {rel5:.3e}")
+    _emit(10, taxa=CONFIG5_TAXA, sites=SITES, start_loglik=start5,
+          fit_loglik=res.loglik, fit_loglik_f64=ll5_ref, rel_err=rel5,
+          n_steps=res.n_steps, trace=res.trace.tolist(),
+          first_fit_1step_s=warm_s, fit_s=fit_s,
+          steps_per_s=res.n_steps / fit_s, launches=read_counts())
+
+    # 11. server: /gradient and /fit -----------------------------------------
+    srv = EngineServer(eng, port=0)
+    base = f"http://127.0.0.1:{srv.start()}"
+    try:
+        got_g = post(base, "/gradient", {"params": FLAGSHIP_PARAMS})["gradient"]
+        want_g = eng.gradient(FLAGSHIP_PARAMS)
+        route_err = {k: float(np.max(np.abs(np.asarray(got_g[k])
+                                            - want_g[k].cpu().numpy())))
+                     for k in ("branch_lengths", "alpha", "pinv")}
+        route_err.update({f"model.{k}": float(np.max(np.abs(
+            np.asarray(got_g["model"][k]) - want_g["model"][k].cpu().numpy())))
+            for k in ("rates", "freqs")})
+        scale = max(float(t.abs().max()) for t in (
+            want_g["branch_lengths"], want_g["alpha"], want_g["pinv"],
+            want_g["model"]["rates"], want_g["model"]["freqs"]))
+        _check(max(route_err.values()) <= 1e-12 * scale,
+               f"/gradient differs from engine.gradient: {route_err}")
+        fit_body = {"params": FLAGSHIP_PARAMS, "max_steps": 3,
+                    "free": ["branch_lengths", "alpha", "pinv"]}
+        got_fit = post(base, "/fit", fit_body)
+        want_fit = fit(eng, FLAGSHIP_PARAMS, free=tuple(fit_body["free"]),
+                       max_steps=3)
+        again = eng.loglikelihood(got_fit["params"])
+        _check(got_fit["n_steps"] == 3
+               and abs(got_fit["loglik"] - want_fit.loglik) <= 1e-9 * abs(ll)
+               and abs(got_fit["loglik"] - again) <= 1e-12 * abs(ll)
+               and got_fit["loglik"] >= ll,
+               f"/fit {got_fit['loglik']} vs fit {want_fit.loglik}, engine "
+               f"at its params {again}, start {ll}")
+    finally:
+        srv.stop()
+    grad_counts = read_counts()
+    _emit(11, gradient_max_abs_diff=route_err, fit_loglik=got_fit["loglik"],
+          fit_n_steps=got_fit["n_steps"], launches=grad_counts)
+
+    # 12. timing --------------------------------------------------------------
     def cuda_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -272,21 +513,34 @@ def main():
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def in_turns(kernel, plain, reps, plain_reps):
+        t = [cuda_ms(plain, plain_reps), cuda_ms(kernel, reps),
+             cuda_ms(kernel, reps), cuda_ms(plain, plain_reps)]
+        return {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
+                "runs": t}
+
     timings = {}
     for batch, (walk, p, leaves) in sorted(timing_inputs.items()):
-        def kernel():
-            forward_walk(p, leaves, walk)
-
-        def plain():
-            forward_walk_reference(p, leaves, walk)
-
-        # in turns on one card: plain, kernel, kernel, plain
         reps = 200 if batch == 1 else 50
-        t = [cuda_ms(plain, 5), cuda_ms(kernel, reps),
-             cuda_ms(kernel, reps), cuda_ms(plain, 5)]
-        timings[f"B{batch}"] = {"ms": (t[1] + t[2]) / 2,
-                                "plain_ms": (t[0] + t[3]) / 2,
-                                "runs": t}
+        rx, re = saveall_walk(p, leaves, walk)
+        row = walk.root - walk.n_leaves
+        lam = (1.0 / torch.einsum("...ksi,i->...ks",
+                                  rx[..., row, :, :].double(), freqs)
+               ).float().contiguous()
+        timings[f"forward_B{batch}"] = in_turns(
+            functools.partial(forward_walk, p, leaves, walk),
+            functools.partial(forward_walk_reference, p, leaves, walk),
+            reps, 5)
+        timings[f"saveall_B{batch}"] = in_turns(
+            functools.partial(saveall_walk, p, leaves, walk),
+            functools.partial(saveall_walk_reference, p, leaves, walk),
+            reps, 5)
+        timings[f"reverse_B{batch}"] = in_turns(
+            functools.partial(reverse_walk, p, leaves, rx, re, lam,
+                              f32_freqs, walk),
+            functools.partial(reverse_walk_reference, p, leaves, rx, re,
+                              lam, f32_freqs, walk),
+            reps, 3)
     eng_torch = LikelihoodEngine(flagship_tree, aln, models.GTR,
                                  dtype=torch.float32, pruner="torch", **kw)
     for label, e in (("cuda", eng), ("torch", eng_torch)):
@@ -294,18 +548,43 @@ def main():
             lambda: e.loglikelihood(FLAGSHIP_PARAMS), 20)
         timings[f"engine_many_B64_{label}_ms"] = cuda_ms(
             lambda: e.loglikelihood_many(bl, FLAGSHIP_PARAMS), 5)
-    _emit(7, shapes="64 taxa, K=4, 1024 sites, S=4", timings=timings)
+        timings[f"engine_value_and_grad_{label}_ms"] = cuda_ms(
+            lambda: e.value_and_grad(FLAGSHIP_PARAMS), 10)
+        timings[f"engine_value_and_grad_many_B64_{label}_ms"] = cuda_ms(
+            lambda: e.value_and_grad_many(bl, FLAGSHIP_PARAMS), 5)
+    adam = functools.partial(torch.optim.Adam, lr=1e-2)
+    fit(fit_eng, optimizer=adam, max_steps=2, patience=10 ** 6)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(fit_eng, optimizer=adam, max_steps=50, patience=10 ** 6)
+    torch.cuda.synchronize()
+    timings["config5_fit_lbfgs_steps_per_s"] = res.n_steps / fit_s
+    timings["config5_fit_adam_steps_per_s"] = 50 / (time.perf_counter() - t0)
+    _emit(12, shapes=f"{TAXA} taxa, K=4, {SITES} sites, S=4", timings=timings)
 
-    print(json.dumps({"kernels": [{
-        "name": "pruning_forward_f32",
-        "route": "cuda",
-        "source": "phylo_utils_tpu_torch/csrc/pruning_forward.cu",
-        "replaces": "phylo_utils_tpu/ops/pallas_pruning.py:520",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": timings["B64"]["ms"],
-        "plain_ms": timings["B64"]["plain_ms"],
-    }]}), flush=True)
+    def launches(name):
+        return serve_counts[name] + grad_counts[name]
+
+    print(json.dumps({"kernels": [
+        {"name": "pruning_forward_f32", "route": "cuda",
+         "source": "phylo_utils_tpu_torch/csrc/pruning_forward.cu",
+         "replaces": "phylo_utils_tpu/ops/pallas_pruning.py:520",
+         "launches": launches("LAUNCHES"), "max_abs_err": max_err,
+         "ms": timings[f"forward_B{BATCH}"]["ms"],
+         "plain_ms": timings[f"forward_B{BATCH}"]["plain_ms"]},
+        {"name": "pruning_saveall_f32", "route": "cuda",
+         "source": "phylo_utils_tpu_torch/csrc/pruning_forward.cu",
+         "replaces": "phylo_utils_tpu/ops/pallas_pruning.py:840",
+         "launches": launches("SAVEALL_LAUNCHES"), "max_abs_err": b2_max,
+         "ms": timings[f"saveall_B{BATCH}"]["ms"],
+         "plain_ms": timings[f"saveall_B{BATCH}"]["plain_ms"]},
+        {"name": "pruning_reverse_f32", "route": "cuda",
+         "source": "phylo_utils_tpu_torch/csrc/pruning_reverse.cu",
+         "replaces": "phylo_utils_tpu/ops/pallas_pruning.py:966",
+         "launches": launches("REVERSE_LAUNCHES"), "max_abs_err": b3_max,
+         "ms": timings[f"reverse_B{BATCH}"]["ms"],
+         "plain_ms": timings[f"reverse_B{BATCH}"]["plain_ms"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

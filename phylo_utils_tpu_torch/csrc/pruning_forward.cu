@@ -1,6 +1,9 @@
-// Felsenstein pruning forward walk for NVIDIA Hopper (sm_90a).
+// Felsenstein pruning forward walk for NVIDIA Hopper (sm_90a): the value
+// walk (pruning_forward_f32) and the walk that keeps every node's partials as
+// residuals for the gradient (pruning_saveall_f32).
 //
-// Replaces the TPU kernel phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_kernel
+// pruning_forward_f32 replaces the TPU kernel
+// phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_kernel
 // (its grouped walk _walk_tree_grouped, the contraction _contract/_vpu_matmul
 // and the exact power-of-two rescale _block_rescale). It computes what that
 // kernel computes, not a block-by-block copy of it: for every internal node in
@@ -38,6 +41,18 @@
 // floats) fits in the 50 MB L2. Keeping intermediate nodes out of device memory entirely (a
 // register/shared-memory stack, as the TPU slot kernel does in VMEM) is the
 // next step and a later change.
+//
+// pruning_saveall_f32 replaces the TPU kernel
+// phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_saveall_kernel: the same
+// walk, keeping every internal node's rescaled partials and exponent count,
+// the root's included, as the residuals of the reverse walk
+// (csrc/pruning_reverse.cu). It is the same kernel body instantiated with
+// kSaveRoot = true, so its root row is bit for bit the forward's root. The
+// residuals are the forward's scratch layout (B, K, n_inner, sites, S) and
+// (B, K, n_inner, sites); leaves are not copied (the reverse walk reads the
+// leaf array). Bounded by bytes like the forward; the one extra row per
+// column (the root) is 1/n_inner more traffic, and residuals stay in device
+// memory because the reverse walk needs them.
 
 #include <cfloat>
 #include <cstddef>
@@ -73,7 +88,7 @@ __device__ __forceinline__ void store_states(float* __restrict__ dst,
   }
 }
 
-template <int S>
+template <int S, bool kSaveRoot>
 __global__ void __launch_bounds__(kThreads)
 pruning_forward_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S, S)
                        const float* __restrict__ leaves,    // (n_leaves, sites, S)
@@ -135,7 +150,7 @@ pruning_forward_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
     for (int r = 0; r < S; ++r) acc[r] *= scale;
     e += static_cast<float>(eb - 127);
 
-    if (i == n_int - 1) {  // the root is last in post-order
+    if (!kSaveRoot && i == n_int - 1) {  // the root is last in post-order
       store_states<S>(root + (bk * sites + site) * S, acc);
       root_e[bk * sites + site] = e;
     } else {
@@ -163,12 +178,37 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  pruning_forward_kernel<4><<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  pruning_forward_kernel<4, false><<<grid, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p), static_cast<const float*>(leaves),
       static_cast<const int*>(order), static_cast<const int*>(children),
       static_cast<const int*>(counts), static_cast<float*>(scratch),
       static_cast<float*>(scratch_e), static_cast<float*>(root),
       static_cast<float*>(root_e), K, n_nodes, n_leaves, n_int, cmax, sites);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward walk keeping every internal node, the root included, in
+// res_x (B, K, n_nodes - n_leaves, sites, S) / res_e (B, K, n_nodes -
+// n_leaves, sites), indexed by node id - n_leaves. Returns
+// cudaGetLastError() after the launch (0 = ok).
+extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
+                                   const void* order, const void* children,
+                                   const void* counts, void* res_x,
+                                   void* res_e, int B, int K, int S,
+                                   int n_nodes, int n_leaves, int n_int,
+                                   int cmax, int sites, void* stream) {
+  if (S != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
+  pruning_forward_kernel<4, true><<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(leaves),
+      static_cast<const int*>(order), static_cast<const int*>(children),
+      static_cast<const int*>(counts), static_cast<float*>(res_x),
+      static_cast<float*>(res_e), nullptr, nullptr, K, n_nodes, n_leaves,
+      n_int, cmax, sites);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,25 +1,30 @@
 """Likelihood engine: models x rate mixtures x trees -> logL(params)
-(PyTorch port of ``phylo_utils_tpu.likelihood``, value paths only).
+(PyTorch port of ``phylo_utils_tpu.likelihood``).
 
 The engine holds static data (compiled schedule, encoded patterns, on one
 explicit device) and evaluates ``logL(params)`` where params is a dict
 ``{'branch_lengths', 'model', 'alpha'?, 'pinv'?}`` of tensors. Pruners:
 ``"torch"`` (level-batched plain PyTorch, ``ops.pruning.make_prune_fn``) and
-``"cuda"`` (the hand-written pruning kernel, ``ops.cuda_pruning``; CPU
-tensors take its plain-PyTorch walk). Gradients are not ported yet (ROADMAP
-A5, A6, A9) and raise.
+``"cuda"`` (the hand-written pruning kernels, ``ops.cuda_pruning``; CPU
+tensors take their plain-PyTorch walks). ``gradient`` and ``value_and_grad``
+differentiate the float64 total with respect to every parameter through
+torch autograd: P(t) through the reverse rule of
+``ops.pmatrix.p_matrices_reversible``, the gamma rates through the port's
+own ``gammainc``, and, with ``pruner="cuda"``, the walk through the saveall
+and reverse kernels.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from phylo_utils_tpu_torch import io as pio
 from phylo_utils_tpu_torch import trees as ptrees
-from phylo_utils_tpu_torch.models.base import Model
+from phylo_utils_tpu_torch.convert import flatten_params, unflatten_params
+from phylo_utils_tpu_torch.models.base import Eigen, Model
 from phylo_utils_tpu_torch.ops.cuda_pruning import make_fused_loglik_fn
 from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
 from phylo_utils_tpu_torch.ops.pmatrix import (
@@ -67,9 +72,12 @@ def rate_categories(engine, params, dtype, rates=None):
         rates = params["rates"].to(dtype)
         rates = rates / (cat_weights * rates).sum()       # weighted mean 1
     elif ncat > 1:
-        # cast alpha UP first: an f32 discretization error is coherent
-        # across every site
-        rates = discrete_gamma(params["alpha"].to(dtype), ncat, engine.median)
+        # on the host in float64 (an f32 discretization error is coherent
+        # across every site), differentiably: the incomplete-gamma loops
+        # test convergence every few terms, a device sync each on a card
+        alpha = params["alpha"].to("cpu", torch.float64)
+        rates = discrete_gamma(alpha, ncat, engine.median).to(
+            device=device, dtype=dtype)
         cat_weights = torch.full((ncat,), 1.0 / ncat, dtype=dtype,
                                  device=device)
     else:
@@ -98,10 +106,12 @@ def mixture_rates_and_p(engine, params, dtype, eig=None, rates=None):
                                               device=engine.device)
         p = p_matrices_reversible(sym, freqs, ts)
     else:
-        eig = engine.model.eigen(params["model"], dtype=dtype,
-                                 device=engine.device)
-        freqs = eig.freqs
-        p = transition_matrices(eig, ts)
+        # non-reversible: matrix_exp of the normalized Q, differentiable
+        # through build_parts (no eigendecomposition)
+        q, freqs = engine.model.build_parts(params["model"], dtype=dtype,
+                                            device=engine.device)
+        p = transition_matrices(
+            Eigen(evals=None, evecs=None, ivecs=None, freqs=freqs, q=q), ts)
     # identity blocks for binarization pseudo-nodes (no-op on binary trees)
     p = extend_p_identity(p, engine.schedule.n_nodes)
     return rates, cat_weights, p, freqs
@@ -385,24 +395,63 @@ class LikelihoodEngine:
         batched pass (the walk takes the batch as a launch axis); the model
         eigendecomposition and gamma rates are computed once.
         """
+        bl = self._check_sets(branch_length_sets)
+        total, _ = self._eval(self._full_params(params), branch_lengths=bl)
+        return total.to("cpu", torch.float64).numpy()
+
+    def _check_sets(self, branch_length_sets) -> torch.Tensor:
         bl = self._tensor(branch_length_sets)
         if bl.dim() != 2 or bl.shape[1] != len(self.tree.lengths):
             raise ValueError(
                 f"branch_length_sets must be (B, {len(self.tree.lengths)}); "
                 f"got {tuple(bl.shape)}"
             )
-        total, _ = self._eval(self._full_params(params), branch_lengths=bl)
-        return total.to("cpu", torch.float64).numpy()
+        return bl
+
+    def _value_and_grad(self, full: Dict) -> Tuple[torch.Tensor, Dict]:
+        """(total, d sum(total) / d full): the uncached path (P(t) rebuilt
+        from the model parameters, gamma rates from alpha); leaf partials
+        are data and get no gradient."""
+        names, leaves = flatten_params(full)
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        with torch.enable_grad():
+            total, _ = self._loglik_fn(unflatten_params(names, leaves),
+                                       self._leaf_partials, self._weights)
+            grads = torch.autograd.grad(total.sum(), leaves,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
+        return total.detach(), unflatten_params(names, grads)
+
+    def value_and_grad(
+        self, params: Optional[Mapping] = None
+    ) -> Tuple[torch.Tensor, Dict]:
+        """(total logL as a 0-d float64 tensor, gradient dict).
+
+        The gradient has the structure of the full parameter dict (every
+        entry, defaults included) with tensors of the engine's dtype on its
+        device.
+        """
+        return self._value_and_grad(self._full_params(params))
+
+    def value_and_grad_many(
+        self, branch_length_sets, params: Optional[Mapping] = None
+    ) -> Tuple[torch.Tensor, Dict]:
+        """``value_and_grad`` for MANY branch-length vectors under one model,
+        as one batched pass (the walk takes the batch as a launch axis).
+
+        ``branch_length_sets``: (B, n_nodes). Returns the (B,) float64
+        totals and the gradient of their sum: ``branch_lengths`` (B,
+        n_nodes) holds each set's own gradient (the sets are independent);
+        every other entry is summed over the batch.
+        """
+        full = self._full_params(params)
+        full["branch_lengths"] = self._check_sets(branch_length_sets)
+        return self._value_and_grad(full)
 
     def gradient(self, params: Optional[Mapping] = None) -> Dict:
-        raise NotImplementedError(
-            "gradients are not ported yet: they need the reverse rule for "
-            "P(t) (ROADMAP A5), d/dalpha of the discrete gamma (A6) and the "
-            "saveall/reverse kernels (B2/B3, A9)"
-        )
-
-    def value_and_grad(self, params: Optional[Mapping] = None):
-        return self.gradient(params)
+        """d logL / d params, with the structure of the full params dict."""
+        return self.value_and_grad(params)[1]
 
     def bootstrap_loglikelihoods(
         self,

@@ -8,9 +8,12 @@ pi^{1/2} symmetrization + ``eigh``, then de-symmetrized.
 The S x S ``eigh`` always runs in float64 on the host (LAPACK through
 ``torch.linalg.eigh`` on CPU); the results are then cast to the caller's
 dtype and moved to its device. The engine caches them by parameter value,
-so the factorization is off the per-evaluation path. Reverse-mode
-gradients through the factorization are ROADMAP A5; until then an input
-that requires grad raises instead of being silently detached.
+so the factorization is off the per-evaluation path. The factorization is
+value-only: an input that requires grad raises instead of being silently
+detached. Model-parameter gradients go through
+``ops.pmatrix.p_matrices_reversible``, whose reverse rule holds the
+eigensystem constant (non-reversible models: autograd through
+``build_parts`` and ``torch.linalg.matrix_exp``).
 """
 from __future__ import annotations
 
@@ -47,8 +50,8 @@ class Eigen(NamedTuple):
 def _forward_only(*tensors: torch.Tensor) -> None:
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "gradients through the eigendecomposition are not ported yet "
-            "(ROADMAP A5)"
+            "the eigendecomposition is value-only; differentiate through "
+            "ops.pmatrix.p_matrices_reversible (the engine's uncached path)"
         )
 
 

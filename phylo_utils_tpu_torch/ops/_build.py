@@ -3,8 +3,10 @@
 ``nvcc`` compiles the package's own sources into one shared library with a
 plain C interface at first use, into ``build/phylo_utils_tpu_torch/`` beside
 the package, keyed by a hash of the sources and flags, under a file lock so
-concurrent processes build once. The library is loaded with ``ctypes``.
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+concurrent processes build once. Each source compiles in its own ``nvcc``
+process, all started together, and one more links them. The library is
+loaded with ``ctypes``. There is no fallback: a missing ``nvcc`` or a failed
+build raises.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "phylo_utils_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -49,11 +51,50 @@ def _nvcc() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Every pointer and the stream as ``c_void_p``, every count as
+    ``c_int``, in the order of the C signatures in ``csrc/``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = lib.pruning_forward_f32
-    fn.argtypes = [vp] * 9 + [ci] * 8 + [vp]
-    fn.restype = ci
+    for name, n_ptr, n_int in (
+        ("pruning_forward_f32", 9, 8),
+        ("pruning_saveall_f32", 7, 8),
+        ("pruning_reverse_f32", 12, 9),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+        fn.restype = ci
     return lib
+
+
+def _compile(sources, target: Path) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link;
+    returns the compilers' output. Raises on the first failure."""
+    nvcc = _nvcc()
+    objs = [target.with_name(f"{target.stem}_{src.stem}.o") for src in sources]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    log = "".join(logs)
+    if not failed:
+        res = subprocess.run(
+            [nvcc, "-shared", "-o", str(target), *map(str, objs)],
+            capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+    return log
 
 
 def load_library() -> ctypes.CDLL:
@@ -77,14 +118,7 @@ def load_library() -> ctypes.CDLL:
             try:
                 if not target.exists():
                     tmp = BUILD_DIR / f"tmp{os.getpid()}_{target.name}"
-                    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)]
-                    res = subprocess.run(cmd, capture_output=True, text=True)
-                    log = res.stdout + res.stderr
-                    if res.returncode != 0:
-                        raise RuntimeError(
-                            f"nvcc failed ({res.returncode}):\n{log}"
-                        )
+                    log = _compile(sources, tmp)
                     os.replace(tmp, target)
                     built = True
             finally:

@@ -1,38 +1,56 @@
-"""Fused pruning forward on the GPU: the port of the forward half of
+"""Fused pruning on the GPU: the port of the whole-tree path of
 ``phylo_utils_tpu.ops.pallas_pruning``.
 
-``forward_walk`` wraps the hand-written CUDA kernel
-``csrc/pruning_forward.cu`` (which replaces the TPU kernel
-``pallas_pruning._dynamic_kernel``): a post-order walk that forms
-y_c = P_c . x_c per child, multiplies the y's, and rescales each node by an
-exact power of two with integer exponent counts. On a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it runs
-``forward_walk_reference``, the same walk in plain PyTorch. ``LAUNCHES``
-counts kernel launches, so a run can show its main path went through the
-kernel.
+Three hand-written CUDA kernels, each with a plain-PyTorch version beside it
+that CPU tensors take (a CUDA tensor launches the kernel or raises):
 
-Gradients (the saveall and deferred-reverse kernels) are ROADMAP B2/B3.
+- ``forward_walk`` (``csrc/pruning_forward.cu``, replaces the TPU kernel
+  ``_dynamic_kernel``): a post-order walk that forms y_c = P_c . x_c per
+  child, multiplies the y's, and rescales each node by an exact power of two
+  with integer exponent counts; returns the root. Plain version
+  ``forward_walk_reference``.
+- ``saveall_walk`` (same source, replaces ``_dynamic_saveall_kernel``): the
+  same walk keeping every internal node's partials and exponent count, the
+  residuals of the gradient. Plain version ``saveall_walk_reference``.
+- ``reverse_walk`` (``csrc/pruning_reverse.cu``, replaces
+  ``_dynamic_bwd2_kernel``): the deferred-edge reverse walk from a root
+  cotangent, then dP = sum_sites gy x^T per edge (and optionally the leaf
+  partials' cotangent). Plain version ``reverse_walk_reference``.
+
+``make_fused_loglik_fn`` ties them into a differentiable per-(category,
+site) log-likelihood: value calls run ``forward_walk``; calls that need a
+gradient run ``saveall_walk`` forward and ``reverse_walk`` backward.
+``LAUNCHES``, ``SAVEALL_LAUNCHES`` and ``REVERSE_LAUNCHES`` count kernel
+launches, so a run can show its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from phylo_utils_tpu_torch.ops.pruning import LN2, pow2_rescale
+from phylo_utils_tpu_torch.ops.pruning import LN2, exp2_int, pow2_rescale
 from phylo_utils_tpu_torch.trees import PruningSchedule
 
 __all__ = [
     "LAUNCHES",
+    "SAVEALL_LAUNCHES",
+    "REVERSE_LAUNCHES",
     "WalkSchedule",
     "forward_walk",
     "forward_walk_reference",
+    "saveall_walk",
+    "saveall_walk_reference",
+    "reverse_walk",
+    "reverse_walk_reference",
     "make_fused_loglik_fn",
 ]
 
-LAUNCHES = 0
+LAUNCHES = 0            # pruning_forward_f32
+SAVEALL_LAUNCHES = 0    # pruning_saveall_f32
+REVERSE_LAUNCHES = 0    # pruning_reverse_f32
 
 # CUDA caps gridDim.z (the batch axis of the launch) at 65535
 _MAX_GRID_Z = 65535
@@ -76,6 +94,7 @@ class WalkSchedule:
             raise ValueError("the tree has no internal node to walk")
         self.n_nodes = schedule.n_nodes
         self.n_leaves = schedule.n_leaves
+        self.root = int(self.order[-1])    # the root is last in post-order
         self._on_device = {}
 
     def on(self, device: torch.device):
@@ -114,22 +133,51 @@ def _check(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule):
             f"the pruning walk takes float32; got P {p.dtype}, leaves "
             f"{leaves.dtype}"
         )
-    if p.requires_grad or leaves.requires_grad:
-        raise NotImplementedError(
-            "gradients through the pruning kernel are not ported yet "
-            "(ROADMAP B2/B3, A9)"
-        )
     if p.device != leaves.device:
         raise ValueError(
             f"P is on {p.device} but leaves are on {leaves.device}"
         )
 
 
+def _not_differentiable(name: str, *tensors: torch.Tensor):
+    """The walks are not autograd functions themselves: a caller that wants
+    a gradient goes through ``make_fused_loglik_fn``, whose backward is the
+    reverse kernel. (Inside that Function's forward grad mode is off.)"""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} is not differentiable; differentiate through "
+            "make_fused_loglik_fn (saveall + reverse kernels)"
+        )
+
+
+def _node_partials(pb, leaves, n_leaves, kids, x_of, e_of):
+    """One node of the plain walk: (rescaled partials, exponent count) from
+    its children, batched over (B, K, sites)."""
+    acc, esum = None, None
+    for c in kids:
+        if c < n_leaves:
+            y = torch.einsum("bkij,sj->bksi", pb[:, c], leaves[c])
+        else:
+            y = torch.einsum("bkij,bksj->bksi", pb[:, c], x_of(c))
+            ec = e_of(c)
+            esum = ec if esum is None else esum + ec
+        acc = y if acc is None else acc * y
+    tiny = torch.finfo(torch.float32).tiny
+    scale, en = pow2_rescale(acc.amax(dim=-1).clamp_min(tiny))
+    return acc * scale[..., None], (en if esum is None else esum + en)
+
+
+def _walk_nodes(walk: WalkSchedule):
+    """(node, real children) in post-order."""
+    return [(node, kids[:cnt]) for node, kids, cnt in zip(
+        walk.order.tolist(), walk.children.tolist(), walk.counts.tolist())]
+
+
 def forward_walk_reference(
     p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch version of the kernel: the same post-order walk with
-    the same rescale, vectorised over (batch, category, site).
+    """Plain-PyTorch version of the forward kernel: the same post-order walk
+    with the same rescale, vectorised over (batch, category, site).
 
     ``p`` (n_nodes, K, S, S) or (B, n_nodes, K, S, S), float32;
     ``leaves`` (n_leaves, sites, S), float32. Returns the root partials
@@ -138,48 +186,145 @@ def forward_walk_reference(
     _check(p, leaves, walk)
     batched = p.dim() == 5
     pb = p if batched else p[None]
-    n_leaves = walk.n_leaves
-    tiny = torch.finfo(torch.float32).tiny
     x, e = {}, {}
-    for node, kids, cnt in zip(walk.order.tolist(), walk.children.tolist(),
-                               walk.counts.tolist()):
-        acc, esum = None, None
-        for c in kids[:cnt]:
-            if c < n_leaves:
-                y = torch.einsum("bkij,sj->bksi", pb[:, c], leaves[c])
-            else:
-                y = torch.einsum("bkij,bksj->bksi", pb[:, c], x.pop(c))
-                ec = e.pop(c)
-                esum = ec if esum is None else esum + ec
-            acc = y if acc is None else acc * y
-        scale, en = pow2_rescale(acc.amax(dim=-1).clamp_min(tiny))
-        x[node] = acc * scale[..., None]
-        e[node] = en if esum is None else esum + en
-    root = int(walk.order[-1])
-    root_p, root_e = x[root], e[root]
+    for node, kids in _walk_nodes(walk):
+        x[node], e[node] = _node_partials(pb, leaves, walk.n_leaves, kids,
+                                          x.pop, e.pop)
+    root_p, root_e = x[walk.root], e[walk.root]
     return (root_p, root_e) if batched else (root_p[0], root_e[0])
 
 
-def _batch_chunk(b: int, bytes_per_b: int, device: torch.device) -> int:
-    """How many batch elements one launch may take so its scratch fits the
-    device memory that is free now (torch's unused cached blocks
-    included); raises when not even one fits.
+def saveall_walk_reference(
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch version of the saveall kernel: the forward walk keeping
+    every internal node, the root included.
 
-    When torch's allocator already holds enough unused memory (the steady
-    state of repeated calls, which free their scratch), the device is not
-    queried: ``torch.cuda.mem_get_info`` took from 0.02 to 2.5 ms of host
-    time per call on an NVIDIA H100 80GB HBM3 (700 W limit), against
-    0.055 ms for the B = 1 flagship kernel. The allocator's stats are read
-    once:
+    Returns ``res_x`` (B?, K, n_inner, sites, S) and ``res_e`` (B?, K,
+    n_inner, sites), float32, indexed by node id - n_leaves
+    (n_inner = n_nodes - n_leaves).
+    """
+    _check(p, leaves, walk)
+    batched = p.dim() == 5
+    pb = p if batched else p[None]
+    n_leaves = walk.n_leaves
+    b, _, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    n_inner = walk.n_nodes - n_leaves
+    res_x = pb.new_empty((b, k, n_inner, sites, s))
+    res_e = pb.new_empty((b, k, n_inner, sites))
+    for node, kids in _walk_nodes(walk):
+        res_x[:, :, node - n_leaves], res_e[:, :, node - n_leaves] = (
+            _node_partials(pb, leaves, n_leaves, kids,
+                           lambda c: res_x[:, :, c - n_leaves],
+                           lambda c: res_e[:, :, c - n_leaves]))
+    return (res_x, res_e) if batched else (res_x[0], res_e[0])
+
+
+def _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk):
+    _check(p, leaves, walk)
+    lead = tuple(p.shape[:-4])
+    k, sites, s = p.shape[-3], leaves.shape[1], leaves.shape[2]
+    n_inner = walk.n_nodes - walk.n_leaves
+    want = {
+        "res_x": (res_x, lead + (k, n_inner, sites, s)),
+        "res_e": (res_e, lead + (k, n_inner, sites)),
+        "lam": (lam, lead + (k, sites)),
+        "freqs": (freqs, (s,)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {t.dtype}")
+        if t.device != p.device:
+            raise ValueError(f"{name} is on {t.device}, P on {p.device}")
+
+
+def reverse_walk_reference(
+    p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
+    res_e: torch.Tensor, lam: torch.Tensor, freqs: torch.Tensor,
+    walk: WalkSchedule, want_dleaf: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain-PyTorch version of the reverse kernel: an explicit pre-order
+    walk vectorised over (batch, category, site), with the kernel's math
+    (not autograd).
+
+    ``res_x``/``res_e``: ``saveall_walk``'s residuals; ``lam`` (B?, K,
+    sites): the root cotangent ct / (pi . x_root); ``freqs`` (S,). All
+    float32. Returns ``dp`` (B?, n_nodes, K, S, S), the layout of P, with a
+    zero root row, and, when ``want_dleaf``, ``dleaf`` (B?, K, n_leaves,
+    sites, S) = P_l^T gy_l per leaf (else None).
+    """
+    _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk)
+    batched = p.dim() == 5
+    pb, rx, re, lm = ((p, res_x, res_e, lam) if batched else
+                      (p[None], res_x[None], res_e[None], lam[None]))
+    n_leaves = walk.n_leaves
+
+    def x_of(c):
+        return leaves[c] if c < n_leaves else rx[:, :, c - n_leaves]
+
+    def y_of(c):
+        eq = "bkij,sj->bksi" if c < n_leaves else "bkij,bksj->bksi"
+        return torch.einsum(eq, pb[:, c], x_of(c))
+
+    gy = {}
+    for node, kids in reversed(_walk_nodes(walk)):
+        if node == walk.root:
+            g = lm[..., None] * freqs
+        else:
+            g = torch.einsum("bkji,bksj->bksi", pb[:, node], gy[node])
+        esum = torch.zeros_like(lm)
+        for c in kids:
+            if c >= n_leaves:
+                esum = esum + re[:, :, c - n_leaves]
+        inv_m = exp2_int(esum - re[:, :, node - n_leaves])[..., None]
+        for c in kids:
+            sib = torch.ones_like(g)
+            for c2 in kids:
+                if c2 != c:
+                    sib = sib * y_of(c2)
+            gy[c] = g * sib * inv_m
+    dp = torch.zeros_like(pb)
+    for node, g in gy.items():
+        eq = "bksi,sj->bkij" if node < n_leaves else "bksi,bksj->bkij"
+        dp[:, node] = torch.einsum(eq, g, x_of(node))
+    dleaf = None
+    if want_dleaf:
+        dleaf = torch.stack([
+            torch.einsum("bkji,bksj->bksi", pb[:, leaf], gy[leaf])
+            for leaf in range(n_leaves)], dim=2)
+    if not batched:
+        dp = dp[0]
+        dleaf = None if dleaf is None else dleaf[0]
+    return dp, dleaf
+
+
+def _device_budget(need: int, device: torch.device) -> int:
+    """Bytes a launch may allocate on ``device``: torch's unused cached
+    blocks when they already hold ``need`` (no device query), else
+    ``_MEM_FRACTION`` of free plus cached memory.
+
+    ``torch.cuda.mem_get_info`` took from 0.02 to 2.5 ms of host time per
+    call on an NVIDIA H100 80GB HBM3 (700 W limit), against 0.055 ms for the
+    B = 1 flagship kernel, so the steady state of repeated calls (which free
+    their scratch) skips it. The allocator's stats are read once:
     ``memory_reserved`` and ``memory_allocated`` each flatten and sort the
     whole stats dict."""
     stats = torch.cuda.memory_stats_as_nested_dict(device)
     cached = (stats["reserved_bytes"]["all"]["current"]
               - stats["allocated_bytes"]["all"]["current"])
-    if b * bytes_per_b <= cached:
-        return min(b, _MAX_GRID_Z)
+    if need <= cached:
+        return cached
     free, _ = torch.cuda.mem_get_info(device)
-    budget = int(_MEM_FRACTION * (free + cached))
+    return int(_MEM_FRACTION * (free + cached))
+
+
+def _batch_chunk(b: int, bytes_per_b: int, device: torch.device) -> int:
+    """How many batch elements one launch may take so its scratch fits the
+    device memory that is free now; raises when not even one fits."""
+    budget = _device_budget(b * bytes_per_b, device)
     if bytes_per_b > budget:
         raise MemoryError(
             f"the pruning walk needs {bytes_per_b} bytes of scratch per "
@@ -187,6 +332,29 @@ def _batch_chunk(b: int, bytes_per_b: int, device: torch.device) -> int:
             "use fewer sites per call"
         )
     return min(b, budget // bytes_per_b, _MAX_GRID_Z)
+
+
+def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
+    """The kernels' library for CUDA inputs; raises on what they do not
+    take."""
+    if p.device.type != "cuda":
+        raise ValueError(f"the pruning kernels run on cpu or cuda, not "
+                         f"{p.device}")
+    if not all(t.is_contiguous() for t in (p,) + tensors):
+        raise ValueError("the kernels' inputs must be contiguous")
+    s = p.shape[-1]
+    if s != 4:
+        raise NotImplementedError(
+            f"the CUDA walk is built for 4 states, not {s} (protein is "
+            "ROADMAP A11, codon A14)"
+        )
+    from phylo_utils_tpu_torch.ops._build import load_library
+
+    return load_library()
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def forward_walk(
@@ -200,32 +368,21 @@ def forward_walk(
     """
     global LAUNCHES
     _check(p, leaves, walk)
+    _not_differentiable("forward_walk", p, leaves)
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
-    if p.device.type != "cuda":
-        raise ValueError(f"forward_walk runs on cpu or cuda, not {p.device}")
-    if not (p.is_contiguous() and leaves.is_contiguous()):
-        raise ValueError("P and leaves must be contiguous")
-    s = leaves.shape[2]
-    if s != 4:
-        raise NotImplementedError(
-            f"the CUDA walk is built for 4 states, not {s} (protein is "
-            "ROADMAP A11, codon A14)"
-        )
-    from phylo_utils_tpu_torch.ops._build import load_library
-
-    lib = load_library()
+    lib = _cuda_library(p, leaves)
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
-    sites = leaves.shape[1]
+    sites, s = leaves.shape[1:]
     n_inner = walk.n_nodes - walk.n_leaves
     device = p.device
     order, children, counts = walk.on(device)
     root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
     root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
     chunk = _batch_chunk(b, k * n_inner * sites * (s + 1) * 4, device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    stream = _stream(device)
     for b0 in range(0, b, chunk):
         nb = min(chunk, b - b0)
         scratch = torch.empty((nb, k, n_inner, sites, s),
@@ -247,25 +404,183 @@ def forward_walk(
     return (root, root_e) if batched else (root[0], root_e[0])
 
 
+def saveall_walk(
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every internal node's partials and exponent count (the gradient's
+    residuals). Same contract as ``saveall_walk_reference``; CUDA tensors
+    launch the saveall kernel. The residuals of the whole batch are one
+    output, so they must fit free device memory at once (else
+    ``MemoryError``); launches split only at the grid's batch limit."""
+    global SAVEALL_LAUNCHES
+    _check(p, leaves, walk)
+    _not_differentiable("saveall_walk", p, leaves)
+    if p.device.type == "cpu":
+        return saveall_walk_reference(p, leaves, walk)
+    lib = _cuda_library(p, leaves)
+    batched = p.dim() == 5
+    pb = p if batched else p[None]
+    b, _, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    n_inner = walk.n_nodes - walk.n_leaves
+    device = p.device
+    need = b * k * n_inner * sites * (s + 1) * 4
+    budget = _device_budget(need, device)
+    if need > budget:
+        raise MemoryError(
+            f"the gradient's residuals need {need} bytes but only {budget} "
+            f"bytes are free on {device}; use fewer sites or a smaller batch"
+        )
+    order, children, counts = walk.on(device)
+    res_x = torch.empty((b, k, n_inner, sites, s), dtype=torch.float32,
+                        device=device)
+    res_e = torch.empty((b, k, n_inner, sites), dtype=torch.float32,
+                        device=device)
+    stream = _stream(device)
+    for b0 in range(0, b, _MAX_GRID_Z):
+        nb = min(_MAX_GRID_Z, b - b0)
+        rc = lib.pruning_saveall_f32(
+            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
+            children.data_ptr(), counts.data_ptr(),
+            res_x[b0:b0 + nb].data_ptr(), res_e[b0:b0 + nb].data_ptr(), nb,
+            k, s, walk.n_nodes, walk.n_leaves, len(walk.order),
+            children.shape[1], sites, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"pruning_saveall_f32 launch failed: CUDA "
+                               f"error {rc}")
+        SAVEALL_LAUNCHES += 1
+    return (res_x, res_e) if batched else (res_x[0], res_e[0])
+
+
+def reverse_walk(
+    p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
+    res_e: torch.Tensor, lam: torch.Tensor, freqs: torch.Tensor,
+    walk: WalkSchedule, want_dleaf: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """dP (and optionally the leaves' cotangent) of the pruning walk.
+
+    Same contract as ``reverse_walk_reference``. CUDA tensors launch the
+    reverse kernel (walk, then the deterministic dP reduction) once per
+    batch chunk whose gy scratch, (K, n_nodes, sites, S) float32 per batch
+    element, fits free device memory."""
+    global REVERSE_LAUNCHES
+    _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk)
+    _not_differentiable("reverse_walk", p, leaves, res_x, res_e, lam, freqs)
+    if p.device.type == "cpu":
+        return reverse_walk_reference(p, leaves, res_x, res_e, lam, freqs,
+                                      walk, want_dleaf)
+    lib = _cuda_library(p, leaves, res_x, res_e, lam, freqs)
+    batched = p.dim() == 5
+    pb, rx, re, lm = ((p, res_x, res_e, lam) if batched else
+                      (p[None], res_x[None], res_e[None], lam[None]))
+    b, n_nodes, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    device = p.device
+    order, children, counts = walk.on(device)
+    dp = torch.empty_like(pb)
+    dleaf = (torch.empty((b, k, walk.n_leaves, sites, s),
+                         dtype=torch.float32, device=device)
+             if want_dleaf else None)
+    chunk = _batch_chunk(b, k * n_nodes * sites * s * 4, device)
+    stream = _stream(device)
+    for b0 in range(0, b, chunk):
+        nb = min(chunk, b - b0)
+        gy = torch.empty((nb, k, n_nodes, sites, s), dtype=torch.float32,
+                         device=device)
+        rc = lib.pruning_reverse_f32(
+            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
+            children.data_ptr(), counts.data_ptr(),
+            rx[b0:b0 + nb].data_ptr(), re[b0:b0 + nb].data_ptr(),
+            lm[b0:b0 + nb].data_ptr(), freqs.data_ptr(), gy.data_ptr(),
+            dp[b0:b0 + nb].data_ptr(),
+            None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
+            nb, k, s, n_nodes, walk.n_leaves, len(walk.order),
+            children.shape[1], sites, walk.root, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"pruning_reverse_f32 launch failed: CUDA "
+                               f"error {rc}")
+        REVERSE_LAUNCHES += 1
+        del gy
+    if not batched:
+        dp = dp[0]
+        dleaf = None if dleaf is None else dleaf[0]
+    return dp, dleaf
+
+
+def _root_loglik(root_p, root_e, freqs):
+    """(ll, pi . x_root, x_root) in ``freqs``' dtype from the walk's root."""
+    root_r = root_p.to(freqs.dtype)
+    dot = torch.einsum("...ksi,i->...ks", root_r, freqs)
+    return torch.log(dot) + root_e.to(freqs.dtype) * LN2, dot, root_r
+
+
+class _FusedLoglik(torch.autograd.Function):
+    """ll = log(pi . x_root) + e_root ln 2 per (batch, category, site), with
+    the walk's kernels on both sides: saveall forward, reverse backward
+    (the whole-tree ``custom_vjp`` of ``pallas_pruning.make_pallas_loglik_fn``:
+    one seed at the root, leaves shared across categories, zero leaf
+    logscales). The backward seeds the walk with lambda = ct / (pi . x_root)
+    computed in the reduction dtype and cast to float32, and forms
+    dfreqs = sum lambda x_root outside the kernel in that dtype."""
+
+    @staticmethod
+    def forward(ctx, p, leaves, freqs, walk):
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            res_x, res_e = saveall_walk(p, leaves, walk)
+            row = walk.root - walk.n_leaves
+            root_p, root_e = res_x[..., row, :, :], res_e[..., row, :]
+        else:   # only freqs: the root suffices
+            res_x = res_e = None
+            root_p, root_e = forward_walk(p, leaves, walk)
+        ll, dot, root_r = _root_loglik(root_p, root_e, freqs)
+        ctx.walk = walk
+        ctx.save_for_backward(p, leaves, freqs, res_x, res_e, dot, root_r)
+        return ll
+
+    @staticmethod
+    def backward(ctx, ct):
+        p, leaves, freqs, res_x, res_e, dot, root_r = ctx.saved_tensors
+        lam = ct / dot
+        dp = dleaf = dfreqs = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dp, dleaf_k = reverse_walk(
+                p, leaves, res_x, res_e, lam.to(torch.float32).contiguous(),
+                freqs.to(torch.float32).contiguous(), ctx.walk,
+                want_dleaf=ctx.needs_input_grad[1])
+            if not ctx.needs_input_grad[0]:
+                dp = None
+            if dleaf_k is not None:   # leaves are shared by batch and category
+                dleaf = dleaf_k.sum(dim=tuple(range(dleaf_k.dim() - 3)))
+        if ctx.needs_input_grad[2]:
+            dfreqs = torch.einsum("...ks,...ksi->i", lam, root_r)
+        return dp, dleaf, dfreqs, None
+
+
 def make_fused_loglik_fn(schedule: PruningSchedule):
-    """Forward-only counterpart of ``pallas_pruning.make_pallas_loglik_fn``.
+    """Counterpart of the whole-tree ``pallas_pruning.make_pallas_loglik_fn``.
 
     Returns ``f(p_matrices (B?, n_nodes, K, S, S), leaf_partials
     (n_leaves, sites, S), freqs (S,)) -> ll (B?, K, sites)`` with
     ``ll[k, s] = log(sum_i freqs_i * true_root_partials[k, s, i])``. The
     walk runs in float32; the root reduction and the exponent count x ln 2
     run in ``freqs.dtype`` (pass float64 freqs for the precision plan).
+
+    Differentiable in all three inputs. When P or the leaves require grad
+    (and grad mode is on), the saveall kernel runs forward and the reverse
+    kernel backward; otherwise the forward kernel runs alone. The leaves'
+    cotangent is computed only when they require grad (the engine passes
+    them as data).
     """
     walk = WalkSchedule(schedule)
 
     def fused_ll(p_matrices, leaf_partials, freqs):
-        root_p, root_e = forward_walk(
-            p_matrices.to(torch.float32).contiguous(),
-            leaf_partials.to(torch.float32).contiguous(),
-            walk,
-        )
-        rdt = freqs.dtype
-        dot = torch.einsum("...ksi,i->...ks", root_p.to(rdt), freqs)
-        return torch.log(dot) + root_e.to(rdt) * LN2
+        p32 = p_matrices.to(torch.float32).contiguous()
+        l32 = leaf_partials.to(torch.float32).contiguous()
+        if torch.is_grad_enabled() and (
+                p32.requires_grad or l32.requires_grad or freqs.requires_grad):
+            return _FusedLoglik.apply(p32, l32, freqs, walk)
+        return _root_loglik(*forward_walk(p32, l32, walk), freqs)[0]
 
     return fused_ll

@@ -2,7 +2,7 @@
 ``phylo_utils_tpu.server``).
 
 Load the engine once (topology compiled, alignment resident on its device),
-then serve logL / sitewise / bootstrap requests over JSON. Stdlib-only
+then serve logL / sitewise / gradient / fit / bootstrap requests over JSON. Stdlib-only
 (ThreadingHTTPServer); engine calls are serialized by a lock, which is the
 right behavior for a single-GPU replica — scale-out is one server per card
 behind any standard load balancer.
@@ -12,10 +12,12 @@ Endpoints
 GET  /health            -> engine + device info
 POST /loglik            {"params": {...}?}         -> {"loglik": x}
 POST /sitewise          {"params": {...}?}         -> {"sitewise": [...]}
+POST /gradient          {"params": {...}?}         -> {"gradient": {...}}
+POST /fit               {"params": ..., "max_steps": n, "free": [...]}
+                        -> {"loglik", "n_steps", "converged", "params"}
 POST /bootstrap         {"n": 100, "seed": 0}      -> {"logliks": [...]}
-POST /gradient, /fit, /ancestral, /site_rates, /partitions
-                        -> 501 until the port has them (ROADMAP A9, A10,
-                        A16, A18)
+POST /ancestral, /site_rates, /partitions
+                        -> 501 until the port has them (ROADMAP A16, A18)
 """
 from __future__ import annotations
 
@@ -26,16 +28,22 @@ from typing import Optional
 
 import torch
 
+from phylo_utils_tpu_torch.convert import params_to_numpy
+
 __all__ = ["EngineServer", "serve"]
 
 _NOT_PORTED = {
-    "/gradient": "gradients are not ported yet (ROADMAP A5, A6, A9)",
-    "/fit": "fit is not ported yet (ROADMAP A10)",
     "/ancestral": "ancestral reconstruction is not ported yet (ROADMAP A18)",
     "/site_rates": "site rates are not ported yet (ROADMAP A18)",
     "/partitions": "per-partition logL requires a PartitionedEngine "
                    "(ROADMAP A16)",
 }
+
+
+def _tree_to_json(tree) -> dict:
+    """Nested dict of tensors -> the same nesting of (nested) lists."""
+    return {k: (_tree_to_json(v) if isinstance(v, dict) else v.tolist())
+            for k, v in params_to_numpy(tree).items()}
 
 
 def _device_name(device: torch.device) -> str:
@@ -82,6 +90,24 @@ class EngineServer:
                     seed=int(body.get("seed", 0)),
                 )
                 return {"logliks": boots.tolist()}
+            if route == "/gradient":
+                return {"gradient": _tree_to_json(engine.gradient(params))}
+            if route == "/fit":
+                from phylo_utils_tpu_torch.optimize import fit
+
+                res = fit(
+                    engine,
+                    params,
+                    free=tuple(body["free"]) if body.get("free") else None,
+                    max_steps=int(body.get("max_steps", 200)),
+                    steps_per_call=int(body.get("steps_per_call", 1)),
+                )
+                return {
+                    "loglik": res.loglik,
+                    "n_steps": res.n_steps,
+                    "converged": res.converged,
+                    "params": _tree_to_json(res.params),
+                }
             if route in _NOT_PORTED:
                 raise NotImplementedError(_NOT_PORTED[route])
         raise KeyError(route)

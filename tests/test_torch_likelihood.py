@@ -217,12 +217,30 @@ def test_params_round_trip_and_typo_guard(problem):
 
 
 def test_gradients_raise_not_implemented(problem):
+    """Gradients run on both pruners and match the JAX f64 engine's
+    (f32 walk: 5e-4 x max|g| per leaf, value 1e-6 relative); only the
+    value-only cached eigensystem still raises for inputs that require
+    grad, as in the JAX package."""
+    params = params_from_jax(problem["full"])
+    want_ll, want_g = problem["j64"].value_and_grad(GTR_PARAMS)
     for pruner in ("torch", "cuda"):
         port = _port_engine(problem, dtype=torch.float32, pruner=pruner)
-        with pytest.raises(NotImplementedError, match="A5"):
-            port.gradient(GTR_PARAMS)
-        with pytest.raises(NotImplementedError, match="A5"):
-            port.value_and_grad(GTR_PARAMS)
+        ll, g = port.value_and_grad(params)
+        assert abs(float(ll) - float(want_ll)) < 1e-6 * abs(float(want_ll))
+        for key in ("branch_lengths", "alpha", "pinv"):
+            want = np.asarray(want_g[key])
+            np.testing.assert_allclose(
+                g[key].numpy(), want, rtol=0,
+                atol=5e-4 * np.abs(want).max(), err_msg=f"{pruner} {key}")
+        for key in ("rates", "freqs"):
+            want = np.asarray(want_g["model"][key])
+            np.testing.assert_allclose(
+                g["model"][key].numpy(), want, rtol=0,
+                atol=5e-4 * np.abs(want).max(), err_msg=f"{pruner} {key}")
+    rates = torch.tensor(GTR_PARAMS["model"]["rates"], dtype=torch.float64,
+                         requires_grad=True)
+    with pytest.raises(NotImplementedError, match="value-only"):
+        tmodels.GTR.eigen({"rates": rates})
 
 
 def test_cuda_device_raises_without_cuda(problem):

@@ -2,18 +2,23 @@
 against the JAX package's Pallas pruner (interpret mode on the CPU) on the
 same numpy-made P matrices and leaf partials, in float32.
 
-Tolerance: the root per-site log-likelihood log(pi . x_root) + e ln2 agrees
+Tolerances: the root per-site log-likelihood log(pi . x_root) + e ln2 agrees
 to 1e-5 absolute. Both walks do the same f32 contraction and the same exact
 power-of-two rescale, but the contraction's summation order differs, so a
 node's exponent may flip by one at a power-of-two boundary with its
-partials scaled to compensate: compare the log-likelihood, not e alone.
+partials scaled to compensate: compare the log-likelihood, or x 2^e, not e
+alone. The saveall residuals agree as x 2^e to 1e-5 relative per node. The
+gradient (dP, dleaf, dfreqs of the fused logL) agrees to 1e-4 x max|g|:
+both are f32 walks, and dP sums over sites in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from phylo_utils_tpu import io as jio
+from phylo_utils_tpu.ops import pallas_pruning as jpp
 from phylo_utils_tpu.ops.pallas_pruning import make_pallas_prune_fn
 from phylo_utils_tpu.trees import compile_schedule as j_compile_schedule
 from phylo_utils_tpu_torch import io as tio
@@ -24,6 +29,10 @@ from phylo_utils_tpu_torch.ops.cuda_pruning import (
     forward_walk,
     forward_walk_reference,
     make_fused_loglik_fn,
+    reverse_walk,
+    reverse_walk_reference,
+    saveall_walk,
+    saveall_walk_reference,
 )
 from phylo_utils_tpu_torch.ops.pmatrix import (
     extend_p_identity,
@@ -155,8 +164,172 @@ def test_forward_walk_rejects_bad_inputs():
         forward_walk(pt[:-1], lt, walk)
     with pytest.raises(ValueError):
         forward_walk(pt, lt[:-1], walk)
-    with pytest.raises(NotImplementedError, match="B2/B3"):
+    # the walks are not autograd functions: gradients go through
+    # make_fused_loglik_fn (saveall forward, reverse backward)
+    with pytest.raises(NotImplementedError, match="make_fused_loglik_fn"):
         forward_walk(pt.clone().requires_grad_(True), lt, walk)
+    with pytest.raises(NotImplementedError, match="make_fused_loglik_fn"):
+        saveall_walk(pt, lt.clone().requires_grad_(True), walk)
+    with torch.no_grad():       # a value call with grad mode off is fine
+        forward_walk(pt.clone().requires_grad_(True), lt, walk)
+    rx, re = saveall_walk(pt, lt, walk)
+    lam = torch.ones(pt.shape[1], SITES)
+    with pytest.raises(ValueError, match="lam"):
+        reverse_walk(pt, lt, rx, re, lam[:, :-1], torch.ones(4), walk)
+    with pytest.raises(TypeError, match="freqs"):
+        reverse_walk(pt, lt, rx, re, lam, torch.ones(4).double(), walk)
+
+
+def _jax_saveall(newick, p, lp, group):
+    """JAX ``_saveall_call`` (interpret mode) on the same inputs, sliced to
+    the real states, sites and nodes: (K, n_nodes, S, sites) partials and
+    (K, n_nodes, sites) exponent counts."""
+    sched = j_compile_schedule(jio.parse_newick(newick))
+    order, children, counts = jpp._postorder_arrays(sched)
+    sites = lp.shape[1]
+    sites_pad = jpp._round_up(sites, jpp.LANE)
+    p_pad, lp_pad = jpp._pad_inputs(jnp.asarray(p), jnp.asarray(lp), 4, 8,
+                                    sites, sites_pad)
+    k = p.shape[1]
+    lp_k = jnp.broadcast_to(lp_pad[None], (k,) + lp_pad.shape)
+    lsc_k = jnp.zeros((k, sched.n_leaves, 1, sites_pad), jnp.float32)
+    buf, ls = jpp._saveall_call(
+        p_pad, lp_k, lsc_k, order=order, children=children, counts=counts,
+        n_nodes=sched.n_nodes, n_leaves=sched.n_leaves, tile=16 * jpp.LANE,
+        interpret=True, n_real=4, group=group)
+    n = sched.n_nodes
+    return (np.asarray(buf)[:, :n, :4, :sites],
+            np.asarray(ls)[:, :n, 0, :sites])
+
+
+@pytest.mark.parametrize("case,group", [
+    ("multifurcating", 0), ("random12", 0), ("random12", 4),
+    ("caterpillar40", 0)])
+def test_saveall_reference_matches_pallas_saveall(case, group):
+    """Every internal node's residual, as x 2^e, against the JAX saveall
+    kernel (serial and grouped walks); the root row is bit-identical to
+    the forward walk's root."""
+    newick = _newick(case)
+    tree, sched, p, lp = _inputs(newick)
+    walk = WalkSchedule(sched)
+    rx, re = saveall_walk(torch.from_numpy(p), torch.from_numpy(lp), walk)
+    n_inner = sched.n_nodes - sched.n_leaves
+    assert rx.shape == (4, n_inner, SITES, 4) and re.shape == (4, n_inner,
+                                                                SITES)
+    jx, je = _jax_saveall(newick, p, lp, group)
+    got = rx.double().numpy() * np.exp2(re.double().numpy())[..., None]
+    want = (np.transpose(jx[:, sched.n_leaves:], (0, 1, 3, 2))
+            * np.exp2(je[:, sched.n_leaves:])[..., None])
+    scale = np.abs(want).max(axis=-1, keepdims=True)
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-5)
+    root_p, root_e = forward_walk(torch.from_numpy(p), torch.from_numpy(lp),
+                                  walk)
+    row = walk.root - walk.n_leaves
+    assert torch.equal(rx[:, row], root_p) and torch.equal(re[:, row], root_e)
+
+
+def _jax_vjp(newick, p, lp, freqs, ct):
+    """(dP, dleaf, dfreqs) of the JAX fused logL (Pallas saveall + deferred
+    reverse, interpret mode) for cotangent ``ct``; a leading batch axis of
+    ``p`` and ``ct`` goes through ``jax.vmap`` (leaves and freqs shared)."""
+    sched = j_compile_schedule(jio.parse_newick(newick))
+    fn = jpp.make_pallas_loglik_fn(sched, n_states=4, diff_leaves=True)
+    if p.ndim == 5:
+        fn = jax.vmap(fn, in_axes=(0, None, None))
+    _, vjp = jax.vjp(fn, jnp.asarray(p), jnp.asarray(lp), jnp.asarray(freqs))
+    return [np.asarray(g) for g in vjp(jnp.asarray(ct))]
+
+
+@pytest.mark.parametrize("case,batch", [
+    ("multifurcating", None), ("random12", None), ("caterpillar40", None),
+    ("random12", (0.5, 1.0, 3.0))])
+def test_fused_loglik_vjp_matches_pallas(case, batch):
+    """The fused Function's (dP, dleaf, dfreqs) against ``jax.vjp`` of
+    ``make_pallas_loglik_fn(..., diff_leaves=True)``, single and batched;
+    on CPU tensors it runs the saveall and reverse walks' plain versions
+    and launches nothing."""
+    newick = _newick(case)
+    tree, sched, p, lp = _inputs(newick, batch_scales=batch, seed=4)
+    rng = np.random.default_rng(8)
+    ct = rng.uniform(0.5, 2.0, p.shape[:-4] + (4, SITES))
+    pt = torch.from_numpy(p).double().requires_grad_(True)
+    lt = torch.from_numpy(lp).requires_grad_(True)
+    ft = torch.from_numpy(FREQS).requires_grad_(True)
+    before = (cuda_pruning.LAUNCHES, cuda_pruning.SAVEALL_LAUNCHES,
+              cuda_pruning.REVERSE_LAUNCHES)
+    ll = make_fused_loglik_fn(sched)(pt, lt, ft)
+    assert ll.dtype == torch.float64 and ll.shape == ct.shape
+    dp, dl, df = torch.autograd.grad(ll, (pt, lt, ft),
+                                     torch.from_numpy(ct))
+    assert before == (cuda_pruning.LAUNCHES, cuda_pruning.SAVEALL_LAUNCHES,
+                      cuda_pruning.REVERSE_LAUNCHES)
+    want = _jax_vjp(newick, p, lp, FREQS, ct)
+    for name, got, ref in zip(("dP", "dleaf", "dfreqs"), (dp, dl, df), want):
+        assert got.shape == ref.shape, name
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+
+
+def test_fused_loglik_freqs_only_grad_runs_forward_walk(monkeypatch):
+    """With only freqs requiring grad the Function walks forward alone (no
+    residuals, no reverse walk); dfreqs matches ``jax.vjp`` to 1e-4 x
+    max|g|."""
+    newick = _newick("random12")
+    tree, sched, p, lp = _inputs(newick, seed=4)
+    ct = np.random.default_rng(8).uniform(0.5, 2.0, (4, SITES))
+    fn = make_fused_loglik_fn(sched)
+
+    def no_residuals(*args, **kwargs):
+        raise AssertionError("saveall/reverse walk ran for a freqs-only grad")
+
+    monkeypatch.setattr(cuda_pruning, "saveall_walk", no_residuals)
+    monkeypatch.setattr(cuda_pruning, "reverse_walk", no_residuals)
+    ft = torch.from_numpy(FREQS).requires_grad_(True)
+    ll = fn(torch.from_numpy(p), torch.from_numpy(lp), ft)
+    (df,) = torch.autograd.grad(ll, (ft,), torch.from_numpy(ct))
+    want = _jax_vjp(newick, p, lp, FREQS, ct)[2]
+    np.testing.assert_allclose(df.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_reverse_walk_reference_matches_autograd():
+    """The explicit pre-order walk (no autograd) against torch autograd
+    through a float64 plain forward walk on the same float32-valued
+    inputs: dP and dleaf to 1e-5 x max|g| (the reference walks in
+    float32)."""
+    newick = _caterpillar(40, 1.5)
+    tree, sched, p, lp = _inputs(newick, batch_scales=(0.7, 1.3), seed=5)
+    walk = WalkSchedule(sched)
+    pt, lt = torch.from_numpy(p), torch.from_numpy(lp)
+    rx, re = saveall_walk(pt, lt, walk)
+    row = walk.root - walk.n_leaves
+    freqs = torch.from_numpy(FREQS)
+    dot = torch.einsum("bksi,i->bks", rx[:, :, row].double(), freqs)
+    lam = (1.0 / dot).float()
+    dp, dl = reverse_walk_reference(pt, lt, rx, re, lam, freqs.float(), walk,
+                                    want_dleaf=True)
+    # autograd of sum log(pi . x_root) through an f64 plain walk, rescale
+    # held constant (exact: logL does not depend on it)
+    p64 = pt.double().requires_grad_(True)
+    l64 = lt.double().requires_grad_(True)
+    x = {}
+    for node, kids in cuda_pruning._walk_nodes(walk):
+        acc = None
+        for c in kids:
+            xc = l64[c] if c < walk.n_leaves else x[c]
+            eq = "bkij,sj->bksi" if c < walk.n_leaves else "bkij,bksj->bksi"
+            y = torch.einsum(eq, p64[:, c], xc)
+            acc = y if acc is None else acc * y
+        x[node] = acc / acc.detach().amax(dim=-1, keepdim=True)
+    total = torch.log(torch.einsum("bksi,i->bks", x[walk.root], freqs)).sum()
+    gp, gl = torch.autograd.grad(total, (p64, l64))
+    np.testing.assert_allclose(dp.double().numpy(), gp.numpy(), rtol=0,
+                               atol=1e-5 * gp.abs().max().item())
+    np.testing.assert_allclose(dl.double().sum(dim=(0, 1)).numpy(),
+                               gl.numpy(), rtol=0,
+                               atol=1e-5 * gl.abs().max().item())
+    assert dp[:, walk.root].abs().max() == 0
 
 
 @pytest.mark.gpu
@@ -205,3 +378,37 @@ def test_batch_chunk_splits_or_raises(monkeypatch):
     state.update(reserved=1000)
     with pytest.raises(MemoryError, match="scratch"):
         chunk(2, 10 ** 6, "cuda")
+
+
+@pytest.mark.gpu
+def test_saveall_and_reverse_kernels_match_reference_on_card():
+    """B2 and B3 against their plain versions on the card: residuals to
+    1e-6 relative as x 2^e and the root row bit-identical to the forward
+    kernel's; dP and dleaf to 1e-4 x max|g| (site sums in another order),
+    and dP bit-identical across two launches (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    newick = _caterpillar(40, 1.5)
+    tree, sched, p, lp = _inputs(newick, batch_scales=(0.5, 1.0, 3.0))
+    walk = WalkSchedule(sched)
+    pd, ld = torch.from_numpy(p).cuda(), torch.from_numpy(lp).cuda()
+    rx, re = saveall_walk(pd, ld, walk)
+    wx, we = saveall_walk_reference(pd, ld, walk)
+    np.testing.assert_allclose(
+        (rx.double() * torch.exp2(re.double())[..., None]).cpu().numpy(),
+        (wx.double() * torch.exp2(we.double())[..., None]).cpu().numpy(),
+        rtol=1e-6, atol=0)
+    kp, ke = forward_walk(pd, ld, walk)
+    row = walk.root - walk.n_leaves
+    assert torch.equal(rx[:, :, row], kp) and torch.equal(re[:, :, row], ke)
+    freqs = torch.from_numpy(FREQS).float().cuda()
+    lam = (1.0 / torch.einsum("bksi,i->bks", kp, freqs)).contiguous()
+    dp, dl = reverse_walk(pd, ld, rx, re, lam, freqs, walk, want_dleaf=True)
+    dp2, _ = reverse_walk(pd, ld, rx, re, lam, freqs, walk)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, dp2)
+    wp, wl = reverse_walk_reference(pd, ld, rx, re, lam, freqs, walk,
+                                    want_dleaf=True)
+    for got, ref in ((dp, wp), (dl, wl)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * ref.abs().max().item())

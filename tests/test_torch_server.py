@@ -1,5 +1,6 @@
 """The port's HTTP server on the CPU: routes that are ported answer with the
-engine's own values; routes that are not return a clean 501; and the port
+engine's own values (/gradient with ``engine.gradient``, /fit with the fit's
+re-evaluated logL); routes that are not return a clean 501; and the port
 imports no JAX."""
 import json
 import os
@@ -86,8 +87,37 @@ def test_bootstrap(server):
         boots, engine.bootstrap_loglikelihoods(16, PARAMS, seed=3))
 
 
-@pytest.mark.parametrize(
-    "route", ["/gradient", "/fit", "/ancestral", "/site_rates", "/partitions"])
+def test_gradient_route_matches_engine(server):
+    srv, engine = server
+    got = _post(srv, "/gradient", {"params": PARAMS})["gradient"]
+    want = engine.gradient(PARAMS)
+    assert set(got) == set(want) and set(got["model"]) == {"rates", "freqs"}
+    np.testing.assert_array_equal(got["branch_lengths"],
+                                  want["branch_lengths"].numpy())
+    np.testing.assert_array_equal(got["model"]["freqs"],
+                                  want["model"]["freqs"].numpy())
+    assert got["alpha"] == float(want["alpha"])
+    assert np.all(np.isfinite(got["branch_lengths"]))
+
+
+def test_fit_route_returns_fit_loglik(server):
+    srv, engine = server
+    start = engine.loglikelihood(PARAMS)
+    out = _post(srv, "/fit", {"params": PARAMS, "max_steps": 5,
+                              "free": ["branch_lengths", "alpha"]})
+    assert out["n_steps"] == 5 and isinstance(out["converged"], bool)
+    assert out["loglik"] >= start
+    # the reported logL is the engine's at the returned params, and the
+    # frozen model parameters came back unchanged
+    assert out["loglik"] == pytest.approx(engine.loglikelihood(out["params"]),
+                                          abs=1e-9)
+    np.testing.assert_allclose(out["params"]["model"]["rates"],
+                               PARAMS["model"]["rates"], rtol=1e-6)
+    code, body = _post_status(srv, "/fit", {"free": ["kapa"]})
+    assert code == 400 and "kapa" in body["error"]
+
+
+@pytest.mark.parametrize("route", ["/ancestral", "/site_rates", "/partitions"])
 def test_unported_routes_return_501(server, route):
     srv, _ = server
     code, body = _post_status(srv, route, {"params": PARAMS})
