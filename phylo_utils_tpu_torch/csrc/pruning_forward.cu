@@ -24,23 +24,26 @@
 //     scratch (B, K, n_nodes - n_leaves, sites, S), indexed by id - n_leaves
 //     scratch_e (B, K, n_nodes - n_leaves, sites)
 //     root    (B, K, sites, S),  root_e (B, K, sites)
-// so at S = 4 each thread moves one aligned 16-byte vector per node and a warp
-// touches 512 contiguous bytes: fully coalesced, with no state or site
-// padding (the ragged site edge is masked by the early return). P is read
+// so each thread moves whole aligned 16-byte vectors per node (one at S = 4,
+// five at S = 20) and a warp touches 32 contiguous rows: fully coalesced,
+// with no state or site padding (the ragged site edge is masked by the early
+// return). The kernels are compiled for S = 4 (DNA) and S = 20 (protein);
+// the entry points dispatch on S and refuse any other count. P is read
 // through the read-only path: all threads of a block read the same P entries,
 // which the hardware broadcasts. Padding children (id 0 beyond counts[i]) are
 // never read.
 //
-// What bounds it on an H100: bytes. Per node and site it reads 2 x S floats of
-// children (plus their exponents) and writes S + 1 floats, against about
-// 2 x S^2 flops: at S = 4 that is ~40 bytes for ~64 flops, far below the
-// card's ~20 flops/byte ridge for f32 on CUDA cores. The design keeps the
+// What bounds it on an H100: at S = 4, bytes. Per node and site it reads
+// 2 x S floats of children (plus their exponents) and writes S + 1 floats,
+// against about 4 x S^2 flops: at S = 4 that is ~40 bytes for ~64 flops,
+// below the card's ~20 flops/byte ridge for f32 on CUDA cores; at S = 20,
+// ~170 bytes for ~1600 flops, above it, so the protein walk is bound by its
+// operations (and by the 400 broadcast P loads per child). The design keeps the
 // node's S values in registers between the child loads and the single store,
 // so each partial crosses memory exactly once each way, and the scratch of a
 // B = 1 flagship walk (4 categories x 63 internal nodes x 1024 sites x 5
-// floats) fits in the 50 MB L2. Keeping intermediate nodes out of device memory entirely (a
-// register/shared-memory stack, as the TPU slot kernel does in VMEM) is the
-// next step and a later change.
+// floats) fits in the 50 MB L2. When the whole-tree scratch outgrows that,
+// the value path takes the O(depth) slot walk of csrc/pruning_slot.cu.
 //
 // pruning_saveall_f32 replaces the TPU kernel
 // phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_saveall_kernel: the same
@@ -54,39 +57,11 @@
 // column (the root) is 1/n_inner more traffic, and residuals stay in device
 // memory because the reverse walk needs them.
 
-#include <cfloat>
-#include <cstddef>
-#include <cuda_runtime.h>
+#include "pruning_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <int S>
-__device__ __forceinline__ void load_states(const float* __restrict__ src,
-                                            float (&x)[S]) {
-  if constexpr (S == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < S; ++j) x[j] = src[j];
-  }
-}
-
-template <int S>
-__device__ __forceinline__ void store_states(float* __restrict__ dst,
-                                             const float (&x)[S]) {
-  if constexpr (S == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < S; ++j) dst[j] = x[j];
-  }
-}
+using pruning::kThreads;
 
 template <int S, bool kSaveRoot>
 __global__ void __launch_bounds__(kThreads)
@@ -124,38 +99,22 @@ pruning_forward_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
       const int child = __ldg(children + i * cmax + c);
       float x[S];
       if (child < n_leaves) {
-        load_states<S>(leaves + (static_cast<size_t>(child) * sites + site) * S, x);
+        pruning::load_states<S>(leaves + (static_cast<size_t>(child) * sites + site) * S, x);
       } else {
         const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
-        load_states<S>(xs + row * S, x);
+        pruning::load_states<S>(xs + row * S, x);
         e += es[row];
       }
-      const float* __restrict__ pc = pb + child * p_node_stride;
-#pragma unroll
-      for (int r = 0; r < S; ++r) {
-        float y = 0.0f;
-#pragma unroll
-        for (int j = 0; j < S; ++j) y = fmaf(__ldg(pc + r * S + j), x[j], y);
-        acc[r] *= y;
-      }
+      pruning::times_child<S, false>(pb + child * p_node_stride, x, acc);
     }
-    // exact power-of-two rescale, bit for bit ops/pruning.pow2_rescale
-    float m = FLT_MIN;
-#pragma unroll
-    for (int r = 0; r < S; ++r) m = fmaxf(m, acc[r]);
-    int eb = (__float_as_int(m) >> 23) & 0xFF;
-    eb = min(max(eb, 1), 253);
-    const float scale = __int_as_float((254 - eb) << 23);
-#pragma unroll
-    for (int r = 0; r < S; ++r) acc[r] *= scale;
-    e += static_cast<float>(eb - 127);
+    e += pruning::rescale_pow2<S>(acc);
 
     if (!kSaveRoot && i == n_int - 1) {  // the root is last in post-order
-      store_states<S>(root + (bk * sites + site) * S, acc);
+      pruning::store_states<S>(root + (bk * sites + site) * S, acc);
       root_e[bk * sites + site] = e;
     } else {
       const size_t row = static_cast<size_t>(node - n_leaves) * sites + site;
-      store_states<S>(xs + row * S, acc);
+      pruning::store_states<S>(xs + row * S, acc);
       es[row] = e;
     }
   }
@@ -165,7 +124,7 @@ pruning_forward_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // Pointers are device pointers to contiguous float32 / int32 buffers laid out
-// as documented above; the caller allocates every buffer.
+// as documented above; the caller allocates every buffer. S is 4 or 20.
 extern "C" int pruning_forward_f32(const void* p, const void* leaves,
                                    const void* order, const void* children,
                                    const void* counts, void* scratch,
@@ -173,42 +132,45 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
                                    int B, int K, int S, int n_nodes,
                                    int n_leaves, int n_int, int cmax, int sites,
                                    void* stream) {
-  if (S != 4) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  pruning_forward_kernel<4, false><<<grid, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(leaves),
-      static_cast<const int*>(order), static_cast<const int*>(children),
-      static_cast<const int*>(counts), static_cast<float*>(scratch),
-      static_cast<float*>(scratch_e), static_cast<float*>(root),
-      static_cast<float*>(root_e), K, n_nodes, n_leaves, n_int, cmax, sites);
-  return static_cast<int>(cudaGetLastError());
+  return pruning::dispatch_states(S, [&](auto s) {
+    pruning_forward_kernel<decltype(s)::value, false>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(p), static_cast<const float*>(leaves),
+            static_cast<const int*>(order), static_cast<const int*>(children),
+            static_cast<const int*>(counts), static_cast<float*>(scratch),
+            static_cast<float*>(scratch_e), static_cast<float*>(root),
+            static_cast<float*>(root_e), K, n_nodes, n_leaves, n_int, cmax,
+            sites);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // The forward walk keeping every internal node, the root included, in
 // res_x (B, K, n_nodes - n_leaves, sites, S) / res_e (B, K, n_nodes -
 // n_leaves, sites), indexed by node id - n_leaves. Returns
-// cudaGetLastError() after the launch (0 = ok).
+// cudaGetLastError() after the launch (0 = ok). S is 4 or 20.
 extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
                                    const void* order, const void* children,
                                    const void* counts, void* res_x,
                                    void* res_e, int B, int K, int S,
                                    int n_nodes, int n_leaves, int n_int,
                                    int cmax, int sites, void* stream) {
-  if (S != 4) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  pruning_forward_kernel<4, true><<<grid, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(leaves),
-      static_cast<const int*>(order), static_cast<const int*>(children),
-      static_cast<const int*>(counts), static_cast<float*>(res_x),
-      static_cast<float*>(res_e), nullptr, nullptr, K, n_nodes, n_leaves,
-      n_int, cmax, sites);
-  return static_cast<int>(cudaGetLastError());
+  return pruning::dispatch_states(S, [&](auto s) {
+    pruning_forward_kernel<decltype(s)::value, true>
+        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(p), static_cast<const float*>(leaves),
+            static_cast<const int*>(order), static_cast<const int*>(children),
+            static_cast<const int*>(counts), static_cast<float*>(res_x),
+            static_cast<float*>(res_e), nullptr, nullptr, K, n_nodes,
+            n_leaves, n_int, cmax, sites);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

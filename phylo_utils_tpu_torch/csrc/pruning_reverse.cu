@@ -25,65 +25,49 @@
 // into the column's own row of gy (B, K, n_nodes, sites, S); a thread only
 // reads what it wrote. Partials are read from the leaf array or the saveall
 // residuals (B, K, n_nodes - n_leaves, sites, S), states innermost, so each
-// node is one 16-byte vector per thread, coalesced across the warp. The
+// node is whole 16-byte vectors per thread (one at S = 4, five at S = 20),
+// coalesced across the warp. The
 // sibling product is formed by recomputing the other children's y: for a
 // binary node that is exactly one contraction per child, as in the TPU kernel,
 // and the walk needs no per-child storage for any child count.
 //
 // The dP epilogue (the TPU kernel's batched MXU product) is a second kernel
-// launched right after the walk on the same stream: one block of 512 threads
-// per (node, k, b). Each thread sums gy_n x_n^T over its sites in chunks of 16
+// launched right after the walk on the same stream, one block per
+// (node, k, b). At S = 4 (pruning_dp_kernel), 512 threads each hold the whole
+// 4 x 4 sum in registers: each sums gy_n x_n^T over its sites in chunks of 16
 // (a short inner sum per chunk, then one add into its running total), and the
 // block reduces the 512 partial matrices by a fixed warp-shuffle tree and a
 // fixed-order sum over the warps. There are no atomics, so two launches on the
 // same inputs give bit-identical dP, and no sum runs over more than
-// sites / 8192 + 16 terms before a tree takes over.
+// sites / 8192 + 16 terms before a tree takes over. At S = 20 the 400-entry
+// sum would spill from registers, so pruning_dp_tiled_kernel gives each of
+// 416 threads one (i, j) entry over site tiles staged in shared memory
+// (fixed order, compensated running sums; deterministic in the same way).
+// The entry points are compiled for S = 4 and S = 20 and refuse any other.
 //
 // What bounds it on an H100: bytes. Per internal node and column the walk
 // reads gy_n, each child's x and exponent, and writes each child's gy (and
 // dleaf at leaves): about twice the forward's traffic, for about 3 x S^2
-// flops per child. The epilogue reads gy and x once more for every node. The
+// flops per child (bytes bound it at S = 4, operations at S = 20). The
+// epilogue reads gy and x once more for every node. The
 // design keeps g_n and the sibling products in registers, reads each
 // residual row once per sibling use, and leaves gy in device memory (the
 // epilogue needs all of it); keeping gy on chip and fusing the epilogue into
 // the walk is later work.
 
-#include <cfloat>
-#include <cstddef>
-#include <cuda_runtime.h>
+#include "pruning_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // walk kernel: one thread per column
-constexpr int kDpThreads = 512;   // dP kernel: one block per (node, k, b)
+using pruning::exp2_int;
+using pruning::kThreads;
+using pruning::load_states;
+using pruning::store_states;
+
+constexpr int kDpThreads = 512;   // dP kernel at S = 4: one block per (node, k, b)
 constexpr int kDpChunk = 16;      // sites summed per inner chunk
 constexpr int kWarps = kDpThreads / 32;
-
-template <int S>
-__device__ __forceinline__ void load_states(const float* __restrict__ src,
-                                            float (&x)[S]) {
-  if constexpr (S == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < S; ++j) x[j] = src[j];
-  }
-}
-
-template <int S>
-__device__ __forceinline__ void store_states(float* __restrict__ dst,
-                                             const float (&x)[S]) {
-  if constexpr (S == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < S; ++j) dst[j] = x[j];
-  }
-}
+constexpr int kDpTile = 32;       // dP kernel at S = 20: sites staged per step
 
 // out = P^T v for one S x S block P (row-major), fmaf chain in j order
 template <int S>
@@ -97,12 +81,6 @@ __device__ __forceinline__ void transpose_apply(const float* __restrict__ pm,
     for (int j = 0; j < S; ++j) acc = fmaf(__ldg(pm + j * S + r), v[j], acc);
     out[r] = acc;
   }
-}
-
-// exact 2^k for an integer-valued k, bit for bit ops/pruning.exp2_int
-__device__ __forceinline__ float exp2_int(float k) {
-  const int ki = static_cast<int>(fminf(fmaxf(k, -126.0f), 127.0f));
-  return __int_as_float((ki + 127) << 23);
 }
 
 template <int S>
@@ -171,14 +149,7 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
         } else {
           load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * sites + site) * S, x);
         }
-        const float* __restrict__ po = pb + other * p_node_stride;
-#pragma unroll
-        for (int r = 0; r < S; ++r) {
-          float y = 0.0f;
-#pragma unroll
-          for (int j = 0; j < S; ++j) y = fmaf(__ldg(po + r * S + j), x[j], y);
-          sib[r] *= y;
-        }
+        pruning::times_child<S, false>(pb + other * p_node_stride, x, sib);
       }
       float gyc[S];
 #pragma unroll
@@ -264,6 +235,71 @@ pruning_dp_kernel(const float* __restrict__ leaves,  // (n_leaves, sites, S)
   }
 }
 
+// dP at S = 20, where acc[S * S] per thread would spill (400 floats): each
+// thread owns ONE (i, j) entry of the block's S x S sum. The block stages
+// kDpTile sites of gy_n and x_n at a time in shared memory (every thread
+// loads, 16-byte vectors), then thread (i, j) forms the tile's fmaf chain in
+// site order and adds it to its running total with a compensated (Kahan)
+// add. Every sum has a fixed order and there are no atomics, so two launches
+// give bit-identical dP; the compensation keeps the running total within a
+// few roundings however many tiles there are.
+template <int S>
+__global__ void __launch_bounds__((S * S + 31) / 32 * 32)
+pruning_dp_tiled_kernel(const float* __restrict__ leaves,  // (n_leaves, sites, S)
+                        const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
+                        const float* __restrict__ gy,      // (B, K, n_nodes, sites, S)
+                        float* __restrict__ dp,            // (B, n_nodes, K, S, S)
+                        int K, int n_nodes, int n_leaves, int root,
+                        int sites) {
+  static_assert(S % 4 == 0, "tiles are staged as 16-byte vectors");
+  constexpr int kVecs = kDpTile * S / 4;
+  __shared__ float4 g_tile[kVecs];
+  __shared__ float4 x_tile[kVecs];
+  const int node = blockIdx.x;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const int e = threadIdx.x;
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  float* __restrict__ out =
+      dp + ((static_cast<size_t>(b) * n_nodes + node) * K + k) * S * S;
+  if (node == root) {  // no parent edge
+    if (e < S * S) out[e] = 0.0f;
+    return;
+  }
+  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
+  const float4* __restrict__ xg = reinterpret_cast<const float4*>(
+      node < n_leaves
+          ? leaves + static_cast<size_t>(node) * sites * S
+          : res_x + (bk * n_inner + (node - n_leaves)) * sites * S);
+  const float4* __restrict__ gg = reinterpret_cast<const float4*>(
+      gy + (bk * n_nodes + node) * sites * S);
+  const float* gs = reinterpret_cast<const float*>(g_tile);
+  const float* xs = reinterpret_cast<const float*>(x_tile);
+  const int ei = e / S;
+  const int ej = e % S;
+  float acc = 0.0f;
+  float comp = 0.0f;
+  for (int base = 0; base < sites; base += kDpTile) {
+    const int n = min(kDpTile, sites - base);
+    const size_t off = static_cast<size_t>(base) * S / 4;
+    for (int v = e; v < n * S / 4; v += blockDim.x) {
+      g_tile[v] = gg[off + v];
+      x_tile[v] = xg[off + v];
+    }
+    __syncthreads();
+    if (e < S * S) {
+      float part = 0.0f;
+      for (int s = 0; s < n; ++s) part = fmaf(gs[s * S + ei], xs[s * S + ej], part);
+      const float y = part - comp;
+      const float t = acc + y;
+      comp = (t - acc) - y;
+      acc = t;
+    }
+    __syncthreads();  // the tile is consumed before the next one lands
+  }
+  if (e < S * S) out[e] = acc;
+}
+
 }  // namespace
 
 // Launch the reverse walk and then the dP reduction on `stream`; returns the
@@ -279,25 +315,34 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
                                    int n_nodes, int n_leaves, int n_int,
                                    int cmax, int sites, int root,
                                    void* stream) {
-  if (S != 4) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  pruning_reverse_walk_kernel<4><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(p), static_cast<const float*>(leaves),
-      static_cast<const int*>(order), static_cast<const int*>(children),
-      static_cast<const int*>(counts), static_cast<const float*>(res_x),
-      static_cast<const float*>(res_e), static_cast<const float*>(lam),
-      static_cast<const float*>(freqs), static_cast<float*>(gy),
-      static_cast<float*>(dleaf), K, n_nodes, n_leaves, n_int, cmax, sites);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_dp(n_nodes, K, B);
-  pruning_dp_kernel<4><<<grid_dp, kDpThreads, 0, st>>>(
-      static_cast<const float*>(leaves), static_cast<const float*>(res_x),
-      static_cast<const float*>(gy), static_cast<float*>(dp), K, n_nodes,
-      n_leaves, root, sites);
-  return static_cast<int>(cudaGetLastError());
+  return pruning::dispatch_states(S, [&](auto s) {
+    constexpr int kS = decltype(s)::value;
+    pruning_reverse_walk_kernel<kS><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(p), static_cast<const float*>(leaves),
+        static_cast<const int*>(order), static_cast<const int*>(children),
+        static_cast<const int*>(counts), static_cast<const float*>(res_x),
+        static_cast<const float*>(res_e), static_cast<const float*>(lam),
+        static_cast<const float*>(freqs), static_cast<float*>(gy),
+        static_cast<float*>(dleaf), K, n_nodes, n_leaves, n_int, cmax, sites);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if constexpr (kS == 4) {
+      pruning_dp_kernel<kS><<<grid_dp, kDpThreads, 0, st>>>(
+          static_cast<const float*>(leaves), static_cast<const float*>(res_x),
+          static_cast<const float*>(gy), static_cast<float*>(dp), K, n_nodes,
+          n_leaves, root, sites);
+    } else {
+      pruning_dp_tiled_kernel<kS><<<grid_dp, (kS * kS + 31) / 32 * 32, 0, st>>>(
+          static_cast<const float*>(leaves), static_cast<const float*>(res_x),
+          static_cast<const float*>(gy), static_cast<float*>(dp), K, n_nodes,
+          n_leaves, root, sites);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -139,8 +139,8 @@ class LikelihoodEngine:
         CUDA tensors, its plain-PyTorch walk on CPU tensors)
     rate_model : "gamma" (param 'alpha') or "free" (FreeRate: 'rates' and
         'cat_weights' are free, rates renormalized to weighted mean 1)
-    device : torch device for every tensor of the engine ("cpu" default;
-        never chosen automatically)
+    device : torch device for every tensor of the engine ("cuda" default;
+        raises where there is no card: pass device="cpu" to run on the CPU)
     """
 
     def __init__(
@@ -155,7 +155,7 @@ class LikelihoodEngine:
         compress: bool = True,
         pruner: str = "torch",
         rate_model: str = "gamma",
-        device="cpu",
+        device="cuda",
     ):
         if isinstance(tree, str):
             tree = pio.parse_newick(tree)

@@ -1,8 +1,9 @@
 """Substitution models (PyTorch port of ``phylo_utils_tpu.models``).
 
-A model is a frozen spec + functions of parameter tensors. Only the DNA
-family is ported so far; protein (ROADMAP A11), codon and Mk (A14) names
-are recognized and raise ``NotImplementedError``.
+A model is a frozen spec + functions of parameter tensors. The DNA family
+and the empirical protein models LG and WAG (plus any PAML ``.dat``
+matrix, ``empirical_model_from_dat``) are ported; codon and Mk (ROADMAP
+A14) names are recognized and raise ``NotImplementedError``.
 """
 from phylo_utils_tpu_torch.models.base import (  # noqa: F401
     Eigen,
@@ -22,6 +23,11 @@ from phylo_utils_tpu_torch.models.dna import (  # noqa: F401
     GTR,
     UNREST,
 )
+from phylo_utils_tpu_torch.models.protein import (  # noqa: F401
+    LG,
+    WAG,
+    empirical_model_from_dat,
+)
 
 _REGISTRY = {
     "jc69": JC69,
@@ -32,9 +38,11 @@ _REGISTRY = {
     "tn93": TN93,
     "gtr": GTR,
     "unrest": UNREST,
+    "lg": LG,
+    "wag": WAG,
 }
 
-_NOT_PORTED = {"lg": "A11", "wag": "A11", "gy94": "A14", "mg94": "A14"}
+_NOT_PORTED = {"gy94": "A14", "mg94": "A14"}
 
 
 def get_model(name: str) -> Model:

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the package's own sources into one shared library with a
-plain C interface at first use, into ``build/phylo_utils_tpu_torch/`` beside
-the package, keyed by a hash of the sources and flags, under a file lock so
+``nvcc`` compiles the package's own sources (``csrc/*.cu``, which share
+``csrc/*.cuh``) into one shared library with a plain C interface at first
+use, into ``build/phylo_utils_tpu_torch/`` beside the package, keyed by a
+hash of the sources, headers and flags, under a file lock so
 concurrent processes build once. Each source compiles in its own ``nvcc``
 process, all started together, and one more links them. The library is
 loaded with ``ctypes``. There is no fallback: a missing ``nvcc`` or a failed
@@ -58,6 +59,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("pruning_forward_f32", 9, 8),
         ("pruning_saveall_f32", 7, 8),
         ("pruning_reverse_f32", 12, 9),
+        ("pruning_slot_f32", 11, 8),
+        ("pruning_stream_f32", 11, 8),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
@@ -105,7 +108,7 @@ def load_library() -> ctypes.CDLL:
             return _lib
         sources = sorted(CSRC.glob("*.cu"))
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sources + sorted(CSRC.glob("*.cuh")):
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
         key = digest.hexdigest()[:16]

@@ -1,14 +1,23 @@
-"""Fused pruning on the GPU: the port of the whole-tree path of
-``phylo_utils_tpu.ops.pallas_pruning``.
+"""Fused pruning on the GPU: the port of the whole-tree and big-tree paths
+of ``phylo_utils_tpu.ops.pallas_pruning``.
 
-Three hand-written CUDA kernels, each with a plain-PyTorch version beside it
-that CPU tensors take (a CUDA tensor launches the kernel or raises):
+Five hand-written CUDA kernels, compiled for 4 (DNA) and 20 (protein)
+states, each with a plain-PyTorch version beside it that CPU tensors take (a
+CUDA tensor launches the kernel or raises):
 
-- ``forward_walk`` (``csrc/pruning_forward.cu``, replaces the TPU kernel
-  ``_dynamic_kernel``): a post-order walk that forms y_c = P_c . x_c per
-  child, multiplies the y's, and rescales each node by an exact power of two
-  with integer exponent counts; returns the root. Plain version
-  ``forward_walk_reference``.
+- ``forward_walk(..., walk="classic")`` (``csrc/pruning_forward.cu``,
+  replaces the TPU kernel ``_dynamic_kernel``): a post-order walk that forms
+  y_c = P_c . x_c per child, multiplies the y's, and rescales each node by an
+  exact power of two with integer exponent counts; returns the root. Plain
+  version ``forward_walk_reference``.
+- ``slot_walk`` (``csrc/pruning_slot.cu``): the same walk in DFS post-order
+  over reusable slots (``SlotSchedule``), so its scratch is O(depth) rows
+  instead of one per internal node; ``pruning_slot_f32`` reads P from device
+  memory (replaces ``_dynamic_slot_kernel``), ``pruning_stream_f32`` stages
+  each node's P blocks in shared memory one node ahead (replaces
+  ``_dynamic_slot_stream_kernel``). Both roots are bit for bit the forward
+  kernel's. Plain version ``slot_walk_reference``. ``forward_walk`` picks
+  among the three walks (``choose_walk``).
 - ``saveall_walk`` (same source, replaces ``_dynamic_saveall_kernel``): the
   same walk keeping every internal node's partials and exponent count, the
   residuals of the gradient. Plain version ``saveall_walk_reference``.
@@ -20,8 +29,9 @@ that CPU tensors take (a CUDA tensor launches the kernel or raises):
 ``make_fused_loglik_fn`` ties them into a differentiable per-(category,
 site) log-likelihood: value calls run ``forward_walk``; calls that need a
 gradient run ``saveall_walk`` forward and ``reverse_walk`` backward.
-``LAUNCHES``, ``SAVEALL_LAUNCHES`` and ``REVERSE_LAUNCHES`` count kernel
-launches, so a run can show its main path went through the kernels.
+``LAUNCHES``, ``SLOT_LAUNCHES``, ``STREAM_LAUNCHES``, ``SAVEALL_LAUNCHES``
+and ``REVERSE_LAUNCHES`` count kernel launches, so a run can show its main
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -36,11 +46,18 @@ from phylo_utils_tpu_torch.trees import PruningSchedule
 
 __all__ = [
     "LAUNCHES",
+    "SLOT_LAUNCHES",
+    "STREAM_LAUNCHES",
     "SAVEALL_LAUNCHES",
     "REVERSE_LAUNCHES",
+    "CLASSIC_SCRATCH_BUDGET",
     "WalkSchedule",
+    "SlotSchedule",
+    "choose_walk",
     "forward_walk",
     "forward_walk_reference",
+    "slot_walk",
+    "slot_walk_reference",
     "saveall_walk",
     "saveall_walk_reference",
     "reverse_walk",
@@ -49,6 +66,8 @@ __all__ = [
 ]
 
 LAUNCHES = 0            # pruning_forward_f32
+SLOT_LAUNCHES = 0       # pruning_slot_f32
+STREAM_LAUNCHES = 0     # pruning_stream_f32
 SAVEALL_LAUNCHES = 0    # pruning_saveall_f32
 REVERSE_LAUNCHES = 0    # pruning_reverse_f32
 
@@ -56,6 +75,14 @@ REVERSE_LAUNCHES = 0    # pruning_reverse_f32
 _MAX_GRID_Z = 65535
 # share of the free device memory one launch's scratch may take
 _MEM_FRACTION = 0.9
+# the state counts the kernels are compiled for (DNA, protein)
+_KERNEL_STATES = (4, 20)
+# bytes of whole-tree scratch up to which the value path takes the classic
+# walk (see choose_walk): the H100's 50 MB L2. On an NVIDIA H100 80GB HBM3
+# (700 W) the classic walk was the fastest of the three at 5 and 21 MB of
+# scratch (64-taxon DNA, B = 1 and 4) and the slot walk 26% faster than it
+# at 83 MB (B = 16) (chip_smoke.py phase 16)
+CLASSIC_SCRATCH_BUDGET = 50 * 2 ** 20
 
 
 def _postorder_arrays(schedule: PruningSchedule):
@@ -84,9 +111,104 @@ def _postorder_arrays(schedule: PruningSchedule):
     )
 
 
+def _dfs_slot_schedule(schedule: PruningSchedule):
+    """DFS-post-order walk with register-style slot allocation (array for
+    array the JAX package's ``_dfs_slot_schedule``).
+
+    In DFS post-order a node's partials are dead as soon as its parent is
+    combined, so a free list assigns each internal node a reusable slot (a
+    node may take one of its children's); the live set is O(tree depth).
+    Leaves never get slots.
+
+    Returns ``(nslot, child_node, child_src, child_isleaf, counts,
+    n_slots, root_slot)`` where ``child_node`` indexes P and ``child_src``
+    is a leaf id or a slot id according to ``child_isleaf``.
+    """
+    order, children, counts = _postorder_arrays(schedule)
+    n_leaves = schedule.n_leaves
+    cmax = children.shape[1]
+    kids = {
+        int(order[i]): [int(children[i, c]) for c in range(int(counts[i]))]
+        for i in range(order.shape[0])
+    }
+    root = int(order[-1])
+    post = []
+    stack = [(root, False)]
+    while stack:
+        node, done = stack.pop()
+        if node < n_leaves:
+            continue
+        if done:
+            post.append(node)
+        else:
+            stack.append((node, True))
+            for ch in kids[node]:
+                stack.append((ch, False))
+    slot_of: dict = {}
+    free: list = []
+    next_slot = 0
+    nn = len(post)
+    nslot = np.zeros(nn, np.int32)
+    child_node = np.zeros((nn, cmax), np.int32)
+    child_src = np.zeros((nn, cmax), np.int32)
+    child_isleaf = np.zeros((nn, cmax), np.int32)
+    counts2 = np.zeros(nn, np.int32)
+    for i, node in enumerate(post):
+        ks = kids[node]
+        counts2[i] = len(ks)
+        for c, ch in enumerate(ks):
+            child_node[i, c] = ch
+            if ch < n_leaves:
+                child_src[i, c] = ch
+                child_isleaf[i, c] = 1
+            else:
+                child_src[i, c] = slot_of[ch]
+        # children slots die here; the parent may reuse one
+        for ch in ks:
+            if ch >= n_leaves:
+                free.append(slot_of.pop(ch))
+        if free:
+            s = free.pop()
+        else:
+            s = next_slot
+            next_slot += 1
+        slot_of[node] = s
+        nslot[i] = s
+    return (
+        nslot, child_node, child_src, child_isleaf, counts2,
+        next_slot, slot_of[root],
+    )
+
+
+def _on_device(cache: dict, device: torch.device, arrays):
+    """``arrays`` as contiguous int32 tensors on ``device``, made once."""
+    if device not in cache:
+        cache[device] = tuple(torch.from_numpy(a).to(device).contiguous()
+                              for a in arrays)
+    return cache[device]
+
+
+class SlotSchedule:
+    """The DFS slot walk of one schedule (``_dfs_slot_schedule``): host
+    arrays plus their int32 copies on each device that has used them."""
+
+    def __init__(self, schedule: PruningSchedule):
+        (self.nslot, self.child_node, self.child_src, self.child_isleaf,
+         self.counts, self.n_slots, self.root_slot) = _dfs_slot_schedule(
+            schedule)
+        self._on_device = {}
+
+    def on(self, device: torch.device):
+        """(nslot, child_node, child_src, child_isleaf, counts) on device."""
+        return _on_device(self._on_device, device, (
+            self.nslot, self.child_node, self.child_src, self.child_isleaf,
+            self.counts))
+
+
 class WalkSchedule:
     """The post-order walk of one schedule: host arrays plus their int32
-    copies on each device that has used them."""
+    copies on each device that has used them, and (built at first use) the
+    schedule's DFS slot walk, ``slots``."""
 
     def __init__(self, schedule: PruningSchedule):
         self.order, self.children, self.counts = _postorder_arrays(schedule)
@@ -95,16 +217,20 @@ class WalkSchedule:
         self.n_nodes = schedule.n_nodes
         self.n_leaves = schedule.n_leaves
         self.root = int(self.order[-1])    # the root is last in post-order
+        self._schedule = schedule
+        self._slots = None
         self._on_device = {}
+
+    @property
+    def slots(self) -> SlotSchedule:
+        if self._slots is None:
+            self._slots = SlotSchedule(self._schedule)
+        return self._slots
 
     def on(self, device: torch.device):
         """(order, children, counts) as contiguous int32 tensors on device."""
-        if device not in self._on_device:
-            self._on_device[device] = tuple(
-                torch.from_numpy(a).to(device).contiguous()
-                for a in (self.order, self.children, self.counts)
-            )
-        return self._on_device[device]
+        return _on_device(self._on_device, device,
+                          (self.order, self.children, self.counts))
 
 
 def _check(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule):
@@ -191,6 +317,32 @@ def forward_walk_reference(
         x[node], e[node] = _node_partials(pb, leaves, walk.n_leaves, kids,
                                           x.pop, e.pop)
     root_p, root_e = x[walk.root], e[walk.root]
+    return (root_p, root_e) if batched else (root_p[0], root_e[0])
+
+
+def slot_walk_reference(
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch version of the slot and stream kernels: the DFS
+    post-order walk over ``walk.slots``, each node written to its slot
+    (perhaps a child's) after its children are read, vectorised over (batch,
+    category, site). Same contract as ``forward_walk_reference``, and bit
+    for bit its result: the per-node arithmetic and child order are the
+    same, only the order of independent subtrees differs.
+    """
+    _check(p, leaves, walk)
+    batched = p.dim() == 5
+    pb = p if batched else p[None]
+    sl = walk.slots
+    x = [None] * sl.n_slots
+    e = [None] * sl.n_slots
+    for i in range(len(sl.nslot)):
+        kids = sl.child_node[i, :sl.counts[i]].tolist()
+        src = dict(zip(kids, sl.child_src[i, :sl.counts[i]].tolist()))
+        xi, ei = _node_partials(pb, leaves, walk.n_leaves, kids,
+                                lambda c: x[src[c]], lambda c: e[src[c]])
+        x[sl.nslot[i]], e[sl.nslot[i]] = xi, ei
+    root_p, root_e = x[sl.root_slot], e[sl.root_slot]
     return (root_p, root_e) if batched else (root_p[0], root_e[0])
 
 
@@ -342,11 +494,13 @@ def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
                          f"{p.device}")
     if not all(t.is_contiguous() for t in (p,) + tensors):
         raise ValueError("the kernels' inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (p,) + tensors):
+        raise ValueError("the kernels' inputs must be 16-byte aligned")
     s = p.shape[-1]
-    if s != 4:
+    if s not in _KERNEL_STATES:
         raise NotImplementedError(
-            f"the CUDA walk is built for 4 states, not {s} (protein is "
-            "ROADMAP A11, codon A14)"
+            f"the CUDA walks are built for {_KERNEL_STATES} states, not {s} "
+            "(codon is ROADMAP A14)"
         )
     from phylo_utils_tpu_torch.ops._build import load_library
 
@@ -357,28 +511,54 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def choose_walk(b: int, k: int, n_inner: int, sites: int, s: int) -> str:
+    """The value path's walk for a launch of ``b`` batch elements, ``k``
+    categories, ``n_inner`` internal nodes, ``sites`` sites, ``s`` states.
+
+    The classic walk while its whole-tree scratch, b k n_inner sites (s + 1)
+    float32, fits ``CLASSIC_SCRATCH_BUDGET`` bytes; beyond that the O(depth)
+    slot walk, with P staged in shared memory ("stream") at 20 states and
+    more, read from device memory ("slot") below.
+    """
+    if b * k * n_inner * sites * (s + 1) * 4 <= CLASSIC_SCRATCH_BUDGET:
+        return "classic"
+    return "stream" if s >= 20 else "slot"
+
+
+_WALKS = ("auto", "classic", "slot", "stream")
+
+
 def forward_walk(
-    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
+    p: torch.Tensor, leaves: torch.Tensor, schedule: WalkSchedule,
+    walk: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Root partials and root exponent count of the pruning walk.
 
-    Same contract as ``forward_walk_reference``. CPU tensors take that plain
-    version; CUDA tensors launch the kernel (one launch per batch chunk
+    Same contract as ``forward_walk_reference``. ``walk``: "classic" (every
+    internal node kept), "slot" or "stream" (``slot_walk``), or "auto"
+    (``choose_walk``); all give the same bits. CPU tensors take the plain
+    versions; CUDA tensors launch the kernel (one launch per batch chunk
     that fits free device memory) on the current stream.
     """
     global LAUNCHES
-    _check(p, leaves, walk)
+    if walk not in _WALKS:
+        raise ValueError(f"walk must be one of {_WALKS}, not {walk!r}")
+    _check(p, leaves, schedule)
     _not_differentiable("forward_walk", p, leaves)
-    if p.device.type == "cpu":
-        return forward_walk_reference(p, leaves, walk)
-    lib = _cuda_library(p, leaves)
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
     sites, s = leaves.shape[1:]
-    n_inner = walk.n_nodes - walk.n_leaves
+    n_inner = schedule.n_nodes - schedule.n_leaves
+    if walk == "auto":
+        walk = choose_walk(b, k, n_inner, sites, s)
+    if walk != "classic":
+        return slot_walk(p, leaves, schedule, stream=walk == "stream")
+    if p.device.type == "cpu":
+        return forward_walk_reference(p, leaves, schedule)
+    lib = _cuda_library(p, leaves)
     device = p.device
-    order, children, counts = walk.on(device)
+    order, children, counts = schedule.on(device)
     root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
     root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
     chunk = _batch_chunk(b, k * n_inner * sites * (s + 1) * 4, device)
@@ -393,14 +573,69 @@ def forward_walk(
             pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
             children.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
             scratch_e.data_ptr(), root[b0:b0 + nb].data_ptr(),
-            root_e[b0:b0 + nb].data_ptr(), nb, k, s, walk.n_nodes,
-            walk.n_leaves, len(walk.order), children.shape[1], sites, stream,
+            root_e[b0:b0 + nb].data_ptr(), nb, k, s, schedule.n_nodes,
+            schedule.n_leaves, len(schedule.order), children.shape[1],
+            sites, stream,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_forward_f32 launch failed: CUDA "
                                f"error {rc}")
         LAUNCHES += 1
         del scratch, scratch_e
+    return (root, root_e) if batched else (root[0], root_e[0])
+
+
+def slot_walk(
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
+    stream: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Root partials and root exponent count by the DFS slot walk, whose
+    scratch is (B, K, n_slots, sites, S + 1) float32 instead of one row per
+    internal node. Same contract as ``forward_walk_reference`` and the same
+    bits. CPU tensors take ``slot_walk_reference``; CUDA tensors launch
+    ``pruning_stream_f32`` (``stream``: P staged in shared memory) or
+    ``pruning_slot_f32``, once per batch chunk that fits free device
+    memory, on the current stream."""
+    global SLOT_LAUNCHES, STREAM_LAUNCHES
+    _check(p, leaves, walk)
+    _not_differentiable("slot_walk", p, leaves)
+    if p.device.type == "cpu":
+        return slot_walk_reference(p, leaves, walk)
+    lib = _cuda_library(p, leaves)
+    batched = p.dim() == 5
+    pb = p if batched else p[None]
+    b, _, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    device = p.device
+    sl = walk.slots
+    nslot, cnode, csrc, cleaf, counts = sl.on(device)
+    root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
+    root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
+    chunk = _batch_chunk(b, k * sl.n_slots * sites * (s + 1) * 4, device)
+    name = "pruning_stream_f32" if stream else "pruning_slot_f32"
+    launch = getattr(lib, name)
+    cuda_stream = _stream(device)
+    for b0 in range(0, b, chunk):
+        nb = min(chunk, b - b0)
+        slots = torch.empty((nb, k, sl.n_slots, sites, s),
+                            dtype=torch.float32, device=device)
+        slots_e = torch.empty((nb, k, sl.n_slots, sites),
+                              dtype=torch.float32, device=device)
+        rc = launch(
+            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), nslot.data_ptr(),
+            cnode.data_ptr(), csrc.data_ptr(), cleaf.data_ptr(),
+            counts.data_ptr(), slots.data_ptr(), slots_e.data_ptr(),
+            root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr(), nb,
+            k, s, walk.n_nodes, sl.n_slots, len(sl.nslot), cnode.shape[1],
+            sites, cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        if stream:
+            STREAM_LAUNCHES += 1
+        else:
+            SLOT_LAUNCHES += 1
+        del slots, slots_e
     return (root, root_e) if batched else (root[0], root_e[0])
 
 
@@ -569,9 +804,11 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
 
     Differentiable in all three inputs. When P or the leaves require grad
     (and grad mode is on), the saveall kernel runs forward and the reverse
-    kernel backward; otherwise the forward kernel runs alone. The leaves'
-    cotangent is computed only when they require grad (the engine passes
-    them as data).
+    kernel backward, over the whole tree; otherwise one forward walk runs
+    alone, chosen by ``choose_walk``: the classic walk while the launch's
+    whole-tree scratch fits ``CLASSIC_SCRATCH_BUDGET``, else the slot walk
+    (DNA) or the stream walk (protein). The leaves' cotangent is computed
+    only when they require grad (the engine passes them as data).
     """
     walk = WalkSchedule(schedule)
 

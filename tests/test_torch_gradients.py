@@ -189,7 +189,7 @@ def test_value_and_grad_matches_jax_pallas(gappy12, pruner):
     lj, gj = gappy12["j32"].value_and_grad(gappy12["p"])
     port = LikelihoodEngine(gappy12["tree"], gappy12["ca"], tmodels.GTR,
                             dtype=torch.float32, pruner=pruner,
-                            **gappy12["kw"])
+                            **gappy12["kw"], device="cpu")
     before = cuda_pruning.LAUNCHES
     lt, gt = port.value_and_grad(params_from_jax(gappy12["full"]))
     assert cuda_pruning.LAUNCHES == before          # CPU: no kernel launch
@@ -213,7 +213,7 @@ def test_value_and_grad_many_matches_single_calls(gappy12, pruner):
     the model gradients are the batch sums."""
     port = LikelihoodEngine(gappy12["tree"], gappy12["ca"], tmodels.GTR,
                             dtype=torch.float32, pruner=pruner,
-                            **gappy12["kw"])
+                            **gappy12["kw"], device="cpu")
     params = params_from_jax(gappy12["full"])
     bl = np.asarray(gappy12["full"]["branch_lengths"])[None] * np.array(
         [[0.5], [1.0], [2.0]])
@@ -242,7 +242,7 @@ def test_f64_value_and_grad_matches_jax_xla(gappy12):
     lj, gj = j64.value_and_grad(gappy12["p"])
     port = LikelihoodEngine(gappy12["tree"], gappy12["ca"], tmodels.GTR,
                             dtype=torch.float64, pruner="torch",
-                            **gappy12["kw"])
+                            **gappy12["kw"], device="cpu")
     full = jax.tree.map(np.asarray, j64._full_params(gappy12["p"]))
     lt, gt = port.value_and_grad(params_from_jax(full))
     assert abs(float(lt) - float(lj)) < 1e-10 * abs(float(lj))
@@ -264,7 +264,7 @@ def test_other_models_gradient_matches_jax(gappy12, name, params):
     j = JaxEngine(gappy12["jtree"], gappy12["aln"], getattr(jmodels, name),
                   ncat=4, dtype="float64")
     port = LikelihoodEngine(gappy12["tree"], gappy12["ca"],
-                            tmodels.get_model(name), ncat=4)
+                            tmodels.get_model(name), ncat=4, device="cpu")
     want = _flat(jax.tree.map(np.asarray, j.gradient(p)))
     for path, g in _flat(port.gradient(p)).items():
         _assert_close_rel_max(g.numpy(), want[path], 1e-9, str(path))
@@ -290,7 +290,7 @@ def test_model_parameter_gradients_vs_fd():
     aln = {n: "".join(rng.choice(list("ACGT"), size=60))
            for n in tree.leaf_names}
     engine = LikelihoodEngine(tree, aln, tmodels.GTR, ncat=4,
-                              invariant_sites=True)
+                              invariant_sites=True, device="cpu")
     p0 = {"alpha": 0.8, "pinv": 0.1,
           "model": {"rates": [1.5, 4.0, 0.8, 1.2, 5.0, 1.0],
                     "freqs": [0.35, 0.2, 0.18, 0.27]}}
@@ -330,7 +330,7 @@ def test_kappa_gradient_vs_fd():
     rng = np.random.default_rng(2)
     aln = {n: "".join(rng.choice(list("ACGT"), size=50))
            for n in tree.leaf_names}
-    engine = LikelihoodEngine(tree, aln, tmodels.K80)
+    engine = LikelihoodEngine(tree, aln, tmodels.K80, device="cpu")
     g = engine.gradient({"model": {"kappa": 2.5}})["model"]["kappa"]
     fd = _fd_grad(lambda k: engine.loglikelihood({"model": {"kappa": k[()]}}),
                   np.asarray(2.5))

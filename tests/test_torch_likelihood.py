@@ -72,7 +72,7 @@ def problem():
 
 def _port_engine(problem, **kw):
     return LikelihoodEngine(problem["tree"], problem["ca"], tmodels.GTR,
-                            **{**KW, **kw})
+                            **{**KW, "device": "cpu", **kw})
 
 
 def test_f32_cuda_pruner_matches_jax_pallas(problem):
@@ -136,7 +136,7 @@ def test_free_rates_match_jax(problem):
     j = JaxEngine(problem["jtree"], problem["aln"], jmodels.GTR, ncat=4,
                   rate_model="free", dtype="float64")
     port = LikelihoodEngine(problem["tree"], problem["ca"], tmodels.GTR,
-                            ncat=4, rate_model="free")
+                            ncat=4, rate_model="free", device="cpu")
     assert abs(port.loglikelihood(fr) - j.loglikelihood(fr)) < 1e-10 * abs(
         j.loglikelihood(fr))
 
@@ -154,7 +154,7 @@ def test_other_dna_models_match_jax(problem, name, params):
     j = JaxEngine(problem["jtree"], problem["aln"], getattr(jmodels, name),
                   ncat=4, dtype="float64")
     port = LikelihoodEngine(problem["tree"], problem["ca"],
-                            tmodels.get_model(name), ncat=4)
+                            tmodels.get_model(name), ncat=4, device="cpu")
     want = j.loglikelihood(p)
     assert abs(port.loglikelihood(p) - want) / abs(want) < 1e-10
 
@@ -174,7 +174,7 @@ def test_mixture_rates_and_p_matches_jax(problem, name, params):
     j = JaxEngine(problem["jtree"], problem["aln"], getattr(jmodels, name),
                   ncat=4, dtype="float64")
     port = LikelihoodEngine(problem["tree"], problem["ca"],
-                            tmodels.get_model(name), ncat=4)
+                            tmodels.get_model(name), ncat=4, device="cpu")
     jr, jw, jp, jf = j_mixture_rates_and_p(j, j._full_params(p), jnp.float64)
     full = port._full_params(p)
     for eig in (None, port.model_eigen(full)):
@@ -195,9 +195,9 @@ def test_dict_alignment_and_newick_input(problem):
 
     newick = write_newick(problem["tree"])
     port = LikelihoodEngine(newick, problem["aln"], tmodels.GTR,
-                            compress=False, **KW)
+                            compress=False, **KW, device="cpu")
     ref = LikelihoodEngine(tio.parse_newick(newick), problem["ca"],
-                           tmodels.GTR, **KW)
+                           tmodels.GTR, **KW, device="cpu")
     assert port.loglikelihood(GTR_PARAMS) == pytest.approx(
         ref.loglikelihood(GTR_PARAMS), rel=1e-12)
     assert port.sitewise_loglikelihoods(GTR_PARAMS).shape == (240,)

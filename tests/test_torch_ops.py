@@ -268,7 +268,9 @@ def test_model_registry_and_spec():
                                                 "gamma")
     assert tmodels.parse_model_spec("hky85+R3")[1:] == (3, False, False,
                                                         "free")
-    for name in ("LG", "WAG", "GY94", "MG94", "MK4", "ORDERED5"):
+    assert tmodels.get_model("lg") is tmodels.LG
+    assert tmodels.get_model("WAG") is tmodels.WAG
+    for name in ("GY94", "MG94", "MK4", "ORDERED5"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tmodels.get_model(name)
     with pytest.raises(ValueError):

@@ -75,7 +75,7 @@ def test_transform_roundtrip():
 @pytest.fixture(scope="module")
 def port_fit(simulated):
     _, tree, aln = simulated
-    engine = LikelihoodEngine(tree, aln, models.HKY85, ncat=4)
+    engine = LikelihoodEngine(tree, aln, models.HKY85, ncat=4, device="cpu")
     return engine, engine.loglikelihood(), fit(engine, max_steps=150,
                                                patience=20)
 
@@ -118,9 +118,9 @@ def test_fit_f32_cuda_pruner_runs_the_fused_gradient(simulated):
     (the saveall and reverse walks' plain versions on CPU tensors) and
     lands within 1e-3 of the float64 fit's logL."""
     _, tree, aln = simulated
-    f64 = LikelihoodEngine(tree, aln, models.HKY85, ncat=4)
+    f64 = LikelihoodEngine(tree, aln, models.HKY85, ncat=4, device="cpu")
     f32 = LikelihoodEngine(tree, aln, models.HKY85, ncat=4,
-                           dtype=torch.float32, pruner="cuda")
+                           dtype=torch.float32, pruner="cuda", device="cpu")
     want = fit(f64, max_steps=60, patience=20)
     got = fit(f32, max_steps=60, patience=20)
     assert got.loglik == pytest.approx(f32.loglikelihood(got.params), abs=1e-9)
@@ -129,7 +129,8 @@ def test_fit_f32_cuda_pruner_runs_the_fused_gradient(simulated):
 
 def test_fit_respects_free_subset():
     tree = _port_tree(random_tree(5, seed=3))
-    engine = LikelihoodEngine(tree, _aln(tree, 100, seed=4), models.K80)
+    engine = LikelihoodEngine(tree, _aln(tree, 100, seed=4), models.K80,
+                              device="cpu")
     start = engine.default_params()
     res = fit(engine, start, free=("branch_lengths",), max_steps=40)
     np.testing.assert_array_equal(res.params["model"]["kappa"].numpy(),
@@ -141,7 +142,8 @@ def test_fit_respects_free_subset():
 def test_fit_dotted_free_keys():
     """'model.kappa' frees kappa while its sibling freqs stay frozen."""
     tree = _port_tree(random_tree(5, seed=11, mean_brlen=0.2))
-    engine = LikelihoodEngine(tree, _aln(tree, 60, seed=9), models.HKY85)
+    engine = LikelihoodEngine(tree, _aln(tree, 60, seed=9), models.HKY85,
+                              device="cpu")
     freqs = [0.3, 0.2, 0.2, 0.3]
     res = fit(engine, params0={"model": {"freqs": freqs}},
               free=("branch_lengths", "model.kappa"), max_steps=25)
@@ -160,7 +162,8 @@ def test_fit_chunked_steps_matches_unchunked():
     """steps_per_call only sets when stopping and checkpoints are checked:
     a deterministic optimizer takes the same steps."""
     tree = _port_tree(random_tree(5, seed=21))
-    engine = LikelihoodEngine(tree, _aln(tree, 150, seed=22), models.K80)
+    engine = LikelihoodEngine(tree, _aln(tree, 150, seed=22), models.K80,
+                              device="cpu")
     adam = functools.partial(torch.optim.Adam, lr=0.02)
     r1 = fit(engine, optimizer=adam, max_steps=40, patience=1000)
     r8 = fit(engine, optimizer=adam, max_steps=40, patience=1000,
@@ -173,7 +176,8 @@ def test_fit_returned_loglik_matches_returned_params():
     """FitResult.loglik is the logL OF FitResult.params even when the last
     optimizer step overshoots."""
     tree = _port_tree(random_tree(5, seed=31))
-    engine = LikelihoodEngine(tree, _aln(tree, 120, seed=32), models.K80)
+    engine = LikelihoodEngine(tree, _aln(tree, 120, seed=32), models.K80,
+                              device="cpu")
     sgd = functools.partial(torch.optim.SGD, lr=5.0)
     for chunk in (1, 4):
         res = fit(engine, optimizer=sgd, max_steps=8, patience=100,
@@ -189,7 +193,8 @@ def test_fit_checkpoint_resume_bitexact(tmp_path, optimizer):
     same step-20 state (raw parameters and optimizer state) as an
     uninterrupted run, bit for bit."""
     tree = _port_tree(random_tree(6, seed=4))
-    engine = LikelihoodEngine(tree, _aln(tree, 40, seed=5), models.HKY85)
+    engine = LikelihoodEngine(tree, _aln(tree, 40, seed=5), models.HKY85,
+                              device="cpu")
     opt = (functools.partial(torch.optim.Adam, lr=1e-2)
            if optimizer == "adam" else None)
     pa, pb = str(tmp_path / "a.pt"), str(tmp_path / "b.pt")

@@ -32,7 +32,7 @@ def server():
            for n in tree.leaf_names}
     engine = LikelihoodEngine(tree, aln, models.GTR, ncat=4,
                               invariant_sites=True, dtype=torch.float32,
-                              pruner="cuda")
+                              pruner="cuda", device="cpu")
     srv = EngineServer(engine, port=0)  # ephemeral port
     srv.start()
     yield srv, engine
