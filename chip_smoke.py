@@ -49,12 +49,27 @@ all at once) and runs, in order, printing one line per phase:
     plain, kernel, kernel, plain) and its bound, the three forward walks
     (classic, slot, stream) in turns at the flagship from B = 1 to 64, at
     config 4 and at both big shapes, the engine's evaluation and
-    ``value_and_grad`` times with each pruner, and fit steps per second.
+    ``value_and_grad`` times with each pruner, and fit steps per second;
+17. the classic reverse kernel (B7) against its plain version and against
+    the deferred reverse (B3) on the same residuals and seed, at phase 3's
+    shapes, with dleaf on and off and with two seeds; dP bit-identical
+    across two launches; B3 and B7 timed in turns at each shape;
+18. flagship ``value_and_grad`` and ``value_and_grad_many`` under
+    ``PHYLO_DEFERRED_VJP=0`` against the f64 autograd: B7 runs, B3 not;
+19. the full-width gradient: 1000 taxa x 80,000 random LG+G4 patterns,
+    whose gy store does not fit the card, so ``value_and_grad`` takes B7
+    under "auto"; its value against the f64 path and its gradient against
+    B3 engines on 4 pattern slices, summed; kernel times and peak memory;
+20. the uncertainty path: ``standard_errors`` at phase 10's fitted config-5
+    params under B3 and under B7, ``ml_distance_matrix`` and
+    ``neighbor_joining`` on the card against the CPU, and the CLI's ``fit
+    --se`` and ``build-tree`` as subprocesses against the same calls made
+    in this process.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
-it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14 and 15; the
-kernel-against-plain phases are not counted. The last two lines are a JSON
+it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18, 19 and
+20; the kernel-against-plain phases are not counted. The last two lines are a JSON
 record of the kernels, each with its time, its plain version's, and its
 bound (the larger of its bytes over 3.35 TB/s and its f32 operations over
 67 TFLOP/s, the H100 SXM data sheet's peaks), and
@@ -63,8 +78,10 @@ bound (the larger of its bytes over 3.35 TB/s and its f32 operations over
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from pathlib import Path
@@ -91,6 +108,9 @@ TAXA, SITES, BATCH, BIG_SITES, CATERPILLAR = 64, 1024, 64, 100_000, 512
 CONFIG5_TAXA, FIT_STEPS = 128, 15
 CONFIG4_TAXA = 32
 BIG_DNA_TAXA, BIG_PROTEIN_TAXA, BIG_PATTERNS, BIG_BATCH = 1000, 512, 8192, 16
+# the full-width gradient (phase 19) and its reference slices
+WIDE_TAXA, WIDE_PATTERNS, WIDE_SLICES = 1000, 80_000, 4
+CLI_FIT_STEPS = 3
 BIG_DNA_PARAMS = {"model": FLAGSHIP_PARAMS["model"], "alpha": 0.5}
 PROTEIN_PARAMS = {"alpha": 0.7}
 AMINO = "ARNDCQEGHILKMFPSTWYV"
@@ -108,8 +128,14 @@ def _check(ok, msg):
         raise RuntimeError(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def _emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - _T0, 2)}),
+          flush=True)
 
 
 def _caterpillar(n, brlen):
@@ -187,7 +213,8 @@ def _ptxas_table(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"\d(pruning_\w+?)I((?:L[ib]\d+E)+)E", m.group(1))
+            k = re.search(r"\d((?:pruning|classic)_\w+?)I((?:L[ib]\d+E)+)E",
+                          m.group(1))
             name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
                     if k else m.group(1))
         elif "spill stores" in ln:
@@ -196,6 +223,30 @@ def _ptxas_table(log):
             out[name] = f"{ln.split(':', 1)[1].strip()}; {spill}"
             name = None
     return out
+
+
+class _DeferredVjp:
+    """``with _DeferredVjp("0"):`` runs its body with PHYLO_DEFERRED_VJP set
+    (the gradient's reverse: "0" classic, "1" deferred), then restores it."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.prev = os.environ.get("PHYLO_DEFERRED_VJP")
+        os.environ["PHYLO_DEFERRED_VJP"] = self.value
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            del os.environ["PHYLO_DEFERRED_VJP"]
+        else:
+            os.environ["PHYLO_DEFERRED_VJP"] = self.prev
+
+
+def _write_fasta(aln, path):
+    with open(path, "w") as fh:
+        for name, seq in aln.items():
+            fh.write(f">{name}\n{seq}\n")
 
 
 def _random_alignment(names, n_sites, chars, seed):
@@ -215,7 +266,8 @@ def _bound(kind, walk, p, leaves):
     per child edge an S x S contraction (2 S^2) and the product (S), per
     node the rescale (2 S); the reverse walk adds P^T per internal node,
     a sibling contraction and the gy product per edge, and dP (2 S^2) per
-    edge."""
+    edge; the classic reverse recomputes y, and forms P^T gy and dP, per
+    edge (6 S^2)."""
     s = leaves.shape[-1]
     cols = (p.shape[0] if p.dim() == 5 else 1) * p.shape[-3] * leaves.shape[1]
     n_int, edges = len(walk.order), int(walk.counts.sum())
@@ -227,6 +279,9 @@ def _bound(kind, walk, p, leaves):
     elif kind == "reverse":
         nbytes += 4 * (cols * n_inner * (s + 1) + cols + s + p.numel())
         flops = cols * ((n_int - 1) * 2 * s * s + edges * (4 * s * s + 3 * s))
+    elif kind == "classic":     # one seed, no dleaf: residuals and the seed
+        nbytes += 4 * (cols * n_inner * (s + 1) + cols * s + p.numel())
+        flops = cols * edges * (6 * s * s + 3 * s)
     else:   # forward, slot, stream: the root and its exponent count
         nbytes += 4 * cols * (s + 1)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
@@ -255,6 +310,9 @@ def main():
     from phylo_utils_tpu_torch.convert import flatten_params
     from phylo_utils_tpu_torch.ops.cuda_pruning import (
         WalkSchedule,
+        classic_reverse_scratch,
+        classic_reverse_walk,
+        classic_reverse_walk_reference,
         forward_walk,
         forward_walk_reference,
         reverse_walk,
@@ -269,14 +327,29 @@ def main():
         transition_matrices,
     )
     from phylo_utils_tpu_torch.ops.pruning import LN2
-    from phylo_utils_tpu_torch.optimize import fit
+    from phylo_utils_tpu_torch.io import (
+        CompressedAlignment,
+        read_alignment,
+        write_newick,
+    )
+    from phylo_utils_tpu_torch.nj import neighbor_joining
+    from phylo_utils_tpu_torch.optimize import (
+        fit,
+        ml_distance_matrix,
+        standard_errors,
+    )
     from phylo_utils_tpu_torch.server import EngineServer
-    from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
+    from phylo_utils_tpu_torch.trees import (
+        compile_schedule,
+        random_tree,
+        robinson_foulds,
+    )
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
     counters = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
-                "SAVEALL_LAUNCHES", "REVERSE_LAUNCHES")
+                "SAVEALL_LAUNCHES", "REVERSE_LAUNCHES",
+                "CLASSIC_REVERSE_LAUNCHES")
 
     def reset_counts():
         for name in counters:
@@ -840,7 +913,7 @@ def main():
     walk_shapes["protein_big"] = case_inputs[protein_key]
     walk_times = {}
     for label, (walk, p, leaves, _) in walk_shapes.items():
-        reps = 100 if label == "flagship_B1" else 20
+        reps = 50 if label == "flagship_B1" else 10
         fns = {how: functools.partial(forward_walk, p, leaves, walk,
                                       walk=how)
                for how in ("classic", "slot", "stream")}
@@ -868,27 +941,375 @@ def main():
                                  dtype=torch.float32, pruner="torch", **kw)
     for label, e in (("cuda", eng), ("torch", eng_torch)):
         timings[f"engine_loglik_{label}_ms"] = cuda_ms(
-            lambda: e.loglikelihood(FLAGSHIP_PARAMS), 20)
+            lambda: e.loglikelihood(FLAGSHIP_PARAMS), 10)
         timings[f"engine_many_B64_{label}_ms"] = cuda_ms(
-            lambda: e.loglikelihood_many(bl, FLAGSHIP_PARAMS), 5)
+            lambda: e.loglikelihood_many(bl, FLAGSHIP_PARAMS), 3)
         timings[f"engine_value_and_grad_{label}_ms"] = cuda_ms(
-            lambda: e.value_and_grad(FLAGSHIP_PARAMS), 10)
+            lambda: e.value_and_grad(FLAGSHIP_PARAMS), 5)
         timings[f"engine_value_and_grad_many_B64_{label}_ms"] = cuda_ms(
-            lambda: e.value_and_grad_many(bl, FLAGSHIP_PARAMS), 5)
+            lambda: e.value_and_grad_many(bl, FLAGSHIP_PARAMS), 3)
     adam = functools.partial(torch.optim.Adam, lr=1e-2)
     fit(fit_eng, optimizer=adam, max_steps=2, patience=10 ** 6)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fit(fit_eng, optimizer=adam, max_steps=50, patience=10 ** 6)
+    fit(fit_eng, optimizer=adam, max_steps=20, patience=10 ** 6)
     torch.cuda.synchronize()
     timings["config5_fit_lbfgs_steps_per_s"] = res.n_steps / fit_s
-    timings["config5_fit_adam_steps_per_s"] = 50 / (time.perf_counter() - t0)
+    timings["config5_fit_adam_steps_per_s"] = 20 / (time.perf_counter() - t0)
     _emit(16, shapes=f"{TAXA} taxa, K=4, {SITES} sites, S=4; protein "
           f"{BIG_PROTEIN_TAXA} taxa, {BIG_PATTERNS} patterns, S=20",
           timings=timings, walks=walk_times)
 
+    # 17. classic reverse kernel (B7) vs its plain version and B3 ----------
+    b7_err, b7_max, b7_times = {}, 0.0, {}
+    b7_keys = [f"flagship_B{b}_S{s_}" for b in (1, BATCH)
+               for s_ in (SITES, SITES - 24)]
+    b7_keys += [f"caterpillar{CATERPILLAR}_B1_S{SITES}",
+                f"config4_B1_S{SITES}", protein_key]
+    for key in b7_keys:
+        walk, p, leaves, f = case_inputs[key]
+        rx, re = saveall_walk(p, leaves, walk)
+        row = walk.root - walk.n_leaves
+        dot = torch.einsum("...ksi,i->...ks", rx[..., row, :, :].double(), f)
+        weights = torch.as_tensor(
+            rng.integers(0, 4, dot.shape[-1]), dtype=torch.float64,
+            device=dev)
+        lam = (weights / dot).float().contiguous()
+        f32 = f.float()
+        gseed = (lam[..., None] * f32).unsqueeze(-3).contiguous()
+        root = [walk.root]
+        dp, dl = classic_reverse_walk(p, leaves, rx, re, gseed, root, walk,
+                                      want_dleaf=True)
+        dp2, none = classic_reverse_walk(p, leaves, rx, re, gseed, root, walk)
+        torch.cuda.synchronize()
+        _check(torch.equal(dp, dp2) and none is None,
+               f"{key}: B7's dP differs between two launches (dleaf on, off)")
+        _check(float(dp.select(-4, walk.root).abs().max()) == 0.0,
+               f"{key}: B7 wrote the root's dP row")
+        wp, wl = classic_reverse_walk_reference(p, leaves, rx, re, gseed,
+                                                root, walk, want_dleaf=True)
+        d3, l3 = reverse_walk(p, leaves, rx, re, lam, f32, walk,
+                              want_dleaf=True)
+        seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
+        g2 = torch.as_tensor(rng.uniform(
+            0.5, 1.5, gseed.shape[:-3] + (2,) + gseed.shape[-2:]),
+            dtype=torch.float32, device=dev)
+        d2, l2 = classic_reverse_walk(p, leaves, rx, re, g2, seeds, walk,
+                                      want_dleaf=True)
+        w2, wl2 = classic_reverse_walk_reference(p, leaves, rx, re, g2, seeds,
+                                                 walk, want_dleaf=True)
+        errs = {"dP_rel_max": _max_rel(dp, wp), "dleaf_rel_max": _max_rel(dl, wl),
+                "two_seed_dP_rel_max": _max_rel(d2, w2),
+                "two_seed_dleaf_rel_max": _max_rel(l2, wl2),
+                "vs_B3_dP_rel_max": _max_rel(dp, d3),
+                "vs_B3_dleaf_rel_max": _max_rel(dl, l3)}
+        _check(bool(torch.isfinite(dp).all()) and bool(torch.isfinite(d2).all())
+               and max(errs.values()) <= REVERSE_TOL,
+               f"{key}: B7 vs plain / B3 (x max|g|) {errs} > {REVERSE_TOL}")
+        abs_err = float((dp.double() - wp.double()).abs().max())
+        b7_err[key] = {"dP_abs": abs_err, "dleaf_equals_B3": bool(
+            torch.equal(dl, l3)), **errs}
+        b7_max = max(b7_max, abs_err)
+        # B3 and B7 in turns on the engine's path (one root seed, no dleaf)
+        reps = 50 if key.startswith("flagship_B1_") else (
+            3 if key == protein_key else 10)
+        b3_fn = functools.partial(reverse_walk, p, leaves, rx, re, lam, f32,
+                                  walk)
+        b7_fn = functools.partial(classic_reverse_walk, p, leaves, rx, re,
+                                  gseed, root, walk)
+        t = [cuda_ms(b3_fn, reps), cuda_ms(b7_fn, reps), cuda_ms(b7_fn, reps),
+             cuda_ms(b3_fn, reps)]
+        b, k = (p.shape[0] if p.dim() == 5 else 1), p.shape[-3]
+        sites, s = leaves.shape[1:]
+        rows, slot_bytes, row_bytes = classic_reverse_scratch(
+            b, k, walk.n_nodes, walk.reverse.n_gslots, sites, s)
+        b7_times[key] = {
+            "b3_ms": (t[0] + t[3]) / 2, "b7_ms": (t[1] + t[2]) / 2,
+            "runs": t, "b3_gy_bytes": 4 * b * k * walk.n_nodes * sites * s,
+            "b7_scratch_bytes": slot_bytes + rows * row_bytes,
+            "b7_gslots": walk.reverse.n_gslots, "b7_dp_rows": rows}
+        if key == f"flagship_B{BATCH}_S{SITES}":
+            timings[f"classic_B{BATCH}"] = in_turns(
+                b7_fn, functools.partial(classic_reverse_walk_reference, p,
+                                         leaves, rx, re, gseed, root, walk),
+                50, 3)
+            timings[f"classic_B{BATCH}"].update(zip(
+                ("bound_ms", "bound_by"), _bound("classic", walk, p, leaves)))
+        del rx, re, dp, dl, dp2, wp, wl, d3, l3, d2, l2, w2, wl2
+    torch.cuda.empty_cache()
+    _emit(17, errors=b7_err, times=b7_times, deterministic=True,
+          classic_B64=timings[f"classic_B{BATCH}"])
+
+    # 18. flagship value_and_grad through B7, main path ----------------------
+    with _DeferredVjp("0"):
+        reset_counts()
+        v7, g7 = eng.value_and_grad(FLAGSHIP_PARAMS)
+        vm7, gm7 = eng.value_and_grad_many(bl, FLAGSHIP_PARAMS)
+        classic_counts = read_counts()
+    _check(classic_counts["CLASSIC_REVERSE_LAUNCHES"] > 0
+           and classic_counts["REVERSE_LAUNCHES"] == 0
+           and classic_counts["SAVEALL_LAUNCHES"] > 0,
+           f"PHYLO_DEFERRED_VJP=0 did not take B7 alone: {classic_counts}")
+    rel_v7 = abs(float(v7) - float(v_ref)) / abs(float(v_ref))
+    g7_err = _grad_errors(g7, g_ref)
+    rel_vm7 = float(((vm7 - vm_ref).abs() / vm_ref.abs()).max())
+    gm7_err = _grad_errors(gm7, gm_ref)
+    _check(max(rel_v7, rel_vm7) <= LOGL_RTOL
+           and max(g7_err.values()) <= GRAD_TOL
+           and max(gm7_err.values()) <= GRAD_TOL,
+           f"value_and_grad through B7: value rel {rel_v7:.3e} / "
+           f"{rel_vm7:.3e}, grads {g7_err} {gm7_err}")
+    _emit(18, value_rel_err=rel_v7, grad_rel_err=g7_err,
+          many_B64_value_rel_err=rel_vm7, many_B64_grad_rel_err=gm7_err,
+          launches=classic_counts)
+
+    # 19. full width: 1000 taxa x 80,000 LG+G4 patterns, main path ---------
+    wide_tree = random_tree(WIDE_TAXA, seed=10)
+    walk_w = WalkSchedule(compile_schedule(wide_tree))
+    n_inner_w = walk_w.n_nodes - walk_w.n_leaves
+    rows_w, slots_w, row_w = classic_reverse_scratch(
+        1, 4, walk_w.n_nodes, walk_w.reverse.n_gslots, WIDE_PATTERNS, 20)
+    reckoned = {
+        "residual_bytes": 4 * 4 * n_inner_w * WIDE_PATTERNS * 21,
+        "gy_bytes": 4 * 4 * walk_w.n_nodes * WIDE_PATTERNS * 20,
+        "leaf_bytes": 4 * WIDE_TAXA * WIDE_PATTERNS * 20,
+        "b7_scratch_bytes": slots_w + rows_w * row_w,
+    }
+    _emit(19, stage="reckoned", taxa=WIDE_TAXA, patterns=WIDE_PATTERNS,
+          **reckoned)
+    t_start = time.perf_counter()
+    codes = np.random.default_rng(19).integers(
+        0, 20, (WIDE_TAXA, WIDE_PATTERNS), dtype=np.uint8)
+    ca_w = CompressedAlignment(
+        tuple(wide_tree.leaf_names), np.eye(20, dtype=np.float32)[codes],
+        np.ones(WIDE_PATTERNS), np.arange(WIDE_PATTERNS, dtype=np.int32))
+    del codes
+    kw_w = dict(tree=wide_tree, model=models.LG, ncat=4, device=DEVICE)
+    wide = LikelihoodEngine(alignment=ca_w, dtype=torch.float32,
+                            pruner="cuda", **kw_w)
+    torch.cuda.synchronize()
+    stage_s = {"data_and_engine": time.perf_counter() - t_start}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    vw, gw = wide.value_and_grad(PROTEIN_PARAMS)
+    wide_counts = read_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    _check(wide_counts["CLASSIC_REVERSE_LAUNCHES"] > 0
+           and wide_counts["REVERSE_LAUNCHES"] == 0,
+           f"the full-width gradient did not take B7 under auto: "
+           f"{wide_counts}")
+    wide_vg_ms = cuda_ms(lambda: wide.value_and_grad(PROTEIN_PARAMS), 1)
+    t_w = torch.as_tensor(np.asarray(wide_tree.lengths), dtype=torch.float64,
+                          device=dev)
+    rates_w = discrete_gamma(torch.tensor(PROTEIN_PARAMS["alpha"],
+                                          dtype=torch.float64), 4).to(dev)
+    p_w = extend_p_identity(transition_matrices(
+        lg_eig, t_w[:, None] * rates_w, out_dtype=torch.float32),
+        walk_w.n_nodes).contiguous()
+    leaves_w = wide._leaf_partials
+    wide_saveall_ms = cuda_ms(lambda: saveall_walk(p_w, leaves_w, walk_w), 1)
+    rx, re = saveall_walk(p_w, leaves_w, walk_w)
+    gy_budget = cuda_pruning._device_budget(reckoned["gy_bytes"], dev)
+    choice = cuda_pruning.choose_reverse(1, 4, walk_w.n_nodes, WIDE_PATTERNS,
+                                         20, dev)
+    _check(reckoned["gy_bytes"] > gy_budget and choice == "classic",
+           f"B3's gy store ({reckoned['gy_bytes']} bytes) fits the "
+           f"{gy_budget} free: raise WIDE_PATTERNS")
+    row = walk_w.root - walk_w.n_leaves
+    lam_w = (1.0 / torch.einsum("ksi,i->ks", rx[:, row].double(),
+                                lg_eig.freqs)).float()
+    gseed_w = (lam_w[..., None] * lg_eig.freqs.float()).unsqueeze(
+        -3).contiguous()
+    wide_classic_ms = cuda_ms(functools.partial(
+        classic_reverse_walk, p_w, leaves_w, rx, re, gseed_w, [walk_w.root],
+        walk_w), 1)
+    del rx, re, wide, leaves_w, p_w
+    torch.cuda.empty_cache()
+    stage_s["timings"] = time.perf_counter() - t_start - sum(stage_s.values())
+    with _DeferredVjp("1"):
+        reset_counts()
+        vw_ref, gw_ref = _chunked_value_and_grad(
+            dict(kw_w, dtype=torch.float32, pruner="cuda"), ca_w,
+            PROTEIN_PARAMS, WIDE_SLICES)
+        slice_counts = read_counts()
+    _check(slice_counts["REVERSE_LAUNCHES"] > 0
+           and slice_counts["CLASSIC_REVERSE_LAUNCHES"] == 0,
+           f"the B3 slices did not take B3: {slice_counts}")
+    stage_s["b3_slices"] = time.perf_counter() - t_start - sum(
+        stage_s.values())
+    vw_f64 = 0.0
+    for sl in np.array_split(np.arange(WIDE_PATTERNS), WIDE_SLICES):
+        part = CompressedAlignment(ca_w.names, ca_w.partials[:, sl],
+                                   ca_w.weights[sl],
+                                   np.arange(len(sl), dtype=np.int32))
+        vw_f64 += LikelihoodEngine(alignment=part, dtype=torch.float64,
+                                   pruner="torch", **kw_w).loglikelihood(
+            PROTEIN_PARAMS)
+    del ca_w, part
+    torch.cuda.empty_cache()
+    stage_s["f64_slices"] = time.perf_counter() - t_start - sum(
+        stage_s.values())
+    rel_vw = abs(float(vw) - vw_f64) / abs(vw_f64)
+    gw_err = _grad_errors(gw, gw_ref)
+    _check(math.isfinite(float(vw)) and rel_vw <= LOGL_RTOL
+           and max(gw_err.values()) <= GRAD_TOL,
+           f"full-width gradient: value rel {rel_vw:.3e} vs f64, grads vs "
+           f"B3 slices {gw_err}")
+    _emit(19, stage="measured", loglik=float(vw), loglik_f64=vw_f64,
+          value_rel_err=rel_vw, grad_rel_err_vs_b3_slices=gw_err,
+          b3_slices_value_rel=abs(vw_ref - float(vw)) / abs(vw_f64),
+          launches=wide_counts, gy_budget_bytes=gy_budget,
+          peak_allocated_bytes=peak_bytes, value_and_grad_ms=wide_vg_ms,
+          saveall_ms=wide_saveall_ms, classic_reverse_ms=wide_classic_ms,
+          b7_gslots=walk_w.reverse.n_gslots, stage_s=stage_s)
+
+    # 20. uncertainty path at config 5's shape, main path -------------------
+    se_free = ("model", "alpha")
+    reset_counts()
+    t0 = time.perf_counter()
+    se_b3 = standard_errors(fit_eng, res.params, free=se_free)
+    se_b3_s = time.perf_counter() - t0
+    se_b3_counts = read_counts()
+    with _DeferredVjp("0"):
+        t0 = time.perf_counter()
+        se_b7 = standard_errors(fit_eng, res.params, free=se_free)
+        se_b7_s = time.perf_counter() - t0
+    unc_counts = read_counts()
+    _check(se_b3_counts["REVERSE_LAUNCHES"] > 0
+           and se_b3_counts["CLASSIC_REVERSE_LAUNCHES"] == 0
+           and unc_counts["CLASSIC_REVERSE_LAUNCHES"] > 0
+           and unc_counts["REVERSE_LAUNCHES"]
+           == se_b3_counts["REVERSE_LAUNCHES"],
+           f"standard errors did not take B3, then B7: {se_b3_counts} "
+           f"{unc_counts}")
+    se_paths, se3 = flatten_params(se_b3)
+    se7 = dict(zip(*flatten_params(se_b7)))
+    se_rel = {}
+    for path, a in zip(se_paths, se3):
+        b = se7[path]
+        name = ".".join(path)
+        if name == "model.rates":
+            # Q is normalised, so the six rates are identifiable only up to
+            # scale: that direction's curvature is the differences' noise,
+            # and so are these entries (reported, not compared)
+            continue
+        _check(np.all(np.isfinite(a)) and np.all(a > 0)
+               and np.all(np.isfinite(b)) and np.all(b > 0),
+               f"standard error {name} not finite and positive: {a} {b}")
+        se_rel[name] = float(np.max(np.abs(a - b) / np.abs(a)))
+    _check(max(se_rel.values()) <= 1e-3,
+           f"standard errors under B3 and B7 differ: {se_rel}")
+    sim_p = transition_matrices(
+        models.GTR.eigen(FLAGSHIP_PARAMS["model"]),
+        torch.as_tensor(np.asarray(flagship_tree.lengths))[:, None]
+        * discrete_gamma(torch.tensor(FLAGSHIP_PARAMS["alpha"],
+                                      dtype=torch.float64), 4)).numpy()
+    aln_sim = _simulate(flagship_tree, sim_p, SITES,
+                        np.asarray(FLAGSHIP_PARAMS["model"]["freqs"]),
+                        np.random.default_rng(20))
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_",
+                                     dir=build) as tmp:
+        tree_path, aln5_path, sim_path = (os.path.join(tmp, n) for n in (
+            "config5.nwk", "config5.fa", "flagship_sim.fa"))
+        with open(tree_path, "w") as fh:
+            fh.write(write_newick(tree5) + "\n")
+        _write_fasta(aln5, aln5_path)
+        _write_fasta(aln_sim, sim_path)
+        cli = [sys.executable, "-m", "phylo_utils_tpu_torch.cli"]
+        fit_cmd = cli + ["fit", "--tree", tree_path, "--alignment",
+                         aln5_path, "--model", "GTR+G4", "--dtype",
+                         "float32", "--pruner", "cuda", "--free",
+                         ",".join(se_free), "--max-steps",
+                         str(CLI_FIT_STEPS), "--se"]
+        nj_cmd = cli + ["build-tree", "--alignment", sim_path, "--model",
+                        "GTR", "--params",
+                        json.dumps(FLAGSHIP_PARAMS["model"])]
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        # the two CLI processes start (seconds of imports and CUDA set-up)
+        # while this one computes the distances and the in-process twins
+        t_cli = time.perf_counter()
+        procs = [subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE)
+                 for cmd in (fit_cmd, nj_cmd)]
+        try:
+            t0 = time.perf_counter()
+            d_gpu = ml_distance_matrix(aln_sim, models.GTR,
+                                       params=FLAGSHIP_PARAMS["model"],
+                                       device=DEVICE)
+            dist_gpu_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            d_cpu = ml_distance_matrix(aln_sim, models.GTR,
+                                       params=FLAGSHIP_PARAMS["model"],
+                                       device="cpu")
+            dist_cpu_s = time.perf_counter() - t0
+            dist_rel = float(np.max(np.abs(d_gpu - d_cpu))
+                             / np.max(np.abs(d_cpu)))
+            nj_gpu = neighbor_joining(d_gpu, list(aln_sim))
+            nj_cpu = neighbor_joining(d_cpu, list(aln_sim))
+            nj_rel = float(np.max(np.abs(np.asarray(nj_gpu.lengths)
+                                         - np.asarray(nj_cpu.lengths))))
+            _check(dist_rel <= 1e-10 and robinson_foulds(nj_gpu, nj_cpu) == 0.0
+                   and nj_rel <= 1e-10,
+                   f"distances on the card vs the CPU: rel {dist_rel:.3e}, "
+                   f"NJ RF {robinson_foulds(nj_gpu, nj_cpu)}, lengths "
+                   f"{nj_rel:.3e}")
+            eng_cli = LikelihoodEngine(
+                parse_newick(open(tree_path).read()),
+                read_alignment(aln5_path), models.GTR, ncat=4,
+                dtype=torch.float32, pruner="cuda", device=DEVICE)
+            fit_cli = fit(eng_cli, None, free=se_free,
+                          max_steps=CLI_FIT_STEPS, steps_per_call=10)
+            se_cli = standard_errors(eng_cli, fit_cli.params, free=se_free)
+            nj_text = write_newick(neighbor_joining(
+                ml_distance_matrix(read_alignment(sim_path), models.GTR,
+                                   params=FLAGSHIP_PARAMS["model"],
+                                   device=DEVICE), list(aln_sim)))
+            outs = []
+            for proc in procs:
+                out, err = proc.communicate(timeout=600)
+                _check(proc.returncode == 0,
+                       f"{' '.join(proc.args[2:4])} exited "
+                       f"{proc.returncode}: {err[-2000:]}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+            cli_s = time.perf_counter() - t_cli
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    cli_fit, cli_nj = outs
+    cli_err = {"loglik": abs(cli_fit["loglik"] - fit_cli.loglik)
+               / abs(fit_cli.loglik)}
+    for label, got, want in (("params", cli_fit["params"], fit_cli.params),
+                             ("se", cli_fit["standard_errors"], se_cli)):
+        got_leaves = dict(zip(*flatten_params(got)))
+        for path, w in zip(*flatten_params(want)):
+            w = np.asarray(w.cpu() if torch.is_tensor(w) else w, np.float64)
+            g = np.asarray(got_leaves[path], np.float64)
+            _check(np.array_equal(np.isnan(g), np.isnan(w)),
+                   f"CLI {label} {path}: nan pattern {g} vs {w}")
+            ok = ~np.isnan(w)
+            cli_err[f"{label}.{'.'.join(path)}"] = float(
+                np.max(np.abs(g[ok] - w[ok]), initial=0.0)
+                / max(np.max(np.abs(w[ok]), initial=0.0), 1e-300))
+    _check(cli_fit["n_steps"] == fit_cli.n_steps
+           and max(cli_err.values()) <= 1e-9 and cli_nj["tree"] == nj_text,
+           f"the CLI's JSON differs from the in-process calls: {cli_err}, "
+           f"tree equal {cli_nj['tree'] == nj_text}")
+    _emit(20, se_free=list(se_free), se_b3_vs_b7_rel=se_rel,
+          se_rates_b3=se_b3["model"]["rates"].tolist(),
+          se_rates_b7=se_b7["model"]["rates"].tolist(),
+          se_b3_s=se_b3_s, se_b7_s=se_b7_s, launches=unc_counts,
+          distances_rel_gpu_vs_cpu=dist_rel, distances_gpu_s=dist_gpu_s,
+          distances_cpu_s=dist_cpu_s, nj_lengths_max_abs_diff=nj_rel,
+          nj_rf_vs_true=robinson_foulds(flagship_tree, nj_gpu),
+          cli_fit_vs_in_process=cli_err, cli_wall_s=cli_s)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
-                   prot_counts)
+                   prot_counts, classic_counts, wide_counts, unc_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -919,6 +1340,9 @@ def main():
         kernel("pruning_stream_f32", "pruning_slot.cu", 704,
                "STREAM_LAUNCHES", max(slot_err["stream"].values()),
                timings["stream"], "stream", case_inputs[protein_key]),
+        kernel("pruning_classic_reverse_f32", "pruning_classic_reverse.cu",
+               879, "CLASSIC_REVERSE_LAUNCHES", b7_max,
+               timings[f"classic_B{BATCH}"], "classic", flagship),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

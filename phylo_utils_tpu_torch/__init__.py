@@ -1,10 +1,35 @@
 """phylo_utils_tpu_torch: the PyTorch/CUDA port of ``phylo_utils_tpu``.
 
-Felsenstein-pruning log-likelihoods on an NVIDIA GPU (or the CPU), held
-against the JAX package on the same inputs. Import the modules you need
-(``likelihood``, ``server``, ``models``, ``io``, ``trees``, ``ops``);
-importing the package loads no kernel: ``ops/_build.py`` compiles
+Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
+distances and NJ trees on an NVIDIA GPU (or the CPU), held against the JAX
+package on the same inputs. The ported public names of the JAX package are
+exported here; the CLI is ``python -m phylo_utils_tpu_torch.cli``.
+Importing the package loads no kernel: ``ops/_build.py`` compiles
 ``csrc/*.cu`` with ``nvcc`` at the first CUDA launch.
 """
 
 __version__ = "0.1.0"
+
+from phylo_utils_tpu_torch.likelihood import LikelihoodEngine  # noqa: F401
+from phylo_utils_tpu_torch.nj import neighbor_joining  # noqa: F401
+from phylo_utils_tpu_torch.optimize import (  # noqa: F401
+    brent_minimize,
+    fisher_covariance,
+    fit,
+    fit_multistart,
+    golden_section,
+    ml_distance_matrix,
+    newton_branch_length,
+    standard_errors,
+)
+from phylo_utils_tpu_torch.server import EngineServer  # noqa: F401
+from phylo_utils_tpu_torch.trees import (  # noqa: F401
+    Tree,
+    compile_schedule,
+    midpoint_root,
+    nni_neighbors,
+    random_tree,
+    reroot,
+    robinson_foulds,
+    spr_neighbors,
+)

@@ -1,0 +1,412 @@
+"""Command-line entry points of the PyTorch port (``phylo_utils_tpu.cli``'s
+flags and JSON output).
+
+Run as ``python -m phylo_utils_tpu_torch.cli <subcommand> ...`` (or
+``python -m phylo_utils_tpu_torch``). Ported subcommands: ``loglik``,
+``fit``, ``distances``, ``build-tree``, ``bootstrap`` and ``serve``. Engines
+run on the card (``--device cuda``, the default) unless ``--device cpu`` is
+given; ``--pruner`` is ``torch`` (plain PyTorch, the default, as the JAX
+CLI's ``xla``) or ``cuda`` (the hand-written kernels). ``--params`` JSON is
+read through ``convert.params_from_jax``, so both packages read one file
+alike. Every other subcommand, and the flags whose engines are not ported
+yet, exit non-zero naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+MODEL_NAMES = (
+    "JC69", "K80", "F81", "F84", "HKY85", "TN93", "GTR", "UNREST", "LG",
+    "WAG", "GY94", "MG94"
+)
+
+# the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
+NOT_PORTED = {
+    "simulate": "A18", "benchmark": "A2", "lmap": "A18", "consense": "A19",
+    "topologies": "A17", "search": "A17", "ancestral": "A18",
+    "compare": "A18", "partitionfinder": "A16", "site-test": "A15",
+    "branch-site-test": "A18", "clock-test": "A18", "date": "A18",
+    "supports": "A18",
+}
+
+# engine flags whose engines are not ported yet: (attribute, flag, item)
+_UNPORTED_FLAGS = (
+    ("partitions", "--partitions", "A16"),
+    ("asc", "--asc", "A14"),
+    ("asc_counts", "--asc-counts", "A14"),
+    ("recode", "--recode", "A15"),
+    ("profile_mixture", "--profile-mixture", "A15"),
+    ("shard_sites", "--shard-sites", "A12"),
+)
+
+
+def _not_ported(what: str, item: str):
+    raise SystemExit(f"{what} is not ported to phylo_utils_tpu_torch yet "
+                     f"(ROADMAP {item})")
+
+
+def _get_model(name: str):
+    from phylo_utils_tpu_torch import models
+
+    if name.lower().endswith(".dat") or os.sep in name:
+        try:
+            return models.empirical_model_from_dat(name)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"cannot load PAML .dat model {name!r}: {e}")
+    try:
+        return models.get_model(name)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    except ValueError:
+        raise SystemExit(
+            f"unknown model {name!r}; choose from {', '.join(MODEL_NAMES)}, "
+            "MK<k>/ORDERED<k> (morphological), or a PAML .dat file path"
+        )
+
+
+def _parse_model_spec(spec: str):
+    """'GTR+G4+I+F' -> (model, ncat, inv, emp, rate_model)."""
+    from phylo_utils_tpu_torch.models import parse_model_spec
+
+    try:
+        return parse_model_spec(spec, get_model=_get_model)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _read_tree(arg: str):
+    from phylo_utils_tpu_torch.io import parse_newick
+
+    try:
+        with open(arg) as f:
+            text = f.read()
+    except OSError:
+        text = arg
+    return parse_newick(text)
+
+
+def _read_aln(path: str) -> Dict[str, str]:
+    from phylo_utils_tpu_torch.io import read_alignment
+
+    return read_alignment(path)
+
+
+def _json_params(arg: Optional[str]) -> Optional[Dict]:
+    from phylo_utils_tpu_torch.convert import params_from_jax
+
+    return params_from_jax(json.loads(arg)) if arg else None
+
+
+def _to_json(tree) -> Dict:
+    """Nested dict of tensors/arrays -> the same nesting of lists."""
+    from phylo_utils_tpu_torch.convert import params_to_numpy
+
+    return {k: (_to_json(v) if isinstance(v, dict) else v.tolist())
+            for k, v in params_to_numpy(tree).items()}
+
+
+def _engine_params(args, engine) -> Optional[Dict]:
+    """--params JSON, plus --empirical-freqs observed '+F' frequencies."""
+    params = _json_params(args.params) or {}
+    if getattr(args, "empirical_freqs", False):
+        if "freqs" not in engine.model.param_defaults:
+            raise SystemExit(
+                f"model {engine.model.name!r} has no 'freqs' parameter"
+            )
+        from phylo_utils_tpu_torch.alphabets import empirical_frequencies
+
+        model_p = dict(params.get("model", {}))
+        model_p.setdefault("freqs", empirical_frequencies(
+            _read_aln(args.alignment), engine.model.alphabet,
+            pseudocount=0.5).tolist())
+        params["model"] = model_p
+    return params or None
+
+
+def _add_device_arg(p: argparse.ArgumentParser):
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the engine runs (default: the card)")
+
+
+def _add_engine_args(p: argparse.ArgumentParser):
+    p.add_argument("--tree", required=True, help="newick file or literal")
+    p.add_argument("--alignment", required=True, help="FASTA/PHYLIP file")
+    p.add_argument("--model", default="GTR",
+                   help="|".join(MODEL_NAMES) + " with optional "
+                        "+G[n]/+R[n]/+I/+F suffixes (e.g. GTR+G4+I+F, "
+                        "HKY85+R4)")
+    p.add_argument("--ncat", type=int, default=1, help="gamma categories")
+    p.add_argument("--invariant-sites", dest="invariant_sites",
+                   action="store_true", help="+I mixture")
+    p.add_argument("--params", help="JSON params override")
+    p.add_argument("--empirical-freqs", dest="empirical_freqs",
+                   action="store_true",
+                   help="set model equilibrium frequencies from observed "
+                        "character counts (the '+F' convention)")
+    p.add_argument("--dtype", default=None, help="float32|float64")
+    p.add_argument("--pruner", default="torch", choices=["torch", "cuda"])
+    _add_device_arg(p)
+    p.add_argument("--shard-sites", action="store_true",
+                   help="shard patterns over all devices (not ported: A12)")
+    p.add_argument("--partitions", default=None,
+                   help="partition file (not ported: A16)")
+    p.add_argument("--asc", default=None,
+                   choices=["lewis", "felsenstein", "stamatakis"],
+                   help="ascertainment-bias correction (not ported: A14)")
+    p.add_argument("--asc-counts", default=None,
+                   help="removed constant-site counts (not ported: A14)")
+    p.add_argument("--recode", default=None,
+                   help="recode the alignment (not ported: A15)")
+    p.add_argument("--profile-mixture", default=None,
+                   metavar="FILE.nex:NAME",
+                   help="frequency-profile mixture (not ported: A15)")
+
+
+def _build_engine(args):
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+
+    for attr, flag, item in _UNPORTED_FLAGS:
+        if getattr(args, attr, None):
+            _not_ported(flag, item)
+    model, spec_ncat, spec_inv, spec_emp, rate_model = \
+        _parse_model_spec(args.model)
+    # model-string suffixes compose with (and never reduce) the flags:
+    # --model GTR+G4+I == --model GTR --ncat 4 --invariant-sites
+    args.ncat = max(args.ncat, spec_ncat)
+    args.invariant_sites = args.invariant_sites or spec_inv
+    if spec_emp:
+        args.empirical_freqs = True
+    try:
+        return LikelihoodEngine(
+            _read_tree(args.tree), _read_aln(args.alignment), model,
+            ncat=args.ncat, invariant_sites=args.invariant_sites,
+            rate_model=rate_model, dtype=args.dtype, pruner=args.pruner,
+            device=args.device,
+        )
+    except RuntimeError as e:       # no card behind --device cuda
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+
+
+def cmd_loglik(args) -> int:
+    engine = _build_engine(args)
+    params = engine._full_params(_engine_params(args, engine))
+    out = {"loglik": engine.loglikelihood(params)}
+    if args.sitewise:
+        out["sitewise"] = engine.sitewise_loglikelihoods(params).tolist()
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_fit(args) -> int:
+    import torch
+
+    from phylo_utils_tpu_torch.optimize import fit, standard_errors
+    from phylo_utils_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from phylo_utils_tpu_torch.utils.metrics import MetricsLogger
+
+    engine = _build_engine(args)
+    params0 = _engine_params(args, engine)
+    resume_from = None
+    if args.resume:
+        # full-state checkpoints (written by --checkpoint-every) hold
+        # {raw, optimizer} and resume bit-exactly inside fit(); a final
+        # params checkpoint just seeds params0
+        state, _ = load_checkpoint(args.resume, map_location=engine.device)
+        if "raw" in state:
+            resume_from = args.resume
+        else:
+            params0 = state["params"]
+    free = tuple(args.free.split(",")) if args.free else None
+    t0 = time.perf_counter()
+    n_pat = int(engine._weights.shape[0])
+    with MetricsLogger(args.metrics, echo=args.verbose) as logger:
+
+        def callback(step, ll, params):
+            logger.log(step, loglik=ll, patterns_per_s=n_pat * step
+                       / (time.perf_counter() - t0))
+
+        res = fit(
+            engine, params0, free=free, max_steps=args.max_steps,
+            steps_per_call=args.steps_per_call,
+            callback=callback if (args.metrics or args.verbose) else None,
+            checkpoint_path=args.checkpoint if args.checkpoint_every else None,
+            checkpoint_every=args.checkpoint_every,
+            resume_from=resume_from,
+        )
+    if args.checkpoint and not args.checkpoint_every:
+        save_checkpoint(args.checkpoint, {
+            "params": res.params,
+            "loglik": torch.tensor(res.loglik, dtype=torch.float64),
+        }, step=res.n_steps)
+    out = {
+        "loglik": res.loglik,
+        "n_steps": res.n_steps,
+        "converged": res.converged,
+        "params": _to_json(res.params),
+    }
+    if args.se:
+        out["standard_errors"] = _to_json(
+            standard_errors(engine, res.params, free=free))
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_distances(args) -> int:
+    from phylo_utils_tpu_torch.optimize import ml_distance_matrix
+
+    model = _get_model(args.model)
+    aln = _read_aln(args.alignment)
+    d = ml_distance_matrix(aln, model, params=_json_params(args.params),
+                           device=args.device)
+    names = list(aln)
+    if args.format == "phylip":
+        lines = [str(len(names))]
+        for i, nm in enumerate(names):
+            lines.append(nm + "  " + " ".join(f"{x:.6f}" for x in d[i]))
+        print("\n".join(lines))
+    else:
+        print(json.dumps({"names": names, "distances": d.tolist()}))
+    return 0
+
+
+def cmd_bootstrap(args) -> int:
+    engine = _build_engine(args)
+    boots = engine.bootstrap_loglikelihoods(
+        args.replicates, _engine_params(args, engine), seed=args.seed
+    )
+    print(json.dumps({
+        "n_replicates": len(boots),
+        "mean": float(boots.mean()),
+        "std": float(boots.std()),
+        "quantiles": {
+            "q025": float(np.quantile(boots, 0.025)),
+            "q500": float(np.quantile(boots, 0.5)),
+            "q975": float(np.quantile(boots, 0.975)),
+        },
+        "logliks": boots.tolist() if args.full else None,
+    }))
+    return 0
+
+
+def cmd_build_tree(args) -> int:
+    from phylo_utils_tpu_torch.io import write_newick
+    from phylo_utils_tpu_torch.nj import neighbor_joining
+    from phylo_utils_tpu_torch.optimize import ml_distance_matrix
+
+    if args.refine:
+        _not_ported("build-tree --refine (NNI/SPR hill-climb)", "A17")
+    if args.bootstrap:
+        _not_ported("build-tree --bootstrap (tree supports)", "A18")
+    model = _get_model(args.model)
+    aln = _read_aln(args.alignment)
+    d = ml_distance_matrix(aln, model, params=_json_params(args.params),
+                           device=args.device)
+    text = write_newick(neighbor_joining(d, list(aln)))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(json.dumps({"tree": text, "loglik": None, "method": "nj"}))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from phylo_utils_tpu_torch.server import serve
+
+    serve(_build_engine(args), host=args.host, port=args.port)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="phylo_utils_tpu_torch",
+        description="phylogenetic likelihood engine on an NVIDIA GPU "
+                    "(PyTorch port of phylo_utils_tpu)",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("loglik", help="compute log-likelihood")
+    _add_engine_args(p)
+    p.add_argument("--sitewise", action="store_true")
+    p.set_defaults(fn=cmd_loglik)
+
+    p = sub.add_parser("fit", help="optimize branch lengths + model params")
+    _add_engine_args(p)
+    p.add_argument("--max-steps", type=int, default=500)
+    p.add_argument("--steps-per-call", type=int, default=10,
+                   help="steps between two checks of the stopping rule "
+                        "and the checkpoint schedule")
+    p.add_argument("--free", help="comma-separated free parameter names")
+    p.add_argument("--checkpoint", help="write final params checkpoint here "
+                   "(with --checkpoint-every: resumable full optimizer "
+                   "state, written periodically)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="checkpoint cadence in optimizer steps (0 = only "
+                        "final params)")
+    p.add_argument("--resume", help="resume from checkpoint (full-state "
+                   "checkpoints resume bit-exactly incl. optimizer state)")
+    p.add_argument("--metrics", help="JSONL metrics path")
+    p.add_argument("--se", action="store_true",
+                   help="report asymptotic standard errors (observed "
+                        "information)")
+    p.add_argument("--verbose", action="store_true")
+    p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("distances", help="pairwise ML distance matrix")
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="JC69")
+    p.add_argument("--params", help="JSON model params")
+    p.add_argument("--format", default="json", choices=["json", "phylip"])
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_distances)
+
+    p = sub.add_parser("bootstrap", help="bootstrap logL replicates")
+    _add_engine_args(p)
+    p.add_argument("--replicates", type=int, default=100)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--full", action="store_true", help="emit all replicates")
+    p.set_defaults(fn=cmd_bootstrap)
+
+    p = sub.add_parser("build-tree", help="de novo: ML distances -> NJ")
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="JC69")
+    p.add_argument("--ncat", type=int, default=1)
+    p.add_argument("--params", help="JSON model params")
+    p.add_argument("--refine", action="store_true",
+                   help="NNI/SPR hill-climb from the NJ tree (not ported: "
+                        "A17)")
+    p.add_argument("--moves", default="nni", choices=["nni", "spr", "both"])
+    p.add_argument("--out", help="write newick here")
+    p.add_argument("--bootstrap", type=int, default=0, metavar="B",
+                   help="bootstrap supports (not ported: A18)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_build_tree)
+
+    p = sub.add_parser("serve", help="HTTP inference server for one engine")
+    _add_engine_args(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.set_defaults(fn=cmd_serve)
+
+    for name, item in NOT_PORTED.items():
+        p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
+        p.set_defaults(fn=lambda args, name=name, item=item: _not_ported(
+            f"the {name!r} subcommand", item))
+
+    args, rest = ap.parse_known_args(argv)
+    if rest and args.cmd not in NOT_PORTED:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 // Helpers shared by the pruning kernels (pruning_forward.cu,
-// pruning_reverse.cu, pruning_slot.cu): the per-column state rows, the
-// child contraction, the exact power-of-two rescale, and the dispatch from
-// a run-time state count to the compiled instantiations.
+// pruning_reverse.cu, pruning_slot.cu, pruning_classic_reverse.cu): the
+// per-column state rows, the child contraction and its transpose, the exact
+// power-of-two rescale, and the dispatch from a run-time state count to the
+// compiled instantiations.
 #pragma once
 
 #include <cfloat>
@@ -66,6 +67,20 @@ __device__ __forceinline__ void times_child(const float* __restrict__ pm,
       y = fmaf(pv, x[j], y);
     }
     acc[r] *= y;
+  }
+}
+
+// out = P^T v for one S x S block P (row-major), fmaf chain in j order
+template <int S>
+__device__ __forceinline__ void transpose_apply(const float* __restrict__ pm,
+                                                const float (&v)[S],
+                                                float (&out)[S]) {
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < S; ++j) acc = fmaf(__ldg(pm + j * S + r), v[j], acc);
+    out[r] = acc;
   }
 }
 

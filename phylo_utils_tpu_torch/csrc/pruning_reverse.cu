@@ -63,25 +63,12 @@ using pruning::exp2_int;
 using pruning::kThreads;
 using pruning::load_states;
 using pruning::store_states;
+using pruning::transpose_apply;
 
 constexpr int kDpThreads = 512;   // dP kernel at S = 4: one block per (node, k, b)
 constexpr int kDpChunk = 16;      // sites summed per inner chunk
 constexpr int kWarps = kDpThreads / 32;
 constexpr int kDpTile = 32;       // dP kernel at S = 20: sites staged per step
-
-// out = P^T v for one S x S block P (row-major), fmaf chain in j order
-template <int S>
-__device__ __forceinline__ void transpose_apply(const float* __restrict__ pm,
-                                                const float (&v)[S],
-                                                float (&out)[S]) {
-#pragma unroll
-  for (int r = 0; r < S; ++r) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < S; ++j) acc = fmaf(__ldg(pm + j * S + r), v[j], acc);
-    out[r] = acc;
-  }
-}
 
 template <int S>
 __global__ void __launch_bounds__(kThreads)

@@ -11,7 +11,9 @@ differentiate the float64 total with respect to every parameter through
 torch autograd: P(t) through the reverse rule of
 ``ops.pmatrix.p_matrices_reversible``, the gamma rates through the port's
 own ``gammainc``, and, with ``pruner="cuda"``, the walk through the saveall
-and reverse kernels.
+kernel and a reverse kernel: the deferred one while its gy store fits the
+card, else the classic one (``cuda_pruning.choose_reverse``,
+``PHYLO_DEFERRED_VJP``).
 """
 from __future__ import annotations
 
@@ -214,7 +216,9 @@ class LikelihoodEngine:
                 f"{model.name!r} has {model.n_states} (wrong alphabet?)"
             )
         order = [ca.names.index(n) for n in tree.leaf_names]
-        leaf_partials = ca.partials[order]          # (n_leaves, P, S)
+        # (n_leaves, P, S); no host copy when the rows are in tree order
+        leaf_partials = (ca.partials if order == list(range(len(ca.names)))
+                         else ca.partials[order])
 
         self.schedule = ptrees.compile_schedule(tree)
         self._prune = None
@@ -236,10 +240,11 @@ class LikelihoodEngine:
             )
         self.pruner = pruner
 
-        self._leaf_partials = torch.as_tensor(
-            np.ascontiguousarray(leaf_partials), dtype=self.dtype,
-            device=self.device,
-        )
+        # moved in the array's own dtype and cast on the device: a big f32
+        # alignment for an f64 engine is not doubled on the host first
+        self._leaf_partials = torch.from_numpy(
+            np.ascontiguousarray(leaf_partials)).to(self.device).to(
+            self.dtype)
         self._weights = torch.as_tensor(ca.weights, dtype=self.dtype,
                                         device=self.device)
         self._eig_cache_key = None
@@ -464,11 +469,18 @@ class LikelihoodEngine:
         Sites are resampled with replacement, which on a pattern-compressed
         engine only changes the pattern weights: the pruning pass runs once
         and each replicate is a weighted sum of the sitewise vector.
+
+        The multinomial is drawn over the patterns in order of their first
+        site, whatever order they are stored in: that is the JAX package's
+        storage order, so one seed gives both packages the same replicates.
         """
         _, sw = self._eval(self._full_params(params))
         n_pat = self._compressed.n_patterns
-        sw = sw.to("cpu", torch.float64).numpy()[:n_pat]
-        w = np.asarray(self._compressed.weights, np.float64)[:n_pat]
+        _, first_site = np.unique(self._compressed.site_to_pattern,
+                                  return_index=True)
+        order = np.argsort(first_site)
+        sw = sw.to("cpu", torch.float64).numpy()[:n_pat][order]
+        w = np.asarray(self._compressed.weights, np.float64)[:n_pat][order]
         n_sites = int(w.sum())
         rng = np.random.default_rng(seed)
         boot_w = rng.multinomial(n_sites, w / n_sites, size=n_replicates)

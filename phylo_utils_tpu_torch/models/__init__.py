@@ -64,14 +64,17 @@ def get_model(name: str) -> Model:
     )
 
 
-def parse_model_spec(spec: str):
+def parse_model_spec(spec: str, get_model=None):
     """'GTR+G4+I+F' -> (model, ncat, inv, emp, rate_model).
 
     +G[n] discrete gamma (default 4 categories), +R[n] FreeRate (default 4),
     +I invariant sites, +F observed equilibrium frequencies. +G and +R are
-    mutually exclusive."""
+    mutually exclusive. ``get_model`` resolves the leading model name
+    (default: the registry lookup; the CLI passes a resolver that also
+    accepts PAML .dat paths)."""
+    resolve = get_model if get_model is not None else globals()["get_model"]
     parts = spec.split("+")
-    model = get_model(parts[0])
+    model = resolve(parts[0])
     ncat, inv, emp, rate_model = 1, False, False, "gamma"
     saw_g = False
     for flag in parts[1:]:

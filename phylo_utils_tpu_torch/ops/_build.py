@@ -61,6 +61,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ("pruning_reverse_f32", 12, 9),
         ("pruning_slot_f32", 11, 8),
         ("pruning_stream_f32", 11, 8),
+        ("pruning_classic_reverse_f32", 15, 11),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]

@@ -25,23 +25,36 @@ CUDA tensor launches the kernel or raises):
   ``_dynamic_bwd2_kernel``): the deferred-edge reverse walk from a root
   cotangent, then dP = sum_sites gy x^T per edge (and optionally the leaf
   partials' cotangent). Plain version ``reverse_walk_reference``.
+- ``classic_reverse_walk`` (``csrc/pruning_classic_reverse.cu``, replaces
+  ``_dynamic_bwd_kernel``): the classic reverse from any set of seeds, each
+  child's dP summed inside the walk, outside vectors in the O(depth) slots
+  of ``ReverseSchedule``; it stores no gy. Plain version
+  ``classic_reverse_walk_reference``.
 
 ``make_fused_loglik_fn`` ties them into a differentiable per-(category,
 site) log-likelihood: value calls run ``forward_walk``; calls that need a
-gradient run ``saveall_walk`` forward and ``reverse_walk`` backward.
-``LAUNCHES``, ``SLOT_LAUNCHES``, ``STREAM_LAUNCHES``, ``SAVEALL_LAUNCHES``
-and ``REVERSE_LAUNCHES`` count kernel launches, so a run can show its main
-path went through the kernels.
+gradient run ``saveall_walk`` forward and, backward, ``reverse_walk`` while
+its gy store fits the card, else ``classic_reverse_walk``
+(``choose_reverse``, ``PHYLO_DEFERRED_VJP``). ``LAUNCHES``,
+``SLOT_LAUNCHES``, ``STREAM_LAUNCHES``, ``SAVEALL_LAUNCHES``,
+``REVERSE_LAUNCHES`` and ``CLASSIC_REVERSE_LAUNCHES`` count kernel
+launches, so a run can show its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from phylo_utils_tpu_torch.ops.pruning import LN2, exp2_int, pow2_rescale
+from phylo_utils_tpu_torch.ops.pruning import (
+    LN2,
+    exp2_int,
+    first_derivative_only,
+    pow2_rescale,
+)
 from phylo_utils_tpu_torch.trees import PruningSchedule
 
 __all__ = [
@@ -50,10 +63,13 @@ __all__ = [
     "STREAM_LAUNCHES",
     "SAVEALL_LAUNCHES",
     "REVERSE_LAUNCHES",
+    "CLASSIC_REVERSE_LAUNCHES",
     "CLASSIC_SCRATCH_BUDGET",
     "WalkSchedule",
     "SlotSchedule",
+    "ReverseSchedule",
     "choose_walk",
+    "choose_reverse",
     "forward_walk",
     "forward_walk_reference",
     "slot_walk",
@@ -62,14 +78,18 @@ __all__ = [
     "saveall_walk_reference",
     "reverse_walk",
     "reverse_walk_reference",
+    "classic_reverse_walk",
+    "classic_reverse_walk_reference",
+    "classic_reverse_scratch",
     "make_fused_loglik_fn",
 ]
 
-LAUNCHES = 0            # pruning_forward_f32
-SLOT_LAUNCHES = 0       # pruning_slot_f32
-STREAM_LAUNCHES = 0     # pruning_stream_f32
-SAVEALL_LAUNCHES = 0    # pruning_saveall_f32
-REVERSE_LAUNCHES = 0    # pruning_reverse_f32
+LAUNCHES = 0                  # pruning_forward_f32
+SLOT_LAUNCHES = 0             # pruning_slot_f32
+STREAM_LAUNCHES = 0           # pruning_stream_f32
+SAVEALL_LAUNCHES = 0          # pruning_saveall_f32
+REVERSE_LAUNCHES = 0          # pruning_reverse_f32
+CLASSIC_REVERSE_LAUNCHES = 0  # pruning_classic_reverse_f32
 
 # CUDA caps gridDim.z (the batch axis of the launch) at 65535
 _MAX_GRID_Z = 65535
@@ -77,6 +97,11 @@ _MAX_GRID_Z = 65535
 _MEM_FRACTION = 0.9
 # the state counts the kernels are compiled for (DNA, protein)
 _KERNEL_STATES = (4, 20)
+# sites per block of the classic reverse kernel (its kThreads)
+_CLASSIC_REVERSE_TILE = 256
+# blocks per classic reverse launch, over (site rows, K, B): two per SM of
+# an H100's 132; each block owns one dP partial row, so this caps the rows
+_CLASSIC_REVERSE_BLOCKS = 264
 # bytes of whole-tree scratch up to which the value path takes the classic
 # walk (see choose_walk): the H100's 50 MB L2. On an NVIDIA H100 80GB HBM3
 # (700 W) the classic walk was the fastest of the three at 5 and 21 MB of
@@ -111,6 +136,30 @@ def _postorder_arrays(schedule: PruningSchedule):
     )
 
 
+def _dfs_postorder(schedule: PruningSchedule):
+    """(internal nodes in DFS post-order, {node: children}, cmax): the walk
+    order of the JAX package's ``_dfs_slot_schedule``."""
+    order, children, counts = _postorder_arrays(schedule)
+    n_leaves = schedule.n_leaves
+    kids = {
+        int(order[i]): [int(children[i, c]) for c in range(int(counts[i]))]
+        for i in range(order.shape[0])
+    }
+    post = []
+    stack = [(int(order[-1]), False)]
+    while stack:
+        node, done = stack.pop()
+        if node < n_leaves:
+            continue
+        if done:
+            post.append(node)
+        else:
+            stack.append((node, True))
+            for ch in kids[node]:
+                stack.append((ch, False))
+    return post, kids, children.shape[1]
+
+
 def _dfs_slot_schedule(schedule: PruningSchedule):
     """DFS-post-order walk with register-style slot allocation (array for
     array the JAX package's ``_dfs_slot_schedule``).
@@ -124,26 +173,9 @@ def _dfs_slot_schedule(schedule: PruningSchedule):
     n_slots, root_slot)`` where ``child_node`` indexes P and ``child_src``
     is a leaf id or a slot id according to ``child_isleaf``.
     """
-    order, children, counts = _postorder_arrays(schedule)
+    post, kids, cmax = _dfs_postorder(schedule)
     n_leaves = schedule.n_leaves
-    cmax = children.shape[1]
-    kids = {
-        int(order[i]): [int(children[i, c]) for c in range(int(counts[i]))]
-        for i in range(order.shape[0])
-    }
-    root = int(order[-1])
-    post = []
-    stack = [(root, False)]
-    while stack:
-        node, done = stack.pop()
-        if node < n_leaves:
-            continue
-        if done:
-            post.append(node)
-        else:
-            stack.append((node, True))
-            for ch in kids[node]:
-                stack.append((ch, False))
+    root = post[-1]
     slot_of: dict = {}
     free: list = []
     next_slot = 0
@@ -180,6 +212,52 @@ def _dfs_slot_schedule(schedule: PruningSchedule):
     )
 
 
+def _gslot_schedule(schedule: PruningSchedule):
+    """The classic reverse walk's order and its outside-vector slots.
+
+    The walk visits the internal nodes in the reverse of the DFS post-order
+    (a pre-order). A node's outside vector g is written when its parent is
+    visited and read first thing when the node itself is, so a free list
+    gives it a slot only between the two; the node's slot is free again
+    once read, and one of its children may take it. Live g's are at most
+    the unvisited siblings along the current path plus one node's
+    children: O(depth x cmax) slots. Leaves get none (their g is dleaf).
+
+    Returns ``(rnode, gslot, children, cslot, counts, n_gslots)``: visit i
+    reads g of ``rnode[i]`` from slot ``gslot[i]`` (-1: the node has no
+    parent, the root) and writes g of child ``children[i, c]`` to slot
+    ``cslot[i, c]`` (-1 for a leaf).
+    """
+    post, kids, cmax = _dfs_postorder(schedule)
+    n_leaves = schedule.n_leaves
+    nn = len(post)
+    rnode = np.zeros(nn, np.int32)
+    gslot = np.full(nn, -1, np.int32)
+    children = np.zeros((nn, cmax), np.int32)
+    cslot = np.full((nn, cmax), -1, np.int32)
+    counts = np.zeros(nn, np.int32)
+    slot_of: dict = {}
+    free: list = []
+    next_slot = 0
+    for i, node in enumerate(reversed(post)):
+        rnode[i] = node
+        counts[i] = len(kids[node])
+        if node in slot_of:
+            gslot[i] = slot_of.pop(node)
+            free.append(int(gslot[i]))
+        for c, ch in enumerate(kids[node]):
+            children[i, c] = ch
+            if ch >= n_leaves:
+                if free:
+                    s = free.pop()
+                else:
+                    s = next_slot
+                    next_slot += 1
+                slot_of[ch] = s
+                cslot[i, c] = s
+    return rnode, gslot, children, cslot, counts, next_slot
+
+
 def _on_device(cache: dict, device: torch.device, arrays):
     """``arrays`` as contiguous int32 tensors on ``device``, made once."""
     if device not in cache:
@@ -205,10 +283,37 @@ class SlotSchedule:
             self.counts))
 
 
+class ReverseSchedule:
+    """The classic reverse walk of one schedule (``_gslot_schedule``): host
+    arrays plus their int32 copies on each device that has used them."""
+
+    def __init__(self, schedule: PruningSchedule):
+        (self.rnode, self.gslot, self.children, self.cslot, self.counts,
+         self.n_gslots) = _gslot_schedule(schedule)
+        self.n_nodes = schedule.n_nodes
+        self._on_device = {}
+
+    def on(self, device: torch.device):
+        """(rnode, gslot, children, cslot, counts) on device."""
+        return _on_device(self._on_device, device, (
+            self.rnode, self.gslot, self.children, self.cslot, self.counts))
+
+    def node_seed(self, seed_ids: np.ndarray, device: torch.device):
+        """(n_nodes,) int32 on device: j where node == seed_ids[j], else -1
+        (made once per seed set and device)."""
+        key = ("seed", tuple(seed_ids.tolist()))
+        if (device, key) not in self._on_device:
+            arr = np.full(self.n_nodes, -1, np.int32)
+            arr[seed_ids] = np.arange(len(seed_ids), dtype=np.int32)
+            self._on_device[(device, key)] = torch.from_numpy(arr).to(device)
+        return self._on_device[(device, key)]
+
+
 class WalkSchedule:
     """The post-order walk of one schedule: host arrays plus their int32
     copies on each device that has used them, and (built at first use) the
-    schedule's DFS slot walk, ``slots``."""
+    schedule's DFS slot walk, ``slots``, and classic reverse walk,
+    ``reverse``."""
 
     def __init__(self, schedule: PruningSchedule):
         self.order, self.children, self.counts = _postorder_arrays(schedule)
@@ -219,6 +324,7 @@ class WalkSchedule:
         self.root = int(self.order[-1])    # the root is last in post-order
         self._schedule = schedule
         self._slots = None
+        self._reverse = None
         self._on_device = {}
 
     @property
@@ -226,6 +332,12 @@ class WalkSchedule:
         if self._slots is None:
             self._slots = SlotSchedule(self._schedule)
         return self._slots
+
+    @property
+    def reverse(self) -> ReverseSchedule:
+        if self._reverse is None:
+            self._reverse = ReverseSchedule(self._schedule)
+        return self._reverse
 
     def on(self, device: torch.device):
         """(order, children, counts) as contiguous int32 tensors on device."""
@@ -373,7 +485,11 @@ def saveall_walk_reference(
     return (res_x, res_e) if batched else (res_x[0], res_e[0])
 
 
-def _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk):
+def _check_residuals(p, leaves, res_x, res_e, walk, freqs=None,
+                     **cotangents):
+    """Shapes, dtype and device of the reverse walks' inputs: the
+    residuals, ``freqs`` (S,) when given, and each of ``cotangents``,
+    ``name=(tensor, its shape after the batch dims of P)``."""
     _check(p, leaves, walk)
     lead = tuple(p.shape[:-4])
     k, sites, s = p.shape[-3], leaves.shape[1], leaves.shape[2]
@@ -381,9 +497,11 @@ def _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk):
     want = {
         "res_x": (res_x, lead + (k, n_inner, sites, s)),
         "res_e": (res_e, lead + (k, n_inner, sites)),
-        "lam": (lam, lead + (k, sites)),
-        "freqs": (freqs, (s,)),
     }
+    want.update({name: (t, lead + shape)
+                 for name, (t, shape) in cotangents.items()})
+    if freqs is not None:
+        want["freqs"] = (freqs, (s,))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
@@ -391,6 +509,20 @@ def _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk):
             raise TypeError(f"{name} must be float32; got {t.dtype}")
         if t.device != p.device:
             raise ValueError(f"{name} is on {t.device}, P on {p.device}")
+
+
+def _child_terms(pb, leaves, rx, n_leaves):
+    """(x_of, y_of) of the plain reverse walks: a node's partials (a leaf
+    row or its residual) and y = P x, batched over (B, K, sites)."""
+
+    def x_of(c):
+        return leaves[c] if c < n_leaves else rx[:, :, c - n_leaves]
+
+    def y_of(c):
+        eq = "bkij,sj->bksi" if c < n_leaves else "bkij,bksj->bksi"
+        return torch.einsum(eq, pb[:, c], x_of(c))
+
+    return x_of, y_of
 
 
 def reverse_walk_reference(
@@ -408,19 +540,13 @@ def reverse_walk_reference(
     zero root row, and, when ``want_dleaf``, ``dleaf`` (B?, K, n_leaves,
     sites, S) = P_l^T gy_l per leaf (else None).
     """
-    _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk)
+    _check_residuals(p, leaves, res_x, res_e, walk, freqs=freqs,
+                     lam=(lam, (p.shape[-3], leaves.shape[1])))
     batched = p.dim() == 5
     pb, rx, re, lm = ((p, res_x, res_e, lam) if batched else
                       (p[None], res_x[None], res_e[None], lam[None]))
     n_leaves = walk.n_leaves
-
-    def x_of(c):
-        return leaves[c] if c < n_leaves else rx[:, :, c - n_leaves]
-
-    def y_of(c):
-        eq = "bkij,sj->bksi" if c < n_leaves else "bkij,bksj->bksi"
-        return torch.einsum(eq, pb[:, c], x_of(c))
-
+    x_of, y_of = _child_terms(pb, leaves, rx, n_leaves)
     gy = {}
     for node, kids in reversed(_walk_nodes(walk)):
         if node == walk.root:
@@ -447,6 +573,84 @@ def reverse_walk_reference(
         dleaf = torch.stack([
             torch.einsum("bkji,bksj->bksi", pb[:, leaf], gy[leaf])
             for leaf in range(n_leaves)], dim=2)
+    if not batched:
+        dp = dp[0]
+        dleaf = None if dleaf is None else dleaf[0]
+    return dp, dleaf
+
+
+def _seed_array(seed_ids, walk: WalkSchedule) -> np.ndarray:
+    seeds = np.asarray(seed_ids, dtype=np.int64).reshape(-1)
+    if (seeds.size == 0 or len(set(seeds.tolist())) != seeds.size
+            or seeds.min() < 0 or seeds.max() >= walk.n_nodes):
+        raise ValueError(
+            f"seed_ids must be distinct node ids in [0, {walk.n_nodes}); "
+            f"got {seeds.tolist()}")
+    return seeds.astype(np.int32)
+
+
+def _check_classic(p, leaves, res_x, res_e, gseeds, seeds, walk):
+    _check_residuals(p, leaves, res_x, res_e, walk, gseeds=(
+        gseeds, (p.shape[-3], len(seeds)) + tuple(leaves.shape[1:])))
+
+
+def classic_reverse_walk_reference(
+    p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
+    res_e: torch.Tensor, gseeds: torch.Tensor, seed_ids: Sequence[int],
+    walk: WalkSchedule, want_dleaf: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain-PyTorch version of the classic reverse kernel, the math of the
+    JAX package's ``_dynamic_bwd_kernel``, vectorised over (batch,
+    category, site).
+
+    Outside vectors g start at zero, with g[seed_ids[j]] = gseeds[..., j,
+    :, :]; then, for every internal node n in pre-order (``walk.reverse``),
+    with y_c = P_c x_c for each child c and inv_m = 2^(sum_c e_c - e_n):
+        gy_c = g_n prod_{c' != c} y_c' inv_m,
+        dP[c] += sum_sites gy_c x_c^T,      g_c += P_c^T gy_c.
+    ``res_x``/``res_e``: ``saveall_walk``'s residuals; ``gseeds`` (B?, K,
+    n_seed, sites, S) the cotangents of the seeds' rescaled partials; all
+    float32. Returns ``dp`` (B?, n_nodes, K, S, S), the layout of P, with
+    rows only for children (the root's stays zero), and, when
+    ``want_dleaf``, ``dleaf`` (B?, K, n_leaves, sites, S) = g of the leaves
+    (else None). With one seed at the root, gseeds = lambda pi, it gives
+    ``reverse_walk_reference``'s result bit for bit: the per-node
+    arithmetic is the same.
+    """
+    seeds = _seed_array(seed_ids, walk)
+    _check_classic(p, leaves, res_x, res_e, gseeds, seeds, walk)
+    batched = p.dim() == 5
+    pb, rx, re, gs = ((p, res_x, res_e, gseeds) if batched else
+                      (p[None], res_x[None], res_e[None], gseeds[None]))
+    n_leaves = walk.n_leaves
+    x_of, y_of = _child_terms(pb, leaves, rx, n_leaves)
+    seed_of = {int(node): j for j, node in enumerate(seeds)}
+    g = {node: gs[:, :, j] for node, j in seed_of.items()}
+    dp = torch.zeros_like(pb)
+    rs = walk.reverse
+    for i, node in enumerate(rs.rnode.tolist()):
+        kids = rs.children[i, :rs.counts[i]].tolist()
+        gn = g.pop(node, None)
+        if gn is None:       # neither a seed nor reached from one
+            gn = torch.zeros_like(gs[:, :, 0])
+        esum = torch.zeros_like(re[:, :, 0])
+        for c in kids:
+            if c >= n_leaves:
+                esum = esum + re[:, :, c - n_leaves]
+        inv_m = exp2_int(esum - re[:, :, node - n_leaves])[..., None]
+        for c in kids:
+            sib = torch.ones_like(gn)
+            for c2 in kids:
+                if c2 != c:
+                    sib = sib * y_of(c2)
+            gy = gn * sib * inv_m
+            eq = "bksi,sj->bkij" if c < n_leaves else "bksi,bksj->bkij"
+            dp[:, c] += torch.einsum(eq, gy, x_of(c))
+            gc = torch.einsum("bkji,bksj->bksi", pb[:, c], gy)
+            g[c] = gc + g[c] if c in g else gc
+    dleaf = None
+    if want_dleaf:
+        dleaf = torch.stack([g[leaf] for leaf in range(n_leaves)], dim=2)
     if not batched:
         dp = dp[0]
         dleaf = None if dleaf is None else dleaf[0]
@@ -664,7 +868,10 @@ def saveall_walk(
     if need > budget:
         raise MemoryError(
             f"the gradient's residuals need {need} bytes but only {budget} "
-            f"bytes are free on {device}; use fewer sites or a smaller batch"
+            f"bytes are free on {device}; they bound the whole-tree "
+            "gradient (past the deferred reverse's gy store the classic "
+            "reverse runs, which stores none): use fewer sites or a "
+            "smaller batch"
         )
     order, children, counts = walk.on(device)
     res_x = torch.empty((b, k, n_inner, sites, s), dtype=torch.float32,
@@ -700,7 +907,8 @@ def reverse_walk(
     batch chunk whose gy scratch, (K, n_nodes, sites, S) float32 per batch
     element, fits free device memory."""
     global REVERSE_LAUNCHES
-    _check_residuals(p, leaves, res_x, res_e, lam, freqs, walk)
+    _check_residuals(p, leaves, res_x, res_e, walk, freqs=freqs,
+                     lam=(lam, (p.shape[-3], leaves.shape[1])))
     _not_differentiable("reverse_walk", p, leaves, res_x, res_e, lam, freqs)
     if p.device.type == "cpu":
         return reverse_walk_reference(p, leaves, res_x, res_e, lam, freqs,
@@ -744,6 +952,127 @@ def reverse_walk(
     return dp, dleaf
 
 
+def classic_reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
+                            sites: int, s: int) -> Tuple[int, int, int]:
+    """(dP rows per (batch, category), bytes of g slots, bytes of one dP
+    row over the batch) of a classic reverse launch. Each block owns one
+    row of per-node S x S partial sums and walks every ``rows``-th tile of
+    ``_CLASSIC_REVERSE_TILE`` sites, so the rows are capped by the launch's
+    block count, not by the sites: its scratch is the g slots, (b, k,
+    n_gslots, sites, S) float32, and rows x (b, k, n_nodes, S, S) float32,
+    against the deferred reverse's (b, k, n_nodes, sites, S) gy store."""
+    n_tiles = -(-sites // _CLASSIC_REVERSE_TILE)
+    rows = min(n_tiles, max(1, -(-_CLASSIC_REVERSE_BLOCKS // (b * k))))
+    return (rows, 4 * b * k * max(n_gslots, 1) * sites * s,
+            4 * b * k * n_nodes * s * s)
+
+
+def _classic_rows(b: int, k: int, n_nodes: int, n_gslots: int, sites: int,
+                  s: int, device: torch.device) -> int:
+    """dP rows per (batch, category) of a classic reverse launch whose
+    scratch (``classic_reverse_scratch``) fits free device memory: fewer
+    rows where only that many fit; raises when not even one does."""
+    rows, slot_bytes, row_bytes = classic_reverse_scratch(
+        b, k, n_nodes, n_gslots, sites, s)
+    budget = _device_budget(slot_bytes + rows * row_bytes, device)
+    if slot_bytes + row_bytes > budget:
+        raise MemoryError(
+            f"the classic reverse walk needs {slot_bytes + row_bytes} bytes "
+            f"of scratch but only {budget} bytes are free on {device}; use "
+            "fewer sites or a smaller batch")
+    return min(rows, (budget - slot_bytes) // row_bytes)
+
+
+def classic_reverse_walk(
+    p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
+    res_e: torch.Tensor, gseeds: torch.Tensor, seed_ids: Sequence[int],
+    walk: WalkSchedule, want_dleaf: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """dP (and optionally the leaves' cotangent) of the pruning walk from
+    the cotangents ``gseeds`` of the nodes ``seed_ids``, by the classic
+    reverse.
+
+    Same contract as ``classic_reverse_walk_reference``. CUDA tensors
+    launch ``pruning_classic_reverse_f32`` (the walk with each child's dP
+    summed per block inside it, then a fixed-order sum of the blocks'
+    rows) on the current stream, once per 65535 batch elements, after
+    checking that its scratch (``classic_reverse_scratch``) fits free
+    device memory (``MemoryError`` if not, fewer dP rows if only that
+    many fit)."""
+    global CLASSIC_REVERSE_LAUNCHES
+    seeds = _seed_array(seed_ids, walk)
+    _check_classic(p, leaves, res_x, res_e, gseeds, seeds, walk)
+    _not_differentiable("classic_reverse_walk", p, leaves, res_x, res_e,
+                        gseeds)
+    if p.device.type == "cpu":
+        return classic_reverse_walk_reference(p, leaves, res_x, res_e,
+                                              gseeds, seeds, walk, want_dleaf)
+    lib = _cuda_library(p, leaves, res_x, res_e, gseeds)
+    batched = p.dim() == 5
+    pb, rx, re, gs = ((p, res_x, res_e, gseeds) if batched else
+                      (p[None], res_x[None], res_e[None], gseeds[None]))
+    b, n_nodes, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    device = p.device
+    rs = walk.reverse
+    rows = _classic_rows(b, k, n_nodes, rs.n_gslots, sites, s, device)
+    rnode, gslot, children, cslot, counts = rs.on(device)
+    node_seed = rs.node_seed(seeds, device)
+    dp = torch.empty_like(pb)
+    dleaf = (torch.empty((b, k, walk.n_leaves, sites, s),
+                         dtype=torch.float32, device=device)
+             if want_dleaf else None)
+    stream = _stream(device)
+    for b0 in range(0, b, _MAX_GRID_Z):
+        nb = min(_MAX_GRID_Z, b - b0)
+        g_slots = torch.empty((nb, k, max(rs.n_gslots, 1), sites, s),
+                              dtype=torch.float32, device=device)
+        dp_rows = torch.zeros((nb, k, rows, n_nodes, s, s),
+                              dtype=torch.float32, device=device)
+        rc = lib.pruning_classic_reverse_f32(
+            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
+            gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
+            counts.data_ptr(), node_seed.data_ptr(),
+            rx[b0:b0 + nb].data_ptr(), re[b0:b0 + nb].data_ptr(),
+            gs[b0:b0 + nb].data_ptr(), g_slots.data_ptr(),
+            dp_rows.data_ptr(), dp[b0:b0 + nb].data_ptr(),
+            None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
+            nb, k, s, n_nodes, walk.n_leaves, len(rs.rnode),
+            children.shape[1], sites, len(seeds), max(rs.n_gslots, 1), rows,
+            stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"pruning_classic_reverse_f32 launch failed: "
+                               f"CUDA error {rc}")
+        CLASSIC_REVERSE_LAUNCHES += 1
+        del g_slots, dp_rows
+    if not batched:
+        dp = dp[0]
+        dleaf = None if dleaf is None else dleaf[0]
+    return dp, dleaf
+
+
+def choose_reverse(b: int, k: int, n_nodes: int, sites: int, s: int,
+                   device) -> str:
+    """The gradient's reverse walk: "deferred" (``reverse_walk``, B3) or
+    "classic" (``classic_reverse_walk``, B7).
+
+    ``PHYLO_DEFERRED_VJP`` is read as the JAX package reads it: "0" forces
+    the classic reverse, "1" the deferred one, anything else ("auto") the
+    rule: the deferred reverse while one batch element's gy store, (K,
+    n_nodes, sites, S) float32, fits ``_device_budget`` (B3 splits a batch
+    into launches that fit), else the classic one, whose scratch does not
+    grow with n_nodes x sites. CPU tensors take the deferred reverse's plain
+    version under "auto": the rule weighs the card's memory."""
+    env = os.environ.get("PHYLO_DEFERRED_VJP", "auto")
+    if env == "0":
+        return "classic"
+    if env == "1" or torch.device(device).type == "cpu":
+        return "deferred"
+    need = 4 * k * n_nodes * sites * s
+    return "deferred" if need <= _device_budget(need, device) else "classic"
+
+
 def _root_loglik(root_p, root_e, freqs):
     """(ll, pi . x_root, x_root) in ``freqs``' dtype from the walk's root."""
     root_r = root_p.to(freqs.dtype)
@@ -757,8 +1086,11 @@ class _FusedLoglik(torch.autograd.Function):
     (the whole-tree ``custom_vjp`` of ``pallas_pruning.make_pallas_loglik_fn``:
     one seed at the root, leaves shared across categories, zero leaf
     logscales). The backward seeds the walk with lambda = ct / (pi . x_root)
-    computed in the reduction dtype and cast to float32, and forms
-    dfreqs = sum lambda x_root outside the kernel in that dtype."""
+    computed in the reduction dtype and cast to float32 (the classic
+    reverse takes the seed lambda pi, formed in float32 as the deferred
+    kernel forms it), takes the reverse ``choose_reverse`` names, and forms
+    dfreqs = sum lambda x_root outside the kernel in that dtype. It has no
+    second derivative (``first_derivative_only``)."""
 
     @staticmethod
     def forward(ctx, p, leaves, freqs, walk):
@@ -775,15 +1107,27 @@ class _FusedLoglik(torch.autograd.Function):
         return ll
 
     @staticmethod
+    @first_derivative_only
     def backward(ctx, ct):
         p, leaves, freqs, res_x, res_e, dot, root_r = ctx.saved_tensors
         lam = ct / dot
         dp = dleaf = dfreqs = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dp, dleaf_k = reverse_walk(
-                p, leaves, res_x, res_e, lam.to(torch.float32).contiguous(),
-                freqs.to(torch.float32).contiguous(), ctx.walk,
-                want_dleaf=ctx.needs_input_grad[1])
+            walk = ctx.walk
+            lam32 = lam.to(torch.float32).contiguous()
+            f32 = freqs.to(torch.float32).contiguous()
+            sites, s = leaves.shape[1:]
+            b = p.shape[0] if p.dim() == 5 else 1
+            if choose_reverse(b, p.shape[-3], walk.n_nodes, sites, s,
+                              p.device) == "deferred":
+                dp, dleaf_k = reverse_walk(
+                    p, leaves, res_x, res_e, lam32, f32, walk,
+                    want_dleaf=ctx.needs_input_grad[1])
+            else:
+                gseed = (lam32[..., None] * f32).unsqueeze(-3).contiguous()
+                dp, dleaf_k = classic_reverse_walk(
+                    p, leaves, res_x, res_e, gseed, [walk.root], walk,
+                    want_dleaf=ctx.needs_input_grad[1])
             if not ctx.needs_input_grad[0]:
                 dp = None
             if dleaf_k is not None:   # leaves are shared by batch and category
@@ -803,8 +1147,10 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
     run in ``freqs.dtype`` (pass float64 freqs for the precision plan).
 
     Differentiable in all three inputs. When P or the leaves require grad
-    (and grad mode is on), the saveall kernel runs forward and the reverse
-    kernel backward, over the whole tree; otherwise one forward walk runs
+    (and grad mode is on), the saveall kernel runs forward and a reverse
+    kernel backward (``choose_reverse``: the deferred one while its gy
+    store fits, else the classic one), over the whole tree; otherwise one
+    forward walk runs
     alone, chosen by ``choose_walk``: the classic walk while the launch's
     whole-tree scratch fits ``CLASSIC_SCRATCH_BUDGET``, else the slot walk
     (DNA) or the stream walk (protein). The leaves' cotangent is computed

@@ -20,6 +20,7 @@ from phylo_utils_tpu_torch.models.base import (
     build_rate_matrix,
     eigen_reversible,
 )
+from phylo_utils_tpu_torch.ops.pruning import first_derivative_only
 
 __all__ = [
     "transition_matrices",
@@ -113,7 +114,11 @@ class _ReversibleP(torch.autograd.Function):
     Phi_ij = phi(lambda_i t, lambda_j t):
         A_bar = V^-T (Phi o (V^T P_bar V^-T)) V^T,
         Q_bar = sum_batch t A_bar,   t_bar = sum_ij Q_ij A_bar_ij.
-    Like the JAX JVP it passes the cotangent through the >= 0 clamp.
+    Like the JAX JVP it passes the cotangent through the >= 0 clamp. The
+    rule holds the eigensystem constant, which is exact for the first
+    derivative only, so the backward refuses to be differentiated
+    (``first_derivative_only``): a second derivative through Q would miss
+    the eigensystem's own derivative.
     """
 
     @staticmethod
@@ -123,6 +128,7 @@ class _ReversibleP(torch.autograd.Function):
         return transition_matrices(eig, t)
 
     @staticmethod
+    @first_derivative_only
     def backward(ctx, p_bar):
         (t,) = ctx.saved_tensors
         eig = ctx.eig

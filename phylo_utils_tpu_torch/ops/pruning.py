@@ -10,6 +10,7 @@ rounding of the contraction itself.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -25,6 +26,7 @@ __all__ = [
     "invariant_site_likelihood",
     "pow2_rescale",
     "exp2_int",
+    "first_derivative_only",
     "LN2",
 ]
 
@@ -50,6 +52,27 @@ def exp2_int(k: torch.Tensor) -> torch.Tensor:
     """Exact ``2**k`` for an integer-VALUED f32 tensor (bit assembly)."""
     ki = k.clamp(-126.0, 127.0).to(torch.int32)
     return ((ki + 127) << 23).view(torch.float32)
+
+
+def first_derivative_only(backward: Callable) -> Callable:
+    """Decorator for the backward of an ``autograd.Function`` whose rule is
+    exact for the first derivative only: it raises where autograd would
+    differentiate it again (grad mode on inside the backward, i.e.
+    ``create_graph=True``, as ``torch.autograd.functional.hessian`` runs
+    it). ``torch.autograd.function.once_differentiable`` can pass silently
+    there: it hangs its error on detached copies of the outputs, which
+    ``torch.autograd.grad(..., inputs)`` prunes, and the second derivative
+    then lacks this node's term."""
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{backward.__qualname__} has no second derivative "
+                "(create_graph=True)")
+        return backward(ctx, *grads)
+
+    return wrapper
 
 
 def make_prune_fn(

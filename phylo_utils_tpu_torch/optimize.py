@@ -10,9 +10,12 @@ L-BFGS iteration per fit step (the JAX package's default is optax L-BFGS
 with a zoom line search; the two take different steps, so a port fit is
 held to the JAX fit's final logL and estimates, not its trajectory).
 
-Newton branch lengths, the 1-D minimizers, ML distances, Fisher standard
-errors, multistart fits and the parametric bootstrap are not ported yet
-(ROADMAP A10).
+Also here: single-branch Newton (``newton_branch_length``), the 1-D
+minimizers (``golden_section``, ``brent_minimize``), pairwise ML distances
+(``ml_distance_matrix``), multistart fits (``fit_multistart``) and the
+observed-information covariance and standard errors (``fisher_covariance``,
+``standard_errors``). The parametric bootstrap waits for ``simulate.py``
+(ROADMAP A18).
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from phylo_utils_tpu_torch.convert import flatten_params, unflatten_params
+from phylo_utils_tpu_torch.models.base import Eigen
+from phylo_utils_tpu_torch.ops.pmatrix import transition_matrices
 
 __all__ = [
     "transform_params",
@@ -29,6 +34,13 @@ __all__ = [
     "fit",
     "FitResult",
     "default_optimizer",
+    "fit_multistart",
+    "fisher_covariance",
+    "standard_errors",
+    "newton_branch_length",
+    "golden_section",
+    "brent_minimize",
+    "ml_distance_matrix",
 ]
 
 # ---------------------------------------------------------------------------
@@ -310,3 +322,452 @@ def fit(
         n_steps=n,
         converged=since_best >= patience,
     )
+
+
+# ---------------------------------------------------------------------------
+# Multistart fit
+# ---------------------------------------------------------------------------
+
+
+def _perturb(raw: Mapping, rng: np.random.Generator, scale: float) -> Dict:
+    """``raw`` plus N(0, scale) noise, drawn leaf by leaf in sorted-key order
+    (the order in which ``jax.tree.map`` visits a dict, so one seed draws
+    the same numbers for the same leaves as the JAX package)."""
+    out: Dict = {}
+    for k in sorted(raw):
+        v = raw[k]
+        if isinstance(v, Mapping):
+            out[k] = _perturb(v, rng, scale)
+        else:
+            x = v.detach().to("cpu", torch.float64).numpy()
+            out[k] = torch.as_tensor(x + rng.normal(0.0, scale, x.shape),
+                                     dtype=torch.float64, device=v.device)
+    return out
+
+
+def fit_multistart(
+    engine,
+    params0: Optional[Mapping] = None,
+    n_starts: int = 4,
+    perturb: float = 0.5,
+    seed: int = 0,
+    free: Optional[Tuple[str, ...]] = None,
+    **fit_kwargs,
+) -> FitResult:
+    """Multi-start ML fit: ``fit`` from the given/default start plus
+    ``n_starts - 1`` randomized starts (Gaussian noise of scale ``perturb``
+    in the unconstrained space, drawn from ``numpy.random.default_rng(seed)``,
+    so constraints hold automatically); returns the best FitResult.
+
+    Only the FREE parameters are perturbed: with ``free`` given, frozen
+    parameters stay exactly at their ``params0`` values in every start.
+    """
+    base = engine._full_params(params0)
+    free_names = tuple(base.keys()) if free is None else tuple(free)
+    frozen, start_free = _split_free(base, free_names)
+    rng = np.random.default_rng(seed)
+    best: Optional[FitResult] = None
+    for i in range(n_starts):
+        if i == 0:
+            start = base
+        else:
+            noisy = _perturb(transform_params(start_free), rng, perturb)
+            start = _merge_params(frozen, untransform_params(noisy))
+        res = fit(engine, start, free=free, **fit_kwargs)
+        if best is None or res.loglik > best.loglik:
+            best = res
+    return best
+
+
+# ---------------------------------------------------------------------------
+# Observed information: covariance and standard errors
+# ---------------------------------------------------------------------------
+
+
+def fd_step(dtype) -> float:
+    """Relative central-difference step of ``_hessian_fd_of_gradient``:
+    eps^(1/3) of the dtype the gradient is computed in (the engine's
+    partials dtype), 6.1e-6 for float64 and 4.9e-3 for float32. The step
+    balances the O(h^2) truncation against the gradient's roundoff over
+    2h; a float32 walk's gradient carries ~1e-7 relative roundoff, which
+    the float64 step would amplify past the curvature itself. (The JAX
+    package takes eps^(1/3) of its session dtype, float64 under x64.)"""
+    return float(torch.finfo(dtype).eps ** (1.0 / 3.0))
+
+
+def _hessian_fd_of_gradient(negll, point: torch.Tensor,
+                            rel_h: float) -> np.ndarray:
+    """Observed information by central differences of the exact gradient:
+    H[:, i] ~= (grad(x + h_i e_i) - grad(x - h_i e_i)) / 2 h_i with
+    h_i = rel_h max(|x_i|, 1e-2); accurate to O(h^2) with exact scores."""
+
+    def grad_at(vec: np.ndarray) -> np.ndarray:
+        x = torch.as_tensor(vec, dtype=point.dtype,
+                            device=point.device).requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(negll(x), x)
+        return g.detach().to("cpu", torch.float64).numpy()
+
+    flat = point.detach().to("cpu", torch.float64).numpy()
+    n = flat.size
+    h = np.zeros((n, n))
+    for i in range(n):
+        step = rel_h * max(abs(flat[i]), 1e-2)
+        vp, vm = flat.copy(), flat.copy()
+        vp[i] += step
+        vm[i] -= step
+        h[:, i] = (grad_at(vp) - grad_at(vm)) / (2.0 * step)
+    return h
+
+
+def fisher_covariance(
+    engine,
+    params: Mapping,
+    free: Optional[Tuple[str, ...]] = None,
+):
+    """(cov, (names, leaves, sizes)): observed-information covariance of the
+    free parameters at ``params`` (flattened in ``flatten_params`` order of
+    the free sub-dict: key paths ``names``, float64 ``leaves`` of ``sizes``
+    elements). Boundary/non-finite rows are dropped (their variance reads
+    nan).
+
+    The Hessian of -logL is exact (``torch.autograd.functional.hessian``)
+    where the path has a second derivative, else central differences of
+    the exact gradient (``_hessian_fd_of_gradient``, step ``fd_step`` of
+    the engine's dtype). As in ``fit``, a frozen model reuses the engine's
+    cached eigensystem and a frozen alpha its cached gamma rates, so with
+    ``pruner="torch"`` branch lengths (and alpha, through the port's own
+    ``gammainc``) differentiate twice exactly. A free reversible model
+    takes the difference: P(t)'s reverse rule holds the eigensystem
+    constant, which is exact once but not twice, so it refuses a second
+    derivative. ``pruner="cuda"`` always takes the difference: the
+    kernels' Function has no second derivative.
+    """
+    base = engine._full_params(params)
+    if free is None:
+        free = tuple(base.keys())
+    frozen, point = _split_free(base, free)
+    free_tops = {k.split(".", 1)[0] for k in free}
+    eig = engine.model_eigen(base) if "model" not in free_tops else None
+    rates = engine.model_rates(base) if "alpha" not in free_tops else None
+    lp, w = engine._leaf_partials, engine._weights
+    names, leaves = flatten_params(point)
+    leaves = [t.detach().to(torch.float64) for t in leaves]
+    shapes = [tuple(t.shape) for t in leaves]
+    sizes = [t.numel() for t in leaves]
+    vec = torch.cat([t.reshape(-1) for t in leaves])
+
+    def negll(x: torch.Tensor) -> torch.Tensor:
+        parts, off = [], 0
+        for shape, size in zip(shapes, sizes):
+            parts.append(x[off:off + size].reshape(shape))
+            off += size
+        full = _merge_params(frozen, unflatten_params(names, parts))
+        total, _ = engine._loglik_fn(full, lp, w, eig=eig, rates=rates)
+        return -total.to(torch.float64)
+
+    try:
+        with torch.enable_grad():
+            h = torch.autograd.functional.hessian(negll, vec)
+        h = h.detach().to("cpu", torch.float64).numpy()
+    except (RuntimeError, NotImplementedError) as e:
+        if "derivative" not in str(e):     # a fault, not a missing rule
+            raise
+        # no second derivative on this path (see above): central
+        # differences OF THE EXACT GRADIENT, the standard "numerical
+        # observed information from analytic scores"
+        h = _hessian_fd_of_gradient(negll, vec, fd_step(engine.dtype))
+    h = 0.5 * (h + h.T)
+    n = vec.numel()
+    finite = np.isfinite(h).all(axis=0) & np.isfinite(h).all(axis=1)
+    cov = np.full((n, n), np.nan)
+    if finite.any():
+        cov[np.ix_(finite, finite)] = np.linalg.pinv(h[np.ix_(finite, finite)])
+    return cov, (names, leaves, sizes)
+
+
+def standard_errors(
+    engine,
+    params: Mapping,
+    free: Optional[Tuple[str, ...]] = None,
+) -> Dict:
+    """Asymptotic standard errors of MLEs from the observed Fisher
+    information (``fisher_covariance``), in the constrained space.
+
+    ``params`` should be the fitted MLEs (e.g. ``FitResult.params``);
+    ``free`` selects which parameters the information matrix covers (same
+    semantics as ``fit``, dotted names included). Entries whose curvature
+    is not positive (a boundary, a flat direction such as a root edge)
+    get nan; confounded directions are resolved by the pseudo-inverse.
+    Returns a dict shaped like the free parameters of float64 numpy
+    arrays.
+    """
+    cov, (names, leaves, sizes) = fisher_covariance(engine, params, free)
+    var = np.diag(cov).copy()
+    var[~(var > 0)] = np.nan
+    se_flat = np.sqrt(var)
+    out, off = [], 0
+    for t, size in zip(leaves, sizes):
+        out.append(se_flat[off:off + size].reshape(tuple(t.shape)))
+        off += size
+    return unflatten_params(names, out)
+
+
+# ---------------------------------------------------------------------------
+# Single-branch Newton (analytic derivatives)
+# ---------------------------------------------------------------------------
+
+
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by a fixed pairwise tree of elementwise adds (zero
+    padded to a power of two). Each output element is the same sequence
+    of IEEE adds whatever the other dims hold, where a library reduction
+    or matmul may split its sum by the shape of the batch."""
+    n = x.shape[dim]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        pad = list(x.shape)
+        pad[dim] = width - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    while x.shape[dim] > 1:
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+    return x.squeeze(dim)
+
+
+def _branch_lnl_derivs(eig: Eigen, partials_a: torch.Tensor,
+                       partials_b: torch.Tensor, weights: torch.Tensor, t):
+    """(lnL, dlnL/dt, d2lnL/dt2) for the likelihood across a single branch,
+    L_s = sum_ij pi_i a_si P_ij(t) b_sj. ``partials_a``/``partials_b``
+    (..., sites, S), ``weights`` (sites,), ``t`` with the leading dims
+    (a batch of branches, e.g. taxon pairs).
+
+    The math of ``transition_matrices`` (clamped), ``dp_matrices`` (Q P)
+    and ``d2p_matrices`` (Q^2 P), written as elementwise products and
+    ``_tree_sum``s, so one branch's values do not depend on the batch it
+    is computed in."""
+    dt = partials_a.dtype
+    t = torch.as_tensor(t, dtype=dt, device=partials_a.device)
+    if eig.evals is None:       # non-reversible: matrix_exp of Q t
+        p = transition_matrices(eig, t)
+    else:
+        recon = (eig.recon if eig.recon is not None else torch.einsum(
+            "ik,kj->kij", eig.evecs, eig.ivecs)).to(dt)
+        ew = torch.exp(eig.evals.to(dt) * t[..., None])        # (..., k)
+        p = _tree_sum(ew[..., :, None, None] * recon, -3).clamp_min(0.0)
+    q = eig.q.to(dt)
+    qp = _tree_sum(q[:, :, None] * p[..., None, :, :], -2)
+    q2p = _tree_sum((q @ q)[:, :, None] * p[..., None, :, :], -2)
+    wa = partials_a * eig.freqs.to(dt)
+
+    def site_dot(mat):          # sum_i wa_si sum_j mat_ij b_sj
+        mb = _tree_sum(mat[..., None, :, :] * partials_b[..., :, None, :], -1)
+        return _tree_sum(wa * mb, -1)
+
+    f = site_dot(p).clamp_min(torch.finfo(dt).tiny)
+    d1 = site_dot(qp) / f
+    d2 = site_dot(q2p) / f - d1 * d1
+    return (_tree_sum(weights * torch.log(f), -1),
+            _tree_sum(weights * d1, -1), _tree_sum(weights * d2, -1))
+
+
+def newton_branch_length(
+    eig: Eigen,
+    partials_a: torch.Tensor,
+    partials_b: torch.Tensor,
+    weights: torch.Tensor,
+    t0: float = 0.1,
+    min_t: float = 1e-8,
+    max_t: float = 20.0,
+    iters: int = 20,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Optimize one branch length (or a batch: the partials' leading dims)
+    by safeguarded Newton-Raphson on analytic first and second logL
+    derivatives: a positivity clamp, and a x1.5 / x0.5 step uphill when
+    the curvature is not negative. A fixed iteration count. Returns
+    (t*, lnL*)."""
+    t = torch.full(partials_a.shape[:-2], float(t0), dtype=partials_a.dtype,
+                   device=partials_a.device)
+    for _ in range(iters):
+        _, d1, d2 = _branch_lnl_derivs(eig, partials_a, partials_b, weights,
+                                       t)
+        newton = t - d1 / torch.where(d2 < 0, d2, -torch.ones_like(d2))
+        fallback = torch.where(d1 > 0, t * 1.5, t * 0.5)
+        t = torch.where(d2 < 0, newton, fallback).clamp(min_t, max_t)
+    lnl, _, _ = _branch_lnl_derivs(eig, partials_a, partials_b, weights, t)
+    return t, lnl
+
+
+# ---------------------------------------------------------------------------
+# 1-D safeguarded minimizers
+# ---------------------------------------------------------------------------
+
+_GOLD = 0.3819660112501051  # 2 - phi
+
+
+def golden_section(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    lo: float,
+    hi: float,
+    iters: int = 60,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Golden-section minimization of ``fn`` on [lo, hi] in float64.
+
+    Interior points x1 < x2 at the golden ratio; each iteration shrinks the
+    bracket to [lo, x2] or [x1, hi], reusing the surviving interior point
+    so ``fn`` is evaluated once per iteration. Returns (x, fn(x)).
+    """
+    invphi = 1.0 - _GOLD  # 0.618...
+    lo = torch.as_tensor(lo, dtype=torch.float64)
+    hi = torch.as_tensor(hi, dtype=torch.float64)
+    x1 = hi - invphi * (hi - lo)
+    x2 = lo + invphi * (hi - lo)
+    f1, f2 = fn(x1), fn(x2)
+    for _ in range(iters):
+        if bool(f1 < f2):       # keep [lo, x2]; x1 survives as the new x2
+            hi, x2, f2 = x2, x1, f1
+            x1 = hi - invphi * (hi - lo)
+            f1 = fn(x1)
+        else:                   # keep [x1, hi]; x2 survives as the new x1
+            lo, x1, f1 = x1, x2, f2
+            x2 = lo + invphi * (hi - lo)
+            f2 = fn(x2)
+    return (x1, f1) if bool(f1 < f2) else (x2, f2)
+
+
+def brent_minimize(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    lo: float,
+    hi: float,
+    tol: float = 1e-10,
+    iters: int = 100,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brent's method (parabolic interpolation + golden fallback) on
+    [lo, hi], the JAX package's loop step for step on float64 scalars;
+    ``fn`` takes and returns 0-d tensors. Returns (x, fn(x))."""
+
+    def f(x: float) -> float:
+        return float(fn(torch.tensor(x, dtype=torch.float64)))
+
+    a, b = float(lo), float(hi)
+    x = w = v = a + _GOLD * (b - a)
+    fx = fw = fv = f(x)
+    d = e = 0.0
+    for _ in range(iters):
+        m = 0.5 * (a + b)
+        tol1 = tol * abs(x) + 1e-12
+        if not abs(x - m) > 2 * tol1 - 0.5 * (b - a):
+            break
+        # parabolic fit through (x, fx), (w, fw), (v, fv)
+        r = (x - w) * (fx - fv)
+        q = (x - v) * (fx - fw)
+        p = (x - v) * q - (x - w) * r
+        q2 = 2.0 * (q - r)
+        if q2 > 0:
+            p = -p
+        q2 = abs(q2)
+        use_para = (abs(p) < abs(0.5 * q2 * e)
+                    and p > q2 * (a - x) and p < q2 * (b - x))
+        e_gold = b - x if x < m else a - x
+        if use_para:
+            d, e = p / (1.0 if q2 == 0 else q2), d
+        else:
+            d, e = _GOLD * e_gold, e_gold
+        if abs(d) >= tol1:
+            u = x + d
+        else:
+            u = x + ((d > 0) - (d < 0)) * tol1
+        fu = f(u)
+        if fu <= fx:
+            if u >= x:
+                a = x
+            else:
+                b = x
+            v, fv, w, fw, x, fx = w, fw, x, fx, u, fu
+        else:
+            if u < x:
+                a = u
+            else:
+                b = u
+            if fu <= fw or w == x:
+                v, fv, w, fw = w, fw, u, fu
+            elif fu <= fv or v == x or v == w:
+                v, fv = u, fu
+    return (torch.tensor(x, dtype=torch.float64),
+            torch.tensor(fx, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# Pairwise ML distances
+# ---------------------------------------------------------------------------
+
+# host bytes one chunk of taxon pairs may take on the CPU
+_HOST_PAIR_BYTES = 1 << 30
+
+
+def _pair_chunk(n_pairs: int, n_pat: int, s: int, dtype: torch.dtype,
+                device: torch.device) -> int:
+    """Pairs per Newton batch: each pair holds its two taxa's partials and
+    a few per-site vectors (~4 S + 8 values per pattern) and, inside
+    ``site_dot``, the (sites, S, S) products with their padded tree sums
+    (~3 S^2 values per pattern); half the card's free memory, or
+    ``_HOST_PAIR_BYTES`` on the CPU."""
+    per_pair = (3 * s * s + 4 * s + 8) * n_pat * torch.finfo(dtype).bits // 8
+    if device.type == "cuda":
+        budget = torch.cuda.mem_get_info(device)[0] // 2
+    else:
+        budget = _HOST_PAIR_BYTES
+    return max(1, min(n_pairs, budget // per_pair))
+
+
+def ml_distance_matrix(
+    alignment,
+    model,
+    params: Optional[Mapping] = None,
+    t0: float = 0.1,
+    max_t: float = 20.0,
+    dtype=None,
+    device="cuda",
+) -> np.ndarray:
+    """Maximum-likelihood pairwise evolutionary distances.
+
+    Every pair's safeguarded Newton iteration (``newton_branch_length``)
+    runs at once: the n(n-1)/2 pairs are one batch dimension, cut into
+    chunks of as many pairs as fit free memory (``_pair_chunk``). A pair's
+    arithmetic does not depend on its chunk (``_branch_lnl_derivs`` sums
+    in a fixed order). Pattern compression is applied once globally. ``dtype``:
+    float64 (default) or float32; ``device``: "cuda" (default) or "cpu".
+    Returns a dense symmetric (n, n) float64 numpy matrix (diagonal 0)
+    ordered like the alignment; access names via ``list(alignment)``.
+    """
+    from phylo_utils_tpu_torch import io as pio
+
+    ca = (alignment if isinstance(alignment, pio.CompressedAlignment)
+          else pio.compress_patterns(alignment, model.alphabet))
+    dt = torch.float64 if dtype is None else (
+        dtype if isinstance(dtype, torch.dtype)
+        else getattr(torch, np.dtype(dtype).name))
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} requested but "
+                           "torch.cuda.is_available() is False")
+    eig = model.eigen(params, dtype=dt, device=device)
+    partials = torch.as_tensor(np.ascontiguousarray(ca.partials), dtype=dt,
+                               device=device)            # (n, P, S)
+    weights = torch.as_tensor(ca.weights, dtype=dt, device=device)
+    n, n_pat, s = partials.shape
+    ii, jj = np.triu_indices(n, k=1)
+    chunk = _pair_chunk(len(ii), n_pat, s, dt, device)
+    ts = []
+    for c0 in range(0, len(ii), chunk):
+        i = torch.as_tensor(ii[c0:c0 + chunk], device=device)
+        j = torch.as_tensor(jj[c0:c0 + chunk], device=device)
+        t, _ = newton_branch_length(eig, partials[i], partials[j], weights,
+                                    t0=t0, max_t=max_t)
+        ts.append(t.to("cpu", torch.float64))
+    out = np.zeros((n, n))
+    if ts:
+        flat = torch.cat(ts).numpy()
+        out[ii, jj] = flat
+        out[jj, ii] = flat
+    return out
