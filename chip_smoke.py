@@ -64,18 +64,44 @@ all at once) and runs, in order, printing one line per phase:
     params under B3 and under B7, ``ml_distance_matrix`` and
     ``neighbor_joining`` on the card against the CPU, and the CLI's ``fit
     --se`` and ``build-tree`` as subprocesses against the same calls made
-    in this process.
+    in this process;
+21. the fold kernel (B9) against its plain version and bit for bit against
+    the forward kernel (B1): the DNA pack (F = 2) at the flagship, B = 1
+    and 64, fold "auto" at config 4 and on a 16-class LG profile mixture's
+    P (32 taxa x 512 patterns), and every compiled F; B9 and B1 in turns;
+22. the topology-compiled kernel (B8) the same way at the flagship (B = 1
+    and 64, S = 4) and config 4 (S = 20), with the build seconds of each
+    topology (built in phase 2, beside the main library) and a second call
+    with the same topology that builds nothing; B8 and B1 in turns;
+23. the engine's value calls under each knob: ``loglikelihood`` and
+    ``sitewise_loglikelihoods`` at the flagship under
+    ``PHYLO_STATIC_UNROLL_MAX`` (B8) and ``PHYLO_PACK_DNA=1`` (B9), at
+    config 4 under ``PHYLO_FOLD_CATEGORIES=auto`` (B9), against the f64
+    path; B1 does not run, and with the knobs unset it does;
+24. the mixture path at full width: a ``ProfileMixtureEngine`` with LG and
+    20 seeded Dirichlet profiles (a C20-shaped mixture) on a 100-taxon
+    tree, 10,000 amino-acid sites simulated under the mixture here, f32
+    ``pruner="cuda"`` (value calls through the stream walk, gradients
+    through the plain backward): logL, sitewise, ``category_posteriors``
+    and ``value_and_grad`` against the f64 ``pruner="torch"`` engine (the
+    gradient over pattern slices), 3 fit steps, times and peak memory; and
+    a 4-class HKY85 kappa ``ModelMixtureEngine`` on the flagship tree;
+25. the CLI's ``loglik --profile-mixture FILE.nex:NAME`` in process, on a
+    ``models.nex`` written from phase 24's profiles, against the engine.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
-it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18, 19 and
-20; the kernel-against-plain phases are not counted. The last two lines are a JSON
+it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
+23-25; the kernel-against-plain phases are not counted. The last two lines are a JSON
 record of the kernels, each with its time, its plain version's, and its
 bound (the larger of its bytes over 3.35 TB/s and its f32 operations over
 67 TFLOP/s, the H100 SXM data sheet's peaks), and
 ``{"ok": true, "device": {...}}``.
 """
+import concurrent.futures
+import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -101,6 +127,12 @@ GRAD_TOL = 5e-4
 # kernel against plain version, x max|dP|: the same f32 products, but P^T gy
 # and the dP site sums are summed in another order
 REVERSE_TOL = 1e-4
+# mixture class posteriors, f32 walk against f64, absolute: a per-class
+# log-likelihood error e_k moves a posterior by gamma_k (e_k - sum_j
+# gamma_j e_j), and the f32 walk's e_k is ~1e-6 at 100 taxa x 20 states
+# (the full-width mixture's first run on an NVIDIA H100 80GB HBM3, 700 W,
+# came to 1.005e-6)
+POSTERIOR_TOL = 2e-6
 
 # shapes (the flagship, BASELINE configs 4 and 5, the big trees)
 DEVICE = "cuda"
@@ -111,6 +143,12 @@ BIG_DNA_TAXA, BIG_PROTEIN_TAXA, BIG_PATTERNS, BIG_BATCH = 1000, 512, 8192, 16
 # the full-width gradient (phase 19) and its reference slices
 WIDE_TAXA, WIDE_PATTERNS, WIDE_SLICES = 1000, 80_000, 4
 CLI_FIT_STEPS = 3
+# B9's 16-class LG profile mixture shape (phase 21) and the full-width
+# mixture path (phase 24): a C20-shaped profile mixture, 20 classes x 20
+# states, 100 taxa x 10,000 simulated amino-acid patterns
+PROFILE16_TAXA, PROFILE16_PATTERNS = 32, 512
+MIXTURE_TAXA, MIXTURE_PATTERNS, MIXTURE_CLASSES = 100, 10_000, 20
+MIX_FIT_STEPS, MIX_SLICES = 3, 8
 BIG_DNA_PARAMS = {"model": FLAGSHIP_PARAMS["model"], "alpha": 0.5}
 PROTEIN_PARAMS = {"alpha": 0.7}
 AMINO = "ARNDCQEGHILKMFPSTWYV"
@@ -144,23 +182,33 @@ def _caterpillar(n, brlen):
         for i in range(1, n)) + ";"
 
 
-def _simulate(tree, p_edges, n_sites, freqs, rng):
-    """DNA sites evolved down ``tree``: ``p_edges`` (n_nodes, K, 4, 4) float64
-    numpy transition matrices per edge and rate category; each site draws a
-    category, the root draws from ``freqs``."""
+def _simulate(tree, p_edges, n_sites, freqs, rng, weights=None,
+              chars=b"ACGT"):
+    """Sites evolved down ``tree``: ``p_edges`` (n_nodes, K, S, S) float64
+    numpy transition matrices per edge and category; each site draws a
+    category (uniformly, or by ``weights``), the root draws from ``freqs``
+    (S,) or, per category, (K, S); ``chars`` names the S states."""
     import numpy as np
 
-    k = p_edges.shape[1]
-    cat = rng.integers(0, k, n_sites)
+    k, s = p_edges.shape[1], p_edges.shape[-1]
     states = np.zeros((tree.n_nodes, n_sites), np.int64)
-    states[tree.root] = rng.choice(4, n_sites, p=freqs)
+    if weights is None:
+        cat = rng.integers(0, k, n_sites)
+    else:
+        cat = rng.choice(k, n_sites, p=weights)
+    if np.ndim(freqs) == 1:
+        states[tree.root] = rng.choice(s, n_sites, p=freqs)
+    else:
+        cum = np.cumsum(np.asarray(freqs)[cat], axis=1)
+        states[tree.root] = (rng.random(n_sites)[:, None] * cum[:, -1:]
+                             > cum).sum(axis=1)
     for node in range(tree.n_nodes - 1, -1, -1):  # ids are post-order
         for child in tree.children[node]:
             cum = np.cumsum(p_edges[child, cat, states[node]], axis=1)
             u = rng.random(n_sites)[:, None] * cum[:, -1:]
             states[child] = (u > cum).sum(axis=1)
-    chars = np.frombuffer(b"ACGT", np.uint8)[states[:tree.n_leaves]]
-    return {name: chars[i].tobytes().decode()
+    codes = np.frombuffer(chars, np.uint8)[states[:tree.n_leaves]]
+    return {name: codes[i].tobytes().decode()
             for i, name in enumerate(tree.leaf_names)}
 
 
@@ -168,6 +216,16 @@ def _max_rel(got, want):
     """max |got - want| / max |want| over all entries."""
     return float((got.double() - want.double()).abs().max()
                  / want.double().abs().max().clamp_min(1e-300))
+
+
+def _err_to_plain(kp, ke, rp, re):
+    """(max |x 2^(e - e_plain) - x_plain|, that over max |x_plain|): a walk's
+    root partials and exponent counts against its plain version's (an
+    exponent may differ by one at a power of two, with the partials scaled
+    to compensate; rescaled partials are below 2)."""
+    shifted = kp.double() * (ke - re).double().exp2()[..., None]
+    abs_err = float((shifted - rp.double()).abs().max())
+    return abs_err, abs_err / float(rp.double().abs().max())
 
 
 def _grad_errors(got, want):
@@ -178,13 +236,15 @@ def _grad_errors(got, want):
     return {".".join(p): _max_rel(a, b) for p, a, b in zip(paths, g, w)}
 
 
-def _chunked_value_and_grad(engine_kw, ca, params, n_chunks):
+def _chunked_value_and_grad(engine_kw, ca, params, n_chunks,
+                            engine_cls=None):
     """``value_and_grad`` of an engine on ``ca``, summed over engines on
     ``n_chunks`` slices of its patterns: the logL is a weighted sum over
     patterns, so value and gradient add up. The f64 ``pruner="torch"``
     autograd keeps every level's intermediates: at 512 taxa x 8192 protein
     patterns x 4 categories it ran out of an 80 GB H100's memory with 76 GB
-    allocated; a slice keeps a share of that."""
+    allocated; a slice keeps a share of that. ``engine_cls`` defaults to
+    ``LikelihoodEngine``."""
     import numpy as np
 
     from phylo_utils_tpu_torch.io import CompressedAlignment
@@ -194,8 +254,8 @@ def _chunked_value_and_grad(engine_kw, ca, params, n_chunks):
     for sl in np.array_split(np.arange(ca.n_patterns), n_chunks):
         part = CompressedAlignment(ca.names, ca.partials[:, sl], ca.weights[sl],
                                    np.arange(len(sl), dtype=np.int32))
-        v, g = LikelihoodEngine(alignment=part, **engine_kw).value_and_grad(
-            params)
+        v, g = (engine_cls or LikelihoodEngine)(
+            alignment=part, **engine_kw).value_and_grad(params)
         total += float(v)
         grads = g if grads is None else {
             k: ({kk: grads[k][kk] + vv for kk, vv in g[k].items()}
@@ -225,22 +285,33 @@ def _ptxas_table(log):
     return out
 
 
-class _DeferredVjp:
-    """``with _DeferredVjp("0"):`` runs its body with PHYLO_DEFERRED_VJP set
-    (the gradient's reverse: "0" classic, "1" deferred), then restores it."""
+@contextlib.contextmanager
+def _env(**values):
+    """Runs its body with the environment variables ``values`` set (e.g.
+    PHYLO_DEFERRED_VJP="0": the classic reverse; PHYLO_PACK_DNA="1"), then
+    restores them."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
-    def __init__(self, value):
-        self.value = value
 
-    def __enter__(self):
-        self.prev = os.environ.get("PHYLO_DEFERRED_VJP")
-        os.environ["PHYLO_DEFERRED_VJP"] = self.value
-
-    def __exit__(self, *exc):
-        if self.prev is None:
-            del os.environ["PHYLO_DEFERRED_VJP"]
-        else:
-            os.environ["PHYLO_DEFERRED_VJP"] = self.prev
+@contextlib.contextmanager
+def _static_unroll(cuda_pruning, n):
+    """Runs its body with ``cuda_pruning.STATIC_UNROLL_MAX`` (the module
+    constant ``PHYLO_STATIC_UNROLL_MAX`` sets at import) at ``n``."""
+    prev = cuda_pruning.STATIC_UNROLL_MAX
+    cuda_pruning.STATIC_UNROLL_MAX = n
+    try:
+        yield
+    finally:
+        cuda_pruning.STATIC_UNROLL_MAX = prev
 
 
 def _write_fasta(aln, path):
@@ -303,6 +374,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from phylo_utils_tpu_torch import cli as port_cli
     from phylo_utils_tpu_torch import models
     from phylo_utils_tpu_torch.io import parse_newick
     from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
@@ -313,6 +385,7 @@ def main():
         classic_reverse_scratch,
         classic_reverse_walk,
         classic_reverse_walk_reference,
+        fold_walk,
         forward_walk,
         forward_walk_reference,
         reverse_walk,
@@ -320,7 +393,10 @@ def main():
         saveall_walk,
         saveall_walk_reference,
         slot_walk_reference,
+        static_walk,
     )
+    from phylo_utils_tpu_torch.mixtures import ModelMixtureEngine
+    from phylo_utils_tpu_torch.profile_mixtures import ProfileMixtureEngine
     from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
     from phylo_utils_tpu_torch.ops.pmatrix import (
         extend_p_identity,
@@ -349,7 +425,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     counters = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
                 "SAVEALL_LAUNCHES", "REVERSE_LAUNCHES",
-                "CLASSIC_REVERSE_LAUNCHES")
+                "CLASSIC_REVERSE_LAUNCHES", "STATIC_LAUNCHES",
+                "FOLD_LAUNCHES")
 
     def reset_counts():
         for name in counters:
@@ -379,13 +456,33 @@ def main():
     _emit(1, device=kind, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build ---------------------------------------------------------------
+    # 2. build: the library of csrc/*.cu and B8's libraries for the
+    # flagship topology at 4 states and config 4's at 20, every nvcc at once
+    flagship_tree = random_tree(TAXA, seed=0)
+    config4_tree = random_tree(CONFIG4_TAXA, seed=13, mean_brlen=0.2)
+    static_walks = {
+        "flagship_S4": (WalkSchedule(compile_schedule(flagship_tree)), 4),
+        "config4_S20": (WalkSchedule(compile_schedule(config4_tree)), 20)}
     t0 = time.perf_counter()
-    _build.load_library()
+    with concurrent.futures.ThreadPoolExecutor(1 + len(static_walks)) as pool:
+        futures = [pool.submit(_build.load_library)] + [
+            pool.submit(w.static_library, s_) for w, s_ in
+            static_walks.values()]
+        for fut in futures:
+            fut.result()
+    build_s = time.perf_counter() - t0
     info = _build.build_info()
     ptxas = _ptxas_table(info["log"])
-    _emit(2, build_s=round(time.perf_counter() - t0, 3), built=info["built"],
-          library=str(Path(info["path"]).relative_to(REPO)), ptxas=ptxas)
+    static_builds = {
+        f"{b['n_int']}_internal_S{b['s']}": {
+            "seconds": b["seconds"], "built": b["built"],
+            "library": str(Path(b["path"]).relative_to(REPO)),
+            "ptxas": _ptxas_table(b["log"])}
+        for b in _build.static_build_info().values()}
+    _emit(2, build_s=round(build_s, 3), built=info["built"],
+          library=str(Path(info["path"]).relative_to(REPO)),
+          library_s=info["seconds"], ptxas=ptxas,
+          static_builds=static_builds)
 
     # 3. forward kernel vs plain walk on the card ----------------------------
     freqs = torch.tensor(FLAGSHIP_PARAMS["model"]["freqs"],
@@ -418,11 +515,9 @@ def main():
     def site_ll(root_p, root_e, f):
         return torch.log(root_p.double() @ f) + root_e.double() * LN2
 
-    flagship_tree = random_tree(TAXA, seed=0)
     caterpillar = parse_newick(_caterpillar(CATERPILLAR, 0.3))
     big_dna_tree = random_tree(BIG_DNA_TAXA, seed=10)
     big_protein_tree = random_tree(BIG_PROTEIN_TAXA, seed=11)
-    config4_tree = random_tree(CONFIG4_TAXA, seed=13, mean_brlen=0.2)
     cases = [("flagship", flagship_tree, s, b, 4)
              for b in (1, BATCH) for s in (SITES, SITES - 24)]
     cases += [(f"caterpillar{CATERPILLAR}", caterpillar, SITES, 1, 4),
@@ -1027,7 +1122,9 @@ def main():
             "b3_ms": (t[0] + t[3]) / 2, "b7_ms": (t[1] + t[2]) / 2,
             "runs": t, "b3_gy_bytes": 4 * b * k * walk.n_nodes * sites * s,
             "b7_scratch_bytes": slot_bytes + rows * row_bytes,
-            "b7_gslots": walk.reverse.n_gslots, "b7_dp_rows": rows}
+            "b7_gslots": walk.reverse.n_gslots, "b7_dp_rows": rows,
+            **dict(zip(("b7_bound_ms", "b7_bound_by"),
+                       _bound("classic", walk, p, leaves)))}
         if key == f"flagship_B{BATCH}_S{SITES}":
             timings[f"classic_B{BATCH}"] = in_turns(
                 b7_fn, functools.partial(classic_reverse_walk_reference, p,
@@ -1041,7 +1138,7 @@ def main():
           classic_B64=timings[f"classic_B{BATCH}"])
 
     # 18. flagship value_and_grad through B7, main path ----------------------
-    with _DeferredVjp("0"):
+    with _env(PHYLO_DEFERRED_VJP="0"):
         reset_counts()
         v7, g7 = eng.value_and_grad(FLAGSHIP_PARAMS)
         vm7, gm7 = eng.value_and_grad_many(bl, FLAGSHIP_PARAMS)
@@ -1123,10 +1220,11 @@ def main():
     wide_classic_ms = cuda_ms(functools.partial(
         classic_reverse_walk, p_w, leaves_w, rx, re, gseed_w, [walk_w.root],
         walk_w), 1)
+    wide_classic_bound = _bound("classic", walk_w, p_w, leaves_w)
     del rx, re, wide, leaves_w, p_w
     torch.cuda.empty_cache()
     stage_s["timings"] = time.perf_counter() - t_start - sum(stage_s.values())
-    with _DeferredVjp("1"):
+    with _env(PHYLO_DEFERRED_VJP="1"):
         reset_counts()
         vw_ref, gw_ref = _chunked_value_and_grad(
             dict(kw_w, dtype=torch.float32, pruner="cuda"), ca_w,
@@ -1161,6 +1259,7 @@ def main():
           launches=wide_counts, gy_budget_bytes=gy_budget,
           peak_allocated_bytes=peak_bytes, value_and_grad_ms=wide_vg_ms,
           saveall_ms=wide_saveall_ms, classic_reverse_ms=wide_classic_ms,
+          classic_reverse_bound=wide_classic_bound,
           b7_gslots=walk_w.reverse.n_gslots, stage_s=stage_s)
 
     # 20. uncertainty path at config 5's shape, main path -------------------
@@ -1170,7 +1269,7 @@ def main():
     se_b3 = standard_errors(fit_eng, res.params, free=se_free)
     se_b3_s = time.perf_counter() - t0
     se_b3_counts = read_counts()
-    with _DeferredVjp("0"):
+    with _env(PHYLO_DEFERRED_VJP="0"):
         t0 = time.perf_counter()
         se_b7 = standard_errors(fit_eng, res.params, free=se_free)
         se_b7_s = time.perf_counter() - t0
@@ -1308,8 +1407,336 @@ def main():
           nj_rf_vs_true=robinson_foulds(flagship_tree, nj_gpu),
           cli_fit_vs_in_process=cli_err, cli_wall_s=cli_s)
 
+    # 21. fold kernel (B9) vs its plain version and bit for bit vs B1 ------
+    def rate_inputs(tree, sites, k, s):
+        """Schedule, f32 P of ``k`` rate categories (rates 0.1-3.0; GTR at 4
+        states, LG at 20) and one-hot leaves with 2% all-ones rows."""
+        sched = compile_schedule(tree)
+        rates_k = torch.linspace(0.1, 3.0, k, dtype=torch.float64,
+                                 device=dev)
+        t = torch.as_tensor(np.asarray(tree.lengths), dtype=torch.float64,
+                            device=dev)
+        e = eig if s == 4 else lg_eig
+        p = extend_p_identity(transition_matrices(
+            e, t[:, None] * rates_k, out_dtype=torch.float32),
+            sched.n_nodes).contiguous()
+        leaves = np.eye(s, dtype=np.float32)[
+            rng.integers(0, s, (tree.n_leaves, sites))]
+        leaves[rng.random((tree.n_leaves, sites)) < 0.02] = 1.0
+        return (WalkSchedule(sched), p, torch.as_tensor(leaves, device=dev),
+                e.freqs)
+
+    prof_rng = np.random.default_rng(21)
+    prof16_tree = random_tree(PROFILE16_TAXA, seed=21, mean_brlen=0.2)
+    prof16 = ProfileMixtureEngine(
+        prof16_tree, _random_alignment(prof16_tree.leaf_names,
+                                       PROFILE16_PATTERNS, AMINO, 21),
+        models.LG, profiles=prof_rng.dirichlet(np.ones(20), 16),
+        dtype=torch.float32, pruner="cuda", device=DEVICE)
+    p16 = prof16._mixture_tensors(prof16._full_params(None),
+                                  torch.float64)[2].float().contiguous()
+    with _env(PHYLO_FOLD_CATEGORIES="auto"):
+        fold_auto = {
+            "config4": cuda_pruning._pick_fold(4, 20),
+            "profile16": cuda_pruning._pick_fold(16, 20)}
+    fold_cases = {
+        f"pack_flagship_B{b}": (timing_inputs[b], 2) for b in (1, BATCH)}
+    fold_cases["auto_config4"] = (case_inputs[f"config4_B1_S{SITES}"],
+                                  fold_auto["config4"])
+    fold_cases[f"auto_profile16_{PROFILE16_TAXA}x{PROFILE16_PATTERNS}"] = (
+        (WalkSchedule(prof16.schedule), p16, prof16._leaf_partials, None),
+        fold_auto["profile16"])
+    for s_, tree, k in ((4, flagship_tree, 12), (20, config4_tree, 60)):
+        inputs = rate_inputs(tree, SITES, k, s_)
+        for f_ in cuda_pruning.FOLD_WIDTHS[s_]:
+            fold_cases[f"widths_S{s_}_K{k}_F{f_}"] = (inputs, f_)
+    b9_err, b9_max, b9_times = {}, 0.0, {}
+    for key, ((walk, p, leaves, _), f_) in fold_cases.items():
+        _check(f_ > 1, f"{key}: no fold chosen")
+        kp, ke = fold_walk(p, leaves, walk, f_)
+        bp, be = forward_walk(p, leaves, walk, walk="classic")
+        torch.cuda.synchronize()
+        _check(torch.equal(kp, bp) and torch.equal(ke, be),
+               f"{key}: B9 (F={f_}) is not B1 bit for bit")
+        rp, re = forward_walk_reference(p, leaves, walk)
+        abs_err, err = _err_to_plain(kp, ke, rp, re)
+        _check(err <= len(walk.order) * 2.0 ** -21,
+               f"{key}: B9 vs plain {err:.3e} x max")
+        b9_err[key] = {"F": f_, "K": p.shape[-3], "abs": abs_err,
+                       "rel_to_max": err}
+        b9_max = max(b9_max, abs_err)
+        reps = 50 if "B1" in key or "profile16" in key else 10
+        b1_fn = functools.partial(forward_walk, p, leaves, walk,
+                                  walk="classic")
+        b9_fn = functools.partial(fold_walk, p, leaves, walk, f_)
+        t = [cuda_ms(b1_fn, reps), cuda_ms(b9_fn, reps),
+             cuda_ms(b9_fn, reps), cuda_ms(b1_fn, reps)]
+        b9_times[key] = {"b1_ms": (t[0] + t[3]) / 2, "b9_ms": (t[1] + t[2]) / 2,
+                         "runs": t}
+        del kp, ke, bp, be, rp, re
+    walk, p, leaves, _ = timing_inputs[BATCH]
+    timings[f"fold_B{BATCH}"] = in_turns(
+        functools.partial(fold_walk, p, leaves, walk, 2),
+        functools.partial(forward_walk_reference, p, leaves, walk), 50, 3)
+    timings[f"fold_B{BATCH}"].update(zip(("bound_ms", "bound_by"),
+                                         _bound("forward", walk, p, leaves)))
+    _emit(21, errors=b9_err, times=b9_times, auto=fold_auto,
+          widths={str(k): v for k, v in cuda_pruning.FOLD_WIDTHS.items()},
+          bit_identical_to_B1=True)
+
+    # 22. static kernel (B8) vs its plain version and bit for bit vs B1 ----
+    n_static = len(_build.static_build_info())
+    static_cases = {f"flagship_B{b}": timing_inputs[b] for b in (1, BATCH)}
+    static_cases["config4"] = case_inputs[f"config4_B1_S{SITES}"]
+    b8_err, b8_max, b8_times = {}, 0.0, {}
+    for key, (walk, p, leaves, _) in static_cases.items():
+        kp, ke = static_walk(p, leaves, walk)
+        bp, be = forward_walk(p, leaves, walk, walk="classic")
+        torch.cuda.synchronize()
+        _check(torch.equal(kp, bp) and torch.equal(ke, be),
+               f"{key}: B8 is not B1 bit for bit")
+        rp, re = forward_walk_reference(p, leaves, walk)
+        abs_err, err = _err_to_plain(kp, ke, rp, re)
+        _check(err <= len(walk.order) * 2.0 ** -21,
+               f"{key}: B8 vs plain {err:.3e} x max")
+        b8_err[key] = {"abs": abs_err, "rel_to_max": err}
+        b8_max = max(b8_max, abs_err)
+        reps = 50 if key == "flagship_B1" else 10
+        b1_fn = functools.partial(forward_walk, p, leaves, walk,
+                                  walk="classic")
+        b8_fn = functools.partial(static_walk, p, leaves, walk)
+        t = [cuda_ms(b1_fn, reps), cuda_ms(b8_fn, reps),
+             cuda_ms(b8_fn, reps), cuda_ms(b1_fn, reps)]
+        b8_times[key] = {"b1_ms": (t[0] + t[3]) / 2, "b8_ms": (t[1] + t[2]) / 2,
+                         "runs": t}
+        del kp, ke, bp, be, rp, re
+    # a second call with the same topology (a new schedule object) builds
+    # nothing: the library comes from this process's cache
+    walk = WalkSchedule(compile_schedule(flagship_tree))
+    t0 = time.perf_counter()
+    again = walk.static_library(4)
+    again_s = time.perf_counter() - t0
+    _check(len(_build.static_build_info()) == n_static
+           and again is static_walks["flagship_S4"][0].static_library(4),
+           "a second call with the flagship topology built B8 again")
+    walk, p, leaves, _ = timing_inputs[BATCH]
+    timings[f"static_B{BATCH}"] = in_turns(
+        functools.partial(static_walk, p, leaves, walk),
+        functools.partial(forward_walk_reference, p, leaves, walk), 50, 3)
+    timings[f"static_B{BATCH}"].update(zip(("bound_ms", "bound_by"),
+                                           _bound("forward", walk, p, leaves)))
+    _emit(22, errors=b8_err, times=b8_times, builds=static_builds,
+          second_call_s=again_s, bit_identical_to_B1=True)
+
+    # 23. the engine's value calls under each knob, main path --------------
+    knob_err, knob_counts = {}, {}
+    e4_32 = LikelihoodEngine(config4_tree, aln4, models.LG, ncat=4,
+                             dtype=torch.float32, pruner="cuda",
+                             device=DEVICE)
+    e4_64 = LikelihoodEngine(config4_tree, aln4, models.LG, ncat=4,
+                             dtype=torch.float64, pruner="torch",
+                             device=DEVICE)
+    ll4_ref = e4_64.loglikelihood(PROTEIN_PARAMS)
+    sw4_ref = e4_64.sitewise_loglikelihoods(PROTEIN_PARAMS)
+    knobs = (
+        ("static_flagship", "STATIC_LAUNCHES", eng, FLAGSHIP_PARAMS,
+         (ll_ref, sw_ref), _static_unroll(cuda_pruning, 10 ** 6)),
+        ("pack_flagship", "FOLD_LAUNCHES", eng, FLAGSHIP_PARAMS,
+         (ll_ref, sw_ref), _env(PHYLO_PACK_DNA="1")),
+        ("fold_auto_config4", "FOLD_LAUNCHES", e4_32, PROTEIN_PARAMS,
+         (ll4_ref, sw4_ref), _env(PHYLO_FOLD_CATEGORIES="auto")),
+    )
+    for label, counter, e, prm, (want_ll, want_sw), knob in knobs:
+        with knob:
+            reset_counts()
+            got_ll = e.loglikelihood(prm)
+            got_sw = e.sitewise_loglikelihoods(prm)
+            knob_counts[label] = read_counts()
+        rel = abs(got_ll - want_ll) / abs(want_ll)
+        _check(knob_counts[label][counter] > 0
+               and knob_counts[label]["LAUNCHES"] == 0,
+               f"{label}: the value calls did not take {counter} alone: "
+               f"{knob_counts[label]}")
+        _check(rel <= LOGL_RTOL and np.isfinite(got_sw).all(),
+               f"{label}: logL {got_ll} vs f64 {want_ll}: rel {rel:.3e}")
+        knob_err[label] = {"rel_err": rel, "sitewise_max_abs_err": float(
+            np.max(np.abs(got_sw - want_sw)))}
+    reset_counts()
+    eng.loglikelihood(FLAGSHIP_PARAMS)
+    _check(read_counts()["LAUNCHES"] > 0
+           and read_counts()["STATIC_LAUNCHES"] == 0
+           and read_counts()["FOLD_LAUNCHES"] == 0,
+           f"with the knobs unset the value call left B1: {read_counts()}")
+    del e4_32, e4_64
+    _emit(23, errors=knob_err, launches=knob_counts)
+
+    # 24. the mixture path at full width, main path ------------------------
+    mix_tree = random_tree(MIXTURE_TAXA, seed=24, mean_brlen=0.1)
+    mix_rng = np.random.default_rng(24)
+    mix_prof = mix_rng.dirichlet(np.ones(20), MIXTURE_CLASSES)
+    mix_prof = np.maximum(mix_prof, 1e-4)
+    mix_prof /= mix_prof.sum(axis=1, keepdims=True)
+    mix_w = mix_rng.dirichlet(np.full(MIXTURE_CLASSES, 5.0))
+    n_inner_m = mix_tree.n_nodes - mix_tree.n_leaves
+    mix_reckoned = {
+        "classic_scratch_bytes": 4 * MIXTURE_CLASSES * n_inner_m
+        * MIXTURE_PATTERNS * 21,
+        "classic_budget_bytes": cuda_pruning.CLASSIC_SCRATCH_BUDGET,
+        "walk": cuda_pruning.choose_walk(1, MIXTURE_CLASSES, n_inner_m,
+                                         MIXTURE_PATTERNS, 20),
+        "leaf_bytes": 4 * MIXTURE_TAXA * MIXTURE_PATTERNS * 20,
+        "p_bytes": 4 * mix_tree.n_nodes * MIXTURE_CLASSES * 400,
+        "plain_replay_level_bytes_f32": 4 * mix_tree.n_nodes
+        * MIXTURE_CLASSES * MIXTURE_PATTERNS * 20,
+    }
+    _check(mix_reckoned["walk"] == "stream",
+           f"the full-width mixture does not take the stream walk: "
+           f"{mix_reckoned}")
+    _emit(24, stage="reckoned", taxa=MIXTURE_TAXA, classes=MIXTURE_CLASSES,
+          patterns=MIXTURE_PATTERNS, **mix_reckoned)
+    t_start = time.perf_counter()
+    lg_sym = models.LG.build_parts(dtype=torch.float64)[0]
+    p_mix = np.stack([
+        transition_matrices(
+            models.base.eigen_reversible(lg_sym, torch.as_tensor(f_)),
+            torch.as_tensor(np.asarray(mix_tree.lengths))).numpy()
+        for f_ in mix_prof], axis=1)             # (n_nodes, K, 20, 20)
+    aln_mix = _simulate(mix_tree, p_mix, MIXTURE_PATTERNS, mix_prof,
+                        mix_rng, weights=mix_w, chars=AMINO.encode())
+    mix_kw = dict(profiles=mix_prof, weights=mix_w, device=DEVICE)
+    mix32 = ProfileMixtureEngine(mix_tree, aln_mix, models.LG,
+                                 dtype=torch.float32, pruner="cuda", **mix_kw)
+    mix64 = ProfileMixtureEngine(mix_tree, aln_mix, models.LG,
+                                 dtype=torch.float64, pruner="torch",
+                                 **mix_kw)
+    torch.cuda.synchronize()
+    mix_s = {"data_and_engines": time.perf_counter() - t_start}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ll_mix = mix32.loglikelihood()
+    sw_mix = mix32.sitewise_loglikelihoods()
+    post_mix = mix32.category_posteriors()
+    value_counts = read_counts()
+    value_peak = torch.cuda.max_memory_allocated()
+    _check(value_counts["STREAM_LAUNCHES"] > 0
+           and value_counts["LAUNCHES"] == 0,
+           f"the mixture's value calls did not take the stream walk: "
+           f"{value_counts}")
+    torch.cuda.reset_peak_memory_stats()
+    vmix, gmix = mix32.value_and_grad()
+    grad_peak = torch.cuda.max_memory_allocated()
+    res_mix = fit(mix32, free=("branch_lengths", "cat_weights"),
+                  max_steps=MIX_FIT_STEPS, patience=10 ** 6)
+    mix_counts = read_counts()
+    mix_times = {
+        "loglik_ms": cuda_ms(lambda: mix32.loglikelihood(), 3),
+        "sitewise_ms": cuda_ms(lambda: mix32.sitewise_loglikelihoods(), 3),
+        "category_posteriors_ms": cuda_ms(
+            lambda: mix32.category_posteriors(), 3),
+        "value_and_grad_ms": cuda_ms(lambda: mix32.value_and_grad(), 1),
+    }
+    mix_s["port_calls"] = time.perf_counter() - t_start - sum(mix_s.values())
+    ll_mix_ref = mix64.loglikelihood()
+    post_ref = mix64.category_posteriors()
+    sw_mix_ref = mix64.sitewise_loglikelihoods()
+    rel_mix = abs(ll_mix - ll_mix_ref) / abs(ll_mix_ref)
+    post_err = float(np.max(np.abs(post_mix - post_ref)))
+    del mix64
+    torch.cuda.empty_cache()
+    vmix_ref, gmix_ref = _chunked_value_and_grad(
+        dict(tree=mix_tree, model=models.LG, dtype=torch.float64,
+             pruner="torch", **mix_kw), mix32._compressed, None, MIX_SLICES,
+        engine_cls=ProfileMixtureEngine)
+    mix_s["f64_reference"] = time.perf_counter() - t_start - sum(
+        mix_s.values())
+    rel_vmix = abs(float(vmix) - vmix_ref) / abs(vmix_ref)
+    gmix_err = _grad_errors(gmix, gmix_ref)
+    _check(math.isfinite(ll_mix) and rel_mix <= LOGL_RTOL
+           and post_err <= POSTERIOR_TOL and rel_vmix <= LOGL_RTOL
+           and max(gmix_err.values()) <= GRAD_TOL,
+           f"full-width mixture: logL rel {rel_mix:.3e}, posteriors "
+           f"{post_err:.3e}, value rel {rel_vmix:.3e}, grads {gmix_err}")
+    _check(float(res_mix.trace.max()) > ll_mix and res_mix.loglik > ll_mix,
+           f"the mixture fit did not raise logL: start {ll_mix}, trace "
+           f"{res_mix.trace}")
+    # a 4-class HKY85 kappa mixture on the flagship DNA tree (B1: classic)
+    kappa_mix = [{"kappa": k_} for k_ in (1.0, 2.0, 4.0, 8.0)]
+    hky32 = ModelMixtureEngine(flagship_tree, aln, models.HKY85, kappa_mix,
+                               dtype=torch.float32, pruner="cuda",
+                               device=DEVICE)
+    hky64 = ModelMixtureEngine(flagship_tree, aln, models.HKY85, kappa_mix,
+                               dtype=torch.float64, pruner="torch",
+                               device=DEVICE)
+    hky_w = {"cat_weights": [0.1, 0.2, 0.3, 0.4]}
+    ll_hky = hky32.loglikelihood(hky_w)
+    vh, gh = hky32.value_and_grad(hky_w)
+    mix_counts_all = read_counts()
+    _check(mix_counts_all["LAUNCHES"] > 0,
+           f"the HKY85 mixture did not take B1: {mix_counts_all}")
+    ll_hky_ref = hky64.loglikelihood(hky_w)
+    vh_ref, gh_ref = hky64.value_and_grad(hky_w)
+    rel_hky = abs(ll_hky - ll_hky_ref) / abs(ll_hky_ref)
+    gh_err = _grad_errors(gh, gh_ref)
+    sw_hky_err = float(np.max(np.abs(hky32.sitewise_loglikelihoods(hky_w)
+                                     - hky64.sitewise_loglikelihoods(hky_w))))
+    _check(rel_hky <= LOGL_RTOL and max(gh_err.values()) <= GRAD_TOL,
+           f"HKY85 kappa mixture: logL rel {rel_hky:.3e}, grads {gh_err}")
+    mix_counts = read_counts()
+    del hky32, hky64
+    _emit(24, stage="measured", patterns=mix32._compressed.n_patterns,
+          loglik=ll_mix, loglik_f64=ll_mix_ref,
+          rel_err=rel_mix, sitewise_max_abs_err=float(
+              np.max(np.abs(sw_mix - sw_mix_ref))),
+          posteriors_max_abs_err=post_err, value_rel_err=rel_vmix,
+          grad_rel_err=gmix_err, fit_trace=res_mix.trace.tolist(),
+          fit_loglik=res_mix.loglik, times=mix_times,
+          value_peak_allocated_bytes=value_peak,
+          grad_peak_allocated_bytes=grad_peak, value_launches=value_counts,
+          launches=mix_counts, stage_s=mix_s,
+          hky85_kappa_mixture={"rel_err": rel_hky, "grad_rel_err": gh_err,
+                               "sitewise_max_abs_err": sw_hky_err})
+
+    # 25. the CLI's loglik --profile-mixture, in process, main path --------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nex_",
+                                     dir=build) as tmp:
+        nex = os.path.join(tmp, "models.nex")
+        with open(nex, "w") as fh:
+            fh.write("#nexus\nbegin models;\n")
+            for i, row in enumerate(mix_prof):
+                fh.write(f"frequency SEEDpi{i + 1} = "
+                         + " ".join(repr(float(x)) for x in row) + ";\n")
+            fh.write("model SEED20 = LG+FMIX{" + ",".join(
+                f"SEEDpi{i + 1}:1.0:{float(w_)!r}"
+                for i, w_ in enumerate(mix_w)) + "};\nend;\n")
+        tree_path, fasta = (os.path.join(tmp, n) for n in ("mix.nwk",
+                                                           "mix.fa"))
+        with open(tree_path, "w") as fh:
+            fh.write(write_newick(mix_tree) + "\n")
+        _write_fasta(aln_mix, fasta)
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = port_cli.main(["loglik", "--tree", tree_path, "--alignment",
+                           fasta, "--model", "LG", "--dtype", "float32",
+                           "--pruner", "cuda", "--device", DEVICE,
+                           "--profile-mixture", f"{nex}:SEED20"])
+        cli_mix_s = time.perf_counter() - t0
+        cli_counts = read_counts()
+    cli_ll = json.loads(out.getvalue().strip().splitlines()[-1])["loglik"]
+    cli_rel = abs(cli_ll - ll_mix) / abs(ll_mix)
+    _check(rc == 0 and cli_rel <= 1e-9
+           and cli_counts["STREAM_LAUNCHES"] > 0,
+           f"CLI --profile-mixture logL {cli_ll} vs engine {ll_mix}: rel "
+           f"{cli_rel:.3e}, launches {cli_counts}")
+    _emit(25, loglik=cli_ll, rel_to_engine=cli_rel, wall_s=cli_mix_s,
+          launches=cli_counts)
+    del mix32, gmix, gmix_ref
+    torch.cuda.empty_cache()
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
-                   prot_counts, classic_counts, wide_counts, unc_counts)
+                   prot_counts, classic_counts, wide_counts, unc_counts,
+                   *knob_counts.values(), mix_counts, cli_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -1343,6 +1770,11 @@ def main():
         kernel("pruning_classic_reverse_f32", "pruning_classic_reverse.cu",
                879, "CLASSIC_REVERSE_LAUNCHES", b7_max,
                timings[f"classic_B{BATCH}"], "classic", flagship),
+        kernel("pruning_fold_f32", "pruning_fold.cu", 333, "FOLD_LAUNCHES",
+               b9_max, timings[f"fold_B{BATCH}"], "forward", flagship),
+        kernel("pruning_static_f32", "pruning_static.cu", 402,
+               "STATIC_LAUNCHES", b8_max, timings[f"static_B{BATCH}"],
+               "forward", flagship),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

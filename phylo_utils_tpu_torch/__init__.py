@@ -1,7 +1,8 @@
 """phylo_utils_tpu_torch: the PyTorch/CUDA port of ``phylo_utils_tpu``.
 
 Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
-distances and NJ trees on an NVIDIA GPU (or the CPU), held against the JAX
+distances, NJ trees and model and profile mixtures on an NVIDIA GPU (or the
+CPU), held against the JAX
 package on the same inputs. The ported public names of the JAX package are
 exported here; the CLI is ``python -m phylo_utils_tpu_torch.cli``.
 Importing the package loads no kernel: ``ops/_build.py`` compiles
@@ -10,7 +11,11 @@ Importing the package loads no kernel: ``ops/_build.py`` compiles
 
 __version__ = "0.1.0"
 
-from phylo_utils_tpu_torch.likelihood import LikelihoodEngine  # noqa: F401
+from phylo_utils_tpu_torch.likelihood import (  # noqa: F401
+    GammaMixture,
+    LikelihoodEngine,
+)
+from phylo_utils_tpu_torch.mixtures import ModelMixtureEngine  # noqa: F401
 from phylo_utils_tpu_torch.nj import neighbor_joining  # noqa: F401
 from phylo_utils_tpu_torch.optimize import (  # noqa: F401
     brent_minimize,
@@ -21,6 +26,11 @@ from phylo_utils_tpu_torch.optimize import (  # noqa: F401
     ml_distance_matrix,
     newton_branch_length,
     standard_errors,
+)
+from phylo_utils_tpu_torch.profile_mixtures import (  # noqa: F401
+    ProfileMixtureEngine,
+    parse_nexus_models,
+    profile_mixture_from_nexus,
 )
 from phylo_utils_tpu_torch.server import EngineServer  # noqa: F401
 from phylo_utils_tpu_torch.trees import (  # noqa: F401

@@ -9,7 +9,10 @@ given; ``--pruner`` is ``torch`` (plain PyTorch, the default, as the JAX
 CLI's ``xla``) or ``cuda`` (the hand-written kernels). ``--params`` JSON is
 read through ``convert.params_from_jax``, so both packages read one file
 alike. Every other subcommand, and the flags whose engines are not ported
-yet, exit non-zero naming their ROADMAP item.
+yet, exit non-zero naming their ROADMAP item. ``--profile-mixture
+FILE.nex:NAME`` builds a ``ProfileMixtureEngine`` from an IQ-TREE
+``models.nex`` definition, with ``--model`` as the shared exchangeability
+matrix.
 """
 from __future__ import annotations
 
@@ -42,9 +45,10 @@ _UNPORTED_FLAGS = (
     ("asc", "--asc", "A14"),
     ("asc_counts", "--asc-counts", "A14"),
     ("recode", "--recode", "A15"),
-    ("profile_mixture", "--profile-mixture", "A15"),
     ("shard_sites", "--shard-sites", "A12"),
 )
+# the flags --profile-mixture refuses with its own message, as the JAX CLI
+_PROFILE_REFUSED = ("recode", "shard_sites")
 
 
 def _not_ported(what: str, item: str):
@@ -166,15 +170,57 @@ def _add_engine_args(p: argparse.ArgumentParser):
                    help="recode the alignment (not ported: A15)")
     p.add_argument("--profile-mixture", default=None,
                    metavar="FILE.nex:NAME",
-                   help="frequency-profile mixture (not ported: A15)")
+                   help="frequency-profile mixture (C10-C60/LG4X family) "
+                        "from an IQ-TREE models.nex definition; --model "
+                        "supplies the shared exchangeability matrix "
+                        "(e.g. LG)")
+
+
+def _profile_mixture_engine(args):
+    """The ``--profile-mixture FILE.nex:NAME`` engine, with the JAX CLI's
+    refusals: +G/+I (the profile classes are the mixture axis), --recode
+    and --shard-sites."""
+    from phylo_utils_tpu_torch.profile_mixtures import (
+        profile_mixture_from_nexus,
+    )
+
+    spec = args.profile_mixture
+    if ":" not in spec:
+        raise SystemExit("--profile-mixture expects FILE.nex:MODELNAME")
+    path, _, name = spec.rpartition(":")
+    base, spec_ncat, spec_inv, _, _ = _parse_model_spec(args.model)
+    if spec_ncat > 1 or getattr(args, "ncat", 1) > 1 or spec_inv or \
+            getattr(args, "invariant_sites", False):
+        raise SystemExit(
+            "--profile-mixture does not compose with +G/+I rate "
+            "heterogeneity (the profile classes are the mixture axis); use "
+            "the file's class rates, or drop the suffix"
+        )
+    if any(getattr(args, attr, None) for attr in _PROFILE_REFUSED):
+        raise SystemExit(
+            "--profile-mixture does not support --recode/--shard-sites")
+    try:
+        return profile_mixture_from_nexus(
+            path, name, _read_tree(args.tree), _read_aln(args.alignment),
+            base, dtype=args.dtype, pruner=args.pruner, device=args.device,
+        )
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"--profile-mixture: {e}")
 
 
 def _build_engine(args):
     from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 
+    profile = getattr(args, "profile_mixture", None)
     for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr, None):
+        if getattr(args, attr, None) and not (
+                profile and attr in _PROFILE_REFUSED):
             _not_ported(flag, item)
+    if profile:
+        try:
+            return _profile_mixture_engine(args)
+        except RuntimeError as e:       # no card behind --device cuda
+            raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
     model, spec_ncat, spec_inv, spec_emp, rate_model = \
         _parse_model_spec(args.model)
     # model-string suffixes compose with (and never reduce) the flags:

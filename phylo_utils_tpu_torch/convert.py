@@ -1,10 +1,13 @@
 """Parameter dictionaries between the JAX package, JSON and the port.
 
 The engine's parameters (``branch_lengths``, ``model{...}``, ``alpha``,
-``pinv``, ...) are the system's weights. ``params_from_jax`` takes the JAX
-engine's dict as numpy arrays (``np.asarray`` of each leaf of
-``engine._full_params(...)``, or anything ``np.asarray`` accepts) and returns
-the port's dict of tensors; ``params_to_numpy`` goes the other way, for JSON.
+``pinv``, ...; the mixture engines' nested ``mixture{...}`` of per-class
+stacks, ``cat_weights`` and ``class_rates``) are the system's weights.
+``params_from_jax`` takes the JAX engine's dict as numpy arrays
+(``np.asarray`` of each leaf of ``engine._full_params(...)``, or anything
+``np.asarray`` accepts: lists, tuples of per-class rows) at any nesting and
+returns the port's dict of tensors; ``params_to_numpy`` goes the other way,
+for JSON.
 Neither imports JAX. ``flatten_params``/``unflatten_params`` turn a nested
 dict into the flat tensor list that autograd and optimizers take, and back.
 """

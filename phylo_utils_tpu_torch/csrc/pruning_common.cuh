@@ -1,5 +1,6 @@
 // Helpers shared by the pruning kernels (pruning_forward.cu,
-// pruning_reverse.cu, pruning_slot.cu, pruning_classic_reverse.cu): the
+// pruning_reverse.cu, pruning_slot.cu, pruning_classic_reverse.cu,
+// pruning_fold.cu, pruning_static.cu): the
 // per-column state rows, the child contraction and its transpose, the exact
 // power-of-two rescale, and the dispatch from a run-time state count to the
 // compiled instantiations.

@@ -6,14 +6,17 @@ explicit device) and evaluates ``logL(params)`` where params is a dict
 ``{'branch_lengths', 'model', 'alpha'?, 'pinv'?}`` of tensors. Pruners:
 ``"torch"`` (level-batched plain PyTorch, ``ops.pruning.make_prune_fn``) and
 ``"cuda"`` (the hand-written pruning kernels, ``ops.cuda_pruning``; CPU
-tensors take their plain-PyTorch walks). ``gradient`` and ``value_and_grad``
+tensors take their plain-PyTorch walks; the engines that take the root
+partials themselves prune through ``make_cuda_prune_fn``, the kernels
+forward and the plain pruner backward). ``gradient`` and ``value_and_grad``
 differentiate the float64 total with respect to every parameter through
 torch autograd: P(t) through the reverse rule of
 ``ops.pmatrix.p_matrices_reversible``, the gamma rates through the port's
 own ``gammainc``, and, with ``pruner="cuda"``, the walk through the saveall
 kernel and a reverse kernel: the deferred one while its gy store fits the
 card, else the classic one (``cuda_pruning.choose_reverse``,
-``PHYLO_DEFERRED_VJP``).
+``PHYLO_DEFERRED_VJP``). ``GammaMixture`` is the stateful facade of the
+JAX package's (and its reference's) API over one engine.
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ from phylo_utils_tpu_torch import io as pio
 from phylo_utils_tpu_torch import trees as ptrees
 from phylo_utils_tpu_torch.convert import flatten_params, unflatten_params
 from phylo_utils_tpu_torch.models.base import Eigen, Model
-from phylo_utils_tpu_torch.ops.cuda_pruning import make_fused_loglik_fn
+from phylo_utils_tpu_torch.ops.cuda_pruning import (
+    make_cuda_prune_fn,
+    make_fused_loglik_fn,
+)
 from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
 from phylo_utils_tpu_torch.ops.pmatrix import (
     extend_p_identity,
@@ -41,7 +47,8 @@ from phylo_utils_tpu_torch.ops.pruning import (
     mixture_loglik_from_ll,
 )
 
-__all__ = ["LikelihoodEngine", "rate_categories", "mixture_rates_and_p"]
+__all__ = ["LikelihoodEngine", "GammaMixture", "rate_categories",
+           "mixture_rates_and_p", "validate_param_keys"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -119,6 +126,27 @@ def mixture_rates_and_p(engine, params, dtype, eig=None, rates=None):
     return rates, cat_weights, p, freqs
 
 
+def validate_param_keys(params, full, where: str,
+                        nested: str = None) -> None:
+    """Raise on unknown top-level parameter names, and, when ``nested`` is
+    given, on unknown sub-keys of that nested dict: the typo guard of the
+    mixture engines' ``_full_params`` (a misspelled key would otherwise be
+    stored and silently ignored)."""
+    unknown = set(params) - set(full)
+    if unknown:
+        raise ValueError(
+            f"unknown parameter(s) {sorted(unknown)} for {where}; "
+            f"available: {sorted(full.keys())}"
+        )
+    if nested and nested in params:
+        sub_unknown = set(params[nested]) - set(full[nested])
+        if sub_unknown:
+            raise ValueError(
+                f"unknown {nested!r} parameter(s) {sorted(sub_unknown)} "
+                f"for {where}; available: {sorted(full[nested].keys())}"
+            )
+
+
 def _value_key(t) -> bytes:
     return torch.as_tensor(t).detach().cpu().numpy().tobytes()
 
@@ -137,8 +165,8 @@ class LikelihoodEngine:
     dtype : partials dtype (None = float64). With float32, P(t) build, root
         reduction and mixing still run in float64.
     compress : collapse identical columns to weighted patterns
-    pruner : "torch" (plain PyTorch) or "cuda" (the CUDA pruning kernel on
-        CUDA tensors, its plain-PyTorch walk on CPU tensors)
+    pruner : "torch" (plain PyTorch) or "cuda" (the CUDA pruning kernels on
+        CUDA tensors, their plain-PyTorch walks on CPU tensors)
     rate_model : "gamma" (param 'alpha') or "free" (FreeRate: 'rates' and
         'cat_weights' are free, rates renormalized to weighted mean 1)
     device : torch device for every tensor of the engine ("cuda" default;
@@ -231,7 +259,10 @@ class LikelihoodEngine:
                     "parity runs.",
                     stacklevel=2,
                 )
+            # value and gradient of the base engine in one Function; the
+            # engines that take the root partials prune through _prune
             self._fused_ll = make_fused_loglik_fn(self.schedule)
+            self._prune = make_cuda_prune_fn(self.schedule)
         elif pruner == "torch":
             self._prune = make_prune_fn(self.schedule)
         else:
@@ -255,7 +286,10 @@ class LikelihoodEngine:
     def model_eigen(self, full_params):
         """Eigen system for ``full_params['model']`` on the engine's device,
         cached by parameter VALUE (the eigendecomposition lives with the
-        model and is not redone per evaluation)."""
+        model and is not redone per evaluation). None for engines whose
+        parameters have no single ``model`` entry (the mixtures)."""
+        if "model" not in full_params:
+            return None
         key = tuple((k, _value_key(v))
                     for k, v in sorted(full_params["model"].items()))
         if key != self._eig_cache_key:
@@ -485,3 +519,99 @@ class LikelihoodEngine:
         rng = np.random.default_rng(seed)
         boot_w = rng.multinomial(n_sites, w / n_sites, size=n_replicates)
         return boot_w @ sw
+
+
+class GammaMixture:
+    """Stateful facade with the reference's ``GammaMixture`` API (port of
+    ``phylo_utils_tpu.likelihood.GammaMixture``): ``set_alignment`` /
+    ``set_tree`` / ``update_alpha`` / ``update_substitution_model`` /
+    ``update_branch_lengths`` / ``update_pinv`` / ``get_likelihood`` /
+    ``get_sitewise_likelihoods`` / ``get_gradient`` / ``optimise``.
+
+    Every update edits a parameter dict; the engine is rebuilt only by
+    ``set_tree`` (or a new model or alignment). ``pruner`` and ``device``
+    pass through to ``LikelihoodEngine`` (default the card).
+    """
+
+    def __init__(self, alpha: float, ncat: int, model: Model,
+                 invariant_sites: bool = False, pinv: float = 0.2,
+                 dtype=None, pruner: str = "torch", device="cuda"):
+        self.model = model
+        self.ncat = int(ncat)
+        self.invariant_sites = bool(invariant_sites)
+        self._dtype = dtype
+        self._pruner = pruner
+        self._device = device
+        self._engine: Optional[LikelihoodEngine] = None
+        self._alignment = None
+        self._params: Dict = {"alpha": alpha}
+        if invariant_sites:
+            self._params["pinv"] = pinv
+
+    # -- wiring --------------------------------------------------------------
+
+    def set_alignment(self, alignment) -> "GammaMixture":
+        self._alignment = alignment
+        if self._engine is not None:
+            self.set_tree(self._engine.tree)
+        return self
+
+    def set_tree(self, tree) -> "GammaMixture":
+        if self._alignment is None:
+            raise ValueError("call set_alignment() before set_tree()")
+        self._engine = LikelihoodEngine(
+            tree, self._alignment, self.model, ncat=self.ncat,
+            invariant_sites=self.invariant_sites, dtype=self._dtype,
+            pruner=self._pruner, device=self._device,
+        )
+        self._params.pop("branch_lengths", None)
+        return self
+
+    def _require_engine(self) -> LikelihoodEngine:
+        if self._engine is None:
+            raise ValueError("call set_alignment() and set_tree() first")
+        return self._engine
+
+    # -- updates (reference method names) ------------------------------------
+
+    def update_alpha(self, alpha: float) -> None:
+        self._params["alpha"] = alpha
+
+    def update_substitution_model(self, model: Model = None,
+                                  **params) -> None:
+        if model is not None and model is not self.model:
+            self.model = model
+            # the previous model's parameters mean nothing to the new one
+            self._params.pop("model", None)
+            if self._engine is not None:
+                self.set_tree(self._engine.tree)
+        if params:
+            merged = dict(self._params.get("model", {}))
+            merged.update(params)
+            self._params["model"] = merged
+
+    def update_branch_lengths(self, lengths) -> None:
+        self._params["branch_lengths"] = np.asarray(lengths, dtype=np.float64)
+
+    def update_pinv(self, pinv: float) -> None:
+        self._params["pinv"] = pinv
+
+    # -- queries --------------------------------------------------------------
+
+    def get_likelihood(self) -> float:
+        return self._require_engine().loglikelihood(self._params)
+
+    def get_sitewise_likelihoods(self) -> np.ndarray:
+        return self._require_engine().sitewise_loglikelihoods(self._params)
+
+    def get_gradient(self) -> Dict:
+        return self._require_engine().gradient(self._params)
+
+    def optimise(self, **kwargs):
+        """Joint ML fit of all free parameters (``optimize.fit``); updates
+        this object's parameters in place and returns the ``FitResult``."""
+        from phylo_utils_tpu_torch.optimize import fit
+
+        res = fit(self._require_engine(), self._params, **kwargs)
+        self._params = dict(res.params)
+        return res

@@ -31,14 +31,34 @@ CUDA tensor launches the kernel or raises):
   of ``ReverseSchedule``; it stores no gy. Plain version
   ``classic_reverse_walk_reference``.
 
+- ``static_walk`` (``csrc/pruning_static.cu``, replaces ``_static_kernel``):
+  the classic walk compiled for one topology (``ops/_build.py`` builds it
+  per tree and state count), every node id a compile-time constant; and
+  ``fold_walk`` (``csrc/pruning_fold.cu``, replaces the category-fold and
+  DNA-pack lowerings of ``_dynamic_kernel``): one thread walks F categories
+  of a column, loading each leaf row once for all F. Both roots are bit for
+  bit the forward kernel's; their plain version is
+  ``forward_walk_reference``.
+
+``forward_walk(walk="auto")`` picks the walk (``choose_walk``) and, where
+that is the classic walk, its lowering as the JAX package's
+``_pallas_forward`` does (``choose_lowering``: static while the internal
+nodes are at most ``STATIC_UNROLL_MAX``, env ``PHYLO_STATIC_UNROLL_MAX``;
+else the fold of 2 under ``PHYLO_PACK_DNA=1`` at 4 states, or of
+``_pick_fold``'s F under ``PHYLO_FOLD_CATEGORIES``; else the forward
+kernel). All three knobs are off by default.
+
 ``make_fused_loglik_fn`` ties them into a differentiable per-(category,
 site) log-likelihood: value calls run ``forward_walk``; calls that need a
 gradient run ``saveall_walk`` forward and, backward, ``reverse_walk`` while
 its gy store fits the card, else ``classic_reverse_walk``
-(``choose_reverse``, ``PHYLO_DEFERRED_VJP``). ``LAUNCHES``,
-``SLOT_LAUNCHES``, ``STREAM_LAUNCHES``, ``SAVEALL_LAUNCHES``,
-``REVERSE_LAUNCHES`` and ``CLASSIC_REVERSE_LAUNCHES`` count kernel
-launches, so a run can show its main path went through the kernels.
+(``choose_reverse``, ``PHYLO_DEFERRED_VJP``). ``make_cuda_prune_fn`` is the
+pruning function of the engines above ``LikelihoodEngine`` (root partials
+and logscale): ``forward_walk`` forward, the plain pruner replayed under
+autograd backward. ``LAUNCHES``, ``SLOT_LAUNCHES``, ``STREAM_LAUNCHES``,
+``SAVEALL_LAUNCHES``, ``REVERSE_LAUNCHES``, ``CLASSIC_REVERSE_LAUNCHES``,
+``STATIC_LAUNCHES`` and ``FOLD_LAUNCHES`` count kernel launches, so a run
+can show its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -53,6 +73,7 @@ from phylo_utils_tpu_torch.ops.pruning import (
     LN2,
     exp2_int,
     first_derivative_only,
+    make_prune_fn,
     pow2_rescale,
 )
 from phylo_utils_tpu_torch.trees import PruningSchedule
@@ -64,16 +85,23 @@ __all__ = [
     "SAVEALL_LAUNCHES",
     "REVERSE_LAUNCHES",
     "CLASSIC_REVERSE_LAUNCHES",
+    "STATIC_LAUNCHES",
+    "FOLD_LAUNCHES",
     "CLASSIC_SCRATCH_BUDGET",
+    "STATIC_UNROLL_MAX",
+    "FOLD_WIDTHS",
     "WalkSchedule",
     "SlotSchedule",
     "ReverseSchedule",
     "choose_walk",
     "choose_reverse",
+    "choose_lowering",
     "forward_walk",
     "forward_walk_reference",
     "slot_walk",
     "slot_walk_reference",
+    "static_walk",
+    "fold_walk",
     "saveall_walk",
     "saveall_walk_reference",
     "reverse_walk",
@@ -82,6 +110,7 @@ __all__ = [
     "classic_reverse_walk_reference",
     "classic_reverse_scratch",
     "make_fused_loglik_fn",
+    "make_cuda_prune_fn",
 ]
 
 LAUNCHES = 0                  # pruning_forward_f32
@@ -90,6 +119,17 @@ STREAM_LAUNCHES = 0           # pruning_stream_f32
 SAVEALL_LAUNCHES = 0          # pruning_saveall_f32
 REVERSE_LAUNCHES = 0          # pruning_reverse_f32
 CLASSIC_REVERSE_LAUNCHES = 0  # pruning_classic_reverse_f32
+STATIC_LAUNCHES = 0           # pruning_static_f32
+FOLD_LAUNCHES = 0             # pruning_fold_f32
+
+# internal-node count up to which the classic walk is the topology-compiled
+# static kernel (B8); read at import, as the JAX package reads it; 0 (the
+# default) never
+STATIC_UNROLL_MAX = int(os.environ.get("PHYLO_STATIC_UNROLL_MAX", "0"))
+# the categories per thread the fold kernel (B9) is compiled for, by state
+# count (csrc/pruning_fold.cu's FoldWidths): the widths ptxas takes without
+# spills, where the TPU's fold stopped at its 128 lanes
+FOLD_WIDTHS = {4: (2, 4), 20: (2, 3, 4, 5)}
 
 # CUDA caps gridDim.z (the batch axis of the launch) at 65535
 _MAX_GRID_Z = 65535
@@ -312,8 +352,9 @@ class ReverseSchedule:
 class WalkSchedule:
     """The post-order walk of one schedule: host arrays plus their int32
     copies on each device that has used them, and (built at first use) the
-    schedule's DFS slot walk, ``slots``, and classic reverse walk,
-    ``reverse``."""
+    schedule's DFS slot walk, ``slots``, its classic reverse walk,
+    ``reverse``, and its topology-compiled kernel library per state count,
+    ``static_library``."""
 
     def __init__(self, schedule: PruningSchedule):
         self.order, self.children, self.counts = _postorder_arrays(schedule)
@@ -325,7 +366,19 @@ class WalkSchedule:
         self._schedule = schedule
         self._slots = None
         self._reverse = None
+        self._static = {}
         self._on_device = {}
+
+    def static_library(self, s: int):
+        """B8's library for this topology at ``s`` states (built by
+        ``_build.load_static_library`` at first use)."""
+        if s not in self._static:
+            from phylo_utils_tpu_torch.ops._build import load_static_library
+
+            self._static[s] = load_static_library(
+                self.order, self.children, self.counts, self.n_nodes,
+                self.n_leaves, s)
+        return self._static[s]
 
     @property
     def slots(self) -> SlotSchedule:
@@ -690,9 +743,8 @@ def _batch_chunk(b: int, bytes_per_b: int, device: torch.device) -> int:
     return min(b, budget // bytes_per_b, _MAX_GRID_Z)
 
 
-def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
-    """The kernels' library for CUDA inputs; raises on what they do not
-    take."""
+def _check_cuda(p: torch.Tensor, *tensors: torch.Tensor):
+    """Raises on CUDA inputs the kernels do not take."""
     if p.device.type != "cuda":
         raise ValueError(f"the pruning kernels run on cpu or cuda, not "
                          f"{p.device}")
@@ -706,6 +758,12 @@ def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
             f"the CUDA walks are built for {_KERNEL_STATES} states, not {s} "
             "(codon is ROADMAP A14)"
         )
+
+
+def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
+    """The kernels' library for CUDA inputs; raises on what they do not
+    take."""
+    _check_cuda(p, *tensors)
     from phylo_utils_tpu_torch.ops._build import load_library
 
     return load_library()
@@ -729,6 +787,45 @@ def choose_walk(b: int, k: int, n_inner: int, sites: int, s: int) -> str:
     return "stream" if s >= 20 else "slot"
 
 
+def _pick_fold(k: int, s: int) -> int:
+    """Categories per thread of the fold lowering under
+    ``PHYLO_FOLD_CATEGORIES``, with the JAX package's ``_pick_fold``
+    semantics: "0" (the default) 1; "auto" as many as divide ``k``, at 20
+    states only; "<int>" at most that many. The widest F is the widest
+    ``FOLD_WIDTHS`` compiles at ``s`` (the TPU's was 128 lanes), and F must
+    divide ``k``: a K that no compiled F divides is not folded (never
+    padded)."""
+    env = os.environ.get("PHYLO_FOLD_CATEGORIES", "0")
+    widths = FOLD_WIDTHS.get(s, ())
+    if env == "0" or k <= 1 or not widths:
+        return 1
+    if env == "auto":
+        if s < 16:
+            return 1
+        f = k
+    else:
+        f = min(int(env), k)
+    while f > 1 and (k % f or f not in widths):
+        f -= 1
+    return max(f, 1)
+
+
+def choose_lowering(k: int, n_int: int, s: int) -> Tuple[str, int]:
+    """The classic walk's lowering, by the precedence of the JAX package's
+    ``_pallas_forward``: ("static", 1) while ``n_int`` internal nodes are at
+    most ``STATIC_UNROLL_MAX``; else ("fold", 2) under ``PHYLO_PACK_DNA=1``
+    at 4 states with ``k`` even (JAX's pack is a fold of 2); else ("fold",
+    F) when ``_pick_fold`` gives F > 1; else ("classic", 1), the forward
+    kernel."""
+    if n_int <= STATIC_UNROLL_MAX:
+        return "static", 1
+    if (os.environ.get("PHYLO_PACK_DNA", "0") == "1" and s == 4
+            and k >= 2 and k % 2 == 0):
+        return "fold", 2
+    fold = _pick_fold(k, s)
+    return ("fold", fold) if fold > 1 else ("classic", 1)
+
+
 _WALKS = ("auto", "classic", "slot", "stream")
 
 
@@ -739,30 +836,53 @@ def forward_walk(
     """Root partials and root exponent count of the pruning walk.
 
     Same contract as ``forward_walk_reference``. ``walk``: "classic" (every
-    internal node kept), "slot" or "stream" (``slot_walk``), or "auto"
-    (``choose_walk``); all give the same bits. CPU tensors take the plain
+    internal node kept, the forward kernel), "slot" or "stream"
+    (``slot_walk``), or "auto": ``choose_walk``, and where that gives the
+    classic walk, ``choose_lowering`` (``static_walk``, ``fold_walk`` or the
+    forward kernel). All give the same bits. CPU tensors take the plain
     versions; CUDA tensors launch the kernel (one launch per batch chunk
     that fits free device memory) on the current stream.
     """
-    global LAUNCHES
     if walk not in _WALKS:
         raise ValueError(f"walk must be one of {_WALKS}, not {walk!r}")
     _check(p, leaves, schedule)
     _not_differentiable("forward_walk", p, leaves)
-    batched = p.dim() == 5
-    pb = p if batched else p[None]
-    b, _, k = pb.shape[:3]
+    b = p.shape[0] if p.dim() == 5 else 1
+    k = p.shape[-3]
     sites, s = leaves.shape[1:]
     n_inner = schedule.n_nodes - schedule.n_leaves
     if walk == "auto":
         walk = choose_walk(b, k, n_inner, sites, s)
+        if walk == "classic":
+            lowering, fold = choose_lowering(k, len(schedule.order), s)
+            if lowering == "static":
+                return static_walk(p, leaves, schedule)
+            if lowering == "fold":
+                return fold_walk(p, leaves, schedule, fold)
     if walk != "classic":
         return slot_walk(p, leaves, schedule, stream=walk == "stream")
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, schedule)
-    lib = _cuda_library(p, leaves)
+    return _classic_launch("forward", _cuda_library(p, leaves), p, leaves,
+                           schedule)
+
+
+def _classic_launch(kind: str, lib, p, leaves, walk: WalkSchedule,
+                    fold: int = 1):
+    """Root and root exponent count from B1 ("forward"), B9 ("fold", ``fold``
+    categories a thread) or B8 ("static", ``lib`` the topology's library):
+    the same scratch, (B, K, n_inner, sites, S + 1) float32, one launch per
+    batch chunk that fits free device memory, on the current stream."""
+    global LAUNCHES, FOLD_LAUNCHES, STATIC_LAUNCHES
+    batched = p.dim() == 5
+    pb = p if batched else p[None]
+    b, _, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    n_inner = walk.n_nodes - walk.n_leaves
+    n_int = len(walk.order)
     device = p.device
-    order, children, counts = schedule.on(device)
+    order, children, counts = walk.on(device)
+    cmax = children.shape[1]
     root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
     root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
     chunk = _batch_chunk(b, k * n_inner * sites * (s + 1) * 4, device)
@@ -773,20 +893,79 @@ def forward_walk(
                               dtype=torch.float32, device=device)
         scratch_e = torch.empty((nb, k, n_inner, sites),
                                 dtype=torch.float32, device=device)
-        rc = lib.pruning_forward_f32(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
-            children.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
-            scratch_e.data_ptr(), root[b0:b0 + nb].data_ptr(),
-            root_e[b0:b0 + nb].data_ptr(), nb, k, s, schedule.n_nodes,
-            schedule.n_leaves, len(schedule.order), children.shape[1],
-            sites, stream,
-        )
+        ptrs = (scratch.data_ptr(), scratch_e.data_ptr(),
+                root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr())
+        walk_ptrs = (order.data_ptr(), children.data_ptr(),
+                     counts.data_ptr())
+        if kind == "static":
+            name = "pruning_static_f32"
+            rc = lib.pruning_static_f32(
+                pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *ptrs, nb, k,
+                s, walk.n_nodes, walk.n_leaves, n_int, sites, stream)
+        elif kind == "fold":
+            name = "pruning_fold_f32"
+            rc = lib.pruning_fold_f32(
+                pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *walk_ptrs,
+                *ptrs, nb, k, s, fold, walk.n_nodes, walk.n_leaves, n_int,
+                cmax, sites, stream)
+        else:
+            name = "pruning_forward_f32"
+            rc = lib.pruning_forward_f32(
+                pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *walk_ptrs,
+                *ptrs, nb, k, s, walk.n_nodes, walk.n_leaves, n_int, cmax,
+                sites, stream)
         if rc != 0:
-            raise RuntimeError(f"pruning_forward_f32 launch failed: CUDA "
-                               f"error {rc}")
-        LAUNCHES += 1
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        if kind == "static":
+            STATIC_LAUNCHES += 1
+        elif kind == "fold":
+            FOLD_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
         del scratch, scratch_e
     return (root, root_e) if batched else (root[0], root_e[0])
+
+
+def static_walk(
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Root partials and root exponent count by the walk compiled for this
+    topology (B8, ``pruning_static_f32``). Same contract as
+    ``forward_walk_reference`` and the forward kernel's bits. CPU tensors
+    take ``forward_walk_reference``; CUDA tensors build the topology's
+    library at first use (``WalkSchedule.static_library``; no fallback when
+    the build fails) and launch it."""
+    _check(p, leaves, walk)
+    _not_differentiable("static_walk", p, leaves)
+    if p.device.type == "cpu":
+        return forward_walk_reference(p, leaves, walk)
+    _check_cuda(p, leaves)
+    return _classic_launch("static", walk.static_library(leaves.shape[2]),
+                           p, leaves, walk)
+
+
+def fold_walk(
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule, fold: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Root partials and root exponent count with ``fold`` categories per
+    thread (B9, ``pruning_fold_f32``; the DNA pack is ``fold=2`` at 4
+    states). Same contract as ``forward_walk_reference`` and the forward
+    kernel's bits. ``fold`` must divide K and, on the card, be one of
+    ``FOLD_WIDTHS`` at the state count. CPU tensors take
+    ``forward_walk_reference``."""
+    _check(p, leaves, walk)
+    _not_differentiable("fold_walk", p, leaves)
+    k, s = p.shape[-3], leaves.shape[2]
+    if fold < 1 or k % fold:
+        raise ValueError(f"fold {fold} does not divide {k} categories")
+    if p.device.type == "cpu":
+        return forward_walk_reference(p, leaves, walk)
+    lib = _cuda_library(p, leaves)
+    if fold not in FOLD_WIDTHS[s]:
+        raise NotImplementedError(
+            f"pruning_fold_f32 is compiled for {FOLD_WIDTHS[s]} categories "
+            f"per thread at {s} states, not {fold}")
+    return _classic_launch("fold", lib, p, leaves, walk, fold)
 
 
 def slot_walk(
@@ -1167,3 +1346,88 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
         return _root_loglik(*forward_walk(p32, l32, walk), freqs)[0]
 
     return fused_ll
+
+
+# bytes of level buffers one backward replay of the plain pruner may hold;
+# past that it replays the sites in slices (the pruning has no coupling
+# across sites, so the gradients of the slices add up)
+_REPLAY_BYTES = 2 ** 31
+
+
+class _CudaPrune(torch.autograd.Function):
+    """(root partials, root logscale in ln units) with the kernels forward
+    and the plain pruner replayed backward: ``make_pallas_prune_fn``'s
+    ``custom_vjp``, whose backward is ``jax.vjp`` of the XLA pruner on the
+    saved inputs. The replay runs in the inputs' own dtypes, over site
+    slices of at most ``_REPLAY_BYTES`` of level buffers. It has no second
+    derivative (``first_derivative_only``)."""
+
+    @staticmethod
+    def forward(ctx, p, leaves, walk, plain):
+        root, root_e = forward_walk(
+            p.to(torch.float32).contiguous(),
+            leaves.to(torch.float32).contiguous(), walk)
+        ctx.walk, ctx.plain = walk, plain
+        ctx.save_for_backward(p, leaves)
+        return root.to(leaves.dtype), root_e.to(torch.float64) * LN2
+
+    @staticmethod
+    @first_derivative_only
+    def backward(ctx, ct_root, ct_logscale):
+        p, leaves = ctx.saved_tensors
+        need_p, need_l = ctx.needs_input_grad[:2]
+        sites, s = leaves.shape[1:]
+        per_site = (ctx.walk.n_nodes * p.shape[-3] * s * leaves.element_size()
+                    * (p.shape[0] if p.dim() == 5 else 1))
+        step = max(1, _REPLAY_BYTES // per_site)
+        dp = None
+        dleaf = torch.zeros_like(leaves) if need_l else None
+        for s0 in range(0, sites, step):
+            sl = slice(s0, min(sites, s0 + step))
+            with torch.enable_grad():
+                pp = p.detach().requires_grad_(need_p)
+                ll = leaves[:, sl].detach().requires_grad_(need_l)
+                root, logscale = ctx.plain(pp, ll)
+                inputs = [t for t, need in ((pp, need_p), (ll, need_l))
+                          if need]
+                # in float32 the logscale is exponent counts: no graph
+                outs = [(out, ct.to(out.dtype)) for out, ct in (
+                    (root, ct_root[..., sl, :]),
+                    (logscale, ct_logscale[..., sl])) if out.requires_grad]
+                grads = torch.autograd.grad(
+                    [o for o, _ in outs], inputs, [c for _, c in outs],
+                    allow_unused=True)
+            grads = list(grads)
+            if need_p:
+                g = grads.pop(0)
+                if g is not None:
+                    dp = g if dp is None else dp + g
+            if need_l and grads[0] is not None:
+                dleaf[:, sl] = grads[0]
+        if need_p and dp is None:
+            dp = torch.zeros_like(p)
+        return dp, dleaf, None, None
+
+
+def make_cuda_prune_fn(schedule: PruningSchedule):
+    """Counterpart of ``pallas_pruning.make_pallas_prune_fn``: the pruning
+    function of the engines that take the root partials themselves (model
+    and profile mixtures).
+
+    Returns ``prune(p_matrices (B?, n_nodes, K, S, S), leaf_partials
+    (n_leaves, sites, S)) -> (root_partials (B?, K, sites, S), root_logscale
+    (B?, K, sites))``: the walk runs in float32 through ``forward_walk``,
+    whatever walk and lowering it picks; the root partials come back in the
+    leaves' dtype and the logscale, in ln units, in float64 (JAX's comes in
+    the leaves' dtype; float64 keeps the exponent count x ln 2 exact for the
+    engines' float64 root reduction). Differentiable in both inputs: the
+    backward replays ``ops.pruning.make_prune_fn`` under autograd on the
+    saved inputs, as ``make_pallas_prune_fn`` replays the XLA pruner.
+    """
+    walk = WalkSchedule(schedule)
+    plain = make_prune_fn(schedule)
+
+    def prune(p_matrices, leaf_partials):
+        return _CudaPrune.apply(p_matrices, leaf_partials, walk, plain)
+
+    return prune

@@ -207,8 +207,8 @@ def test_unported_subcommands_name_their_roadmap_item(name, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--partitions", "parts.txt"], "A16"), (["--asc", "lewis"], "A14"),
-    (["--recode", "ry"], "A15"), (["--profile-mixture", "m.nex:C10"], "A15"),
-    (["--shard-sites"], "A12"), (["--model", "GY94"], "A14"),
+    (["--recode", "ry"], "A15"), (["--shard-sites"], "A12"),
+    (["--model", "GY94"], "A14"),
 ])
 def test_unported_flags_name_their_roadmap_item(small_inputs, flag, item):
     tree, fasta = small_inputs
