@@ -20,7 +20,8 @@ all at once) and runs, in order, printing one line per phase:
 7. the saveall kernel against its plain version at phase 3's shapes, its
    root row bit-identical to the forward kernel's root;
 8. the reverse kernel against its plain version at the same shapes (dP and
-   the leaves' cotangent), dP bit-identical across two launches;
+   the leaves' cotangent), dP bit-identical across two launches, the
+   root's dP row zero;
 9. flagship ``value_and_grad`` (f32 ``pruner="cuda"``) against the f64
    ``pruner="torch"`` autograd: B = 1, a batch of 64 branch-length sets,
    and 64 taxa x 100,000 sites; a value call then launches only the forward
@@ -50,16 +51,20 @@ all at once) and runs, in order, printing one line per phase:
     (classic, slot, stream) in turns at the flagship from B = 1 to 64, at
     config 4 and at both big shapes, the engine's evaluation and
     ``value_and_grad`` times with each pruner, and fit steps per second;
+    the reverse kernel's walk and dP pass apart, and the reverse and stream
+    kernels at B = 1, by device time per call from ``torch.profiler``;
 17. the classic reverse kernel (B7) against its plain version and against
     the deferred reverse (B3) on the same residuals and seed, at phase 3's
     shapes, with dleaf on and off and with two seeds; dP bit-identical
-    across two launches; B3 and B7 timed in turns at each shape;
+    across two launches; B3 and B7 timed in turns at each shape, with each
+    one's scratch;
 18. flagship ``value_and_grad`` and ``value_and_grad_many`` under
     ``PHYLO_DEFERRED_VJP=0`` against the f64 autograd: B7 runs, B3 not;
 19. the full-width gradient: 1000 taxa x 80,000 random LG+G4 patterns,
-    whose gy store does not fit the card, so ``value_and_grad`` takes B7
-    under "auto"; its value against the f64 path and its gradient against
-    B3 engines on 4 pattern slices, summed; kernel times and peak memory;
+    whose whole-tree gy store (51 GB) B3 no longer keeps, so
+    ``value_and_grad`` takes B3 under "auto", and B7 under
+    ``PHYLO_DEFERRED_VJP=0``; values against the f64 path on 4 pattern
+    slices, B3's gradient against B7's; kernel times and peak memory;
 20. the uncertainty path: ``standard_errors`` at phase 10's fitted config-5
     params under B3 and under B7, ``ml_distance_matrix`` and
     ``neighbor_joining`` on the card against the CPU, and the CLI's ``fit
@@ -360,6 +365,49 @@ def _bound(kind, walk, p, leaves):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _cuda_ms(fn, reps):
+    """Milliseconds per call of ``fn`` by CUDA events over ``reps`` calls,
+    after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_us(fn, reps):
+    """{kernel: device microseconds per call of ``fn``} from torch.profiler
+    (a B = 1 launch's CUDA events are paced by the host; the profiler reads
+    each kernel's own time on the card), or a note where the profiler saw
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0 and "pruning" in ev.key:
+            name = ev.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + us / reps
+    return out or "the profiler showed no device time"
+
+
 def main():
     if not (REPO / "phylo_utils_tpu_torch" / "__init__.py").is_file():
         _fail("phylo_utils_tpu_torch/ is not beside this script; run it "
@@ -384,6 +432,7 @@ def main():
         WalkSchedule,
         classic_reverse_scratch,
         classic_reverse_walk,
+        reverse_scratch,
         classic_reverse_walk_reference,
         fold_walk,
         forward_walk,
@@ -434,18 +483,6 @@ def main():
 
     def read_counts():
         return {name: getattr(cuda_pruning, name) for name in counters}
-
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
 
     # 1. the card ------------------------------------------------------------
     smi = subprocess.run(
@@ -677,6 +714,8 @@ def main():
         dp2, _ = reverse_walk(p, leaves, rx, re, lam, f32, walk)
         torch.cuda.synchronize()
         _check(torch.equal(dp, dp2), f"{key}: dP differs between launches")
+        _check(float(dp.select(-4, walk.root).abs().max()) == 0.0,
+               f"{key}: B3 wrote the root's dP row")
         wp, wl = reverse_walk_reference(p, leaves, rx, re, lam, f32, walk,
                                         want_dleaf=True)
         rel_p, rel_l = _max_rel(dp, wp), _max_rel(dl, wl)
@@ -896,8 +935,8 @@ def main():
           loglik=ll_dna, loglik_f64=ll_dna_ref, rel_err=rel_dna,
           sitewise_max_abs_err=sw_dna_err,
           many_max_rel_err=rel_many_dna, launches=dna_counts,
-          loglik_ms=cuda_ms(lambda: dna32.loglikelihood(BIG_DNA_PARAMS), 5),
-          many_ms=cuda_ms(
+          loglik_ms=_cuda_ms(lambda: dna32.loglikelihood(BIG_DNA_PARAMS), 5),
+          many_ms=_cuda_ms(
               lambda: dna32.loglikelihood_many(bl_dna, BIG_DNA_PARAMS), 3))
     del dna32, dna64
     torch.cuda.empty_cache()
@@ -954,20 +993,20 @@ def main():
     _emit(15, taxa=BIG_PROTEIN_TAXA, patterns=prot32._compressed.n_patterns,
           loglik=ll_prot, loglik_f64=ll_prot_ref, rel_err=rel_prot,
           value_rel_err=rel_vp, grad_rel_err=gp_err, launches=prot_counts,
-          loglik_ms=cuda_ms(lambda: prot32.loglikelihood(PROTEIN_PARAMS), 5),
-          value_and_grad_ms=cuda_ms(
+          loglik_ms=_cuda_ms(lambda: prot32.loglikelihood(PROTEIN_PARAMS), 5),
+          value_and_grad_ms=_cuda_ms(
               lambda: prot32.value_and_grad(PROTEIN_PARAMS), 3))
     del prot32, vp, gp, vp_ref, gp_ref
     torch.cuda.empty_cache()
 
     # 16. timing --------------------------------------------------------------
     def in_turns(kernel, plain, reps, plain_reps):
-        t = [cuda_ms(plain, plain_reps), cuda_ms(kernel, reps),
-             cuda_ms(kernel, reps), cuda_ms(plain, plain_reps)]
+        t = [_cuda_ms(plain, plain_reps), _cuda_ms(kernel, reps),
+             _cuda_ms(kernel, reps), _cuda_ms(plain, plain_reps)]
         return {"ms": (t[1] + t[2]) / 2, "plain_ms": (t[0] + t[3]) / 2,
                 "runs": t}
 
-    timings = {}
+    timings, b3_device = {}, {}
     grad_shapes = [(f"B{b}", timing_inputs[b], 200 if b == 1 else 50, 5)
                    for b in sorted(timing_inputs)]
     grad_shapes.append(("protein", case_inputs[protein_key], 10, 1))
@@ -995,6 +1034,10 @@ def main():
         for what in ("forward", "saveall", "reverse"):
             timings[f"{what}_{label}"].update(zip(
                 ("bound_ms", "bound_by"), _bound(what, walk, p, leaves)))
+        # B3's walk and its dP pass apart, by device time per call
+        b3_device[label] = _device_us(functools.partial(
+            reverse_walk, p, leaves, rx, re, lam, f32, walk),
+            20 if label == "B1" else 3)
         del rx, re
     # the three forward walks in turns (classic, slot, stream, stream,
     # slot, classic) at the flagship from B = 1 to 64 (5 to 330 MB of
@@ -1015,7 +1058,7 @@ def main():
         order = ["classic", "slot", "stream", "stream", "slot", "classic"]
         runs = {how: [] for how in fns}
         for how in order:
-            runs[how].append(cuda_ms(fns[how], reps))
+            runs[how].append(_cuda_ms(fns[how], reps))
         walk_times[label] = {
             how: {"ms": sum(t) / len(t), "runs": t}
             for how, t in runs.items()}
@@ -1025,6 +1068,13 @@ def main():
         walk_times[label]["classic_scratch_bytes"] = math.prod(
             dims[:4]) * (dims[4] + 1) * 4
         walk_times[label]["choice"] = cuda_pruning.choose_walk(*dims)
+    b5_device = {
+        label: _device_us(functools.partial(
+            forward_walk, inputs[1], inputs[2], inputs[0], walk="stream"),
+            reps)
+        for label, inputs, reps in (("flagship_B1", timing_inputs[1], 20),
+                                    ("protein_big", case_inputs[protein_key],
+                                     3))}
     for how, key in (("slot", big_dna_key), ("stream", protein_key)):
         walk, p, leaves, _ = case_inputs[key]
         timings[how] = in_turns(
@@ -1035,13 +1085,13 @@ def main():
     eng_torch = LikelihoodEngine(flagship_tree, aln, models.GTR,
                                  dtype=torch.float32, pruner="torch", **kw)
     for label, e in (("cuda", eng), ("torch", eng_torch)):
-        timings[f"engine_loglik_{label}_ms"] = cuda_ms(
+        timings[f"engine_loglik_{label}_ms"] = _cuda_ms(
             lambda: e.loglikelihood(FLAGSHIP_PARAMS), 10)
-        timings[f"engine_many_B64_{label}_ms"] = cuda_ms(
+        timings[f"engine_many_B64_{label}_ms"] = _cuda_ms(
             lambda: e.loglikelihood_many(bl, FLAGSHIP_PARAMS), 3)
-        timings[f"engine_value_and_grad_{label}_ms"] = cuda_ms(
+        timings[f"engine_value_and_grad_{label}_ms"] = _cuda_ms(
             lambda: e.value_and_grad(FLAGSHIP_PARAMS), 5)
-        timings[f"engine_value_and_grad_many_B64_{label}_ms"] = cuda_ms(
+        timings[f"engine_value_and_grad_many_B64_{label}_ms"] = _cuda_ms(
             lambda: e.value_and_grad_many(bl, FLAGSHIP_PARAMS), 3)
     adam = functools.partial(torch.optim.Adam, lr=1e-2)
     fit(fit_eng, optimizer=adam, max_steps=2, patience=10 ** 6)  # warm
@@ -1053,7 +1103,8 @@ def main():
     timings["config5_fit_adam_steps_per_s"] = 20 / (time.perf_counter() - t0)
     _emit(16, shapes=f"{TAXA} taxa, K=4, {SITES} sites, S=4; protein "
           f"{BIG_PROTEIN_TAXA} taxa, {BIG_PATTERNS} patterns, S=20",
-          timings=timings, walks=walk_times)
+          timings=timings, walks=walk_times, b3_device_us=b3_device,
+          b5_device_us=b5_device)
 
     # 17. classic reverse kernel (B7) vs its plain version and B3 ----------
     b7_err, b7_max, b7_times = {}, 0.0, {}
@@ -1112,15 +1163,18 @@ def main():
                                   walk)
         b7_fn = functools.partial(classic_reverse_walk, p, leaves, rx, re,
                                   gseed, root, walk)
-        t = [cuda_ms(b3_fn, reps), cuda_ms(b7_fn, reps), cuda_ms(b7_fn, reps),
-             cuda_ms(b3_fn, reps)]
+        t = [_cuda_ms(b3_fn, reps), _cuda_ms(b7_fn, reps), _cuda_ms(b7_fn, reps),
+             _cuda_ms(b3_fn, reps)]
         b, k = (p.shape[0] if p.dim() == 5 else 1), p.shape[-3]
         sites, s = leaves.shape[1:]
         rows, slot_bytes, row_bytes = classic_reverse_scratch(
             b, k, walk.n_nodes, walk.reverse.n_gslots, sites, s)
+        b3_tile, b3_bytes = reverse_scratch(
+            b, k, walk.n_nodes, walk.reverse.n_gslots, sites, s,
+            walk.children.shape[1])
         b7_times[key] = {
             "b3_ms": (t[0] + t[3]) / 2, "b7_ms": (t[1] + t[2]) / 2,
-            "runs": t, "b3_gy_bytes": 4 * b * k * walk.n_nodes * sites * s,
+            "runs": t, "b3_scratch_bytes": b3_bytes, "b3_tile": b3_tile,
             "b7_scratch_bytes": slot_bytes + rows * row_bytes,
             "b7_gslots": walk.reverse.n_gslots, "b7_dp_rows": rows,
             **dict(zip(("b7_bound_ms", "b7_bound_by"),
@@ -1164,11 +1218,15 @@ def main():
     wide_tree = random_tree(WIDE_TAXA, seed=10)
     walk_w = WalkSchedule(compile_schedule(wide_tree))
     n_inner_w = walk_w.n_nodes - walk_w.n_leaves
+    gslots_w, cmax_w = walk_w.reverse.n_gslots, walk_w.children.shape[1]
     rows_w, slots_w, row_w = classic_reverse_scratch(
-        1, 4, walk_w.n_nodes, walk_w.reverse.n_gslots, WIDE_PATTERNS, 20)
+        1, 4, walk_w.n_nodes, gslots_w, WIDE_PATTERNS, 20)
     reckoned = {
         "residual_bytes": 4 * 4 * n_inner_w * WIDE_PATTERNS * 21,
-        "gy_bytes": 4 * 4 * walk_w.n_nodes * WIDE_PATTERNS * 20,
+        # the gy store B3 kept before it summed dP inside its walk
+        "gy_store_bytes": 4 * 4 * walk_w.n_nodes * WIDE_PATTERNS * 20,
+        "b3_scratch_bytes": reverse_scratch(
+            1, 4, walk_w.n_nodes, gslots_w, WIDE_PATTERNS, 20, cmax_w)[1],
         "leaf_bytes": 4 * WIDE_TAXA * WIDE_PATTERNS * 20,
         "b7_scratch_bytes": slots_w + rows_w * row_w,
     }
@@ -1191,11 +1249,23 @@ def main():
     vw, gw = wide.value_and_grad(PROTEIN_PARAMS)
     wide_counts = read_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    _check(wide_counts["CLASSIC_REVERSE_LAUNCHES"] > 0
-           and wide_counts["REVERSE_LAUNCHES"] == 0,
-           f"the full-width gradient did not take B7 under auto: "
+    _check(wide_counts["REVERSE_LAUNCHES"] > 0
+           and wide_counts["CLASSIC_REVERSE_LAUNCHES"] == 0,
+           f"the full-width gradient did not take B3 under auto: "
            f"{wide_counts}")
-    wide_vg_ms = cuda_ms(lambda: wide.value_and_grad(PROTEIN_PARAMS), 1)
+    wide_vg_ms = _cuda_ms(lambda: wide.value_and_grad(PROTEIN_PARAMS), 1)
+    # the same gradient through B7, the classic reverse
+    with _env(PHYLO_DEFERRED_VJP="0"):
+        reset_counts()
+        vw7, gw7 = wide.value_and_grad(PROTEIN_PARAMS)
+        wide7_counts = read_counts()
+        wide7_vg_ms = _cuda_ms(lambda: wide.value_and_grad(PROTEIN_PARAMS), 1)
+    _check(wide7_counts["CLASSIC_REVERSE_LAUNCHES"] > 0
+           and wide7_counts["REVERSE_LAUNCHES"] == 0,
+           f"PHYLO_DEFERRED_VJP=0 did not take B7 at full width: "
+           f"{wide7_counts}")
+    stage_s["gradients"] = time.perf_counter() - t_start - sum(
+        stage_s.values())
     t_w = torch.as_tensor(np.asarray(wide_tree.lengths), dtype=torch.float64,
                           device=dev)
     rates_w = discrete_gamma(torch.tensor(PROTEIN_PARAMS["alpha"],
@@ -1204,37 +1274,30 @@ def main():
         lg_eig, t_w[:, None] * rates_w, out_dtype=torch.float32),
         walk_w.n_nodes).contiguous()
     leaves_w = wide._leaf_partials
-    wide_saveall_ms = cuda_ms(lambda: saveall_walk(p_w, leaves_w, walk_w), 1)
+    wide_saveall_ms = _cuda_ms(lambda: saveall_walk(p_w, leaves_w, walk_w), 1)
     rx, re = saveall_walk(p_w, leaves_w, walk_w)
-    gy_budget = cuda_pruning._device_budget(reckoned["gy_bytes"], dev)
-    choice = cuda_pruning.choose_reverse(1, 4, walk_w.n_nodes, WIDE_PATTERNS,
-                                         20, dev)
-    _check(reckoned["gy_bytes"] > gy_budget and choice == "classic",
-           f"B3's gy store ({reckoned['gy_bytes']} bytes) fits the "
-           f"{gy_budget} free: raise WIDE_PATTERNS")
+    b3_budget = cuda_pruning._device_budget(reckoned["b3_scratch_bytes"],
+                                            dev)
+    choice = cuda_pruning.choose_reverse(1, 4, walk_w.n_nodes, gslots_w,
+                                         WIDE_PATTERNS, 20, dev, cmax_w)
+    _check(reckoned["b3_scratch_bytes"] <= b3_budget and choice == "deferred",
+           f"B3's scratch ({reckoned['b3_scratch_bytes']} bytes) does not "
+           f"fit the {b3_budget} free, or auto chose {choice}")
     row = walk_w.root - walk_w.n_leaves
     lam_w = (1.0 / torch.einsum("ksi,i->ks", rx[:, row].double(),
-                                lg_eig.freqs)).float()
-    gseed_w = (lam_w[..., None] * lg_eig.freqs.float()).unsqueeze(
-        -3).contiguous()
-    wide_classic_ms = cuda_ms(functools.partial(
+                                lg_eig.freqs)).float().contiguous()
+    f32_w = lg_eig.freqs.float()
+    gseed_w = (lam_w[..., None] * f32_w).unsqueeze(-3).contiguous()
+    wide_reverse_ms = _cuda_ms(functools.partial(
+        reverse_walk, p_w, leaves_w, rx, re, lam_w, f32_w, walk_w), 1)
+    wide_classic_ms = _cuda_ms(functools.partial(
         classic_reverse_walk, p_w, leaves_w, rx, re, gseed_w, [walk_w.root],
         walk_w), 1)
+    wide_reverse_bound = _bound("reverse", walk_w, p_w, leaves_w)
     wide_classic_bound = _bound("classic", walk_w, p_w, leaves_w)
     del rx, re, wide, leaves_w, p_w
     torch.cuda.empty_cache()
     stage_s["timings"] = time.perf_counter() - t_start - sum(stage_s.values())
-    with _env(PHYLO_DEFERRED_VJP="1"):
-        reset_counts()
-        vw_ref, gw_ref = _chunked_value_and_grad(
-            dict(kw_w, dtype=torch.float32, pruner="cuda"), ca_w,
-            PROTEIN_PARAMS, WIDE_SLICES)
-        slice_counts = read_counts()
-    _check(slice_counts["REVERSE_LAUNCHES"] > 0
-           and slice_counts["CLASSIC_REVERSE_LAUNCHES"] == 0,
-           f"the B3 slices did not take B3: {slice_counts}")
-    stage_s["b3_slices"] = time.perf_counter() - t_start - sum(
-        stage_s.values())
     vw_f64 = 0.0
     for sl in np.array_split(np.arange(WIDE_PATTERNS), WIDE_SLICES):
         part = CompressedAlignment(ca_w.names, ca_w.partials[:, sl],
@@ -1248,19 +1311,22 @@ def main():
     stage_s["f64_slices"] = time.perf_counter() - t_start - sum(
         stage_s.values())
     rel_vw = abs(float(vw) - vw_f64) / abs(vw_f64)
-    gw_err = _grad_errors(gw, gw_ref)
-    _check(math.isfinite(float(vw)) and rel_vw <= LOGL_RTOL
+    rel_vw7 = abs(float(vw7) - vw_f64) / abs(vw_f64)
+    gw_err = _grad_errors(gw, gw7)
+    _check(math.isfinite(float(vw)) and max(rel_vw, rel_vw7) <= LOGL_RTOL
            and max(gw_err.values()) <= GRAD_TOL,
-           f"full-width gradient: value rel {rel_vw:.3e} vs f64, grads vs "
-           f"B3 slices {gw_err}")
+           f"full-width gradient: value rel {rel_vw:.3e} / {rel_vw7:.3e} vs "
+           f"f64, B3 grads vs B7 {gw_err}")
     _emit(19, stage="measured", loglik=float(vw), loglik_f64=vw_f64,
-          value_rel_err=rel_vw, grad_rel_err_vs_b3_slices=gw_err,
-          b3_slices_value_rel=abs(vw_ref - float(vw)) / abs(vw_f64),
-          launches=wide_counts, gy_budget_bytes=gy_budget,
+          value_rel_err=rel_vw, b7_value_rel_err=rel_vw7,
+          grad_rel_err_b3_vs_b7=gw_err, launches=wide_counts,
+          b7_launches=wide7_counts, b3_budget_bytes=b3_budget,
           peak_allocated_bytes=peak_bytes, value_and_grad_ms=wide_vg_ms,
-          saveall_ms=wide_saveall_ms, classic_reverse_ms=wide_classic_ms,
+          b7_value_and_grad_ms=wide7_vg_ms, saveall_ms=wide_saveall_ms,
+          reverse_ms=wide_reverse_ms, reverse_bound=wide_reverse_bound,
+          classic_reverse_ms=wide_classic_ms,
           classic_reverse_bound=wide_classic_bound,
-          b7_gslots=walk_w.reverse.n_gslots, stage_s=stage_s)
+          b7_gslots=gslots_w, stage_s=stage_s)
 
     # 20. uncertainty path at config 5's shape, main path -------------------
     se_free = ("model", "alpha")
@@ -1469,8 +1535,8 @@ def main():
         b1_fn = functools.partial(forward_walk, p, leaves, walk,
                                   walk="classic")
         b9_fn = functools.partial(fold_walk, p, leaves, walk, f_)
-        t = [cuda_ms(b1_fn, reps), cuda_ms(b9_fn, reps),
-             cuda_ms(b9_fn, reps), cuda_ms(b1_fn, reps)]
+        t = [_cuda_ms(b1_fn, reps), _cuda_ms(b9_fn, reps),
+             _cuda_ms(b9_fn, reps), _cuda_ms(b1_fn, reps)]
         b9_times[key] = {"b1_ms": (t[0] + t[3]) / 2, "b9_ms": (t[1] + t[2]) / 2,
                          "runs": t}
         del kp, ke, bp, be, rp, re
@@ -1505,8 +1571,8 @@ def main():
         b1_fn = functools.partial(forward_walk, p, leaves, walk,
                                   walk="classic")
         b8_fn = functools.partial(static_walk, p, leaves, walk)
-        t = [cuda_ms(b1_fn, reps), cuda_ms(b8_fn, reps),
-             cuda_ms(b8_fn, reps), cuda_ms(b1_fn, reps)]
+        t = [_cuda_ms(b1_fn, reps), _cuda_ms(b8_fn, reps),
+             _cuda_ms(b8_fn, reps), _cuda_ms(b1_fn, reps)]
         b8_times[key] = {"b1_ms": (t[0] + t[3]) / 2, "b8_ms": (t[1] + t[2]) / 2,
                          "runs": t}
         del kp, ke, bp, be, rp, re
@@ -1629,11 +1695,11 @@ def main():
                   max_steps=MIX_FIT_STEPS, patience=10 ** 6)
     mix_counts = read_counts()
     mix_times = {
-        "loglik_ms": cuda_ms(lambda: mix32.loglikelihood(), 3),
-        "sitewise_ms": cuda_ms(lambda: mix32.sitewise_loglikelihoods(), 3),
-        "category_posteriors_ms": cuda_ms(
+        "loglik_ms": _cuda_ms(lambda: mix32.loglikelihood(), 3),
+        "sitewise_ms": _cuda_ms(lambda: mix32.sitewise_loglikelihoods(), 3),
+        "category_posteriors_ms": _cuda_ms(
             lambda: mix32.category_posteriors(), 3),
-        "value_and_grad_ms": cuda_ms(lambda: mix32.value_and_grad(), 1),
+        "value_and_grad_ms": _cuda_ms(lambda: mix32.value_and_grad(), 1),
     }
     mix_s["port_calls"] = time.perf_counter() - t_start - sum(mix_s.values())
     ll_mix_ref = mix64.loglikelihood()
@@ -1735,7 +1801,8 @@ def main():
     torch.cuda.empty_cache()
 
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
-                   prot_counts, classic_counts, wide_counts, unc_counts,
+                   prot_counts, classic_counts, wide_counts, wide7_counts,
+                   unc_counts,
                    *knob_counts.values(), mix_counts, cli_counts)
 
     def launches(name):

@@ -1,9 +1,10 @@
 // Helpers shared by the pruning kernels (pruning_forward.cu,
 // pruning_reverse.cu, pruning_slot.cu, pruning_classic_reverse.cu,
 // pruning_fold.cu, pruning_static.cu): the
-// per-column state rows, the child contraction and its transpose, the exact
-// power-of-two rescale, and the dispatch from a run-time state count to the
-// compiled instantiations.
+// per-column state rows, the child contraction and its transpose (P read
+// from device memory, or from a shared-memory stage as 16-byte vectors), the
+// cp.async copies that fill such a stage, the exact power-of-two rescale, and
+// the dispatch from a run-time state count to the compiled instantiations.
 #pragma once
 
 #include <cfloat>
@@ -51,10 +52,22 @@ __device__ __forceinline__ void store_states(float* __restrict__ dst,
   }
 }
 
+// Four consecutive entries of row r of an S x S block P (row-major) staged
+// in shared memory, as one 16-byte load. Every thread of a block reads the
+// same address, so the load is a broadcast (LDS.128): one load feeds four
+// FMAs. The stage must be 16-byte aligned and S a multiple of 4.
+template <int S>
+__device__ __forceinline__ float4 p_vec(const float* pm, int r, int q) {
+  static_assert(S % 4 == 0, "P rows are read as 16-byte vectors");
+  return reinterpret_cast<const float4*>(pm + r * S)[q];
+}
+
 // acc[r] *= (P x)[r] for one S x S block P (row-major), an fmaf chain in j
-// order. kShared: P lies in shared memory (plain loads); else in device
-// memory, read through the read-only path (every thread of a block reads the
-// same entries, which the hardware broadcasts).
+// order. kShared: P lies in a shared-memory stage, read row by row as
+// 16-byte broadcast vectors (p_vec); else in device memory, read one entry
+// at a time through the read-only path (every thread of a block reads the
+// same entries, which the hardware broadcasts through L1). Both give the
+// same bits: the chain's order does not depend on how P is read.
 template <int S, bool kShared>
 __device__ __forceinline__ void times_child(const float* __restrict__ pm,
                                             const float (&x)[S],
@@ -62,16 +75,25 @@ __device__ __forceinline__ void times_child(const float* __restrict__ pm,
 #pragma unroll
   for (int r = 0; r < S; ++r) {
     float y = 0.0f;
+    if constexpr (kShared) {
 #pragma unroll
-    for (int j = 0; j < S; ++j) {
-      const float pv = kShared ? pm[r * S + j] : __ldg(pm + r * S + j);
-      y = fmaf(pv, x[j], y);
+      for (int q = 0; q < S / 4; ++q) {
+        const float4 v = p_vec<S>(pm, r, q);
+        y = fmaf(v.x, x[4 * q], y);
+        y = fmaf(v.y, x[4 * q + 1], y);
+        y = fmaf(v.z, x[4 * q + 2], y);
+        y = fmaf(v.w, x[4 * q + 3], y);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < S; ++j) y = fmaf(__ldg(pm + r * S + j), x[j], y);
     }
     acc[r] *= y;
   }
 }
 
-// out = P^T v for one S x S block P (row-major), fmaf chain in j order
+// out = P^T v for one S x S block P (row-major) in device memory, fmaf
+// chain in j order
 template <int S>
 __device__ __forceinline__ void transpose_apply(const float* __restrict__ pm,
                                                 const float (&v)[S],
@@ -84,6 +106,53 @@ __device__ __forceinline__ void transpose_apply(const float* __restrict__ pm,
     out[r] = acc;
   }
 }
+
+// transpose_apply with P in a shared-memory stage: row j of P is read as
+// S / 4 broadcast vectors and feeds out[r] for every r, so each out[r] is
+// the same fmaf chain in j order (the same bits) from S^2 / 4 loads.
+template <int S>
+__device__ __forceinline__ void transpose_apply_shared(const float* pm,
+                                                       const float (&v)[S],
+                                                       float (&out)[S]) {
+#pragma unroll
+  for (int r = 0; r < S; ++r) out[r] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+#pragma unroll
+    for (int q = 0; q < S / 4; ++q) {
+      const float4 pv = p_vec<S>(pm, j, q);
+      out[4 * q] = fmaf(pv.x, v[j], out[4 * q]);
+      out[4 * q + 1] = fmaf(pv.y, v[j], out[4 * q + 1]);
+      out[4 * q + 2] = fmaf(pv.z, v[j], out[4 * q + 2]);
+      out[4 * q + 3] = fmaf(pv.w, v[j], out[4 * q + 3]);
+    }
+  }
+}
+
+// One 16-byte asynchronous copy from device memory into shared memory
+// (cp.async, bypassing L1), and the group fences that order such copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Stages of the P ring of the walks that stage P in shared memory: node
+// i + 2's blocks are copied (cp.async) into stage (i + 2) % 3 while node i
+// computes from stage i % 3, right after the barrier of node i. That one
+// barrier per node both publishes node i's copies (each thread first waits
+// for its own with cp.async.wait_group 1) and frees stage (i + 2) % 3,
+// which node i - 1 read before it.
+constexpr int kPStages = 3;
 
 // Exact power-of-two rescale, bit for bit ops/pruning.pow2_rescale: scales
 // acc by 2^-floor(log2 m), m = max(max_r acc[r], FLT_MIN), and returns the

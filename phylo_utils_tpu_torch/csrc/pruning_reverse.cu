@@ -6,330 +6,414 @@
 // that kernel computes, not a copy of its VMEM tiling, identity row or grouped
 // walk. Given the residuals of pruning_saveall_f32 (every internal node's
 // rescaled partials x_n and exponent count e_n) and the root cotangent
-// lambda = ct / (pi . x_root), for every internal node n in pre-order (the
-// reverse of the forward's post-order):
+// lambda = ct / (pi . x_root), for every internal node n in pre-order:
 //     g_n  = seed = lambda * pi           at the root,
-//     g_n  = P_n^T gy_n                   elsewhere,
 //     y_c  = P_c x_c                      recomputed for each child c,
-//     gy_c = g_n * prod_{c' != c} y_c' * 2^{-r_n}
+//     gy_c = g_n * prod_{c' != c} y_c' * 2^{-r_n},
+//     g_c  = P_c^T gy_c                   the child's outside vector,
+//     dP_c = sum_sites gy_c x_c^T,
 // where r_n = e_n - sum_c e_c is the node's own rescale exponent, so
 // 2^{-r_n} is an exact power of two assembled from float bits (exp2_int in
 // ops/pruning.py). The rescale divisors are constants of the backward, which
-// is exact because logL does not depend on them. Then, in a second kernel,
-//     dP_n = sum_sites gy_n x_n^T          for every node but the root,
-// and, when asked, dleaf_l = P_l^T gy_l for every leaf l.
+// is exact because logL does not depend on them. A leaf's g is its partials'
+// cotangent (dleaf), written when asked.
 //
-// Design. The walk kernel is the forward's: one thread per (batch b, rate
-// category k, site) column, grid (ceil(sites / 256), K, B), no
-// synchronisation. A child has exactly one parent, so its gy is a plain store
-// into the column's own row of gy (B, K, n_nodes, sites, S); a thread only
-// reads what it wrote. Partials are read from the leaf array or the saveall
-// residuals (B, K, n_nodes - n_leaves, sites, S), states innermost, so each
-// node is whole 16-byte vectors per thread (one at S = 4, five at S = 20),
-// coalesced across the warp. The
-// sibling product is formed by recomputing the other children's y: for a
-// binary node that is exactly one contraction per child, as in the TPU kernel,
-// and the walk needs no per-child storage for any child count.
+// What bounded the first version on an H100: it stored gy for every
+// child, leaves included, in a (B, K, n_nodes, sites, S) array and read it
+// back with x in a second kernel for dP: ~2 GB moved at the flagship's
+// B = 64, at ~75% of the HBM rate, so only fewer bytes could help. At 20
+// states every contraction read its 400 P values one at a time through L1
+// (17.3 ms against a 1.03 ms operations bound at 512 taxa x 8192 LG
+// patterns). At B = 1 its 256-site blocks used 16 of the 132 SMs.
 //
-// The dP epilogue (the TPU kernel's batched MXU product) is a second kernel
-// launched right after the walk on the same stream, one block per
-// (node, k, b). At S = 4 (pruning_dp_kernel), 512 threads each hold the whole
-// 4 x 4 sum in registers: each sums gy_n x_n^T over its sites in chunks of 16
-// (a short inner sum per chunk, then one add into its running total), and the
-// block reduces the 512 partial matrices by a fixed warp-shuffle tree and a
-// fixed-order sum over the warps. There are no atomics, so two launches on the
-// same inputs give bit-identical dP, and no sum runs over more than
-// sites / 8192 + 16 terms before a tree takes over. At S = 20 the 400-entry
-// sum would spill from registers, so pruning_dp_tiled_kernel gives each of
-// 416 threads one (i, j) entry over site tiles staged in shared memory
-// (fixed order, compensated running sums; deterministic in the same way).
-// The entry points are compiled for S = 4 and S = 20 and refuse any other.
+// Design.
+// - One thread per (site, k, b) column walks the reverse of the DFS
+//   post-order (ReverseSchedule in ops/cuda_pruning.py). Internal nodes'
+//   outside vectors g live in g slots, (B, K, n_gslots, sites, S), from the
+//   parent's visit to the node's own: O(depth x cmax) slots, not n_nodes.
+// - Every thread of a block visits the same nodes, so the block stages
+//   each visit's children's P blocks in shared memory two visits ahead, in
+//   a 3-stage cp.async ring (one barrier per visit), and reads them as
+//   16-byte broadcast vectors (times_child<S, true>,
+//   transpose_apply_shared): one load per four FMAs. Every fmaf chain keeps
+//   its j order, so gy, g and dleaf keep their bits (B7's dleaf equals this
+//   kernel's).
+// - dP is summed inside the walk and no gy is stored. While gy_c and x_c
+//   are in registers, each entry's sum over a warp's 32 sites is formed in
+//   a fixed order: at S = 4 each thread forms its 16 products and a
+//   reduce-scatter of shuffles (16, not 80) leaves each entry in a lane
+//   pair; at S = 20 (400 products would not fit in registers) the warp puts
+//   its 32 rows of gy_c and x_c in its own stretch of shared memory and lane
+//   l < 25 sums the 4 x 4 sub-block l over them, two 16-byte loads per 16
+//   FMAs, with only __syncwarp. The warps' sums are added in warp order at
+//   the next visit's barrier, and one plain store puts each entry in the
+//   block's own row of dp_rows, (B, K, tiles, n_nodes, S, S).
+//   pruning_dp_rows_kernel then sums the rows in tile order with a
+//   compensated add. No atomics and no read-modify-write: two launches on
+//   the same inputs give bit-identical dP.
+// - Blocks are 256 sites wide (reverse_tile in ops/cuda_pruning.py:
+//   narrower only where a node's children would not fit the stage): the
+//   widest was the fastest at every measured shape, and at B = 1 every
+//   width took the same device time.
 //
-// What bounds it on an H100: bytes. Per internal node and column the walk
-// reads gy_n, each child's x and exponent, and writes each child's gy (and
-// dleaf at leaves): about twice the forward's traffic, for about 3 x S^2
-// flops per child (bytes bound it at S = 4, operations at S = 20). The
-// epilogue reads gy and x once more for every node. The
-// design keeps g_n and the sibling products in registers, reads each
-// residual row once per sibling use, and leaves gy in device memory (the
-// epilogue needs all of it); keeping gy on chip and fusing the epilogue into
-// the walk is later work.
+// What bounds it now: at S = 4, bytes and latency (the residuals and
+// leaves once, the siblings' rows once more, the g slots in L2, the dP
+// rows: S / tile of a gy store); at S = 20, operations (per child and column
+// 2 S^2 flops each for y, P^T gy and dP) on ~8 warps an SM at 512 taxa x
+// 8192 patterns. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (kernel_turns.py, PERF.md section 6): 0.505 ms at the flagship's
+// B = 64, 20% of its bytes bound (0.793 ms, 13%, before); 4.89 ms at 512
+// taxa x 8192 LG patterns, 21% of its operations bound (17.8 ms, 6%). At
+// B = 1 it is slower than before (160 against 114 us of device time): 63
+// dependent visits, each now with a barrier and a shuffle chain. The entry
+// point is compiled for S = 4 and S = 20 and refuses any other.
 
 #include "pruning_common.cuh"
 
 namespace {
 
 using pruning::exp2_int;
-using pruning::kThreads;
 using pruning::load_states;
 using pruning::store_states;
-using pruning::transpose_apply;
 
-constexpr int kDpThreads = 512;   // dP kernel at S = 4: one block per (node, k, b)
-constexpr int kDpChunk = 16;      // sites summed per inner chunk
-constexpr int kWarps = kDpThreads / 32;
-constexpr int kDpTile = 32;       // dP kernel at S = 20: sites staged per step
+constexpr int kMaxTile = 256;   // sites per block, one per thread (the widest)
+
+// One step of warp_scatter16: a lane keeps one half of its first 2H
+// entries (the upper half where lane bit 2H is set), sends the other half
+// to lane ^ 2H and adds what it receives. H is a template argument so that
+// every index is a constant and v stays in registers.
+template <int H>
+__device__ __forceinline__ void scatter_step(float (&v)[16], int lane) {
+  const bool upper = lane & (2 * H);
+#pragma unroll
+  for (int e = 0; e < H; ++e) {
+    const float send = upper ? v[e] : v[e + H];
+    const float keep = upper ? v[e + H] : v[e];
+    v[e] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * H);
+  }
+}
+
+// The sum over the warp's 32 lanes of each of v[0..15], by a reduce-scatter:
+// after four steps (8 + 4 + 2 + 1 shuffles) lane l holds entry l >> 1
+// summed over 16 lanes, and a last exchange with lane l ^ 1 completes it
+// (16 shuffles instead of 80 for a butterfly per entry). The order of every
+// add is fixed, and a + b is b + a, so both lanes of a pair hold the same
+// bits.
+__device__ __forceinline__ float warp_scatter16(float (&v)[16]) {
+  const int lane = threadIdx.x & 31;
+  scatter_step<8>(v, lane);
+  scatter_step<4>(v, lane);
+  scatter_step<2>(v, lane);
+  scatter_step<1>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// part[i * S + j] = sum over the warp's 32 sites of gy[i] x[j] at S = 20,
+// where 400 products a lane would not fit in registers: the lanes put their
+// rows in the warp's own stretch of shared memory `ws` (2 x 32 x S floats),
+// then lane l < (S / 4)^2 sums the 4 x 4 sub-block l over the 32 sites in
+// lane order, two 16-byte loads (broadcasts within one row) per 16 FMAs.
+// Only __syncwarp: no other warp touches `ws`.
+template <int S>
+__device__ __forceinline__ void warp_dp_blocked(const float (&gy)[S],
+                                                const float (&x)[S],
+                                                float* ws, float* part) {
+  constexpr int kSubs = (S / 4) * (S / 4);
+  static_assert(S % 4 == 0 && kSubs <= 32, "one 4 x 4 sub-block a lane");
+  const int lane = threadIdx.x & 31;
+  float* wg = ws;
+  float* wx = ws + 32 * S;
+  store_states<S>(wg + lane * S, gy);
+  store_states<S>(wx + lane * S, x);
+  __syncwarp();
+  if (lane < kSubs) {
+    const int i0 = (lane / (S / 4)) * 4;
+    const int j0 = (lane % (S / 4)) * 4;
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+    for (int s = 0; s < 32; ++s) {
+      const float4 gv = *reinterpret_cast<const float4*>(wg + s * S + i0);
+      const float4 xv = *reinterpret_cast<const float4*>(wx + s * S + j0);
+      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a * 4 + c] = fmaf(ga[a], xa[c], acc[a * 4 + c]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[(i0 + a) * S + j0 + c] = acc[a * 4 + c];
+    }
+  }
+  __syncwarp();  // the rows are read before the next child overwrites them
+}
 
 template <int S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxTile)
 pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
                             const float* __restrict__ leaves,  // (n_leaves, sites, S)
-                            const int* __restrict__ order,     // (n_int,) post-order
+                            const int* __restrict__ rnode,     // (n_int,) pre-order
+                            const int* __restrict__ gslot,     // (n_int,)
                             const int* __restrict__ children,  // (n_int, cmax)
+                            const int* __restrict__ cslot,     // (n_int, cmax)
                             const int* __restrict__ counts,    // (n_int,)
                             const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
                             const float* __restrict__ res_e,   // (B, K, n_inner, sites)
                             const float* __restrict__ lam,     // (B, K, sites)
                             const float* __restrict__ freqs,   // (S,)
-                            float* __restrict__ gy,            // (B, K, n_nodes, sites, S)
+                            float* __restrict__ g_slots,       // (B, K, n_gslots, sites, S)
+                            float* __restrict__ dp_rows,       // (B, K, rows, n_nodes, S, S)
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
-                            int cmax, int sites) {
-  const int site = blockIdx.x * kThreads + threadIdx.x;
-  if (site >= sites) return;
+                            int cmax, int sites, int n_gslots) {
+  constexpr int kBlockVecs = S * S / 4;
+  extern __shared__ float4 smem_vec[];
+  const int warps = blockDim.x >> 5;
+  // the P ring (kPStages, cmax, S, S), the warps' dP sums of the last two
+  // visits (2, warps, cmax, S * S) and, at S = 20, each warp's gy and x
+  // rows (warps, 2, 32, S)
+  float* p_stage = reinterpret_cast<float*>(smem_vec);
+  float* part = p_stage + pruning::kPStages * cmax * S * S;
+  float* wstage = part + 2 * warps * cmax * S * S;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int site = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = site < sites;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
   const size_t bk = static_cast<size_t>(b) * K + k;
-  const float* __restrict__ xs = res_x + bk * n_inner * sites * S;
-  const float* __restrict__ es = res_e + bk * n_inner * sites;
-  float* __restrict__ gys = gy + bk * n_nodes * sites * S;
+  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
+  const size_t ns = static_cast<size_t>(sites);
+  const float* __restrict__ xs = res_x + bk * n_inner * ns * S;
+  const float* __restrict__ es = res_e + bk * n_inner * ns;
+  float* __restrict__ slots = g_slots + bk * n_gslots * ns * S;
   float* __restrict__ dls =
-      dleaf == nullptr ? nullptr : dleaf + bk * n_leaves * sites * S;
-  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
+      dleaf == nullptr ? nullptr : dleaf + bk * n_leaves * ns * S;
+  float* __restrict__ rows =
+      dp_rows + (bk * gridDim.x + blockIdx.x) * n_nodes * S * S;
+  const float* __restrict__ pb =
+      p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
   const size_t p_node_stride = static_cast<size_t>(K) * S * S;
 
-  for (int i = n_int - 1; i >= 0; --i) {
-    const int node = __ldg(order + i);
+  // visit i's children's P blocks -> its stage (all threads share)
+  auto stage = [&](int i) {
+    if (i >= n_int) return;
+    const int cnt = __ldg(counts + i);
+    float* dst = p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * S;
+    for (int v = threadIdx.x; v < cnt * kBlockVecs; v += blockDim.x) {
+      const int c = v / kBlockVecs;
+      const int q = v - c * kBlockVecs;
+      const int child = __ldg(children + i * cmax + c);
+      pruning::cp_async16(dst + c * S * S + 4 * q,
+                          pb + child * p_node_stride + 4 * q);
+    }
+  };
+  // visit i's dP sums: the warps' partial sums, added in warp order, into
+  // the block's row (one plain store per entry; the block owns its row)
+  auto flush = [&](int i) {
+    const int cnt = __ldg(counts + i);
+    const float* src = part + static_cast<size_t>(i & 1) * warps * cmax * S * S;
+    for (int e = threadIdx.x; e < cnt * S * S; e += blockDim.x) {
+      float total = 0.0f;
+      for (int w = 0; w < warps; ++w) total += src[w * cmax * S * S + e];
+      const int c = e / (S * S);
+      const int child = __ldg(children + i * cmax + c);
+      rows[static_cast<size_t>(child) * S * S + (e - c * S * S)] = total;
+    }
+  };
+  stage(0);
+  pruning::cp_async_commit();
+  stage(1);
+  pruning::cp_async_commit();
+
+  for (int i = 0; i < n_int; ++i) {
+    pruning::cp_async_wait_one();  // visit i's P has landed (this thread's part)
+    __syncthreads();               // ... and every other thread's
+    stage(i + 2);                  // into the stage visit i - 1 read
+    pruning::cp_async_commit();
+    if (i > 0) flush(i - 1);
+    const float* p_now =
+        p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * S;
+    const int node = __ldg(rnode + i);
     const int cnt = __ldg(counts + i);
     float g[S];
-    if (i == n_int - 1) {  // the root: g = seed, no P^T step
-      const float l = lam[bk * sites + site];
 #pragma unroll
-      for (int r = 0; r < S; ++r) g[r] = l * __ldg(freqs + r);
-    } else {
-      float gyn[S];
-      load_states<S>(gys + (static_cast<size_t>(node) * sites + site) * S, gyn);
-      transpose_apply<S>(pb + node * p_node_stride, gyn, g);
+    for (int r = 0; r < S; ++r) g[r] = 0.0f;
+    float inv_m = 0.0f;
+    if (live) {
+      const int gs = __ldg(gslot + i);
+      if (gs < 0) {  // the root: g = seed = lambda pi
+        const float l = lam[bk * ns + site];
+#pragma unroll
+        for (int r = 0; r < S; ++r) g[r] = l * __ldg(freqs + r);
+      } else {
+        load_states<S>(slots + (static_cast<size_t>(gs) * ns + site) * S, g);
+      }
+      // 2^{-r_n}: the children's exponent counts minus the node's
+      float esum = 0.0f;
+      for (int c = 0; c < cnt; ++c) {
+        const int child = __ldg(children + i * cmax + c);
+        if (child >= n_leaves) {
+          esum += es[static_cast<size_t>(child - n_leaves) * ns + site];
+        }
+      }
+      inv_m = exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * ns + site]);
     }
-    // 2^{-r_n}: the children's exponent counts minus the node's
-    float esum = 0.0f;
     for (int c = 0; c < cnt; ++c) {
       const int child = __ldg(children + i * cmax + c);
-      if (child >= n_leaves) {
-        esum += es[static_cast<size_t>(child - n_leaves) * sites + site];
-      }
-    }
-    const float inv_m =
-        exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * sites + site]);
-
-    for (int c = 0; c < cnt; ++c) {
       float sib[S];
 #pragma unroll
       for (int r = 0; r < S; ++r) sib[r] = 1.0f;
-      for (int c2 = 0; c2 < cnt; ++c2) {
-        if (c2 == c) continue;
-        const int other = __ldg(children + i * cmax + c2);
-        float x[S];
-        if (other < n_leaves) {
-          load_states<S>(leaves + (static_cast<size_t>(other) * sites + site) * S, x);
-        } else {
-          load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * sites + site) * S, x);
+      if (live) {
+        for (int c2 = 0; c2 < cnt; ++c2) {
+          if (c2 == c) continue;
+          const int other = __ldg(children + i * cmax + c2);
+          float x[S];
+          if (other < n_leaves) {
+            load_states<S>(leaves + (static_cast<size_t>(other) * ns + site) * S, x);
+          } else {
+            load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * ns + site) * S, x);
+          }
+          pruning::times_child<S, true>(p_now + c2 * S * S, x, sib);
         }
-        pruning::times_child<S, false>(pb + other * p_node_stride, x, sib);
       }
       float gyc[S];
 #pragma unroll
       for (int r = 0; r < S; ++r) gyc[r] = g[r] * sib[r] * inv_m;
-      const int child = __ldg(children + i * cmax + c);
-      store_states<S>(gys + (static_cast<size_t>(child) * sites + site) * S, gyc);
-      if (dls != nullptr && child < n_leaves) {
-        float dl[S];
-        transpose_apply<S>(pb + child * p_node_stride, gyc, dl);
-        store_states<S>(dls + (static_cast<size_t>(child) * sites + site) * S, dl);
+      float x[S];
+#pragma unroll
+      for (int r = 0; r < S; ++r) x[r] = 0.0f;
+      if (live) {
+        if (child < n_leaves) {
+          load_states<S>(leaves + (static_cast<size_t>(child) * ns + site) * S, x);
+        } else {
+          load_states<S>(xs + (static_cast<size_t>(child - n_leaves) * ns + site) * S, x);
+        }
+      }
+      float* pc =
+          part + ((static_cast<size_t>(i & 1) * warps + warp) * cmax + c) * S * S;
+      if constexpr (S == 4) {
+        float prod[S * S];
+#pragma unroll
+        for (int a = 0; a < S; ++a) {
+#pragma unroll
+          for (int j = 0; j < S; ++j) prod[a * S + j] = gyc[a] * x[j];
+        }
+        const float sum = warp_scatter16(prod);
+        if ((lane & 1) == 0) pc[lane >> 1] = sum;
+      } else {
+        warp_dp_blocked<S>(gyc, x, wstage + warp * 2 * 32 * S, pc);
+      }
+      if (!live) continue;
+      if (child >= n_leaves || dls != nullptr) {
+        float gc[S];  // the child's outside vector P_c^T gy_c
+        pruning::transpose_apply_shared<S>(p_now + c * S * S, gyc, gc);
+        if (child >= n_leaves) {
+          const int cs = __ldg(cslot + i * cmax + c);
+          store_states<S>(slots + (static_cast<size_t>(cs) * ns + site) * S, gc);
+        } else {
+          store_states<S>(dls + (static_cast<size_t>(child) * ns + site) * S, gc);
+        }
       }
     }
-  }
-}
-
-template <int S>
-__global__ void __launch_bounds__(kDpThreads)
-pruning_dp_kernel(const float* __restrict__ leaves,  // (n_leaves, sites, S)
-                  const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
-                  const float* __restrict__ gy,      // (B, K, n_nodes, sites, S)
-                  float* __restrict__ dp,            // (B, n_nodes, K, S, S)
-                  int K, int n_nodes, int n_leaves, int root, int sites) {
-  const int node = blockIdx.x;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t bk = static_cast<size_t>(b) * K + k;
-  float* __restrict__ out =
-      dp + ((static_cast<size_t>(b) * n_nodes + node) * K + k) * S * S;
-  if (node == root) {  // no parent edge
-    if (threadIdx.x < S * S) out[threadIdx.x] = 0.0f;
-    return;
-  }
-  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
-  const float* __restrict__ xg =
-      node < n_leaves
-          ? leaves + static_cast<size_t>(node) * sites * S
-          : res_x + (bk * n_inner + (node - n_leaves)) * sites * S;
-  const float* __restrict__ gg = gy + (bk * n_nodes + node) * sites * S;
-
-  float acc[S * S];
-#pragma unroll
-  for (int e = 0; e < S * S; ++e) acc[e] = 0.0f;
-  for (int base = threadIdx.x; base < sites; base += kDpThreads * kDpChunk) {
-    float part[S * S];
-#pragma unroll
-    for (int e = 0; e < S * S; ++e) part[e] = 0.0f;
-    for (int u = 0; u < kDpChunk; ++u) {
-      const int site = base + u * kDpThreads;
-      if (site >= sites) break;
-      float gv[S], xv[S];
-      load_states<S>(gg + static_cast<size_t>(site) * S, gv);
-      load_states<S>(xg + static_cast<size_t>(site) * S, xv);
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-#pragma unroll
-        for (int j = 0; j < S; ++j) part[i * S + j] = fmaf(gv[i], xv[j], part[i * S + j]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < S * S; ++e) acc[e] += part[e];
-  }
-  // fixed-order tree inside each warp, then a fixed-order sum over warps
-#pragma unroll
-  for (int e = 0; e < S * S; ++e) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc[e] += __shfl_down_sync(0xffffffffu, acc[e], off);
-    }
-  }
-  __shared__ float warp_sum[kWarps][S * S];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int e = 0; e < S * S; ++e) warp_sum[warp][e] = acc[e];
   }
   __syncthreads();
-  if (threadIdx.x < S * S) {
-    float total = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += warp_sum[w][threadIdx.x];
-    out[threadIdx.x] = total;
-  }
+  flush(n_int - 1);
 }
 
-// dP at S = 20, where acc[S * S] per thread would spill (400 floats): each
-// thread owns ONE (i, j) entry of the block's S x S sum. The block stages
-// kDpTile sites of gy_n and x_n at a time in shared memory (every thread
-// loads, 16-byte vectors), then thread (i, j) forms the tile's fmaf chain in
-// site order and adds it to its running total with a compensated (Kahan)
-// add. Every sum has a fixed order and there are no atomics, so two launches
-// give bit-identical dP; the compensation keeps the running total within a
-// few roundings however many tiles there are.
+// dP[b, node, k] = sum over the rows of dp_rows[b, k, :, node] in row
+// order with a compensated (Kahan) add; zero for the root. One thread per
+// entry of dP (B, n_nodes, K, S, S).
 template <int S>
-__global__ void __launch_bounds__((S * S + 31) / 32 * 32)
-pruning_dp_tiled_kernel(const float* __restrict__ leaves,  // (n_leaves, sites, S)
-                        const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
-                        const float* __restrict__ gy,      // (B, K, n_nodes, sites, S)
-                        float* __restrict__ dp,            // (B, n_nodes, K, S, S)
-                        int K, int n_nodes, int n_leaves, int root,
-                        int sites) {
-  static_assert(S % 4 == 0, "tiles are staged as 16-byte vectors");
-  constexpr int kVecs = kDpTile * S / 4;
-  __shared__ float4 g_tile[kVecs];
-  __shared__ float4 x_tile[kVecs];
-  const int node = blockIdx.x;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const int e = threadIdx.x;
-  const size_t bk = static_cast<size_t>(b) * K + k;
-  float* __restrict__ out =
-      dp + ((static_cast<size_t>(b) * n_nodes + node) * K + k) * S * S;
+__global__ void __launch_bounds__(256)
+pruning_dp_rows_kernel(const float* __restrict__ dp_rows,  // (B, K, rows, n_nodes, S, S)
+                       float* __restrict__ dp,             // (B, n_nodes, K, S, S)
+                       int B, int K, int n_nodes, int rows, int root) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<size_t>(B) * n_nodes * K * S * S) return;
+  const int e = static_cast<int>(idx % (S * S));
+  const int k = static_cast<int>(idx / (S * S) % K);
+  const int node = static_cast<int>(idx / (static_cast<size_t>(S) * S * K) % n_nodes);
+  const size_t b = idx / (static_cast<size_t>(S) * S * K * n_nodes);
   if (node == root) {  // no parent edge
-    if (e < S * S) out[e] = 0.0f;
+    dp[idx] = 0.0f;
     return;
   }
-  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
-  const float4* __restrict__ xg = reinterpret_cast<const float4*>(
-      node < n_leaves
-          ? leaves + static_cast<size_t>(node) * sites * S
-          : res_x + (bk * n_inner + (node - n_leaves)) * sites * S);
-  const float4* __restrict__ gg = reinterpret_cast<const float4*>(
-      gy + (bk * n_nodes + node) * sites * S);
-  const float* gs = reinterpret_cast<const float*>(g_tile);
-  const float* xs = reinterpret_cast<const float*>(x_tile);
-  const int ei = e / S;
-  const int ej = e % S;
+  const size_t stride = static_cast<size_t>(n_nodes) * S * S;
+  const float* __restrict__ src = dp_rows + (b * K + k) * rows * stride +
+                                  static_cast<size_t>(node) * S * S + e;
   float acc = 0.0f;
   float comp = 0.0f;
-  for (int base = 0; base < sites; base += kDpTile) {
-    const int n = min(kDpTile, sites - base);
-    const size_t off = static_cast<size_t>(base) * S / 4;
-    for (int v = e; v < n * S / 4; v += blockDim.x) {
-      g_tile[v] = gg[off + v];
-      x_tile[v] = xg[off + v];
-    }
-    __syncthreads();
-    if (e < S * S) {
-      float part = 0.0f;
-      for (int s = 0; s < n; ++s) part = fmaf(gs[s * S + ei], xs[s * S + ej], part);
-      const float y = part - comp;
-      const float t = acc + y;
-      comp = (t - acc) - y;
-      acc = t;
-    }
-    __syncthreads();  // the tile is consumed before the next one lands
+  for (int t = 0; t < rows; ++t) {
+    const float y = src[t * stride] - comp;
+    const float s = acc + y;
+    comp = (s - acc) - y;
+    acc = s;
   }
-  if (e < S * S) out[e] = acc;
+  dp[idx] = acc;
 }
 
 }  // namespace
 
-// Launch the reverse walk and then the dP reduction on `stream`; returns the
-// first non-zero cudaGetLastError() (0 = ok). Device pointers to contiguous
-// float32 / int32 buffers laid out as documented above; the caller allocates
-// every buffer (gy is scratch, dleaf may be null). `root` is order[n_int - 1].
+// Launch the reverse walk and then the sum of its dP rows on `stream`;
+// returns the first non-zero cudaGetLastError() (0 = ok). Device pointers to
+// contiguous float32 / int32 buffers laid out as documented above; the
+// caller allocates every buffer: g_slots and dp_rows (one row per block of
+// `tile` sites, ceil(sites / tile) per (b, k)) are scratch, dleaf may be
+// null. The schedule arrays are ReverseSchedule's (ops/cuda_pruning.py);
+// `root` is rnode[0]. `tile` is 32, 64, 128 or 256, and the block's shared
+// memory (ops/cuda_pruning.py::_reverse_smem_bytes) must fit the SM's
+// 227 KB.
 extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
-                                   const void* order, const void* children,
+                                   const void* rnode, const void* gslot,
+                                   const void* children, const void* cslot,
                                    const void* counts, const void* res_x,
                                    const void* res_e, const void* lam,
-                                   const void* freqs, void* gy, void* dp,
-                                   void* dleaf, int B, int K, int S,
-                                   int n_nodes, int n_leaves, int n_int,
-                                   int cmax, int sites, int root,
-                                   void* stream) {
-  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
+                                   const void* freqs, void* g_slots,
+                                   void* dp_rows, void* dp, void* dleaf,
+                                   int B, int K, int S, int n_nodes,
+                                   int n_leaves, int n_int, int cmax,
+                                   int sites, int n_gslots, int tile,
+                                   int root, void* stream) {
+  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_gslots <= 0 ||
+      tile < 32 || tile > kMaxTile || tile % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  const dim3 grid_dp(n_nodes, K, B);
+  const int tiles = (sites + tile - 1) / tile;
+  const dim3 grid(tiles, K, B);
   return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    pruning_reverse_walk_kernel<kS><<<grid, kThreads, 0, st>>>(
+    auto walk = pruning_reverse_walk_kernel<kS>;
+    const size_t warps = tile / 32;
+    size_t smem = (pruning::kPStages + 2 * warps) * cmax * kS * kS;
+    if (kS != 4) smem += warps * 2 * 32 * kS;
+    smem *= sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    walk<<<grid, tile, smem, st>>>(
         static_cast<const float*>(p), static_cast<const float*>(leaves),
-        static_cast<const int*>(order), static_cast<const int*>(children),
+        static_cast<const int*>(rnode), static_cast<const int*>(gslot),
+        static_cast<const int*>(children), static_cast<const int*>(cslot),
         static_cast<const int*>(counts), static_cast<const float*>(res_x),
         static_cast<const float*>(res_e), static_cast<const float*>(lam),
-        static_cast<const float*>(freqs), static_cast<float*>(gy),
-        static_cast<float*>(dleaf), K, n_nodes, n_leaves, n_int, cmax, sites);
+        static_cast<const float*>(freqs), static_cast<float*>(g_slots),
+        static_cast<float*>(dp_rows), static_cast<float*>(dleaf), K, n_nodes,
+        n_leaves, n_int, cmax, sites, n_gslots);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    if constexpr (kS == 4) {
-      pruning_dp_kernel<kS><<<grid_dp, kDpThreads, 0, st>>>(
-          static_cast<const float*>(leaves), static_cast<const float*>(res_x),
-          static_cast<const float*>(gy), static_cast<float*>(dp), K, n_nodes,
-          n_leaves, root, sites);
-    } else {
-      pruning_dp_tiled_kernel<kS><<<grid_dp, (kS * kS + 31) / 32 * 32, 0, st>>>(
-          static_cast<const float*>(leaves), static_cast<const float*>(res_x),
-          static_cast<const float*>(gy), static_cast<float*>(dp), K, n_nodes,
-          n_leaves, root, sites);
-    }
+    const size_t n = static_cast<size_t>(B) * n_nodes * K * kS * kS;
+    pruning_dp_rows_kernel<kS><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(dp_rows), static_cast<float*>(dp), B, K,
+        n_nodes, tiles, root);
     return static_cast<int>(cudaGetLastError());
   });
 }

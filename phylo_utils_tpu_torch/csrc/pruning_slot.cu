@@ -1,7 +1,7 @@
 // Big-tree forward walks of Felsenstein pruning for NVIDIA Hopper (sm_90a):
-// the O(depth) slot walk (pruning_slot_f32) and the same walk with each
-// node's transition matrices staged into shared memory one node ahead
-// (pruning_stream_f32).
+// the O(depth) slot walk (pruning_slot_f32, B4) and the same walk with each
+// node's transition matrices staged into shared memory two nodes ahead
+// (pruning_stream_f32, B5).
 //
 // pruning_slot_f32 replaces the TPU kernel
 // phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_slot_kernel and
@@ -10,47 +10,50 @@
 // partials and root exponent count of the pruning walk, with the same
 // per-node arithmetic (child order, fmaf order, the power-of-two rescale from
 // float bits), so their roots are bit for bit the forward kernel's. What
-// differs is where a node's partials live until its parent is combined. The
-// forward walk keeps every internal node, (B, K, n_nodes - n_leaves, sites,
-// S + 1) floats, which grows with the tree (33.6 GB per batch element at
-// 1000 taxa x 100,000 protein patterns x 4 categories). Here the walk runs in
-// DFS post-order (ops/cuda_pruning.py::_dfs_slot_schedule, a port of the
-// JAX package's _dfs_slot_schedule): a node's partials are dead once its
-// parent is combined, so a free list gives each internal node a reusable
-// slot and the scratch is (B, K, n_slots, sites, S + 1) with n_slots of the
-// order of the tree's depth. A child is read from the leaf array or from its
-// slot (child_isleaf); a node may write the slot of one of its children,
-// after all its children were read.
+// differs is where a node's partials live until its parent is combined: the
+// walk runs in DFS post-order (ops/cuda_pruning.py::_dfs_slot_schedule, a
+// port of the JAX package's _dfs_slot_schedule), a node's partials are dead
+// once its parent is combined, so a free list gives each internal node a
+// reusable slot and the scratch is (B, K, n_slots, sites, S + 1) with n_slots
+// of the order of the tree's depth (a few MB per (b, k), which stays in the
+// 50 MB L2). A child is read from the leaf array or from its slot
+// (child_isleaf); a node may write the slot of one of its children, after
+// all its children were read.
 //
-// Design. As in the forward kernel, one thread owns one (batch b, rate
-// category k, site) column and walks the whole tree for it; grid
-// (ceil(sites / 256), K, B), 256 threads per block; rows of S floats with
-// states innermost, read and written as 16-byte vectors. Slots live in device
-// memory; a 1000-taxon slot set is a few MB per (b, k) and stays in the
-// 50 MB L2. Keeping slots in shared memory is later work.
+// B4: one thread owns one (batch b, rate category k, site) column and walks
+// the whole tree for it; grid (ceil(sites / 256), K, B); rows of S floats,
+// states innermost, read and written as 16-byte vectors; P read through the
+// read-only path (every thread of a block reads the same S x S block, which
+// the hardware broadcasts through L1). Bytes bound it at S = 4.
 //
-// pruning_slot_f32 reads P through the read-only path from device memory:
-// every thread of a block reads the same S x S block of a child, which the
-// hardware broadcasts. pruning_stream_f32 (kStageP) copies the children's P
-// blocks of node i + 1 into shared memory with cp.async while node i
-// computes: a double buffer of 2 x cmax x S x S floats (6.4 KB at S = 20,
-// binary schedule), each 16-byte vector copied by one thread, committed as
-// one group per node; cp.async.wait_group 1 then __syncthreads make node i's
-// blocks visible before any thread reads them, and a second __syncthreads
-// after the node keeps node i + 2's copies off a buffer still being read.
-// This is the Hopper form of the TPU kernel's make_async_copy landing pads.
-// The TPU kernel also streams the leaf rows; here each thread reads its own
-// leaf rows directly from device memory (coalesced 16-byte vectors), because
-// no other thread of the block uses them and staging would only add a copy.
-// Threads past the last site stay in the loop for the block's barriers and
-// skip the arithmetic.
-//
-// What bounds them on an H100: at S = 4, bytes (as the forward kernel); at
-// S = 20, operations: 2 x S^2 flops per child and column against ~170 bytes
-// per node and column, and at S = 20 the 400 P values per child are either
-// 400 broadcast loads through L1 (slot) or 400 shared-memory loads (stream).
-// The slot walk's scratch traffic is the forward's, but on a working set of
-// n_slots rows instead of n_inner, which is what keeps it in L2.
+// B5 is the protein walk, bound by operations: 2 S^2 flops per child and
+// column against ~170 bytes per node and column at S = 20. Its first
+// version ran at 22% of its bound (1.92 ms at 512 taxa x 8192 LG
+// patterns, NVIDIA H100 80GB HBM3, 700 W). Its SASS already read the staged
+// P as LDS.128, one load per four FMAs, and a version with two lanes
+// sharing two sites (one LDS.128 per eight FMAs) ran slower, so the
+// shared-memory pipe is not what bounds it. At that shape the launch has
+// 1024 warps, ~8 an SM, and each node waits on its children's rows from L2
+// or HBM. The design:
+// - At 20 states two adjacent lanes share a column, lane h forming rows
+//   [h S/2, (h + 1) S/2) with each row's fmaf chain in j order, as in
+//   times_child: twice the warps in flight. The rescale's max takes one
+//   exact shuffle with the partner lane; the pair passes __syncwarp after
+//   reading its children, before either lane writes a slot that may be a
+//   child's. At 4 states (measured slower split) one lane a column.
+// - 256-thread blocks; P read from the stage as 16-byte broadcast vectors.
+// - The children's P blocks of node i + 2 are copied (cp.async) into a
+//   3-stage ring right after node i's barrier (pruning_common.cuh), so one
+//   barrier per node (two before) publishes them and frees the stage, and
+//   the copy has two nodes' time to land (the TPU kernel's
+//   make_async_copy landing pads).
+// - Leaf and slot rows are read straight from device memory (coalesced
+//   16-byte vectors): no other column uses them.
+// The rows, the fmaf order and the rescale are B1's, so the roots keep
+// B1's bits. Threads past the last site stay in the loop for the barriers
+// and skip the loads and stores. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (kernel_turns.py, PERF.md section 6): 1.65 ms at 512 taxa
+// x 8192 LG patterns, 25% of its operations bound (1.93 ms, 22%, before).
 
 #include "pruning_common.cuh"
 
@@ -58,22 +61,9 @@ namespace {
 
 using pruning::kThreads;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-template <int S, bool kStageP>
+// The slot walk (B4): one thread per column, P read through the read-only
+// path from device memory.
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 pruning_slot_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
                     const float* __restrict__ leaves,   // (n_leaves, sites, S)
@@ -88,13 +78,8 @@ pruning_slot_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
                     float* __restrict__ root_e,         // (B, K, sites)
                     int K, int n_nodes, int n_slots, int n_int, int cmax,
                     int sites) {
-  extern __shared__ float4 p_stage_vec[];  // (2, cmax, S, S) when kStageP
-  float* p_stage = reinterpret_cast<float*>(p_stage_vec);
   const int site = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = site < sites;
-  if constexpr (!kStageP) {
-    if (!active) return;
-  }
+  if (site >= sites) return;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
   const size_t bk = static_cast<size_t>(b) * K + k;
@@ -103,42 +88,120 @@ pruning_slot_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
   // P for (b, node, k) starts at pb + node * K * S * S
   const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
   const size_t p_node_stride = static_cast<size_t>(K) * S * S;
+
+  for (int i = 0; i < n_int; ++i) {
+    const int cnt = __ldg(counts + i);
+    float acc[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) acc[r] = 1.0f;
+    float e = 0.0f;
+    for (int c = 0; c < cnt; ++c) {
+      const int src = __ldg(csrc + i * cmax + c);
+      float x[S];
+      if (__ldg(cleaf + i * cmax + c)) {
+        pruning::load_states<S>(leaves + (static_cast<size_t>(src) * sites + site) * S, x);
+      } else {
+        const size_t row = static_cast<size_t>(src) * sites + site;
+        pruning::load_states<S>(xs + row * S, x);
+        e += es[row];
+      }
+      const int child = __ldg(cnode + i * cmax + c);
+      pruning::times_child<S, false>(pb + child * p_node_stride, x, acc);
+    }
+    e += pruning::rescale_pow2<S>(acc);
+    if (i == n_int - 1) {  // the root is last in DFS post-order
+      pruning::store_states<S>(root + (bk * sites + site) * S, acc);
+      root_e[bk * sites + site] = e;
+    } else {  // may be a child's slot: every child was read above
+      const size_t row = static_cast<size_t>(__ldg(nslot + i)) * sites + site;
+      pruning::store_states<S>(xs + row * S, acc);
+      es[row] = e;
+    }
+  }
+}
+
+// Lanes per column of the stream walk: at 20 states two lanes share a
+// column, each forming half of its rows, which doubles the warps in flight
+// (the walk waits on row latency with ~8 warps an SM at one lane a column);
+// at 4 states one lane (the split measured slower there).
+template <int S>
+__host__ __device__ constexpr int stream_lanes() {
+  return S >= 20 ? 2 : 1;
+}
+
+// The stream walk (B5): the slot walk with the children's P staged in
+// shared memory two nodes ahead, in a ring of kPStages stages, read as
+// 16-byte broadcast vectors. kL = stream_lanes<S>() adjacent lanes own one
+// column; lane h forms rows [h S / kL, (h + 1) S / kL), each row's fmaf
+// chain in j order as in times_child.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
+                      const float* __restrict__ leaves,   // (n_leaves, sites, S)
+                      const int* __restrict__ nslot,      // (n_int,)
+                      const int* __restrict__ cnode,      // (n_int, cmax)
+                      const int* __restrict__ csrc,       // (n_int, cmax)
+                      const int* __restrict__ cleaf,      // (n_int, cmax)
+                      const int* __restrict__ counts,     // (n_int,)
+                      float* __restrict__ slots,          // (B, K, n_slots, sites, S)
+                      float* __restrict__ slots_e,        // (B, K, n_slots, sites)
+                      float* __restrict__ root,           // (B, K, sites, S)
+                      float* __restrict__ root_e,         // (B, K, sites)
+                      int K, int n_nodes, int n_slots, int n_int, int cmax,
+                      int sites) {
+  constexpr int kL = stream_lanes<S>();
+  constexpr int kRows = S / kL;   // rows a lane forms
+  static_assert(kRows % 2 == 0, "a lane's rows are stored as 8-byte vectors");
+  extern __shared__ float4 p_stage_vec[];  // (kPStages, cmax, S, S)
+  float* p_stage = reinterpret_cast<float*>(p_stage_vec);
+  const int h = threadIdx.x % kL;
+  const int site = blockIdx.x * (kThreads / kL) + threadIdx.x / kL;
+  const bool active = site < sites;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  float* __restrict__ xs = slots + bk * n_slots * sites * S;
+  float* __restrict__ es = slots_e + bk * n_slots * sites;
+  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
+  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
   constexpr int kBlockVecs = S * S / 4;  // 16-byte vectors per P block
 
-  // node i's children's P blocks -> stage buffer `buf` (all threads share)
-  auto stage = [&](int i, int buf) {
+  // node i's children's P blocks -> its stage (all threads share)
+  auto stage = [&](int i) {
+    if (i >= n_int) return;
     const int cnt = __ldg(counts + i);
+    float* dst = p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * S;
     for (int v = threadIdx.x; v < cnt * kBlockVecs; v += kThreads) {
       const int c = v / kBlockVecs;
       const int q = v - c * kBlockVecs;
       const int child = __ldg(cnode + i * cmax + c);
-      cp_async16(p_stage + (static_cast<size_t>(buf) * cmax + c) * S * S + 4 * q,
-                 pb + child * p_node_stride + 4 * q);
+      pruning::cp_async16(dst + c * S * S + 4 * q,
+                          pb + child * p_node_stride + 4 * q);
     }
   };
-  if constexpr (kStageP) {
-    stage(0, 0);
-    cp_async_commit();
-  }
+  stage(0);
+  pruning::cp_async_commit();
+  stage(1);
+  pruning::cp_async_commit();
 
   for (int i = 0; i < n_int; ++i) {
-    const float* p_now = nullptr;
-    if constexpr (kStageP) {
-      if (i + 1 < n_int) stage(i + 1, (i + 1) & 1);
-      cp_async_commit();
-      cp_async_wait_one();  // node i's group has landed (this thread's part)
-      __syncthreads();      // ... and every other thread's
-      p_now = p_stage + static_cast<size_t>(i & 1) * cmax * S * S;
-    }
-    if (active) {
-      const int cnt = __ldg(counts + i);
-      float acc[S];
+    pruning::cp_async_wait_one();  // node i's group has landed (this thread's part)
+    __syncthreads();               // ... and every other thread's
+    stage(i + 2);                  // into the stage node i - 1 read
+    pruning::cp_async_commit();
+    const float* p_now =
+        p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * S;
+    const int cnt = __ldg(counts + i);
+    float acc[kRows];
 #pragma unroll
-      for (int r = 0; r < S; ++r) acc[r] = 1.0f;
-      float e = 0.0f;
-      for (int c = 0; c < cnt; ++c) {
-        const int src = __ldg(csrc + i * cmax + c);
-        float x[S];
+    for (int r = 0; r < kRows; ++r) acc[r] = 1.0f;
+    float e = 0.0f;
+    for (int c = 0; c < cnt; ++c) {
+      const int src = __ldg(csrc + i * cmax + c);
+      float x[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) x[j] = 0.0f;
+      if (active) {
         if (__ldg(cleaf + i * cmax + c)) {
           pruning::load_states<S>(leaves + (static_cast<size_t>(src) * sites + site) * S, x);
         } else {
@@ -146,25 +209,57 @@ pruning_slot_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
           pruning::load_states<S>(xs + row * S, x);
           e += es[row];
         }
-        if constexpr (kStageP) {
-          pruning::times_child<S, true>(p_now + c * S * S, x, acc);
-        } else {
-          const int child = __ldg(cnode + i * cmax + c);
-          pruning::times_child<S, false>(pb + child * p_node_stride, x, acc);
-        }
       }
-      e += pruning::rescale_pow2<S>(acc);
-      if (i == n_int - 1) {  // the root is last in DFS post-order
-        pruning::store_states<S>(root + (bk * sites + site) * S, acc);
-        root_e[bk * sites + site] = e;
-      } else {  // may be a child's slot: every child was read above
-        const size_t row = static_cast<size_t>(__ldg(nslot + i)) * sites + site;
-        pruning::store_states<S>(xs + row * S, acc);
-        es[row] = e;
+      const float* pm = p_now + c * S * S;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float y = 0.0f;
+#pragma unroll
+        for (int q = 0; q < S / 4; ++q) {
+          const float4 v = pruning::p_vec<S>(pm, h * kRows + r, q);
+          y = fmaf(v.x, x[4 * q], y);
+          y = fmaf(v.y, x[4 * q + 1], y);
+          y = fmaf(v.z, x[4 * q + 2], y);
+          y = fmaf(v.w, x[4 * q + 3], y);
+        }
+        acc[r] *= y;
       }
     }
-    if constexpr (kStageP) {
-      __syncthreads();  // buffer i & 1 is read before node i + 2 lands in it
+    // rescale_pow2 over the column's S rows: the max over the kL lanes'
+    // rows by exact shuffles, then the same scale and exponent
+    float m = FLT_MIN;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) m = fmaxf(m, acc[r]);
+#pragma unroll
+    for (int off = 1; off < kL; off <<= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    int eb = (__float_as_int(m) >> 23) & 0xFF;
+    eb = min(max(eb, 1), 253);
+    const float scale = __int_as_float((254 - eb) << 23);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] *= scale;
+    e += static_cast<float>(eb - 127);
+    if constexpr (kL > 1) {
+      __syncwarp();  // the column's lanes read its children (perhaps the slot below)
+    }
+    if (active) {
+      float* dst = xs;
+      float* dst_e = es;
+      size_t row;
+      if (i == n_int - 1) {  // the root is last in DFS post-order
+        dst = root;
+        dst_e = root_e;
+        row = bk * sites + site;
+      } else {  // may be a child's slot: every child was read above
+        row = static_cast<size_t>(__ldg(nslot + i)) * sites + site;
+      }
+#pragma unroll
+      for (int q = 0; q < kRows / 2; ++q) {
+        reinterpret_cast<float2*>(dst + row * S + h * kRows)[q] =
+            make_float2(acc[2 * q], acc[2 * q + 1]);
+      }
+      if (h == 0) dst_e[row] = e;
     }
   }
 }
@@ -178,26 +273,36 @@ int launch_slot(const void* p, const void* leaves, const void* nslot,
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_slots <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    auto kernel = pruning_slot_kernel<kS, kStageP>;
-    const size_t smem =
-        kStageP ? 2 * static_cast<size_t>(cmax) * kS * kS * sizeof(float) : 0;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+    // kThreads a block, `per_block` sites a block
+    const auto launch = [&](auto kernel, int per_block, size_t smem) {
+      const dim3 grid((sites + per_block - 1) / per_block, K, B);
+      kernel<<<grid, kThreads, smem, st>>>(
+          static_cast<const float*>(p), static_cast<const float*>(leaves),
+          static_cast<const int*>(nslot), static_cast<const int*>(cnode),
+          static_cast<const int*>(csrc), static_cast<const int*>(cleaf),
+          static_cast<const int*>(counts), static_cast<float*>(slots),
+          static_cast<float*>(slots_e), static_cast<float*>(root),
+          static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax,
+          sites);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if constexpr (!kStageP) {
+      return launch(pruning_slot_kernel<kS>, kThreads, 0);
+    } else {
+      auto kernel = pruning_stream_kernel<kS>;
+      const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax * kS *
+                          kS * sizeof(float);
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      return launch(kernel, kThreads / stream_lanes<kS>(), smem);
     }
-    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(p), static_cast<const float*>(leaves),
-        static_cast<const int*>(nslot), static_cast<const int*>(cnode),
-        static_cast<const int*>(csrc), static_cast<const int*>(cleaf),
-        static_cast<const int*>(counts), static_cast<float*>(slots),
-        static_cast<float*>(slots_e), static_cast<float*>(root),
-        static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax, sites);
-    return static_cast<int>(cudaGetLastError());
   });
 }
 

@@ -13,7 +13,7 @@ differentiate the float64 total with respect to every parameter through
 torch autograd: P(t) through the reverse rule of
 ``ops.pmatrix.p_matrices_reversible``, the gamma rates through the port's
 own ``gammainc``, and, with ``pruner="cuda"``, the walk through the saveall
-kernel and a reverse kernel: the deferred one while its gy store fits the
+kernel and a reverse kernel: the deferred one while its scratch fits the
 card, else the classic one (``cuda_pruning.choose_reverse``,
 ``PHYLO_DEFERRED_VJP``). ``GammaMixture`` is the stateful facade of the
 JAX package's (and its reference's) API over one engine.

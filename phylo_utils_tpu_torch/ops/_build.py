@@ -73,19 +73,25 @@ def _nvcc() -> str:
     return found
 
 
+# (entry point, device pointers, int arguments) of the main library, in
+# the order of the C signatures in csrc/: the pointers come first, then the
+# counts, then the stream
+SIGNATURES = (
+    ("pruning_forward_f32", 9, 8),
+    ("pruning_saveall_f32", 7, 8),
+    ("pruning_reverse_f32", 15, 11),
+    ("pruning_slot_f32", 11, 8),
+    ("pruning_stream_f32", 11, 8),
+    ("pruning_classic_reverse_f32", 15, 11),
+    ("pruning_fold_f32", 9, 9),
+)
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Every pointer and the stream as ``c_void_p``, every count as
-    ``c_int``, in the order of the C signatures in ``csrc/``."""
+    ``c_int``, by ``SIGNATURES``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in (
-        ("pruning_forward_f32", 9, 8),
-        ("pruning_saveall_f32", 7, 8),
-        ("pruning_reverse_f32", 12, 9),
-        ("pruning_slot_f32", 11, 8),
-        ("pruning_stream_f32", 11, 8),
-        ("pruning_classic_reverse_f32", 15, 11),
-        ("pruning_fold_f32", 9, 9),
-    ):
+    for name, n_ptr, n_int in SIGNATURES:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
         fn.restype = ci

@@ -23,8 +23,12 @@ CUDA tensor launches the kernel or raises):
   residuals of the gradient. Plain version ``saveall_walk_reference``.
 - ``reverse_walk`` (``csrc/pruning_reverse.cu``, replaces
   ``_dynamic_bwd2_kernel``): the deferred-edge reverse walk from a root
-  cotangent, then dP = sum_sites gy x^T per edge (and optionally the leaf
-  partials' cotangent). Plain version ``reverse_walk_reference``.
+  cotangent, dP = sum_sites gy x^T per edge (and optionally the leaf
+  partials' cotangent), P staged in shared memory and outside vectors in
+  the O(depth) slots of ``ReverseSchedule``, dP summed inside the walk
+  into one row per block and the rows summed by a second kernel; it
+  stores no gy (``reverse_scratch``). Plain version
+  ``reverse_walk_reference``.
 - ``classic_reverse_walk`` (``csrc/pruning_classic_reverse.cu``, replaces
   ``_dynamic_bwd_kernel``): the classic reverse from any set of seeds, each
   child's dP summed inside the walk, outside vectors in the O(depth) slots
@@ -51,7 +55,7 @@ kernel). All three knobs are off by default.
 ``make_fused_loglik_fn`` ties them into a differentiable per-(category,
 site) log-likelihood: value calls run ``forward_walk``; calls that need a
 gradient run ``saveall_walk`` forward and, backward, ``reverse_walk`` while
-its gy store fits the card, else ``classic_reverse_walk``
+its scratch fits the card, else ``classic_reverse_walk``
 (``choose_reverse``, ``PHYLO_DEFERRED_VJP``). ``make_cuda_prune_fn`` is the
 pruning function of the engines above ``LikelihoodEngine`` (root partials
 and logscale): ``forward_walk`` forward, the plain pruner replayed under
@@ -109,6 +113,8 @@ __all__ = [
     "classic_reverse_walk",
     "classic_reverse_walk_reference",
     "classic_reverse_scratch",
+    "reverse_scratch",
+    "reverse_tile",
     "make_fused_loglik_fn",
     "make_cuda_prune_fn",
 ]
@@ -137,6 +143,11 @@ _MAX_GRID_Z = 65535
 _MEM_FRACTION = 0.9
 # the state counts the kernels are compiled for (DNA, protein)
 _KERNEL_STATES = (4, 20)
+# sites per block of the deferred reverse kernel, widest first
+# (reverse_tile)
+_REVERSE_TILES = (256, 128, 64, 32)
+# shared memory one deferred reverse block may take: an H100 SM's 227 KB
+_REVERSE_SMEM = 232_448
 # sites per block of the classic reverse kernel (its kThreads)
 _CLASSIC_REVERSE_TILE = 256
 # blocks per classic reverse launch, over (site rows, K, B): two per SM of
@@ -1048,8 +1059,8 @@ def saveall_walk(
         raise MemoryError(
             f"the gradient's residuals need {need} bytes but only {budget} "
             f"bytes are free on {device}; they bound the whole-tree "
-            "gradient (past the deferred reverse's gy store the classic "
-            "reverse runs, which stores none): use fewer sites or a "
+            "gradient (past the deferred reverse's scratch the classic "
+            "reverse runs, which stores no gy): use fewer sites or a "
             "smaller batch"
         )
     order, children, counts = walk.on(device)
@@ -1074,6 +1085,46 @@ def saveall_walk(
     return (res_x, res_e) if batched else (res_x[0], res_e[0])
 
 
+def _reverse_smem_bytes(tile: int, cmax: int, s: int) -> int:
+    """Shared memory of one deferred reverse block of ``tile`` sites: the
+    3-stage P ring, two visits' warp dP sums and, at 20 states, each warp's
+    gy and x rows (csrc/pruning_reverse.cu)."""
+    warps = tile // 32
+    floats = (3 + 2 * warps) * cmax * s * s
+    if s != 4:
+        floats += warps * 2 * 32 * s
+    return 4 * floats
+
+
+def reverse_tile(s: int, cmax: int) -> int:
+    """Sites per block of a deferred reverse launch at ``s`` states with at
+    most ``cmax`` children a node: the widest of ``_REVERSE_TILES`` whose
+    block fits ``_REVERSE_SMEM`` bytes of shared memory. The widest was the
+    fastest at every shape measured on an NVIDIA H100 80GB HBM3 (700 W),
+    and at B = 1 every width took the same device time (kernel_turns.py,
+    PERF.md section 6). Raises where not even one warp's block fits (a node
+    of very many children; the classic reverse takes any)."""
+    for tile in _REVERSE_TILES:
+        if _reverse_smem_bytes(tile, cmax, s) <= _REVERSE_SMEM:
+            return tile
+    raise ValueError(
+        f"the deferred reverse's shared memory does not hold a node of "
+        f"{cmax} children at {s} states; use PHYLO_DEFERRED_VJP=0")
+
+
+def reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
+                    sites: int, s: int, cmax: int) -> Tuple[int, int]:
+    """(sites per block, bytes of scratch) of a deferred reverse launch
+    (``reverse_tile``). The walk keeps internal nodes' outside vectors in
+    the g slots of ``ReverseSchedule``, (b, k, n_gslots, sites, S) float32,
+    and sums dP inside the walk into one row per block, (b, k,
+    ceil(sites / tile), n_nodes, S, S) float32: S / tile of a gy store per
+    whole tile of sites, which it does not keep."""
+    tile = reverse_tile(s, cmax)
+    slot_bytes = 4 * b * k * max(n_gslots, 1) * sites * s
+    return tile, slot_bytes + 4 * b * k * -(-sites // tile) * n_nodes * s * s
+
+
 def reverse_walk(
     p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
     res_e: torch.Tensor, lam: torch.Tensor, freqs: torch.Tensor,
@@ -1082,9 +1133,9 @@ def reverse_walk(
     """dP (and optionally the leaves' cotangent) of the pruning walk.
 
     Same contract as ``reverse_walk_reference``. CUDA tensors launch the
-    reverse kernel (walk, then the deterministic dP reduction) once per
-    batch chunk whose gy scratch, (K, n_nodes, sites, S) float32 per batch
-    element, fits free device memory."""
+    reverse kernel (the walk in the order of ``walk.reverse``, then its
+    deterministic dP pass) once per batch chunk whose scratch
+    (``reverse_scratch``) fits free device memory, on the current stream."""
     global REVERSE_LAUNCHES
     _check_residuals(p, leaves, res_x, res_e, walk, freqs=freqs,
                      lam=(lam, (p.shape[-3], leaves.shape[1])))
@@ -1099,32 +1150,39 @@ def reverse_walk(
     b, n_nodes, k = pb.shape[:3]
     sites, s = leaves.shape[1:]
     device = p.device
-    order, children, counts = walk.on(device)
+    rs = walk.reverse
+    n_gslots = max(rs.n_gslots, 1)
+    rnode, gslot, children, cslot, counts = rs.on(device)
     dp = torch.empty_like(pb)
     dleaf = (torch.empty((b, k, walk.n_leaves, sites, s),
                          dtype=torch.float32, device=device)
              if want_dleaf else None)
-    chunk = _batch_chunk(b, k * n_nodes * sites * s * 4, device)
+    cmax = children.shape[1]
+    tile, nbytes = reverse_scratch(b, k, n_nodes, n_gslots, sites, s, cmax)
+    chunk = _batch_chunk(b, -(-nbytes // b), device)
     stream = _stream(device)
     for b0 in range(0, b, chunk):
         nb = min(chunk, b - b0)
-        gy = torch.empty((nb, k, n_nodes, sites, s), dtype=torch.float32,
-                         device=device)
+        g_slots = torch.empty((nb, k, n_gslots, sites, s),
+                              dtype=torch.float32, device=device)
+        rows = torch.empty((nb, k, -(-sites // tile), n_nodes, s, s),
+                           dtype=torch.float32, device=device)
         rc = lib.pruning_reverse_f32(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
-            children.data_ptr(), counts.data_ptr(),
-            rx[b0:b0 + nb].data_ptr(), re[b0:b0 + nb].data_ptr(),
-            lm[b0:b0 + nb].data_ptr(), freqs.data_ptr(), gy.data_ptr(),
+            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
+            gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
+            counts.data_ptr(), rx[b0:b0 + nb].data_ptr(),
+            re[b0:b0 + nb].data_ptr(), lm[b0:b0 + nb].data_ptr(),
+            freqs.data_ptr(), g_slots.data_ptr(), rows.data_ptr(),
             dp[b0:b0 + nb].data_ptr(),
             None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
-            nb, k, s, n_nodes, walk.n_leaves, len(walk.order),
-            children.shape[1], sites, walk.root, stream,
+            nb, k, s, n_nodes, walk.n_leaves, len(rs.rnode), cmax, sites,
+            n_gslots, tile, walk.root, stream,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_reverse_f32 launch failed: CUDA "
                                f"error {rc}")
         REVERSE_LAUNCHES += 1
-        del gy
+        del g_slots, rows
     if not batched:
         dp = dp[0]
         dleaf = None if dleaf is None else dleaf[0]
@@ -1138,8 +1196,9 @@ def classic_reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
     row of per-node S x S partial sums and walks every ``rows``-th tile of
     ``_CLASSIC_REVERSE_TILE`` sites, so the rows are capped by the launch's
     block count, not by the sites: its scratch is the g slots, (b, k,
-    n_gslots, sites, S) float32, and rows x (b, k, n_nodes, S, S) float32,
-    against the deferred reverse's (b, k, n_nodes, sites, S) gy store."""
+    n_gslots, sites, S) float32, and rows x (b, k, n_nodes, S, S) float32
+    (the deferred reverse's rows grow with its site tiles,
+    ``reverse_scratch``)."""
     n_tiles = -(-sites // _CLASSIC_REVERSE_TILE)
     rows = min(n_tiles, max(1, -(-_CLASSIC_REVERSE_BLOCKS // (b * k))))
     return (rows, 4 * b * k * max(n_gslots, 1) * sites * s,
@@ -1231,24 +1290,30 @@ def classic_reverse_walk(
     return dp, dleaf
 
 
-def choose_reverse(b: int, k: int, n_nodes: int, sites: int, s: int,
-                   device) -> str:
+def choose_reverse(b: int, k: int, n_nodes: int, n_gslots: int,
+                   sites: int, s: int, device, cmax: int) -> str:
     """The gradient's reverse walk: "deferred" (``reverse_walk``, B3) or
     "classic" (``classic_reverse_walk``, B7).
 
     ``PHYLO_DEFERRED_VJP`` is read as the JAX package reads it: "0" forces
     the classic reverse, "1" the deferred one, anything else ("auto") the
-    rule: the deferred reverse while one batch element's gy store, (K,
-    n_nodes, sites, S) float32, fits ``_device_budget`` (B3 splits a batch
-    into launches that fit), else the classic one, whose scratch does not
-    grow with n_nodes x sites. CPU tensors take the deferred reverse's plain
-    version under "auto": the rule weighs the card's memory."""
+    rule: the deferred reverse while one batch element's share of its
+    scratch (``reverse_scratch``: g slots and dP rows) fits
+    ``_device_budget`` (B3 splits a batch into launches that fit) and its
+    block's shared memory holds a node of ``cmax`` children, else the
+    classic one, whose dP rows are capped by its block count. CPU tensors
+    take the deferred reverse's plain version under "auto": the rule weighs
+    the card's memory."""
     env = os.environ.get("PHYLO_DEFERRED_VJP", "auto")
     if env == "0":
         return "classic"
     if env == "1" or torch.device(device).type == "cpu":
         return "deferred"
-    need = 4 * k * n_nodes * sites * s
+    try:
+        _, nbytes = reverse_scratch(b, k, n_nodes, n_gslots, sites, s, cmax)
+    except ValueError:
+        return "classic"
+    need = -(-nbytes // b)
     return "deferred" if need <= _device_budget(need, device) else "classic"
 
 
@@ -1297,8 +1362,9 @@ class _FusedLoglik(torch.autograd.Function):
             f32 = freqs.to(torch.float32).contiguous()
             sites, s = leaves.shape[1:]
             b = p.shape[0] if p.dim() == 5 else 1
-            if choose_reverse(b, p.shape[-3], walk.n_nodes, sites, s,
-                              p.device) == "deferred":
+            if choose_reverse(b, p.shape[-3], walk.n_nodes,
+                              walk.reverse.n_gslots, sites, s, p.device,
+                              walk.children.shape[1]) == "deferred":
                 dp, dleaf_k = reverse_walk(
                     p, leaves, res_x, res_e, lam32, f32, walk,
                     want_dleaf=ctx.needs_input_grad[1])
@@ -1327,8 +1393,8 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
 
     Differentiable in all three inputs. When P or the leaves require grad
     (and grad mode is on), the saveall kernel runs forward and a reverse
-    kernel backward (``choose_reverse``: the deferred one while its gy
-    store fits, else the classic one), over the whole tree; otherwise one
+    kernel backward (``choose_reverse``: the deferred one while its
+    scratch fits, else the classic one), over the whole tree; otherwise one
     forward walk runs
     alone, chosen by ``choose_walk``: the classic walk while the launch's
     whole-tree scratch fits ``CLASSIC_SCRATCH_BUDGET``, else the slot walk

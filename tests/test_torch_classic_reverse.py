@@ -239,26 +239,64 @@ def test_gslot_schedule_invariants(case):
 
 def test_choose_reverse_and_env_knob(monkeypatch):
     """PHYLO_DEFERRED_VJP: "0" classic, "1" deferred, else the rule: the
-    deferred reverse while one batch element's gy store, (K, n_nodes,
-    sites, S) float32, fits the device budget; CPU tensors take the
+    deferred reverse while one batch element's share of its scratch
+    (``reverse_scratch``: the g slots, (K, n_gslots, sites, S) float32,
+    and one (n_nodes, S, S) dP row per block of sites) fits the device
+    budget and its block holds a node's children; CPU tensors take the
     deferred reverse's plain version under "auto"."""
     budget = {"bytes": 0}
     monkeypatch.setattr(cuda_pruning, "_device_budget",
                         lambda need, device: budget["bytes"])
-    gy = 4 * 4 * 1999 * 80_000 * 20          # K = 4, 1000 taxa, LG
+    # K = 4, 1000 taxa, LG, 8 g slots, 256-site blocks (313 per category)
+    need = 4 * 4 * 8 * 80_000 * 20 + 4 * 4 * 313 * 1999 * 400
     monkeypatch.delenv("PHYLO_DEFERRED_VJP", raising=False)
-    budget["bytes"] = gy
-    assert choose_reverse(1, 4, 1999, 80_000, 20, "cuda") == "deferred"
-    assert choose_reverse(8, 4, 1999, 80_000, 20, "cuda") == "deferred"
-    budget["bytes"] = gy - 1
-    assert choose_reverse(1, 4, 1999, 80_000, 20, "cuda") == "classic"
-    assert choose_reverse(1, 4, 1999, 80_000, 20, "cpu") == "deferred"
+    budget["bytes"] = need
+    assert choose_reverse(1, 4, 1999, 8, 80_000, 20, "cuda", 2) == "deferred"
+    assert choose_reverse(8, 4, 1999, 8, 80_000, 20, "cuda", 2) == "deferred"
+    budget["bytes"] = need - 1
+    assert choose_reverse(1, 4, 1999, 8, 80_000, 20, "cuda", 2) == "classic"
+    assert choose_reverse(1, 4, 1999, 8, 80_000, 20, "cpu", 2) == "deferred"
+    # at 4 states the rows are 16 floats a node per block: far smaller
+    assert choose_reverse(1, 4, 1999, 8, 80_000, 4, "cuda", 2) == "deferred"
+    # a node of 64 children at 20 states does not fit a block's stage
+    budget["bytes"] = 10 * need
+    assert choose_reverse(1, 4, 1999, 8, 80_000, 20, "cuda",
+                          64) == "classic"
+    budget["bytes"] = need - 1
     for env, want in (("0", "classic"), ("1", "deferred"),
                       ("auto", "classic")):
         monkeypatch.setenv("PHYLO_DEFERRED_VJP", env)
-        assert choose_reverse(1, 4, 1999, 80_000, 20, "cuda") == want
+        assert choose_reverse(1, 4, 1999, 8, 80_000, 20, "cuda", 2) == want
     monkeypatch.setenv("PHYLO_DEFERRED_VJP", "0")
-    assert choose_reverse(1, 4, 7, 10, 4, "cpu") == "classic"
+    assert choose_reverse(1, 4, 7, 2, 10, 4, "cpu", 2) == "classic"
+
+
+@pytest.mark.parametrize("case,b,sites,s", [
+    ("random12", 1, 1024, 4),
+    ("random12", 64, 1024, 4),
+    ("random12", 1, 8192, 20),
+    ("random12", 2, 83, 20),
+    ("multifurcating", 16, 1000, 20),
+    ("caterpillar40", 4, 83, 4),
+])
+def test_reverse_scratch_and_row_sizing(case, b, sites, s):
+    """B3's tile is the widest whose block's shared memory fits; its
+    scratch is the g slots of ``walk.reverse`` plus one dP row per block,
+    (b, K, ceil(sites / tile), n_nodes, S, S): S / tile of a gy store per
+    whole tile of sites."""
+    sched, *_ = _inputs(_newick(case), 4)
+    walk = WalkSchedule(sched)
+    n, g = walk.n_nodes, walk.reverse.n_gslots
+    cmax = walk.children.shape[1]
+    assert cuda_pruning.reverse_tile(s, cmax) == 256
+    tile, nbytes = cuda_pruning.reverse_scratch(b, 4, n, g, sites, s, cmax)
+    slots = 4 * b * 4 * max(g, 1) * sites * s
+    rows = 4 * b * 4 * -(-sites // tile) * n * s * s
+    assert tile == 256 and nbytes == slots + rows
+    assert rows < 4 * b * 4 * n * sites * s     # the gy store it keeps not
+    assert cuda_pruning._reverse_smem_bytes(tile, cmax, s) <= 232_448
+    # seven children at 20 states: a 256-site block's stage would not fit
+    assert cuda_pruning.reverse_tile(20, 7) == 128
 
 
 @pytest.mark.parametrize("batch", [None, (0.5, 1.0, 3.0)])

@@ -23,7 +23,7 @@ from phylo_utils_tpu.ops.pallas_pruning import make_pallas_prune_fn
 from phylo_utils_tpu.trees import compile_schedule as j_compile_schedule
 from phylo_utils_tpu_torch import io as tio
 from phylo_utils_tpu_torch import models as tmodels
-from phylo_utils_tpu_torch.ops import cuda_pruning
+from phylo_utils_tpu_torch.ops import _build, cuda_pruning
 from phylo_utils_tpu_torch.ops.cuda_pruning import (
     WalkSchedule,
     forward_walk,
@@ -178,6 +178,22 @@ def test_forward_walk_rejects_bad_inputs():
         reverse_walk(pt, lt, rx, re, lam[:, :-1], torch.ones(4), walk)
     with pytest.raises(TypeError, match="freqs"):
         reverse_walk(pt, lt, rx, re, lam, torch.ones(4).double(), walk)
+
+
+@pytest.mark.parametrize("entry", [s[0] for s in _build.SIGNATURES])
+def test_bindings_match_c_signatures(entry):
+    """``_build.SIGNATURES`` (the ctypes argument types) against the
+    ``extern "C"`` signature in csrc/: as many pointers and ints, in that
+    order, then the stream. ctypes cannot check a call's arity against the
+    library, so a mismatch would show only on the card."""
+    import re
+
+    _, n_ptr, n_int = next(s for s in _build.SIGNATURES if s[0] == entry)
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert m, entry
+    kinds = ["ptr" if "*" in a else "int" for a in m.group(1).split(",")]
+    assert kinds == ["ptr"] * n_ptr + ["int"] * n_int + ["ptr"]
 
 
 def _jax_saveall(newick, p, lp, group):

@@ -304,3 +304,62 @@ def test_protein_gradient_kernels_on_card():
     for got, ref in ((dp, wp), (dl, wl)):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+# a trifurcating root and a 4-child node: the walks' P stages and dP sums
+# hold cmax = 4 children
+WIDE_ROOT = ("((a:0.1,b:0.2,c:0.3,d:0.1):0.1,(e:0.2,(f:0.1,g:0.3):0.2):0.3,"
+             "h:0.2);")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [4, 20])
+def test_stream_kernel_with_multifurcations_on_card(s):
+    """B5 on a tree with a trifurcating root and a 4-child node, at a
+    ragged site count: bit-identical to the forward kernel and within TOL
+    of its plain version."""
+    _cuda_or_skip()
+    sched, p, lp = _inputs(WIDE_ROOT, s, 301, batch_scales=(0.5, 2.0))
+    walk = WalkSchedule(sched)
+    pd, ld = p.cuda(), lp.cuda()
+    want = forward_walk(pd, ld, walk, walk="classic")
+    before = cuda_pruning.STREAM_LAUNCHES
+    got = slot_walk(pd, ld, walk, stream=True)
+    torch.cuda.synchronize()
+    assert cuda_pruning.STREAM_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plain = slot_walk_reference(pd, ld, walk)
+    np.testing.assert_allclose(
+        _site_ll(got[0].cpu(), got[1].cpu(), np.full(s, 1.0 / s)),
+        _site_ll(plain[0].cpu(), plain[1].cpu(), np.full(s, 1.0 / s)),
+        rtol=0, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [4, 20])
+def test_reverse_kernel_with_multifurcations_on_card(s):
+    """B3 on a tree with a trifurcating root and a 4-child node, at a
+    ragged site count: dP and dleaf within 1e-4 x max|g| of its plain
+    version, dP bit-identical across two launches, the root's row zero."""
+    _cuda_or_skip()
+    sched, p, lp = _inputs(WIDE_ROOT, s, 301, batch_scales=(0.5, 2.0))
+    walk = WalkSchedule(sched)
+    pd, ld = p.cuda(), lp.cuda()
+    rx, re = saveall_walk(pd, ld, walk)
+    freqs = torch.full((s,), 1.0 / s, device="cuda")
+    row = walk.root - walk.n_leaves
+    lam = (1.0 / torch.einsum("bksi,i->bks", rx[:, :, row], freqs)
+           ).contiguous()
+    before = cuda_pruning.REVERSE_LAUNCHES
+    dp, dl = reverse_walk(pd, ld, rx, re, lam, freqs, walk, want_dleaf=True)
+    dp2, _ = reverse_walk(pd, ld, rx, re, lam, freqs, walk)
+    torch.cuda.synchronize()
+    assert cuda_pruning.REVERSE_LAUNCHES == before + 2
+    assert torch.equal(dp, dp2)
+    assert float(dp[:, walk.root].abs().max()) == 0.0
+    wp, wl = reverse_walk_reference(pd, ld, rx, re, lam, freqs, walk,
+                                    want_dleaf=True)
+    for got, ref in ((dp, wp), (dl, wl)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * ref.abs().max().item())
