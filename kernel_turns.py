@@ -1,37 +1,50 @@
 #!/usr/bin/env python3
-"""Time the deferred reverse (B3, ``pruning_reverse_f32``) and the stream
-walk (B5, ``pruning_stream_f32``) against an earlier version of their
-sources, in turns, on one NVIDIA GPU.
+"""Time the saveall walk (B2, ``pruning_saveall_f32``), the classic reverse
+(B7, ``pruning_classic_reverse_f32``), the deferred reverse (B3,
+``pruning_reverse_f32``) and the stream walk (B5, ``pruning_stream_f32``)
+against an earlier version of their sources, in turns, on one NVIDIA GPU.
 
 Usage, from the root of a checkout::
 
-    python3 kernel_turns.py --parent DIR
+    python3 kernel_turns.py --parent DIR [--out FILE]
 
-``DIR`` holds the earlier ``pruning_reverse.cu``, ``pruning_slot.cu`` and
+``DIR`` holds the earlier ``pruning_forward.cu``, ``pruning_reverse.cu``,
+``pruning_slot.cu``, ``pruning_classic_reverse.cu`` and
 ``pruning_common.cuh``, for example unpacked from an earlier commit with
 ``git archive <commit> phylo_utils_tpu_torch/csrc | tar -x -C DIR
 --strip-components 2``. The script builds them with ``nvcc`` into
-``build/kernel_turns/`` beside the current library (``ops/_build.py``), and
-binds them with the C signatures they had before the deferred reverse took
-``ReverseSchedule``'s arrays and summed dP inside its walk (B3: order,
-children and counts, a gy store and dP; B5: unchanged). Then, on the same inputs:
+``build/kernel_turns/`` beside the current library (``ops/_build.py``) and
+binds them with the C signatures they had before B2 took a flat list of
+edges, a chunk and a lane count, and B7 a block width and a staged child
+count (B3 and B5: unchanged). Then, on the same inputs, at the flagship (64
+taxa, GTR+G4, 1024 sites) at B = 1 and 64, on the 512-taxon LG+G4 tree at
+8192 patterns, and on the wide-node tree (a root of 48 leaf children beside
+a 48-taxon subtree, kept whole, 8192 patterns simulated down it) at 4 and
+20 states:
 
-1. checks: the current B5 root bit for bit the earlier one's and the
-   forward kernel's; the current B3 dP within 1e-4 x max|dP| of the
-   earlier one's and of its plain version, bit-identical across two
-   launches, with a zero root row; also on a tree with a trifurcating root
-   and a 4-child node;
+1. checks: B2's residuals bit for bit the earlier B2's and its root row
+   the forward kernel's (B1); B7's dP within 1e-4 x max|dP| of the earlier
+   B7's and of its plain version, bit-identical across two launches, with
+   one seed (lambda pi at the root) and two (the root and an inner node),
+   its dleaf bit for bit the earlier B7's and, where B3 runs, B3's; B3's
+   dP and dleaf bit for bit the earlier B3's; B5's root the earlier one's
+   and B1's;
 2. times each kernel in turns (earlier, current, current, earlier; CUDA
-   events over repeated launches) at the flagship (64 taxa, GTR+G4, 1024
-   sites) at B = 1 and 64 and on the 512-taxon LG+G4 tree at 8192
-   patterns;
+   events over repeated launches), with its bound;
 3. reads each kernel's device time per launch from ``torch.profiler``
    (B = 1 launches are paced by the host, so event times there are the
-   host's), and times B3 at each block width (``reverse_tile`` picks the
-   widest that fits);
-4. counts shared-memory loads (``LDS`` by width) and FMAs in the SASS of
-   both stream kernels at 20 states (``cuobjdump -sass``), and lists both
-   builds' ptxas registers and spills.
+   host's);
+4. sweeps, each setting timed in turns (a, b, ..., b, a): B2's edges per
+   step (``_SAVEALL_CHUNK``) and lanes per column (``_SAVEALL_LANES``);
+   B7's blocks per launch (``_CLASSIC_REVERSE_BLOCKS``) and block width
+   (``_CLASSIC_REVERSE_TILE``); B7's shared-memory budget on the wide node
+   at 20 states (``_CLASSIC_STAGE_BYTES``: how many children a visit may
+   have and still be staged);
+5. counts global loads (``LDG``), shared-memory loads (``LDS`` by width)
+   and FMAs in the SASS of both builds' 20-state B2, B7 and B3
+   (``cuobjdump -sass``), writes those functions' SASS to
+   ``build/kernel_turns/``, and lists both builds' ptxas registers and
+   spills (a spill in the current build fails the run).
 
 It prints the card's ``nvidia-smi`` name and power limit, then one JSON
 object, also written to ``--out`` (default ``build/kernel_turns.json``).
@@ -49,59 +62,87 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 TOL = 1e-4     # x max|dP|: two f32 walks summing over sites in other orders
-WIDE_ROOT = ("((a:0.1,b:0.2,c:0.3,d:0.1):0.1,(e:0.2,(f:0.1,g:0.3):0.2):0.3,"
-             "h:0.2);")
+OUT_DIR = REPO / "build" / "kernel_turns"
+PARENT_SOURCES = ("pruning_forward.cu", "pruning_reverse.cu",
+                  "pruning_slot.cu", "pruning_classic_reverse.cu")
+# mangled-name patterns of the 20-state kernels whose SASS is counted
+SASS_KERNELS = {
+    "B2": r"pruning_saveall_kernelILi20E|pruning_forward_kernelILi20ELb1E",
+    "B7": r"classic_reverse_walk_kernelILi20E",
+    "B3": r"pruning_reverse_walk_kernelILi20E",
+}
 
 
 def _build_parent(parent: Path, nvcc_flags, nvcc):
-    """The earlier B3 and B5 sources as one library; (library, ptxas
-    output)."""
-    out_dir = REPO / "build" / "kernel_turns"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "libparent.so"
+    """The earlier B2, B3, B5 and B7 sources as one library; (library,
+    path, ptxas output)."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = OUT_DIR / "libparent.so"
     res = subprocess.run(
         [nvcc, *nvcc_flags, "-shared", "-o", str(lib_path),
-         str(parent / "pruning_reverse.cu"), str(parent / "pruning_slot.cu")],
+         *(str(parent / name) for name in PARENT_SOURCES)],
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on the earlier sources\n{res.stderr}")
     lib = ctypes.CDLL(str(lib_path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pruning_reverse_f32.argtypes = [vp] * 12 + [ci] * 9 + [vp]
-    lib.pruning_stream_f32.argtypes = [vp] * 11 + [ci] * 8 + [vp]
-    lib.pruning_reverse_f32.restype = ci
-    lib.pruning_stream_f32.restype = ci
+    for name, n_ptr, n_int in (("pruning_saveall_f32", 7, 8),
+                               ("pruning_reverse_f32", 15, 11),
+                               ("pruning_stream_f32", 11, 8),
+                               ("pruning_classic_reverse_f32", 15, 11)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+        fn.restype = ci
     return lib, lib_path, res.stdout + res.stderr
 
 
-def _sass_counts(lib_path: Path, pattern: str):
-    """{function: {opcode: count}} of the LDS and FFMA instructions of
-    every function whose mangled name matches ``pattern``."""
-    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+def _sass(lib_path: Path, pattern: str):
+    """{function: its SASS lines} of every function of ``lib_path`` whose
+    mangled name matches ``pattern``."""
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
-    counts, name = {}, None
-    for ln in sass.splitlines():
+    out, name = {}, None
+    for ln in text.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = m.group(1) if re.search(pattern, m.group(1)) else None
             if name:
-                counts[name] = collections.Counter()
-            continue
-        if name is None:
-            continue
+                out[name] = []
+        elif name is not None:
+            out[name].append(ln)
+    return out
+
+
+def _sass_counts(lines):
+    """{opcode: count} of the global loads, shared-memory loads, FMAs and
+    barriers in one function's SASS."""
+    counts = collections.Counter()
+    for ln in lines:
         op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                        ln)
-        if op and (op.group(1).startswith("LDS") or op.group(1) == "FFMA"):
-            counts[name][op.group(1)] += 1
-    return {k: dict(v) for k, v in counts.items()}
+        if op and op.group(1).startswith(("LDG", "LDS", "FFMA", "BAR")):
+            counts[op.group(1)] += 1
+    return dict(counts)
+
+
+def _turns(fns, reps, cuda_ms):
+    """{label: mean ms} of each of ``fns`` (label -> callable) timed in
+    turns: in order, then in reverse order."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {label: [] for label in fns}
+    for label in order:
+        runs[label].append(cuda_ms(fns[label], reps))
+    return {label: {"ms": sum(t) / len(t), "runs": t}
+            for label, t in runs.items()}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path,
-                    help="directory of the earlier pruning_reverse.cu, "
-                    "pruning_slot.cu and pruning_common.cuh")
+                    help="directory of the earlier pruning_forward.cu, "
+                    "pruning_reverse.cu, pruning_slot.cu, "
+                    "pruning_classic_reverse.cu and pruning_common.cuh")
     ap.add_argument("--out", type=Path,
                     default=REPO / "build" / "kernel_turns.json",
                     help="where to write the JSON result")
@@ -113,13 +154,13 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_turns: torch.cuda.is_available() is False: this "
                  "script needs a GPU")
-    from chip_smoke import _bound, _cuda_ms, _device_us, _ptxas_table
+    from chip_smoke import (_bound, _cuda_ms, _device_us, _ptxas_table,
+                            _wide_node_inputs)
     from phylo_utils_tpu_torch import models
-    from phylo_utils_tpu_torch.io import parse_newick
-    from phylo_utils_tpu_torch.ops import _build, cuda_pruning
+    from phylo_utils_tpu_torch.ops import _build, cuda_pruning as cp
     from phylo_utils_tpu_torch.ops.cuda_pruning import (
-        WalkSchedule, forward_walk, reverse_walk, reverse_walk_reference,
-        saveall_walk, slot_walk)
+        WalkSchedule, classic_reverse_walk, classic_reverse_walk_reference,
+        forward_walk, reverse_walk, saveall_walk, slot_walk)
     from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
     from phylo_utils_tpu_torch.ops.pmatrix import (
         extend_p_identity, transition_matrices)
@@ -136,6 +177,10 @@ def main():
     old, old_path, old_log = _build_parent(args.parent, _build.NVCC_FLAGS,
                                            _build._nvcc())
     build_s = time.perf_counter() - t0
+    log = _build.build_info()["log"]
+    ptxas_current = _ptxas_table(log) if log else {}
+    spilled = {k: v for k, v in ptxas_current.items()
+               if not re.search(r"\b0 bytes spill stores", v)}
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     rates = discrete_gamma(torch.tensor(0.5, dtype=torch.float64), 4).to(dev)
@@ -157,29 +202,89 @@ def main():
             rng.integers(0, s, (tree.n_leaves, sites))]
         leaves[rng.random((tree.n_leaves, sites)) < 0.02] = 1.0
         return (WalkSchedule(sched), p, torch.as_tensor(leaves, device=dev),
-                eigs[s].freqs.float())
+                eigs[s].freqs)
 
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def old_reverse(walk, p, leaves, rx, re, lam, f):
-        pb, rxb, reb, lmb = (p, rx, re, lam) if p.dim() == 5 else (
-            p[None], rx[None], re[None], lam[None])
+    def batched(p, *rest):
+        return (p, *rest) if p.dim() == 5 else (p[None], *(
+            None if t is None else t[None] for t in rest))
+
+    def unbatched(p, *out):
+        return out if p.dim() == 5 else tuple(
+            None if t is None else t[0] for t in out)
+
+    def old_saveall(walk, p, leaves):
+        (pb,) = batched(p)
+        b, _, k = pb.shape[:3]
+        sites, s = leaves.shape[1:]
+        n_inner = walk.n_nodes - walk.n_leaves
+        order, children, counts = walk.on(dev)
+        rx = torch.empty((b, k, n_inner, sites, s), device=dev)
+        re_ = torch.empty((b, k, n_inner, sites), device=dev)
+        rc = old.pruning_saveall_f32(
+            pb.data_ptr(), leaves.data_ptr(), order.data_ptr(),
+            children.data_ptr(), counts.data_ptr(), rx.data_ptr(),
+            re_.data_ptr(), b, k, s, walk.n_nodes, walk.n_leaves,
+            len(walk.order), children.shape[1], sites, stream())
+        assert rc == 0, f"earlier pruning_saveall_f32: CUDA error {rc}"
+        return unbatched(p, rx, re_)
+
+    def old_reverse(walk, p, leaves, rx, re_, lam, f, want_dleaf=False):
+        pb, rxb, reb, lmb = batched(p, rx, re_, lam)
         b, n_nodes, k = pb.shape[:3]
         sites, s = leaves.shape[1:]
-        order, children, counts = walk.on(dev)
-        gy = torch.empty((b, k, n_nodes, sites, s), device=dev)
+        rs = walk.reverse
+        rnode, gslot, children, cslot, counts = rs.on(dev)
+        tile, _ = cp.reverse_scratch(b, k, n_nodes, rs.n_gslots, sites, s,
+                                     children.shape[1])
+        g_slots = torch.empty((b, k, max(rs.n_gslots, 1), sites, s),
+                              device=dev)
+        rows = torch.empty((b, k, -(-sites // tile), n_nodes, s, s),
+                           device=dev)
         dp = torch.empty_like(pb)
+        dl = (torch.empty((b, k, walk.n_leaves, sites, s), device=dev)
+              if want_dleaf else None)
         rc = old.pruning_reverse_f32(
-            pb.data_ptr(), leaves.data_ptr(), order.data_ptr(),
-            children.data_ptr(), counts.data_ptr(), rxb.data_ptr(),
-            reb.data_ptr(), lmb.data_ptr(), f.data_ptr(), gy.data_ptr(),
-            dp.data_ptr(), None, b, k, s, n_nodes, walk.n_leaves,
-            len(walk.order), children.shape[1], sites, walk.root, stream())
+            pb.data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
+            gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
+            counts.data_ptr(), rxb.data_ptr(), reb.data_ptr(),
+            lmb.data_ptr(), f.data_ptr(), g_slots.data_ptr(),
+            rows.data_ptr(), dp.data_ptr(),
+            None if dl is None else dl.data_ptr(), b, k, s, n_nodes,
+            walk.n_leaves, len(rs.rnode), children.shape[1], sites,
+            max(rs.n_gslots, 1), tile, walk.root, stream())
         assert rc == 0, f"earlier pruning_reverse_f32: CUDA error {rc}"
-        return dp if p.dim() == 5 else dp[0]
+        return unbatched(p, dp, dl)
+
+    def old_classic(walk, p, leaves, rx, re_, gs, seeds, want_dleaf=False):
+        pb, rxb, reb, gsb = batched(p, rx, re_, gs)
+        b, n_nodes, k = pb.shape[:3]
+        sites, s = leaves.shape[1:]
+        rs = walk.reverse
+        rows = min(-(-sites // 256), max(1, -(-264 // (b * k))))
+        rnode, gslot, children, cslot, counts = rs.on(dev)
+        node_seed = rs.node_seed(np.asarray(seeds, np.int32), dev)
+        g_slots = torch.empty((b, k, max(rs.n_gslots, 1), sites, s),
+                              device=dev)
+        dp_rows = torch.zeros((b, k, rows, n_nodes, s, s), device=dev)
+        dp = torch.empty_like(pb)
+        dl = (torch.empty((b, k, walk.n_leaves, sites, s), device=dev)
+              if want_dleaf else None)
+        rc = old.pruning_classic_reverse_f32(
+            pb.data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
+            gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
+            counts.data_ptr(), node_seed.data_ptr(), rxb.data_ptr(),
+            reb.data_ptr(), gsb.data_ptr(), g_slots.data_ptr(),
+            dp_rows.data_ptr(), dp.data_ptr(),
+            None if dl is None else dl.data_ptr(), b, k, s, n_nodes,
+            walk.n_leaves, len(rs.rnode), children.shape[1], sites,
+            len(seeds), max(rs.n_gslots, 1), rows, stream())
+        assert rc == 0, f"earlier pruning_classic_reverse_f32: CUDA error {rc}"
+        return unbatched(p, dp, dl)
 
     def old_stream(walk, p, leaves):
-        pb = p if p.dim() == 5 else p[None]
+        (pb,) = batched(p)
         b, _, k = pb.shape[:3]
         sites, s = leaves.shape[1:]
         sl = walk.slots
@@ -195,64 +300,119 @@ def main():
             root.data_ptr(), root_e.data_ptr(), b, k, s, walk.n_nodes,
             sl.n_slots, len(sl.nslot), cnode.shape[1], sites, stream())
         assert rc == 0, f"earlier pruning_stream_f32: CUDA error {rc}"
-        return (root, root_e) if p.dim() == 5 else (root[0], root_e[0])
+        return unbatched(p, root, root_e)
 
     tree_flag = random_tree(64, seed=0)
-    tree_lg = random_tree(512, seed=11)
     shapes = {
         "flagship_B1": inputs(tree_flag, 1024, 1, 4),
         "flagship_B64": inputs(tree_flag, 1024, 64, 4),
-        "protein512_LG": inputs(tree_lg, 8192, 1, 20),
-        "wide_root_S4_B3": inputs(parse_newick(WIDE_ROOT), 301, 3, 4),
-        "wide_root_S20_B3": inputs(parse_newick(WIDE_ROOT), 301, 3, 20),
+        "protein512_LG": inputs(random_tree(512, seed=11), 8192, 1, 20),
+        "wide_node_S4": _wide_node_inputs(eigs[4], rates, 8192, rng, dev),
+        "wide_node_S20": _wide_node_inputs(eigs[20], rates, 8192, rng, dev),
     }
+    reps_of = {"flagship_B1": 200, "flagship_B64": 50, "protein512_LG": 5,
+               "wide_node_S4": 20, "wide_node_S20": 3}
     result = {"card": smi, "build_s": build_s, "checks": {}, "turns": {},
-              "device_us": {}, "b3_tiles": {}}
-    for label, (walk, p, leaves, f) in shapes.items():
-        rx, re = saveall_walk(p, leaves, walk)
+              "device_us": {}, "sweeps": {}}
+    failed = []
+    for label, (walk, p, leaves, f64) in shapes.items():
+        f = f64.float()
+        s = leaves.shape[2]
+        cmax = walk.children.shape[1]
+        # B3 holds the visit's children in its stage, or raises
+        try:
+            cp.reverse_tile(s, cmax)
+            has_b3 = True
+        except ValueError:
+            has_b3 = False
+        rx, re_ = saveall_walk(p, leaves, walk)
+        ox, oe = old_saveall(walk, p, leaves)
+        kp, ke = forward_walk(p, leaves, walk, walk="classic")
         row = walk.root - walk.n_leaves
         lam = (1.0 / torch.einsum("...ksi,i->...ks",
-                                  rx[..., row, :, :].double(), f.double())
+                                  rx[..., row, :, :].double(), f64)
                ).float().contiguous()
-        new_b3 = functools.partial(reverse_walk, p, leaves, rx, re, lam, f,
-                                   walk)
-        old_b3 = functools.partial(old_reverse, walk, p, leaves, rx, re, lam,
-                                   f)
-        new_b5 = functools.partial(slot_walk, p, leaves, walk, stream=True)
-        old_b5 = functools.partial(old_stream, walk, p, leaves)
-        dp, _ = new_b3()
-        dp2, _ = new_b3()
-        dpo = old_b3()
+        gseed = (lam[..., None] * f).unsqueeze(-3).contiguous()
+        root = [walk.root]
+        seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
+        g2 = torch.as_tensor(rng.uniform(
+            0.5, 1.5, gseed.shape[:-3] + (2,) + gseed.shape[-2:]),
+            dtype=torch.float32, device=dev)
+        d7, l7 = classic_reverse_walk(p, leaves, rx, re_, gseed, root, walk,
+                                      True)
+        d7b, _ = classic_reverse_walk(p, leaves, rx, re_, gseed, root, walk)
+        o7, ol7 = old_classic(walk, p, leaves, rx, re_, gseed, root, True)
+        e7, el7 = classic_reverse_walk(p, leaves, rx, re_, g2, seeds, walk,
+                                       True)
+        oe7, oel7 = old_classic(walk, p, leaves, rx, re_, g2, seeds, True)
         torch.cuda.synchronize()
-        wp, _ = reverse_walk_reference(p, leaves, rx, re, lam, f, walk)
-        scale = float(wp.abs().max())
-        kp, ke = forward_walk(p, leaves, walk, walk="classic")
-        sp, se = new_b5()
-        op, oe = old_b5()
-        torch.cuda.synchronize()
+        w7, wl7 = classic_reverse_walk_reference(p, leaves, rx, re_, gseed,
+                                                 root, walk, True)
+        scale = float(w7.abs().max())
         chk = {
-            "b3_vs_plain": float((dp - wp).abs().max()) / scale,
-            "b3_vs_earlier": float((dp - dpo).abs().max()) / scale,
-            "b3_repeat_equal": bool(torch.equal(dp, dp2)),
-            "b3_root_row_zero": float(dp.select(-4, walk.root).abs().max())
+            "cmax": cmax,
+            "b2_equals_earlier": bool(torch.equal(rx, ox)
+                                      and torch.equal(re_, oe)),
+            "b2_root_equals_b1": bool(torch.equal(rx[..., row, :, :], kp)
+                                      and torch.equal(re_[..., row, :], ke)),
+            "b7_vs_plain": float((d7 - w7).abs().max()) / scale,
+            "b7_dleaf_vs_plain": float((l7 - wl7).abs().max())
+            / float(wl7.abs().max()),
+            "b7_vs_earlier": float((d7 - o7).abs().max()) / scale,
+            "b7_two_seeds_vs_earlier": float((e7 - oe7).abs().max())
+            / float(oe7.abs().max()),
+            "b7_dleaf_equals_earlier": bool(torch.equal(l7, ol7)
+                                            and torch.equal(el7, oel7)),
+            "b7_repeat_equal": bool(torch.equal(d7, d7b)),
+            "b7_root_row_zero": float(d7.select(-4, walk.root).abs().max())
             == 0.0,
-            "b5_equals_earlier": bool(torch.equal(sp, op)
-                                      and torch.equal(se, oe)),
-            "b5_equals_forward": bool(torch.equal(sp, kp)
-                                      and torch.equal(se, ke)),
+            "b7_stage_children": cp.classic_reverse_stage(s, cmax)[0],
         }
+        ok = (chk["b2_equals_earlier"] and chk["b2_root_equals_b1"]
+              and max(chk["b7_vs_plain"], chk["b7_vs_earlier"],
+                      chk["b7_two_seeds_vs_earlier"]) <= TOL
+              and chk["b7_dleaf_equals_earlier"] and chk["b7_repeat_equal"]
+              and chk["b7_root_row_zero"])
+        if has_b3:
+            d3, l3 = reverse_walk(p, leaves, rx, re_, lam, f, walk, True)
+            o3, ol3 = old_reverse(walk, p, leaves, rx, re_, lam, f, True)
+            torch.cuda.synchronize()
+            chk["b7_dleaf_equals_b3"] = bool(torch.equal(l7, l3))
+            chk["b3_equals_earlier"] = bool(torch.equal(d3, o3)
+                                            and torch.equal(l3, ol3))
+            ok = ok and chk["b7_dleaf_equals_b3"] and chk["b3_equals_earlier"]
+        if cmax <= 2:   # B5's ring holds 3 x cmax blocks
+            sp, se = slot_walk(p, leaves, walk, stream=True)
+            op, oe5 = old_stream(walk, p, leaves)
+            torch.cuda.synchronize()
+            chk["b5_equals_earlier_and_b1"] = bool(
+                torch.equal(sp, op) and torch.equal(se, oe5)
+                and torch.equal(sp, kp) and torch.equal(se, ke))
+            ok = ok and chk["b5_equals_earlier_and_b1"]
         result["checks"][label] = chk
-        ok = (chk["b3_vs_plain"] <= TOL and chk["b3_vs_earlier"] <= TOL
-              and chk["b3_repeat_equal"] and chk["b3_root_row_zero"]
-              and chk["b5_equals_earlier"] and chk["b5_equals_forward"])
         if not ok:
-            print(json.dumps(result), flush=True)
-            sys.exit(f"kernel_turns: {label} failed its checks: {chk}")
-        if label.startswith("wide_root"):
+            failed.append(label)
+            print(json.dumps({label: chk}), flush=True)
             continue
-        reps = {"flagship_B1": 200, "flagship_B64": 50}.get(label, 5)
-        for name, new_fn, old_fn, kind in (("B3", new_b3, old_b3, "reverse"),
-                                           ("B5", new_b5, old_b5, "stream")):
+        reps = reps_of[label]
+        kernels = {
+            "B2": ("saveall", functools.partial(saveall_walk, p, leaves, walk),
+                   functools.partial(old_saveall, walk, p, leaves)),
+            "B7": ("classic", functools.partial(
+                classic_reverse_walk, p, leaves, rx, re_, gseed, root, walk),
+                   functools.partial(old_classic, walk, p, leaves, rx, re_,
+                                     gseed, root)),
+        }
+        if has_b3:
+            kernels["B3"] = ("reverse", functools.partial(
+                reverse_walk, p, leaves, rx, re_, lam, f, walk),
+                functools.partial(old_reverse, walk, p, leaves, rx, re_, lam,
+                                  f))
+        if cmax <= 2:
+            kernels["B5"] = ("stream", functools.partial(
+                slot_walk, p, leaves, walk, stream=True),
+                functools.partial(old_stream, walk, p, leaves))
+        for name, (kind, new_fn, old_fn) in kernels.items():
             t = [_cuda_ms(old_fn, reps), _cuda_ms(new_fn, reps),
                  _cuda_ms(new_fn, reps), _cuda_ms(old_fn, reps)]
             bound_ms, bound_by = _bound(kind, walk, p, leaves)
@@ -265,32 +425,68 @@ def main():
             result["device_us"][f"{name}_{label}"] = {
                 "earlier": _device_us(old_fn, min(reps, 20)),
                 "current": _device_us(new_fn, min(reps, 20))}
-        # B3's block width: each tile alone, against the one the rule picks
-        sweep, saved = {}, cuda_pruning._REVERSE_TILES
+        # sweeps of the launch settings, each in turns
+        b2 = functools.partial(saveall_walk, p, leaves, walk)
+        b7 = kernels["B7"][1]
+        sweeps = {}
+        saved = (dict(cp._SAVEALL_CHUNK), dict(cp._SAVEALL_LANES),
+                 dict(cp._CLASSIC_REVERSE_BLOCKS), cp._CLASSIC_REVERSE_TILE,
+                 cp._CLASSIC_STAGE_BYTES)
+
+        def setting(**kw):
+            def run(fn):
+                cp._SAVEALL_CHUNK[s] = kw.get("chunk", saved[0][s])
+                cp._SAVEALL_LANES[s] = kw.get("lanes", saved[1][s])
+                cp._CLASSIC_REVERSE_BLOCKS[s] = kw.get("blocks", saved[2][s])
+                cp._CLASSIC_REVERSE_TILE = kw.get("tile", saved[3])
+                cp._CLASSIC_STAGE_BYTES = kw.get("stage_bytes", saved[4])
+                return fn()
+            return run
+
         try:
-            for tile in saved:
-                cuda_pruning._REVERSE_TILES = (tile,)
-                dev_us = _device_us(new_b3, min(reps, 20))
-                sweep[tile] = {"ms": _cuda_ms(new_b3, reps), "device_us": (
-                    sum(dev_us.values()) if isinstance(dev_us, dict)
-                    else dev_us)}
+            chunks = (16, 32, 64, 128) if s == 4 else (4, 8, 16)
+            sweeps["B2"] = _turns({
+                f"chunk{c}_lanes{n}": functools.partial(
+                    setting(chunk=c, lanes=n), b2)
+                for c in chunks for n in (1, 2)}, reps, _cuda_ms)
+            b7_settings = {f"blocks{n}_tile256": dict(blocks=n, tile=256)
+                           for n in (264, 528, 1056)}
+            b7_settings["blocks1056_tile128"] = dict(blocks=1056, tile=128)
+            if label == "wide_node_S20":
+                b7_settings.update({
+                    f"stage_bytes{n}": dict(stage_bytes=n)
+                    for n in (101_760, 132_160, 232_448)})
+            sweeps["B7"] = _turns({
+                k: functools.partial(setting(**v), b7)
+                for k, v in b7_settings.items()}, reps, _cuda_ms)
         finally:
-            cuda_pruning._REVERSE_TILES = saved
-        result["b3_tiles"][label] = {
-            "chosen": cuda_pruning.reverse_tile(leaves.shape[2],
-                                                walk.children.shape[1]),
-            "each": sweep}
-        del rx, re, dp, dp2, dpo, wp
+            (chunk, lanes, blocks, cp._CLASSIC_REVERSE_TILE,
+             cp._CLASSIC_STAGE_BYTES) = saved
+            cp._SAVEALL_CHUNK.update(chunk)
+            cp._SAVEALL_LANES.update(lanes)
+            cp._CLASSIC_REVERSE_BLOCKS.update(blocks)
+        result["sweeps"][label] = sweeps
+        print(json.dumps({label: {"checks": chk, "turns": {
+            k: v for k, v in result["turns"].items() if k.endswith(label)},
+            "sweeps": sweeps}}), flush=True)
+        del rx, re_, ox, oe, d7, d7b, o7, e7, oe7, w7, wl7
         torch.cuda.empty_cache()
-    result["sass_stream_S20"] = {
-        "earlier": _sass_counts(old_path, r"pruning_slot_kernelILi20ELb1E"),
-        "current": _sass_counts(cur_path, r"pruning_stream_kernelILi20E")}
+    sass = {}
+    for kernel, pattern in SASS_KERNELS.items():
+        for which, path in (("earlier", old_path), ("current", cur_path)):
+            for fn, lines in _sass(path, pattern).items():
+                sass[f"{kernel} {which} {fn}"] = _sass_counts(lines)
+                (OUT_DIR / f"{kernel}_{which}_{fn[:60]}.sass").write_text(
+                    "\n".join(lines))
+    result["sass_S20"] = sass
     result["ptxas_earlier"] = _ptxas_table(old_log)
-    log = _build.build_info()["log"]
-    result["ptxas_current"] = _ptxas_table(log) if log else "library reused"
+    result["ptxas_current"] = ptxas_current or "library reused"
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)
+    if failed or spilled:
+        sys.exit(f"kernel_turns: checks failed at {failed}; spills: "
+                 f"{spilled}")
 
 
 if __name__ == "__main__":

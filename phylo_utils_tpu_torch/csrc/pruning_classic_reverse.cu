@@ -17,42 +17,61 @@
 // divisors are constants of the backward, which is exact because logL does
 // not depend on them.
 //
-// Design. Where pruning_reverse_f32 (the deferred reverse) stores gy for
-// every node and column, (B, K, n_nodes, sites, S), and sums dP afterwards,
-// this kernel takes each child's dP inside the walk and stores no gy, so
-// its scratch does not grow with n_nodes x sites:
-// - One thread per (site, k, b) column, 256 sites per block tile. A block
-//   walks every gridDim.x-th tile of its (k, b) in turn (a grid-stride loop),
-//   so the launch has a capped number of blocks whatever the site count.
+// Where it differs from pruning_reverse_f32 (the deferred reverse, B3): any
+// set of seeds, a seed below a seed included; dP rows capped by the
+// launch's blocks, so its scratch does not grow with the sites; and any
+// number of children a node. It is the only reverse past B3's scratch and
+// for a node wider than B3's shared-memory stage.
+//
+// Its first version read P one entry at a time through L1 and summed each
+// child's dP with a block reduction and a barrier pair per child (0.965 ms
+// at the flagship's B = 64 against B3's 0.505, 17.0 ms at 512 taxa x 8192
+// LG patterns; NVIDIA H100 80GB HBM3, 700 W). This one takes B3's walk
+// machinery:
+// - One thread per (site, k, b) column, `tile` sites a block. A block walks
+//   every gridDim.x-th tile of its (k, b) in turn (a grid-stride loop), so
+//   the launch has a capped number of blocks whatever the site count.
 // - Each node's g lives in a slot of g_slots, (B, K, n_gslots, sites, S),
 //   only from its parent's visit to its own: the walk is the reverse of the
 //   DFS post-order, so n_gslots is O(depth x cmax) (ReverseSchedule in
 //   ops/cuda_pruning.py). A thread reads and writes only its own column.
-// - dP: every thread of a block walks the same node sequence, so after each
-//   child's gy the block sums gy x^T over its 256 sites: at S = 4 each
-//   thread forms the 16 products, a fixed warp-shuffle tree and a fixed
-//   order over the 8 warps reduce them; at S = 20 (400 entries would spill
-//   from registers) the block stages gy and x in shared memory and each
-//   thread sums one or two (i, j) entries over the sites in four
-//   interleaved fmaf chains. Threads past the last site stay in the loop
-//   for the barriers and add zeros. The block adds its tile sum into its own
-//   row of dp_rows, (B, K, rows, n_nodes, S, S), in tile order; a second
-//   kernel sums the rows in row order with a compensated add. There are no
-//   atomics, so two launches on the same inputs give bit-identical dP.
+// - The walk goes in steps: a visit whose children number at most
+//   `stage_children` is one step, and the block stages its children's P
+//   blocks in shared memory two steps ahead, in a kPStages-deep cp.async
+//   ring (one barrier a step), read as 16-byte broadcast vectors
+//   (times_child<S, true>, transpose_apply_shared). A wider visit takes
+//   ceil(count / stage_children) steps, one group of children each, and
+//   reads its P through the read-only path (times_child<S, false>,
+//   transpose_apply). The choice is per visit, from the schedule, inside
+//   the kernel, and both paths run the same fmaf chains.
+// - dP inside the walk, without block barriers of its own: while gy_c and
+//   x_c are in registers, each entry's sum over a warp's 32 sites is formed
+//   in a fixed order (warp_scatter16 at S = 4, warp_dp_blocked at S = 20,
+//   pruning_common.cuh). The warps' sums are added in warp order at the
+//   next step's barrier into the block's own row of dp_rows, (B, K, rows,
+//   n_nodes, S, S), which thus adds across the block's tiles in tile order.
+//   A second kernel sums the rows in row order with a compensated add.
+//   There are no atomics, so two launches on the same inputs give
+//   bit-identical dP.
 // - gy, g and dleaf per column are the deferred kernel's arithmetic (the
-//   same fmaf chains and products), so with one seed at the root both
-//   reverses give the same dleaf bits and differ in dP only by the order of
-//   the site sums.
+//   same fmaf chains in the same order, the siblings' y recomputed in child
+//   order), so with one seed at the root both reverses give the same dleaf
+//   bits and differ in dP only by the order of the site sums. Threads past
+//   the last site stay in the loop for the barriers and add zeros.
 // The entry point is compiled for S = 4 and S = 20 and refuses any other.
 //
 // What bounds it on an H100: per internal node and column it reads g, each
-// child's x and exponent (the siblings' x twice), and writes each child's g
-// (dleaf at leaves): the deferred walk's traffic without the gy store. At
-// S = 20 operations bound it: per child and column 2 S^2 flops each for y,
-// P^T gy and dP, with P read through L1 by every thread (as B1-B3) and each
-// (i, j) sum a chain of 64 fmafs per tile. At S = 4 the per-child barriers
-// and shuffle trees bound it. Staging P in shared memory (as
-// pruning_stream_f32 does) and fewer barriers are later work.
+// child's x and exponent (the siblings' x again for each child), and writes
+// each child's g (dleaf at leaves); at S = 20 operations bound it (per
+// child and column 2 S^2 flops each for y, P^T gy and dP, and the
+// siblings' y again at a node of more than two children). Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W (kernel_turns.py, PERF.md section 6):
+// 6.38 ms at 512 taxa x 8192 LG patterns (19% of its operations bound;
+// 17.0 ms before; B3 4.87 ms, with the same hot loops in its SASS), 368 us
+// of device time at the flagship's B = 64 (903 before; B3 493) and 160 at
+// B = 1 (266; B3 158). A visit read through L1 is as slow as before: the
+// root of 49 children at 20 states takes 21.6 ms (23.2 before), its 49 x
+// 48 sibling contractions a load per FMA.
 
 #include "pruning_common.cuh"
 
@@ -61,70 +80,11 @@ namespace {
 using pruning::exp2_int;
 using pruning::load_states;
 using pruning::store_states;
-using pruning::transpose_apply;
 
-constexpr int kTile = 256;           // sites per block tile, one per thread
-constexpr int kTileWarps = kTile / 32;
-
-// row[i * S + j] += sum over the block's 256 sites of gy[i] * x[j], in a
-// fixed order. Every thread of the block calls it with its own column's
-// gy and x (zeros past the last site).
-template <int S>
-__device__ __forceinline__ void block_dp(const float (&gy)[S],
-                                         const float (&x)[S],
-                                         float* __restrict__ smem,
-                                         float* __restrict__ row) {
-  const int t = threadIdx.x;
-  if constexpr (S == 4) {
-    float prod[S * S];
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-#pragma unroll
-      for (int j = 0; j < S; ++j) prod[i * S + j] = gy[i] * x[j];
-    }
-#pragma unroll
-    for (int e = 0; e < S * S; ++e) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        prod[e] += __shfl_down_sync(0xffffffffu, prod[e], off);
-      }
-    }
-    if ((t & 31) == 0) {
-#pragma unroll
-      for (int e = 0; e < S * S; ++e) smem[(t >> 5) * S * S + e] = prod[e];
-    }
-    __syncthreads();
-    if (t < S * S) {
-      float total = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kTileWarps; ++w) total += smem[w * S * S + t];
-      row[t] += total;
-    }
-  } else {
-    static_assert(S % 4 == 0, "rows are staged as 16-byte vectors");
-    float* gs = smem;
-    float* xs = smem + kTile * S;
-    store_states<S>(gs + t * S, gy);
-    store_states<S>(xs + t * S, x);
-    __syncthreads();
-    for (int e = t; e < S * S; e += kTile) {
-      const int i = e / S;
-      const int j = e % S;
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-      for (int s = 0; s < kTile; s += 4) {
-        a0 = fmaf(gs[s * S + i], xs[s * S + j], a0);
-        a1 = fmaf(gs[(s + 1) * S + i], xs[(s + 1) * S + j], a1);
-        a2 = fmaf(gs[(s + 2) * S + i], xs[(s + 2) * S + j], a2);
-        a3 = fmaf(gs[(s + 3) * S + i], xs[(s + 3) * S + j], a3);
-      }
-      row[e] += (a0 + a1) + (a2 + a3);
-    }
-  }
-  __syncthreads();  // smem is read before the next child overwrites it
-}
+constexpr int kMaxTile = 256;   // sites per block, one per thread (the widest)
 
 template <int S>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kMaxTile)
 classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
                             const float* __restrict__ leaves,  // (n_leaves, sites, S)
                             const int* __restrict__ rnode,     // (n_int,) pre-order
@@ -140,10 +100,20 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             float* __restrict__ dp_rows,       // (B, K, rows, n_nodes, S, S)
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
-                            int cmax, int sites, int n_seed, int n_gslots) {
-  // the 8 warps' 4 x 4 sums at S = 4; the tile's gy and x rows at S = 20
-  constexpr int kSmemFloats = S == 4 ? kTileWarps * S * S : 2 * kTile * S;
-  __shared__ __align__(16) float smem[kSmemFloats];
+                            int cmax, int sites, int n_seed, int n_gslots,
+                            int stage_children) {
+  constexpr int kBlockVecs = S * S / 4;
+  const int cs = stage_children;
+  extern __shared__ float4 smem_vec[];
+  const int warps = blockDim.x >> 5;
+  // the P ring (kPStages, cs, S, S), the warps' dP sums of the last two
+  // steps (2, warps, cs, S * S) and, at S = 20, each warp's gy and x rows
+  // (warps, 2, 32, S)
+  float* p_stage = reinterpret_cast<float*>(smem_vec);
+  float* part = p_stage + pruning::kPStages * cs * S * S;
+  float* wstage = part + 2 * warps * cs * S * S;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
   const size_t bk = static_cast<size_t>(b) * K + k;
@@ -160,14 +130,67 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const float* __restrict__ pb =
       p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
   const size_t p_node_stride = static_cast<size_t>(K) * S * S;
-  const int n_tiles = (sites + kTile - 1) / kTile;
+  const int n_tiles = (sites + blockDim.x - 1) / blockDim.x;
 
+  // The steps in walk order, tile after tile: visit i's children [c0, c0 +
+  // cs) for c0 = 0, cs, ... below its count (one step for a visit of none).
+  // stage_next() copies the next step not yet staged, at (st, si, sc), into
+  // stage `staged` % kPStages when its visit is staged (count <= cs: the
+  // whole visit), and commits the group.
+  int st = blockIdx.x, si = 0, sc = 0, staged = 0;
+  auto stage_next = [&]() {
+    if (st < n_tiles) {
+      const int cnt = __ldg(counts + si);
+      if (cnt <= cs) {
+        float* dst = p_stage + static_cast<size_t>(staged % pruning::kPStages) * cs * S * S;
+        for (int v = threadIdx.x; v < cnt * kBlockVecs; v += blockDim.x) {
+          const int c = v / kBlockVecs;
+          const int q = v - c * kBlockVecs;
+          const int child = __ldg(children + si * cmax + c);
+          pruning::cp_async16(dst + c * S * S + 4 * q,
+                              pb + child * p_node_stride + 4 * q);
+        }
+      }
+      sc += cs;
+      if (sc >= cnt) {
+        sc = 0;
+        if (++si == n_int) {
+          si = 0;
+          st += gridDim.x;
+        }
+      }
+    }
+    ++staged;
+    pruning::cp_async_commit();
+  };
+  // the last step's dP sums: the warps' partial sums, added in warp order,
+  // into the block's row (the block owns its row; tiles add in tile order).
+  // The block's first tile stores them (every child's entries once a tile),
+  // so a launch whose blocks walk one tile each reads no row back.
+  int prev_i = -1, prev_c0 = 0, prev_n = 0;
+  bool prev_first = true;
+  auto flush = [&](int parity) {
+    const float* src = part + static_cast<size_t>(parity) * warps * cs * S * S;
+    for (int e = threadIdx.x; e < prev_n * S * S; e += blockDim.x) {
+      float total = 0.0f;
+      for (int w = 0; w < warps; ++w) total += src[w * cs * S * S + e];
+      const int c = e / (S * S);
+      const int child = __ldg(children + prev_i * cmax + prev_c0 + c);
+      float* dst = row + static_cast<size_t>(child) * S * S + (e - c * S * S);
+      *dst = prev_first ? total : *dst + total;
+    }
+  };
+  stage_next();
+  stage_next();
+
+  int step = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int site = tile * kTile + threadIdx.x;
+    const int site = tile * blockDim.x + threadIdx.x;
     const bool live = site < sites;
     for (int i = 0; i < n_int; ++i) {
       const int node = __ldg(rnode + i);
       const int cnt = __ldg(counts + i);
+      const bool staged_visit = cnt <= cs;
       float g[S];
 #pragma unroll
       for (int r = 0; r < S; ++r) g[r] = 0.0f;
@@ -180,6 +203,7 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
         } else if (seed >= 0) {
           load_states<S>(seeds + (static_cast<size_t>(seed) * ns + site) * S, g);
         }
+        // 2^{-r_n}: the children's exponent counts minus the node's
         float esum = 0.0f;
         for (int c = 0; c < cnt; ++c) {
           const int child = __ldg(children + i * cmax + c);
@@ -189,56 +213,107 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
         }
         inv_m = exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * ns + site]);
       }
-      for (int c = 0; c < cnt; ++c) {
-        const int child = __ldg(children + i * cmax + c);
-        float sib[S];
-        float x[S];
+      int c0 = 0;
+      do {
+        pruning::cp_async_wait_one();  // this step's P has landed (this thread's part)
+        __syncthreads();               // ... and every other thread's
+        stage_next();                  // into the stage the last step read
+        if (prev_i >= 0) flush((step - 1) & 1);
+        const float* p_now =
+            p_stage + static_cast<size_t>(step % pruning::kPStages) * cs * S * S;
+        const int c1 = min(c0 + cs, cnt);
+        // children [c0, c1), P from the stage or through L1: one body
+        // compiled for each, chosen once per step
+        auto group = [&](auto staged_tag) {
+          constexpr bool kStaged = decltype(staged_tag)::value;
+          for (int c = c0; c < c1; ++c) {
+            const int child = __ldg(children + i * cmax + c);
+            float sib[S];
 #pragma unroll
-        for (int r = 0; r < S; ++r) {
-          sib[r] = 1.0f;
-          x[r] = 0.0f;
-        }
-        if (live) {
-          for (int c2 = 0; c2 < cnt; ++c2) {
-            if (c2 == c) continue;
-            const int other = __ldg(children + i * cmax + c2);
-            float xo[S];
-            if (other < n_leaves) {
-              load_states<S>(leaves + (static_cast<size_t>(other) * ns + site) * S, xo);
-            } else {
-              load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * ns + site) * S, xo);
+            for (int r = 0; r < S; ++r) sib[r] = 1.0f;
+            if (live) {
+              for (int c2 = 0; c2 < cnt; ++c2) {
+                if (c2 == c) continue;
+                const int other = __ldg(children + i * cmax + c2);
+                float xo[S];
+                if (other < n_leaves) {
+                  load_states<S>(leaves + (static_cast<size_t>(other) * ns + site) * S, xo);
+                } else {
+                  load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * ns + site) * S, xo);
+                }
+                if constexpr (kStaged) {
+                  pruning::times_child<S, true>(p_now + c2 * S * S, xo, sib);
+                } else {
+                  pruning::times_child<S, false>(pb + other * p_node_stride, xo, sib);
+                }
+              }
             }
-            pruning::times_child<S, false>(pb + other * p_node_stride, xo, sib);
-          }
-          if (child < n_leaves) {
-            load_states<S>(leaves + (static_cast<size_t>(child) * ns + site) * S, x);
-          } else {
-            load_states<S>(xs + (static_cast<size_t>(child - n_leaves) * ns + site) * S, x);
-          }
-        }
-        float gyc[S];
+            float gyc[S];
 #pragma unroll
-        for (int r = 0; r < S; ++r) gyc[r] = g[r] * sib[r] * inv_m;
-        block_dp<S>(gyc, x, smem, row + static_cast<size_t>(child) * S * S);
-        if (!live) continue;
-        float gc[S];
-        transpose_apply<S>(pb + child * p_node_stride, gyc, gc);
-        const int seed = __ldg(node_seed + child);
-        if (seed >= 0) {  // a seed below another seed: the two add up
-          float gsd[S];
-          load_states<S>(seeds + (static_cast<size_t>(seed) * ns + site) * S, gsd);
+            for (int r = 0; r < S; ++r) gyc[r] = g[r] * sib[r] * inv_m;
+            float x[S];
 #pragma unroll
-          for (int r = 0; r < S; ++r) gc[r] += gsd[r];
+            for (int r = 0; r < S; ++r) x[r] = 0.0f;
+            if (live) {
+              if (child < n_leaves) {
+                load_states<S>(leaves + (static_cast<size_t>(child) * ns + site) * S, x);
+              } else {
+                load_states<S>(xs + (static_cast<size_t>(child - n_leaves) * ns + site) * S, x);
+              }
+            }
+            float* pc = part + ((static_cast<size_t>(step & 1) * warps + warp) * cs +
+                                (c - c0)) * S * S;
+            if constexpr (S == 4) {
+              float prod[S * S];
+#pragma unroll
+              for (int a = 0; a < S; ++a) {
+#pragma unroll
+                for (int j = 0; j < S; ++j) prod[a * S + j] = gyc[a] * x[j];
+              }
+              const float sum = pruning::warp_scatter16(prod);
+              if ((lane & 1) == 0) pc[lane >> 1] = sum;
+            } else {
+              pruning::warp_dp_blocked<S>(gyc, x, wstage + warp * 2 * 32 * S, pc);
+            }
+            if (!live) continue;
+            if (child < n_leaves && dls == nullptr) continue;
+            float gc[S];  // the child's outside vector P_c^T gy_c
+            if constexpr (kStaged) {
+              pruning::transpose_apply_shared<S>(p_now + c * S * S, gyc, gc);
+            } else {
+              pruning::transpose_apply<S>(pb + child * p_node_stride, gyc, gc);
+            }
+            const int seed = __ldg(node_seed + child);
+            if (seed >= 0) {  // a seed below another seed: the two add up
+              float gsd[S];
+              load_states<S>(seeds + (static_cast<size_t>(seed) * ns + site) * S, gsd);
+#pragma unroll
+              for (int r = 0; r < S; ++r) gc[r] += gsd[r];
+            }
+            if (child >= n_leaves) {
+              const int slot = __ldg(cslot + i * cmax + c);
+              store_states<S>(slots + (static_cast<size_t>(slot) * ns + site) * S, gc);
+            } else {
+              store_states<S>(dls + (static_cast<size_t>(child) * ns + site) * S, gc);
+            }
+          }
+        };
+        if (staged_visit) {
+          group(std::true_type{});
+        } else {
+          group(std::false_type{});
         }
-        if (child >= n_leaves) {
-          const int cs = __ldg(cslot + i * cmax + c);
-          store_states<S>(slots + (static_cast<size_t>(cs) * ns + site) * S, gc);
-        } else if (dls != nullptr) {
-          store_states<S>(dls + (static_cast<size_t>(child) * ns + site) * S, gc);
-        }
-      }
+        prev_i = i;
+        prev_c0 = c0;
+        prev_n = c1 - c0;
+        prev_first = tile == blockIdx.x;
+        ++step;
+        c0 += cs;
+      } while (c0 < cnt);
     }
   }
+  __syncthreads();
+  if (prev_i >= 0) flush((step - 1) & 1);
 }
 
 // dP[b, node, k] = sum over the rows of dp_rows[b, k, :, node], in row order
@@ -272,21 +347,26 @@ classic_dp_rows_kernel(const float* __restrict__ dp_rows,  // (B, K, rows, n_nod
 }  // namespace
 
 // Launch the classic reverse walk and then the sum of its dP rows on
-// `stream`; returns the first non-zero cudaGetLastError() (0 = ok). Device
-// pointers to contiguous float32 / int32 buffers laid out as documented
-// above; the caller allocates every buffer (g_slots is scratch, dp_rows is
-// zeroed scratch with `rows` rows per (b, k), dleaf may be null). The
-// schedule arrays are ReverseSchedule's; node_seed[n] is j where n is the
-// j-th seed, else -1.
+// `stream`; returns the first non-zero cudaGetLastError(), or the error of
+// granting the shared memory (0 = ok). Device pointers to contiguous
+// float32 / int32 buffers laid out as documented above; the caller
+// allocates every buffer (g_slots is scratch, dp_rows is zeroed scratch
+// with `rows` rows per (b, k), dleaf may be null). The schedule arrays are
+// ReverseSchedule's; node_seed[n] is j where n is the j-th seed, else -1.
+// `tile` is 32, 64, 128 or 256 sites a block; a visit of at most
+// `stage_children` children (>= 1) is staged in shared memory, whose size
+// (ops/cuda_pruning.py::classic_reverse_stage) must fit the SM's 227 KB.
 extern "C" int pruning_classic_reverse_f32(
     const void* p, const void* leaves, const void* rnode, const void* gslot,
     const void* children, const void* cslot, const void* counts,
     const void* node_seed, const void* res_x, const void* res_e,
     const void* gseeds, void* g_slots, void* dp_rows, void* dp, void* dleaf,
     int B, int K, int S, int n_nodes, int n_leaves, int n_int, int cmax,
-    int sites, int n_seed, int n_gslots, int rows, void* stream) {
+    int sites, int n_seed, int n_gslots, int rows, int tile,
+    int stage_children, void* stream) {
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_seed <= 0 ||
-      n_gslots <= 0 || rows <= 0) {
+      n_gslots <= 0 || rows <= 0 || tile < 32 || tile > kMaxTile ||
+      tile % 32 != 0 || stage_children <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -294,7 +374,18 @@ extern "C" int pruning_classic_reverse_f32(
   const dim3 grid_rows(n_nodes, K, B);
   return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    classic_reverse_walk_kernel<kS><<<grid, kTile, 0, st>>>(
+    auto walk = classic_reverse_walk_kernel<kS>;
+    const size_t warps = tile / 32;
+    size_t smem = (pruning::kPStages + 2 * warps) * stage_children * kS * kS;
+    if (kS != 4) smem += warps * 2 * 32 * kS;
+    smem *= sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    walk<<<grid, tile, smem, st>>>(
         static_cast<const float*>(p), static_cast<const float*>(leaves),
         static_cast<const int*>(rnode), static_cast<const int*>(gslot),
         static_cast<const int*>(children), static_cast<const int*>(cslot),
@@ -302,7 +393,7 @@ extern "C" int pruning_classic_reverse_f32(
         static_cast<const float*>(res_x), static_cast<const float*>(res_e),
         static_cast<const float*>(gseeds), static_cast<float*>(g_slots),
         static_cast<float*>(dp_rows), static_cast<float*>(dleaf), K, n_nodes,
-        n_leaves, n_int, cmax, sites, n_seed, n_gslots);
+        n_leaves, n_int, cmax, sites, n_seed, n_gslots, stage_children);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     classic_dp_rows_kernel<kS><<<grid_rows, (kS * kS + 31) / 32 * 32, 0, st>>>(

@@ -3,8 +3,9 @@
 // pruning_fold.cu, pruning_static.cu): the
 // per-column state rows, the child contraction and its transpose (P read
 // from device memory, or from a shared-memory stage as 16-byte vectors), the
-// cp.async copies that fill such a stage, the exact power-of-two rescale, and
-// the dispatch from a run-time state count to the compiled instantiations.
+// cp.async copies that fill such a stage, the reverse walks' warp sums of
+// dP, the exact power-of-two rescale, and the dispatch from a run-time state
+// count to the compiled instantiations.
 #pragma once
 
 #include <cfloat>
@@ -153,6 +154,84 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // for its own with cp.async.wait_group 1) and frees stage (i + 2) % 3,
 // which node i - 1 read before it.
 constexpr int kPStages = 3;
+
+// dP sums of the reverse walks (pruning_reverse.cu, pruning_classic_reverse.cu):
+// each entry of gy x^T summed over a warp's 32 sites in a fixed order,
+// without block barriers.
+
+// One step of warp_scatter16: a lane keeps one half of its first 2H
+// entries (the upper half where lane bit 2H is set), sends the other half
+// to lane ^ 2H and adds what it receives. H is a template argument so that
+// every index is a constant and v stays in registers.
+template <int H>
+__device__ __forceinline__ void scatter_step(float (&v)[16], int lane) {
+  const bool upper = lane & (2 * H);
+#pragma unroll
+  for (int e = 0; e < H; ++e) {
+    const float send = upper ? v[e] : v[e + H];
+    const float keep = upper ? v[e + H] : v[e];
+    v[e] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * H);
+  }
+}
+
+// The sum over the warp's 32 lanes of each of v[0..15], by a reduce-scatter:
+// after four steps (8 + 4 + 2 + 1 shuffles) lane l holds entry l >> 1
+// summed over 16 lanes, and a last exchange with lane l ^ 1 completes it
+// (16 shuffles instead of 80 for a butterfly per entry). The order of every
+// add is fixed, and a + b is b + a, so both lanes of a pair hold the same
+// bits.
+__device__ __forceinline__ float warp_scatter16(float (&v)[16]) {
+  const int lane = threadIdx.x & 31;
+  scatter_step<8>(v, lane);
+  scatter_step<4>(v, lane);
+  scatter_step<2>(v, lane);
+  scatter_step<1>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// part[i * S + j] = sum over the warp's 32 sites of gy[i] x[j] at S = 20,
+// where 400 products a lane would not fit in registers: the lanes put their
+// rows in the warp's own stretch of shared memory `ws` (2 x 32 x S floats),
+// then lane l < (S / 4)^2 sums the 4 x 4 sub-block l over the 32 sites in
+// lane order, two 16-byte loads (broadcasts within one row) per 16 FMAs.
+// Only __syncwarp: no other warp touches `ws`.
+template <int S>
+__device__ __forceinline__ void warp_dp_blocked(const float (&gy)[S],
+                                                const float (&x)[S],
+                                                float* ws, float* part) {
+  constexpr int kSubs = (S / 4) * (S / 4);
+  static_assert(S % 4 == 0 && kSubs <= 32, "one 4 x 4 sub-block a lane");
+  const int lane = threadIdx.x & 31;
+  float* wg = ws;
+  float* wx = ws + 32 * S;
+  store_states<S>(wg + lane * S, gy);
+  store_states<S>(wx + lane * S, x);
+  __syncwarp();
+  if (lane < kSubs) {
+    const int i0 = (lane / (S / 4)) * 4;
+    const int j0 = (lane % (S / 4)) * 4;
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+    for (int s = 0; s < 32; ++s) {
+      const float4 gv = *reinterpret_cast<const float4*>(wg + s * S + i0);
+      const float4 xv = *reinterpret_cast<const float4*>(wx + s * S + j0);
+      const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a * 4 + c] = fmaf(ga[a], xa[c], acc[a * 4 + c]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[(i0 + a) * S + j0 + c] = acc[a * 4 + c];
+    }
+  }
+  __syncwarp();  // the rows are read before the next child overwrites them
+}
 
 // Exact power-of-two rescale, bit for bit ops/pruning.pow2_rescale: scales
 // acc by 2^-floor(log2 m), m = max(max_r acc[r], FLT_MIN), and returns the

@@ -78,11 +78,11 @@ def _nvcc() -> str:
 # counts, then the stream
 SIGNATURES = (
     ("pruning_forward_f32", 9, 8),
-    ("pruning_saveall_f32", 7, 8),
+    ("pruning_saveall_f32", 7, 10),
     ("pruning_reverse_f32", 15, 11),
     ("pruning_slot_f32", 11, 8),
     ("pruning_stream_f32", 11, 8),
-    ("pruning_classic_reverse_f32", 15, 11),
+    ("pruning_classic_reverse_f32", 15, 13),
     ("pruning_fold_f32", 9, 9),
 )
 

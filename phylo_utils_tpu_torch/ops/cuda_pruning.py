@@ -20,7 +20,10 @@ CUDA tensor launches the kernel or raises):
   among the three walks (``choose_walk``).
 - ``saveall_walk`` (same source, replaces ``_dynamic_saveall_kernel``): the
   same walk keeping every internal node's partials and exponent count, the
-  residuals of the gradient. Plain version ``saveall_walk_reference``.
+  residuals of the gradient, with P staged in shared memory by chunks of
+  the walk's edges (``saveall_stage``), so a node of any number of
+  children runs.
+  Plain version ``saveall_walk_reference``.
 - ``reverse_walk`` (``csrc/pruning_reverse.cu``, replaces
   ``_dynamic_bwd2_kernel``): the deferred-edge reverse walk from a root
   cotangent, dP = sum_sites gy x^T per edge (and optionally the leaf
@@ -32,8 +35,10 @@ CUDA tensor launches the kernel or raises):
 - ``classic_reverse_walk`` (``csrc/pruning_classic_reverse.cu``, replaces
   ``_dynamic_bwd_kernel``): the classic reverse from any set of seeds, each
   child's dP summed inside the walk, outside vectors in the O(depth) slots
-  of ``ReverseSchedule``; it stores no gy. Plain version
-  ``classic_reverse_walk_reference``.
+  of ``ReverseSchedule``, P staged in shared memory for every visit whose
+  children fit the stage (``classic_reverse_stage``) and read through L1
+  for a wider one; it stores no gy and takes a node of any number of
+  children. Plain version ``classic_reverse_walk_reference``.
 
 - ``static_walk`` (``csrc/pruning_static.cu``, replaces ``_static_kernel``):
   the classic walk compiled for one topology (``ops/_build.py`` builds it
@@ -62,10 +67,13 @@ and logscale): ``forward_walk`` forward, the plain pruner replayed under
 autograd backward. ``LAUNCHES``, ``SLOT_LAUNCHES``, ``STREAM_LAUNCHES``,
 ``SAVEALL_LAUNCHES``, ``REVERSE_LAUNCHES``, ``CLASSIC_REVERSE_LAUNCHES``,
 ``STATIC_LAUNCHES`` and ``FOLD_LAUNCHES`` count kernel launches, so a run
-can show its main path went through the kernels.
+can show its main path went through the kernels, and
+``LAUNCHES_BY_STATES[(counter, S)]`` counts the same launches by state
+count.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 from typing import Optional, Sequence, Tuple
@@ -91,6 +99,7 @@ __all__ = [
     "CLASSIC_REVERSE_LAUNCHES",
     "STATIC_LAUNCHES",
     "FOLD_LAUNCHES",
+    "LAUNCHES_BY_STATES",
     "CLASSIC_SCRATCH_BUDGET",
     "STATIC_UNROLL_MAX",
     "FOLD_WIDTHS",
@@ -113,7 +122,9 @@ __all__ = [
     "classic_reverse_walk",
     "classic_reverse_walk_reference",
     "classic_reverse_scratch",
+    "classic_reverse_stage",
     "reverse_scratch",
+    "saveall_stage",
     "reverse_tile",
     "make_fused_loglik_fn",
     "make_cuda_prune_fn",
@@ -127,6 +138,8 @@ REVERSE_LAUNCHES = 0          # pruning_reverse_f32
 CLASSIC_REVERSE_LAUNCHES = 0  # pruning_classic_reverse_f32
 STATIC_LAUNCHES = 0           # pruning_static_f32
 FOLD_LAUNCHES = 0             # pruning_fold_f32
+# the same launches by (counter name, state count)
+LAUNCHES_BY_STATES = collections.Counter()
 
 # internal-node count up to which the classic walk is the topology-compiled
 # static kernel (B8); read at import, as the JAX package reads it; 0 (the
@@ -146,13 +159,32 @@ _KERNEL_STATES = (4, 20)
 # sites per block of the deferred reverse kernel, widest first
 # (reverse_tile)
 _REVERSE_TILES = (256, 128, 64, 32)
-# shared memory one deferred reverse block may take: an H100 SM's 227 KB
+# shared memory one block may take: an H100 SM's 227 KB
 _REVERSE_SMEM = 232_448
-# sites per block of the classic reverse kernel (its kThreads)
+# edges of the walk a step of the saveall kernel stages (saveall_stage),
+# and lanes that share one of its columns, by state count: two lanes, each
+# forming half the rows, at 20 states (1.73 against 2.50 ms at 512 taxa x
+# 8192 LG patterns), one at 4 (0.246 against 0.276 ms at the flagship's
+# B = 64); 64 and 8 edges a step were the fastest or within 2% of it at
+# every shape (kernel_turns.py sweeps, NVIDIA H100 80GB HBM3, 700 W)
+_SAVEALL_CHUNK = {4: 64, 20: 8}
+_SAVEALL_LANES = {4: 1, 20: 2}
+# sites per block of the classic reverse kernel: 128 was slower than 256
+# at every shape but B = 1 (kernel_turns.py, NVIDIA H100 80GB HBM3, 700 W)
 _CLASSIC_REVERSE_TILE = 256
-# blocks per classic reverse launch, over (site rows, K, B): two per SM of
-# an H100's 132; each block owns one dP partial row, so this caps the rows
-_CLASSIC_REVERSE_BLOCKS = 264
+# blocks per classic reverse launch, over (site rows, K, B), by state
+# count. Each block owns one dP partial row, so this caps the rows. At 4
+# states eight per SM of an H100's 132, so that the flagship's B = 64
+# walks one tile a block (0.58 ms against 0.65 at 264 blocks); at 20
+# states two, which its registers let an SM hold: more blocks measured
+# the same where the sites allowed them and would grow the rows that keep
+# the classic reverse's scratch small (kernel_turns.py)
+_CLASSIC_REVERSE_BLOCKS = {4: 1056, 20: 264}
+# shared memory a classic reverse block may take to stage a visit's P
+# (classic_reverse_stage): the whole SM's; a budget that staged 2 or 3
+# children at 20 states and left the rest to L1, which a wider visit
+# reads its P through, measured the same on a node of 49 children
+_CLASSIC_STAGE_BYTES = _REVERSE_SMEM
 # bytes of whole-tree scratch up to which the value path takes the classic
 # walk (see choose_walk): the H100's 50 MB L2. On an NVIDIA H100 80GB HBM3
 # (700 W) the classic walk was the fastest of the three at 5 and 21 MB of
@@ -371,6 +403,12 @@ class WalkSchedule:
         self.order, self.children, self.counts = _postorder_arrays(schedule)
         if len(self.order) == 0:
             raise ValueError("the tree has no internal node to walk")
+        # the children of order[0], then of order[1], ...: the saveall
+        # kernel's flat list of edges
+        self.edges = np.concatenate([
+            kids[:cnt] for kids, cnt in zip(self.children, self.counts)]
+        ).astype(np.int32)
+        self._edges_on_device = {}
         self.n_nodes = schedule.n_nodes
         self.n_leaves = schedule.n_leaves
         self.root = int(self.order[-1])    # the root is last in post-order
@@ -407,6 +445,10 @@ class WalkSchedule:
         """(order, children, counts) as contiguous int32 tensors on device."""
         return _on_device(self._on_device, device,
                           (self.order, self.children, self.counts))
+
+    def edges_on(self, device: torch.device) -> torch.Tensor:
+        """``edges`` as a contiguous int32 tensor on device."""
+        return _on_device(self._edges_on_device, device, (self.edges,))[0]
 
 
 def _check(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule):
@@ -878,6 +920,11 @@ def forward_walk(
                            schedule)
 
 
+# the launch counter of each kind of _classic_launch
+_COUNTERS = {"forward": "LAUNCHES", "fold": "FOLD_LAUNCHES",
+             "static": "STATIC_LAUNCHES"}
+
+
 def _classic_launch(kind: str, lib, p, leaves, walk: WalkSchedule,
                     fold: int = 1):
     """Root and root exponent count from B1 ("forward"), B9 ("fold", ``fold``
@@ -933,6 +980,7 @@ def _classic_launch(kind: str, lib, p, leaves, walk: WalkSchedule,
             FOLD_LAUNCHES += 1
         else:
             LAUNCHES += 1
+        LAUNCHES_BY_STATES[(_COUNTERS[kind], s)] += 1
         del scratch, scratch_e
     return (root, root_e) if batched else (root[0], root_e[0])
 
@@ -1029,8 +1077,21 @@ def slot_walk(
             STREAM_LAUNCHES += 1
         else:
             SLOT_LAUNCHES += 1
+        LAUNCHES_BY_STATES[(
+            "STREAM_LAUNCHES" if stream else "SLOT_LAUNCHES", s)] += 1
         del slots, slots_e
     return (root, root_e) if batched else (root[0], root_e[0])
+
+
+def saveall_stage(s: int, n_edges: int) -> Tuple[int, int]:
+    """(edges a step stages, bytes of shared memory) of a saveall launch at
+    ``s`` states over a walk of ``n_edges`` edges (``WalkSchedule.edges``):
+    the kernel stages P in a ring of 3 steps, each the P blocks of
+    ``_SAVEALL_CHUNK[s]`` consecutive edges of the walk (fewer where the
+    walk has fewer), whatever node they belong to, so the ring does not
+    depend on the widest node's children."""
+    chunk = max(1, min(n_edges, _SAVEALL_CHUNK[s]))
+    return chunk, 4 * 3 * chunk * s * s
 
 
 def saveall_walk(
@@ -1038,8 +1099,9 @@ def saveall_walk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every internal node's partials and exponent count (the gradient's
     residuals). Same contract as ``saveall_walk_reference``; CUDA tensors
-    launch the saveall kernel. The residuals of the whole batch are one
-    output, so they must fit free device memory at once (else
+    launch the saveall kernel with ``saveall_stage``'s chunks of edges and
+    ``_SAVEALL_LANES`` lanes a column. The residuals of the whole batch are
+    one output, so they must fit free device memory at once (else
     ``MemoryError``); launches split only at the grid's batch limit."""
     global SAVEALL_LAUNCHES
     _check(p, leaves, walk)
@@ -1063,7 +1125,9 @@ def saveall_walk(
             "reverse runs, which stores no gy): use fewer sites or a "
             "smaller batch"
         )
-    order, children, counts = walk.on(device)
+    order, _, counts = walk.on(device)
+    edges = walk.edges_on(device)
+    chunk, _ = saveall_stage(s, len(walk.edges))
     res_x = torch.empty((b, k, n_inner, sites, s), dtype=torch.float32,
                         device=device)
     res_e = torch.empty((b, k, n_inner, sites), dtype=torch.float32,
@@ -1073,15 +1137,16 @@ def saveall_walk(
         nb = min(_MAX_GRID_Z, b - b0)
         rc = lib.pruning_saveall_f32(
             pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
-            children.data_ptr(), counts.data_ptr(),
+            edges.data_ptr(), counts.data_ptr(),
             res_x[b0:b0 + nb].data_ptr(), res_e[b0:b0 + nb].data_ptr(), nb,
             k, s, walk.n_nodes, walk.n_leaves, len(walk.order),
-            children.shape[1], sites, stream,
+            len(walk.edges), sites, chunk, _SAVEALL_LANES[s], stream,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_saveall_f32 launch failed: CUDA "
                                f"error {rc}")
         SAVEALL_LAUNCHES += 1
+        LAUNCHES_BY_STATES[("SAVEALL_LAUNCHES", s)] += 1
     return (res_x, res_e) if batched else (res_x[0], res_e[0])
 
 
@@ -1182,6 +1247,7 @@ def reverse_walk(
             raise RuntimeError(f"pruning_reverse_f32 launch failed: CUDA "
                                f"error {rc}")
         REVERSE_LAUNCHES += 1
+        LAUNCHES_BY_STATES[("REVERSE_LAUNCHES", s)] += 1
         del g_slots, rows
     if not batched:
         dp = dp[0]
@@ -1200,9 +1266,26 @@ def classic_reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
     (the deferred reverse's rows grow with its site tiles,
     ``reverse_scratch``)."""
     n_tiles = -(-sites // _CLASSIC_REVERSE_TILE)
-    rows = min(n_tiles, max(1, -(-_CLASSIC_REVERSE_BLOCKS // (b * k))))
+    rows = min(n_tiles, max(1, -(-_CLASSIC_REVERSE_BLOCKS[s] // (b * k))))
     return (rows, 4 * b * k * max(n_gslots, 1) * sites * s,
             4 * b * k * n_nodes * s * s)
+
+
+def classic_reverse_stage(s: int, cmax: int) -> Tuple[int, int]:
+    """(children a staged visit may have, bytes of shared memory) of a
+    classic reverse block of ``_CLASSIC_REVERSE_TILE`` sites at ``s``
+    states whose widest node has ``cmax`` children: the deferred reverse's
+    block layout (``_reverse_smem_bytes``: the 3-stage P ring, two steps'
+    warp dP sums and, at 20 states, each warp's gy and x rows) for the most
+    children up to ``cmax`` that fit ``_CLASSIC_STAGE_BYTES`` (at least
+    one). A visit with more children reads its P through L1, in groups of
+    that many, so the block does not grow with ``cmax`` past them."""
+    tile = _CLASSIC_REVERSE_TILE
+    per_child = _reverse_smem_bytes(tile, 2, s) - _reverse_smem_bytes(
+        tile, 1, s)
+    fixed = _reverse_smem_bytes(tile, 1, s) - per_child
+    children = max(1, min(cmax, (_CLASSIC_STAGE_BYTES - fixed) // per_child))
+    return children, _reverse_smem_bytes(tile, children, s)
 
 
 def _classic_rows(b: int, k: int, n_nodes: int, n_gslots: int, sites: int,
@@ -1232,8 +1315,9 @@ def classic_reverse_walk(
 
     Same contract as ``classic_reverse_walk_reference``. CUDA tensors
     launch ``pruning_classic_reverse_f32`` (the walk with each child's dP
-    summed per block inside it, then a fixed-order sum of the blocks'
-    rows) on the current stream, once per 65535 batch elements, after
+    summed per block inside it, P staged as ``classic_reverse_stage``
+    sizes it, then a fixed-order sum of the blocks' rows) on the current
+    stream, once per 65535 batch elements, after
     checking that its scratch (``classic_reverse_scratch``) fits free
     device memory (``MemoryError`` if not, fewer dP rows if only that
     many fit)."""
@@ -1255,6 +1339,7 @@ def classic_reverse_walk(
     rs = walk.reverse
     rows = _classic_rows(b, k, n_nodes, rs.n_gslots, sites, s, device)
     rnode, gslot, children, cslot, counts = rs.on(device)
+    stage_children, _ = classic_reverse_stage(s, children.shape[1])
     node_seed = rs.node_seed(seeds, device)
     dp = torch.empty_like(pb)
     dleaf = (torch.empty((b, k, walk.n_leaves, sites, s),
@@ -1277,12 +1362,13 @@ def classic_reverse_walk(
             None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
             nb, k, s, n_nodes, walk.n_leaves, len(rs.rnode),
             children.shape[1], sites, len(seeds), max(rs.n_gslots, 1), rows,
-            stream,
+            _CLASSIC_REVERSE_TILE, stage_children, stream,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_classic_reverse_f32 launch failed: "
                                f"CUDA error {rc}")
         CLASSIC_REVERSE_LAUNCHES += 1
+        LAUNCHES_BY_STATES[("CLASSIC_REVERSE_LAUNCHES", s)] += 1
         del g_slots, dp_rows
     if not batched:
         dp = dp[0]

@@ -66,6 +66,18 @@ CASES = {
 }
 
 
+def _wide_node_newick(n_star=48, n_sub=48, seed=7):
+    """A root with ``n_star`` leaf children on short branches (a polytomy
+    of collapsed branches) beside a ``random_tree(n_sub)`` subtree: kept
+    whole (``binarize=False``), a node wider than the deferred reverse's
+    stage at 20 states."""
+    rng = np.random.default_rng(seed)
+    sub = write_newick(random_tree(n_sub, seed=seed)).strip().rstrip(";")
+    star = ",".join(f"w{i}:{rng.uniform(0.002, 0.02):.4f}"
+                    for i in range(n_star))
+    return f"({star},{sub}:0.1);"
+
+
 def _newick(case):
     text = CASES[case][0]
     if text is None:
@@ -299,6 +311,130 @@ def test_reverse_scratch_and_row_sizing(case, b, sites, s):
     assert cuda_pruning.reverse_tile(20, 7) == 128
 
 
+@pytest.mark.parametrize("cmax", [2, 3, 8, 48, 200])
+@pytest.mark.parametrize("s", [4, 20])
+def test_classic_reverse_stage_sizing(s, cmax):
+    """B7's shared memory: the deferred reverse's block layout for the most
+    children up to cmax that fit the stage's budget, itself within an SM's
+    232,448 bytes; one more child would not fit, unless cmax is reached. A
+    wider visit reads its P through L1 in groups of that many, so the block
+    does not grow with cmax past them, and every child is covered in
+    ceil(cmax / children) groups."""
+    children, nbytes = cuda_pruning.classic_reverse_stage(s, cmax)
+    tile = cuda_pruning._CLASSIC_REVERSE_TILE
+    budget = cuda_pruning._CLASSIC_STAGE_BYTES
+    assert budget <= 232_448
+    assert 1 <= children <= cmax
+    assert nbytes == cuda_pruning._reverse_smem_bytes(tile, children, s)
+    assert nbytes <= budget
+    if children < cmax:
+        assert cuda_pruning._reverse_smem_bytes(tile, children + 1,
+                                                s) > budget
+    groups = -(-cmax // children)
+    assert (groups - 1) * children < cmax <= groups * children
+    widest = cuda_pruning.classic_reverse_stage(s, 10 ** 6)
+    assert nbytes <= widest[1]
+    if cmax >= widest[0]:
+        assert (children, nbytes) == widest
+
+
+def test_choose_reverse_takes_classic_for_a_wide_protein_node(monkeypatch):
+    """A node of 48 children at 20 states does not fit the deferred
+    reverse's stage at any block width, so "auto" takes the classic
+    reverse before it reads the device's memory; at 4 states the deferred
+    one holds it."""
+    def no_memory_read(need, device):
+        raise AssertionError("choose_reverse read the device's memory")
+
+    monkeypatch.setattr(cuda_pruning, "_device_budget", no_memory_read)
+    monkeypatch.delenv("PHYLO_DEFERRED_VJP", raising=False)
+    with pytest.raises(ValueError, match="48 children"):
+        cuda_pruning.reverse_tile(20, 48)
+    assert choose_reverse(1, 4, 191, 3, 8192, 20, "cuda", 48) == "classic"
+    assert cuda_pruning.reverse_tile(4, 48) == 256
+
+
+def _wide_node_inputs(newick, s, sites, seed=11):
+    """The tree with its multifurcations kept (``binarize=False``): its
+    schedule, f32 P (GTR at 4 states, LG at 20), one-hot f32 leaves of
+    ``sites`` sites evolved down it (each in one category, so a polytomy's
+    leaves agree as real ones do: random leaves under a root of 49 children
+    underflow its f32 product before its rescale) and the model's float64
+    frequencies."""
+    tree = tio.parse_newick(newick)
+    sched = compile_schedule(tree, binarize=False)
+    eig = tmodels.GTR.eigen(GTR) if s == 4 else tmodels.LG.eigen()
+    t = torch.from_numpy(np.asarray(tree.lengths)[:, None] * RATES)
+    p64 = transition_matrices(eig, t).numpy()
+    freqs = eig.freqs.numpy()
+    rng = np.random.default_rng(seed)
+    cat = rng.integers(0, len(RATES), sites)
+    states = np.zeros((tree.n_nodes, sites), np.int64)
+    states[tree.root] = rng.choice(s, sites, p=freqs / freqs.sum())
+    for node in range(tree.n_nodes - 1, -1, -1):     # ids are post-order
+        for child in tree.children[node]:
+            cum = np.cumsum(p64[child, cat, states[node]], axis=1)
+            states[child] = (rng.random(sites)[:, None] * cum[:, -1:]
+                             > cum).sum(axis=1)
+    lp = np.eye(s, dtype=np.float32)[states[:tree.n_leaves]]
+    return sched, p64.astype(np.float32), lp, freqs
+
+
+@pytest.mark.parametrize("s", [4, 20])
+def test_wide_node_walks_match_jax_pruner(s, monkeypatch):
+    """The wide-node tree with its root of 49 children kept
+    (``binarize=False``), 64 patterns simulated down it: the fused
+    Function under PHYLO_DEFERRED_VJP=0, whose forward runs the saveall
+    walk's plain version and whose backward the classic reverse's, against
+    the JAX package's f64 plain pruner (``ops.pruning.make_prune_fn``) and
+    its autograd on the same P, leaves and frequencies: log-likelihoods to
+    1e-6 relative, dP, dleaf and dfreqs to 5e-4 x their max (an f32 walk
+    against f64)."""
+    from phylo_utils_tpu.ops.pruning import make_prune_fn as j_make_prune_fn
+
+    newick = _wide_node_newick()
+    sched, p32, lp, freqs = _wide_node_inputs(newick, s, 64)
+    assert sched.n_children_max == 49
+    rng = np.random.default_rng(12)
+    calls = {"saveall_walk_reference": 0,
+             "classic_reverse_walk_reference": 0}
+    for name in calls:
+        real = getattr(cuda_pruning, name)
+
+        def spy(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(cuda_pruning, name, spy)
+    monkeypatch.setenv("PHYLO_DEFERRED_VJP", "0")
+    pt = torch.from_numpy(p32).requires_grad_(True)
+    lt = torch.from_numpy(lp).requires_grad_(True)
+    ft = torch.from_numpy(freqs).requires_grad_(True)
+    ll = make_fused_loglik_fn(sched)(pt, lt, ft)
+    ct = torch.from_numpy(rng.uniform(0.5, 2.0, (4, 64)))
+    got = torch.autograd.grad(ll, (pt, lt, ft), ct)
+    assert calls == {"saveall_walk_reference": 1,
+                     "classic_reverse_walk_reference": 1}
+    prune = j_make_prune_fn(j_compile_schedule(jio.parse_newick(newick),
+                                               binarize=False))
+
+    def jll(p, l, f):
+        root, scale = prune(p, l)
+        return jnp.log(root @ f) + scale
+
+    args = (jnp.asarray(p32, jnp.float64), jnp.asarray(lp, jnp.float64),
+            jnp.asarray(freqs))
+    want_ll, vjp = jax.vjp(jll, *args)
+    np.testing.assert_allclose(ll.detach().numpy(), np.asarray(want_ll),
+                               rtol=1e-6, atol=0)
+    for name, g, w in zip(("dP", "dleaf", "dfreqs"), got,
+                          vjp(jnp.asarray(ct.numpy()))):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.double().numpy(), w, rtol=0,
+                                   atol=5e-4 * np.abs(w).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("batch", [None, (0.5, 1.0, 3.0)])
 def test_fused_gradients_equal_under_both_reverses(batch, monkeypatch):
     """The fused Function's (dP, dleaf, dfreqs) with the deferred and with
@@ -378,6 +514,32 @@ def test_classic_scratch_does_not_grow_with_the_tree_times_sites(
     budget["bytes"] = slot_bytes + row_bytes - 1
     with pytest.raises(MemoryError, match="classic reverse"):
         cuda_pruning._classic_rows(1, 4, 1999, 8, 80_000, 20, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [4, 20])
+def test_classic_kernel_takes_a_wide_node_on_card(s):
+    """B7 on the wide-node tree (a root of 49 children: staged at 4
+    states, read through L1 in groups at 20) against its plain version,
+    two seeds with dleaf; dP bit-identical across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    sched, p, lp, _ = _wide_node_inputs(_wide_node_newick(), s, SITES)
+    walk = WalkSchedule(sched)
+    assert walk.children.shape[1] == 49
+    pd, ld = torch.from_numpy(p).cuda(), torch.from_numpy(lp).cuda()
+    rx, re = saveall_walk(pd, ld, walk)
+    g = torch.rand((4, 2, SITES, s), device="cuda") + 0.5
+    seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
+    dp, dl = classic_reverse_walk(pd, ld, rx, re, g, seeds, walk, True)
+    dp2, _ = classic_reverse_walk(pd, ld, rx, re, g, seeds, walk)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, dp2)
+    wp, wl = classic_reverse_walk_reference(pd, ld, rx, re, g, seeds, walk,
+                                            True)
+    for got, ref in ((dp, wp), (dl, wl)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * ref.abs().max().item())
 
 
 @pytest.mark.gpu

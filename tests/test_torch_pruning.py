@@ -196,6 +196,35 @@ def test_bindings_match_c_signatures(entry):
     assert kinds == ["ptr"] * n_ptr + ["int"] * n_int + ["ptr"]
 
 
+@pytest.mark.parametrize("cmax", [2, 3, 8, 48, 200])
+@pytest.mark.parametrize("s", [4, 20])
+def test_saveall_stage_sizing(s, cmax):
+    """B2's shared memory on a star of ``cmax`` leaves beside a 12-taxon
+    tree: a ring of three steps, each the S x S blocks of ``chunk``
+    consecutive edges of the walk, whatever node they belong to. It fits an
+    SM's 232,448 bytes, ceil(n_edges / chunk) steps cover every edge, the
+    edges are each node's children in walk order, and the ring does not
+    grow with the widest node."""
+    star = ",".join(f"w{i}:0.1" for i in range(cmax - 1))
+    sub = _newick("random12").strip().rstrip(";")
+    sched = compile_schedule(tio.parse_newick(f"({star},{sub}:0.1);"),
+                             binarize=False)
+    walk = WalkSchedule(sched)
+    assert walk.children.shape[1] == max(cmax, 2)
+    assert walk.edges.tolist() == [
+        c for kids, n in zip(walk.children.tolist(), walk.counts.tolist())
+        for c in kids[:n]]
+    n_edges = len(walk.edges)
+    chunk, nbytes = cuda_pruning.saveall_stage(s, n_edges)
+    assert 1 <= chunk <= n_edges
+    assert nbytes == 4 * 3 * chunk * s * s <= 232_448
+    steps = -(-n_edges // chunk)
+    assert (steps - 1) * chunk < n_edges <= steps * chunk
+    assert cuda_pruning.saveall_stage(s, 10 ** 6) == cuda_pruning.saveall_stage(
+        s, 10 ** 7)
+    assert nbytes <= cuda_pruning.saveall_stage(s, 10 ** 6)[1]
+
+
 def _jax_saveall(newick, p, lp, group):
     """JAX ``_saveall_call`` (interpret mode) on the same inputs, sliced to
     the real states, sites and nodes: (K, n_nodes, S, sites) partials and
@@ -394,6 +423,46 @@ def test_batch_chunk_splits_or_raises(monkeypatch):
     state.update(reserved=1000)
     with pytest.raises(MemoryError, match="scratch"):
         chunk(2, 10 ** 6, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [4, 20])
+def test_saveall_kernel_takes_a_wide_node_on_card(s):
+    """B2 on a tree whose root has 13 children (steps of at most
+    ``saveall_stage``'s chunk): residuals to 1e-6 relative as x 2^e
+    against the plain walk, the root row bit for bit the forward
+    kernel's, with one and two lanes a column."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    star = ",".join(f"w{i}:{0.05 * (i + 1)}" for i in range(12))
+    sub = _newick("random12").strip().rstrip(";")
+    tree = tio.parse_newick(f"({star},{sub}:0.1);")
+    sched = compile_schedule(tree, binarize=False)
+    walk = WalkSchedule(sched)
+    assert walk.children.shape[1] == 13
+    rng = np.random.default_rng(9)
+    eig = tmodels.GTR.eigen(GTR) if s == 4 else tmodels.LG.eigen()
+    t = torch.from_numpy(np.asarray(tree.lengths)[:, None] * RATES)
+    pd = extend_p_identity(transition_matrices(eig, t), sched.n_nodes).to(
+        torch.float32).cuda().contiguous()
+    ld = torch.from_numpy(np.eye(s, dtype=np.float32)[rng.integers(
+        0, s, (tree.n_leaves, 301))]).cuda()
+    wx, we = saveall_walk_reference(pd, ld, walk)
+    kp, ke = forward_walk(pd, ld, walk, walk="classic")
+    row = walk.root - walk.n_leaves
+    lanes = dict(cuda_pruning._SAVEALL_LANES)
+    try:
+        for n in (1, 2):
+            cuda_pruning._SAVEALL_LANES[s] = n
+            rx, re = saveall_walk(pd, ld, walk)
+            torch.cuda.synchronize()
+            assert torch.equal(rx[:, row], kp) and torch.equal(re[:, row], ke)
+            np.testing.assert_allclose(
+                (rx.double() * torch.exp2(re.double())[..., None]).cpu(),
+                (wx.double() * torch.exp2(we.double())[..., None]).cpu(),
+                rtol=1e-6, atol=0)
+    finally:
+        cuda_pruning._SAVEALL_LANES.update(lanes)
 
 
 @pytest.mark.gpu
