@@ -11,7 +11,8 @@ all at once) and runs, in order, printing one line per phase:
    the card, at the flagship shapes (64 taxa, 4 categories, 1024 and 1000
    sites, B = 1 and 64), on a 512-taxon caterpillar tree, and at 20 states
    (LG) on BASELINE config 4's 32-taxon shape and the 512-taxon protein
-   tree at 8192 patterns;
+   tree at 8192 patterns (whose live rows outgrow shared memory), and bit
+   for bit against itself with 0 and 1 of its live rows in shared memory;
 4. the flagship engine (64 taxa, 1024 sites, GTR+G4+I, f32 ``pruner="cuda"``)
    against the port's own f64 ``pruner="torch"`` path, single and batched;
 5. the same at 64 taxa x 100,000 sites;
@@ -36,8 +37,10 @@ all at once) and runs, in order, printing one line per phase:
 11. the server's /gradient and /fit against the engine and ``fit``;
 12. the slot and stream kernels against their plain version and bit for
     bit against the forward kernel, at 4 and 20 states, on the 1000-taxon
-    DNA and 512-taxon protein trees (8192 patterns) and the 512-taxon
-    caterpillar;
+    DNA and 512-taxon protein trees (8192 patterns), the 512-taxon
+    caterpillar and the wide-node tree (the stream kernel there at 4
+    states only), the slot kernel also with 0 and 1 of its slots in shared
+    memory;
 13. BASELINE config 4: 32-taxon LG and WAG +G4 at 1024 patterns, f32
     ``pruner="cuda"`` (the classic walk at 20 states) against the f64 path;
 14. big DNA: a 1000-taxon GTR+G4 engine at 8192 patterns, whose value
@@ -54,8 +57,10 @@ all at once) and runs, in order, printing one line per phase:
     (classic, slot, stream) in turns at the flagship from B = 1 to 64, at
     config 4 and at both big shapes, the engine's evaluation and
     ``value_and_grad`` times with each pruner, and fit steps per second;
-    the reverse kernel's walk and dP pass apart, and the reverse and stream
-    kernels at B = 1, by device time per call from ``torch.profiler``;
+    the reverse kernel's walk and dP pass apart, the reverse and stream
+    kernels at B = 1, and the forward and slot kernels at the flagship
+    (B = 1 and 64), config 4 and big DNA, by device time per call from
+    ``torch.profiler``;
 17. the classic reverse kernel (B7) against its plain version (dP to
     9.5e-7 x max|dP|) and against the deferred reverse (B3) on the same
     residuals and seed (dleaf bit for bit), at phase 3's shapes and on the
@@ -352,7 +357,7 @@ def _ptxas_table(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"\d((?:pruning|classic)_\w+?)I((?:L[ib]\d+E)+)E",
+            k = re.search(r"\d((?:pruning|classic|row)_\w+?)I((?:L[ib]\d+E)+)E",
                           m.group(1))
             name = (f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>"
                     if k else m.group(1))
@@ -475,7 +480,8 @@ def _device_us(fn, reps):
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0 and ("pruning" in ev.key or "classic" in ev.key):
+        if us > 0 and any(w in ev.key for w in ("pruning", "classic",
+                                                "row_walk")):
             name = ev.key.replace("void ", "").replace(
                 "(anonymous namespace)::", "").split("(")[0]
             out[name] = out.get(name, 0.0) + us / reps
@@ -641,7 +647,7 @@ def main():
               (f"protein{BIG_PROTEIN_TAXA}", big_protein_tree, BIG_PATTERNS,
                1, 20)]
     max_err = 0.0
-    errors = {}
+    errors, b1_rows = {}, {}
     case_inputs = {}
     for name, tree, sites, batch, s in cases:
         walk, p, leaves, f = walk_inputs(tree, sites, batch, s)
@@ -661,7 +667,18 @@ def main():
         errors[key] = err
         max_err = max(max_err, err)
         case_inputs[key] = (walk, p, leaves, f)
-    _emit(3, max_abs_err=errors)
+        # its live rows all in device memory, and one on the SM: same bits
+        b1_rows[key] = [walk.rows.n_rows, cuda_pruning.row_geometry(
+            batch, p.shape[-3], sites, s, walk.rows.n_rows).smem_rows]
+        for smem_rows in (0, 1):
+            fp, fe = cuda_pruning._row_walk(p, leaves, walk, "forward",
+                                            smem_rows=smem_rows)
+            torch.cuda.synchronize()
+            _check(torch.equal(fp, kp) and torch.equal(fe, ke),
+                   f"{key}: B1 with {smem_rows} rows in shared memory is "
+                   "not B1's root bit for bit")
+    _emit(3, max_abs_err=errors, rows_and_rows_on_the_sm=b1_rows,
+          forced_smem_rows_bit_identical=[0, 1])
     timing_inputs = {b: case_inputs[f"flagship_B{b}_S{SITES}"]
                      for b in (1, BATCH)}
     protein_key = f"protein{BIG_PROTEIN_TAXA}_B1_S{BIG_PATTERNS}"
@@ -948,24 +965,37 @@ def main():
         f"caterpillar{CATERPILLAR}_S20": walk_inputs(caterpillar, SITES, 1,
                                                      20),
     }
+    # B4 also on the wide-node tree (its root of 49 children kept whole);
+    # B5's ring of 3 x 49 P blocks fits at 4 states only
+    slot_cases.update(wide_inputs)
     slot_err = {"slot": {}, "stream": {}}
     for key, (walk, p, leaves, f) in slot_cases.items():
         kp, ke = forward_walk(p, leaves, walk, walk="classic")
         rp, re = slot_walk_reference(p, leaves, walk)
         want = site_ll(rp, re, f)
         tol = len(walk.order) * 2.0 ** -21
-        for how in ("slot", "stream"):
-            sp, se = forward_walk(p, leaves, walk, walk=how)
+        walks = [("slot", {}), ("slot", {"smem_rows": 0}),
+                 ("slot", {"smem_rows": 1})]
+        if not (key.startswith("wide_node") and leaves.shape[2] == 20):
+            walks.append(("stream", {}))
+        for how, forced in walks:
+            if forced:
+                sp, se = cuda_pruning._row_walk(p, leaves, walk, "slot",
+                                                **forced)
+            else:
+                sp, se = forward_walk(p, leaves, walk, walk=how)
             torch.cuda.synchronize()
             _check(torch.equal(sp, kp) and torch.equal(se, ke),
-                   f"{key}: the {how} walk's root is not the forward "
-                   "kernel's bit for bit")
+                   f"{key}: the {how} walk's root {forced} is not the "
+                   "forward kernel's bit for bit")
             err = float((site_ll(sp, se, f) - want).abs().max())
-            _check(err <= tol, f"{key}: {how} kernel vs plain walk max "
-                   f"|dlogL| {err:.3e} > {tol:.3e}")
-            slot_err[how][key] = err
+            _check(err <= tol, f"{key}: {how} kernel {forced} vs plain walk "
+                   f"max |dlogL| {err:.3e} > {tol:.3e}")
+            if not forced:
+                slot_err[how][key] = err
         del kp, ke, rp, re, sp, se
     _emit(12, max_abs_err=slot_err, bit_identical_to_forward=True,
+          forced_smem_rows_bit_identical=[0, 1],
           n_slots={k: v[0].slots.n_slots for k, v in slot_cases.items()})
 
     # 13. BASELINE config 4: LG and WAG at 32 taxa, main path ---------------
@@ -1159,6 +1189,14 @@ def main():
         walk_times[label]["classic_scratch_bytes"] = math.prod(
             dims[:4]) * (dims[4] + 1) * 4
         walk_times[label]["choice"] = cuda_pruning.choose_walk(*dims)
+    # B1's and B4's device time per launch at their main-path shapes
+    row_device = {
+        label: {how: _device_us(functools.partial(
+            forward_walk, walk_shapes[label][1], walk_shapes[label][2],
+            walk_shapes[label][0], walk=how), reps)
+            for how in ("classic", "slot")}
+        for label, reps in (("flagship_B1", 20), (f"flagship_B{BATCH}", 5),
+                            ("config4", 10), ("dna_big", 3))}
     b5_device = {
         label: _device_us(functools.partial(
             forward_walk, inputs[1], inputs[2], inputs[0], walk="stream"),
@@ -1195,7 +1233,7 @@ def main():
     _emit(16, shapes=f"{TAXA} taxa, K=4, {SITES} sites, S=4; protein "
           f"{BIG_PROTEIN_TAXA} taxa, {BIG_PATTERNS} patterns, S=20",
           timings=timings, walks=walk_times, b3_device_us=b3_device,
-          b5_device_us=b5_device)
+          b5_device_us=b5_device, b1_b4_device_us=row_device)
 
     # 17. classic reverse kernel (B7) vs its plain version and B3 ----------
     b7_err, b7_max, b7_times = {}, 0.0, {}

@@ -1,50 +1,57 @@
 #!/usr/bin/env python3
-"""Time the saveall walk (B2, ``pruning_saveall_f32``), the classic reverse
-(B7, ``pruning_classic_reverse_f32``), the deferred reverse (B3,
-``pruning_reverse_f32``) and the stream walk (B5, ``pruning_stream_f32``)
-against an earlier version of their sources, in turns, on one NVIDIA GPU.
+"""Time the port's walk kernels against an earlier version of their
+sources, in turns, on one NVIDIA GPU: the forward walk (B1,
+``pruning_forward_f32``), the slot walk (B4, ``pruning_slot_f32``), the
+saveall walk (B2, ``pruning_saveall_f32``), the classic reverse (B7,
+``pruning_classic_reverse_f32``), the deferred reverse (B3,
+``pruning_reverse_f32``) and the stream walk (B5, ``pruning_stream_f32``).
 
 Usage, from the root of a checkout::
 
     python3 kernel_turns.py --parent DIR [--out FILE]
 
 ``DIR`` holds the earlier ``pruning_forward.cu``, ``pruning_reverse.cu``,
-``pruning_slot.cu``, ``pruning_classic_reverse.cu`` and
-``pruning_common.cuh``, for example unpacked from an earlier commit with
-``git archive <commit> phylo_utils_tpu_torch/csrc | tar -x -C DIR
---strip-components 2``. The script builds them with ``nvcc`` into
-``build/kernel_turns/`` beside the current library (``ops/_build.py``) and
-binds them with the C signatures they had before B2 took a flat list of
-edges, a chunk and a lane count, and B7 a block width and a staged child
-count (B3 and B5: unchanged). Then, on the same inputs, at the flagship (64
-taxa, GTR+G4, 1024 sites) at B = 1 and 64, on the 512-taxon LG+G4 tree at
-8192 patterns, and on the wide-node tree (a root of 48 leaf children beside
-a 48-taxon subtree, kept whole, 8192 patterns simulated down it) at 4 and
-20 states:
+``pruning_slot.cu``, ``pruning_classic_reverse.cu`` and the headers they
+include, for example unpacked from an earlier commit with ``git archive
+<commit> phylo_utils_tpu_torch/csrc | tar -x -C DIR --strip-components 2``.
+The script builds them with ``nvcc`` into ``build/kernel_turns/`` beside
+the current library (``ops/_build.py``). B2, B3, B5 and B7 keep the C
+signatures they had before B1 and B4 took live rows, so the earlier library
+runs under the current wrappers; B1 and B4 are bound with their earlier
+signatures (B1: a post-order with a children table, whole-tree scratch in
+device memory; B4: the DFS slots in device memory). Then, on the same
+inputs, at the flagship (64 taxa, GTR+G4, 1024 sites) at B = 1 and 64, on
+BASELINE config 4's tree at 20 states (32 taxa, LG+G4, 1024 sites), the
+1000-taxon GTR+G4 tree and the 512-taxon LG+G4 tree at 8192 patterns, and
+on the wide-node tree (a root of 48 leaf children beside a 48-taxon
+subtree, kept whole, 8192 patterns simulated down it) at 4 and 20 states:
 
-1. checks: B2's residuals bit for bit the earlier B2's and its root row
-   the forward kernel's (B1); B7's dP within 1e-4 x max|dP| of the earlier
-   B7's and of its plain version, bit-identical across two launches, with
-   one seed (lambda pi at the root) and two (the root and an inner node),
-   its dleaf bit for bit the earlier B7's and, where B3 runs, B3's; B3's
-   dP and dleaf bit for bit the earlier B3's; B5's root the earlier one's
-   and B1's;
+1. checks: B1's and B4's roots, with 0, 1 and all their rows in shared
+   memory, bit for bit the earlier B1's (and the earlier B4's); B2's
+   residuals bit for bit the earlier B2's and its root row B1's; B7's dP
+   within 1e-4 x max|dP| of the earlier B7's and of its plain version,
+   bit-identical across two launches, with one seed (lambda pi at the
+   root) and two (the root and an inner node), its dleaf bit for bit the
+   earlier B7's and, where B3 runs, B3's; B3's dP and dleaf bit for bit the
+   earlier B3's; B5's root the earlier one's and B1's;
 2. times each kernel in turns (earlier, current, current, earlier; CUDA
    events over repeated launches), with its bound;
 3. reads each kernel's device time per launch from ``torch.profiler``
    (B = 1 launches are paced by the host, so event times there are the
    host's);
-4. sweeps, each setting timed in turns (a, b, ..., b, a): B2's edges per
-   step (``_SAVEALL_CHUNK``) and lanes per column (``_SAVEALL_LANES``);
-   B7's blocks per launch (``_CLASSIC_REVERSE_BLOCKS``) and block width
-   (``_CLASSIC_REVERSE_TILE``); B7's shared-memory budget on the wide node
-   at 20 states (``_CLASSIC_STAGE_BYTES``: how many children a visit may
-   have and still be staged);
-5. counts global loads (``LDG``), shared-memory loads (``LDS`` by width)
-   and FMAs in the SASS of both builds' 20-state B2, B7 and B3
-   (``cuobjdump -sass``), writes those functions' SASS to
-   ``build/kernel_turns/``, and lists both builds' ptxas registers and
-   spills (a spill in the current build fails the run).
+4. sweeps, each setting timed in turns (a, b, ..., b, a): B1's and B4's
+   lanes a column, columns a block and edges a step (``row_geometry``'s
+   choices), and their rows in shared memory (0, 1, half, all); B2's edges
+   per step (``_SAVEALL_CHUNK``) and lanes (``_SAVEALL_LANES``); B7's
+   blocks per launch (``_CLASSIC_REVERSE_BLOCKS``) and block width
+   (``_CLASSIC_REVERSE_TILE``), and its shared-memory budget on the wide
+   node at 20 states (``_CLASSIC_STAGE_BYTES``);
+5. counts global loads (``LDG``), shared-memory loads (``LDS`` by width),
+   FMAs and barriers in the SASS of both builds' B1 and B4 (at 4 and 20
+   states) and 20-state B2, B7 and B3 (``cuobjdump -sass``), writes those
+   functions' SASS to ``build/kernel_turns/``, and lists both builds'
+   ptxas registers, shared memory and spills (a spill in the current build
+   fails the run).
 
 It prints the card's ``nvidia-smi`` name and power limit, then one JSON
 object, also written to ``--out`` (default ``build/kernel_turns.json``).
@@ -65,17 +72,24 @@ TOL = 1e-4     # x max|dP|: two f32 walks summing over sites in other orders
 OUT_DIR = REPO / "build" / "kernel_turns"
 PARENT_SOURCES = ("pruning_forward.cu", "pruning_reverse.cu",
                   "pruning_slot.cu", "pruning_classic_reverse.cu")
-# mangled-name patterns of the 20-state kernels whose SASS is counted
+# the entry points whose C signatures the earlier sources share
+SHARED_ENTRIES = ("pruning_saveall_f32", "pruning_reverse_f32",
+                  "pruning_stream_f32", "pruning_classic_reverse_f32")
+# mangled-name patterns of the kernels whose SASS is counted: B1 and B4 at
+# both state counts (the current ones are the live-row walk, one in each
+# of pruning_forward.cu's and pruning_slot.cu's objects), the others at 20
 SASS_KERNELS = {
-    "B2": r"pruning_saveall_kernelILi20E|pruning_forward_kernelILi20ELb1E",
+    "B1_B4": r"row_walk_kernel|pruning_forward_kernelI|pruning_slot_kernelI",
+    "B2": r"pruning_saveall_kernelILi20E",
     "B7": r"classic_reverse_walk_kernelILi20E",
     "B3": r"pruning_reverse_walk_kernelILi20E",
 }
 
 
 def _build_parent(parent: Path, nvcc_flags, nvcc):
-    """The earlier B2, B3, B5 and B7 sources as one library; (library,
-    path, ptxas output)."""
+    """The earlier sources as one library: (library bound for the shared
+    entry points, library bound for the earlier B1 and B4, path, ptxas
+    output)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = OUT_DIR / "libparent.so"
     res = subprocess.run(
@@ -84,16 +98,22 @@ def _build_parent(parent: Path, nvcc_flags, nvcc):
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on the earlier sources\n{res.stderr}")
-    lib = ctypes.CDLL(str(lib_path))
+    from phylo_utils_tpu_torch.ops import _build
+
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in (("pruning_saveall_f32", 7, 8),
-                               ("pruning_reverse_f32", 15, 11),
-                               ("pruning_stream_f32", 11, 8),
-                               ("pruning_classic_reverse_f32", 15, 11)):
-        fn = getattr(lib, name)
+    shared = ctypes.CDLL(str(lib_path))
+    for name, n_ptr, n_int in _build.SIGNATURES:
+        if name in SHARED_ENTRIES:
+            fn = getattr(shared, name)
+            fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+            fn.restype = ci
+    walks = ctypes.CDLL(str(lib_path))
+    for name, n_ptr, n_int in (("pruning_forward_f32", 9, 8),
+                               ("pruning_slot_f32", 11, 8)):
+        fn = getattr(walks, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
         fn.restype = ci
-    return lib, lib_path, res.stdout + res.stderr
+    return shared, walks, lib_path, res.stdout + res.stderr
 
 
 def _sass(lib_path: Path, pattern: str):
@@ -174,8 +194,8 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     cur_path = Path(_build.build_info()["path"])
-    old, old_path, old_log = _build_parent(args.parent, _build.NVCC_FLAGS,
-                                           _build._nvcc())
+    old, old_walks, old_path, old_log = _build_parent(
+        args.parent, _build.NVCC_FLAGS, _build._nvcc())
     build_s = time.perf_counter() - t0
     log = _build.build_info()["log"]
     ptxas_current = _ptxas_table(log) if log else {}
@@ -206,112 +226,73 @@ def main():
 
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def batched(p, *rest):
-        return (p, *rest) if p.dim() == 5 else (p[None], *(
-            None if t is None else t[None] for t in rest))
+    def earlier(fn, *a, **kw):
+        """``fn`` (a current wrapper) run against the earlier library."""
+        def run():
+            saved = _build._lib
+            _build._lib = old
+            try:
+                return fn(*a, **kw)
+            finally:
+                _build._lib = saved
+        return run
 
-    def unbatched(p, *out):
-        return out if p.dim() == 5 else tuple(
-            None if t is None else t[0] for t in out)
-
-    def old_saveall(walk, p, leaves):
-        (pb,) = batched(p)
+    def old_forward(walk, p, leaves):
+        """The earlier B1: whole-tree scratch in device memory."""
+        pb = p if p.dim() == 5 else p[None]
         b, _, k = pb.shape[:3]
         sites, s = leaves.shape[1:]
         n_inner = walk.n_nodes - walk.n_leaves
         order, children, counts = walk.on(dev)
-        rx = torch.empty((b, k, n_inner, sites, s), device=dev)
-        re_ = torch.empty((b, k, n_inner, sites), device=dev)
-        rc = old.pruning_saveall_f32(
+        xs = torch.empty((b, k, n_inner, sites, s), device=dev)
+        es = torch.empty((b, k, n_inner, sites), device=dev)
+        root = torch.empty((b, k, sites, s), device=dev)
+        root_e = torch.empty((b, k, sites), device=dev)
+        rc = old_walks.pruning_forward_f32(
             pb.data_ptr(), leaves.data_ptr(), order.data_ptr(),
-            children.data_ptr(), counts.data_ptr(), rx.data_ptr(),
-            re_.data_ptr(), b, k, s, walk.n_nodes, walk.n_leaves,
-            len(walk.order), children.shape[1], sites, stream())
-        assert rc == 0, f"earlier pruning_saveall_f32: CUDA error {rc}"
-        return unbatched(p, rx, re_)
+            children.data_ptr(), counts.data_ptr(), xs.data_ptr(),
+            es.data_ptr(), root.data_ptr(), root_e.data_ptr(), b, k, s,
+            walk.n_nodes, walk.n_leaves, len(walk.order), children.shape[1],
+            sites, stream())
+        assert rc == 0, f"earlier pruning_forward_f32: CUDA error {rc}"
+        return (root, root_e) if p.dim() == 5 else (root[0], root_e[0])
 
-    def old_reverse(walk, p, leaves, rx, re_, lam, f, want_dleaf=False):
-        pb, rxb, reb, lmb = batched(p, rx, re_, lam)
-        b, n_nodes, k = pb.shape[:3]
-        sites, s = leaves.shape[1:]
-        rs = walk.reverse
-        rnode, gslot, children, cslot, counts = rs.on(dev)
-        tile, _ = cp.reverse_scratch(b, k, n_nodes, rs.n_gslots, sites, s,
-                                     children.shape[1])
-        g_slots = torch.empty((b, k, max(rs.n_gslots, 1), sites, s),
-                              device=dev)
-        rows = torch.empty((b, k, -(-sites // tile), n_nodes, s, s),
-                           device=dev)
-        dp = torch.empty_like(pb)
-        dl = (torch.empty((b, k, walk.n_leaves, sites, s), device=dev)
-              if want_dleaf else None)
-        rc = old.pruning_reverse_f32(
-            pb.data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
-            gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
-            counts.data_ptr(), rxb.data_ptr(), reb.data_ptr(),
-            lmb.data_ptr(), f.data_ptr(), g_slots.data_ptr(),
-            rows.data_ptr(), dp.data_ptr(),
-            None if dl is None else dl.data_ptr(), b, k, s, n_nodes,
-            walk.n_leaves, len(rs.rnode), children.shape[1], sites,
-            max(rs.n_gslots, 1), tile, walk.root, stream())
-        assert rc == 0, f"earlier pruning_reverse_f32: CUDA error {rc}"
-        return unbatched(p, dp, dl)
-
-    def old_classic(walk, p, leaves, rx, re_, gs, seeds, want_dleaf=False):
-        pb, rxb, reb, gsb = batched(p, rx, re_, gs)
-        b, n_nodes, k = pb.shape[:3]
-        sites, s = leaves.shape[1:]
-        rs = walk.reverse
-        rows = min(-(-sites // 256), max(1, -(-264 // (b * k))))
-        rnode, gslot, children, cslot, counts = rs.on(dev)
-        node_seed = rs.node_seed(np.asarray(seeds, np.int32), dev)
-        g_slots = torch.empty((b, k, max(rs.n_gslots, 1), sites, s),
-                              device=dev)
-        dp_rows = torch.zeros((b, k, rows, n_nodes, s, s), device=dev)
-        dp = torch.empty_like(pb)
-        dl = (torch.empty((b, k, walk.n_leaves, sites, s), device=dev)
-              if want_dleaf else None)
-        rc = old.pruning_classic_reverse_f32(
-            pb.data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
-            gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
-            counts.data_ptr(), node_seed.data_ptr(), rxb.data_ptr(),
-            reb.data_ptr(), gsb.data_ptr(), g_slots.data_ptr(),
-            dp_rows.data_ptr(), dp.data_ptr(),
-            None if dl is None else dl.data_ptr(), b, k, s, n_nodes,
-            walk.n_leaves, len(rs.rnode), children.shape[1], sites,
-            len(seeds), max(rs.n_gslots, 1), rows, stream())
-        assert rc == 0, f"earlier pruning_classic_reverse_f32: CUDA error {rc}"
-        return unbatched(p, dp, dl)
-
-    def old_stream(walk, p, leaves):
-        (pb,) = batched(p)
+    def old_slot(walk, p, leaves):
+        """The earlier B4: the DFS slots in device memory."""
+        pb = p if p.dim() == 5 else p[None]
         b, _, k = pb.shape[:3]
         sites, s = leaves.shape[1:]
         sl = walk.slots
         nslot, cnode, csrc, cleaf, counts = sl.on(dev)
-        slots = torch.empty((b, k, sl.n_slots, sites, s), device=dev)
-        slots_e = torch.empty((b, k, sl.n_slots, sites), device=dev)
+        xs = torch.empty((b, k, sl.n_slots, sites, s), device=dev)
+        es = torch.empty((b, k, sl.n_slots, sites), device=dev)
         root = torch.empty((b, k, sites, s), device=dev)
         root_e = torch.empty((b, k, sites), device=dev)
-        rc = old.pruning_stream_f32(
+        rc = old_walks.pruning_slot_f32(
             pb.data_ptr(), leaves.data_ptr(), nslot.data_ptr(),
             cnode.data_ptr(), csrc.data_ptr(), cleaf.data_ptr(),
-            counts.data_ptr(), slots.data_ptr(), slots_e.data_ptr(),
-            root.data_ptr(), root_e.data_ptr(), b, k, s, walk.n_nodes,
-            sl.n_slots, len(sl.nslot), cnode.shape[1], sites, stream())
-        assert rc == 0, f"earlier pruning_stream_f32: CUDA error {rc}"
-        return unbatched(p, root, root_e)
+            counts.data_ptr(), xs.data_ptr(), es.data_ptr(), root.data_ptr(),
+            root_e.data_ptr(), b, k, s, walk.n_nodes, sl.n_slots,
+            len(sl.nslot), cnode.shape[1], sites, stream())
+        assert rc == 0, f"earlier pruning_slot_f32: CUDA error {rc}"
+        return (root, root_e) if p.dim() == 5 else (root[0], root_e[0])
 
     tree_flag = random_tree(64, seed=0)
     shapes = {
         "flagship_B1": inputs(tree_flag, 1024, 1, 4),
         "flagship_B64": inputs(tree_flag, 1024, 64, 4),
+        "config4_S20": inputs(random_tree(32, seed=13, mean_brlen=0.2), 1024,
+                              1, 20),
+        "dna1000": inputs(random_tree(1000, seed=10), 8192, 1, 4),
         "protein512_LG": inputs(random_tree(512, seed=11), 8192, 1, 20),
         "wide_node_S4": _wide_node_inputs(eigs[4], rates, 8192, rng, dev),
         "wide_node_S20": _wide_node_inputs(eigs[20], rates, 8192, rng, dev),
     }
-    reps_of = {"flagship_B1": 200, "flagship_B64": 50, "protein512_LG": 5,
-               "wide_node_S4": 20, "wide_node_S20": 3}
+    reps_of = {"flagship_B1": 200, "flagship_B64": 50, "config4_S20": 100,
+               "dna1000": 20, "protein512_LG": 5, "wide_node_S4": 20,
+               "wide_node_S20": 3}
+    # the value walks only: the gradient kernels were not changed there
+    value_only = ("config4_S20", "dna1000")
     result = {"card": smi, "build_s": build_s, "checks": {}, "turns": {},
               "device_us": {}, "sweeps": {}}
     failed = []
@@ -319,99 +300,132 @@ def main():
         f = f64.float()
         s = leaves.shape[2]
         cmax = walk.children.shape[1]
-        # B3 holds the visit's children in its stage, or raises
-        try:
-            cp.reverse_tile(s, cmax)
-            has_b3 = True
-        except ValueError:
-            has_b3 = False
-        rx, re_ = saveall_walk(p, leaves, walk)
-        ox, oe = old_saveall(walk, p, leaves)
-        kp, ke = forward_walk(p, leaves, walk, walk="classic")
-        row = walk.root - walk.n_leaves
-        lam = (1.0 / torch.einsum("...ksi,i->...ks",
-                                  rx[..., row, :, :].double(), f64)
-               ).float().contiguous()
-        gseed = (lam[..., None] * f).unsqueeze(-3).contiguous()
-        root = [walk.root]
-        seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
-        g2 = torch.as_tensor(rng.uniform(
-            0.5, 1.5, gseed.shape[:-3] + (2,) + gseed.shape[-2:]),
-            dtype=torch.float32, device=dev)
-        d7, l7 = classic_reverse_walk(p, leaves, rx, re_, gseed, root, walk,
-                                      True)
-        d7b, _ = classic_reverse_walk(p, leaves, rx, re_, gseed, root, walk)
-        o7, ol7 = old_classic(walk, p, leaves, rx, re_, gseed, root, True)
-        e7, el7 = classic_reverse_walk(p, leaves, rx, re_, g2, seeds, walk,
-                                       True)
-        oe7, oel7 = old_classic(walk, p, leaves, rx, re_, g2, seeds, True)
+        reps = reps_of[label]
+        ob1 = old_forward(walk, p, leaves)
+        chk = {"cmax": cmax, "rows_b1": walk.rows.n_rows,
+               "rows_b4": walk.slots.rows.n_rows}
+        ok = True
+        # B1 and B4 with 0, 1 and all rows on the SM: the earlier B1's bits
+        for kind in ("forward", "slot"):
+            rows = (walk.rows if kind == "forward" else walk.slots.rows).n_rows
+            b = p.shape[0] if p.dim() == 5 else 1
+            fit = cp.row_geometry(b, p.shape[-3], leaves.shape[1], s,
+                                  rows).smem_rows
+            same = True
+            for smem_rows in sorted({0, min(1, fit), fit}):
+                got = cp._row_walk(p, leaves, walk, kind, smem_rows=smem_rows)
+                torch.cuda.synchronize()
+                same = same and torch.equal(got[0], ob1[0]) and torch.equal(
+                    got[1], ob1[1])
+            chk[f"b{1 if kind == 'forward' else 4}_equals_earlier_b1"] = same
+            ok = ok and same
+        ob4 = old_slot(walk, p, leaves)
         torch.cuda.synchronize()
-        w7, wl7 = classic_reverse_walk_reference(p, leaves, rx, re_, gseed,
-                                                 root, walk, True)
-        scale = float(w7.abs().max())
-        chk = {
-            "cmax": cmax,
-            "b2_equals_earlier": bool(torch.equal(rx, ox)
-                                      and torch.equal(re_, oe)),
-            "b2_root_equals_b1": bool(torch.equal(rx[..., row, :, :], kp)
-                                      and torch.equal(re_[..., row, :], ke)),
-            "b7_vs_plain": float((d7 - w7).abs().max()) / scale,
-            "b7_dleaf_vs_plain": float((l7 - wl7).abs().max())
-            / float(wl7.abs().max()),
-            "b7_vs_earlier": float((d7 - o7).abs().max()) / scale,
-            "b7_two_seeds_vs_earlier": float((e7 - oe7).abs().max())
-            / float(oe7.abs().max()),
-            "b7_dleaf_equals_earlier": bool(torch.equal(l7, ol7)
-                                            and torch.equal(el7, oel7)),
-            "b7_repeat_equal": bool(torch.equal(d7, d7b)),
-            "b7_root_row_zero": float(d7.select(-4, walk.root).abs().max())
-            == 0.0,
-            "b7_stage_children": cp.classic_reverse_stage(s, cmax)[0],
+        chk["earlier_b4_equals_earlier_b1"] = bool(
+            torch.equal(ob4[0], ob1[0]) and torch.equal(ob4[1], ob1[1]))
+        ok = ok and chk["earlier_b4_equals_earlier_b1"]
+        kernels = {
+            "B1": ("forward", functools.partial(
+                forward_walk, p, leaves, walk, walk="classic"),
+                functools.partial(old_forward, walk, p, leaves)),
+            "B4": ("slot", functools.partial(slot_walk, p, leaves, walk),
+                   functools.partial(old_slot, walk, p, leaves)),
         }
-        ok = (chk["b2_equals_earlier"] and chk["b2_root_equals_b1"]
-              and max(chk["b7_vs_plain"], chk["b7_vs_earlier"],
-                      chk["b7_two_seeds_vs_earlier"]) <= TOL
-              and chk["b7_dleaf_equals_earlier"] and chk["b7_repeat_equal"]
-              and chk["b7_root_row_zero"])
-        if has_b3:
-            d3, l3 = reverse_walk(p, leaves, rx, re_, lam, f, walk, True)
-            o3, ol3 = old_reverse(walk, p, leaves, rx, re_, lam, f, True)
-            torch.cuda.synchronize()
-            chk["b7_dleaf_equals_b3"] = bool(torch.equal(l7, l3))
-            chk["b3_equals_earlier"] = bool(torch.equal(d3, o3)
-                                            and torch.equal(l3, ol3))
-            ok = ok and chk["b7_dleaf_equals_b3"] and chk["b3_equals_earlier"]
         if cmax <= 2:   # B5's ring holds 3 x cmax blocks
             sp, se = slot_walk(p, leaves, walk, stream=True)
-            op, oe5 = old_stream(walk, p, leaves)
+            op, oe5 = earlier(slot_walk, p, leaves, walk, stream=True)()
             torch.cuda.synchronize()
             chk["b5_equals_earlier_and_b1"] = bool(
                 torch.equal(sp, op) and torch.equal(se, oe5)
-                and torch.equal(sp, kp) and torch.equal(se, ke))
+                and torch.equal(sp, ob1[0]) and torch.equal(se, ob1[1]))
             ok = ok and chk["b5_equals_earlier_and_b1"]
+            kernels["B5"] = ("stream", functools.partial(
+                slot_walk, p, leaves, walk, stream=True),
+                earlier(slot_walk, p, leaves, walk, stream=True))
+        if label not in value_only:
+            # B3 holds the visit's children in its stage, or raises
+            try:
+                cp.reverse_tile(s, cmax)
+                has_b3 = True
+            except ValueError:
+                has_b3 = False
+            rx, re_ = saveall_walk(p, leaves, walk)
+            ox, oe = earlier(saveall_walk, p, leaves, walk)()
+            row = walk.root - walk.n_leaves
+            lam = (1.0 / torch.einsum("...ksi,i->...ks",
+                                      rx[..., row, :, :].double(), f64)
+                   ).float().contiguous()
+            gseed = (lam[..., None] * f).unsqueeze(-3).contiguous()
+            root = [walk.root]
+            seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
+            g2 = torch.as_tensor(rng.uniform(
+                0.5, 1.5, gseed.shape[:-3] + (2,) + gseed.shape[-2:]),
+                dtype=torch.float32, device=dev)
+            d7, l7 = classic_reverse_walk(p, leaves, rx, re_, gseed, root,
+                                          walk, True)
+            d7b, _ = classic_reverse_walk(p, leaves, rx, re_, gseed, root,
+                                          walk)
+            o7, ol7 = earlier(classic_reverse_walk, p, leaves, rx, re_, gseed,
+                              root, walk, True)()
+            e7, el7 = classic_reverse_walk(p, leaves, rx, re_, g2, seeds,
+                                           walk, True)
+            oe7, oel7 = earlier(classic_reverse_walk, p, leaves, rx, re_, g2,
+                                seeds, walk, True)()
+            torch.cuda.synchronize()
+            w7, wl7 = classic_reverse_walk_reference(p, leaves, rx, re_,
+                                                     gseed, root, walk, True)
+            scale = float(w7.abs().max())
+            chk.update({
+                "b2_equals_earlier": bool(torch.equal(rx, ox)
+                                          and torch.equal(re_, oe)),
+                "b2_root_equals_b1": bool(
+                    torch.equal(rx[..., row, :, :], ob1[0])
+                    and torch.equal(re_[..., row, :], ob1[1])),
+                "b7_vs_plain": float((d7 - w7).abs().max()) / scale,
+                "b7_dleaf_vs_plain": float((l7 - wl7).abs().max())
+                / float(wl7.abs().max()),
+                "b7_vs_earlier": float((d7 - o7).abs().max()) / scale,
+                "b7_two_seeds_vs_earlier": float((e7 - oe7).abs().max())
+                / float(oe7.abs().max()),
+                "b7_dleaf_equals_earlier": bool(torch.equal(l7, ol7)
+                                                and torch.equal(el7, oel7)),
+                "b7_repeat_equal": bool(torch.equal(d7, d7b)),
+                "b7_root_row_zero": float(
+                    d7.select(-4, walk.root).abs().max()) == 0.0,
+                "b7_stage_children": cp.classic_reverse_stage(s, cmax)[0],
+            })
+            ok = (ok and chk["b2_equals_earlier"] and chk["b2_root_equals_b1"]
+                  and max(chk["b7_vs_plain"], chk["b7_vs_earlier"],
+                          chk["b7_two_seeds_vs_earlier"]) <= TOL
+                  and chk["b7_dleaf_equals_earlier"]
+                  and chk["b7_repeat_equal"] and chk["b7_root_row_zero"])
+            kernels["B2"] = ("saveall", functools.partial(
+                saveall_walk, p, leaves, walk),
+                earlier(saveall_walk, p, leaves, walk))
+            kernels["B7"] = ("classic", functools.partial(
+                classic_reverse_walk, p, leaves, rx, re_, gseed, root, walk),
+                earlier(classic_reverse_walk, p, leaves, rx, re_, gseed, root,
+                        walk))
+            if has_b3:
+                d3, l3 = reverse_walk(p, leaves, rx, re_, lam, f, walk, True)
+                o3, ol3 = earlier(reverse_walk, p, leaves, rx, re_, lam, f,
+                                  walk, True)()
+                torch.cuda.synchronize()
+                chk["b7_dleaf_equals_b3"] = bool(torch.equal(l7, l3))
+                chk["b3_equals_earlier"] = bool(torch.equal(d3, o3)
+                                                and torch.equal(l3, ol3))
+                ok = (ok and chk["b7_dleaf_equals_b3"]
+                      and chk["b3_equals_earlier"])
+                kernels["B3"] = ("reverse", functools.partial(
+                    reverse_walk, p, leaves, rx, re_, lam, f, walk),
+                    earlier(reverse_walk, p, leaves, rx, re_, lam, f, walk))
+                del d3, l3, o3, ol3
+            del ox, oe, d7, d7b, o7, e7, oe7, w7, wl7
         result["checks"][label] = chk
         if not ok:
             failed.append(label)
             print(json.dumps({label: chk}), flush=True)
             continue
-        reps = reps_of[label]
-        kernels = {
-            "B2": ("saveall", functools.partial(saveall_walk, p, leaves, walk),
-                   functools.partial(old_saveall, walk, p, leaves)),
-            "B7": ("classic", functools.partial(
-                classic_reverse_walk, p, leaves, rx, re_, gseed, root, walk),
-                   functools.partial(old_classic, walk, p, leaves, rx, re_,
-                                     gseed, root)),
-        }
-        if has_b3:
-            kernels["B3"] = ("reverse", functools.partial(
-                reverse_walk, p, leaves, rx, re_, lam, f, walk),
-                functools.partial(old_reverse, walk, p, leaves, rx, re_, lam,
-                                  f))
-        if cmax <= 2:
-            kernels["B5"] = ("stream", functools.partial(
-                slot_walk, p, leaves, walk, stream=True),
-                functools.partial(old_stream, walk, p, leaves))
         for name, (kind, new_fn, old_fn) in kernels.items():
             t = [_cuda_ms(old_fn, reps), _cuda_ms(new_fn, reps),
                  _cuda_ms(new_fn, reps), _cuda_ms(old_fn, reps)]
@@ -426,59 +440,90 @@ def main():
                 "earlier": _device_us(old_fn, min(reps, 20)),
                 "current": _device_us(new_fn, min(reps, 20))}
         # sweeps of the launch settings, each in turns
-        b2 = functools.partial(saveall_walk, p, leaves, walk)
-        b7 = kernels["B7"][1]
         sweeps = {}
-        saved = (dict(cp._SAVEALL_CHUNK), dict(cp._SAVEALL_LANES),
-                 dict(cp._CLASSIC_REVERSE_BLOCKS), cp._CLASSIC_REVERSE_TILE,
-                 cp._CLASSIC_STAGE_BYTES)
+        b = p.shape[0] if p.dim() == 5 else 1
+        for name, kind in (("B1", "forward"), ("B4", "slot")):
+            if label.startswith("wide_node"):
+                break
+            rows = (walk.rows if kind == "forward" else walk.slots.rows).n_rows
+            geo = functools.partial(cp.row_geometry, b, p.shape[-3],
+                                    leaves.shape[1], s, rows)
+            fit = geo().smem_rows
 
-        def setting(**kw):
-            def run(fn):
-                cp._SAVEALL_CHUNK[s] = kw.get("chunk", saved[0][s])
-                cp._SAVEALL_LANES[s] = kw.get("lanes", saved[1][s])
-                cp._CLASSIC_REVERSE_BLOCKS[s] = kw.get("blocks", saved[2][s])
-                cp._CLASSIC_REVERSE_TILE = kw.get("tile", saved[3])
-                cp._CLASSIC_STAGE_BYTES = kw.get("stage_bytes", saved[4])
-                return fn()
-            return run
+            def takes(**kw):   # the geometry refuses a ring that cannot fit
+                try:
+                    geo(**kw)
+                    return True
+                except ValueError:
+                    return False
 
-        try:
-            chunks = (16, 32, 64, 128) if s == 4 else (4, 8, 16)
-            sweeps["B2"] = _turns({
-                f"chunk{c}_lanes{n}": functools.partial(
-                    setting(chunk=c, lanes=n), b2)
-                for c in chunks for n in (1, 2)}, reps, _cuda_ms)
-            b7_settings = {f"blocks{n}_tile256": dict(blocks=n, tile=256)
-                           for n in (264, 528, 1056)}
-            b7_settings["blocks1056_tile128"] = dict(blocks=1056, tile=128)
-            if label == "wide_node_S20":
-                b7_settings.update({
-                    f"stage_bytes{n}": dict(stage_bytes=n)
-                    for n in (101_760, 132_160, 232_448)})
-            sweeps["B7"] = _turns({
-                k: functools.partial(setting(**v), b7)
-                for k, v in b7_settings.items()}, reps, _cuda_ms)
-        finally:
-            (chunk, lanes, blocks, cp._CLASSIC_REVERSE_TILE,
-             cp._CLASSIC_STAGE_BYTES) = saved
-            cp._SAVEALL_CHUNK.update(chunk)
-            cp._SAVEALL_LANES.update(lanes)
-            cp._CLASSIC_REVERSE_BLOCKS.update(blocks)
+            settings = {
+                f"lanes{n}_cols{c}_chunk{k}_leaves{int(st)}": dict(
+                    lanes=n, cols=c, chunk=k, stage_leaves=st)
+                for n in cp._ROW_LANES[s] for c in (32, 64, 128, 256)
+                if c * n <= 256 for k in (2, 4, 8, 16)
+                for st in ((False, True) if s == 4 else (False,))
+                if takes(lanes=n, cols=c, chunk=k, stage_leaves=st)}
+            settings.update({f"smem_rows{m}": dict(smem_rows=m)
+                             for m in sorted({0, min(1, fit), fit // 2, fit})})
+            sweeps[name] = _turns({
+                k: functools.partial(cp._row_walk, p, leaves, walk, kind, **v)
+                for k, v in settings.items()}, reps, _cuda_ms)
+        if "B2" in kernels:
+            b2 = kernels["B2"][1]
+            b7 = kernels["B7"][1]
+            saved = (dict(cp._SAVEALL_CHUNK), dict(cp._SAVEALL_LANES),
+                     dict(cp._CLASSIC_REVERSE_BLOCKS),
+                     cp._CLASSIC_REVERSE_TILE, cp._CLASSIC_STAGE_BYTES)
+
+            def setting(**kw):
+                def run(fn):
+                    cp._SAVEALL_CHUNK[s] = kw.get("chunk", saved[0][s])
+                    cp._SAVEALL_LANES[s] = kw.get("lanes", saved[1][s])
+                    cp._CLASSIC_REVERSE_BLOCKS[s] = kw.get("blocks",
+                                                           saved[2][s])
+                    cp._CLASSIC_REVERSE_TILE = kw.get("tile", saved[3])
+                    cp._CLASSIC_STAGE_BYTES = kw.get("stage_bytes", saved[4])
+                    return fn()
+                return run
+
+            try:
+                chunks = (16, 32, 64, 128) if s == 4 else (4, 8, 16)
+                sweeps["B2"] = _turns({
+                    f"chunk{c}_lanes{n}": functools.partial(
+                        setting(chunk=c, lanes=n), b2)
+                    for c in chunks for n in (1, 2)}, reps, _cuda_ms)
+                b7_settings = {f"blocks{n}_tile256": dict(blocks=n, tile=256)
+                               for n in (264, 528, 1056)}
+                b7_settings["blocks1056_tile128"] = dict(blocks=1056, tile=128)
+                if label == "wide_node_S20":
+                    b7_settings.update({
+                        f"stage_bytes{n}": dict(stage_bytes=n)
+                        for n in (101_760, 132_160, 232_448)})
+                sweeps["B7"] = _turns({
+                    k: functools.partial(setting(**v), b7)
+                    for k, v in b7_settings.items()}, reps, _cuda_ms)
+            finally:
+                (chunk, lanes, blocks, cp._CLASSIC_REVERSE_TILE,
+                 cp._CLASSIC_STAGE_BYTES) = saved
+                cp._SAVEALL_CHUNK.update(chunk)
+                cp._SAVEALL_LANES.update(lanes)
+                cp._CLASSIC_REVERSE_BLOCKS.update(blocks)
+            del rx, re_
         result["sweeps"][label] = sweeps
         print(json.dumps({label: {"checks": chk, "turns": {
             k: v for k, v in result["turns"].items() if k.endswith(label)},
             "sweeps": sweeps}}), flush=True)
-        del rx, re_, ox, oe, d7, d7b, o7, e7, oe7, w7, wl7
+        del kernels
         torch.cuda.empty_cache()
     sass = {}
     for kernel, pattern in SASS_KERNELS.items():
         for which, path in (("earlier", old_path), ("current", cur_path)):
-            for fn, lines in _sass(path, pattern).items():
+            for i, (fn, lines) in enumerate(_sass(path, pattern).items()):
                 sass[f"{kernel} {which} {fn}"] = _sass_counts(lines)
-                (OUT_DIR / f"{kernel}_{which}_{fn[:60]}.sass").write_text(
-                    "\n".join(lines))
-    result["sass_S20"] = sass
+                (OUT_DIR / f"{kernel}_{which}_{i}.sass").write_text(
+                    f"{fn}\n" + "\n".join(lines))
+    result["sass"] = sass
     result["ptxas_earlier"] = _ptxas_table(old_log)
     result["ptxas_current"] = ptxas_current or "library reused"
     args.out.parent.mkdir(parents=True, exist_ok=True)

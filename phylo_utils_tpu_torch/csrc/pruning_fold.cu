@@ -20,7 +20,8 @@
 // category, as in B1. The thread keeps F x S accumulators in registers, and
 // applies each category's P through pruning_common.cuh's times_child and
 // rescale_pow2, in B1's order, so every category's root and exponent count
-// is bit for bit B1's (csrc/pruning_forward.cu). Scratch is B1's layout,
+// is bit for bit B1's (csrc/pruning_forward.cu). Scratch is the whole-tree
+// layout of B1's first body (and of B2's residuals),
 //     scratch (B, K, n_nodes - n_leaves, sites, S), scratch_e (B, K, ..., sites),
 //     root (B, K, sites, S), root_e (B, K, sites).
 //
@@ -151,7 +152,7 @@ int dispatch_fold(int f, L&& launch, std::integer_sequence<int, Fs...>) {
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok),
 // or cudaErrorInvalidValue without launching when F does not divide K or is
-// not compiled at S. Buffers as pruning_forward_f32's; the caller allocates
+// not compiled at S. Buffers as documented above; the caller allocates
 // every one. S is 4 or 20.
 extern "C" int pruning_fold_f32(const void* p, const void* leaves,
                                 const void* order, const void* children,

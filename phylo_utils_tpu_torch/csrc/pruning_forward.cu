@@ -1,6 +1,6 @@
 // Felsenstein pruning forward walk for NVIDIA Hopper (sm_90a): the value
-// walk (pruning_forward_f32) and the walk that keeps every node's partials as
-// residuals for the gradient (pruning_saveall_f32).
+// walk (pruning_forward_f32, B1) and the walk that keeps every node's partials
+// as residuals for the gradient (pruning_saveall_f32, B2).
 //
 // pruning_forward_f32 replaces the TPU kernel
 // phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_kernel
@@ -13,49 +13,55 @@
 //     m   = max(max_i x_n[i], FLT_MIN),  x_n *= 2^-floor(log2 m),
 //     e_n = sum_c e_c + floor(log2 m)    (an exact integer count, kept in f32),
 // and it returns the root partials and the root exponent count. The caller
-// turns the count into ln units (x ln 2) in float64.
+// turns the count into ln units (x ln 2) in float64. Layouts, sites minor and
+// states innermost: leaves (n_leaves, sites, S), the JAX function's own;
+// root (B, K, sites, S), root_e (B, K, sites). Compiled for S = 4 (DNA) and
+// S = 20 (protein); the entry points refuse any other count.
 //
-// Design. One thread owns one (batch b, rate category k, site) column and
-// walks the whole tree for it, so there is no synchronisation at all: a
-// thread only ever reads partials it wrote itself. Grid is
-// (ceil(sites / 256), K, B) with 256 threads per block. Node partials live in
-// device memory with sites minor and states innermost,
-//     leaves  (n_leaves, sites, S)          -- the JAX function's own layout
-//     scratch (B, K, n_nodes - n_leaves, sites, S), indexed by id - n_leaves
-//     scratch_e (B, K, n_nodes - n_leaves, sites)
-//     root    (B, K, sites, S),  root_e (B, K, sites)
-// so each thread moves whole aligned 16-byte vectors per node (one at S = 4,
-// five at S = 20) and a warp touches 32 contiguous rows: fully coalesced,
-// with no state or site padding (the ragged site edge is masked by the early
-// return). The kernels are compiled for S = 4 (DNA) and S = 20 (protein);
-// the entry points dispatch on S and refuse any other count. P is read
-// through the read-only path: all threads of a block read the same P entries,
-// which the hardware broadcasts. Padding children (id 0 beyond counts[i]) are
-// never read.
+// What bounded its first body, measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md section 6): one thread a column walked the tree with every
+// internal node's row in a (B, K, n_inner, sites, S) device scratch that its
+// parent read back from L2, and read P through L1, one load per FMA. At the
+// flagship B = 1 its grid was (4, 4, 1), 16 blocks on 132 SMs, and its
+// device time (45-56 us) one chain of 63 dependent L2 round trips; 0.2389 ms
+// at B = 64 (8% of its bound); 12.68 ms at 512 taxa x 8192 LG patterns (3%).
 //
-// What bounds it on an H100: at S = 4, bytes. Per node and site it reads
-// 2 x S floats of children (plus their exponents) and writes S + 1 floats,
-// against about 4 x S^2 flops: at S = 4 that is ~40 bytes for ~64 flops,
-// below the card's ~20 flops/byte ridge for f32 on CUDA cores; at S = 20,
-// ~170 bytes for ~1600 flops, above it, so the protein walk is bound by its
-// operations (and by the 400 broadcast P loads per child). The design keeps the
-// node's S values in registers between the child loads and the single store,
-// so each partial crosses memory exactly once each way, and the scratch of a
-// B = 1 flagship walk (4 categories x 63 internal nodes x 1024 sites x 5
-// floats) fits in the 50 MB L2. When the whole-tree scratch outgrows that,
-// the value path takes the O(depth) slot walk of csrc/pruning_slot.cu.
+// Its body now is csrc/pruning_rows.cuh's live-row walk, shared with B4. It
+// keeps B1's level post-order (WalkSchedule.order); a free list over that
+// order gives each internal node a row that is live only until its parent
+// is combined (WalkSchedule.rows: 24 rows at the flagship, not 63), and the
+// rows live in shared memory, all of them in device memory where they do
+// not fit a block at 32 columns. P is staged two steps of edges ahead (B2's
+// ring by chunks of edges, 16-byte broadcast reads), and at 4 states in a
+// launch of few columns the leaf rows too; lanes (up to 4 at 4 states, 2
+// at 20), columns a block and the step come from the launch's shape
+// (ops/cuda_pruning.py::row_geometry), so that the flagship B = 1 launch
+// spreads over 128 blocks. Per node the arithmetic is the first body's, so
+// the roots keep its bits, which B2's root row, B4, B5, B8 and B9 are held
+// to.
+//
+// What bounds it now, measured in turns against the first body on the same
+// card (kernel_turns.py, PERF.md section 6): at 20 states config 4 takes
+// 0.092 ms (0.484 before), 512-taxon LG with every row in device memory
+// 1.76 ms (12.8 before); at the flagship B = 1, 41 us of device time (54
+// before): one warp a scheduler walks a chain of ~60 dependent
+// instructions an edge (SASS), so instruction latency, not memory, bounds
+// it; B = 64 is unchanged (0.236 ms), its 24 rows a column costing the
+// warps that B4's 4 slots leave free.
 //
 // pruning_saveall_f32 replaces the TPU kernel
 // phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_saveall_kernel: the same
 // walk, keeping every internal node's rescaled partials and exponent count,
 // the root's included, as the residuals of the reverse walks
 // (csrc/pruning_reverse.cu, csrc/pruning_classic_reverse.cu). The residuals
-// are the forward's scratch layout (B, K, n_inner, sites, S) and (B, K,
-// n_inner, sites); leaves are not copied (the reverse walks read the leaf
-// array). It runs on every gradient call, and at 20 states its first
-// version (the forward's body, P read one entry at a time through L1: one
-// load per FMA) took 12.46 ms at 512 taxa x 8192 LG patterns against a
-// 0.52 ms bound (NVIDIA H100 80GB HBM3, 700 W). Its own body:
+// are (B, K, n_inner, sites, S) and (B, K, n_inner, sites), indexed by node
+// id - n_leaves; leaves are not copied (the reverse walks read the leaf
+// array). Each thread moves whole aligned 16-byte vectors per node and a
+// warp touches contiguous rows. It runs on every gradient call, and at 20
+// states its first version (B1's first body, P read one entry at a time
+// through L1: one load per FMA) took 12.46 ms at 512 taxa x 8192 LG
+// patterns against a 0.52 ms bound (NVIDIA H100 80GB HBM3, 700 W). Its own
+// body:
 // - Every thread of a block walks the same post-order, so the block stages
 //   the children's P blocks in shared memory two steps ahead, in a
 //   kPStages-deep cp.async ring with one barrier a step, and reads them as
@@ -86,68 +92,11 @@
 // 32 registers to this body's 48), and less device time at B = 1 (44
 // against 56 us).
 
-#include "pruning_common.cuh"
+#include "pruning_rows.cuh"
 
 namespace {
 
 using pruning::kThreads;
-
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-pruning_forward_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S, S)
-                       const float* __restrict__ leaves,    // (n_leaves, sites, S)
-                       const int* __restrict__ order,       // (n_int,)
-                       const int* __restrict__ children,    // (n_int, cmax)
-                       const int* __restrict__ counts,      // (n_int,)
-                       float* __restrict__ scratch,         // (B, K, n_inner, sites, S)
-                       float* __restrict__ scratch_e,       // (B, K, n_inner, sites)
-                       float* __restrict__ root,            // (B, K, sites, S)
-                       float* __restrict__ root_e,          // (B, K, sites)
-                       int K, int n_nodes, int n_leaves, int n_int, int cmax,
-                       int sites) {
-  const int site = blockIdx.x * kThreads + threadIdx.x;
-  if (site >= sites) return;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
-  const size_t bk = static_cast<size_t>(b) * K + k;
-  float* __restrict__ xs = scratch + bk * n_inner * sites * S;
-  float* __restrict__ es = scratch_e + bk * n_inner * sites;
-  // P for (b, node, k) starts at pb + node * K * S * S
-  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
-  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
-
-  for (int i = 0; i < n_int; ++i) {
-    const int node = __ldg(order + i);
-    const int cnt = __ldg(counts + i);
-    float acc[S];
-#pragma unroll
-    for (int r = 0; r < S; ++r) acc[r] = 1.0f;
-    float e = 0.0f;
-    for (int c = 0; c < cnt; ++c) {
-      const int child = __ldg(children + i * cmax + c);
-      float x[S];
-      if (child < n_leaves) {
-        pruning::load_states<S>(leaves + (static_cast<size_t>(child) * sites + site) * S, x);
-      } else {
-        const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
-        pruning::load_states<S>(xs + row * S, x);
-        e += es[row];
-      }
-      pruning::times_child<S, false>(pb + child * p_node_stride, x, acc);
-    }
-    e += pruning::rescale_pow2<S>(acc);
-
-    if (i == n_int - 1) {  // the root is last in post-order
-      pruning::store_states<S>(root + (bk * sites + site) * S, acc);
-      root_e[bk * sites + site] = e;
-    } else {
-      const size_t row = static_cast<size_t>(node - n_leaves) * sites + site;
-      pruning::store_states<S>(xs + row * S, acc);
-      es[row] = e;
-    }
-  }
-}
 
 // The saveall walk (B2): kL lanes a column, P staged in shared memory by
 // chunks of `chunk` children of the walk (see the header).
@@ -286,31 +235,35 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// Pointers are device pointers to contiguous float32 / int32 buffers laid out
-// as documented above; the caller allocates every buffer. S is 4 or 20.
+// The value walk over B1's live rows (csrc/pruning_rows.cuh). `edges`
+// (n_edges,) holds the children of order[0], then of order[1], ...,
+// counts[i] each; eword (n_edges + 1,) one int2 an edge: .x the child's row
+// (-1 - leaf for a leaf), .y -2 or, on a node's last child, the row the
+// node writes (-1: the root); the last entry is read ahead and not used.
+// Rows [0, smem_rows) live in shared memory, the others in spill (B, K,
+// n_rows - smem_rows, sites, S) and spill_e (B, K, n_rows - smem_rows,
+// sites) (null when none). `lanes` lanes a column, `cols` columns a block,
+// `chunk` edges a step, leaf rows staged in shared memory (stage_leaves)
+// or read from device memory. Launch on `stream`; returns
+// cudaGetLastError() after the launch (0 = ok), the error of granting the
+// shared memory, or cudaErrorInvalidValue without launching for a geometry
+// that is not compiled. S is 4 or 20.
 extern "C" int pruning_forward_f32(const void* p, const void* leaves,
-                                   const void* order, const void* children,
-                                   const void* counts, void* scratch,
-                                   void* scratch_e, void* root, void* root_e,
-                                   int B, int K, int S, int n_nodes,
-                                   int n_leaves, int n_int, int cmax, int sites,
-                                   void* stream) {
-  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  return pruning::dispatch_states(S, [&](auto s) {
-    pruning_forward_kernel<decltype(s)::value>
-        <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(p), static_cast<const float*>(leaves),
-            static_cast<const int*>(order), static_cast<const int*>(children),
-            static_cast<const int*>(counts), static_cast<float*>(scratch),
-            static_cast<float*>(scratch_e), static_cast<float*>(root),
-            static_cast<float*>(root_e), K, n_nodes, n_leaves, n_int, cmax,
-            sites);
-    return static_cast<int>(cudaGetLastError());
-  });
+                                   const void* edges, const void* eword,
+                                   void* spill, void* spill_e, void* root,
+                                   void* root_e, int B, int K, int S,
+                                   int n_nodes, int n_leaves, int n_edges,
+                                   int sites, int n_rows, int smem_rows,
+                                   int lanes, int cols, int chunk,
+                                   int stage_leaves, void* stream) {
+  const pruning::RowWalk w{
+      static_cast<const float*>(p),   static_cast<const float*>(leaves),
+      static_cast<const int*>(edges), static_cast<const int2*>(eword),
+      static_cast<float*>(spill),     static_cast<float*>(spill_e),
+      static_cast<float*>(root),      static_cast<float*>(root_e),
+      K, n_nodes, n_leaves, n_edges, sites,
+      n_rows, smem_rows, cols, chunk, stage_leaves};
+  return pruning::launch_rows(w, B, S, lanes, stream);
 }
 
 // The forward walk keeping every internal node, the root included, in

@@ -14,17 +14,32 @@
 // walk runs in DFS post-order (ops/cuda_pruning.py::_dfs_slot_schedule, a
 // port of the JAX package's _dfs_slot_schedule), a node's partials are dead
 // once its parent is combined, so a free list gives each internal node a
-// reusable slot and the scratch is (B, K, n_slots, sites, S + 1) with n_slots
-// of the order of the tree's depth (a few MB per (b, k), which stays in the
-// 50 MB L2). A child is read from the leaf array or from its slot
-// (child_isleaf); a node may write the slot of one of its children, after
-// all its children were read.
+// reusable slot, n_slots of the order of the tree's depth (8 at 1000 taxa,
+// 4 at the flagship, 1 on a caterpillar). A child is read from the leaf
+// array or from its slot; a node may write the slot of one of its children,
+// after all its children were read.
 //
-// B4: one thread owns one (batch b, rate category k, site) column and walks
-// the whole tree for it; grid (ceil(sites / 256), K, B); rows of S floats,
-// states innermost, read and written as 16-byte vectors; P read through the
-// read-only path (every thread of a block reads the same S x S block, which
-// the hardware broadcasts through L1). Bytes bound it at S = 4.
+// B4. What bounded its first body, measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md section 6): one thread a column walked the tree with its
+// slots in device memory, (B, K, n_slots, sites, S + 1), each node's row
+// written there and read back by its parent from L2, P read through L1.
+// At 1000 taxa x 8192 DNA patterns (32,768 columns: ~8 warps an SM) it
+// took 1.265 ms, ~1.27 us a node: one memory round trip per node with too
+// few warps to hide it, 3% of its bound (0.0395 ms, the 131 MB of leaves).
+// The TPU kernel keeps the slots in VMEM. Its body now is csrc/
+// pruning_rows.cuh's live-row walk (shared with B1) over the DFS walk's
+// flat edges (SlotSchedule.rows): the slots live in shared memory (8 rows
+// x (S + 1) floats a column at 1000 taxa), all of them in device memory
+// (same kernel) where they do not fit a block at 32 columns; P is staged two steps of edges ahead, and at
+// 4 states in a launch of few columns the leaf rows too, which are then its
+// only device-memory reads; up to four lanes share a column
+// (ops/cuda_pruning.py::row_geometry). A node of any number of children
+// runs. What bounds it now, measured in turns against the first body
+// (kernel_turns.py, PERF.md section 6): 0.639 ms at 1000-taxon DNA (1.241
+// before, 6% of its bytes bound), latency with ~15 warps an SM; 0.132 ms
+// at the flagship B = 64 (0.190 before), the issue of ~45 instructions a
+// column and edge against 20 FMAs and multiplies; 41 us of device time at
+// B = 1, as B1.
 //
 // B5 is the protein walk, bound by operations: 2 S^2 flops per child and
 // column against ~170 bytes per node and column at S = 20. Its first
@@ -55,70 +70,11 @@
 // 700 W (kernel_turns.py, PERF.md section 6): 1.65 ms at 512 taxa
 // x 8192 LG patterns, 25% of its operations bound (1.93 ms, 22%, before).
 
-#include "pruning_common.cuh"
+#include "pruning_rows.cuh"
 
 namespace {
 
 using pruning::kThreads;
-
-// The slot walk (B4): one thread per column, P read through the read-only
-// path from device memory.
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-pruning_slot_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
-                    const float* __restrict__ leaves,   // (n_leaves, sites, S)
-                    const int* __restrict__ nslot,      // (n_int,) slot a node writes
-                    const int* __restrict__ cnode,      // (n_int, cmax) child node ids
-                    const int* __restrict__ csrc,       // (n_int, cmax) leaf or slot id
-                    const int* __restrict__ cleaf,      // (n_int, cmax) 1: child is a leaf
-                    const int* __restrict__ counts,     // (n_int,)
-                    float* __restrict__ slots,          // (B, K, n_slots, sites, S)
-                    float* __restrict__ slots_e,        // (B, K, n_slots, sites)
-                    float* __restrict__ root,           // (B, K, sites, S)
-                    float* __restrict__ root_e,         // (B, K, sites)
-                    int K, int n_nodes, int n_slots, int n_int, int cmax,
-                    int sites) {
-  const int site = blockIdx.x * kThreads + threadIdx.x;
-  if (site >= sites) return;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t bk = static_cast<size_t>(b) * K + k;
-  float* __restrict__ xs = slots + bk * n_slots * sites * S;
-  float* __restrict__ es = slots_e + bk * n_slots * sites;
-  // P for (b, node, k) starts at pb + node * K * S * S
-  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
-  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
-
-  for (int i = 0; i < n_int; ++i) {
-    const int cnt = __ldg(counts + i);
-    float acc[S];
-#pragma unroll
-    for (int r = 0; r < S; ++r) acc[r] = 1.0f;
-    float e = 0.0f;
-    for (int c = 0; c < cnt; ++c) {
-      const int src = __ldg(csrc + i * cmax + c);
-      float x[S];
-      if (__ldg(cleaf + i * cmax + c)) {
-        pruning::load_states<S>(leaves + (static_cast<size_t>(src) * sites + site) * S, x);
-      } else {
-        const size_t row = static_cast<size_t>(src) * sites + site;
-        pruning::load_states<S>(xs + row * S, x);
-        e += es[row];
-      }
-      const int child = __ldg(cnode + i * cmax + c);
-      pruning::times_child<S, false>(pb + child * p_node_stride, x, acc);
-    }
-    e += pruning::rescale_pow2<S>(acc);
-    if (i == n_int - 1) {  // the root is last in DFS post-order
-      pruning::store_states<S>(root + (bk * sites + site) * S, acc);
-      root_e[bk * sites + site] = e;
-    } else {  // may be a child's slot: every child was read above
-      const size_t row = static_cast<size_t>(__ldg(nslot + i)) * sites + site;
-      pruning::store_states<S>(xs + row * S, acc);
-      es[row] = e;
-    }
-  }
-}
 
 // Lanes per column of the stream walk: at 20 states two lanes share a
 // column, each forming half of its rows, which doubles the warps in flight
@@ -264,69 +220,75 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
   }
 }
 
-template <bool kStageP>
-int launch_slot(const void* p, const void* leaves, const void* nslot,
-                const void* cnode, const void* csrc, const void* cleaf,
-                const void* counts, void* slots, void* slots_e, void* root,
-                void* root_e, int B, int K, int S, int n_nodes, int n_slots,
-                int n_int, int cmax, int sites, void* stream) {
+int launch_stream(const void* p, const void* leaves, const void* nslot,
+                  const void* cnode, const void* csrc, const void* cleaf,
+                  const void* counts, void* slots, void* slots_e, void* root,
+                  void* root_e, int B, int K, int S, int n_nodes, int n_slots,
+                  int n_int, int cmax, int sites, void* stream) {
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_slots <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    // kThreads a block, `per_block` sites a block
-    const auto launch = [&](auto kernel, int per_block, size_t smem) {
-      const dim3 grid((sites + per_block - 1) / per_block, K, B);
-      kernel<<<grid, kThreads, smem, st>>>(
-          static_cast<const float*>(p), static_cast<const float*>(leaves),
-          static_cast<const int*>(nslot), static_cast<const int*>(cnode),
-          static_cast<const int*>(csrc), static_cast<const int*>(cleaf),
-          static_cast<const int*>(counts), static_cast<float*>(slots),
-          static_cast<float*>(slots_e), static_cast<float*>(root),
-          static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax,
-          sites);
-      return static_cast<int>(cudaGetLastError());
-    };
-    if constexpr (!kStageP) {
-      return launch(pruning_slot_kernel<kS>, kThreads, 0);
-    } else {
-      auto kernel = pruning_stream_kernel<kS>;
-      const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax * kS *
-                          kS * sizeof(float);
-      if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-      }
-      return launch(kernel, kThreads / stream_lanes<kS>(), smem);
+    auto kernel = pruning_stream_kernel<kS>;
+    const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax * kS *
+                        kS * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
+    // kThreads a block, kThreads / stream_lanes sites a block
+    const int per_block = kThreads / stream_lanes<kS>();
+    const dim3 grid((sites + per_block - 1) / per_block, K, B);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(p), static_cast<const float*>(leaves),
+        static_cast<const int*>(nslot), static_cast<const int*>(cnode),
+        static_cast<const int*>(csrc), static_cast<const int*>(cleaf),
+        static_cast<const int*>(counts), static_cast<float*>(slots),
+        static_cast<float*>(slots_e), static_cast<float*>(root),
+        static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax,
+        sites);
+    return static_cast<int>(cudaGetLastError());
   });
 }
 
 }  // namespace
 
-// The slot walk, P read from device memory. Launch on `stream`; returns
-// cudaGetLastError() after the launch (0 = ok). Device pointers to contiguous
-// float32 / int32 buffers laid out as documented above, every one 16-byte
-// aligned; the caller allocates every buffer (slots, slots_e are scratch).
-// S is 4 or 20.
+// The slot walk over B4's DFS slots (csrc/pruning_rows.cuh): `edges`,
+// `eword`, the spill rows and the launch geometry as pruning_forward_f32's
+// (csrc/pruning_forward.cu), over ops/cuda_pruning.py::SlotSchedule.rows,
+// n_rows = n_slots. Launch on `stream`; returns cudaGetLastError() after
+// the launch (0 = ok), the error of granting the shared memory, or
+// cudaErrorInvalidValue without launching for a geometry that is not
+// compiled. S is 4 or 20.
 extern "C" int pruning_slot_f32(const void* p, const void* leaves,
-                                const void* nslot, const void* cnode,
-                                const void* csrc, const void* cleaf,
-                                const void* counts, void* slots, void* slots_e,
-                                void* root, void* root_e, int B, int K, int S,
-                                int n_nodes, int n_slots, int n_int, int cmax,
-                                int sites, void* stream) {
-  return launch_slot<false>(p, leaves, nslot, cnode, csrc, cleaf, counts,
-                            slots, slots_e, root, root_e, B, K, S, n_nodes,
-                            n_slots, n_int, cmax, sites, stream);
+                                const void* edges, const void* eword,
+                                void* spill, void* spill_e, void* root,
+                                void* root_e, int B, int K, int S,
+                                int n_nodes, int n_leaves, int n_edges,
+                                int sites, int n_rows, int smem_rows,
+                                int lanes, int cols, int chunk,
+                                int stage_leaves, void* stream) {
+  const pruning::RowWalk w{
+      static_cast<const float*>(p),   static_cast<const float*>(leaves),
+      static_cast<const int*>(edges), static_cast<const int2*>(eword),
+      static_cast<float*>(spill),     static_cast<float*>(spill_e),
+      static_cast<float*>(root),      static_cast<float*>(root_e),
+      K, n_nodes, n_leaves, n_edges, sites,
+      n_rows, smem_rows, cols, chunk, stage_leaves};
+  return pruning::launch_rows(w, B, S, lanes, stream);
 }
 
-// The slot walk with each node's child P blocks staged in shared memory one
-// node ahead (cp.async double buffer). Same contract as pruning_slot_f32.
+// The slot walk with each node's child P blocks staged in shared memory
+// two nodes ahead (B5): slots (B, K, n_slots, sites, S) and slots_e (B, K,
+// n_slots, sites) in device memory, node i writing slot nslot[i], its
+// children cnode[i, :counts[i]] read from the leaf array (cleaf) or slot
+// csrc. Launch on `stream`; returns cudaGetLastError() after the launch
+// (0 = ok). Device pointers to contiguous float32 / int32 buffers, every
+// one 16-byte aligned; the caller allocates every buffer. S is 4 or 20.
 extern "C" int pruning_stream_f32(const void* p, const void* leaves,
                                   const void* nslot, const void* cnode,
                                   const void* csrc, const void* cleaf,
@@ -335,7 +297,7 @@ extern "C" int pruning_stream_f32(const void* p, const void* leaves,
                                   int B, int K, int S, int n_nodes,
                                   int n_slots, int n_int, int cmax, int sites,
                                   void* stream) {
-  return launch_slot<true>(p, leaves, nslot, cnode, csrc, cleaf, counts,
-                           slots, slots_e, root, root_e, B, K, S, n_nodes,
-                           n_slots, n_int, cmax, sites, stream);
+  return launch_stream(p, leaves, nslot, cnode, csrc, cleaf, counts, slots,
+                       slots_e, root, root_e, B, K, S, n_nodes, n_slots, n_int,
+                       cmax, sites, stream);
 }

@@ -20,15 +20,17 @@
 // per node keeps each node's registers to itself, as B1's loop does.
 // Per column it computes what B1 (csrc/pruning_forward.cu) computes,
 // with the same helpers in the same order (times_child, rescale_pow2), so its
-// root and exponent count are bit for bit B1's. Layouts are B1's:
+// root and exponent count are bit for bit B1's. Layouts are those of B1's
+// first body (whole-tree scratch):
 //     p (B, n_nodes, K, S, S), leaves (n_leaves, sites, S),
 //     scratch (B, K, n_nodes - n_leaves, sites, S), scratch_e (B, K, ..., sites),
 //     root (B, K, sites, S), root_e (B, K, sites);
 // one thread per (batch, category, site) column, grid (ceil(sites / 256), K, B).
 //
-// What bounds it on an H100: what bounds B1 (bytes at 4 states, operations
-// and the broadcast P loads at 20); the unrolled walk removes B1's per-node
-// index loads and loop branches, and adds a call per node. The price is the
+// What bounds it on an H100: what bounded B1's first body (bytes at 4
+// states, operations and the broadcast P loads at 20); the unrolled walk
+// removes that body's per-node index loads and loop branches, and adds a
+// call per node. The price is the
 // build: one nvcc per topology and state count, whose time grows with the
 // number of nodes (ops/_build.py records it).
 //
@@ -152,7 +154,7 @@ pruning_static_kernel(const float* __restrict__ p,
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok),
 // or cudaErrorInvalidValue without launching when the shapes are not the
-// ones this library was compiled for. Buffers as pruning_forward_f32's; the
+// ones this library was compiled for. Buffers as documented above; the
 // caller allocates every one.
 extern "C" int pruning_static_f32(const void* p, const void* leaves,
                                   void* scratch, void* scratch_e, void* root,

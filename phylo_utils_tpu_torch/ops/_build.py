@@ -77,10 +77,10 @@ def _nvcc() -> str:
 # the order of the C signatures in csrc/: the pointers come first, then the
 # counts, then the stream
 SIGNATURES = (
-    ("pruning_forward_f32", 9, 8),
+    ("pruning_forward_f32", 8, 13),
     ("pruning_saveall_f32", 7, 10),
     ("pruning_reverse_f32", 15, 11),
-    ("pruning_slot_f32", 11, 8),
+    ("pruning_slot_f32", 8, 13),
     ("pruning_stream_f32", 11, 8),
     ("pruning_classic_reverse_f32", 15, 13),
     ("pruning_fold_f32", 9, 9),

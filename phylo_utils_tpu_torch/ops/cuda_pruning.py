@@ -8,16 +8,20 @@ CUDA tensor launches the kernel or raises):
 - ``forward_walk(..., walk="classic")`` (``csrc/pruning_forward.cu``,
   replaces the TPU kernel ``_dynamic_kernel``): a post-order walk that forms
   y_c = P_c . x_c per child, multiplies the y's, and rescales each node by an
-  exact power of two with integer exponent counts; returns the root. Plain
-  version ``forward_walk_reference``.
+  exact power of two with integer exponent counts; returns the root. It
+  keeps only the rows live at once (``WalkSchedule.rows``, a free list over
+  its level post-order) in shared memory, all of them in device memory
+  where they do not fit (``row_geometry``). Plain version
+  ``forward_walk_reference``.
 - ``slot_walk`` (``csrc/pruning_slot.cu``): the same walk in DFS post-order
-  over reusable slots (``SlotSchedule``), so its scratch is O(depth) rows
-  instead of one per internal node; ``pruning_slot_f32`` reads P from device
-  memory (replaces ``_dynamic_slot_kernel``), ``pruning_stream_f32`` stages
-  each node's P blocks in shared memory one node ahead (replaces
-  ``_dynamic_slot_stream_kernel``). Both roots are bit for bit the forward
-  kernel's. Plain version ``slot_walk_reference``. ``forward_walk`` picks
-  among the three walks (``choose_walk``).
+  over reusable slots (``SlotSchedule``), O(depth) rows instead of one per
+  internal node; ``pruning_slot_f32`` (replaces ``_dynamic_slot_kernel``)
+  is B1's live-row body (``csrc/pruning_rows.cuh``) over the slots
+  (``SlotSchedule.rows``), ``pruning_stream_f32`` stages each node's P
+  blocks in shared memory two nodes ahead, its slots in device memory
+  (replaces ``_dynamic_slot_stream_kernel``). Both roots are bit for bit
+  the forward kernel's. Plain version ``slot_walk_reference``.
+  ``forward_walk`` picks among the three walks (``choose_walk``).
 - ``saveall_walk`` (same source, replaces ``_dynamic_saveall_kernel``): the
   same walk keeping every internal node's partials and exponent count, the
   residuals of the gradient, with P staged in shared memory by chunks of
@@ -75,6 +79,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -105,8 +110,12 @@ __all__ = [
     "FOLD_WIDTHS",
     "WalkSchedule",
     "SlotSchedule",
+    "RowWalk",
+    "RowGeometry",
     "ReverseSchedule",
     "choose_walk",
+    "row_geometry",
+    "row_smem_bytes",
     "choose_reverse",
     "choose_lowering",
     "forward_walk",
@@ -186,11 +195,29 @@ _CLASSIC_REVERSE_BLOCKS = {4: 1056, 20: 264}
 # reads its P through, measured the same on a node of 49 children
 _CLASSIC_STAGE_BYTES = _REVERSE_SMEM
 # bytes of whole-tree scratch up to which the value path takes the classic
-# walk (see choose_walk): the H100's 50 MB L2. On an NVIDIA H100 80GB HBM3
-# (700 W) the classic walk was the fastest of the three at 5 and 21 MB of
-# scratch (64-taxon DNA, B = 1 and 4) and the slot walk 26% faster than it
-# at 83 MB (B = 16) (chip_smoke.py phase 16)
+# walk (see choose_walk): the H100's 50 MB L2. It is the scratch the classic
+# walk's lowerings (B8, B9) allocate; B1 keeps its live rows on the SM and
+# allocates only rows that do not fit there. With B1 and B4 on one body
+# (csrc/pruning_rows.cuh) the line still falls where the turns put it: on an
+# NVIDIA H100 80GB HBM3 (700 W) B1 and B4 took the same device time at the
+# flagship B = 1 (5 MB), config 4 (11 MB) and config 5's tree, and B4 was
+# 2.4x faster at B = 16 (83 MB) and 1.7x at B = 64 (330 MB), where B1's 24
+# rows a column cost warps (chip_smoke.py phase 16, PERF.md section 6)
 CLASSIC_SCRATCH_BUDGET = 50 * 2 ** 20
+# B1's and B4's launch geometry (row_geometry): the lanes a column may take
+# by state count (csrc/pruning_rows.cuh compiles these) and the edges a step
+# of the ring may copy ahead
+_ROW_LANES = {4: (1, 2, 4), 20: (1, 2)}
+_ROW_CHUNKS = (2, 4, 8)
+# the warps an SM a row-walk launch aims for: the fewest lanes a column
+# that reach it, else the lanes that put the most warps on an SM. Below it
+# at one lane a column, a 4-state launch also stages its leaf rows in the
+# ring (latency, not warps, bounds it there); at 20 states and in larger
+# launches the ring's leaf rows cost more warps than they save
+_ROW_WARPS = 12
+# an H100: its SMs, and what one SM holds (shared memory with the 1 KB a
+# block reserves, blocks, threads)
+_SMS, _SM_SMEM, _SM_BLOCKS, _SM_THREADS = 132, 233_472, 32, 2048
 
 
 def _postorder_arrays(schedule: PruningSchedule):
@@ -349,15 +376,79 @@ def _on_device(cache: dict, device: torch.device, arrays):
     return cache[device]
 
 
+def _live_rows(order, children, counts, n_leaves: int):
+    """B1's live rows over its own post-order: (nrow (n_int,), erow
+    (n_edges,), n_rows). A node's row is live from its own visit to its
+    parent's, so a free list gives each internal node but the root (which
+    the walk writes to its output) a reusable row; a node may take a row
+    one of its children freed, after every child is read. ``erow[f]`` is
+    the row of the f-th child in walk order (``WalkSchedule.edges``), -1
+    for a leaf; ``nrow`` is -1 for the root."""
+    row_of: dict = {}
+    free: list = []
+    n_rows = 0
+    nrow = np.full(len(order), -1, np.int32)
+    erow = []
+    for i, (node, kids, cnt) in enumerate(zip(order.tolist(),
+                                               children.tolist(),
+                                               counts.tolist())):
+        for ch in kids[:cnt]:
+            erow.append(row_of.get(ch, -1))
+            if ch >= n_leaves:     # read: its row is free again
+                free.append(row_of.pop(ch))
+        if i == len(order) - 1:
+            break
+        if free:
+            r = free.pop()
+        else:
+            r = n_rows
+            n_rows += 1
+        row_of[node] = nrow[i] = r
+    return nrow, np.asarray(erow, np.int32), n_rows
+
+
+class RowWalk:
+    """A walk as B1's and B4's kernel takes it (``csrc/pruning_rows.cuh``):
+    the children of the nodes in walk order, flattened (``edges``), and one
+    word an edge (``eword``): the child's row (``erow``, the row it was
+    written to) or -1 - leaf for a leaf, and -2 or, on a node's last child,
+    the row the node writes (``nrow``; -1 for the root, last, which writes
+    the output); one more word that the kernel reads ahead; ``n_rows``
+    rows. Built from the walk's ``erow`` (-1 for a leaf), child ``counts``
+    and ``nrow``; with int32 copies on each device that has used it."""
+
+    def __init__(self, edges, erow, counts, nrow, n_rows: int):
+        self.edges = np.ascontiguousarray(edges, dtype=np.int32)
+        word = np.full((len(self.edges) + 1, 2), -2, np.int32)
+        word[:-1, 0] = np.where(np.asarray(erow) >= 0, erow, -1 - self.edges)
+        word[np.cumsum(counts) - 1, 1] = nrow
+        word[-1, 0] = 0
+        self.eword = word
+        self.n_rows = int(n_rows)
+        self._on_device = {}
+
+    def on(self, device: torch.device):
+        """(edges, eword) on device."""
+        return _on_device(self._on_device, device, (self.edges, self.eword))
+
+
 class SlotSchedule:
     """The DFS slot walk of one schedule (``_dfs_slot_schedule``): host
-    arrays plus their int32 copies on each device that has used them."""
+    arrays plus their int32 copies on each device that has used them, and
+    ``rows``, the walk as B4's kernel takes it."""
 
     def __init__(self, schedule: PruningSchedule):
         (self.nslot, self.child_node, self.child_src, self.child_isleaf,
          self.counts, self.n_slots, self.root_slot) = _dfs_slot_schedule(
             schedule)
         self._on_device = {}
+        real = [slice(0, int(c)) for c in self.counts]
+        self.rows = RowWalk(
+            np.concatenate([a[sl] for a, sl in zip(self.child_node, real)]),
+            np.concatenate([np.where(leaf[sl] > 0, -1, src[sl]) for src, leaf,
+                            sl in zip(self.child_src, self.child_isleaf,
+                                      real)]),
+            self.counts, np.append(self.nslot[:-1], -1), self.n_slots)
 
     def on(self, device: torch.device):
         """(nslot, child_node, child_src, child_isleaf, counts) on device."""
@@ -394,10 +485,10 @@ class ReverseSchedule:
 
 class WalkSchedule:
     """The post-order walk of one schedule: host arrays plus their int32
-    copies on each device that has used them, and (built at first use) the
-    schedule's DFS slot walk, ``slots``, its classic reverse walk,
-    ``reverse``, and its topology-compiled kernel library per state count,
-    ``static_library``."""
+    copies on each device that has used them, and (built at first use) B1's
+    live rows, ``rows``, the schedule's DFS slot walk, ``slots``, its
+    classic reverse walk, ``reverse``, and its topology-compiled kernel
+    library per state count, ``static_library``."""
 
     def __init__(self, schedule: PruningSchedule):
         self.order, self.children, self.counts = _postorder_arrays(schedule)
@@ -413,6 +504,7 @@ class WalkSchedule:
         self.n_leaves = schedule.n_leaves
         self.root = int(self.order[-1])    # the root is last in post-order
         self._schedule = schedule
+        self._rows = None
         self._slots = None
         self._reverse = None
         self._static = {}
@@ -428,6 +520,15 @@ class WalkSchedule:
                 self.order, self.children, self.counts, self.n_nodes,
                 self.n_leaves, s)
         return self._static[s]
+
+    @property
+    def rows(self) -> RowWalk:
+        """The level post-order with B1's live rows (``_live_rows``)."""
+        if self._rows is None:
+            nrow, erow, n_rows = _live_rows(self.order, self.children,
+                                            self.counts, self.n_leaves)
+            self._rows = RowWalk(self.edges, erow, self.counts, nrow, n_rows)
+        return self._rows
 
     @property
     def slots(self) -> SlotSchedule:
@@ -786,6 +887,8 @@ def _device_budget(need: int, device: torch.device) -> int:
 def _batch_chunk(b: int, bytes_per_b: int, device: torch.device) -> int:
     """How many batch elements one launch may take so its scratch fits the
     device memory that is free now; raises when not even one fits."""
+    if bytes_per_b == 0:
+        return min(b, _MAX_GRID_Z)
     budget = _device_budget(b * bytes_per_b, device)
     if bytes_per_b > budget:
         raise MemoryError(
@@ -830,14 +933,111 @@ def choose_walk(b: int, k: int, n_inner: int, sites: int, s: int) -> str:
     """The value path's walk for a launch of ``b`` batch elements, ``k``
     categories, ``n_inner`` internal nodes, ``sites`` sites, ``s`` states.
 
-    The classic walk while its whole-tree scratch, b k n_inner sites (s + 1)
-    float32, fits ``CLASSIC_SCRATCH_BUDGET`` bytes; beyond that the O(depth)
-    slot walk, with P staged in shared memory ("stream") at 20 states and
-    more, read from device memory ("slot") below.
+    The classic walk while its lowerings' whole-tree scratch, b k n_inner
+    sites (s + 1) float32, fits ``CLASSIC_SCRATCH_BUDGET`` bytes; beyond
+    that the O(depth) slot walk: at 20 states and more the stream walk
+    (B5), below it the slot walk (B4).
     """
     if b * k * n_inner * sites * (s + 1) * 4 <= CLASSIC_SCRATCH_BUDGET:
         return "classic"
     return "stream" if s >= 20 else "slot"
+
+
+RowGeometry = collections.namedtuple(
+    "RowGeometry", "lanes cols chunk stage_leaves smem_rows smem_bytes")
+
+
+def row_smem_bytes(s: int, cols: int, chunk: int, stage_leaves: bool,
+                   smem_rows: int) -> int:
+    """Dynamic shared memory of one B1 / B4 block (``csrc/pruning_rows.cuh``
+    ``row_smem_bytes``): a 3-stage ring, each stage the P blocks of
+    ``chunk`` edges and, with ``stage_leaves``, a leaf row of each of them
+    for every one of ``cols`` columns, then ``smem_rows`` rows of S floats
+    and an exponent a column."""
+    stage = chunk * s * s + (chunk * cols * s if stage_leaves else 0)
+    return 4 * (3 * stage + smem_rows * cols * (s + 1))
+
+
+def _rows_that_fit(s, cols, chunk, stage_leaves) -> int:
+    free = _REVERSE_SMEM - row_smem_bytes(s, cols, chunk, stage_leaves, 0)
+    return max(0, free // (4 * cols * (s + 1)))
+
+
+def _occupancy(b, k, sites, s, rows, lanes, cols, chunk, stage_leaves):
+    """(warps an SM holds on average over the card, SMs the launch's blocks
+    reach) for one geometry: the blocks an SM can hold by threads, blocks
+    and shared memory, capped by the launch's blocks over the SMs."""
+    smem = row_smem_bytes(s, cols, chunk, stage_leaves, min(
+        rows, _rows_that_fit(s, cols, chunk, stage_leaves)))
+    threads = cols * lanes
+    per_sm = min(_SM_BLOCKS, _SM_THREADS // threads, _SM_SMEM // (smem + 1024))
+    blocks = -(-sites // cols) * k * b
+    return min(per_sm, blocks / _SMS) * threads / 32, min(blocks, _SMS)
+
+
+@functools.lru_cache(maxsize=1024)   # a pure function of its arguments
+def row_geometry(b: int, k: int, sites: int, s: int, rows: int, *,
+                 lanes: Optional[int] = None, cols: Optional[int] = None,
+                 chunk: Optional[int] = None,
+                 stage_leaves: Optional[bool] = None,
+                 smem_rows: Optional[int] = None) -> RowGeometry:
+    """The launch geometry of B1 or B4 for ``b`` batch elements, ``k``
+    categories, ``sites`` sites, ``s`` states and a walk of ``rows`` rows;
+    a keyword given fixes that choice.
+
+    Leaf rows go through the ring (``stage_leaves``) at 4 states in a
+    launch of fewer than ``_ROW_WARPS`` warps an SM at one lane a column.
+    Lanes a column (``_ROW_LANES``), columns a block (``cols``, a power of
+    two from 32 to 256 / lanes) and edges a step (``_ROW_CHUNKS``) are the
+    ones that put the most warps on an SM (``_occupancy``): the fewest
+    lanes that reach ``_ROW_WARPS``, else the lanes with the most; for
+    those lanes the most warps, then on the most SMs, then the longest
+    step, then the widest block, among the blocks whose shared memory holds
+    every row (or the ``smem_rows`` given). Where not even 32 columns hold
+    them at the shortest step, every row lives in device memory
+    (``smem_rows`` 0): keeping the rows that fit on the SM cost more in
+    warps than it saved (B1 at 512-taxon LG: 8.77 ms with 82 of its 170
+    rows on the SM, 1.76 ms with none; NVIDIA H100 80GB HBM3, 700 W,
+    kernel_turns.py, PERF.md section 6). Shared memory never passes an
+    H100 block's 232,448 bytes."""
+    if lanes is not None and lanes not in _ROW_LANES[s]:
+        raise ValueError(f"lanes must be one of {_ROW_LANES[s]} at {s} "
+                         f"states, not {lanes}")
+    if stage_leaves is None:
+        stage_leaves = s == 4 and b * k * sites < _SMS * _ROW_WARPS * 32
+    chunks = _ROW_CHUNKS if chunk is None else (chunk,)
+    held_rows = rows if smem_rows is None else smem_rows
+    if held_rows > _rows_that_fit(s, 32, min(chunks), stage_leaves):
+        held_rows = 0   # they do not fit: all in device memory
+    best = None
+    for n in (_ROW_LANES[s] if lanes is None else (lanes,)):
+        shapes = [(k_, c) for k_ in chunks for c in (
+            (256, 128, 64, 32) if cols is None else (cols,)) if c * n <= 256]
+        if cols is None:
+            shapes = [(k_, c) for k_, c in shapes
+                      if _rows_that_fit(s, c, k_, stage_leaves) >= held_rows]
+        # the most warps, then on the most SMs, the longest step, the
+        # widest block
+        (warps, _), k_, c = max(
+            (_occupancy(b, k, sites, s, held_rows, n, c, k_, stage_leaves),
+             k_, c) for k_, c in shapes)
+        if best is None or warps > best[0]:
+            best = (warps, n, c, k_)
+        if warps >= _ROW_WARPS:
+            break
+    _, lanes, cols, chunk = best
+    if row_smem_bytes(s, cols, chunk, stage_leaves, 0) > _REVERSE_SMEM:
+        raise ValueError(f"a ring of {chunk} edges x {cols} columns does not "
+                         f"fit a block's shared memory at {s} states")
+    fit = min(rows, _rows_that_fit(s, cols, chunk, stage_leaves))
+    if smem_rows is None:
+        smem_rows = min(held_rows, fit)
+    elif not 0 <= smem_rows <= fit:
+        raise ValueError(f"smem_rows {smem_rows} is not in [0, {fit}]: "
+                         f"{rows} rows, {fit} fit at {cols} columns")
+    return RowGeometry(lanes, cols, chunk, bool(stage_leaves), smem_rows,
+                       row_smem_bytes(s, cols, chunk, stage_leaves,
+                                      smem_rows))
 
 
 def _pick_fold(k: int, s: int) -> int:
@@ -914,24 +1114,80 @@ def forward_walk(
                 return fold_walk(p, leaves, schedule, fold)
     if walk != "classic":
         return slot_walk(p, leaves, schedule, stream=walk == "stream")
+    return _row_walk(p, leaves, schedule, "forward")
+
+
+def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
+              kind: str, **geometry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Root partials and root exponent count from B1 (``kind`` "forward":
+    ``walk.rows``) or B4 ("slot": ``walk.slots.rows``), the live-row walk
+    of ``csrc/pruning_rows.cuh``. ``geometry``: keywords of
+    ``row_geometry`` that fix its choices (``smem_rows``: rows kept in
+    shared memory, the rest in device memory; ``lanes``, ``cols``,
+    ``chunk``, ``stage_leaves``). CPU tensors take the plain version
+    (``forward_walk_reference`` or ``slot_walk_reference``); CUDA tensors
+    launch the kernel, once per batch chunk whose spilled rows fit free
+    device memory, on the current stream."""
+    global LAUNCHES, SLOT_LAUNCHES
     if p.device.type == "cpu":
-        return forward_walk_reference(p, leaves, schedule)
-    return _classic_launch("forward", _cuda_library(p, leaves), p, leaves,
-                           schedule)
+        plain = (forward_walk_reference if kind == "forward"
+                 else slot_walk_reference)
+        return plain(p, leaves, walk)
+    lib = _cuda_library(p, leaves)
+    rw = walk.rows if kind == "forward" else walk.slots.rows
+    batched = p.dim() == 5
+    pb = p if batched else p[None]
+    b, _, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    geo = row_geometry(b, k, sites, s, rw.n_rows, **geometry)
+    n_spill = rw.n_rows - geo.smem_rows
+    device = p.device
+    edges, eword = rw.on(device)
+    root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
+    root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
+    chunk = _batch_chunk(b, k * n_spill * sites * (s + 1) * 4, device)
+    name, counter = (("pruning_forward_f32", "LAUNCHES") if kind == "forward"
+                     else ("pruning_slot_f32", "SLOT_LAUNCHES"))
+    launch = getattr(lib, name)
+    stream = _stream(device)
+    for b0 in range(0, b, chunk):
+        nb = min(chunk, b - b0)
+        spill = spill_e = None
+        if n_spill:
+            spill = torch.empty((nb, k, n_spill, sites, s),
+                                dtype=torch.float32, device=device)
+            spill_e = torch.empty((nb, k, n_spill, sites),
+                                  dtype=torch.float32, device=device)
+        rc = launch(
+            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), edges.data_ptr(),
+            eword.data_ptr(), None if spill is None else spill.data_ptr(),
+            None if spill_e is None else spill_e.data_ptr(),
+            root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr(), nb,
+            k, s, walk.n_nodes, walk.n_leaves, len(rw.edges), sites,
+            rw.n_rows, geo.smem_rows, geo.lanes, geo.cols, geo.chunk,
+            int(geo.stage_leaves), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        if kind == "forward":
+            LAUNCHES += 1
+        else:
+            SLOT_LAUNCHES += 1
+        LAUNCHES_BY_STATES[(counter, s)] += 1
+        del spill, spill_e
+    return (root, root_e) if batched else (root[0], root_e[0])
 
 
 # the launch counter of each kind of _classic_launch
-_COUNTERS = {"forward": "LAUNCHES", "fold": "FOLD_LAUNCHES",
-             "static": "STATIC_LAUNCHES"}
+_COUNTERS = {"fold": "FOLD_LAUNCHES", "static": "STATIC_LAUNCHES"}
 
 
 def _classic_launch(kind: str, lib, p, leaves, walk: WalkSchedule,
                     fold: int = 1):
-    """Root and root exponent count from B1 ("forward"), B9 ("fold", ``fold``
-    categories a thread) or B8 ("static", ``lib`` the topology's library):
-    the same scratch, (B, K, n_inner, sites, S + 1) float32, one launch per
-    batch chunk that fits free device memory, on the current stream."""
-    global LAUNCHES, FOLD_LAUNCHES, STATIC_LAUNCHES
+    """Root and root exponent count from B9 ("fold", ``fold`` categories a
+    thread) or B8 ("static", ``lib`` the topology's library): the same
+    scratch, (B, K, n_inner, sites, S + 1) float32, one launch per batch
+    chunk that fits free device memory, on the current stream."""
+    global FOLD_LAUNCHES, STATIC_LAUNCHES
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
@@ -960,26 +1216,18 @@ def _classic_launch(kind: str, lib, p, leaves, walk: WalkSchedule,
             rc = lib.pruning_static_f32(
                 pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *ptrs, nb, k,
                 s, walk.n_nodes, walk.n_leaves, n_int, sites, stream)
-        elif kind == "fold":
+        else:
             name = "pruning_fold_f32"
             rc = lib.pruning_fold_f32(
                 pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *walk_ptrs,
                 *ptrs, nb, k, s, fold, walk.n_nodes, walk.n_leaves, n_int,
                 cmax, sites, stream)
-        else:
-            name = "pruning_forward_f32"
-            rc = lib.pruning_forward_f32(
-                pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *walk_ptrs,
-                *ptrs, nb, k, s, walk.n_nodes, walk.n_leaves, n_int, cmax,
-                sites, stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
         if kind == "static":
             STATIC_LAUNCHES += 1
-        elif kind == "fold":
-            FOLD_LAUNCHES += 1
         else:
-            LAUNCHES += 1
+            FOLD_LAUNCHES += 1
         LAUNCHES_BY_STATES[(_COUNTERS[kind], s)] += 1
         del scratch, scratch_e
     return (root, root_e) if batched else (root[0], root_e[0])
@@ -1032,17 +1280,18 @@ def slot_walk(
     stream: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Root partials and root exponent count by the DFS slot walk, whose
-    scratch is (B, K, n_slots, sites, S + 1) float32 instead of one row per
-    internal node. Same contract as ``forward_walk_reference`` and the same
-    bits. CPU tensors take ``slot_walk_reference``; CUDA tensors launch
-    ``pruning_stream_f32`` (``stream``: P staged in shared memory) or
-    ``pruning_slot_f32``, once per batch chunk that fits free device
-    memory, on the current stream."""
-    global SLOT_LAUNCHES, STREAM_LAUNCHES
+    rows are O(depth) slots instead of one per internal node. Same contract
+    as ``forward_walk_reference`` and the same bits. CPU tensors take
+    ``slot_walk_reference``; CUDA tensors launch ``pruning_slot_f32`` (B4,
+    the slots in shared memory: ``_row_walk``) or, with ``stream``,
+    ``pruning_stream_f32`` (B5: P staged in shared memory, the slots in
+    device memory, (B, K, n_slots, sites, S + 1) float32, one launch per
+    batch chunk that fits free device memory), on the current stream."""
+    global STREAM_LAUNCHES
     _check(p, leaves, walk)
     _not_differentiable("slot_walk", p, leaves)
-    if p.device.type == "cpu":
-        return slot_walk_reference(p, leaves, walk)
+    if not stream or p.device.type == "cpu":
+        return _row_walk(p, leaves, walk, "slot")
     lib = _cuda_library(p, leaves)
     batched = p.dim() == 5
     pb = p if batched else p[None]
@@ -1054,8 +1303,6 @@ def slot_walk(
     root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
     root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
     chunk = _batch_chunk(b, k * sl.n_slots * sites * (s + 1) * 4, device)
-    name = "pruning_stream_f32" if stream else "pruning_slot_f32"
-    launch = getattr(lib, name)
     cuda_stream = _stream(device)
     for b0 in range(0, b, chunk):
         nb = min(chunk, b - b0)
@@ -1063,7 +1310,7 @@ def slot_walk(
                             dtype=torch.float32, device=device)
         slots_e = torch.empty((nb, k, sl.n_slots, sites),
                               dtype=torch.float32, device=device)
-        rc = launch(
+        rc = lib.pruning_stream_f32(
             pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), nslot.data_ptr(),
             cnode.data_ptr(), csrc.data_ptr(), cleaf.data_ptr(),
             counts.data_ptr(), slots.data_ptr(), slots_e.data_ptr(),
@@ -1072,13 +1319,10 @@ def slot_walk(
             sites, cuda_stream,
         )
         if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        if stream:
-            STREAM_LAUNCHES += 1
-        else:
-            SLOT_LAUNCHES += 1
-        LAUNCHES_BY_STATES[(
-            "STREAM_LAUNCHES" if stream else "SLOT_LAUNCHES", s)] += 1
+            raise RuntimeError(f"pruning_stream_f32 launch failed: CUDA "
+                               f"error {rc}")
+        STREAM_LAUNCHES += 1
+        LAUNCHES_BY_STATES[("STREAM_LAUNCHES", s)] += 1
         del slots, slots_e
     return (root, root_e) if batched else (root[0], root_e[0])
 
@@ -1482,9 +1726,9 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
     kernel backward (``choose_reverse``: the deferred one while its
     scratch fits, else the classic one), over the whole tree; otherwise one
     forward walk runs
-    alone, chosen by ``choose_walk``: the classic walk while the launch's
-    whole-tree scratch fits ``CLASSIC_SCRATCH_BUDGET``, else the slot walk
-    (DNA) or the stream walk (protein). The leaves' cotangent is computed
+    alone, chosen by ``choose_walk``: the classic walk while the classic
+    lowerings' whole-tree scratch would fit ``CLASSIC_SCRATCH_BUDGET``,
+    else the slot walk (DNA) or the stream walk (protein). The leaves' cotangent is computed
     only when they require grad (the engine passes them as data).
     """
     walk = WalkSchedule(schedule)
