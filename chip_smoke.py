@@ -81,18 +81,28 @@ all at once) and runs, in order, printing one line per phase:
     --se`` and ``build-tree`` as subprocesses against the same calls made
     in this process;
 21. the fold kernel (B9) against its plain version and bit for bit against
-    the forward kernel (B1): the DNA pack (F = 2) at the flagship, B = 1
-    and 64, fold "auto" at config 4 and on a 16-class LG profile mixture's
-    P (32 taxa x 512 patterns), and every compiled F; B9 and B1 in turns;
-22. the topology-compiled kernel (B8) the same way at the flagship (B = 1
-    and 64, S = 4) and config 4 (S = 20), with the build seconds of each
-    topology (built in phase 2, beside the main library) and a second call
-    with the same topology that builds nothing; B8 and B1 in turns;
+    the forward kernel (B1), with 0, 1 and all of its rows in shared
+    memory: the DNA pack (F = 2) at the flagship, B = 1 and 64, F = 2 and
+    fold "auto" at config 4, "auto" on a 16-class LG profile mixture's P
+    (32 taxa x 512 patterns), every compiled F at every compiled lane
+    count (12 categories at 4 states, 60 at 20), and the wide-node tree at
+    4 and 20 states, with its count of underflowed root rows beside B1's;
+    B1, the slot kernel (B4) and B9 in turns; B9's device time per launch
+    at B = 1 and config 4 from ``torch.profiler``;
+22. the topology-compiled kernel (B8) the same way at every compiled lane
+    count, at the flagship (B = 1 and 64, S = 4), config 4 (S = 20) and
+    the wide-node tree (S = 4), with the build seconds of each topology
+    (the flagship's and config 4's built in phase 2 beside the main
+    library, the wide node's here; ptxas spills nothing in any library)
+    and a second call with the same topology that builds
+    nothing; B1, B4 and B8 in turns, B8's device time at B = 1 and config
+    4;
 23. the engine's value calls under each knob: ``loglikelihood`` and
     ``sitewise_loglikelihoods`` at the flagship under
     ``PHYLO_STATIC_UNROLL_MAX`` (B8) and ``PHYLO_PACK_DNA=1`` (B9), at
     config 4 under ``PHYLO_FOLD_CATEGORIES=auto`` (B9), against the f64
-    path; B1 does not run, and with the knobs unset it does;
+    path; B1 does not run, and with the knobs unset it does; each
+    ``loglikelihood`` timed with its knob off and on, in turns;
 24. the mixture path at full width: a ``ProfileMixtureEngine`` with LG and
     20 seeded Dirichlet profiles (a C20-shaped mixture) on a 100-taxon
     tree, 10,000 amino-acid sites simulated under the mixture here, f32
@@ -462,10 +472,15 @@ def _cuda_ms(fn, reps):
 
 
 def _device_us(fn, reps):
-    """{kernel: device microseconds per call of ``fn``} from torch.profiler
-    (a B = 1 launch's CUDA events are paced by the host; the profiler reads
-    each kernel's own time on the card), or a note where the profiler saw
-    no device time."""
+    """{kernel: {"us": device microseconds per launch, "launches": the
+    launches the profiler recorded, "calls": ``reps``}} over ``reps`` calls
+    of ``fn``, from torch.profiler (a B = 1 launch's CUDA events are paced
+    by the host; the profiler reads each kernel's own time on the card), or
+    a note where the profiler saw no device time. The time is per launch,
+    each kernel's total over its recorded launches: in a process that
+    profiles many windows the profiler may keep only some of a window's
+    launches, and a call that runs in batch chunks launches more than once;
+    "launches" against "calls" shows which."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -484,8 +499,12 @@ def _device_us(fn, reps):
                                                 "row_walk")):
             name = ev.key.replace("void ", "").replace(
                 "(anonymous namespace)::", "").split("(")[0]
-            out[name] = out.get(name, 0.0) + us / reps
-    return out or "the profiler showed no device time"
+            seen = out.setdefault(name, {"total": 0.0, "launches": 0})
+            seen["total"] += us
+            seen["launches"] += ev.count
+    return {name: {"us": v["total"] / v["launches"],
+                   "launches": v["launches"], "calls": reps}
+            for name, v in out.items()} or "the profiler showed no device time"
 
 
 def main():
@@ -580,6 +599,7 @@ def main():
 
     # 2. build: the library of csrc/*.cu and B8's libraries for the
     # flagship topology at 4 states and config 4's at 20, every nvcc at once
+    # (phase 22 builds the wide-node tree's)
     flagship_tree = random_tree(TAXA, seed=0)
     config4_tree = random_tree(CONFIG4_TAXA, seed=13, mean_brlen=0.2)
     static_walks = {
@@ -595,12 +615,26 @@ def main():
     build_s = time.perf_counter() - t0
     info = _build.build_info()
     ptxas = _ptxas_table(info["log"])
-    static_builds = {
-        f"{b['n_int']}_internal_S{b['s']}": {
-            "seconds": b["seconds"], "built": b["built"],
-            "library": str(Path(b["path"]).relative_to(REPO)),
-            "ptxas": _ptxas_table(b["log"])}
-        for b in _build.static_build_info().values()}
+    def b8_builds():
+        """{topology: seconds, built, edges, library, ptxas} of every B8
+        library built so far; raises where ptxas spilled in any."""
+        out = {
+            f"{b['n_int']}_internal_S{b['s']}": {
+                "seconds": b["seconds"], "built": b["built"],
+                "edges": b["n_edges"],
+                "library": str(Path(b["path"]).relative_to(REPO)),
+                "ptxas": _ptxas_table(b["log"])}
+            for b in _build.static_build_info().values()}
+        spilled = {name: line for b in out.values()
+                   for name, line in b["ptxas"].items()
+                   if " 0 bytes spill stores" not in line}
+        _check(not spilled, f"ptxas spilled in B8: {spilled}")
+        return out
+
+    static_builds = b8_builds()
+    spilled = {name: line for name, line in ptxas.items()
+               if " 0 bytes spill stores" not in line}
+    _check(not spilled, f"ptxas spilled: {spilled}")
     _emit(2, build_s=round(build_s, 3), built=info["built"],
           library=str(Path(info["path"]).relative_to(REPO)),
           library_s=info["seconds"], ptxas=ptxas,
@@ -1644,6 +1678,46 @@ def main():
         return (WalkSchedule(sched), p, torch.as_tensor(leaves, device=dev),
                 e.freqs)
 
+    def underflowed(root_p):
+        """(category, site) root rows whose rescaled partials lost their
+        leading bits: a product of children below FLT_MIN before a node's
+        rescale (ROADMAP C)."""
+        return int((root_p.amax(dim=-1) < 1.0).sum())
+
+    def lowering_checks(key, run, walk, p, leaves, lanes):
+        """``run(**geometry)`` (B8 or B9) bit for bit B1 with 0, 1 and all
+        of the slot walk's rows in shared memory, at each of ``lanes`` lane
+        counts, and within n_int 2^-21 x max of the plain version; returns
+        (B1's root, abs error, error x max)."""
+        bp, be = forward_walk(p, leaves, walk, walk="classic")
+        rows = walk.slots.rows.n_rows
+        forced = [{}] + [{"smem_rows": m} for m in sorted({0, 1, rows})]
+        forced += [{"lanes": n} for n in lanes]
+        for geometry in forced:
+            kp, ke = run(**geometry)
+            torch.cuda.synchronize()
+            _check(torch.equal(kp, bp) and torch.equal(ke, be),
+                   f"{key} {geometry}: not B1's root bit for bit")
+        rp, re = forward_walk_reference(p, leaves, walk)
+        abs_err, err = _err_to_plain(kp, ke, rp, re)
+        _check(err <= len(walk.order) * 2.0 ** -21,
+               f"{key}: vs plain {err:.3e} x max")
+        return bp, abs_err, err
+
+    def lowering_turns(fn, walk, p, leaves, reps):
+        """B1, B4 and ``fn`` in turns (B1, B4, fn, fn, B4, B1), ms by CUDA
+        events."""
+        fns = {"b1": functools.partial(forward_walk, p, leaves, walk,
+                                       walk="classic"),
+               "b4": functools.partial(forward_walk, p, leaves, walk,
+                                       walk="slot"),
+               "kernel": fn}
+        runs = {name: [] for name in fns}
+        for name in ["b1", "b4", "kernel", "kernel", "b4", "b1"]:
+            runs[name].append(_cuda_ms(fns[name], reps))
+        return {f"{name}_ms": sum(t) / 2 for name, t in runs.items()} | {
+            "runs": runs}
+
     prof_rng = np.random.default_rng(21)
     prof16_tree = random_tree(PROFILE16_TAXA, seed=21, mean_brlen=0.2)
     prof16 = ProfileMixtureEngine(
@@ -1661,6 +1735,7 @@ def main():
         f"pack_flagship_B{b}": (timing_inputs[b], 2) for b in (1, BATCH)}
     fold_cases["auto_config4"] = (case_inputs[f"config4_B1_S{SITES}"],
                                   fold_auto["config4"])
+    fold_cases["F2_config4"] = (case_inputs[f"config4_B1_S{SITES}"], 2)
     fold_cases[f"auto_profile16_{PROFILE16_TAXA}x{PROFILE16_PATTERNS}"] = (
         (WalkSchedule(prof16.schedule), p16, prof16._leaf_partials, None),
         fold_auto["profile16"])
@@ -1668,66 +1743,73 @@ def main():
         inputs = rate_inputs(tree, SITES, k, s_)
         for f_ in cuda_pruning.FOLD_WIDTHS[s_]:
             fold_cases[f"widths_S{s_}_K{k}_F{f_}"] = (inputs, f_)
-    b9_err, b9_max, b9_times = {}, 0.0, {}
+    for key, inputs in wide_inputs.items():
+        fold_cases[key] = (inputs, 2)
+    b9_err, b9_max, b9_times, underflow = {}, 0.0, {}, {}
     for key, ((walk, p, leaves, _), f_) in fold_cases.items():
         _check(f_ > 1, f"{key}: no fold chosen")
-        kp, ke = fold_walk(p, leaves, walk, f_)
-        bp, be = forward_walk(p, leaves, walk, walk="classic")
-        torch.cuda.synchronize()
-        _check(torch.equal(kp, bp) and torch.equal(ke, be),
-               f"{key}: B9 (F={f_}) is not B1 bit for bit")
-        rp, re = forward_walk_reference(p, leaves, walk)
-        abs_err, err = _err_to_plain(kp, ke, rp, re)
-        _check(err <= len(walk.order) * 2.0 ** -21,
-               f"{key}: B9 vs plain {err:.3e} x max")
+        # every compiled F x lanes at the widths cases
+        bp, abs_err, err = lowering_checks(
+            f"{key}: B9 (F={f_})",
+            functools.partial(fold_walk, p, leaves, walk, f_), walk, p,
+            leaves, cuda_pruning.FOLD_WIDTHS[leaves.shape[2]][f_]
+            if key.startswith("widths") else ())
         b9_err[key] = {"F": f_, "K": p.shape[-3], "abs": abs_err,
                        "rel_to_max": err}
         b9_max = max(b9_max, abs_err)
-        reps = 50 if "B1" in key or "profile16" in key else 10
-        b1_fn = functools.partial(forward_walk, p, leaves, walk,
-                                  walk="classic")
-        b9_fn = functools.partial(fold_walk, p, leaves, walk, f_)
-        t = [_cuda_ms(b1_fn, reps), _cuda_ms(b9_fn, reps),
-             _cuda_ms(b9_fn, reps), _cuda_ms(b1_fn, reps)]
-        b9_times[key] = {"b1_ms": (t[0] + t[3]) / 2, "b9_ms": (t[1] + t[2]) / 2,
-                         "runs": t}
-        del kp, ke, bp, be, rp, re
+        if key.startswith("wide_node"):
+            underflow[key] = {"B1": underflowed(bp), "B9": underflowed(
+                fold_walk(p, leaves, walk, f_)[0])}
+        reps = 20 if "B1" in key or "profile16" in key else 5
+        b9_times[key] = lowering_turns(
+            functools.partial(fold_walk, p, leaves, walk, f_), walk, p,
+            leaves, reps)
+        del bp
+    # device time per launch at B = 1 and config 4 (F = 2 and "auto")
+    b9_device = {}
+    for key in ("pack_flagship_B1", "F2_config4", "auto_config4"):
+        (walk, p, leaves, _), f_ = fold_cases[key]
+        b9_device[key] = _device_us(functools.partial(
+            fold_walk, p, leaves, walk, f_), 10)
     walk, p, leaves, _ = timing_inputs[BATCH]
     timings[f"fold_B{BATCH}"] = in_turns(
         functools.partial(fold_walk, p, leaves, walk, 2),
         functools.partial(forward_walk_reference, p, leaves, walk), 50, 3)
     timings[f"fold_B{BATCH}"].update(zip(("bound_ms", "bound_by"),
                                          _bound("forward", walk, p, leaves)))
-    _emit(21, errors=b9_err, times=b9_times, auto=fold_auto,
-          widths={str(k): v for k, v in cuda_pruning.FOLD_WIDTHS.items()},
-          bit_identical_to_B1=True)
+    _emit(21, errors=b9_err, times=b9_times, device_us=b9_device,
+          auto=fold_auto, underflowed_rows=underflow,
+          widths_and_lanes={
+              str(k): {str(f_): n for f_, n in v.items()}
+              for k, v in cuda_pruning.FOLD_WIDTHS.items()},
+          bit_identical_to_B1=True, forced_smem_rows_bit_identical=[0, 1])
 
     # 22. static kernel (B8) vs its plain version and bit for bit vs B1 ----
-    n_static = len(_build.static_build_info())
     static_cases = {f"flagship_B{b}": timing_inputs[b] for b in (1, BATCH)}
     static_cases["config4"] = case_inputs[f"config4_B1_S{SITES}"]
-    b8_err, b8_max, b8_times = {}, 0.0, {}
+    static_cases["wide_node_S4"] = wide_inputs["wide_node_S4"]
+    b8_err, b8_max, b8_times, b8_underflow = {}, 0.0, {}, {}
     for key, (walk, p, leaves, _) in static_cases.items():
-        kp, ke = static_walk(p, leaves, walk)
-        bp, be = forward_walk(p, leaves, walk, walk="classic")
-        torch.cuda.synchronize()
-        _check(torch.equal(kp, bp) and torch.equal(ke, be),
-               f"{key}: B8 is not B1 bit for bit")
-        rp, re = forward_walk_reference(p, leaves, walk)
-        abs_err, err = _err_to_plain(kp, ke, rp, re)
-        _check(err <= len(walk.order) * 2.0 ** -21,
-               f"{key}: B8 vs plain {err:.3e} x max")
+        # every compiled lane count, and 0, 1 and all rows on the SM
+        bp, abs_err, err = lowering_checks(
+            f"{key}: B8", functools.partial(static_walk, p, leaves, walk),
+            walk, p, leaves, cuda_pruning._ROW_LANES[leaves.shape[2]])
         b8_err[key] = {"abs": abs_err, "rel_to_max": err}
         b8_max = max(b8_max, abs_err)
-        reps = 50 if key == "flagship_B1" else 10
-        b1_fn = functools.partial(forward_walk, p, leaves, walk,
-                                  walk="classic")
-        b8_fn = functools.partial(static_walk, p, leaves, walk)
-        t = [_cuda_ms(b1_fn, reps), _cuda_ms(b8_fn, reps),
-             _cuda_ms(b8_fn, reps), _cuda_ms(b1_fn, reps)]
-        b8_times[key] = {"b1_ms": (t[0] + t[3]) / 2, "b8_ms": (t[1] + t[2]) / 2,
-                         "runs": t}
-        del kp, ke, bp, be, rp, re
+        if key.startswith("wide_node"):
+            b8_underflow[key] = {"B1": underflowed(bp), "B8": underflowed(
+                static_walk(p, leaves, walk)[0])}
+        reps = 20 if key == "flagship_B1" else 5
+        b8_times[key] = lowering_turns(
+            functools.partial(static_walk, p, leaves, walk), walk, p, leaves,
+            reps)
+        del bp
+    b8_device = {}
+    for key in ("flagship_B1", "config4"):
+        walk, p, leaves, _ = static_cases[key]
+        b8_device[key] = _device_us(functools.partial(
+            static_walk, p, leaves, walk), 10)
+    n_static = len(_build.static_build_info())
     # a second call with the same topology (a new schedule object) builds
     # nothing: the library comes from this process's cache
     walk = WalkSchedule(compile_schedule(flagship_tree))
@@ -1743,11 +1825,13 @@ def main():
         functools.partial(forward_walk_reference, p, leaves, walk), 50, 3)
     timings[f"static_B{BATCH}"].update(zip(("bound_ms", "bound_by"),
                                            _bound("forward", walk, p, leaves)))
-    _emit(22, errors=b8_err, times=b8_times, builds=static_builds,
-          second_call_s=again_s, bit_identical_to_B1=True)
+    _emit(22, errors=b8_err, times=b8_times, device_us=b8_device,
+          underflowed_rows=b8_underflow, builds=b8_builds(),
+          second_call_s=again_s, bit_identical_to_B1=True,
+          forced_smem_rows_bit_identical=[0, 1])
 
     # 23. the engine's value calls under each knob, main path --------------
-    knob_err, knob_counts = {}, {}
+    knob_err, knob_counts, knob_ms = {}, {}, {}
     e4_32 = LikelihoodEngine(config4_tree, aln4, models.LG, ncat=4,
                              dtype=torch.float32, pruner="cuda",
                              device=DEVICE)
@@ -1758,14 +1842,14 @@ def main():
     sw4_ref = e4_64.sitewise_loglikelihoods(PROTEIN_PARAMS)
     knobs = (
         ("static_flagship", "STATIC_LAUNCHES", eng, FLAGSHIP_PARAMS,
-         (ll_ref, sw_ref), _static_unroll(cuda_pruning, 10 ** 6)),
+         (ll_ref, sw_ref), lambda: _static_unroll(cuda_pruning, 10 ** 6)),
         ("pack_flagship", "FOLD_LAUNCHES", eng, FLAGSHIP_PARAMS,
-         (ll_ref, sw_ref), _env(PHYLO_PACK_DNA="1")),
+         (ll_ref, sw_ref), lambda: _env(PHYLO_PACK_DNA="1")),
         ("fold_auto_config4", "FOLD_LAUNCHES", e4_32, PROTEIN_PARAMS,
-         (ll4_ref, sw4_ref), _env(PHYLO_FOLD_CATEGORIES="auto")),
+         (ll4_ref, sw4_ref), lambda: _env(PHYLO_FOLD_CATEGORIES="auto")),
     )
     for label, counter, e, prm, (want_ll, want_sw), knob in knobs:
-        with knob:
+        with knob():
             reset_counts()
             got_ll = e.loglikelihood(prm)
             got_sw = e.sitewise_loglikelihoods(prm)
@@ -1779,6 +1863,14 @@ def main():
                f"{label}: logL {got_ll} vs f64 {want_ll}: rel {rel:.3e}")
         knob_err[label] = {"rel_err": rel, "sitewise_max_abs_err": float(
             np.max(np.abs(got_sw - want_sw)))}
+        # the value call with the knob off and on, in turns (off, on, on,
+        # off), ms by CUDA events
+        runs = {"off": [], "on": []}
+        for how in ("off", "on", "on", "off"):
+            with knob() if how == "on" else contextlib.nullcontext():
+                runs[how].append(_cuda_ms(functools.partial(
+                    e.loglikelihood, prm), 10))
+        knob_ms[label] = {f"{how}_ms": sum(v) / 2 for how, v in runs.items()}
     reset_counts()
     eng.loglikelihood(FLAGSHIP_PARAMS)
     _check(read_counts()["LAUNCHES"] > 0
@@ -1786,7 +1878,8 @@ def main():
            and read_counts()["FOLD_LAUNCHES"] == 0,
            f"with the knobs unset the value call left B1: {read_counts()}")
     del e4_32, e4_64
-    _emit(23, errors=knob_err, launches=knob_counts)
+    _emit(23, errors=knob_err, launches=knob_counts,
+          loglikelihood_ms=knob_ms)
 
     # 24. the mixture path at full width, main path ------------------------
     mix_tree = random_tree(MIXTURE_TAXA, seed=24, mean_brlen=0.1)

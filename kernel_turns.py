@@ -4,30 +4,40 @@ sources, in turns, on one NVIDIA GPU: the forward walk (B1,
 ``pruning_forward_f32``), the slot walk (B4, ``pruning_slot_f32``), the
 saveall walk (B2, ``pruning_saveall_f32``), the classic reverse (B7,
 ``pruning_classic_reverse_f32``), the deferred reverse (B3,
-``pruning_reverse_f32``) and the stream walk (B5, ``pruning_stream_f32``).
+``pruning_reverse_f32``), the stream walk (B5, ``pruning_stream_f32``), the
+fold walk (B9, ``pruning_fold_f32``) and the topology-compiled walk (B8,
+``pruning_static_f32``).
 
 Usage, from the root of a checkout::
 
     python3 kernel_turns.py --parent DIR [--out FILE]
 
 ``DIR`` holds the earlier ``pruning_forward.cu``, ``pruning_reverse.cu``,
-``pruning_slot.cu``, ``pruning_classic_reverse.cu`` and the headers they
-include, for example unpacked from an earlier commit with ``git archive
-<commit> phylo_utils_tpu_torch/csrc | tar -x -C DIR --strip-components 2``.
-The script builds them with ``nvcc`` into ``build/kernel_turns/`` beside
-the current library (``ops/_build.py``). B2, B3, B5 and B7 keep the C
-signatures they had before B1 and B4 took live rows, so the earlier library
-runs under the current wrappers; B1 and B4 are bound with their earlier
-signatures (B1: a post-order with a children table, whole-tree scratch in
-device memory; B4: the DFS slots in device memory). Then, on the same
-inputs, at the flagship (64 taxa, GTR+G4, 1024 sites) at B = 1 and 64, on
-BASELINE config 4's tree at 20 states (32 taxa, LG+G4, 1024 sites), the
-1000-taxon GTR+G4 tree and the 512-taxon LG+G4 tree at 8192 patterns, and
-on the wide-node tree (a root of 48 leaf children beside a 48-taxon
-subtree, kept whole, 8192 patterns simulated down it) at 4 and 20 states:
+``pruning_slot.cu``, ``pruning_classic_reverse.cu``, ``pruning_fold.cu``,
+``pruning_static.cu`` and the headers they include, for example unpacked
+from an earlier commit with ``git archive <commit>
+phylo_utils_tpu_torch/csrc | tar -x -C DIR --strip-components 2``. The
+script builds them with ``nvcc`` into ``build/kernel_turns/`` beside the
+current library (``ops/_build.py``); the earlier B8 once per topology,
+against a header of that topology's post-order, children and counts in
+its own format. B1, B2, B3, B4, B5 and B7 keep the C signatures they had
+before B8 and B9 took the live-row walk, so the earlier library runs them
+under the current wrappers; B8 and B9 are bound with their earlier
+signatures (a post-order with a children table, whole-tree scratch in
+device memory). Then, on the same inputs, at
+the flagship (64 taxa, GTR+G4, 1024 sites) at B = 1 and 64, on BASELINE
+config 4's tree at 20 states (32 taxa, LG+G4, 1024 sites), the 1000-taxon
+GTR+G4 tree and the 512-taxon LG+G4 tree at 8192 patterns, on the
+wide-node tree (a root of 48 leaf children beside a 48-taxon subtree, kept
+whole, 8192 patterns simulated down it) at 4 and 20 states, and for B9 at
+12 categories on the flagship's tree and 60 on config 4's (the widths):
 
 1. checks: B1's and B4's roots, with 0, 1 and all their rows in shared
-   memory, bit for bit the earlier B1's (and the earlier B4's); B2's
+   memory, bit for bit the earlier B1's (and the earlier B4's); B8's (at
+   the flagship, config 4 and the wide node at 4 states) and B9's (F = 2,
+   and every compiled F at config 4 and the widths), with 0, 1 and all
+   rows in shared memory, bit for bit the earlier B1's and the earlier
+   B8's and B9's; B2's
    residuals bit for bit the earlier B2's and its root row B1's; B7's dP
    within 1e-4 x max|dP| of the earlier B7's and of its plain version,
    bit-identical across two launches, with one seed (lambda pi at the
@@ -41,17 +51,25 @@ subtree, kept whole, 8192 patterns simulated down it) at 4 and 20 states:
    host's);
 4. sweeps, each setting timed in turns (a, b, ..., b, a): B1's and B4's
    lanes a column, columns a block and edges a step (``row_geometry``'s
-   choices), and their rows in shared memory (0, 1, half, all); B2's edges
+   choices), and their rows in shared memory (0, 1, half, all); B9's F x
+   lanes x edges a step x columns and B8's lanes x columns (its step is
+   compiled in) at the flagship B = 64, config 4 and the widths; B2's edges
    per step (``_SAVEALL_CHUNK``) and lanes (``_SAVEALL_LANES``); B7's
    blocks per launch (``_CLASSIC_REVERSE_BLOCKS``) and block width
    (``_CLASSIC_REVERSE_TILE``), and its shared-memory budget on the wide
    node at 20 states (``_CLASSIC_STAGE_BYTES``);
 5. counts global loads (``LDG``), shared-memory loads (``LDS`` by width),
    FMAs and barriers in the SASS of both builds' B1 and B4 (at 4 and 20
-   states) and 20-state B2, B7 and B3 (``cuobjdump -sass``), writes those
-   functions' SASS to ``build/kernel_turns/``, and lists both builds'
-   ptxas registers, shared memory and spills (a spill in the current build
-   fails the run).
+   states), B9 (every compiled F and lanes), B8 (the flagship's and config
+   4's topologies) and 20-state B2, B7 and B3 (``cuobjdump -sass``), writes
+   those functions' SASS to ``build/kernel_turns/``, and lists both
+   builds' ptxas registers, shared memory and spills, B8's included (a
+   spill in the current build fails the run), and each B8 build's
+   seconds; counts the instructions in which each of B1's and B4's
+   functions differs from the earlier build's (``sass_diff_b1_b4``: 0 is
+   the same code); and compiles the live-row kernel alone at every fold
+   width and lane count, those ``csrc/pruning_fold.cu`` leaves out
+   included, for their ptxas lines (``ptxas_fold_pairs``).
 
 It prints the card's ``nvidia-smi`` name and power limit, then one JSON
 object, also written to ``--out`` (default ``build/kernel_turns.json``).
@@ -59,6 +77,7 @@ object, also written to ``--out`` (default ``build/kernel_turns.json``).
 import argparse
 import collections
 import ctypes
+import difflib
 import functools
 import json
 import re
@@ -71,30 +90,96 @@ REPO = Path(__file__).resolve().parent
 TOL = 1e-4     # x max|dP|: two f32 walks summing over sites in other orders
 OUT_DIR = REPO / "build" / "kernel_turns"
 PARENT_SOURCES = ("pruning_forward.cu", "pruning_reverse.cu",
-                  "pruning_slot.cu", "pruning_classic_reverse.cu")
+                  "pruning_slot.cu", "pruning_classic_reverse.cu",
+                  "pruning_fold.cu", "pruning_static.cu")
+# built per topology, against a header of its own (_earlier_static_header)
+STATIC_SOURCE = "pruning_static.cu"
 # the entry points whose C signatures the earlier sources share
-SHARED_ENTRIES = ("pruning_saveall_f32", "pruning_reverse_f32",
+SHARED_ENTRIES = ("pruning_forward_f32", "pruning_slot_f32",
+                  "pruning_saveall_f32", "pruning_reverse_f32",
                   "pruning_stream_f32", "pruning_classic_reverse_f32")
 # mangled-name patterns of the kernels whose SASS is counted: B1 and B4 at
 # both state counts (the current ones are the live-row walk, one in each
 # of pruning_forward.cu's and pruning_slot.cu's objects), the others at 20
 SASS_KERNELS = {
-    "B1_B4": r"row_walk_kernel|pruning_forward_kernelI|pruning_slot_kernelI",
+    "B1_B4": r"row_walk_kernelILi\d+ELi\d+E(?:Li1E)?EEv|"
+             r"pruning_forward_kernelI|pruning_slot_kernelI",
+    "B9": r"row_walk_kernelILi\d+ELi\d+ELi[2-9]EEEv|pruning_fold_kernelI",
+    "B8": r"pruning_static_kernel",
     "B2": r"pruning_saveall_kernelILi20E",
     "B7": r"classic_reverse_walk_kernelILi20E",
     "B3": r"pruning_reverse_walk_kernelILi20E",
 }
 
 
+def _earlier_static_header(order, children, counts, n_nodes: int,
+                           n_leaves: int, s: int) -> str:
+    """The header the earlier ``pruning_static.cu`` (before B8 took the
+    live-row walk) is compiled against: the level post-order walk
+    (``cuda_pruning._postorder_arrays``: internal nodes ``order`` (n_int,),
+    their ``children`` (n_int, cmax), zero-padded, and child ``counts``
+    (n_int,)), the node and leaf counts and the state count as constexpr
+    values in namespace ``topo``; a copy of that version of
+    ``ops/_build.static_topology_header``."""
+    def c_array(values):
+        return "{" + ", ".join(str(int(v)) for v in values) + "}"
+
+    n_int, cmax = children.shape
+    return "\n".join([
+        "#pragma once",
+        "namespace topo {",
+        f"constexpr int kS = {int(s)};",
+        f"constexpr int kNNodes = {int(n_nodes)};",
+        f"constexpr int kNLeaves = {int(n_leaves)};",
+        f"constexpr int kNInt = {int(n_int)};",
+        f"constexpr int kCmax = {int(cmax)};",
+        f"constexpr int kOrder[kNInt] = {c_array(order)};",
+        "constexpr int kChildren[kNInt * kCmax] = "
+        f"{c_array(children.reshape(-1))};",
+        f"constexpr int kCounts[kNInt] = {c_array(counts)};",
+        "}  // namespace topo",
+        "",
+    ])
+
+
+def _build_earlier_static(parent: Path, walk, s: int, label: str, nvcc_flags,
+                          nvcc):
+    """The earlier B8 for ``walk``'s topology at ``s`` states: (library
+    bound with its earlier signature, path, build seconds, ptxas
+    output)."""
+    include = OUT_DIR / f"static_earlier_{label}"
+    include.mkdir(parents=True, exist_ok=True)
+    (include / "pruning_static_topology.h").write_text(_earlier_static_header(
+        walk.order, walk.children, walk.counts, walk.n_nodes, walk.n_leaves,
+        s))
+    lib_path = OUT_DIR / f"libstatic_earlier_{label}.so"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [nvcc, *nvcc_flags, "-I", str(include), "-shared", "-o",
+         str(lib_path), str(parent / STATIC_SOURCE)],
+        capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the earlier {STATIC_SOURCE}\n"
+                           f"{res.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.pruning_static_f32.argtypes = ([ctypes.c_void_p] * 6
+                                       + [ctypes.c_int] * 7
+                                       + [ctypes.c_void_p])
+    lib.pruning_static_f32.restype = ctypes.c_int
+    return lib, lib_path, seconds, res.stdout + res.stderr
+
+
 def _build_parent(parent: Path, nvcc_flags, nvcc):
-    """The earlier sources as one library: (library bound for the shared
-    entry points, library bound for the earlier B1 and B4, path, ptxas
+    """The earlier sources but B8 as one library: (library bound for the
+    shared entry points, library bound for the earlier B9, path, ptxas
     output)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = OUT_DIR / "libparent.so"
     res = subprocess.run(
         [nvcc, *nvcc_flags, "-shared", "-o", str(lib_path),
-         *(str(parent / name) for name in PARENT_SOURCES)],
+         *(str(parent / name) for name in PARENT_SOURCES
+           if name != STATIC_SOURCE)],
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on the earlier sources\n{res.stderr}")
@@ -108,11 +193,8 @@ def _build_parent(parent: Path, nvcc_flags, nvcc):
             fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
             fn.restype = ci
     walks = ctypes.CDLL(str(lib_path))
-    for name, n_ptr, n_int in (("pruning_forward_f32", 9, 8),
-                               ("pruning_slot_f32", 11, 8)):
-        fn = getattr(walks, name)
-        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
-        fn.restype = ci
+    walks.pruning_fold_f32.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    walks.pruning_fold_f32.restype = ci
     return shared, walks, lib_path, res.stdout + res.stderr
 
 
@@ -146,6 +228,66 @@ def _sass_counts(lines):
     return dict(counts)
 
 
+def _sass_key(fn: str) -> str:
+    """A function's mangled name without its build's file hash and without
+    B1's and B4's F = 1 (``row_walk_kernel<S, kL, 1>`` is the earlier
+    ``row_walk_kernel<S, kL>``), so that both builds' functions pair up."""
+    fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", fn)
+    return re.sub(r"(row_walk_kernelILi\d+ELi\d+E)Li1E(EEv)", r"\1\2", fn)
+
+
+def _sass_diff(earlier, current):
+    """{function: instructions that differ} between two builds' SASS
+    ({function: lines}, as ``_sass`` gives), each instruction without its
+    address and encoding: 0 where the two builds emitted the same code."""
+    def body(lines):
+        return [m.group(1) for ln in lines
+                for m in [re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", ln)]
+                if m]
+
+    old = {_sass_key(fn): body(lines) for fn, lines in earlier.items()}
+    out = {}
+    for fn, lines in current.items():
+        key = _sass_key(fn)
+        if key in old:
+            out[key] = sum(
+                1 for ln in difflib.unified_diff(old[key], body(lines), n=0,
+                                                 lineterm="")
+                if ln[:1] in "+-" and not ln.startswith(("+++", "---")))
+    return out
+
+
+# every fold width the fold kernel is held to (2 and 4 at 4 states, 2 to 5
+# at 20), at every lane count of its state count
+_FOLD_PAIRS = {4: ((2, 4), (1, 2, 4)), 20: ((2, 3, 4, 5), (1, 2))}
+
+
+def _fold_pairs_ptxas(nvcc, nvcc_flags):
+    """ptxas's line ({kernel<S,kL,F>: registers ...; spills}) of the
+    live-row kernel at every fold width and lane count of ``_FOLD_PAIRS``,
+    compiled alone under ``nvcc_flags`` (the fold source's) from a
+    generated source that
+    takes each instantiation's address: the record of the (F, lanes) pairs
+    that ``csrc/pruning_fold.cu`` leaves out for spilling."""
+    from chip_smoke import _ptxas_table
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    src = OUT_DIR / "fold_pairs.cu"
+    kernels = [f"(const void*)pruning::row_walk_kernel<{s}, {n}, {f}>"
+               for s, (folds, lanes) in _FOLD_PAIRS.items()
+               for f in folds for n in lanes]
+    src.write_text('#include "pruning_rows.cuh"\n'
+                   'extern "C" const void* fold_pairs[] = {\n    '
+                   + ",\n    ".join(kernels) + "};\n")
+    res = subprocess.run(
+        [nvcc, *nvcc_flags, "-I", str(REPO / "phylo_utils_tpu_torch" / "csrc"),
+         "-c", "-o", str(OUT_DIR / "fold_pairs.o"), str(src)],
+        capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}\n{res.stderr}")
+    return _ptxas_table(res.stdout + res.stderr)
+
+
 def _turns(fns, reps, cuda_ms):
     """{label: mean ms} of each of ``fns`` (label -> callable) timed in
     turns: in order, then in reverse order."""
@@ -162,7 +304,8 @@ def main():
     ap.add_argument("--parent", required=True, type=Path,
                     help="directory of the earlier pruning_forward.cu, "
                     "pruning_reverse.cu, pruning_slot.cu, "
-                    "pruning_classic_reverse.cu and pruning_common.cuh")
+                    "pruning_classic_reverse.cu, pruning_fold.cu, "
+                    "pruning_static.cu and the headers they include")
     ap.add_argument("--out", type=Path,
                     default=REPO / "build" / "kernel_turns.json",
                     help="where to write the JSON result")
@@ -180,7 +323,8 @@ def main():
     from phylo_utils_tpu_torch.ops import _build, cuda_pruning as cp
     from phylo_utils_tpu_torch.ops.cuda_pruning import (
         WalkSchedule, classic_reverse_walk, classic_reverse_walk_reference,
-        forward_walk, reverse_walk, saveall_walk, slot_walk)
+        fold_walk, forward_walk, reverse_walk, saveall_walk, slot_walk,
+        static_walk)
     from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
     from phylo_utils_tpu_torch.ops.pmatrix import (
         extend_p_identity, transition_matrices)
@@ -209,14 +353,20 @@ def main():
                                 dtype=torch.float64, device=dev),
             20: models.LG.eigen(dtype=torch.float64, device=dev)}
 
-    def inputs(tree, sites, batch, s):
+    def inputs(tree, sites, batch, s, k=4):
+        """Schedule, f32 P (GTR at 4 states, LG at 20) of the gamma rates
+        (k = 4) or of k rates from 0.1 to 3.0, one-hot leaves with 2%
+        all-ones rows, f64 frequencies."""
         sched = compile_schedule(tree)
         lengths = np.asarray(tree.lengths)
         if batch > 1:
             lengths = lengths * rng.uniform(0.5, 2.0, (batch, 1))
         t = torch.as_tensor(lengths, dtype=torch.float64, device=dev)
+        r = rates if k == 4 else torch.linspace(0.1, 3.0, k,
+                                                dtype=torch.float64,
+                                                device=dev)
         p = extend_p_identity(transition_matrices(
-            eigs[s], t[..., None] * rates, out_dtype=torch.float32),
+            eigs[s], t[..., None] * r, out_dtype=torch.float32),
             sched.n_nodes).contiguous()
         leaves = np.eye(s, dtype=np.float32)[
             rng.integers(0, s, (tree.n_leaves, sites))]
@@ -237,8 +387,9 @@ def main():
                 _build._lib = saved
         return run
 
-    def old_forward(walk, p, leaves):
-        """The earlier B1: whole-tree scratch in device memory."""
+    def old_lowering(walk, p, leaves, fold=1, lib=None):
+        """The earlier B9 (``fold`` categories a thread) or, with ``lib``,
+        the earlier B8: whole-tree scratch in device memory."""
         pb = p if p.dim() == 5 else p[None]
         b, _, k = pb.shape[:3]
         sites, s = leaves.shape[1:]
@@ -248,60 +399,82 @@ def main():
         es = torch.empty((b, k, n_inner, sites), device=dev)
         root = torch.empty((b, k, sites, s), device=dev)
         root_e = torch.empty((b, k, sites), device=dev)
-        rc = old_walks.pruning_forward_f32(
-            pb.data_ptr(), leaves.data_ptr(), order.data_ptr(),
-            children.data_ptr(), counts.data_ptr(), xs.data_ptr(),
-            es.data_ptr(), root.data_ptr(), root_e.data_ptr(), b, k, s,
-            walk.n_nodes, walk.n_leaves, len(walk.order), children.shape[1],
-            sites, stream())
-        assert rc == 0, f"earlier pruning_forward_f32: CUDA error {rc}"
-        return (root, root_e) if p.dim() == 5 else (root[0], root_e[0])
-
-    def old_slot(walk, p, leaves):
-        """The earlier B4: the DFS slots in device memory."""
-        pb = p if p.dim() == 5 else p[None]
-        b, _, k = pb.shape[:3]
-        sites, s = leaves.shape[1:]
-        sl = walk.slots
-        nslot, cnode, csrc, cleaf, counts = sl.on(dev)
-        xs = torch.empty((b, k, sl.n_slots, sites, s), device=dev)
-        es = torch.empty((b, k, sl.n_slots, sites), device=dev)
-        root = torch.empty((b, k, sites, s), device=dev)
-        root_e = torch.empty((b, k, sites), device=dev)
-        rc = old_walks.pruning_slot_f32(
-            pb.data_ptr(), leaves.data_ptr(), nslot.data_ptr(),
-            cnode.data_ptr(), csrc.data_ptr(), cleaf.data_ptr(),
-            counts.data_ptr(), xs.data_ptr(), es.data_ptr(), root.data_ptr(),
-            root_e.data_ptr(), b, k, s, walk.n_nodes, sl.n_slots,
-            len(sl.nslot), cnode.shape[1], sites, stream())
-        assert rc == 0, f"earlier pruning_slot_f32: CUDA error {rc}"
+        buffers = (xs.data_ptr(), es.data_ptr(), root.data_ptr(),
+                   root_e.data_ptr())
+        if lib is None:
+            rc = old_walks.pruning_fold_f32(
+                pb.data_ptr(), leaves.data_ptr(), order.data_ptr(),
+                children.data_ptr(), counts.data_ptr(), *buffers, b, k, s,
+                fold, walk.n_nodes, walk.n_leaves, len(walk.order),
+                children.shape[1], sites, stream())
+        else:
+            rc = lib.pruning_static_f32(
+                pb.data_ptr(), leaves.data_ptr(), *buffers, b, k, s,
+                walk.n_nodes, walk.n_leaves, len(walk.order), sites,
+                stream())
+        assert rc == 0, f"earlier B8 / B9: CUDA error {rc}"
         return (root, root_e) if p.dim() == 5 else (root[0], root_e[0])
 
     tree_flag = random_tree(64, seed=0)
+    tree_config4 = random_tree(32, seed=13, mean_brlen=0.2)
     shapes = {
         "flagship_B1": inputs(tree_flag, 1024, 1, 4),
         "flagship_B64": inputs(tree_flag, 1024, 64, 4),
-        "config4_S20": inputs(random_tree(32, seed=13, mean_brlen=0.2), 1024,
-                              1, 20),
+        "config4_S20": inputs(tree_config4, 1024, 1, 20),
         "dna1000": inputs(random_tree(1000, seed=10), 8192, 1, 4),
         "protein512_LG": inputs(random_tree(512, seed=11), 8192, 1, 20),
         "wide_node_S4": _wide_node_inputs(eigs[4], rates, 8192, rng, dev),
         "wide_node_S20": _wide_node_inputs(eigs[20], rates, 8192, rng, dev),
+        # B9's widths: 12 categories at 4 states, 60 at 20
+        "widths_S4_K12": inputs(tree_flag, 1024, 1, 4, 12),
+        "widths_S20_K60": inputs(tree_config4, 1024, 1, 20, 60),
     }
     reps_of = {"flagship_B1": 200, "flagship_B64": 50, "config4_S20": 100,
                "dna1000": 20, "protein512_LG": 5, "wide_node_S4": 20,
-               "wide_node_S20": 3}
+               "wide_node_S20": 3, "widths_S4_K12": 50, "widths_S20_K60": 10}
     # the value walks only: the gradient kernels were not changed there
-    value_only = ("config4_S20", "dna1000")
-    result = {"card": smi, "build_s": build_s, "checks": {}, "turns": {},
-              "device_us": {}, "sweeps": {}}
+    value_only = ("config4_S20", "dna1000", "widths_S4_K12",
+                  "widths_S20_K60")
+    # B9's fold widths by shape (F = 2, the DNA pack's, and every compiled
+    # F that divides K at config 4 and the widths)
+    folds_of = {label: (2,) for label in (
+        "flagship_B1", "flagship_B64", "wide_node_S4", "wide_node_S20")}
+    folds_of.update({label: tuple(
+        f_ for f_ in cp.FOLD_WIDTHS[shapes[label][2].shape[2]]
+        if shapes[label][1].shape[-3] % f_ == 0)
+        for label in ("config4_S20", "widths_S4_K12", "widths_S20_K60")})
+    # B8 by shape: the topology its libraries are built for
+    static_of = {"flagship_B1": "flagship", "flagship_B64": "flagship",
+                 "config4_S20": "config4", "wide_node_S4": "wide_node_S4"}
+    # B8's libraries, current and earlier, one topology at a time, so that
+    # each build's seconds are its own
+    static_old, static_cur, b8_build = {}, {}, {}
+    for label, top in static_of.items():
+        if top in static_old:
+            continue
+        walk, s = shapes[label][0], shapes[label][2].shape[2]
+        before = set(_build.static_build_info())
+        walk.static_library(s)
+        (key,) = set(_build.static_build_info()) - before
+        static_cur[top] = _build.static_build_info()[key]
+        static_old[top] = _build_earlier_static(
+            args.parent, walk, s, top, _build.NVCC_FLAGS, _build._nvcc())
+        b8_build[top] = {"states": s, "edges": len(walk.slots.rows.edges),
+                         "current_s": static_cur[top]["seconds"],
+                         "earlier_s": static_old[top][2]}
+    print(json.dumps({"b8_build_s": b8_build}), flush=True)
+    for info in static_cur.values():
+        spilled.update({k: v for k, v in _ptxas_table(info["log"]).items()
+                        if not re.search(r"\b0 bytes spill stores", v)})
+    result = {"card": smi, "build_s": build_s, "b8_build_s": b8_build,
+              "checks": {}, "turns": {}, "device_us": {}, "sweeps": {}}
     failed = []
     for label, (walk, p, leaves, f64) in shapes.items():
         f = f64.float()
         s = leaves.shape[2]
         cmax = walk.children.shape[1]
         reps = reps_of[label]
-        ob1 = old_forward(walk, p, leaves)
+        ob1 = earlier(forward_walk, p, leaves, walk, walk="classic")()
         chk = {"cmax": cmax, "rows_b1": walk.rows.n_rows,
                "rows_b4": walk.slots.rows.n_rows}
         ok = True
@@ -319,7 +492,7 @@ def main():
                     got[1], ob1[1])
             chk[f"b{1 if kind == 'forward' else 4}_equals_earlier_b1"] = same
             ok = ok and same
-        ob4 = old_slot(walk, p, leaves)
+        ob4 = earlier(slot_walk, p, leaves, walk)()
         torch.cuda.synchronize()
         chk["earlier_b4_equals_earlier_b1"] = bool(
             torch.equal(ob4[0], ob1[0]) and torch.equal(ob4[1], ob1[1]))
@@ -327,9 +500,9 @@ def main():
         kernels = {
             "B1": ("forward", functools.partial(
                 forward_walk, p, leaves, walk, walk="classic"),
-                functools.partial(old_forward, walk, p, leaves)),
+                earlier(forward_walk, p, leaves, walk, walk="classic")),
             "B4": ("slot", functools.partial(slot_walk, p, leaves, walk),
-                   functools.partial(old_slot, walk, p, leaves)),
+                   earlier(slot_walk, p, leaves, walk)),
         }
         if cmax <= 2:   # B5's ring holds 3 x cmax blocks
             sp, se = slot_walk(p, leaves, walk, stream=True)
@@ -421,6 +594,33 @@ def main():
                     earlier(reverse_walk, p, leaves, rx, re_, lam, f, walk))
                 del d3, l3, o3, ol3
             del ox, oe, d7, d7b, o7, e7, oe7, w7, wl7
+        # B9 (F categories a column) and B8 (the walk compiled in) with 0, 1
+        # and all of the slot walk's rows on the SM: the earlier B1's bits,
+        # and the earlier B9's and B8's
+        rows = walk.slots.rows.n_rows
+        lowerings = [(f"B9_F{f_}", functools.partial(fold_walk, p, leaves,
+                                                     walk, f_),
+                      functools.partial(old_lowering, walk, p, leaves, f_))
+                     for f_ in folds_of.get(label, ())]
+        if label in static_of:
+            lowerings.append((
+                "B8", functools.partial(static_walk, p, leaves, walk),
+                functools.partial(old_lowering, walk, p, leaves,
+                                  lib=static_old[static_of[label]][0])))
+        for name, new_fn, old_fn in lowerings:
+            same = True
+            for smem_rows in sorted({0, 1, rows}):
+                got = new_fn(smem_rows=smem_rows)
+                torch.cuda.synchronize()
+                same = same and torch.equal(got[0], ob1[0]) and torch.equal(
+                    got[1], ob1[1])
+            got = old_fn()
+            torch.cuda.synchronize()
+            chk[f"{name}_equals_earlier_b1"] = same
+            chk[f"earlier_{name}_equals_earlier_b1"] = bool(
+                torch.equal(got[0], ob1[0]) and torch.equal(got[1], ob1[1]))
+            ok = (ok and same and chk[f"earlier_{name}_equals_earlier_b1"])
+            kernels[name] = ("forward", new_fn, old_fn)
         result["checks"][label] = chk
         if not ok:
             failed.append(label)
@@ -443,7 +643,7 @@ def main():
         sweeps = {}
         b = p.shape[0] if p.dim() == 5 else 1
         for name, kind in (("B1", "forward"), ("B4", "slot")):
-            if label.startswith("wide_node"):
+            if label.startswith(("wide_node", "widths")):
                 break
             rows = (walk.rows if kind == "forward" else walk.slots.rows).n_rows
             geo = functools.partial(cp.row_geometry, b, p.shape[-3],
@@ -469,6 +669,37 @@ def main():
             sweeps[name] = _turns({
                 k: functools.partial(cp._row_walk, p, leaves, walk, kind, **v)
                 for k, v in settings.items()}, reps, _cuda_ms)
+        # B9's F x lanes x step x columns and B8's lanes x columns and rows
+        # on the SM (its step is compiled in)
+        if label in ("flagship_B64", "config4_S20", "widths_S20_K60"):
+            k = p.shape[-3]
+            rows = walk.slots.rows.n_rows
+            for name, fold in [(f"B9_F{f_}", f_) for f_ in folds_of[label]] + (
+                    [("B8", 1)] if label in static_of else []):
+                chunks = (cp._STATIC_CHUNK,) if name == "B8" else (2, 4, 8)
+                geo = functools.partial(cp.row_geometry, b, k,
+                                        leaves.shape[1], s, rows, fold=fold)
+
+                def takes(**kw):   # a ring that cannot fit is refused
+                    try:
+                        geo(**kw)
+                        return True
+                    except ValueError:
+                        return False
+
+                settings = {
+                    f"lanes{n}_cols{c}_chunk{k_}": dict(lanes=n, cols=c,
+                                                        chunk=k_)
+                    for n in cp._ROW_LANES[s] for c in (32, 64, 128, 256)
+                    if c * n <= 256 for k_ in chunks
+                    if takes(lanes=n, cols=c, chunk=k_)}
+                if name == "B8":
+                    settings.update({f"smem_rows{m}": dict(smem_rows=m)
+                                     for m in sorted({0, 1, rows})})
+                run = kernels[name][1]
+                sweeps[name] = _turns({
+                    key: functools.partial(run, **kw)
+                    for key, kw in settings.items()}, reps, _cuda_ms)
         if "B2" in kernels:
             b2 = kernels["B2"][1]
             b7 = kernels["B7"][1]
@@ -517,14 +748,31 @@ def main():
         del kernels
         torch.cuda.empty_cache()
     sass = {}
+    libs = {"earlier": [old_path] + [v[1] for v in static_old.values()],
+            "current": [cur_path] + [Path(v["path"])
+                                     for v in static_cur.values()]}
     for kernel, pattern in SASS_KERNELS.items():
-        for which, path in (("earlier", old_path), ("current", cur_path)):
+        for which, path in [(w, x) for w, paths in libs.items()
+                            for x in paths]:
             for i, (fn, lines) in enumerate(_sass(path, pattern).items()):
-                sass[f"{kernel} {which} {fn}"] = _sass_counts(lines)
-                (OUT_DIR / f"{kernel}_{which}_{i}.sass").write_text(
-                    f"{fn}\n" + "\n".join(lines))
+                sass[f"{kernel} {which} {path.stem} {fn}"] = _sass_counts(
+                    lines)
+                (OUT_DIR / f"{kernel}_{which}_{path.stem}_{i}.sass"
+                 ).write_text(f"{fn}\n" + "\n".join(lines))
     result["sass"] = sass
+    # B1 and B4 (F = 1) instruction for instruction against the earlier
+    # build's
+    result["sass_diff_b1_b4"] = _sass_diff(
+        _sass(old_path, SASS_KERNELS["B1_B4"]),
+        _sass(cur_path, SASS_KERNELS["B1_B4"]))
+    result["ptxas_fold_pairs"] = _fold_pairs_ptxas(
+        _build._nvcc(), (*_build.NVCC_FLAGS,
+                         *_build.PTXAS_FLAGS["pruning_fold.cu"]))
     result["ptxas_earlier"] = _ptxas_table(old_log)
+    result["ptxas_b8"] = {
+        top: {"earlier": _ptxas_table(static_old[top][3]),
+              "current": _ptxas_table(static_cur[top]["log"])}
+        for top in static_old}
     result["ptxas_current"] = ptxas_current or "library reused"
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))

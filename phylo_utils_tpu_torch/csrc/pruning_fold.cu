@@ -1,5 +1,5 @@
-// Felsenstein pruning forward walk with F rate categories per thread
-// (pruning_fold_f32), for NVIDIA Hopper (sm_90a).
+// Felsenstein pruning forward walk with F rate categories a column
+// (pruning_fold_f32, B9), for NVIDIA Hopper (sm_90a).
 //
 // Replaces the category-fold and DNA-pack lowerings of the TPU kernel
 // phylo_utils_tpu/ops/pallas_pruning.py::_dynamic_kernel (_pick_fold,
@@ -11,178 +11,123 @@
 // block-diagonal P: the root partials and exponent counts of all K
 // categories, each category rescaled on its own.
 //
-// Design. One thread owns one (batch b, fold group g, site) column and walks
-// the whole tree for the categories gF ... gF + F - 1. Grid is
-// (ceil(sites / 256), K / F, B); F must divide K (the caller refuses, not
-// pads, a K that F does not divide). A leaf row is shared by every category,
-// so the thread loads it once for all F categories: that is what folding
-// buys on this card, F - 1 of every F leaf reads. Internal children are per
-// category, as in B1. The thread keeps F x S accumulators in registers, and
-// applies each category's P through pruning_common.cuh's times_child and
-// rescale_pow2, in B1's order, so every category's root and exponent count
-// is bit for bit B1's (csrc/pruning_forward.cu). Scratch is the whole-tree
-// layout of B1's first body (and of B2's residuals),
-//     scratch (B, K, n_nodes - n_leaves, sites, S), scratch_e (B, K, ..., sites),
-//     root (B, K, sites, S), root_e (B, K, sites).
+// What bounded its first body, measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md section 6): one thread walked a (b, site) column's F
+// categories over the level post-order with every internal node's row in a
+// (B, K, n_inner, sites, S) device scratch (330 MB at the flagship B = 64),
+// read P through L1 one load per FMA, and held F x S accumulators (128 to
+// 255 registers at 20 states), so few warps fit an SM: 0.2483 ms at the
+// flagship B = 64, F = 2, against a 0.0197 ms operations bound; the widest
+// fold was the slowest.
 //
-// What bounds it on an H100: what bounds B1. At 4 states bytes (the leaf
-// reads it saves are at most half of one node's child traffic); at 20 states
-// operations and the 400 broadcast P loads per child and category, which
-// folding does not change. Registers grow as F x S: the compiled widths are
-// the ones ptxas takes without spills under 256 threads a block (at most 255
-// registers a thread): F in {2, 4} at S = 4 (48 and 64 registers; F = 3 took
-// 48 with an 8-byte spill) and F in {2, 3, 4, 5} at S = 20 (128, 227, 255
-// and 255 registers, no spill; nvcc -Xptxas -v for sm_90a). FoldWidths below
-// lists them; ops/cuda_pruning.FOLD_WIDTHS mirrors it.
+// Its body now is csrc/pruning_rows.cuh's live-row walk, row_walk_kernel<S,
+// kL, F> (B1 and B4 are its F = 1 instantiations), over the DFS slot walk
+// (ops/cuda_pruning.py::SlotSchedule.rows, 3 to 8 rows, the fewest, since
+// the rows on the SM are multiplied by F). A column (its kL lanes) walks
+// categories gF ... gF + F - 1 of one (b, site): a leaf row is read once and
+// applied to all F, every category keeps its own accumulators, exponent and
+// rescale and its fmaf chains in j order, so each category's root and
+// exponent count is bit for bit B1's (csrc/pruning_forward.cu). The ring
+// stages each step's P for the F categories (chunk x F x S^2 floats: F blocks
+// of one node are contiguous in P), the rows live in shared memory by (row,
+// f, column), and the lanes split every category's rows, so a lane holds F
+// S / kL accumulators. Grid ((sites + cols - 1) / cols, K / F, B); F must
+// divide K (the caller refuses, not pads, a K that F does not divide).
+//
+// What bounds it now is what bounds B4: at B = 64 the issue of ~45
+// instructions a column and edge, of which folding removes the word load,
+// the branches and, for F - 1 of every F categories, the leaf read (at 4
+// states half the flagship's edges are leaves); at B = 1 the latency of one
+// warp's chain of dependent instructions, which F categories a column
+// lengthen F-fold while halving (F = 2) the warps of a launch that holds
+// only a few an SM; at 20 states the FMAs, which folding does not reduce,
+// against registers that grow with F. PERF.md section 6 has the times.
+// Each compiled width is compiled at the lane counts of its state count
+// that ptxas (nvcc -Xptxas -v for sm_90a, at register-usage level 10:
+// ops/_build.py::PTXAS_FLAGS) takes without a spill (fold_compiled below;
+// ops/cuda_pruning.py::FOLD_WIDTHS mirrors it).
 
+#include <type_traits>
 #include <utility>
 
-#include "pruning_common.cuh"
+#include "pruning_rows.cuh"
 
 namespace {
 
-using pruning::kThreads;
-
-// the F values compiled at S
+// The fold widths compiled at state count S (FoldWidths<S>), and whether F
+// is compiled at `lanes` lanes a column there: every lane count of the
+// state count (1, 2, 4 at 4 states; 1, 2 at 20) whose kernel ptxas takes
+// without a spill. It spilled F = 4 at 4 states at one lane ("Used 128
+// registers ... 8 bytes spill stores") and at four ("Used 64 registers ...
+// 8 bytes spill stores"; kernel_turns.py's ptxas_fold_pairs), so that
+// width runs at two lanes only.
 template <int S>
-struct FoldWidths;
-template <>
-struct FoldWidths<4> {
-  using type = std::integer_sequence<int, 2, 4>;
-};
-template <>
-struct FoldWidths<20> {
-  using type = std::integer_sequence<int, 2, 3, 4, 5>;
-};
-
-template <int S, int F>
-__global__ void __launch_bounds__(kThreads)
-pruning_fold_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S, S)
-                    const float* __restrict__ leaves,    // (n_leaves, sites, S)
-                    const int* __restrict__ order,       // (n_int,)
-                    const int* __restrict__ children,    // (n_int, cmax)
-                    const int* __restrict__ counts,      // (n_int,)
-                    float* __restrict__ scratch,         // (B, K, n_inner, sites, S)
-                    float* __restrict__ scratch_e,       // (B, K, n_inner, sites)
-                    float* __restrict__ root,            // (B, K, sites, S)
-                    float* __restrict__ root_e,          // (B, K, sites)
-                    int K, int n_nodes, int n_leaves, int n_int, int cmax,
-                    int sites) {
-  const int site = blockIdx.x * kThreads + threadIdx.x;
-  if (site >= sites) return;
-  const int k0 = blockIdx.y * F;
-  const int b = blockIdx.z;
-  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
-  const size_t bk0 = static_cast<size_t>(b) * K + k0;
-  // category k0 + f: scratch at xs0 + f * x_cat, exponents at es0 + f * e_cat
-  const size_t e_cat = n_inner * sites;
-  const size_t x_cat = e_cat * S;
-  float* __restrict__ xs0 = scratch + bk0 * x_cat;
-  float* __restrict__ es0 = scratch_e + bk0 * e_cat;
-  // P for (b, node, k0 + f) starts at pb + node * K * S * S + f * S * S
-  const float* __restrict__ pb =
-      p + (static_cast<size_t>(b) * n_nodes * K + k0) * S * S;
-  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
-
-  for (int i = 0; i < n_int; ++i) {
-    const int node = __ldg(order + i);
-    const int cnt = __ldg(counts + i);
-    float acc[F][S];
-    float e[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      e[f] = 0.0f;
-#pragma unroll
-      for (int r = 0; r < S; ++r) acc[f][r] = 1.0f;
-    }
-    for (int c = 0; c < cnt; ++c) {
-      const int child = __ldg(children + i * cmax + c);
-      const float* __restrict__ pc = pb + child * p_node_stride;
-      if (child < n_leaves) {   // one load of the leaf row for all F
-        float x[S];
-        pruning::load_states<S>(
-            leaves + (static_cast<size_t>(child) * sites + site) * S, x);
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          pruning::times_child<S, false>(pc + f * S * S, x, acc[f]);
-        }
-      } else {
-        const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          float x[S];
-          pruning::load_states<S>(xs0 + f * x_cat + row * S, x);
-          e[f] += es0[f * e_cat + row];
-          pruning::times_child<S, false>(pc + f * S * S, x, acc[f]);
-        }
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < F; ++f) e[f] += pruning::rescale_pow2<S>(acc[f]);
-
-    if (i == n_int - 1) {   // the root is last in post-order
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const size_t col = (bk0 + f) * sites + site;
-        pruning::store_states<S>(root + col * S, acc[f]);
-        root_e[col] = e[f];
-      }
-    } else {
-      const size_t row = static_cast<size_t>(node - n_leaves) * sites + site;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        pruning::store_states<S>(xs0 + f * x_cat + row * S, acc[f]);
-        es0[f * e_cat + row] = e[f];
-      }
-    }
-  }
+using FoldWidths = std::conditional_t<S == 4, std::integer_sequence<int, 2, 4>,
+                                      std::integer_sequence<int, 2, 3, 4, 5>>;
+constexpr bool fold_compiled(int s, int f, int lanes) {
+  const bool lane_count = lanes == 1 || lanes == 2 || (s == 4 && lanes == 4);
+  return lane_count && !(s == 4 && f == 4 && lanes != 2);
 }
 
-// Calls launch(std::integral_constant<int, F>{}) when f is one of Fs; else
+// Calls launch(std::integral_constant<int, V>{}) when v is one of Vs; else
 // returns cudaErrorInvalidValue without launching.
-template <typename L, int... Fs>
-int dispatch_fold(int f, L&& launch, std::integer_sequence<int, Fs...>) {
+template <typename L, int... Vs>
+int dispatch_among(int v, L&& launch, std::integer_sequence<int, Vs...>) {
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  (void)((f == Fs ? (rc = launch(std::integral_constant<int, Fs>{}), true)
+  (void)((v == Vs ? (rc = launch(std::integral_constant<int, Vs>{}), true)
                   : false) || ...);
   return rc;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok),
-// or cudaErrorInvalidValue without launching when F does not divide K or is
-// not compiled at S. Buffers as documented above; the caller allocates
-// every one. S is 4 or 20.
+// The live-row walk (csrc/pruning_rows.cuh) with F categories a column.
+// Buffers and arguments as pruning_forward_f32's (csrc/pruning_forward.cu),
+// F after S: `edges` and `eword` the walk (SlotSchedule.rows), rows [0,
+// smem_rows) in shared memory, the others in spill (B, K, n_rows -
+// smem_rows, sites, S) and spill_e (B, K, n_rows - smem_rows, sites) (null
+// when none), root (B, K, sites, S), root_e (B, K, sites). Launch on
+// `stream`; returns cudaGetLastError() after the launch (0 = ok), the error
+// of granting the shared memory, or cudaErrorInvalidValue without launching
+// when F does not divide K, or F or its lanes are not compiled at s. s is
+// 4 or 20.
 extern "C" int pruning_fold_f32(const void* p, const void* leaves,
-                                const void* order, const void* children,
-                                const void* counts, void* scratch,
-                                void* scratch_e, void* root, void* root_e,
-                                int B, int K, int S, int F, int n_nodes,
-                                int n_leaves, int n_int, int cmax, int sites,
-                                void* stream) {
-  if (B <= 0 || K <= 0 || F <= 0 || K % F != 0 || sites <= 0 || n_int <= 0) {
+                                const void* edges, const void* eword,
+                                void* spill, void* spill_e, void* root,
+                                void* root_e, int B, int K, int s, int F,
+                                int n_nodes, int n_leaves, int n_edges,
+                                int sites, int n_rows, int smem_rows,
+                                int lanes, int cols, int chunk,
+                                int stage_leaves, void* stream) {
+  const pruning::RowWalk w{
+      static_cast<const float*>(p),   static_cast<const float*>(leaves),
+      static_cast<const int*>(edges), static_cast<const int2*>(eword),
+      static_cast<float*>(spill),     static_cast<float*>(spill_e),
+      static_cast<float*>(root),      static_cast<float*>(root_e),
+      K, n_nodes, n_leaves, n_edges, sites,
+      n_rows, smem_rows, cols, chunk, stage_leaves};
+  if (!pruning::row_launch_ok(w, B, lanes, F)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sites + kThreads - 1) / kThreads, K / F, B);
-  return pruning::dispatch_states(S, [&](auto s) {
-    constexpr int kS = decltype(s)::value;
-    return dispatch_fold(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pruning::dispatch_states(s, [&](auto s_) {
+    constexpr int kS = decltype(s_)::value;
+    return dispatch_among(
         F,
         [&](auto f) {
-          pruning_fold_kernel<kS, decltype(f)::value>
-              <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                  static_cast<const float*>(p),
-                  static_cast<const float*>(leaves),
-                  static_cast<const int*>(order),
-                  static_cast<const int*>(children),
-                  static_cast<const int*>(counts),
-                  static_cast<float*>(scratch),
-                  static_cast<float*>(scratch_e), static_cast<float*>(root),
-                  static_cast<float*>(root_e), K, n_nodes, n_leaves, n_int,
-                  cmax, sites);
-          return static_cast<int>(cudaGetLastError());
+          constexpr int kF = decltype(f)::value;
+          return dispatch_among(
+              lanes,
+              [&](auto l) {
+                constexpr int kL = decltype(l)::value;
+                if constexpr (fold_compiled(kS, kF, kL)) {
+                  return pruning::launch_row_kernel<kS, kL, kF>(w, B, st);
+                } else {
+                  return static_cast<int>(cudaErrorInvalidValue);
+                }
+              },
+              std::integer_sequence<int, 1, 2, 4>{});
         },
-        typename FoldWidths<kS>::type{});
+        FoldWidths<kS>{});
   });
 }

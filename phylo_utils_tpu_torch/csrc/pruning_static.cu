@@ -1,176 +1,243 @@
 // Felsenstein pruning forward walk compiled for one tree topology
-// (pruning_static_f32), for NVIDIA Hopper (sm_90a).
+// (pruning_static_f32, B8), for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel phylo_utils_tpu/ops/pallas_pruning.py::_static_kernel:
 // the whole post-order walk unrolled at trace time, with every node id a
-// constant. The Hopper counterpart is a kernel compiled per topology:
-// ops/_build.py writes the tree's post-order, children and counts
-// (ops/cuda_pruning._postorder_arrays) and the state count as constexpr
-// arrays into a generated header, pruning_static_topology.h, in the build
-// directory, and compiles this file against it with one nvcc. The walk is a
-// fold over std::integer_sequence, one instantiation per node and child, so
-// every node id, child id and leaf-or-internal test is a compile-time
-// constant: each child's P offset and scratch row are an immediate times the
-// stride, and there is no index load, loop counter or branch left in the
-// walk. Each node is a device function of its own (__noinline__), called in
-// post-order: fully inlined, ptxas scheduled loads across the whole tree and
-// the walk took 254 registers a thread at 4 states (63 internal nodes) and
-// 255 with 15.5 KB of spills at 20 states (31 internal nodes), whose build
-// took 172 s (nvcc -Xptxas -v for sm_90a on the H100 machine); one function
-// per node keeps each node's registers to itself, as B1's loop does.
-// Per column it computes what B1 (csrc/pruning_forward.cu) computes,
-// with the same helpers in the same order (times_child, rescale_pow2), so its
-// root and exponent count are bit for bit B1's. Layouts are those of B1's
-// first body (whole-tree scratch):
-//     p (B, n_nodes, K, S, S), leaves (n_leaves, sites, S),
-//     scratch (B, K, n_nodes - n_leaves, sites, S), scratch_e (B, K, ..., sites),
-//     root (B, K, sites, S), root_e (B, K, sites);
-// one thread per (batch, category, site) column, grid (ceil(sites / 256), K, B).
+// constant. The Hopper counterpart is a kernel compiled per topology and
+// state count: ops/_build.py writes the tree's live-row walk (the DFS slot
+// walk, ops/cuda_pruning.py::SlotSchedule.rows: each edge's child, its word
+// {the child's row or -1 - leaf, -2 or the row its node writes, -1 for the
+// root}, the row count) and the step `chunk` as constexpr arrays into a
+// generated header, pruning_static_topology.h, in the build directory, and
+// compiles this file against it with one nvcc.
 //
-// What bounds it on an H100: what bounded B1's first body (bytes at 4
-// states, operations and the broadcast P loads at 20); the unrolled walk
-// removes that body's per-node index loads and loop branches, and adds a
-// call per node. The price is the
-// build: one nvcc per topology and state count, whose time grows with the
-// number of nodes (ops/_build.py records it).
+// What bounded its first body, measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md section 6): every internal node's row in a (B, K,
+// n_inner, sites, S) device scratch, P read through L1 one load per FMA,
+// one __noinline__ call a node (fully inlined, that walk took 254 registers
+// a thread at 4 states and 255 with 15.5 KB of spills at 20, whose build
+// took 172 s): 0.2209 ms at the flagship B = 64 against a 0.0197 ms
+// operations bound, 0.94x B1's time then.
 //
-// The header defines, in namespace topo: kS, kNNodes, kNLeaves, kNInt, kCmax,
-// kOrder[kNInt], kChildren[kNInt * kCmax], kCounts[kNInt]. Namespace-scope
-// constexpr arrays are host variables to CUDA; device code reads their
-// elements only through the constexpr functions below, in constant
-// expressions.
+// Its body now is csrc/pruning_rows.cuh's live-row walk (B1's and B4's),
+// its per-edge work pruning::row_edge: a column's rows in shared memory
+// (rows from smem_rows on in device memory), P staged two steps of edges
+// ahead in a 3-stage cp.async ring and read as 16-byte broadcast vectors,
+// kL lanes a column. What bounds that body at B = 64 is issue, ~45
+// instructions a column and edge of which 20 are FMAs and multiplies, and
+// at B = 1 a chain of ~60 dependent instructions an edge. This kernel
+// takes away what the walk being a constant makes needless: the edge loop
+// is unrolled over the walk (a fold over std::integer_sequence, one
+// instantiation an edge), each edge's word passed to row_edge as
+// constants, so there is no word load, loop counter or step-boundary test
+// left; the leaf / shared-memory / spill choice of the child, the node's
+// end and its output row, the child's P offset in its stage and the stage
+// itself fold. Left a column and edge: the child's row (one LDS.128 or
+// LDG.128 a 4-state row), the P vector loads and the FMAs; and with every
+// leaf a constant, ptxas issues later edges' leaf loads early, which is
+// what shortens the B = 1 chain. The flat walk needs few registers (60 to
+// 88 at 4 states, at ptxas's register-usage level 2, ops/_build.py's
+// PTXAS_FLAGS), so there is no call a node. Past a code budget
+// (kUnrolled below: config 4 at 20 states, whose 62 edges would unroll to
+// 24,800 FMAs a kernel) the object launches the live-row kernel itself,
+// pruning::row_walk_kernel<S, kL, 1>, over the walk's words in device
+// memory: at 20 states an edge's 400 FMAs dwarf the per-edge overhead the
+// constant words remove. The step is fixed at compile time (topo::kChunk);
+// lanes, columns, smem_rows and leaf staging stay run-time choices of
+// ops/cuda_pruning.py::row_geometry. Each lane count row_geometry can pick
+// (1, 2, 4 at 4 states; 1, 2 at 20) is its own object
+// (PRUNING_STATIC_LANES) with its own entry point, all compiled at once.
+// The child order and the fmaf order are B1's, so the root and exponent
+// count are bit for bit B1's. The price is the build: one nvcc per
+// topology, state count and lane count, whose time grows with the edges
+// (ops/_build.py records it).
+//
+// The header defines, in namespace topo: kS, kNNodes, kNLeaves, kNEdges,
+// kNRows, kChunk, kEdges[kNEdges] (each edge's child node id) and
+// kEword[2 kNEdges] (each edge's word). Namespace-scope constexpr arrays
+// are host variables to CUDA; device code reads their elements only
+// through the constexpr functions below, in constant expressions. The
+// ring's copies of P read the child ids at run time from `edges` (the
+// walk's edge array on the device), since a thread copies the blocks of
+// several edges of a step.
 
 #include <cstddef>
 #include <utility>
 
-#include "pruning_common.cuh"
+#include "pruning_rows.cuh"
 #include "pruning_static_topology.h"
 
 namespace {
 
+using pruning::kPStages;
 using pruning::kThreads;
 constexpr int S = topo::kS;
+constexpr int kChunk = topo::kChunk;
+constexpr int kNEdges = topo::kNEdges;
 
-__host__ __device__ constexpr int order_at(int i) { return topo::kOrder[i]; }
-__host__ __device__ constexpr int count_at(int i) { return topo::kCounts[i]; }
-__host__ __device__ constexpr int child_at(int i, int c) {
-  return topo::kChildren[i * topo::kCmax + c];
+__host__ __device__ constexpr int edge_src(int i) { return topo::kEword[2 * i]; }
+__host__ __device__ constexpr int edge_dst(int i) {
+  return topo::kEword[2 * i + 1];
 }
 
-// one thread's column: where its P, leaves, scratch and root live
-struct Column {
-  const float* pb;   // P of (b, node 0, k); node n at + n * p_node_stride
-  size_t p_node_stride;
-  const float* leaves;
-  float* xs;         // scratch of (b, k)
-  float* es;
-  float* root;       // root row of (b, k, site)
-  float* root_e;
-  size_t sites;
-  int site;
+// The walk is unrolled while its code stays small: edges x S^2 up to 4096
+// (the flagship's 126 edges at 4 states: 2016; config 4's 62 edges at 20
+// states: 24,800 do not).
+constexpr bool kUnrolled = kNEdges * S * S <= 4096;
+
+// One block's walk, kL lanes a column: row_edge over the walk, unrolled.
+template <int kL>
+struct StaticWalk {
+  static constexpr int kRows = S / kL;          // rows a lane forms
+  static constexpr int kVecs = S / 4;           // 16-byte vectors of a row
+  static constexpr int kBlockVecs = S * S / 4;  // 16-byte vectors of a P block
+
+  const pruning::RowWalk& w;
+  const pruning::RowPlace at;
+  float acc[1][kRows];
+  float e[1];
+
+  __device__ __forceinline__ explicit StaticWalk(const pruning::RowWalk& w_)
+      : w(w_), at(pruning::row_place<S, kL, 1>(w_, kChunk)) {
+    e[0] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[0][r] = 1.0f;
+  }
+
+  __device__ __forceinline__ float* stage_at(int t) const {
+    return at.smem + t * at.stage_floats;
+  }
+
+  // the column's leaf row of edge E into slot c of ring stage dst
+  template <int E, int c>
+  __device__ __forceinline__ void stage_leaf(float* dst) {
+    if constexpr (E < kNEdges && edge_src(E) < 0) {
+      constexpr int leaf = -1 - edge_src(E);
+#pragma unroll
+      for (int q = at.h; q < kVecs; q += kL) {
+        pruning::cp_async16(
+            dst + at.p_floats + (c * at.cols + at.col) * S + 4 * q,
+            at.leaf_col + static_cast<size_t>(leaf) * at.leaf_stride + 4 * q);
+      }
+    }
+  }
+
+  template <int T, int... C>
+  __device__ __forceinline__ void stage_leaf_rows(
+      float* dst, std::integer_sequence<int, C...>) {
+    (stage_leaf<T * kChunk + C, C>(dst), ...);
+  }
+
+  // step T: the P blocks (and leaf rows) of edges [T kChunk, (T + 1)
+  // kChunk) into stage T % kPStages; a step past the walk commits an empty
+  // group, so the wait below always leaves the next step in flight
+  template <int T>
+  __device__ __forceinline__ void stage() {
+    constexpr int f0 = T * kChunk;
+    constexpr int n =
+        f0 >= kNEdges ? 0 : (kNEdges - f0 < kChunk ? kNEdges - f0 : kChunk);
+    if constexpr (n > 0) {
+      float* dst = stage_at(T % kPStages);
+      for (int v = threadIdx.x; v < n * kBlockVecs; v += blockDim.x) {
+        const int c = v / kBlockVecs;
+        const int q = v - c * kBlockVecs;
+        const int child = __ldg(w.edges + f0 + c);
+        pruning::cp_async16(dst + c * S * S + 4 * q,
+                            at.pb + child * at.p_node_stride + 4 * q);
+      }
+      if (w.stage_leaves && at.live) {
+        stage_leaf_rows<T>(dst, std::make_integer_sequence<int, kChunk>{});
+      }
+    }
+    pruning::cp_async_commit();
+  }
+
+  // edge I of the unrolled walk
+  template <int I>
+  __device__ __forceinline__ void edge() {
+    constexpr int kStep = I / kChunk;
+    if constexpr (I % kChunk == 0) {
+      pruning::cp_async_wait_one();  // this step's group has landed (this thread's part)
+      __syncthreads();               // ... and every other thread's
+      stage<kStep + 2>();            // into the stage the last step read
+    }
+    pruning::row_edge<S, kL, 1>(w, at, edge_src(I), edge_dst(I),
+                                stage_at(kStep % kPStages), I % kChunk, acc,
+                                e);
+  }
+
+  template <int... I>
+  __device__ __forceinline__ void walk(std::integer_sequence<int, I...>) {
+    (edge<I>(), ...);
+  }
 };
 
-// acc *= P_child x_child for child C of post-order node I
-template <int I, int C>
-__device__ __forceinline__ void child_step(const Column& col, float (&acc)[S],
-                                           float& e) {
-  constexpr int child = child_at(I, C);
-  float x[S];
-  if constexpr (child < topo::kNLeaves) {
-    pruning::load_states<S>(
-        col.leaves + (static_cast<size_t>(child) * col.sites + col.site) * S, x);
-  } else {
-    const size_t row =
-        static_cast<size_t>(child - topo::kNLeaves) * col.sites + col.site;
-    pruning::load_states<S>(col.xs + row * S, x);
-    e += col.es[row];
-  }
-  pruning::times_child<S, false>(col.pb + child * col.p_node_stride, x, acc);
-}
-
-// post-order node I: its children C..., the rescale, the store
-template <int I, int... C>
-__device__ __forceinline__ void node_step(const Column& col,
-                                          std::integer_sequence<int, C...>) {
-  constexpr int node = order_at(I);
-  float acc[S];
-#pragma unroll
-  for (int r = 0; r < S; ++r) acc[r] = 1.0f;
-  float e = 0.0f;
-  (child_step<I, C>(col, acc, e), ...);
-  e += pruning::rescale_pow2<S>(acc);
-  if constexpr (I == topo::kNInt - 1) {   // the root is last in post-order
-    pruning::store_states<S>(col.root, acc);
-    *col.root_e = e;
-  } else {
-    const size_t row =
-        static_cast<size_t>(node - topo::kNLeaves) * col.sites + col.site;
-    pruning::store_states<S>(col.xs + row * S, acc);
-    col.es[row] = e;
-  }
-}
-
-// post-order node I as a call of its own (see the note at the top)
-template <int I>
-__device__ __noinline__ void node_call(const Column col) {
-  node_step<I>(col, std::make_integer_sequence<int, count_at(I)>{});
-}
-
-template <int... I>
-__device__ __forceinline__ void walk(const Column& col,
-                                     std::integer_sequence<int, I...>) {
-  (node_call<I>(col), ...);
-}
-
+template <int kL>
 __global__ void __launch_bounds__(kThreads)
-pruning_static_kernel(const float* __restrict__ p,
-                      const float* __restrict__ leaves,
-                      float* __restrict__ scratch,
-                      float* __restrict__ scratch_e,
-                      float* __restrict__ root, float* __restrict__ root_e,
-                      int K, int sites) {
-  const int site = blockIdx.x * kThreads + threadIdx.x;
-  if (site >= sites) return;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  constexpr size_t n_inner = topo::kNNodes - topo::kNLeaves;
-  const size_t bk = static_cast<size_t>(b) * K + k;
-  const size_t col_id = bk * sites + site;
-  const Column col{
-      p + (static_cast<size_t>(b) * topo::kNNodes * K + k) * S * S,
-      static_cast<size_t>(K) * S * S,
-      leaves,
-      scratch + bk * n_inner * sites * S,
-      scratch_e + bk * n_inner * sites,
-      root + col_id * S,
-      root_e + col_id,
-      static_cast<size_t>(sites),
-      site,
-  };
-  walk(col, std::make_integer_sequence<int, topo::kNInt>{});
+pruning_static_kernel(const pruning::RowWalk w) {
+  StaticWalk<kL> walk(w);
+  walk.template stage<0>();
+  walk.template stage<1>();
+  walk.walk(std::make_integer_sequence<int, kNEdges>{});
+}
+
+template <int kL>
+int launch_static(const pruning::RowWalk& w, int B, cudaStream_t stream) {
+  if constexpr (kUnrolled) {
+    auto kernel = pruning_static_kernel<kL>;
+    const size_t smem = pruning::row_smem_bytes(
+        S, w.cols, kChunk, w.stage_leaves, w.smem_rows, 1);
+    const int err = pruning::grant_smem(kernel, smem);
+    if (err) return err;
+    const dim3 grid((w.sites + w.cols - 1) / w.cols, w.K, B);
+    kernel<<<grid, w.cols * kL, smem, stream>>>(w);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // past the budget: the live-row kernel over `eword`
+    return pruning::launch_row_kernel<S, kL, 1>(w, B, stream);
+  }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok),
-// or cudaErrorInvalidValue without launching when the shapes are not the
-// ones this library was compiled for. Buffers as documented above; the
-// caller allocates every one.
-extern "C" int pruning_static_f32(const void* p, const void* leaves,
-                                  void* scratch, void* scratch_e, void* root,
-                                  void* root_e, int B, int K, int s,
-                                  int n_nodes, int n_leaves, int n_int,
-                                  int sites, void* stream) {
-  if (B <= 0 || K <= 0 || sites <= 0 || s != topo::kS ||
+// This object's lane count: ops/_build.py compiles this file once per lane
+// count that row_geometry can pick (1, 2, 4 at 4 states; 1, 2 at 20), one
+// nvcc each, all at once, and links the objects into the topology's library.
+#ifndef PRUNING_STATIC_LANES
+#error "compile with -DPRUNING_STATIC_LANES=1, 2 or 4 (ops/_build.py does)"
+#endif
+#define PRUNING_STATIC_ENTRY_(k) pruning_static_f32_l##k
+#define PRUNING_STATIC_ENTRY(k) PRUNING_STATIC_ENTRY_(k)
+
+// pruning_static_f32_l<lanes>: the live-row walk of this library's
+// topology with every edge's word a constant (past kUnrolled, read from
+// `eword`), `lanes` lanes a column. Arguments as pruning_forward_f32's
+// (csrc/pruning_forward.cu): `edges` and `eword` the walk on the device
+// (SlotSchedule.rows, the walk compiled in), rows [0, smem_rows) in shared memory, the
+// others in spill (B, K, n_rows - smem_rows, sites, S) and spill_e (B, K,
+// n_rows - smem_rows, sites) (null when none), root (B, K, sites, S),
+// root_e (B, K, sites). Launch on `stream`; returns cudaGetLastError()
+// after the launch (0 = ok), the error of granting the shared memory, or
+// cudaErrorInvalidValue without launching when the walk, the states, the
+// step or the lanes are not the ones this object was compiled for.
+extern "C" int PRUNING_STATIC_ENTRY(PRUNING_STATIC_LANES)(
+    const void* p, const void* leaves, const void* edges, const void* eword,
+    void* spill, void* spill_e, void* root, void* root_e, int B, int K, int s,
+    int n_nodes, int n_leaves, int n_edges, int sites, int n_rows,
+    int smem_rows, int lanes, int cols, int chunk, int stage_leaves,
+    void* stream) {
+  const pruning::RowWalk w{
+      static_cast<const float*>(p),   static_cast<const float*>(leaves),
+      static_cast<const int*>(edges), static_cast<const int2*>(eword),
+      static_cast<float*>(spill),     static_cast<float*>(spill_e),
+      static_cast<float*>(root),      static_cast<float*>(root_e),
+      K, n_nodes, n_leaves, n_edges, sites,
+      n_rows, smem_rows, cols, chunk, stage_leaves};
+  if (!pruning::row_launch_ok(w, B, lanes, 1) || s != topo::kS ||
       n_nodes != topo::kNNodes || n_leaves != topo::kNLeaves ||
-      n_int != topo::kNInt) {
+      n_edges != kNEdges || n_rows != topo::kNRows || chunk != kChunk ||
+      lanes != PRUNING_STATIC_LANES) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sites + kThreads - 1) / kThreads, K, B);
-  pruning_static_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(leaves),
-      static_cast<float*>(scratch), static_cast<float*>(scratch_e),
-      static_cast<float*>(root), static_cast<float*>(root_e), K, sites);
-  return static_cast<int>(cudaGetLastError());
+  return launch_static<PRUNING_STATIC_LANES>(w, B,
+                                              static_cast<cudaStream_t>(stream));
 }

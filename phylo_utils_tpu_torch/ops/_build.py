@@ -11,9 +11,11 @@ build raises.
 
 ``csrc/pruning_static.cu`` (B8) is left out of that library: it is compiled
 per tree topology and state count by ``load_static_library``, against a
-header of constexpr arrays that this module writes into the build directory
-(``static_topology_header``), with one ``nvcc``, into a library keyed by the
-hash of the sources, the header and the flags, under its own file lock.
+header of constexpr arrays (the topology's live-row walk) that this module
+writes into the build directory (``static_topology_header``), with one
+``nvcc`` per lane count, all at once, into a library keyed by the hash of
+the sources, the header, the lane counts and the flags, under its own file
+lock.
 Each one's build seconds are kept (``static_build_info``); a second call
 with the same topology and state count builds nothing.
 """
@@ -49,6 +51,18 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The sources compiled under their own ptxas setting, one each (nvcc for
+# sm_90a): at the default register-usage level (5) ptxas held some of B9's
+# kernels, whose lanes keep F x S / kL accumulators, to 80 or 128
+# registers and spilled 8 to 32 bytes in them, and one of the flagship's B8
+# objects 4; at these levels none of the fold kernels compiled
+# (ops/cuda_pruning.py::FOLD_WIDTHS) nor the B8 objects of the flagship,
+# config 4 and the wide node spill (PERF.md section 6)
+PTXAS_FLAGS = {
+    "pruning_fold.cu": ("-Xptxas", "--register-usage-level=10"),
+    "pruning_static.cu": ("-Xptxas", "--register-usage-level=2"),
+}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _info: dict = {}
@@ -56,7 +70,7 @@ _info: dict = {}
 # library does
 _static_lock = threading.Lock()
 _static_libs: dict = {}     # key -> CDLL
-_static_info: dict = {}     # key -> path, seconds, built, log, n_int, s
+_static_info: dict = {}     # key -> path, seconds, built, log, n_int, n_edges, s
 
 
 def _nvcc() -> str:
@@ -83,7 +97,7 @@ SIGNATURES = (
     ("pruning_slot_f32", 8, 13),
     ("pruning_stream_f32", 11, 8),
     ("pruning_classic_reverse_f32", 15, 13),
-    ("pruning_fold_f32", 9, 9),
+    ("pruning_fold_f32", 8, 14),
 )
 
 
@@ -98,21 +112,24 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _compile(sources, target: Path) -> str:
-    """One ``nvcc -c`` per source, all running at once, then one link;
-    returns the compilers' output. Raises on the first failure."""
+def _compile(units, target: Path) -> str:
+    """One ``nvcc -c`` per unit, a (source, extra flags) pair, all running
+    at once, then one link; returns the compilers' output. Raises on the
+    first failure."""
     nvcc = _nvcc()
-    objs = [target.with_name(f"{target.stem}_{src.stem}.o") for src in sources]
+    objs = [target.with_name(f"{target.stem}_{i}_{src.stem}.o")
+            for i, (src, _) in enumerate(units)]
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj),
+                          str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
-        for src, obj in zip(sources, objs)
+        for (src, flags), obj in zip(units, objs)
     ]
     logs, failed = [], []
-    for src, proc in zip(sources, procs):
+    for (src, flags), proc in zip(units, procs):
         out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out}")
+        logs.append(f"== {src.name} {' '.join(flags)}\n{out}")
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode})")
     log = "".join(logs)
@@ -138,11 +155,12 @@ def load_library() -> ctypes.CDLL:
             return _lib
         sources = [src for src in sorted(CSRC.glob("*.cu"))
                    if src != STATIC_SOURCE]
-        key = _digest(sources + sorted(CSRC.glob("*.cuh")))
+        units = [(src, PTXAS_FLAGS.get(src.name, ())) for src in sources]
+        key = _digest(sources + sorted(CSRC.glob("*.cuh")), repr(units))
         target = BUILD_DIR / f"libphylo_kernels_{key}.so"
         t0 = time.perf_counter()
         log, built = _build_once(target, BUILD_DIR / "lock",
-                                 lambda tmp: _compile(sources, tmp))
+                                 lambda tmp: _compile(units, tmp))
         _lib = _bind(ctypes.CDLL(str(target)))
         _info.update(path=str(target), seconds=time.perf_counter() - t0,
                      built=built, log=log)
@@ -163,25 +181,30 @@ def _digest(files, extra: str = "") -> str:
 def _build_once(target: Path, lock: Path, compile_to):
     """(compiler output, built) after making ``target`` with
     ``compile_to(tmp_path)`` unless it exists, under the file lock ``lock``
-    so that concurrent processes build it once."""
+    so that concurrent processes build it once. The output is kept beside
+    ``target`` (``.log``), so that a library taken from the build directory
+    still reports its ptxas lines."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    log, built = "", False
+    saved = target.with_suffix(".log")
+    built = False
     with open(lock, "w") as lock_fh:
         fcntl.flock(lock_fh, fcntl.LOCK_EX)
         try:
             if not target.exists():
                 tmp = BUILD_DIR / f"tmp{os.getpid()}_{target.name}"
-                log = compile_to(tmp)
+                saved.write_text(compile_to(tmp))
                 os.replace(tmp, target)
                 built = True
+            log = saved.read_text() if saved.exists() else ""
         finally:
             fcntl.flock(lock_fh, fcntl.LOCK_UN)
     return log, built
 
 
 def build_info() -> dict:
-    """Path, wall seconds and compiler output of the last ``load_library``
-    (``log`` is empty when the library came from the build directory)."""
+    """Path, wall seconds, built and compiler output of the last
+    ``load_library`` (the output of the build that made the library, where
+    it came from the build directory)."""
     return dict(_info)
 
 
@@ -189,43 +212,50 @@ def _c_array(values) -> str:
     return "{" + ", ".join(str(int(v)) for v in values) + "}"
 
 
-def static_topology_header(order, children, counts, n_nodes: int,
-                           n_leaves: int, s: int) -> str:
+def static_topology_header(edges, eword, n_rows: int, n_nodes: int,
+                           n_leaves: int, s: int, chunk: int) -> str:
     """The generated header ``csrc/pruning_static.cu`` is compiled against:
-    the post-order walk (``cuda_pruning._postorder_arrays``: internal nodes
-    ``order`` (n_int,), their ``children`` (n_int, cmax), zero-padded, and
-    child ``counts`` (n_int,)), the node and leaf counts and the state count
-    as constexpr values in namespace ``topo``."""
-    n_int, cmax = children.shape
+    one tree's live-row walk (``cuda_pruning.RowWalk``: the children of
+    the walk's nodes in order, ``edges`` (n_edges,), their words ``eword``
+    (n_edges + 1, 2), of which the last, read ahead by the other live-row
+    kernels, is left out, and ``n_rows`` rows), the node and leaf counts,
+    the state count and the step of ``chunk`` edges as constexpr values in
+    namespace ``topo``."""
+    n_edges = len(edges)
     return "\n".join([
         "// Generated by phylo_utils_tpu_torch/ops/_build.py: one tree's",
-        "// post-order walk for csrc/pruning_static.cu.",
+        "// live-row walk for csrc/pruning_static.cu.",
         "#pragma once",
         "namespace topo {",
         f"constexpr int kS = {int(s)};",
         f"constexpr int kNNodes = {int(n_nodes)};",
         f"constexpr int kNLeaves = {int(n_leaves)};",
-        f"constexpr int kNInt = {int(n_int)};",
-        f"constexpr int kCmax = {int(cmax)};",
-        f"constexpr int kOrder[kNInt] = {_c_array(order)};",
-        "constexpr int kChildren[kNInt * kCmax] = "
-        f"{_c_array(children.reshape(-1))};",
-        f"constexpr int kCounts[kNInt] = {_c_array(counts)};",
+        f"constexpr int kNEdges = {int(n_edges)};",
+        f"constexpr int kNRows = {int(n_rows)};",
+        f"constexpr int kChunk = {int(chunk)};",
+        f"constexpr int kEdges[kNEdges] = {_c_array(edges)};",
+        "constexpr int kEword[2 * kNEdges] = "
+        f"{_c_array(eword[:n_edges].reshape(-1))};",
         "}  // namespace topo",
         "",
     ])
 
 
-def load_static_library(order, children, counts, n_nodes: int,
-                        n_leaves: int, s: int) -> ctypes.CDLL:
+def load_static_library(edges, eword, n_rows: int, n_nodes: int,
+                        n_leaves: int, s: int, chunk: int,
+                        lanes) -> ctypes.CDLL:
     """The B8 library of one topology and state count (arguments as
     ``static_topology_header``'s), built on first use: the header is written
     to ``build/phylo_utils_tpu_torch/static_<key>/`` and
-    ``csrc/pruning_static.cu`` compiled against it by one ``nvcc``. Raises
-    where ``nvcc`` is missing or the build fails."""
-    header = static_topology_header(order, children, counts, n_nodes,
-                                    n_leaves, s)
-    key = _digest([STATIC_SOURCE] + sorted(CSRC.glob("*.cuh")), header)
+    ``csrc/pruning_static.cu`` compiled against it once for each of
+    ``lanes`` (lane counts a column), one ``nvcc`` each, all at once, and
+    linked; entry points ``pruning_static_f32_l<lanes>``. Raises where
+    ``nvcc`` is missing or the build fails."""
+    header = static_topology_header(edges, eword, n_rows, n_nodes, n_leaves,
+                                    s, chunk)
+    lanes = tuple(int(n) for n in lanes)
+    key = _digest([STATIC_SOURCE] + sorted(CSRC.glob("*.cuh")),
+                  header + f"lanes {lanes} {PTXAS_FLAGS[STATIC_SOURCE.name]}")
     with _static_lock:
         if key in _static_libs:
             return _static_libs[key]
@@ -235,35 +265,31 @@ def load_static_library(order, children, counts, n_nodes: int,
     def compile_to(tmp: Path) -> str:
         include.mkdir(parents=True, exist_ok=True)
         (include / STATIC_HEADER).write_text(header)
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(include), "-shared", "-o",
-             str(tmp), str(STATIC_SOURCE)],
-            capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {STATIC_SOURCE.name} ({res.returncode})\n"
-                f"{log}")
-        return log
+        return _compile([(STATIC_SOURCE, ("-I", str(include),
+                                          f"-DPRUNING_STATIC_LANES={n}",
+                                          *PTXAS_FLAGS[STATIC_SOURCE.name]))
+                         for n in lanes], tmp)
 
     t0 = time.perf_counter()
     log, built = _build_once(target, BUILD_DIR / f"lock_static_{key}",
                              compile_to)
     lib = ctypes.CDLL(str(target))
-    fn = lib.pruning_static_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for n in lanes:
+        fn = getattr(lib, f"pruning_static_f32_l{n}")
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     with _static_lock:
         _static_libs[key] = lib
         _static_info[key] = dict(
             path=str(target), seconds=time.perf_counter() - t0, built=built,
-            log=log, n_int=int(len(order)), s=int(s))
+            log=log, n_int=int((eword[:len(edges), 1] != -2).sum()),
+            n_edges=int(len(edges)), s=int(s))
     return lib
 
 
 def static_build_info() -> dict:
     """{key: path, wall seconds, built, compiler output, internal nodes,
-    states} of every B8 library this process has loaded."""
+    edges, states} of every B8 library this process has loaded."""
     with _static_lock:
         return {k: dict(v) for k, v in _static_info.items()}

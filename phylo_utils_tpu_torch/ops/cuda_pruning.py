@@ -45,13 +45,13 @@ CUDA tensor launches the kernel or raises):
   children. Plain version ``classic_reverse_walk_reference``.
 
 - ``static_walk`` (``csrc/pruning_static.cu``, replaces ``_static_kernel``):
-  the classic walk compiled for one topology (``ops/_build.py`` builds it
-  per tree and state count), every node id a compile-time constant; and
-  ``fold_walk`` (``csrc/pruning_fold.cu``, replaces the category-fold and
-  DNA-pack lowerings of ``_dynamic_kernel``): one thread walks F categories
-  of a column, loading each leaf row once for all F. Both roots are bit for
-  bit the forward kernel's; their plain version is
-  ``forward_walk_reference``.
+  the live-row walk over the DFS slots compiled for one topology
+  (``ops/_build.py`` builds it per tree and state count), every edge's word
+  a compile-time constant; and ``fold_walk`` (``csrc/pruning_fold.cu``,
+  replaces the category-fold and DNA-pack lowerings of ``_dynamic_kernel``):
+  the live-row walk over the DFS slots with F categories a column, each
+  leaf row read once for all F. Both roots are bit for bit the forward
+  kernel's; their plain version is ``forward_walk_reference``.
 
 ``forward_walk(walk="auto")`` picks the walk (``choose_walk``) and, where
 that is the classic walk, its lowering as the JAX package's
@@ -154,10 +154,14 @@ LAUNCHES_BY_STATES = collections.Counter()
 # static kernel (B8); read at import, as the JAX package reads it; 0 (the
 # default) never
 STATIC_UNROLL_MAX = int(os.environ.get("PHYLO_STATIC_UNROLL_MAX", "0"))
-# the categories per thread the fold kernel (B9) is compiled for, by state
-# count (csrc/pruning_fold.cu's FoldWidths): the widths ptxas takes without
-# spills, where the TPU's fold stopped at its 128 lanes
-FOLD_WIDTHS = {4: (2, 4), 20: (2, 3, 4, 5)}
+# the categories a column the fold kernel (B9) is compiled for, by state
+# count, each with the lane counts a column it is compiled for
+# (csrc/pruning_fold.cu's FoldWidths and fold_compiled): the lane counts
+# of _ROW_LANES at which ptxas takes the width without a spill (F = 4 at 4
+# states spilled at one and four lanes), where the TPU's fold stopped at
+# its 128 lanes
+FOLD_WIDTHS = {4: {2: (1, 2, 4), 4: (2,)},
+               20: {2: (1, 2), 3: (1, 2), 4: (1, 2), 5: (1, 2)}}
 
 # CUDA caps gridDim.z (the batch axis of the launch) at 65535
 _MAX_GRID_Z = 65535
@@ -195,9 +199,10 @@ _CLASSIC_REVERSE_BLOCKS = {4: 1056, 20: 264}
 # reads its P through, measured the same on a node of 49 children
 _CLASSIC_STAGE_BYTES = _REVERSE_SMEM
 # bytes of whole-tree scratch up to which the value path takes the classic
-# walk (see choose_walk): the H100's 50 MB L2. It is the scratch the classic
-# walk's lowerings (B8, B9) allocate; B1 keeps its live rows on the SM and
-# allocates only rows that do not fit there. With B1 and B4 on one body
+# walk (see choose_walk): the H100's 50 MB L2. It was the scratch of B1's
+# first body and of the classic walk's lowerings (B8, B9) before they took
+# the live-row body; they keep their rows on the SM and allocate only rows
+# that do not fit there. With B1 and B4 on one body
 # (csrc/pruning_rows.cuh) the line still falls where the turns put it: on an
 # NVIDIA H100 80GB HBM3 (700 W) B1 and B4 took the same device time at the
 # flagship B = 1 (5 MB), config 4 (11 MB) and config 5's tree, and B4 was
@@ -209,6 +214,11 @@ CLASSIC_SCRATCH_BUDGET = 50 * 2 ** 20
 # of the ring may copy ahead
 _ROW_LANES = {4: (1, 2, 4), 20: (1, 2)}
 _ROW_CHUNKS = (2, 4, 8)
+# B8's step, compiled into its library (csrc/pruning_static.cu's kChunk): a
+# constant step lets each edge's stage and P offset fold to immediates; 8
+# edges is the longest of _ROW_CHUNKS, which row_geometry takes for B4 at
+# the main-path shapes
+_STATIC_CHUNK = 8
 # the warps an SM a row-walk launch aims for: the fewest lanes a column
 # that reach it, else the lanes that put the most warps on an SM. Below it
 # at one lane a column, a 4-state launch also stages its leaf rows in the
@@ -511,14 +521,17 @@ class WalkSchedule:
         self._on_device = {}
 
     def static_library(self, s: int):
-        """B8's library for this topology at ``s`` states (built by
+        """B8's library for this topology at ``s`` states: the DFS slot
+        walk (``slots.rows``) compiled in, with a step of ``_STATIC_CHUNK``
+        edges, at each lane count of ``_ROW_LANES[s]`` (built by
         ``_build.load_static_library`` at first use)."""
         if s not in self._static:
             from phylo_utils_tpu_torch.ops._build import load_static_library
 
+            rw = self.slots.rows
             self._static[s] = load_static_library(
-                self.order, self.children, self.counts, self.n_nodes,
-                self.n_leaves, s)
+                rw.edges, rw.eword, rw.n_rows, self.n_nodes, self.n_leaves,
+                s, _STATIC_CHUNK, _ROW_LANES[s])
         return self._static[s]
 
     @property
@@ -933,10 +946,11 @@ def choose_walk(b: int, k: int, n_inner: int, sites: int, s: int) -> str:
     """The value path's walk for a launch of ``b`` batch elements, ``k``
     categories, ``n_inner`` internal nodes, ``sites`` sites, ``s`` states.
 
-    The classic walk while its lowerings' whole-tree scratch, b k n_inner
-    sites (s + 1) float32, fits ``CLASSIC_SCRATCH_BUDGET`` bytes; beyond
-    that the O(depth) slot walk: at 20 states and more the stream walk
-    (B5), below it the slot walk (B4).
+    The classic walk while a whole-tree scratch, b k n_inner sites (s + 1)
+    float32, would fit ``CLASSIC_SCRATCH_BUDGET`` bytes (the line the turns
+    put it at; no walk allocates that scratch now); beyond that the
+    O(depth) slot walk: at 20 states and more the stream walk (B5), below
+    it the slot walk (B4).
     """
     if b * k * n_inner * sites * (s + 1) * 4 <= CLASSIC_SCRATCH_BUDGET:
         return "classic"
@@ -948,30 +962,34 @@ RowGeometry = collections.namedtuple(
 
 
 def row_smem_bytes(s: int, cols: int, chunk: int, stage_leaves: bool,
-                   smem_rows: int) -> int:
-    """Dynamic shared memory of one B1 / B4 block (``csrc/pruning_rows.cuh``
-    ``row_smem_bytes``): a 3-stage ring, each stage the P blocks of
-    ``chunk`` edges and, with ``stage_leaves``, a leaf row of each of them
-    for every one of ``cols`` columns, then ``smem_rows`` rows of S floats
-    and an exponent a column."""
-    stage = chunk * s * s + (chunk * cols * s if stage_leaves else 0)
-    return 4 * (3 * stage + smem_rows * cols * (s + 1))
+                   smem_rows: int, fold: int = 1) -> int:
+    """Dynamic shared memory of one B1 / B4 / B8 / B9 block
+    (``csrc/pruning_rows.cuh`` ``row_smem_bytes``): a 3-stage ring, each
+    stage the P blocks of ``chunk`` edges for ``fold`` categories and, with
+    ``stage_leaves``, a leaf row of each edge for every one of ``cols``
+    columns, then ``smem_rows`` rows of S floats and an exponent for each
+    category of a column."""
+    stage = chunk * fold * s * s + (chunk * cols * s if stage_leaves else 0)
+    return 4 * (3 * stage + smem_rows * fold * cols * (s + 1))
 
 
-def _rows_that_fit(s, cols, chunk, stage_leaves) -> int:
-    free = _REVERSE_SMEM - row_smem_bytes(s, cols, chunk, stage_leaves, 0)
-    return max(0, free // (4 * cols * (s + 1)))
+def _rows_that_fit(s, cols, chunk, stage_leaves, fold=1) -> int:
+    free = _REVERSE_SMEM - row_smem_bytes(s, cols, chunk, stage_leaves, 0,
+                                          fold)
+    return max(0, free // (4 * fold * cols * (s + 1)))
 
 
-def _occupancy(b, k, sites, s, rows, lanes, cols, chunk, stage_leaves):
+def _occupancy(b, groups, sites, s, rows, lanes, cols, chunk, stage_leaves,
+               fold=1):
     """(warps an SM holds on average over the card, SMs the launch's blocks
-    reach) for one geometry: the blocks an SM can hold by threads, blocks
-    and shared memory, capped by the launch's blocks over the SMs."""
+    reach) for one geometry of ``groups`` column groups (categories over
+    ``fold``): the blocks an SM can hold by threads, blocks and shared
+    memory, capped by the launch's blocks over the SMs."""
     smem = row_smem_bytes(s, cols, chunk, stage_leaves, min(
-        rows, _rows_that_fit(s, cols, chunk, stage_leaves)))
+        rows, _rows_that_fit(s, cols, chunk, stage_leaves, fold)), fold)
     threads = cols * lanes
     per_sm = min(_SM_BLOCKS, _SM_THREADS // threads, _SM_SMEM // (smem + 1024))
-    blocks = -(-sites // cols) * k * b
+    blocks = -(-sites // cols) * groups * b
     return min(per_sm, blocks / _SMS) * threads / 32, min(blocks, _SMS)
 
 
@@ -980,10 +998,14 @@ def row_geometry(b: int, k: int, sites: int, s: int, rows: int, *,
                  lanes: Optional[int] = None, cols: Optional[int] = None,
                  chunk: Optional[int] = None,
                  stage_leaves: Optional[bool] = None,
-                 smem_rows: Optional[int] = None) -> RowGeometry:
-    """The launch geometry of B1 or B4 for ``b`` batch elements, ``k``
-    categories, ``sites`` sites, ``s`` states and a walk of ``rows`` rows;
-    a keyword given fixes that choice.
+                 smem_rows: Optional[int] = None,
+                 fold: int = 1) -> RowGeometry:
+    """The launch geometry of B1, B4, B8 or B9 for ``b`` batch elements,
+    ``k`` categories, ``sites`` sites, ``s`` states and a walk of ``rows``
+    rows, ``fold`` categories a column (B9's F: one of ``FOLD_WIDTHS[s]``,
+    dividing ``k``, with its compiled lane counts; else 1); a keyword given
+    fixes that choice. A column is a (batch element, group of ``fold``
+    categories, site), and its rows take ``fold`` times the shared memory.
 
     Leaf rows go through the ring (``stage_leaves``) at 4 states in a
     launch of fewer than ``_ROW_WARPS`` warps an SM at one lane a column.
@@ -1000,36 +1022,45 @@ def row_geometry(b: int, k: int, sites: int, s: int, rows: int, *,
     rows on the SM, 1.76 ms with none; NVIDIA H100 80GB HBM3, 700 W,
     kernel_turns.py, PERF.md section 6). Shared memory never passes an
     H100 block's 232,448 bytes."""
-    if lanes is not None and lanes not in _ROW_LANES[s]:
-        raise ValueError(f"lanes must be one of {_ROW_LANES[s]} at {s} "
-                         f"states, not {lanes}")
+    if fold != 1 and fold not in FOLD_WIDTHS.get(s, ()):
+        raise ValueError(f"the fold kernel is compiled for "
+                         f"{tuple(FOLD_WIDTHS.get(s, ()))} categories a "
+                         f"column at {s} states, not {fold}")
+    compiled = _ROW_LANES[s] if fold == 1 else FOLD_WIDTHS[s][fold]
+    if lanes is not None and lanes not in compiled:
+        raise ValueError(f"lanes must be one of {compiled} at {s} states "
+                         f"and {fold} categories a column, not {lanes}")
+    if k % fold:
+        raise ValueError(f"fold {fold} does not divide {k} categories")
+    groups = k // fold
     if stage_leaves is None:
-        stage_leaves = s == 4 and b * k * sites < _SMS * _ROW_WARPS * 32
+        stage_leaves = s == 4 and b * groups * sites < _SMS * _ROW_WARPS * 32
     chunks = _ROW_CHUNKS if chunk is None else (chunk,)
     held_rows = rows if smem_rows is None else smem_rows
-    if held_rows > _rows_that_fit(s, 32, min(chunks), stage_leaves):
+    if held_rows > _rows_that_fit(s, 32, min(chunks), stage_leaves, fold):
         held_rows = 0   # they do not fit: all in device memory
     best = None
-    for n in (_ROW_LANES[s] if lanes is None else (lanes,)):
+    for n in (compiled if lanes is None else (lanes,)):
         shapes = [(k_, c) for k_ in chunks for c in (
             (256, 128, 64, 32) if cols is None else (cols,)) if c * n <= 256]
         if cols is None:
             shapes = [(k_, c) for k_, c in shapes
-                      if _rows_that_fit(s, c, k_, stage_leaves) >= held_rows]
+                      if _rows_that_fit(s, c, k_, stage_leaves,
+                                        fold) >= held_rows]
         # the most warps, then on the most SMs, the longest step, the
         # widest block
         (warps, _), k_, c = max(
-            (_occupancy(b, k, sites, s, held_rows, n, c, k_, stage_leaves),
-             k_, c) for k_, c in shapes)
+            (_occupancy(b, groups, sites, s, held_rows, n, c, k_,
+                        stage_leaves, fold), k_, c) for k_, c in shapes)
         if best is None or warps > best[0]:
             best = (warps, n, c, k_)
         if warps >= _ROW_WARPS:
             break
     _, lanes, cols, chunk = best
-    if row_smem_bytes(s, cols, chunk, stage_leaves, 0) > _REVERSE_SMEM:
+    if row_smem_bytes(s, cols, chunk, stage_leaves, 0, fold) > _REVERSE_SMEM:
         raise ValueError(f"a ring of {chunk} edges x {cols} columns does not "
                          f"fit a block's shared memory at {s} states")
-    fit = min(rows, _rows_that_fit(s, cols, chunk, stage_leaves))
+    fit = min(rows, _rows_that_fit(s, cols, chunk, stage_leaves, fold))
     if smem_rows is None:
         smem_rows = min(held_rows, fit)
     elif not 0 <= smem_rows <= fit:
@@ -1037,7 +1068,7 @@ def row_geometry(b: int, k: int, sites: int, s: int, rows: int, *,
                          f"{rows} rows, {fit} fit at {cols} columns")
     return RowGeometry(lanes, cols, chunk, bool(stage_leaves), smem_rows,
                        row_smem_bytes(s, cols, chunk, stage_leaves,
-                                      smem_rows))
+                                      smem_rows, fold))
 
 
 def _pick_fold(k: int, s: int) -> int:
@@ -1117,38 +1148,61 @@ def forward_walk(
     return _row_walk(p, leaves, schedule, "forward")
 
 
+# the live-row kernels by kind: (entry point, launch counter)
+_ROW_KERNELS = {
+    "forward": ("pruning_forward_f32", "LAUNCHES"),
+    "slot": ("pruning_slot_f32", "SLOT_LAUNCHES"),
+    "fold": ("pruning_fold_f32", "FOLD_LAUNCHES"),
+    "static": ("pruning_static_f32", "STATIC_LAUNCHES"),
+}
+
+
 def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
-              kind: str, **geometry) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Root partials and root exponent count from B1 (``kind`` "forward":
-    ``walk.rows``) or B4 ("slot": ``walk.slots.rows``), the live-row walk
-    of ``csrc/pruning_rows.cuh``. ``geometry``: keywords of
+              kind: str, fold: int = 1,
+              **geometry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Root partials and root exponent count from the live-row walk of
+    ``csrc/pruning_rows.cuh``: B1 (``kind`` "forward": ``walk.rows``), B4
+    ("slot": ``walk.slots.rows``), B9 ("fold": the slots with ``fold``
+    categories a column) or B8 ("static": the slots compiled into the
+    topology's library, ``walk.static_library``). ``geometry``: keywords of
     ``row_geometry`` that fix its choices (``smem_rows``: rows kept in
     shared memory, the rest in device memory; ``lanes``, ``cols``,
-    ``chunk``, ``stage_leaves``). CPU tensors take the plain version
-    (``forward_walk_reference`` or ``slot_walk_reference``); CUDA tensors
-    launch the kernel, once per batch chunk whose spilled rows fit free
-    device memory, on the current stream."""
-    global LAUNCHES, SLOT_LAUNCHES
+    ``chunk``, ``stage_leaves``); B8's step is the one compiled in
+    (``_STATIC_CHUNK``), and another raises. CPU tensors take the plain
+    version (``slot_walk_reference`` for B4, else
+    ``forward_walk_reference``); CUDA tensors launch the kernel, once per
+    batch chunk whose spilled rows fit free device memory, on the current
+    stream."""
     if p.device.type == "cpu":
-        plain = (forward_walk_reference if kind == "forward"
-                 else slot_walk_reference)
+        plain = slot_walk_reference if kind == "slot" else forward_walk_reference
         return plain(p, leaves, walk)
-    lib = _cuda_library(p, leaves)
+    s = leaves.shape[2]
+    if kind == "static":
+        if geometry.setdefault("chunk", _STATIC_CHUNK) != _STATIC_CHUNK:
+            raise ValueError(f"B8 is compiled for a step of {_STATIC_CHUNK} "
+                             f"edges, not {geometry['chunk']}")
+        _check_cuda(p, leaves)
+        lib = walk.static_library(s)
+    else:
+        lib = _cuda_library(p, leaves)
     rw = walk.rows if kind == "forward" else walk.slots.rows
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
-    geo = row_geometry(b, k, sites, s, rw.n_rows, **geometry)
+    sites = leaves.shape[1]
+    geo = row_geometry(b, k, sites, s, rw.n_rows, fold=fold, **geometry)
     n_spill = rw.n_rows - geo.smem_rows
     device = p.device
     edges, eword = rw.on(device)
     root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
     root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
     chunk = _batch_chunk(b, k * n_spill * sites * (s + 1) * 4, device)
-    name, counter = (("pruning_forward_f32", "LAUNCHES") if kind == "forward"
-                     else ("pruning_slot_f32", "SLOT_LAUNCHES"))
+    name, counter = _ROW_KERNELS[kind]
+    if kind == "static":    # one entry point per compiled lane count
+        name = f"{name}_l{geo.lanes}"
     launch = getattr(lib, name)
+    # B9 takes its fold after the state count
+    states = (s, fold) if kind == "fold" else (s,)
     stream = _stream(device)
     for b0 in range(0, b, chunk):
         nb = min(chunk, b - b0)
@@ -1163,103 +1217,45 @@ def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
             eword.data_ptr(), None if spill is None else spill.data_ptr(),
             None if spill_e is None else spill_e.data_ptr(),
             root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr(), nb,
-            k, s, walk.n_nodes, walk.n_leaves, len(rw.edges), sites,
+            k, *states, walk.n_nodes, walk.n_leaves, len(rw.edges), sites,
             rw.n_rows, geo.smem_rows, geo.lanes, geo.cols, geo.chunk,
             int(geo.stage_leaves), stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        if kind == "forward":
-            LAUNCHES += 1
-        else:
-            SLOT_LAUNCHES += 1
+        globals()[counter] += 1
         LAUNCHES_BY_STATES[(counter, s)] += 1
         del spill, spill_e
     return (root, root_e) if batched else (root[0], root_e[0])
 
 
-# the launch counter of each kind of _classic_launch
-_COUNTERS = {"fold": "FOLD_LAUNCHES", "static": "STATIC_LAUNCHES"}
-
-
-def _classic_launch(kind: str, lib, p, leaves, walk: WalkSchedule,
-                    fold: int = 1):
-    """Root and root exponent count from B9 ("fold", ``fold`` categories a
-    thread) or B8 ("static", ``lib`` the topology's library): the same
-    scratch, (B, K, n_inner, sites, S + 1) float32, one launch per batch
-    chunk that fits free device memory, on the current stream."""
-    global FOLD_LAUNCHES, STATIC_LAUNCHES
-    batched = p.dim() == 5
-    pb = p if batched else p[None]
-    b, _, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
-    n_inner = walk.n_nodes - walk.n_leaves
-    n_int = len(walk.order)
-    device = p.device
-    order, children, counts = walk.on(device)
-    cmax = children.shape[1]
-    root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
-    root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
-    chunk = _batch_chunk(b, k * n_inner * sites * (s + 1) * 4, device)
-    stream = _stream(device)
-    for b0 in range(0, b, chunk):
-        nb = min(chunk, b - b0)
-        scratch = torch.empty((nb, k, n_inner, sites, s),
-                              dtype=torch.float32, device=device)
-        scratch_e = torch.empty((nb, k, n_inner, sites),
-                                dtype=torch.float32, device=device)
-        ptrs = (scratch.data_ptr(), scratch_e.data_ptr(),
-                root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr())
-        walk_ptrs = (order.data_ptr(), children.data_ptr(),
-                     counts.data_ptr())
-        if kind == "static":
-            name = "pruning_static_f32"
-            rc = lib.pruning_static_f32(
-                pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *ptrs, nb, k,
-                s, walk.n_nodes, walk.n_leaves, n_int, sites, stream)
-        else:
-            name = "pruning_fold_f32"
-            rc = lib.pruning_fold_f32(
-                pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), *walk_ptrs,
-                *ptrs, nb, k, s, fold, walk.n_nodes, walk.n_leaves, n_int,
-                cmax, sites, stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-        if kind == "static":
-            STATIC_LAUNCHES += 1
-        else:
-            FOLD_LAUNCHES += 1
-        LAUNCHES_BY_STATES[(_COUNTERS[kind], s)] += 1
-        del scratch, scratch_e
-    return (root, root_e) if batched else (root[0], root_e[0])
-
-
 def static_walk(
-    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule, **geometry
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Root partials and root exponent count by the walk compiled for this
-    topology (B8, ``pruning_static_f32``). Same contract as
+    topology (B8, ``pruning_static_f32``: the live-row walk over the DFS
+    slots, every edge's word a constant). Same contract as
     ``forward_walk_reference`` and the forward kernel's bits. CPU tensors
     take ``forward_walk_reference``; CUDA tensors build the topology's
     library at first use (``WalkSchedule.static_library``; no fallback when
-    the build fails) and launch it."""
+    the build fails) and launch it (``_row_walk``; ``geometry`` as there)."""
     _check(p, leaves, walk)
     _not_differentiable("static_walk", p, leaves)
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
-    _check_cuda(p, leaves)
-    return _classic_launch("static", walk.static_library(leaves.shape[2]),
-                           p, leaves, walk)
+    return _row_walk(p, leaves, walk, "static", **geometry)
 
 
 def fold_walk(
-    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule, fold: int
+    p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule, fold: int,
+    **geometry
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Root partials and root exponent count with ``fold`` categories per
-    thread (B9, ``pruning_fold_f32``; the DNA pack is ``fold=2`` at 4
-    states). Same contract as ``forward_walk_reference`` and the forward
-    kernel's bits. ``fold`` must divide K and, on the card, be one of
-    ``FOLD_WIDTHS`` at the state count. CPU tensors take
-    ``forward_walk_reference``."""
+    """Root partials and root exponent count with ``fold`` categories a
+    column (B9, ``pruning_fold_f32``: the live-row walk over the DFS slots;
+    the DNA pack is ``fold=2`` at 4 states). Same contract as
+    ``forward_walk_reference`` and the forward kernel's bits. ``fold`` must
+    divide K and, on the card, be one of ``FOLD_WIDTHS`` at the state
+    count. CPU tensors take ``forward_walk_reference``; CUDA tensors launch
+    the kernel (``_row_walk``; ``geometry`` as there)."""
     _check(p, leaves, walk)
     _not_differentiable("fold_walk", p, leaves)
     k, s = p.shape[-3], leaves.shape[2]
@@ -1267,12 +1263,11 @@ def fold_walk(
         raise ValueError(f"fold {fold} does not divide {k} categories")
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
-    lib = _cuda_library(p, leaves)
     if fold not in FOLD_WIDTHS[s]:
         raise NotImplementedError(
-            f"pruning_fold_f32 is compiled for {FOLD_WIDTHS[s]} categories "
-            f"per thread at {s} states, not {fold}")
-    return _classic_launch("fold", lib, p, leaves, walk, fold)
+            f"pruning_fold_f32 is compiled for {tuple(FOLD_WIDTHS[s])} "
+            f"categories a column at {s} states, not {fold}")
+    return _row_walk(p, leaves, walk, "fold", fold=fold, **geometry)
 
 
 def slot_walk(

@@ -1,13 +1,16 @@
 """Port parity, B1's live rows and B4's slots as the live-row kernel takes
 them (``cuda_pruning.WalkSchedule.rows``, ``SlotSchedule.rows``,
-``row_geometry``, ``csrc/pruning_rows.cuh``).
+``row_geometry``, ``csrc/pruning_rows.cuh``), and B9's F categories a
+column over the slots (``fold_walk``).
 
 A plain replay of the kernel's data flow (each child read from the leaf
-array or from its row, each node written to its row after its children)
+array or from its row, each node written to its row after its children,
+rows held by (row, category of the fold, column) as the kernel holds them)
 gives ``forward_walk_reference``'s root bit for bit: the per-node
-arithmetic is the plain walk's, so a row overwritten too early would show
-as a different root. Against the JAX Pallas pruner (interpret mode) the
-per-site log-likelihood agrees to 1e-5 absolute, as in
+arithmetic is the plain walk's, so a row overwritten too early, or a
+category read from another's row, would show as a different root. Against
+the JAX Pallas pruner (interpret mode, under the fold knobs where the
+replay folds) the per-site log-likelihood agrees to 1e-5 absolute, as in
 ``tests/test_torch_pruning.py``. The kernels themselves run only on the card
 (tests marked ``gpu``).
 """
@@ -27,12 +30,14 @@ from phylo_utils_tpu_torch.io import write_newick
 from phylo_utils_tpu_torch.ops import cuda_pruning
 from phylo_utils_tpu_torch.ops.cuda_pruning import (
     WalkSchedule,
+    fold_walk,
     forward_walk,
     forward_walk_reference,
     row_geometry,
     row_smem_bytes,
     slot_walk,
     slot_walk_reference,
+    static_walk,
 )
 from phylo_utils_tpu_torch.ops.pmatrix import (
     extend_p_identity,
@@ -64,9 +69,11 @@ TREES = {
 }
 
 
-def _inputs(newick, s, sites, binarize=True, batch_scales=None, seed=0):
-    """numpy-made f32 P (identity blocks for pseudo-nodes) and one-hot
-    leaves with 5% all-ones rows, for ``s`` states."""
+def _inputs(newick, s, sites, binarize=True, batch_scales=None, seed=0,
+            rates=RATES):
+    """numpy-made f32 P (identity blocks for pseudo-nodes) over ``rates``
+    (one category each) and one-hot leaves with 5% all-ones rows, for ``s``
+    states."""
     tree = tio.parse_newick(newick)
     sched = compile_schedule(tree, binarize=binarize)
     model, params = MODELS[s]
@@ -77,22 +84,37 @@ def _inputs(newick, s, sites, binarize=True, batch_scales=None, seed=0):
     lengths = np.asarray(tree.lengths)
     if batch_scales is not None:
         lengths = np.stack([lengths * b for b in batch_scales])
-    t = torch.from_numpy(lengths[..., None] * RATES)
+    t = torch.from_numpy(lengths[..., None] * rates)
     p = extend_p_identity(transition_matrices(model.eigen(params), t),
                           sched.n_nodes)
     return sched, p.to(torch.float32).contiguous(), torch.from_numpy(lp)
 
 
-def _replay(p, leaves, walk, rw):
+def _replay(p, leaves, walk, rw, fold=1):
     """The live-row kernel's data flow in plain PyTorch over ``rw`` (a
     ``RowWalk``), edge by edge through its words: edge f reads child
-    ``edges[f]`` from the leaf array (``eword[f, 0]`` = -1 - leaf) or from
-    row ``eword[f, 0]``; on a node's last child (``eword[f, 1]`` != -2) the
-    node is formed and written to row ``eword[f, 1]``, or is the root
-    (-1)."""
+    ``edges[f]`` from the leaf array (``eword[f, 0]`` = -1 - leaf, one read
+    for every category) or from row ``eword[f, 0]``; on a node's last child
+    (``eword[f, 1]`` != -2) the node is formed and written to row
+    ``eword[f, 1]``, or is the root (-1). Rows are held as the kernel holds
+    them with ``fold`` categories a column: (row, f, column), a column
+    being (batch element, category group g, site) and category g fold +
+    f."""
     batched = p.dim() == 5
     pb = p if batched else p[None]
-    xs, es = [None] * rw.n_rows, [None] * rw.n_rows
+    b, _, k = pb.shape[:3]
+    sites, s = leaves.shape[1:]
+    groups = k // fold
+    xs = torch.full((rw.n_rows, fold, b, groups, sites, s), float("nan"))
+    es = torch.full((rw.n_rows, fold, b, groups, sites), float("nan"))
+
+    def read(buf, r):   # (fold, b, groups, ...) -> (b, k, ...)
+        x = buf[r].movedim(0, 2)
+        return x.reshape(b, k, *x.shape[3:])
+
+    def write(buf, r, x):   # (b, k, ...) -> (fold, b, groups, ...)
+        buf[r] = x.reshape(b, groups, fold, *x.shape[2:]).movedim(2, 0)
+
     kids, row = [], {}
     for ch, (src, dst) in zip(rw.edges.tolist(), rw.eword[:-1].tolist()):
         if src < 0:
@@ -103,12 +125,13 @@ def _replay(p, leaves, walk, rw):
         if dst == -2:
             continue
         x, e = cuda_pruning._node_partials(
-            pb, leaves, walk.n_leaves, kids, lambda c: xs[row[c]],
-            lambda c: es[row[c]])
+            pb, leaves, walk.n_leaves, kids, lambda c: read(xs, row[c]),
+            lambda c: read(es, row[c]))
         kids, row = [], {}
         if dst == -1:
             return (x, e) if batched else (x[0], e[0])
-        xs[dst], es[dst] = x, e
+        write(xs, dst, x)
+        write(es, dst, e)
 
 
 def _site_ll(root_p, root_e, freqs):
@@ -139,6 +162,44 @@ def test_live_row_replay_matches_plain_walk_and_pallas(s, case, binarize):
     jax_ll = np.log(np.asarray(r, np.float64) @ freqs) + np.asarray(sc)
     np.testing.assert_allclose(_site_ll(*want, freqs), jax_ll, rtol=0,
                                atol=TOL)
+
+
+# (states, categories, F, the JAX knob under which its Pallas pruner folds
+# the same categories: the DNA pack is a fold of 2; at 4 states JAX folds
+# only to a width of 24 lanes or more, so 4)
+FOLDS = [(4, 4, 2, {"PHYLO_PACK_DNA": "1"}),
+         (4, 4, 4, {"PHYLO_FOLD_CATEGORIES": "4"}),
+         (20, 3, 3, {"PHYLO_FOLD_CATEGORIES": "auto"}),
+         (20, 4, 2, {"PHYLO_FOLD_CATEGORIES": "2"})]
+
+
+@pytest.mark.parametrize("s,k,fold,knob", FOLDS)
+def test_fold_replay_matches_plain_walk_and_pallas(monkeypatch, s, k, fold,
+                                                   knob):
+    """B9's data flow, F categories a column over the slots (rows as (row,
+    f, column)), replayed single and batched on a root of many children
+    kept whole: the plain walk's root bit for bit, and JAX's Pallas
+    pruner's per-site logL under the fold knob to 1e-5."""
+    newick = TREES["wide_root"]()
+    sched, p, lp = _inputs(newick, s, 37, binarize=False,
+                           batch_scales=(0.5, 2.0), rates=RATES[:k])
+    walk = WalkSchedule(sched)
+    assert cuda_pruning.row_geometry(2, k, 37, s, walk.slots.rows.n_rows,
+                                     fold=fold).smem_bytes <= SMEM
+    want = forward_walk_reference(p, lp, walk)
+    got = _replay(p, lp, walk, walk.slots.rows, fold)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = fold_walk(p[1], lp, walk, fold)     # the CPU takes the plain walk
+    assert torch.equal(got[0], want[0][1]) and torch.equal(got[1], want[1][1])
+    for name, value in knob.items():
+        monkeypatch.setenv(name, value)
+    jsched = j_compile_schedule(jio.parse_newick(newick), binarize=False)
+    r, sc = make_pallas_prune_fn(jsched)(jnp.asarray(p[1].numpy()),
+                                         jnp.asarray(lp.numpy()))
+    freqs = np.full(s, 1.0 / s)
+    jax_ll = np.log(np.asarray(r, np.float64) @ freqs) + np.asarray(sc)
+    np.testing.assert_allclose(_site_ll(want[0][1], want[1][1], freqs),
+                               jax_ll, rtol=0, atol=TOL)
 
 
 def test_live_row_replay_batched():
@@ -260,9 +321,51 @@ def test_row_geometry_spreads_b1_and_takes_forced_settings():
     assert row_geometry(1, 4, 8192, 20, 170, smem_rows=1).smem_rows == 1
 
 
+@pytest.mark.parametrize("s", [4, 20])
+def test_row_geometry_with_fold(s):
+    """F categories a column: shared memory within an H100 block's, the
+    rows held F times a column, only the lane counts compiled for F taken,
+    forced settings honoured, an uncompiled F, lane count or an F that
+    does not divide K refused."""
+    widths = cuda_pruning.FOLD_WIDTHS[s]
+    for fold in widths:
+        k = 4 * fold
+        for b in (1, 16, 64):
+            for rows in (3, 4, 8, 24, 170):
+                geo = row_geometry(b, k, 1024, s, rows, fold=fold)
+                assert geo.smem_bytes <= SMEM
+                assert geo.smem_bytes == row_smem_bytes(
+                    s, geo.cols, geo.chunk, geo.stage_leaves, geo.smem_rows,
+                    fold)
+                assert geo.smem_bytes - row_smem_bytes(
+                    s, geo.cols, geo.chunk, geo.stage_leaves, 0, fold) == (
+                    4 * geo.smem_rows * fold * geo.cols * (s + 1))
+                assert geo.smem_rows in (0, rows)
+                # leaf rows through the ring only where the launch's
+                # columns, b x k / F x sites, are few (4 states)
+                assert geo.stage_leaves == (
+                    s == 4 and b * (k // fold) * 1024 < 50_688)
+        for lanes in widths[fold]:
+            geo = row_geometry(1, k, 1024, s, 4, fold=fold, lanes=lanes,
+                               cols=64, chunk=2, stage_leaves=False,
+                               smem_rows=1)
+            assert (geo.lanes, geo.cols, geo.chunk, geo.stage_leaves,
+                    geo.smem_rows) == (lanes, 64, 2, False, 1)
+        for lanes in set(cuda_pruning._ROW_LANES[s]) - set(widths[fold]):
+            with pytest.raises(ValueError, match="lanes"):
+                row_geometry(1, k, 1024, s, 4, fold=fold, lanes=lanes)
+        assert row_geometry(16, k, 1024, s, 4, fold=fold).lanes in widths[
+            fold]
+        with pytest.raises(ValueError, match="does not divide"):
+            row_geometry(1, 4 * fold + 1, 1024, s, 4, fold=fold)
+    for fold in (3, 6) if s == 4 else (6, 8):
+        with pytest.raises(ValueError, match="compiled"):
+            row_geometry(1, 24, 1024, s, 4, fold=fold)
+
+
 def test_row_walk_on_cpu_takes_the_plain_versions(monkeypatch):
-    """On CPU tensors B1 and B4 take their plain versions, whatever the
-    forced geometry, and launch nothing."""
+    """On CPU tensors B1, B4, B8 and B9 take their plain versions, whatever
+    the forced geometry, and launch nothing (B8 builds nothing)."""
     sched, p, lp = _inputs(TREES["random14"](), 4, 29)
     walk = WalkSchedule(sched)
     calls = []
@@ -272,12 +375,19 @@ def test_row_walk_on_cpu_takes_the_plain_versions(monkeypatch):
             cuda_pruning, name,
             lambda *a, _real=real, _name=name: calls.append(_name)
             or _real(*a))
-    before = (cuda_pruning.LAUNCHES, cuda_pruning.SLOT_LAUNCHES)
+    counters = ("LAUNCHES", "SLOT_LAUNCHES", "FOLD_LAUNCHES",
+                "STATIC_LAUNCHES")
+    before = [getattr(cuda_pruning, c) for c in counters]
     a = cuda_pruning._row_walk(p, lp, walk, "forward", smem_rows=0)
     c = cuda_pruning._row_walk(p, lp, walk, "slot", smem_rows=1)
-    assert calls == ["forward_walk_reference", "slot_walk_reference"]
-    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
-    assert (cuda_pruning.LAUNCHES, cuda_pruning.SLOT_LAUNCHES) == before
+    f = fold_walk(p, lp, walk, 2, smem_rows=1, lanes=2)
+    g = static_walk(p, lp, walk, smem_rows=0)
+    assert calls == ["forward_walk_reference", "slot_walk_reference",
+                     "forward_walk_reference", "forward_walk_reference"]
+    for x in (c, f, g):
+        assert torch.equal(a[0], x[0]) and torch.equal(a[1], x[1])
+    assert [getattr(cuda_pruning, c) for c in counters] == before
+    assert walk._static == {}
 
 
 # -- on the card -----------------------------------------------------------

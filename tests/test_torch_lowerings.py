@@ -236,9 +236,13 @@ def _header_arrays(text):
                                   "caterpillar12"])
 @pytest.mark.parametrize("s", [4, 20])
 def test_static_header_holds_jax_postorder_arrays(case, s):
-    """The header B8 is compiled against holds JAX's ``_postorder_arrays``
-    (post-order, children, counts) as constexpr arrays, and the counts and
-    S; it is written without nvcc."""
+    """The header B8 is compiled against holds the live-row walk B8 takes,
+    ``RowWalk``'s edges and words for the schedule's DFS slots
+    (``SlotSchedule.rows``), its row count, the node, leaf and state counts
+    and the step, as constexpr arrays; that walk visits JAX's
+    ``_postorder_arrays`` nodes (post-order, children, counts), each once,
+    with the same children in the same order, children before parents. It
+    is written without nvcc."""
     newick = {
         "random16": lambda: write_newick(random_tree(16, seed=4)),
         "multifurcating": lambda: MULTIFURCATING,
@@ -248,19 +252,32 @@ def test_static_header_holds_jax_postorder_arrays(case, s):
     }[case]()
     sched = compile_schedule(tio.parse_newick(newick))
     walk = WalkSchedule(sched)
-    text = _build.static_topology_header(walk.order, walk.children,
-                                         walk.counts, walk.n_nodes,
-                                         walk.n_leaves, s)
-    order, children, counts = jpp._postorder_arrays(
-        j_compile_schedule(jio.parse_newick(newick)))
+    rw = walk.slots.rows
+    text = _build.static_topology_header(rw.edges, rw.eword, rw.n_rows,
+                                         walk.n_nodes, walk.n_leaves, s,
+                                         cuda_pruning._STATIC_CHUNK)
     ints, scalar = _header_arrays(text)
-    np.testing.assert_array_equal(ints("kOrder"), order)
-    np.testing.assert_array_equal(ints("kChildren"), children.reshape(-1))
-    np.testing.assert_array_equal(ints("kCounts"), counts)
-    assert scalar("kS") == s and scalar("kNInt") == len(order)
-    assert scalar("kCmax") == children.shape[1]
+    edges, words = ints("kEdges"), ints("kEword").reshape(-1, 2)
+    np.testing.assert_array_equal(edges, rw.edges)
+    np.testing.assert_array_equal(words, rw.eword[:-1])
+    assert scalar("kS") == s and scalar("kNEdges") == len(rw.edges)
+    assert scalar("kNRows") == rw.n_rows
+    assert scalar("kChunk") == cuda_pruning._STATIC_CHUNK
     assert (scalar("kNNodes"), scalar("kNLeaves")) == (sched.n_nodes,
                                                         sched.n_leaves)
+    order, children, counts = jpp._postorder_arrays(
+        j_compile_schedule(jio.parse_newick(newick)))
+    node_of = {tuple(children[i, :counts[i]].tolist()): int(order[i])
+               for i in range(len(order))}
+    done, kids = [], []
+    for child, (_, out) in zip(edges.tolist(), words.tolist()):
+        assert child < sched.n_leaves or child in done   # children first
+        kids.append(child)
+        if out != -2:
+            done.append(node_of.pop(tuple(kids)))
+            kids = []
+    assert not node_of and not kids and done[-1] == int(order[-1])
+    assert sorted(done) == sorted(order.tolist())
 
 
 # -- make_cuda_prune_fn against make_pallas_prune_fn -------------------------
@@ -294,6 +311,27 @@ def _set_knob(monkeypatch, knob):
 def _loss_weights(s, sites, seed=3):
     rng = np.random.default_rng(seed)
     return rng.dirichlet(np.ones(s)), rng.uniform(0.5, 2.0, sites)
+
+
+def test_built_library_keeps_its_compiler_output(monkeypatch, tmp_path):
+    """A library taken from the build directory reports the compiler output
+    of the build that made it (the ptxas lines the spill checks read), and
+    is not built again."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    target = tmp_path / "libwalk.so"
+    builds = []
+
+    def compile_to(tmp):
+        builds.append(tmp)
+        tmp.write_bytes(b"library")
+        return "ptxas info    : Used 40 registers, 0 bytes spill stores"
+
+    log, built = _build._build_once(target, tmp_path / "lock", compile_to)
+    assert built and "40 registers" in log
+    assert target.read_bytes() == b"library"
+    again, built_again = _build._build_once(target, tmp_path / "lock",
+                                            compile_to)
+    assert not built_again and again == log and len(builds) == 1
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -392,26 +430,40 @@ def test_engine_prune_under_cuda_pruner():
 @pytest.mark.parametrize("s", [4, 20])
 def test_static_and_fold_kernels_on_card(s):
     """B8 and B9 on the card: roots and exponent counts bit for bit the
-    forward kernel's, at every compiled fold width, single and batched; a
-    second B8 call on one topology builds nothing."""
+    forward kernel's, single and batched, B8 at every compiled lane count
+    and B9 at every compiled fold width x lane count, each with 0, 1 and
+    all of the walk's rows in shared memory; a second B8 call on one
+    topology builds nothing, and a step B8 was not compiled for is
+    refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     newick, _, p, lp = _pallas_setup(16, 301, n_states=s, ncat=12)
     walk = _walk(newick)
+    rows = walk.slots.rows.n_rows
     pd = torch.from_numpy(p).cuda()
     ld = torch.from_numpy(lp).cuda()
     for pp in (pd, torch.stack([pd, pd * 0.5]).contiguous()):
         want = forward_walk(pp, ld, walk, walk="classic")
-        got = static_walk(pp, ld, walk)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for lanes in cuda_pruning._ROW_LANES[s]:
+            for smem_rows in sorted({0, 1, rows}):
+                got = static_walk(pp, ld, walk, lanes=lanes,
+                                  smem_rows=smem_rows)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and torch.equal(
+                    got[1], want[1]), ("B8", lanes, smem_rows)
         n_built = len(_build.static_build_info())
         static_walk(pp, ld, walk)
         assert len(_build.static_build_info()) == n_built
+        with pytest.raises(ValueError, match="step"):
+            static_walk(pp, ld, walk, chunk=cuda_pruning._STATIC_CHUNK // 2)
         for fold in cuda_pruning.FOLD_WIDTHS[s]:
             k = 12 - 12 % fold
             sub = pp[..., :k, :, :].contiguous()
-            got = fold_walk(sub, ld, walk, fold)
             ref = forward_walk(sub, ld, walk, walk="classic")
-            torch.cuda.synchronize()
-            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            for lanes in cuda_pruning.FOLD_WIDTHS[s][fold]:
+                for smem_rows in sorted({0, 1, rows}):
+                    got = fold_walk(sub, ld, walk, fold, lanes=lanes,
+                                    smem_rows=smem_rows)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got[0], ref[0]) and torch.equal(
+                        got[1], ref[1]), ("B9", fold, lanes, smem_rows)
