@@ -119,12 +119,34 @@ all at once) and runs, in order, printing one line per phase:
     B3 not (its stage cannot hold the root's 49 children); logL to 1e-6
     and dP, dfreqs to 5e-4 x max against the f64 plain pruner's autograd;
     its time and peak memory; and the engine on the same tree and sites,
-    which splits the root into binary pseudo-nodes and runs B2 and B3.
+    which splits the root into binary pseudo-nodes and runs B2 and B3;
+27. codon at full width: GY94+G4 with F3x4 frequencies on a 100-taxon tree,
+    4096 codon patterns simulated here under the port's P (61 states,
+    padded to 64 by the walk's entry points): the stream (B5), classic
+    (B1), saveall (B2) and deferred reverse (B3) kernels at 64 states
+    against their plain versions on the padded inputs (B1 and B5 bit for
+    bit, B2's root row B1's, B3's dP to 1e-4 x max|dP| and bit-identical
+    across two launches), and again on a vertebrate-mitochondrial
+    alignment (60 states); the f32 ``pruner="cuda"`` engine's
+    ``loglikelihood``, ``sitewise_loglikelihoods`` (2e-5 relative, the JAX
+    package's f32 codon bound) and ``value_and_grad`` (5e-4 x max|g|)
+    against the f64 ``pruner="torch"`` engine; value calls launch B5 at 64
+    and no B1, the gradient B2 and B3 at 64; 5 L-BFGS steps with kappa,
+    omega and the branch lengths free (logL rises; dN/dS == omega and
+    S + N == 3 per ``dn_ds_by_branch``); B5 and B1 in turns, each kernel's
+    device time and bound, the engine's times and peak memory;
+28. the Mk family and the ascertainment engine: MK2 with the lewis
+    correction on the flagship tree over 1024 simulated variable binary
+    characters (2 states padded to 4), MK6 and ORDERED5 (padded to 20) and
+    MK24 (padded to 64), f32 ``pruner="cuda"`` against the f64 path (logL
+    to 1e-6, gradients to 5e-4 x max|g|); the CLI's ``loglik --model MK2
+    --asc lewis`` and ``fit --model GY94`` as subprocesses against the same
+    calls made in this process.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-26; the kernel-against-plain phases are not counted. The last two lines
+23-28; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound and its main-path launches (also by state count) (the larger of its bytes over 3.35 TB/s and its f32 operations over
 67 TFLOP/s, the H100 SXM data sheet's peaks), and
@@ -192,6 +214,16 @@ AMINO = "ARNDCQEGHILKMFPSTWYV"
 # the wide-node tree (phases 7, 17 and 26): a root of 48 leaf children
 # beside a 48-taxon subtree, 8192 patterns simulated down it
 WIDE_NODE_STAR, WIDE_NODE_SUB, WIDE_NODE_PATTERNS = 48, 48, 8192
+# codon at full width (phase 27): 100 taxa x 4096 simulated codon patterns
+# (GY94+G4, F3x4), 5 fit steps; the vertebrate-mitochondrial check's shape;
+# the Mk characters of phase 28 and its CLI fit's codon shape
+CODON_TAXA, CODON_PATTERNS, CODON_FIT_STEPS = 100, 4096, 5
+MITO_TAXA, MITO_PATTERNS = 32, 1024
+MK_CHARS, CLI_CODON_TAXA, CLI_CODON_PATTERNS = 1024, 16, 256
+# f32 codon logL against f64, relative: the JAX package's own f32 codon
+# bound (tests/test_codon.py)
+CODON_RTOL = 2e-5
+CODON_PARAMS = {"model": {"kappa": 2.4, "omega": 0.25}, "alpha": 0.6}
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -2138,46 +2170,428 @@ def main():
     del eng_w, dp_w, dp_ref, p_w64, p_w32, leaves_w
     torch.cuda.empty_cache()
 
+    # 27. codon at full width, main path ---------------------------------
+    # GY94+G4 with F3x4 frequencies, 61 states: the walk's entry points pad
+    # them to 64 (cuda_pruning.padded_states), the width B1, B2, B3 and B5
+    # are compiled for; value calls stream (B5) at 32 states and more, as
+    # the JAX package's _pallas_forward does
+    from phylo_utils_tpu_torch.ascertainment import AscertainmentEngine
+    from phylo_utils_tpu_torch.likelihood import mixture_rates_and_p
+    from phylo_utils_tpu_torch.models.codon import (
+        code_tables,
+        dn_ds_by_branch,
+        f3x4_frequencies,
+        make_gy94,
+    )
+
+    def simulated_states(tree, model, params, n, seed, ncat=4):
+        """(alignment states (n_leaves, n), the f64 eigensystem) of ``n``
+        sites simulated down ``tree`` under ``model`` + G``ncat`` at
+        ``params``, with P from the port's own eigensystem."""
+        eig_s = model.eigen(params.get("model"), dtype=torch.float64,
+                            device=dev)
+        t = torch.as_tensor(np.asarray(tree.lengths), dtype=torch.float64,
+                            device=dev)
+        r = discrete_gamma(torch.tensor(params["alpha"],
+                                        dtype=torch.float64), ncat).to(dev)
+        p_s = transition_matrices(eig_s, t[:, None] * r)
+        return _simulate_states(tree, p_s.cpu().numpy(), n,
+                                eig_s.freqs.cpu().numpy(),
+                                np.random.default_rng(seed)), eig_s
+
+    def codon_alignment(tree, model, params, n, seed, code="standard"):
+        states, _ = simulated_states(tree, model, params, n, seed)
+        codons = np.array(code_tables(code)[0])
+        return {name: "".join(codons[states[i]])
+                for i, name in enumerate(tree.leaf_names)}
+
+    def padded_walk_inputs(engine, params):
+        """The engine's walk inputs padded to 64 states, as its entry point
+        pads them: (walk, f32 P, f32 leaves, f64 freqs)."""
+        full = engine._full_params(params)
+        _, _, p_e, f_e = mixture_rates_and_p(
+            engine, full, torch.float64, eig=engine.model_eigen(full),
+            rates=engine.model_rates(full))
+        s_pad = cuda_pruning.padded_states(p_e.shape[-1])
+        return (WalkSchedule(engine.schedule),
+                cuda_pruning._pad_states(p_e.float(), s_pad, 2).contiguous(),
+                cuda_pruning._pad_states(engine._leaf_partials.float(), s_pad,
+                                         1).contiguous(),
+                cuda_pruning._pad_states(f_e, s_pad, 1))
+
+    def wide_kernel_checks(label, walk, p, leaves, f):
+        """B1, B5, B2 and B3 at 64 states against their plain versions on
+        the card; raises on a miss. Returns the errors."""
+        kp, ke = forward_walk(p, leaves, walk, walk="classic")
+        sp, se = cuda_pruning.slot_walk(p, leaves, walk, stream=True)
+        rp, re = forward_walk_reference(p, leaves, walk)
+        torch.cuda.synchronize()
+        tol = len(walk.order) * 2.0 ** -21
+        err = {"B1": float((site_ll(kp, ke, f) - site_ll(rp, re, f))
+                           .abs().max()),
+               "B5": float((site_ll(sp, se, f) - site_ll(rp, re, f))
+                           .abs().max())}
+        _check(torch.equal(kp, sp) and torch.equal(ke, se),
+               f"{label}: B5's root is not B1's bit for bit at 64 states")
+        rx, rex = saveall_walk(p, leaves, walk)
+        row = walk.root - walk.n_leaves
+        _check(torch.equal(rx[:, row], kp) and torch.equal(rex[:, row], ke),
+               f"{label}: B2's root row is not B1's bit for bit")
+        px, pe = saveall_walk_reference(p, leaves, walk)
+        err["B2"] = _err_to_plain(rx, rex, px, pe)[1]
+        lam = (1.0 / torch.einsum("ksi,i->ks", kp.double(), f)
+               ).float().contiguous()
+        f32 = f.float().contiguous()
+        dp, dl = reverse_walk(p, leaves, rx, rex, lam, f32, walk,
+                              want_dleaf=True)
+        dp2, _ = reverse_walk(p, leaves, rx, rex, lam, f32, walk,
+                              want_dleaf=True)
+        rdp, rdl = reverse_walk_reference(p, leaves, rx, rex, lam, f32, walk,
+                                          want_dleaf=True)
+        torch.cuda.synchronize()
+        err["B3_dP"] = _max_rel(dp, rdp)
+        err["B3_dleaf"] = _max_rel(dl, rdl)
+        _check(max(err["B1"], err["B5"]) <= tol and err["B2"] <= tol
+               and max(err["B3_dP"], err["B3_dleaf"]) <= REVERSE_TOL
+               and torch.equal(dp, dp2)
+               and not bool(dp[walk.root].any()),
+               f"{label}: 64-state kernels against their plain versions "
+               f"{err} (tolerance {tol:.3e}, B3 {REVERSE_TOL}), B3 "
+               f"repeatable {torch.equal(dp, dp2)}")
+        return err
+
+    codon_tree = random_tree(CODON_TAXA, seed=27)
+    nuc = np.random.default_rng(27).dirichlet(np.full(4, 8.0), size=3)
+    codon_params = {**CODON_PARAMS, "model": {
+        **CODON_PARAMS["model"], "freqs": f3x4_frequencies(nuc).tolist()}}
+    aln_c = codon_alignment(codon_tree, models.GY94, codon_params,
+                            CODON_PATTERNS, 27)
+    c32 = LikelihoodEngine(codon_tree, aln_c, models.GY94, ncat=4,
+                           dtype=torch.float32, pruner="cuda", device=DEVICE)
+    c64 = LikelihoodEngine(codon_tree, c32._compressed, models.GY94, ncat=4,
+                           dtype=torch.float64, pruner="torch",
+                           device=DEVICE)
+    codon_inputs = padded_walk_inputs(c32, codon_params)
+    codon_err = {"gy94": wide_kernel_checks("codon", *codon_inputs)}
+    mito = make_gy94("vertebrate_mito")
+    mito_tree = random_tree(MITO_TAXA, seed=28)
+    mito_params = {**CODON_PARAMS, "model": {**CODON_PARAMS["model"],
+                                             "freqs": f3x4_frequencies(
+                                                 nuc, "vertebrate_mito")}}
+    m32 = LikelihoodEngine(
+        mito_tree, codon_alignment(mito_tree, mito, mito_params,
+                                   MITO_PATTERNS, 28, "vertebrate_mito"),
+        mito, ncat=4, dtype=torch.float32, pruner="cuda", device=DEVICE)
+    codon_err["gy94_vertebrate_mito"] = wide_kernel_checks(
+        "vertebrate mito", *padded_walk_inputs(m32, mito_params))
+    del m32
+    # the engine, main path: values through B5, the gradient B2 + B3
+    reset_counts()
+    ll_c = c32.loglikelihood(codon_params)
+    sw_c = c32.sitewise_loglikelihoods(codon_params)
+    codon_value_counts = read_counts()
+    _check(codon_value_counts.get("STREAM_LAUNCHES@64", 0) > 0
+           and codon_value_counts["LAUNCHES"] == 0,
+           f"codon value calls did not stream at 64 states alone: "
+           f"{codon_value_counts}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    v_c, g_c = c32.value_and_grad(codon_params)
+    codon_grad_counts = read_counts()
+    peak_c = torch.cuda.max_memory_allocated()
+    _check(codon_grad_counts.get("SAVEALL_LAUNCHES@64", 0) > 0
+           and codon_grad_counts.get("REVERSE_LAUNCHES@64", 0) > 0,
+           f"the codon gradient did not run B2 and B3 at 64 states: "
+           f"{codon_grad_counts}")
+    ll_c64 = c64.loglikelihood(codon_params)
+    sw_c64 = c64.sitewise_loglikelihoods(codon_params)
+    v_c64, g_c64 = c64.value_and_grad(codon_params)
+    codon_engine_err = {
+        "loglik_rel": abs(ll_c - ll_c64) / abs(ll_c64),
+        "sitewise_rel": float(np.max(np.abs(sw_c - sw_c64)
+                                     / np.abs(sw_c64))),
+        "value_rel": abs(float(v_c) - float(v_c64)) / abs(float(v_c64)),
+        "grad_rel": _grad_errors(g_c, g_c64)}
+    _check(math.isfinite(ll_c)
+           and max(codon_engine_err["loglik_rel"],
+                   codon_engine_err["sitewise_rel"],
+                   codon_engine_err["value_rel"]) <= CODON_RTOL
+           and max(codon_engine_err["grad_rel"].values()) <= GRAD_TOL,
+           f"codon engine against the f64 path: {codon_engine_err}")
+    del c64, g_c64
+    torch.cuda.empty_cache()
+    # a fit: kappa, omega and the branch lengths free, F3x4 held
+    reset_counts()
+    t0 = time.perf_counter()
+    fit_c = fit(c32, codon_params, free=("branch_lengths", "model.kappa",
+                                         "model.omega"),
+                max_steps=CODON_FIT_STEPS)
+    codon_fit_s = time.perf_counter() - t0
+    codon_fit_counts = read_counts()
+    dd = dn_ds_by_branch(models.GY94, fit_c.params["model"],
+                         branch_lengths=fit_c.params["branch_lengths"]
+                         .detach().cpu().numpy())
+    omega_fit = float(fit_c.params["model"]["omega"])
+    _check(fit_c.loglik > ll_c and dd["omega"] == omega_fit
+           and abs(dd["S"] + dd["N"] - 3.0) < 1e-12
+           and np.allclose(dd["dN"] / dd["dS"], omega_fit, rtol=1e-10)
+           and codon_fit_counts.get("REVERSE_LAUNCHES@64", 0) > 0,
+           f"codon fit: logL {ll_c} -> {fit_c.loglik}, omega {omega_fit}, "
+           f"S + N {dd['S'] + dd['N']}, launches {codon_fit_counts}")
+    # times: B5 and B1 in turns (B5, B1, B1, B5), each kernel in turns with
+    # its plain version, device time per launch, bounds; the engine
+    walk_c, p_c, l_c, f_c = codon_inputs
+    rx_c, re_c = saveall_walk(p_c, l_c, walk_c)
+    lam_c = (1.0 / torch.einsum("ksi,i->ks", rx_c[:, walk_c.root
+                                                   - walk_c.n_leaves].double(),
+                                f_c)).float().contiguous()
+    f32_c = f_c.float().contiguous()
+    fns_64 = {
+        "stream": (functools.partial(cuda_pruning.slot_walk, p_c, l_c, walk_c,
+                                     stream=True),
+                   functools.partial(slot_walk_reference, p_c, l_c, walk_c)),
+        "forward": (functools.partial(forward_walk, p_c, l_c, walk_c,
+                                      walk="classic"),
+                    functools.partial(forward_walk_reference, p_c, l_c,
+                                      walk_c)),
+        "saveall": (functools.partial(saveall_walk, p_c, l_c, walk_c),
+                    functools.partial(saveall_walk_reference, p_c, l_c,
+                                      walk_c)),
+        "reverse": (functools.partial(reverse_walk, p_c, l_c, rx_c, re_c,
+                                      lam_c, f32_c, walk_c),
+                    functools.partial(reverse_walk_reference, p_c, l_c, rx_c,
+                                      re_c, lam_c, f32_c, walk_c)),
+    }
+    t_b5_b1 = [_cuda_ms(fns_64[how][0], 10)
+               for how in ("stream", "forward", "forward", "stream")]
+    timings_64 = {}
+    for what, (fn, plain) in fns_64.items():
+        timings_64[what] = in_turns(fn, plain, 5, 1)
+        timings_64[what].update(zip(("bound_ms", "bound_by"),
+                                    _bound(what, walk_c, p_c, l_c)))
+        # device us per launch (torch.profiler; 3 calls recorded none)
+        timings_64[what]["device"] = _device_us(fn, 10)
+    del rx_c, re_c
+    codon_ms = {"loglikelihood": _cuda_ms(
+        lambda: c32.loglikelihood(codon_params), 5),
+        "value_and_grad": _cuda_ms(
+            lambda: c32.value_and_grad(codon_params), 3)}
+    _emit(27, taxa=CODON_TAXA, patterns=c32._compressed.n_patterns,
+          states=61, padded_states=p_c.shape[-1],
+          kernel_errors=codon_err, loglik=ll_c, loglik_f64=ll_c64,
+          engine_errors=codon_engine_err, value_launches=codon_value_counts,
+          grad_launches=codon_grad_counts, fit_loglik=fit_c.loglik,
+          fit_steps=fit_c.n_steps, fit_s=codon_fit_s,
+          fit_launches=codon_fit_counts,
+          dn_ds={"omega": dd["omega"], "S": dd["S"], "N": dd["N"]},
+          stream_vs_classic_ms={"B5": (t_b5_b1[0] + t_b5_b1[3]) / 2,
+                                "B1": (t_b5_b1[1] + t_b5_b1[2]) / 2,
+                                "runs": t_b5_b1},
+          kernels_64=timings_64, engine_ms=codon_ms,
+          value_and_grad_peak_bytes=peak_c,
+          leaves_padded_bytes=l_c.numel() * 4)
+    del c32, fit_c, codon_inputs, p_c, l_c, fns_64
+    torch.cuda.empty_cache()
+
+    # 28. the Mk family and the ascertainment engine, main path ----------
+    mk_tree = flagship_tree
+    mk2 = models.get_model("MK2")
+    states_mk, _ = simulated_states(mk_tree, mk2, {"alpha": 0.5},
+                                    4 * MK_CHARS, 28)
+    variable = np.flatnonzero(states_mk.min(axis=0) != states_mk.max(axis=0))
+    _check(len(variable) >= MK_CHARS, f"only {len(variable)} variable "
+           f"binary characters of {4 * MK_CHARS}")
+    states_mk = states_mk[:, variable[:MK_CHARS]]
+    aln_mk = {name: "".join("01"[c] for c in states_mk[i])
+              for i, name in enumerate(mk_tree.leaf_names)}
+    mk_err, mk_counts = {}, {}
+    for label, kw in (("MK2_lewis", dict(model=mk2, correction="lewis")),
+                      ("MK6", dict(model=models.get_model("MK6"))),
+                      ("ORDERED5", dict(model=models.get_model("ORDERED5"))),
+                      ("MK24", dict(model=models.get_model("MK24")))):
+        if label == "MK2_lewis":
+            aln_k, cls = aln_mk, AscertainmentEngine
+        else:
+            k = kw["model"].n_states
+            st, _ = simulated_states(mk_tree, kw["model"], {"alpha": 0.5},
+                                     MK_CHARS, 28 + k)
+            aln_k = {name: "".join("0123456789ABCDEFGHIJKLMNOPQRSTUV"[c]
+                                   for c in st[i])
+                     for i, name in enumerate(mk_tree.leaf_names)}
+            cls = LikelihoodEngine
+        mk_params = {"alpha": 0.5}
+        e32 = cls(mk_tree, aln_k, ncat=4, dtype=torch.float32,
+                  pruner="cuda", device=DEVICE, **kw)
+        e64 = cls(mk_tree, aln_k, ncat=4, dtype=torch.float64,
+                  pruner="torch", device=DEVICE, **kw)
+        reset_counts()
+        ll_k = e32.loglikelihood(mk_params)
+        sw_k = e32.sitewise_loglikelihoods(mk_params)
+        v_k, g_k = e32.value_and_grad(mk_params)
+        mk_counts[label] = read_counts()
+        ll_k64 = e64.loglikelihood(mk_params)
+        v_k64, g_k64 = e64.value_and_grad(mk_params)
+        mk_err[label] = {
+            "padded_states": cuda_pruning.padded_states(
+                kw["model"].n_states),
+            "loglik_rel": abs(ll_k - ll_k64) / abs(ll_k64),
+            "sitewise_max_abs": float(np.max(np.abs(
+                sw_k - e64.sitewise_loglikelihoods(mk_params)))),
+            "value_rel": abs(float(v_k) - float(v_k64)) / abs(float(v_k64)),
+            "grad_rel": _grad_errors(g_k, g_k64)}
+        s_pad = mk_err[label]["padded_states"]
+        _check(math.isfinite(ll_k)
+               and max(mk_err[label]["loglik_rel"],
+                       mk_err[label]["value_rel"]) <= LOGL_RTOL
+               and max(mk_err[label]["grad_rel"].values()) <= GRAD_TOL
+               and mk_counts[label].get(f"SAVEALL_LAUNCHES@{s_pad}", 0) > 0
+               and mk_counts[label].get(f"REVERSE_LAUNCHES@{s_pad}", 0) > 0,
+               f"{label} against the f64 path: {mk_err[label]}, launches "
+               f"{mk_counts[label]}")
+        if label == "MK2_lewis":
+            ll_mk2, sw_mk2 = ll_k, sw_k
+        del e32, e64
+    # the CLI as subprocesses against the same calls in this process
+    cli_tree = random_tree(CLI_CODON_TAXA, seed=29)
+    aln_cli = codon_alignment(cli_tree, models.GY94, codon_params,
+                              CLI_CODON_PATTERNS, 29)
+    cli_params = json.dumps({"model": {
+        "freqs": codon_params["model"]["freqs"]}})
+    cli_free = "branch_lengths,model.kappa,model.omega"
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_",
+                                     dir=build) as tmp:
+        mk_tree_path, mk_fa, c_tree_path, c_fa = (
+            os.path.join(tmp, n) for n in ("mk.nwk", "mk.fa", "codon.nwk",
+                                           "codon.fa"))
+        for path, tree_ in ((mk_tree_path, mk_tree), (c_tree_path, cli_tree)):
+            with open(path, "w") as fh:
+                fh.write(write_newick(tree_) + "\n")
+        _write_fasta(aln_mk, mk_fa)
+        _write_fasta(aln_cli, c_fa)
+        cli = [sys.executable, "-m", "phylo_utils_tpu_torch.cli"]
+        common = ["--dtype", "float32", "--pruner", "cuda"]
+        cmds = {
+            "loglik_MK2_lewis": cli + ["loglik", "--tree", mk_tree_path,
+                                       "--alignment", mk_fa, "--model",
+                                       "MK2+G4", "--asc", "lewis",
+                                       "--params", '{"alpha": 0.5}',
+                                       "--sitewise"] + common,
+            "fit_GY94": cli + ["fit", "--tree", c_tree_path, "--alignment",
+                               c_fa, "--model", "GY94", "--params",
+                               cli_params, "--free", cli_free,
+                               "--max-steps", str(CLI_FIT_STEPS)] + common,
+        }
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        t_cli = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE)
+                 for name, cmd in cmds.items()}
+        try:
+            reset_counts()
+            eng_cf = LikelihoodEngine(
+                parse_newick(open(c_tree_path).read()),
+                read_alignment(c_fa), models.GY94, dtype=torch.float32,
+                pruner="cuda", device=DEVICE)
+            fit_cf = fit(eng_cf, json.loads(cli_params),
+                         free=tuple(cli_free.split(",")),
+                         max_steps=CLI_FIT_STEPS, steps_per_call=10)
+            cli_counts_28 = read_counts()
+            dd_cf = dn_ds_by_branch(
+                models.GY94, fit_cf.params["model"],
+                branch_lengths=fit_cf.params["branch_lengths"].detach()
+                .cpu().numpy())
+            outs = {}
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                _check(proc.returncode == 0,
+                       f"{name} exited {proc.returncode}: {err[-2000:]}")
+                outs[name] = json.loads(out.strip().splitlines()[-1])
+            cli_s_28 = time.perf_counter() - t_cli
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    cli_err_28 = {
+        "mk2_loglik_rel": abs(outs["loglik_MK2_lewis"]["loglik"] - ll_mk2)
+        / abs(ll_mk2),
+        "mk2_sitewise_max_abs": float(np.max(np.abs(
+            np.asarray(outs["loglik_MK2_lewis"]["sitewise"]) - sw_mk2))),
+        "gy94_fit_loglik_rel": abs(outs["fit_GY94"]["loglik"]
+                                   - fit_cf.loglik) / abs(fit_cf.loglik),
+        "gy94_dn_ds_rel": max(
+            _max_rel(torch.as_tensor(outs["fit_GY94"]["dn_ds"][key],
+                                     dtype=torch.float64),
+                     torch.as_tensor(dd_cf[key], dtype=torch.float64))
+            for key in ("omega", "S", "N", "dN", "dS"))}
+    _check(max(cli_err_28.values()) <= 1e-9
+           and cli_counts_28.get("REVERSE_LAUNCHES@64", 0) > 0,
+           f"the CLI against the same calls in this process: {cli_err_28}, "
+           f"launches {cli_counts_28}")
+    _emit(28, characters=MK_CHARS, errors=mk_err, launches=mk_counts,
+          cli_errors=cli_err_28, cli_wall_s=cli_s_28,
+          cli_fit_launches=cli_counts_28)
+    torch.cuda.empty_cache()
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
-                   *knob_counts.values(), mix_counts, cli_counts)
+                   *knob_counts.values(), mix_counts, cli_counts,
+                   codon_value_counts, codon_grad_counts, codon_fit_counts,
+                   *mk_counts.values(), cli_counts_28)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
 
     def launches_by_states(name):
         return {str(s_): sum(c.get(f"{name}@{s_}", 0) for c in path_counts)
-                for s_ in (4, 20)}
+                for s_ in cuda_pruning.KERNEL_STATES}
 
-    def kernel(name, source, line, counter, err, timing, what, inputs):
+    def kernel(name, source, line, counter, err, timing, what, inputs,
+               wide=None):
+        """The kernel's entry; ``wide``: (its phase-27 key, its error) where
+        it runs at 64 states, reported as ``states_64``."""
         bound_ms, bound_by = _bound(what, *inputs[:3])
-        return {"name": name, "route": "cuda",
-                "source": f"phylo_utils_tpu_torch/csrc/{source}",
-                "replaces": f"phylo_utils_tpu/ops/pallas_pruning.py:{line}",
-                "launches": launches(counter),
-                "launches_by_states": launches_by_states(counter),
-                "max_abs_err": err,
-                "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"phylo_utils_tpu_torch/csrc/{source}",
+                 "replaces": f"phylo_utils_tpu/ops/pallas_pruning.py:{line}",
+                 "launches": launches(counter),
+                 "launches_by_states": launches_by_states(counter),
+                 "max_abs_err": err,
+                 "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None}
+        if wide is not None:
+            t64 = timings_64[wide[0]]
+            entry["states_64"] = {
+                "shape": f"{CODON_TAXA} taxa x {CODON_PATTERNS} codon "
+                         "patterns, GY94+G4",
+                "max_abs_err": wide[1], "ms": t64["ms"],
+                "plain_ms": t64["plain_ms"], "bound_ms": t64["bound_ms"],
+                "bound_by": t64["bound_by"], "device": t64["device"]}
+        return entry
 
     flagship = timing_inputs[BATCH]
     print(json.dumps({"kernels": [
         kernel("pruning_forward_f32", "pruning_forward.cu", 520, "LAUNCHES",
-               max_err, timings[f"forward_B{BATCH}"], "forward", flagship),
+               max_err, timings[f"forward_B{BATCH}"], "forward", flagship,
+               ("forward", codon_err["gy94"]["B1"])),
         kernel("pruning_saveall_f32", "pruning_forward.cu", 840,
                "SAVEALL_LAUNCHES", b2_max, timings[f"saveall_B{BATCH}"],
-               "saveall", flagship),
+               "saveall", flagship, ("saveall", codon_err["gy94"]["B2"])),
         kernel("pruning_reverse_f32", "pruning_reverse.cu", 966,
                "REVERSE_LAUNCHES", b3_max, timings[f"reverse_B{BATCH}"],
-               "reverse", flagship),
+               "reverse", flagship, ("reverse", codon_err["gy94"]["B3_dP"])),
         kernel("pruning_slot_f32", "pruning_slot.cu", 642, "SLOT_LAUNCHES",
                max(slot_err["slot"].values()), timings["slot"], "slot",
                case_inputs[big_dna_key]),
         kernel("pruning_stream_f32", "pruning_slot.cu", 704,
                "STREAM_LAUNCHES", max(slot_err["stream"].values()),
-               timings["stream"], "stream", case_inputs[protein_key]),
+               timings["stream"], "stream", case_inputs[protein_key],
+               ("stream", codon_err["gy94"]["B5"])),
         kernel("pruning_classic_reverse_f32", "pruning_classic_reverse.cu",
                879, "CLASSIC_REVERSE_LAUNCHES", b7_max,
                timings[f"classic_B{BATCH}"], "classic", flagship),

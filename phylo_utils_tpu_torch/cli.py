@@ -12,7 +12,10 @@ alike. Every other subcommand, and the flags whose engines are not ported
 yet, exit non-zero naming their ROADMAP item. ``--profile-mixture
 FILE.nex:NAME`` builds a ``ProfileMixtureEngine`` from an IQ-TREE
 ``models.nex`` definition, with ``--model`` as the shared exchangeability
-matrix.
+matrix. ``--model`` takes the codon models GY94 and MG94 (on an in-frame
+nucleotide alignment; ``fit`` then prints the codeml-style ``dn_ds`` block)
+and the Mk family, ``MK<k>`` / ``ORDERED<k>``; ``--asc lewis|felsenstein|
+stamatakis`` (with ``--asc-counts``) builds an ``AscertainmentEngine``.
 """
 from __future__ import annotations
 
@@ -42,8 +45,6 @@ NOT_PORTED = {
 # engine flags whose engines are not ported yet: (attribute, flag, item)
 _UNPORTED_FLAGS = (
     ("partitions", "--partitions", "A16"),
-    ("asc", "--asc", "A14"),
-    ("asc_counts", "--asc-counts", "A14"),
     ("recode", "--recode", "A15"),
     ("shard_sites", "--shard-sites", "A12"),
 )
@@ -163,9 +164,13 @@ def _add_engine_args(p: argparse.ArgumentParser):
                    help="partition file (not ported: A16)")
     p.add_argument("--asc", default=None,
                    choices=["lewis", "felsenstein", "stamatakis"],
-                   help="ascertainment-bias correction (not ported: A14)")
+                   help="ascertainment-bias correction for variable-sites-"
+                        "only data (Mk matrices, SNPs); felsenstein/"
+                        "stamatakis need --asc-counts")
     p.add_argument("--asc-counts", default=None,
-                   help="removed constant-site counts (not ported: A14)")
+                   help="removed constant-site counts: one number "
+                        "(felsenstein) or comma-separated per-state counts "
+                        "(stamatakis)")
     p.add_argument("--recode", default=None,
                    help="recode the alignment (not ported: A15)")
     p.add_argument("--profile-mixture", default=None,
@@ -229,15 +234,30 @@ def _build_engine(args):
     args.invariant_sites = args.invariant_sites or spec_inv
     if spec_emp:
         args.empirical_freqs = True
+    cls, extra = LikelihoodEngine, {}
+    if getattr(args, "asc", None):
+        from phylo_utils_tpu_torch.ascertainment import AscertainmentEngine
+
+        cls = AscertainmentEngine
+        extra["correction"] = args.asc
+        if args.asc_counts is not None:
+            counts = [float(x) for x in args.asc_counts.split(",")]
+            extra["const_counts"] = counts[0] if len(counts) == 1 else counts
+    elif getattr(args, "asc_counts", None):
+        raise SystemExit("--asc-counts requires --asc")
     try:
-        return LikelihoodEngine(
+        return cls(
             _read_tree(args.tree), _read_aln(args.alignment), model,
             ncat=args.ncat, invariant_sites=args.invariant_sites,
             rate_model=rate_model, dtype=args.dtype, pruner=args.pruner,
-            device=args.device,
+            device=args.device, **extra,
         )
     except RuntimeError as e:       # no card behind --device cuda
         raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+    except ValueError as e:
+        if getattr(args, "asc", None):
+            raise SystemExit(f"--asc: {e}")
+        raise
 
 
 def cmd_loglik(args) -> int:
@@ -303,6 +323,19 @@ def cmd_fit(args) -> int:
     if args.se:
         out["standard_errors"] = _to_json(
             standard_errors(engine, res.params, free=free))
+    model = getattr(engine, "model", None)   # the mixture engines have none
+    if (model is not None and str(model.alphabet).startswith("codon")
+            and "omega" in model.param_defaults):
+        from phylo_utils_tpu_torch.models.codon import dn_ds_by_branch
+
+        dd = dn_ds_by_branch(
+            model, res.params["model"],
+            branch_lengths=res.params["branch_lengths"].detach().cpu()
+            .numpy())
+        out["dn_ds"] = {
+            "omega": dd["omega"], "S": dd["S"], "N": dd["N"],
+            "dN": dd["dN"].tolist(), "dS": dd["dS"].tolist(),
+        }
     print(json.dumps(out))
     return 0
 

@@ -53,14 +53,46 @@ __device__ __forceinline__ void store_states(float* __restrict__ dst,
   }
 }
 
-// Four consecutive entries of row r of an S x S block P (row-major) staged
-// in shared memory, as one 16-byte load. Every thread of a block reads the
-// same address, so the load is a broadcast (LDS.128): one load feeds four
-// FMAs. The stage must be 16-byte aligned and S a multiple of 4.
+// Floats between the rows of an S x S block of P staged in shared memory:
+// S, and S + 4 at 64 states. There the lanes that share a column form rows
+// r kL + h (lane_row): rows 64 floats apart would put the rows the lanes
+// read at once in one bank quad (a 4-way conflict on every LDS.128), 68
+// apart puts them in four.
+template <int S>
+__host__ __device__ constexpr int p_row() {
+  return S == 64 ? S + 4 : S;
+}
+
+// Floats of one staged S x S block of P.
+template <int S>
+__host__ __device__ constexpr int p_block() {
+  return S * p_row<S>();
+}
+
+// Where 16-byte vector q of an S x S block of P (row-major in device
+// memory) goes in its staged copy (rows p_row apart).
+template <int S>
+__device__ __forceinline__ int p_stage_offset(int q) {
+  return (q / (S / 4)) * p_row<S>() + 4 * (q % (S / 4));
+}
+
+// The r-th of the S / kL rows lane h of the kL lanes of a column forms:
+// h S / kL + r, a contiguous share, below 64 states; r kL + h at 64
+// (see p_row).
+template <int S, int kL>
+__device__ __forceinline__ int lane_row(int h, int r) {
+  return S == 64 ? r * kL + h : h * (S / kL) + r;
+}
+
+// Four consecutive entries of row r of an S x S block P (row-major, rows
+// p_row<S>() apart) staged in shared memory, as one 16-byte load. Every
+// thread of a block reads the same address, so the load is a broadcast
+// (LDS.128): one load feeds four FMAs. The stage must be 16-byte aligned
+// and S a multiple of 4.
 template <int S>
 __device__ __forceinline__ float4 p_vec(const float* pm, int r, int q) {
   static_assert(S % 4 == 0, "P rows are read as 16-byte vectors");
-  return reinterpret_cast<const float4*>(pm + r * S)[q];
+  return reinterpret_cast<const float4*>(pm + r * p_row<S>())[q];
 }
 
 // acc[r] *= (P x)[r] for one S x S block P (row-major), an fmaf chain in j
@@ -256,15 +288,25 @@ __device__ __forceinline__ float exp2_int(float k) {
 }
 
 // Calls launch(std::integral_constant<int, S>{}) for the state counts the
-// kernels are compiled for (DNA 4, protein 20); any other count returns
-// cudaErrorInvalidValue without launching.
-template <typename F>
+// kernels are compiled for: DNA 4, protein 20 and, where kWide (the
+// kernels of the codon path: B1, B2, B3 and B5), 64, the width codon's 61
+// (or 60) states and every count from 21 to 63 are padded to
+// (ops/cuda_pruning.py::padded_states). Any other count returns
+// cudaErrorInvalidValue without launching (and without instantiating the
+// kernel at 64 where not kWide).
+template <bool kWide = false, typename F>
 int dispatch_states(int s, F&& launch) {
   switch (s) {
     case 4:
       return launch(std::integral_constant<int, 4>{});
     case 20:
       return launch(std::integral_constant<int, 20>{});
+    case 64:
+      if constexpr (kWide) {
+        return launch(std::integral_constant<int, 64>{});
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

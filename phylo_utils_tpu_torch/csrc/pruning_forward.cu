@@ -15,8 +15,12 @@
 // and it returns the root partials and the root exponent count. The caller
 // turns the count into ln units (x ln 2) in float64. Layouts, sites minor and
 // states innermost: leaves (n_leaves, sites, S), the JAX function's own;
-// root (B, K, sites, S), root_e (B, K, sites). Compiled for S = 4 (DNA) and
-// S = 20 (protein); the entry points refuse any other count.
+// root (B, K, sites, S), root_e (B, K, sites). Compiled for S = 4 (DNA),
+// S = 20 (protein) and S = 64 (codon's 61 or 60 states, and every count
+// from 21 to 63, padded with zero states by ops/cuda_pruning.py); the entry
+// points refuse any other count. At 64 states two or four lanes share a
+// column (16 or 32 rows a lane beside the child's 64-entry row in
+// registers), and a stage of P is 16 KB an edge.
 //
 // What bounded its first body, measured on an NVIDIA H100 80GB HBM3 at
 // 700 W (PERF.md section 6): one thread a column walked the tree with every
@@ -78,6 +82,10 @@
 //   flight where a launch has about one block an SM.
 // - Threads past the last site stay in the loop for the barriers and
 //   store nothing.
+// - At 64 states four lanes share a column, forming rows r 4 + h of P
+//   staged with rows 68 floats apart (no bank conflict among the four),
+//   and the child's row streams from device memory as 16-byte vectors (64
+//   of them in registers beside the accumulators spilled); 2 edges a step.
 // Every row's fmaf chain keeps its j order and the children their order, so
 // the residuals are bit for bit the forward's arithmetic: the root row
 // equals pruning_forward_f32's root.
@@ -115,7 +123,8 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
   static_assert(S % kL == 0 && kRows % 2 == 0,
                 "a lane's rows are stored as 8-byte vectors");
   constexpr int kBlockVecs = S * S / 4;  // 16-byte vectors per P block
-  extern __shared__ float4 p_stage_vec[];  // (kPStages, chunk, S, S)
+  constexpr int kBlock = pruning::p_block<S>();  // floats of a staged P block
+  extern __shared__ float4 p_stage_vec[];  // (kPStages, chunk, S, p_row<S>)
   float* p_stage = reinterpret_cast<float*>(p_stage_vec);
   const int h = threadIdx.x % kL;
   const int site = blockIdx.x * (kThreads / kL) + threadIdx.x / kL;
@@ -128,7 +137,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
   float* __restrict__ es = res_e + bk * n_inner * sites;
   const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
   const size_t p_node_stride = static_cast<size_t>(K) * S * S;
-  const int stage_floats = chunk * S * S;
+  const int stage_floats = chunk * kBlock;
 
   // step t stages the P blocks of edges [t chunk, (t + 1) chunk): the
   // children of the walk's nodes in walk order, so a step may end inside
@@ -142,7 +151,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
       const int c = v / kBlockVecs;
       const int q = v - c * kBlockVecs;
       const int child = __ldg(edges + f0 + c);
-      pruning::cp_async16(dst + c * S * S + 4 * q,
+      pruning::cp_async16(dst + c * kBlock + pruning::p_stage_offset<S>(q),
                           pb + child * p_node_stride + 4 * q);
     }
     ++staged;
@@ -172,6 +181,40 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
         in_step = 0;
       }
       const int child = __ldg(edges + f);
+      const float* pm = p_now + in_step * kBlock;
+      if constexpr (S == 64) {
+        // the child's row streamed as 16-byte vectors: 64 entries held
+        // beside a lane's accumulators spilled (ptxas, 12 bytes); each
+        // row's fmaf chain stays in j order, so the bits are B1's
+        float y[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
+        if (live) {
+          const float* src;
+          if (child < n_leaves) {
+            src = leaves + (static_cast<size_t>(child) * sites + site) * S;
+          } else {
+            const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
+            src = xs + row * S;
+            e += es[row];
+          }
+#pragma unroll 4
+          for (int q = 0; q < S / 4; ++q) {
+            const float4 xv = reinterpret_cast<const float4*>(src)[q];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const float4 v = pruning::p_vec<S>(pm, pruning::lane_row<S, kL>(h, r), q);
+              y[r] = fmaf(v.x, xv.x, y[r]);
+              y[r] = fmaf(v.y, xv.y, y[r]);
+              y[r] = fmaf(v.z, xv.z, y[r]);
+              y[r] = fmaf(v.w, xv.w, y[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] *= y[r];
+        continue;
+      }
       float x[S];
 #pragma unroll
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
@@ -184,7 +227,6 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
           e += es[row];
         }
       }
-      const float* pm = p_now + in_step * S * S;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         float y = 0.0f;
@@ -216,7 +258,12 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
     e += static_cast<float>(eb - 127);
     if (live) {
       const size_t row = static_cast<size_t>(node - n_leaves) * sites + site;
-      if constexpr (kL == 1) {
+      if constexpr (S == 64) {  // the lane's rows r kL + h (lane_row)
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          xs[row * S + pruning::lane_row<S, kL>(h, r)] = acc[r];
+        }
+      } else if constexpr (kL == 1) {
         pruning::store_states<S>(xs + row * S, acc);
       } else {
 #pragma unroll
@@ -247,7 +294,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
 // or read from device memory. Launch on `stream`; returns
 // cudaGetLastError() after the launch (0 = ok), the error of granting the
 // shared memory, or cudaErrorInvalidValue without launching for a geometry
-// that is not compiled. S is 4 or 20.
+// that is not compiled. S is 4, 20 or 64 (lanes 2 or 4 at 64).
 extern "C" int pruning_forward_f32(const void* p, const void* leaves,
                                    const void* edges, const void* eword,
                                    void* spill, void* spill_e, void* root,
@@ -263,7 +310,7 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
       static_cast<float*>(root),      static_cast<float*>(root_e),
       K, n_nodes, n_leaves, n_edges, sites,
       n_rows, smem_rows, cols, chunk, stage_leaves};
-  return pruning::launch_rows(w, B, S, lanes, stream);
+  return pruning::launch_rows<1, true>(w, B, S, lanes, stream);
 }
 
 // The forward walk keeping every internal node, the root included, in
@@ -272,9 +319,11 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
 // the children of order[0], then of order[1], ..., counts[i] each. P is
 // staged in shared memory by chunks of `chunk` edges (kPStages x chunk x
 // S x S floats of dynamic shared memory, ops/cuda_pruning.py::
-// saveall_stage), with `lanes` (1 or 2) lanes a column. Returns
-// cudaGetLastError() after the launch (0 = ok), or the error of granting
-// the shared memory. S is 4 or 20.
+// saveall_stage), with `lanes` lanes a column: 1 or 2 at S = 4 and 20, 2
+// or 4 at S = 64. Returns cudaGetLastError() after the launch (0 = ok), the
+// error of granting the shared memory, or cudaErrorInvalidValue without
+// launching for a lane or state count that is not compiled. S is 4, 20 or
+// 64.
 extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
                                    const void* order, const void* edges,
                                    const void* counts, void* res_x,
@@ -282,16 +331,15 @@ extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
                                    int n_nodes, int n_leaves, int n_int,
                                    int n_edges, int sites, int chunk,
                                    int lanes, void* stream) {
-  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || chunk <= 0 ||
-      (lanes != 1 && lanes != 2)) {
+  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return pruning::dispatch_states(S, [&](auto s) {
+  return pruning::dispatch_states<true>(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
     const auto launch = [&](auto kernel, int per_block) {
       const size_t smem = static_cast<size_t>(pruning::kPStages) * chunk *
-                          kS * kS * sizeof(float);
+                          pruning::p_block<kS>() * sizeof(float);
       if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -307,7 +355,13 @@ extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
           sites, chunk);
       return static_cast<int>(cudaGetLastError());
     };
-    return lanes == 1 ? launch(pruning_saveall_kernel<kS, 1>, kThreads)
-                      : launch(pruning_saveall_kernel<kS, 2>, kThreads / 2);
+    if constexpr (kS == 64) {   // 64 accumulators a lane would cost warps
+      if (lanes == 2) return launch(pruning_saveall_kernel<kS, 2>, kThreads / 2);
+      if (lanes == 4) return launch(pruning_saveall_kernel<kS, 4>, kThreads / 4);
+    } else {
+      if (lanes == 1) return launch(pruning_saveall_kernel<kS, 1>, kThreads);
+      if (lanes == 2) return launch(pruning_saveall_kernel<kS, 2>, kThreads / 2);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   });
 }

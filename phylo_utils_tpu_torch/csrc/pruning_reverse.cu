@@ -65,8 +65,33 @@
 // B = 64, 20% of its bytes bound (0.793 ms, 13%, before); 4.89 ms at 512
 // taxa x 8192 LG patterns, 21% of its operations bound (17.8 ms, 6%). At
 // B = 1 it is slower than before (160 against 114 us of device time): 63
-// dependent visits, each now with a barrier and a shuffle chain. The entry
-// point is compiled for S = 4 and S = 20 and refuses any other.
+// dependent visits, each now with a barrier and a shuffle chain.
+//
+// At S = 64 (codon's 61 or 60 states padded with zero states by
+// ops/cuda_pruning.py) one thread's rows of g, sib, gy, x and P^T gy would
+// take ~5 x 64 registers, and a warp's 64 x 64 dP entries fit neither
+// registers nor the warp-private layout of S = 20. So
+// pruning_reverse_wide_kernel splits a column over kWideLanes = 4 lanes
+// and sums dP over the whole block:
+// - lane h keeps g, the siblings' product and gy for rows 4 r + h
+//   (r < 16), y = P x of a sibling formed row by row with the sibling's
+//   row read from device memory as 16-byte vectors, each row's fmaf chain
+//   in j order (times_child's);
+// - P is staged as in the narrow kernel, two visits ahead in a 3-stage
+//   cp.async ring, but with rows p_row = 68 floats apart, so that the
+//   four lanes' rows 4 r + h fall in four different bank quads (as in B1,
+//   B2 and B5 at 64 states);
+// - per child the block puts its 64 columns' gy and x rows in two shared
+//   tiles (rows 68 floats apart) and, after a barrier, thread t sums the
+//   4 x 4 sub-block (t / 16, t % 16) of gy x^T over the tile's columns in
+//   column order (two 16-byte loads per 16 FMAs) and stores it in the
+//   block's dP row: the same rows and the same compensated row sum as
+//   S = 4 and 20, so dP is bit-identical across launches;
+// - lane h forms entries [16 h, 16 h + 16) of the child's P^T gy from the
+//   gy tile, each an fmaf chain in j order (transpose_apply_shared's);
+// - 64 columns a block, 256 threads; the ring holds at most 3 children a
+//   visit (cmax <= 3 in 227 KB: ops/cuda_pruning.py::reverse_tile).
+// The entry point is compiled for S = 4, 20 and 64 and refuses any other.
 
 #include "pruning_common.cuh"
 
@@ -251,6 +276,245 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   flush(n_int - 1);
 }
 
+// Lanes a column of the 64-state reverse walk (see the header).
+constexpr int kWideLanes = 4;
+
+// Shared memory of one S-state (64) block of `tile` columns: the P ring
+// (kPStages, cmax, S, p_row) and the gy and x tiles (2, tile, p_row).
+template <int S>
+__host__ __device__ constexpr size_t wide_smem_floats(int cmax, int tile) {
+  return (static_cast<size_t>(pruning::kPStages) * cmax * S +
+          2 * static_cast<size_t>(tile)) * pruning::p_row<S>();
+}
+
+// The deferred reverse at S = 64 (see the header): kWideLanes lanes a
+// column, S^2 / 16 threads a block (a 4 x 4 dP sub-block each), so
+// S^2 / (16 kWideLanes) columns a block; same arguments and outputs as
+// pruning_reverse_walk_kernel.
+template <int S>
+__global__ void __launch_bounds__(kMaxTile)
+pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
+                            const float* __restrict__ leaves,  // (n_leaves, sites, S)
+                            const int* __restrict__ rnode,     // (n_int,) pre-order
+                            const int* __restrict__ gslot,     // (n_int,)
+                            const int* __restrict__ children,  // (n_int, cmax)
+                            const int* __restrict__ cslot,     // (n_int, cmax)
+                            const int* __restrict__ counts,    // (n_int,)
+                            const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
+                            const float* __restrict__ res_e,   // (B, K, n_inner, sites)
+                            const float* __restrict__ lam,     // (B, K, sites)
+                            const float* __restrict__ freqs,   // (S,)
+                            float* __restrict__ g_slots,       // (B, K, n_gslots, sites, S)
+                            float* __restrict__ dp_rows,       // (B, K, rows, n_nodes, S, S)
+                            float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
+                            int K, int n_nodes, int n_leaves, int n_int,
+                            int cmax, int sites, int n_gslots) {
+  constexpr int kL = kWideLanes;
+  constexpr int kRows = S / kL;        // rows of g, sib, gy a lane keeps
+  constexpr int kSub = S / 4;          // 4 x 4 dP sub-blocks a side
+  constexpr int kTile = kSub * kSub / kL;  // columns a block
+  constexpr int LD = pruning::p_row<S>();   // floats between staged rows
+  static_assert(S % 16 == 0 && S + 4 <= LD && kSub * kSub <= kMaxTile,
+                "16-byte vectors of a lane's quarter row, one sub-block a thread");
+  extern __shared__ float4 smem_vec[];
+  float* p_stage = reinterpret_cast<float*>(smem_vec);       // (kPStages, cmax, S, LD)
+  float* gy_t = p_stage + pruning::kPStages * cmax * S * LD;  // (kTile, LD)
+  float* x_t = gy_t + kTile * LD;                             // (kTile, LD)
+  const int h = threadIdx.x % kL;
+  const int col = threadIdx.x / kL;
+  const int site = blockIdx.x * kTile + col;
+  const bool live = site < sites;
+  const int ib = threadIdx.x / kSub;   // the thread's dP sub-block
+  const int jb = threadIdx.x % kSub;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
+  const size_t ns = static_cast<size_t>(sites);
+  const float* __restrict__ xs = res_x + bk * n_inner * ns * S;
+  const float* __restrict__ es = res_e + bk * n_inner * ns;
+  float* __restrict__ slots = g_slots + bk * n_gslots * ns * S;
+  float* __restrict__ dls =
+      dleaf == nullptr ? nullptr : dleaf + bk * n_leaves * ns * S;
+  float* __restrict__ rows =
+      dp_rows + (bk * gridDim.x + blockIdx.x) * n_nodes * S * S;
+  const float* __restrict__ pb =
+      p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
+  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
+  // a node's partials row at this column: a leaf's or its residual
+  auto row_of = [&](int node) {
+    return node < n_leaves
+               ? leaves + (static_cast<size_t>(node) * ns + site) * S
+               : xs + (static_cast<size_t>(node - n_leaves) * ns + site) * S;
+  };
+
+  // visit i's children's P blocks -> its stage, rows LD floats apart
+  auto stage = [&](int i) {
+    if (i >= n_int) return;
+    const int cnt = __ldg(counts + i);
+    float* dst = p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * LD;
+    for (int v = threadIdx.x; v < cnt * S * kSub; v += blockDim.x) {
+      const int c = v / (S * kSub);
+      const int q = v - c * S * kSub;
+      const int child = __ldg(children + i * cmax + c);
+      pruning::cp_async16(dst + c * S * LD + pruning::p_stage_offset<S>(q),
+                          pb + child * p_node_stride + 4 * q);
+    }
+  };
+  stage(0);
+  pruning::cp_async_commit();
+  stage(1);
+  pruning::cp_async_commit();
+
+  for (int i = 0; i < n_int; ++i) {
+    pruning::cp_async_wait_one();  // visit i's P has landed (this thread's part)
+    __syncthreads();               // ... and every other thread's
+    stage(i + 2);                  // into the stage visit i - 1 read
+    pruning::cp_async_commit();
+    const float* p_now =
+        p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * LD;
+    const int node = __ldg(rnode + i);
+    const int cnt = __ldg(counts + i);
+    float g[kRows];  // rows 4 r + h of the node's outside vector
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
+    float inv_m = 0.0f;
+    if (live) {
+      const int gs = __ldg(gslot + i);
+      if (gs < 0) {  // the root: g = seed = lambda pi
+        const float l = lam[bk * ns + site];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          g[r] = l * __ldg(freqs + pruning::lane_row<S, kL>(h, r));
+        }
+      } else {
+        const float* src = slots + (static_cast<size_t>(gs) * ns + site) * S;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) g[r] = src[pruning::lane_row<S, kL>(h, r)];
+      }
+      // 2^{-r_n}: the children's exponent counts minus the node's
+      float esum = 0.0f;
+      for (int c = 0; c < cnt; ++c) {
+        const int child = __ldg(children + i * cmax + c);
+        if (child >= n_leaves) {
+          esum += es[static_cast<size_t>(child - n_leaves) * ns + site];
+        }
+      }
+      inv_m = pruning::exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * ns + site]);
+    }
+    for (int c = 0; c < cnt; ++c) {
+      const int child = __ldg(children + i * cmax + c);
+      float gy[kRows];  // the siblings' product, then gy, rows 4 r + h
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) gy[r] = 1.0f;
+      if (live) {
+        for (int c2 = 0; c2 < cnt; ++c2) {
+          if (c2 == c) continue;
+          const float4* xo = reinterpret_cast<const float4*>(
+              row_of(__ldg(children + i * cmax + c2)));
+          const float* pm = p_now + c2 * S * LD;
+          float y[kRows];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
+#pragma unroll 4
+          for (int q = 0; q < S / 4; ++q) {
+            const float4 xv = xo[q];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const float4 v =
+                  pruning::p_vec<S>(pm, pruning::lane_row<S, kL>(h, r), q);
+              y[r] = fmaf(v.x, xv.x, y[r]);
+              y[r] = fmaf(v.y, xv.y, y[r]);
+              y[r] = fmaf(v.z, xv.z, y[r]);
+              y[r] = fmaf(v.w, xv.w, y[r]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) gy[r] *= y[r];
+        }
+      }
+      // the column's gy and x_c rows into the tiles (zero past the sites)
+      float* gy_row = gy_t + col * LD;
+      float* x_row = x_t + col * LD;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        gy[r] = g[r] * gy[r] * inv_m;
+        gy_row[pruning::lane_row<S, kL>(h, r)] = gy[r];
+      }
+      {
+        float4 xq[kRows / 4];  // lane h's quarter [h kRows, (h + 1) kRows)
+        const float4* xc = reinterpret_cast<const float4*>(row_of(child));
+#pragma unroll
+        for (int q = 0; q < kRows / 4; ++q) {
+          xq[q] = live ? xc[h * kRows / 4 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int q = 0; q < kRows / 4; ++q) {
+          reinterpret_cast<float4*>(x_row + h * kRows)[q] = xq[q];
+        }
+      }
+      __syncthreads();  // both tiles are whole
+      {  // dP sub-block (ib, jb) of the child: gy x^T summed over the
+         // tile's columns in column order, into the block's row
+        float acc[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+        for (int s2 = 0; s2 < kTile; ++s2) {
+          const float4 gv = *reinterpret_cast<const float4*>(gy_t + s2 * LD + 4 * ib);
+          const float4 xv = *reinterpret_cast<const float4*>(x_t + s2 * LD + 4 * jb);
+          const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[a * 4 + e] = fmaf(ga[a], xa[e], acc[a * 4 + e]);
+          }
+        }
+        float* dst = rows + static_cast<size_t>(child) * S * S;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          reinterpret_cast<float4*>(dst + (4 * ib + a) * S + 4 * jb)[0] =
+              make_float4(acc[a * 4], acc[a * 4 + 1], acc[a * 4 + 2], acc[a * 4 + 3]);
+        }
+      }
+      if (live && (child >= n_leaves || dls != nullptr)) {
+        // entries [h kRows, (h + 1) kRows) of the child's outside vector
+        // P_c^T gy_c from the gy tile, each an fmaf chain in j order
+        const float* pm = p_now + c * S * LD + h * kRows;
+        float gc[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) gc[r] = 0.0f;
+#pragma unroll 2
+        for (int q = 0; q < S / 4; ++q) {
+          const float4 gv = *reinterpret_cast<const float4*>(gy_row + 4 * q);
+          const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+            for (int v = 0; v < kRows / 4; ++v) {
+              const float4 pv = *reinterpret_cast<const float4*>(
+                  pm + (4 * q + jj) * LD + 4 * v);
+              gc[4 * v] = fmaf(pv.x, ga[jj], gc[4 * v]);
+              gc[4 * v + 1] = fmaf(pv.y, ga[jj], gc[4 * v + 1]);
+              gc[4 * v + 2] = fmaf(pv.z, ga[jj], gc[4 * v + 2]);
+              gc[4 * v + 3] = fmaf(pv.w, ga[jj], gc[4 * v + 3]);
+            }
+          }
+        }
+        float* out = child >= n_leaves
+            ? slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S
+            : dls + (static_cast<size_t>(child) * ns + site) * S;
+#pragma unroll
+        for (int v = 0; v < kRows / 4; ++v) {
+          reinterpret_cast<float4*>(out + h * kRows)[v] =
+              make_float4(gc[4 * v], gc[4 * v + 1], gc[4 * v + 2], gc[4 * v + 3]);
+        }
+      }
+      __syncthreads();  // the tiles are read before the next child's overwrite them
+    }
+  }
+}
+
 // dP[b, node, k] = sum over the rows of dp_rows[b, k, :, node] in row
 // order with a compensated (Kahan) add; zero for the root. One thread per
 // entry of dP (B, n_nodes, K, S, S).
@@ -293,7 +557,8 @@ pruning_dp_rows_kernel(const float* __restrict__ dp_rows,  // (B, K, rows, n_nod
 // null. The schedule arrays are ReverseSchedule's (ops/cuda_pruning.py);
 // `root` is rnode[0]. `tile` is 32, 64, 128 or 256, and the block's shared
 // memory (ops/cuda_pruning.py::_reverse_smem_bytes) must fit the SM's
-// 227 KB.
+// 227 KB. At S = 64 `tile` must be 64 (pruning_reverse_wide_kernel's
+// columns a block; 256 threads).
 extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
                                    const void* rnode, const void* gslot,
                                    const void* children, const void* cslot,
@@ -312,29 +577,40 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (sites + tile - 1) / tile;
   const dim3 grid(tiles, K, B);
-  return pruning::dispatch_states(S, [&](auto s) {
+  return pruning::dispatch_states<true>(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    auto walk = pruning_reverse_walk_kernel<kS>;
-    const size_t warps = tile / 32;
-    size_t smem = (pruning::kPStages + 2 * warps) * cmax * kS * kS;
-    if (kS != 4) smem += warps * 2 * 32 * kS;
-    smem *= sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+    const auto launch = [&](auto walk, int threads, size_t smem) {
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            walk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+      }
+      walk<<<grid, threads, smem, st>>>(
+          static_cast<const float*>(p), static_cast<const float*>(leaves),
+          static_cast<const int*>(rnode), static_cast<const int*>(gslot),
+          static_cast<const int*>(children), static_cast<const int*>(cslot),
+          static_cast<const int*>(counts), static_cast<const float*>(res_x),
+          static_cast<const float*>(res_e), static_cast<const float*>(lam),
+          static_cast<const float*>(freqs), static_cast<float*>(g_slots),
+          static_cast<float*>(dp_rows), static_cast<float*>(dleaf), K,
+          n_nodes, n_leaves, n_int, cmax, sites, n_gslots);
+      return cudaGetLastError();
+    };
+    cudaError_t err;
+    if constexpr (kS == 64) {
+      if (tile * kWideLanes != (kS / 4) * (kS / 4)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      err = launch(pruning_reverse_wide_kernel<kS>, tile * kWideLanes,
+                   wide_smem_floats<kS>(cmax, tile) * sizeof(float));
+    } else {
+      const size_t warps = tile / 32;
+      size_t floats = (pruning::kPStages + 2 * warps) * cmax * kS * kS;
+      if (kS != 4) floats += warps * 2 * 32 * kS;
+      err = launch(pruning_reverse_walk_kernel<kS>, tile,
+                   floats * sizeof(float));
     }
-    walk<<<grid, tile, smem, st>>>(
-        static_cast<const float*>(p), static_cast<const float*>(leaves),
-        static_cast<const int*>(rnode), static_cast<const int*>(gslot),
-        static_cast<const int*>(children), static_cast<const int*>(cslot),
-        static_cast<const int*>(counts), static_cast<const float*>(res_x),
-        static_cast<const float*>(res_e), static_cast<const float*>(lam),
-        static_cast<const float*>(freqs), static_cast<float*>(g_slots),
-        static_cast<float*>(dp_rows), static_cast<float*>(dleaf), K, n_nodes,
-        n_leaves, n_int, cmax, sites, n_gslots);
-    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t n = static_cast<size_t>(B) * n_nodes * K * kS * kS;
     pruning_dp_rows_kernel<kS><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(

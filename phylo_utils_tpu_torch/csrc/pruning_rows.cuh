@@ -48,8 +48,10 @@
 //   category keeps its own accumulators, exponent and rescale, and its
 //   fmaf chains in j order.
 // - kL adjacent lanes own a column: lane h forms rows [h S / kL, (h + 1) S /
-//   kL) of every category, so a lane holds F S / kL accumulators, and the
-//   rescale's max takes exact shuffles; a launch of few columns (B = 1)
+//   kL) of every category (at 64 states rows r kL + h, from P staged with
+//   rows 68 floats apart: pruning_common.cuh's lane_row and p_row), so a
+//   lane holds F S / kL accumulators, and the rescale's max takes exact
+//   shuffles; a launch of few columns (B = 1)
 //   still puts several warps on every SM. The lanes pass __syncwarp after
 //   reading the children, before a lane writes a row that may be a
 //   child's, and again after writing it.
@@ -82,11 +84,13 @@ struct RowWalk {
   int n_rows, smem_rows, cols, chunk, stage_leaves;
 };
 
-// Floats of one ring stage: the step's P blocks, `fold` a edge, and, with
-// stage_leaves, its leaf rows for every column of the block.
+// Floats of one ring stage: the step's P blocks, `fold` a edge (rows
+// p_row apart: s + 4 at 64 states), and, with stage_leaves, its leaf rows
+// for every column of the block.
 __host__ __device__ int row_stage_floats(int s, int cols, int chunk,
                                          int stage_leaves, int fold) {
-  return chunk * fold * s * s + (stage_leaves ? chunk * cols * s : 0);
+  const int p_rows = s == 64 ? s + 4 : s;   // p_row<s>()
+  return chunk * fold * s * p_rows + (stage_leaves ? chunk * cols * s : 0);
 }
 
 // Dynamic shared memory of one block: the ring, then smem_rows rows of S
@@ -120,8 +124,21 @@ __device__ __forceinline__ void store_part(float* dst, const float (&v)[kRows]) 
   }
 }
 
-// acc[r] *= (P x)[h kRows + r] for the kRows rows lane h forms, P an S x S
-// block staged in shared memory: each row's fmaf chain in j order.
+// A lane's kRows = S / kL entries of a row (lane_row's rows of the row
+// `dst`): the widest vectors they allow, interleaved scalars at 64 states.
+template <int S, int kL>
+__device__ __forceinline__ void store_lane(float* dst, int h,
+                                           const float (&v)[S / kL]) {
+  if constexpr (S == 64) {
+#pragma unroll
+    for (int r = 0; r < S / kL; ++r) dst[lane_row<S, kL>(h, r)] = v[r];
+  } else {
+    store_part<S / kL>(dst + h * (S / kL), v);
+  }
+}
+
+// acc[r] *= (P x)[lane_row(h, r)] for the kRows rows lane h forms, P an
+// S x S block staged in shared memory: each row's fmaf chain in j order.
 template <int S, int kRows>
 __device__ __forceinline__ void times_rows(const float* pm, int h,
                                            const float (&x)[S],
@@ -131,7 +148,7 @@ __device__ __forceinline__ void times_rows(const float* pm, int h,
     float y = 0.0f;
 #pragma unroll
     for (int q = 0; q < S / 4; ++q) {
-      const float4 v = p_vec<S>(pm, h * kRows + r, q);
+      const float4 v = p_vec<S>(pm, lane_row<S, S / kRows>(h, r), q);
       y = fmaf(v.x, x[4 * q], y);
       y = fmaf(v.y, x[4 * q + 1], y);
       y = fmaf(v.z, x[4 * q + 2], y);
@@ -200,7 +217,7 @@ __device__ __forceinline__ RowPlace row_place(const RowWalk& w, int chunk) {
   at.bk = static_cast<size_t>(b) * w.K + k0;
   at.pb = w.p + (static_cast<size_t>(b) * w.n_nodes * w.K + k0) * S * S;
   at.p_node_stride = static_cast<size_t>(w.K) * S * S;
-  at.p_floats = chunk * F * S * S;
+  at.p_floats = chunk * F * p_block<S>();
   at.stage_floats = row_stage_floats(S, at.cols, chunk, w.stage_leaves, F);
   at.rows = at.smem + kPStages * at.stage_floats;
   at.rows_e = at.rows + w.smem_rows * F * at.cols * S;
@@ -224,7 +241,7 @@ __device__ __forceinline__ void row_edge(const RowWalk& w, const RowPlace& at,
                                          float (&acc)[F][S / kL],
                                          float (&e)[F]) {
   constexpr int kRows = S / kL;
-  const float* pm = now + in_step * F * S * S;
+  const float* pm = now + in_step * F * p_block<S>();
   // a column past the last site reads its unwritten ring and rows,
   // nothing from device memory, and stores nothing
   float x[S];
@@ -254,7 +271,7 @@ __device__ __forceinline__ void row_edge(const RowWalk& w, const RowPlace& at,
 #pragma unroll
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
     }
-    times_rows<S, kRows>(pm + c * S * S, at.h, x, acc[c]);
+    times_rows<S, kRows>(pm + c * p_block<S>(), at.h, x, acc[c]);
   }
   if (dst == -2) return;  // more children of this node follow
   // the node's last child: each category's rescale, then its store
@@ -268,17 +285,17 @@ __device__ __forceinline__ void row_edge(const RowWalk& w, const RowPlace& at,
     if (dst < 0) {  // the root
       if (at.live) {
         const size_t g = (at.bk + c) * w.sites + at.site;
-        store_part<kRows>(w.root + g * S + at.h * kRows, acc[c]);
+        store_lane<S, kL>(w.root + g * S, at.h, acc[c]);
         if (at.h == 0) w.root_e[g] = e[c];
       }
     } else if (dst < w.smem_rows) {
       const int slot = (dst * F + c) * at.cols + at.col;
-      store_part<kRows>(at.rows + slot * S + at.h * kRows, acc[c]);
+      store_lane<S, kL>(at.rows + slot * S, at.h, acc[c]);
       if (at.h == 0) at.rows_e[slot] = e[c];
     } else if (at.live) {
       const size_t g =
           (c * at.n_spill + (dst - w.smem_rows)) * w.sites + at.site;
-      store_part<kRows>(at.spill + g * S + at.h * kRows, acc[c]);
+      store_lane<S, kL>(at.spill + g * S, at.h, acc[c]);
       if (at.h == 0) at.spill_e[g] = e[c];
     }
   }
@@ -312,8 +329,14 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const RowWalk w) {
       const int c = v / kBlockVecs;
       const int q = v - c * kBlockVecs;
       const int child = __ldg(w.edges + f0 + c);
-      cp_async16(dst + c * F * S * S + 4 * q,
-                 at.pb + child * at.p_node_stride + 4 * q);
+      if constexpr (S == 64) {   // rows p_row apart (F = 1 at 64 states)
+        cp_async16(dst + c * F * p_block<S>() + (q / (S * S / 4)) * p_block<S>() +
+                       p_stage_offset<S>(q % (S * S / 4)),
+                   at.pb + child * at.p_node_stride + 4 * q);
+      } else {
+        cp_async16(dst + c * F * S * S + 4 * q,
+                   at.pb + child * at.p_node_stride + 4 * q);
+      }
     }
     if (w.stage_leaves && at.live) {  // the column's lanes share its copies
       float* leaf_dst = dst + at.p_floats + at.col * S;
@@ -393,30 +416,35 @@ inline bool row_launch_ok(const RowWalk& w, int B, int lanes, int F) {
          threads % 32 == 0 && w.smem_rows >= 0 && w.smem_rows <= w.n_rows;
 }
 
-// The lane counts compiled at S (1, 2, 4 at S = 4; 1, 2 at S = 20) for F
-// categories a column; any other returns cudaErrorInvalidValue.
+// The lane counts compiled at S (1, 2, 4 at S = 4; 1, 2 at S = 20; 2, 4
+// at S = 64, where one lane's 64 accumulators beside its 64-entry child
+// row would leave few warps an SM) for F categories a column; any other
+// returns cudaErrorInvalidValue.
 template <int S, int F>
 int launch_lanes(const RowWalk& w, int B, int lanes, cudaStream_t st) {
-  if (lanes == 1) return launch_row_kernel<S, 1, F>(w, B, st);
+  if constexpr (S != 64) {
+    if (lanes == 1) return launch_row_kernel<S, 1, F>(w, B, st);
+  }
   if (lanes == 2) return launch_row_kernel<S, 2, F>(w, B, st);
-  if constexpr (S == 4) {
+  if constexpr (S == 4 || S == 64) {
     if (lanes == 4) return launch_row_kernel<S, 4, F>(w, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches the live-row walk `w` over B batch elements with `lanes` lanes a
-// column, one category a column (B1, B4), on `stream`. A launch that
-// row_launch_ok refuses, or a lane count that is not compiled, returns
+// column, one category a column (B1, B4), on `stream`; kWide compiles it
+// at 64 states too (B1 only). A launch that row_launch_ok refuses, or a
+// lane count or state count that is not compiled, returns
 // cudaErrorInvalidValue without launching. (A template, so that a source
 // that does not call it compiles none of its kernels.)
-template <int F = 1>
+template <int F = 1, bool kWide = false>
 int launch_rows(const RowWalk& w, int B, int S, int lanes, void* stream) {
   if (!row_launch_ok(w, B, lanes, F)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch_states(S, [&](auto s) {
+  return dispatch_states<kWide>(S, [&](auto s) {
     return launch_lanes<decltype(s)::value, F>(w, B, lanes, st);
   });
 }

@@ -64,6 +64,14 @@
 //   make_async_copy landing pads).
 // - Leaf and slot rows are read straight from device memory (coalesced
 //   16-byte vectors): no other column uses them.
+// - At 64 states (codon, padded by ops/cuda_pruning.py) four lanes share a
+//   column, 16 rows each, rows r 4 + h of P staged with rows 68 floats
+//   apart (pruning_common.cuh's lane_row, p_row: 64 apart, the four rows
+//   read at once conflicted 4-way on every LDS.128: PERF.md section 6),
+//   and the child's row streams from device memory as
+//   16-byte vectors instead of sitting in 64 registers (80 registers a
+//   thread, not 162: two blocks an SM). Bound by operations (2 S^2 flops
+//   a child and column); its time beside its bound: PERF.md section 6.
 // The rows, the fmaf order and the rescale are B1's, so the roots keep
 // B1's bits. Threads past the last site stay in the loop for the barriers
 // and skip the loads and stores. Measured on an NVIDIA H100 80GB HBM3 at
@@ -79,10 +87,12 @@ using pruning::kThreads;
 // Lanes per column of the stream walk: at 20 states two lanes share a
 // column, each forming half of its rows, which doubles the warps in flight
 // (the walk waits on row latency with ~8 warps an SM at one lane a column);
-// at 4 states one lane (the split measured slower there).
+// at 4 states one lane (the split measured slower there); at 64 (codon)
+// four, 16 rows a lane beside the child's 64-entry row in registers (two
+// lanes' 32 rows would halve the warps of a launch of ~16,000 columns).
 template <int S>
 __host__ __device__ constexpr int stream_lanes() {
-  return S >= 20 ? 2 : 1;
+  return S >= 64 ? 4 : (S >= 20 ? 2 : 1);
 }
 
 // The stream walk (B5): the slot walk with the children's P staged in
@@ -108,7 +118,8 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
   constexpr int kL = stream_lanes<S>();
   constexpr int kRows = S / kL;   // rows a lane forms
   static_assert(kRows % 2 == 0, "a lane's rows are stored as 8-byte vectors");
-  extern __shared__ float4 p_stage_vec[];  // (kPStages, cmax, S, S)
+  constexpr int kBlock = pruning::p_block<S>();  // floats of a staged P block
+  extern __shared__ float4 p_stage_vec[];  // (kPStages, cmax, S, p_row<S>)
   float* p_stage = reinterpret_cast<float*>(p_stage_vec);
   const int h = threadIdx.x % kL;
   const int site = blockIdx.x * (kThreads / kL) + threadIdx.x / kL;
@@ -126,12 +137,12 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
   auto stage = [&](int i) {
     if (i >= n_int) return;
     const int cnt = __ldg(counts + i);
-    float* dst = p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * S;
+    float* dst = p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * kBlock;
     for (int v = threadIdx.x; v < cnt * kBlockVecs; v += kThreads) {
       const int c = v / kBlockVecs;
       const int q = v - c * kBlockVecs;
       const int child = __ldg(cnode + i * cmax + c);
-      pruning::cp_async16(dst + c * S * S + 4 * q,
+      pruning::cp_async16(dst + c * kBlock + pruning::p_stage_offset<S>(q),
                           pb + child * p_node_stride + 4 * q);
     }
   };
@@ -146,7 +157,7 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
     stage(i + 2);                  // into the stage node i - 1 read
     pruning::cp_async_commit();
     const float* p_now =
-        p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * S;
+        p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * kBlock;
     const int cnt = __ldg(counts + i);
     float acc[kRows];
 #pragma unroll
@@ -154,6 +165,41 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
     float e = 0.0f;
     for (int c = 0; c < cnt; ++c) {
       const int src = __ldg(csrc + i * cmax + c);
+      const float* pm = p_now + c * kBlock;
+      if constexpr (S == 64) {
+        // the child's row streamed as 16-byte vectors, as the saveall
+        // kernel does at 64 states: the whole row in registers took 162 a
+        // thread (ptxas), one block an SM; each row's fmaf chain stays in
+        // j order, so the bits are B1's
+        float y[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
+        if (active) {
+          const float* row_src;
+          if (__ldg(cleaf + i * cmax + c)) {
+            row_src = leaves + (static_cast<size_t>(src) * sites + site) * S;
+          } else {
+            const size_t row = static_cast<size_t>(src) * sites + site;
+            row_src = xs + row * S;
+            e += es[row];
+          }
+#pragma unroll 4
+          for (int q = 0; q < S / 4; ++q) {
+            const float4 xv = reinterpret_cast<const float4*>(row_src)[q];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const float4 v = pruning::p_vec<S>(pm, pruning::lane_row<S, kL>(h, r), q);
+              y[r] = fmaf(v.x, xv.x, y[r]);
+              y[r] = fmaf(v.y, xv.y, y[r]);
+              y[r] = fmaf(v.z, xv.z, y[r]);
+              y[r] = fmaf(v.w, xv.w, y[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] *= y[r];
+        continue;
+      }
       float x[S];
 #pragma unroll
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
@@ -166,7 +212,6 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
           e += es[row];
         }
       }
-      const float* pm = p_now + c * S * S;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         float y = 0.0f;
@@ -210,10 +255,17 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
       } else {  // may be a child's slot: every child was read above
         row = static_cast<size_t>(__ldg(nslot + i)) * sites + site;
       }
+      if constexpr (S == 64) {  // the lane's rows r kL + h (lane_row)
 #pragma unroll
-      for (int q = 0; q < kRows / 2; ++q) {
-        reinterpret_cast<float2*>(dst + row * S + h * kRows)[q] =
-            make_float2(acc[2 * q], acc[2 * q + 1]);
+        for (int r = 0; r < kRows; ++r) {
+          dst[row * S + pruning::lane_row<S, kL>(h, r)] = acc[r];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kRows / 2; ++q) {
+          reinterpret_cast<float2*>(dst + row * S + h * kRows)[q] =
+              make_float2(acc[2 * q], acc[2 * q + 1]);
+        }
       }
       if (h == 0) dst_e[row] = e;
     }
@@ -229,11 +281,11 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return pruning::dispatch_states(S, [&](auto s) {
+  return pruning::dispatch_states<true>(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
     auto kernel = pruning_stream_kernel<kS>;
-    const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax * kS *
-                        kS * sizeof(float);
+    const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax *
+                        pruning::p_block<kS>() * sizeof(float);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -263,7 +315,7 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
 // n_rows = n_slots. Launch on `stream`; returns cudaGetLastError() after
 // the launch (0 = ok), the error of granting the shared memory, or
 // cudaErrorInvalidValue without launching for a geometry that is not
-// compiled. S is 4 or 20.
+// compiled. S is 4 or 20 (not built at 64).
 extern "C" int pruning_slot_f32(const void* p, const void* leaves,
                                 const void* edges, const void* eword,
                                 void* spill, void* spill_e, void* root,
@@ -288,7 +340,8 @@ extern "C" int pruning_slot_f32(const void* p, const void* leaves,
 // children cnode[i, :counts[i]] read from the leaf array (cleaf) or slot
 // csrc. Launch on `stream`; returns cudaGetLastError() after the launch
 // (0 = ok). Device pointers to contiguous float32 / int32 buffers, every
-// one 16-byte aligned; the caller allocates every buffer. S is 4 or 20.
+// one 16-byte aligned; the caller allocates every buffer. S is 4, 20 or 64
+// (3 cmax S^2 floats of shared memory must fit a block: cmax <= 4 at 64).
 extern "C" int pruning_stream_f32(const void* p, const void* leaves,
                                   const void* nslot, const void* cnode,
                                   const void* csrc, const void* cleaf,

@@ -5,9 +5,11 @@ package: a self-contained Newick parser, FASTA/PHYLIP/NEXUS readers, and
 pattern compression. Identical alignment columns are collapsed to unique
 patterns with integer weights so logL = sum_p w_p * lnL_p.
 
-Not ported yet: the native C++ pattern path (``phylo_utils_tpu.native``)
-and codon encoding; ``compress_patterns`` uses ``np.unique`` and raises
-``NotImplementedError`` for a codon alphabet.
+Not ported yet: the native C++ pattern path (``phylo_utils_tpu.native``);
+``compress_patterns`` uses ``np.unique``. Codon alignments compress on
+codon columns (``encode_codon_alignment``), for the alphabet ``"codon"``
+(the standard genetic code) or ``"codon:<code>"`` (``models.codon.
+GENETIC_CODES``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ __all__ = [
     "read_alignment",
     "read_nexus",
     "compress_patterns",
+    "encode_codon_alignment",
     "CompressedAlignment",
 ]
 
@@ -465,14 +468,16 @@ def compress_patterns(
     """Collapse identical alignment columns into unique patterns + weights.
 
     Compression happens on the raw character matrix (cheap, exact) before
-    encoding to partials. Patterns come out in ``np.unique`` order.
+    encoding to partials. Patterns come out in ``np.unique`` order. A codon
+    alphabet (``"codon"``, or ``"codon:<code>"`` for another genetic code)
+    compresses codon columns (``encode_codon_alignment``).
     """
     from phylo_utils_tpu_torch.alphabets import get_alphabet, _charmap_table
 
-    if getattr(alphabet, "name", alphabet) == "codon":
-        raise NotImplementedError(
-            "codon alignments are not ported yet (ROADMAP A14)"
-        )
+    name = str(getattr(alphabet, "name", alphabet))
+    if name == "codon" or name.startswith("codon:"):
+        return encode_codon_alignment(
+            sequences, dtype=dtype, code=name.partition(":")[2] or "standard")
     names = list(sequences.keys())
     alpha = get_alphabet(alphabet)
     chars = np.array(
@@ -487,6 +492,63 @@ def compress_patterns(
     return CompressedAlignment(
         names=tuple(names),
         partials=partials,
+        weights=counts.astype(dtype),
+        site_to_pattern=site_to_pattern.astype(np.int32).ravel(),
+    )
+
+
+def encode_codon_alignment(
+    sequences: Dict[str, str], dtype=np.float64, code: str = "standard"
+) -> CompressedAlignment:
+    """Nucleotide alignment -> codon-state compressed partials (61 sense
+    codons for the standard genetic ``code``; see
+    ``models.codon.GENETIC_CODES`` for alternatives, e.g.
+    ``"vertebrate_mito"`` with 60).
+
+    Sequence lengths must be divisible by 3. IUPAC ambiguity propagates:
+    a codon is compatible with a state iff every position's nucleotide set
+    contains that codon's base (gaps/N make the whole position ambiguous).
+    """
+    from phylo_utils_tpu_torch.alphabets import get_alphabet, _charmap_table
+    from phylo_utils_tpu_torch.models.codon import code_tables
+
+    codons = code_tables(code)[0]
+
+    names = list(sequences.keys())
+    lengths = {len(s) for s in sequences.values()}
+    if len(lengths) != 1:
+        raise ValueError("sequences have unequal lengths")
+    (length,) = lengths
+    if length % 3:
+        raise ValueError(f"alignment length {length} is not divisible by 3")
+    n_cod = length // 3
+    chars = np.array([
+        np.frombuffer(sequences[n].upper().encode("ascii"), dtype=np.uint8)
+        for n in names
+    ]).reshape(len(names), n_cod, 3)
+    # compress on codon columns (taxa x 3 chars per column)
+    cols = np.transpose(chars, (1, 0, 2)).reshape(n_cod, -1)
+    uniq, site_to_pattern, counts = np.unique(
+        cols, axis=0, return_inverse=True, return_counts=True
+    )
+    uniq = uniq.reshape(-1, len(names), 3)            # (P, taxa, 3)
+
+    dna_table = _charmap_table(get_alphabet("dna"), dtype)   # (256, 4)
+    order = {"A": 0, "C": 1, "G": 2, "T": 3}
+    b = np.array([[order[c[p]] for p in range(3)] for c in codons])  # (n, 3)
+    compat = dna_table[uniq]                           # (P, taxa, 3, 4)
+    partials = (
+        compat[:, :, 0, b[:, 0]]
+        * compat[:, :, 1, b[:, 1]]
+        * compat[:, :, 2, b[:, 2]]
+    )                                                  # (P, taxa, n)
+    partials = np.transpose(partials, (1, 0, 2))       # (taxa, P, n)
+    if not partials.any(axis=2).all():
+        raise ValueError("alignment contains a stop codon (no compatible "
+                         "sense-codon state)")
+    return CompressedAlignment(
+        names=tuple(names),
+        partials=np.ascontiguousarray(partials),
         weights=counts.astype(dtype),
         site_to_pattern=site_to_pattern.astype(np.int32).ravel(),
     )

@@ -101,15 +101,19 @@ def mixture_rates_and_p(engine, params, dtype, eig=None, rates=None):
     ``p`` is (..., n_nodes, K, S, S), with the leading dims of
     ``params['branch_lengths']`` (..., n_real_nodes) as a batch. ``eig``: a
     precomputed ``Eigen`` for the current model parameters; P(t) is then
-    reconstructed from it (e^{lambda t} in ``dtype``, the reconstruct in the
-    engine's dtype) instead of re-decomposing Q.
+    reconstructed from it in ``dtype`` and cast to the engine's dtype,
+    instead of re-decomposing Q. (The JAX package reconstructs in the
+    engine's dtype: in float32 the modes' rounding then puts an ordered Mk
+    chain's logL, which rests on small multi-step entries, past the 1e-6
+    bound; cast from float64 the value path keeps the gradient path's
+    precision.)
     """
     rates, cat_weights = rate_categories(engine, params, dtype, rates=rates)
     t = params["branch_lengths"].to(dtype)
     ts = t[..., :, None] * rates                           # (..., n_nodes, K)
     if eig is not None:
         freqs = eig.freqs.to(dtype)
-        p = transition_matrices(eig, ts, out_dtype=engine.dtype)
+        p = transition_matrices(eig, ts).to(engine.dtype)
     elif engine.model.reversible:
         sym, freqs = engine.model.build_parts(params["model"], dtype=dtype,
                                               device=engine.device)
@@ -453,14 +457,18 @@ class LikelihoodEngine:
         are data and get no gradient."""
         names, leaves = flatten_params(full)
         leaves = [t.detach().requires_grad_(True) for t in leaves]
+        # a parameter-free model's (JC69, Mk) empty dict has no leaves
+        empty = {k: {} for k, v in full.items() if isinstance(v, Mapping)
+                 and not v}
         with torch.enable_grad():
-            total, _ = self._loglik_fn(unflatten_params(names, leaves),
-                                       self._leaf_partials, self._weights)
+            total, _ = self._loglik_fn(
+                {**empty, **unflatten_params(names, leaves)},
+                self._leaf_partials, self._weights)
             grads = torch.autograd.grad(total.sum(), leaves,
                                         allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
-        return total.detach(), unflatten_params(names, grads)
+        return total.detach(), {**empty, **unflatten_params(names, grads)}
 
     def value_and_grad(
         self, params: Optional[Mapping] = None

@@ -20,8 +20,8 @@ package's mixture runs its reduction in the engine dtype).
 engine's do;
 ``loglikelihood_many`` raises, as JAX's does on a mixture engine, and so does
 ``value_and_grad_many``. The codon site models (``SharedOmegaMixtureEngine``,
-M1a-M8a), BEB and ``omega_posteriors`` wait for the codon models and
-``ops/beta.py`` (ROADMAP A14, A15).
+M1a-M8a), BEB and ``omega_posteriors`` wait for ``ops/beta.py`` (ROADMAP
+A15; the codon models they build on are ported).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Substitution models (PyTorch port of ``phylo_utils_tpu.models``).
 
-A model is a frozen spec + functions of parameter tensors. The DNA family
-and the empirical protein models LG and WAG (plus any PAML ``.dat``
-matrix, ``empirical_model_from_dat``) are ported; codon and Mk (ROADMAP
-A14) names are recognized and raise ``NotImplementedError``.
+A model is a frozen spec + functions of parameter tensors: the DNA family,
+the empirical protein models LG and WAG (plus any PAML ``.dat`` matrix,
+``empirical_model_from_dat``), the codon models GY94 and MG94
+(``models.codon``) and the morphological Mk family, ``MK<k>`` and
+``ORDERED<k>`` (``models.morphology``).
 """
 from phylo_utils_tpu_torch.models.base import (  # noqa: F401
     Eigen,
@@ -28,6 +29,12 @@ from phylo_utils_tpu_torch.models.protein import (  # noqa: F401
     WAG,
     empirical_model_from_dat,
 )
+from phylo_utils_tpu_torch.models.codon import (  # noqa: F401
+    GY94,
+    MG94,
+    CODONS,
+    f3x4_frequencies,
+)
 
 _REGISTRY = {
     "jc69": JC69,
@@ -40,9 +47,9 @@ _REGISTRY = {
     "unrest": UNREST,
     "lg": LG,
     "wag": WAG,
+    "gy94": GY94,
+    "mg94": MG94,
 }
-
-_NOT_PORTED = {"gy94": "A14", "mg94": "A14"}
 
 
 def get_model(name: str) -> Model:
@@ -51,16 +58,15 @@ def get_model(name: str) -> Model:
         return _REGISTRY[low]
     except KeyError:
         pass
-    item = _NOT_PORTED.get(low)
-    for prefix in ("ordered", "mk"):
+    # morphological Mk family: MK<k> / ORDERED<k> (e.g. MK4, ORDERED5)
+    for prefix, ordered in (("ordered", True), ("mk", False)):
         if low.startswith(prefix) and low[len(prefix):].isdigit():
-            item = "A14"
-    if item is not None:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP {item})"
-        )
+            from phylo_utils_tpu_torch.models.morphology import mk_model
+
+            return mk_model(int(low[len(prefix):]), ordered=ordered)
     raise ValueError(
-        f"unknown model {name!r}; expected one of {sorted(_REGISTRY)}"
+        f"unknown model {name!r}; expected one of {sorted(_REGISTRY)} "
+        "or MK<k>/ORDERED<k>"
     )
 
 

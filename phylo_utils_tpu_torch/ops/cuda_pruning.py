@@ -1,9 +1,16 @@
 """Fused pruning on the GPU: the port of the whole-tree and big-tree paths
 of ``phylo_utils_tpu.ops.pallas_pruning``.
 
-Five hand-written CUDA kernels, compiled for 4 (DNA) and 20 (protein)
-states, each with a plain-PyTorch version beside it that CPU tensors take (a
-CUDA tensor launches the kernel or raises):
+Hand-written CUDA kernels, compiled for 4 (DNA) and 20 (protein) states
+and, on the codon path (B1, B2, B3 and B5), for 64, each with a
+plain-PyTorch version beside it that CPU tensors take (a CUDA tensor
+launches the kernel or raises). The entry points the engines call,
+``make_fused_loglik_fn`` and ``make_cuda_prune_fn``, pad every other state
+count with zero states up to the next compiled width (``padded_states``:
+2-3 -> 4, 5-19 -> 20, 21-63 -> 64, so codon's 61 and Mk's 2-32 states
+run); B4, B7, B8 and B9 are not built at 64 and raise
+``NotImplementedError`` there (ROADMAP B.1 item 1), on any device, before
+any launch:
 
 - ``forward_walk(..., walk="classic")`` (``csrc/pruning_forward.cu``,
   replaces the TPU kernel ``_dynamic_kernel``): a post-order walk that forms
@@ -105,6 +112,7 @@ __all__ = [
     "STATIC_LAUNCHES",
     "FOLD_LAUNCHES",
     "LAUNCHES_BY_STATES",
+    "KERNEL_STATES",
     "CLASSIC_SCRATCH_BUDGET",
     "STATIC_UNROLL_MAX",
     "FOLD_WIDTHS",
@@ -114,6 +122,7 @@ __all__ = [
     "RowGeometry",
     "ReverseSchedule",
     "choose_walk",
+    "padded_states",
     "row_geometry",
     "row_smem_bytes",
     "choose_reverse",
@@ -167,21 +176,41 @@ FOLD_WIDTHS = {4: {2: (1, 2, 4), 4: (2,)},
 _MAX_GRID_Z = 65535
 # share of the free device memory one launch's scratch may take
 _MEM_FRACTION = 0.9
-# the state counts the kernels are compiled for (DNA, protein)
-_KERNEL_STATES = (4, 20)
+# the state counts the kernels of the codon path (B1, B2, B3, B5) are
+# compiled for: DNA, protein and 64, the width codon's 61 (or 60) states
+# pad to; every other count is padded up to the next (padded_states)
+KERNEL_STATES = (4, 20, 64)
+# the kernels built at 4 and 20 states only, with the TPU kernel each
+# replaces (ROADMAP B.1 item 1: still to build at 64)
+_NOT_AT_64 = {
+    "slot": "B4 pruning_slot_f32 (_dynamic_slot_kernel, pallas_pruning.py:642)",
+    "static": "B8 pruning_static_f32 (_static_kernel, pallas_pruning.py:402)",
+    "fold": "B9 pruning_fold_f32 (_pick_fold's lowering, pallas_pruning.py:333)",
+    "classic_reverse": ("B7 pruning_classic_reverse_f32 (_dynamic_bwd_kernel, "
+                        "pallas_pruning.py:879)"),
+}
 # sites per block of the deferred reverse kernel, widest first
 # (reverse_tile)
 _REVERSE_TILES = (256, 128, 64, 32)
 # shared memory one block may take: an H100 SM's 227 KB
 _REVERSE_SMEM = 232_448
+# columns a block of the deferred reverse at 64 states (csrc/
+# pruning_reverse.cu pruning_reverse_wide_kernel: four lanes each, 256
+# threads), and floats between the rows of a P block staged in shared
+# memory at 64 states (csrc/pruning_common.cuh p_row; the reverse's gy and
+# x tiles too): 4 more than 64, so that the rows a column's four lanes read
+# at once fall in four bank quads
+_WIDE_TILE, _WIDE_ROW = 64, 68
 # edges of the walk a step of the saveall kernel stages (saveall_stage),
 # and lanes that share one of its columns, by state count: two lanes, each
 # forming half the rows, at 20 states (1.73 against 2.50 ms at 512 taxa x
 # 8192 LG patterns), one at 4 (0.246 against 0.276 ms at the flagship's
 # B = 64); 64 and 8 edges a step were the fastest or within 2% of it at
 # every shape (kernel_turns.py sweeps, NVIDIA H100 80GB HBM3, 700 W)
-_SAVEALL_CHUNK = {4: 64, 20: 8}
-_SAVEALL_LANES = {4: 1, 20: 2}
+# At 64 states four lanes (16 rows each beside the child's 64-entry row)
+# and 2 edges a step: a ring of 96 KB, two blocks an SM
+_SAVEALL_CHUNK = {4: 64, 20: 8, 64: 2}
+_SAVEALL_LANES = {4: 1, 20: 2, 64: 4}
 # sites per block of the classic reverse kernel: 128 was slower than 256
 # at every shape but B = 1 (kernel_turns.py, NVIDIA H100 80GB HBM3, 700 W)
 _CLASSIC_REVERSE_TILE = 256
@@ -210,9 +239,10 @@ _CLASSIC_STAGE_BYTES = _REVERSE_SMEM
 # rows a column cost warps (chip_smoke.py phase 16, PERF.md section 6)
 CLASSIC_SCRATCH_BUDGET = 50 * 2 ** 20
 # B1's and B4's launch geometry (row_geometry): the lanes a column may take
-# by state count (csrc/pruning_rows.cuh compiles these) and the edges a step
+# by state count (csrc/pruning_rows.cuh compiles these; at 64 states, B1
+# only, one lane's 64 accumulators would cost warps) and the edges a step
 # of the ring may copy ahead
-_ROW_LANES = {4: (1, 2, 4), 20: (1, 2)}
+_ROW_LANES = {4: (1, 2, 4), 20: (1, 2), 64: (2, 4)}
 _ROW_CHUNKS = (2, 4, 8)
 # B8's step, compiled into its library (csrc/pruning_static.cu's kChunk): a
 # constant step lets each edge's stage and P offset fold to immediates; 8
@@ -922,11 +952,31 @@ def _check_cuda(p: torch.Tensor, *tensors: torch.Tensor):
     if any(t.data_ptr() % 16 for t in (p,) + tensors):
         raise ValueError("the kernels' inputs must be 16-byte aligned")
     s = p.shape[-1]
-    if s not in _KERNEL_STATES:
+    if s not in KERNEL_STATES:
         raise NotImplementedError(
-            f"the CUDA walks are built for {_KERNEL_STATES} states, not {s} "
-            "(codon is ROADMAP A14)"
+            f"the CUDA walks are built for {KERNEL_STATES} states, not {s}; "
+            "make_fused_loglik_fn and make_cuda_prune_fn pad to them "
+            "(padded_states)"
         )
+
+
+def _refuse_wide(kind: str, s: int):
+    """Raises ``NotImplementedError`` where ``kind``'s kernel (a key of
+    ``_NOT_AT_64``) is asked for 64 states, on any device and before any
+    launch: it is built at 4 and 20 states only, and no plain walk stands
+    in for it on the card."""
+    if s == KERNEL_STATES[-1]:
+        raise NotImplementedError(
+            f"{_NOT_AT_64[kind]} is not built for {s} states yet (ROADMAP "
+            "B.1 item 1); the codon path runs B1, B2, B3 and B5 at 64")
+
+
+def padded_states(s: int) -> int:
+    """The compiled width ``s`` states run at: the smallest of
+    ``KERNEL_STATES`` that holds them (2-3 -> 4, 5-19 -> 20, 21-63 -> 64),
+    the port's counterpart of the JAX package's ``_state_pad``; ``s``
+    itself past the widest (the card then refuses it)."""
+    return next((w for w in KERNEL_STATES if s <= w), s)
 
 
 def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
@@ -950,8 +1000,12 @@ def choose_walk(b: int, k: int, n_inner: int, sites: int, s: int) -> str:
     float32, would fit ``CLASSIC_SCRATCH_BUDGET`` bytes (the line the turns
     put it at; no walk allocates that scratch now); beyond that the
     O(depth) slot walk: at 20 states and more the stream walk (B5), below
-    it the slot walk (B4).
+    it the slot walk (B4). At 32 states and more (codon's 64) the stream
+    walk whatever the size, as the JAX package's ``_pallas_forward`` takes
+    its streaming kernel by default at a padded width of 32 or more.
     """
+    if s >= 32:
+        return "stream"
     if b * k * n_inner * sites * (s + 1) * 4 <= CLASSIC_SCRATCH_BUDGET:
         return "classic"
     return "stream" if s >= 20 else "slot"
@@ -961,15 +1015,23 @@ RowGeometry = collections.namedtuple(
     "RowGeometry", "lanes cols chunk stage_leaves smem_rows smem_bytes")
 
 
+def _p_row(s: int) -> int:
+    """Floats between the rows of a P block staged in shared memory
+    (``csrc/pruning_common.cuh`` ``p_row``): S, and ``_WIDE_ROW`` at 64
+    states, where a column's lanes form interleaved rows."""
+    return _WIDE_ROW if s == KERNEL_STATES[-1] else s
+
+
 def row_smem_bytes(s: int, cols: int, chunk: int, stage_leaves: bool,
                    smem_rows: int, fold: int = 1) -> int:
     """Dynamic shared memory of one B1 / B4 / B8 / B9 block
     (``csrc/pruning_rows.cuh`` ``row_smem_bytes``): a 3-stage ring, each
-    stage the P blocks of ``chunk`` edges for ``fold`` categories and, with
-    ``stage_leaves``, a leaf row of each edge for every one of ``cols``
-    columns, then ``smem_rows`` rows of S floats and an exponent for each
-    category of a column."""
-    stage = chunk * fold * s * s + (chunk * cols * s if stage_leaves else 0)
+    stage the P blocks of ``chunk`` edges for ``fold`` categories (rows
+    ``_p_row`` apart) and, with ``stage_leaves``, a leaf row of each edge
+    for every one of ``cols`` columns, then ``smem_rows`` rows of S floats
+    and an exponent for each category of a column."""
+    stage = (chunk * fold * s * _p_row(s)
+             + (chunk * cols * s if stage_leaves else 0))
     return 4 * (3 * stage + smem_rows * fold * cols * (s + 1))
 
 
@@ -1136,6 +1198,10 @@ def forward_walk(
     sites, s = leaves.shape[1:]
     n_inner = schedule.n_nodes - schedule.n_leaves
     if walk == "auto":
+        if s >= 32 and len(schedule.order) <= STATIC_UNROLL_MAX:
+            # the topology-compiled walk precedes streaming, as in
+            # _pallas_forward (at 64 states it is not built: it raises)
+            return static_walk(p, leaves, schedule)
         walk = choose_walk(b, k, n_inner, sites, s)
         if walk == "classic":
             lowering, fold = choose_lowering(k, len(schedule.order), s)
@@ -1173,10 +1239,12 @@ def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
     ``forward_walk_reference``); CUDA tensors launch the kernel, once per
     batch chunk whose spilled rows fit free device memory, on the current
     stream."""
+    s = leaves.shape[2]
+    if kind != "forward":
+        _refuse_wide(kind, s)
     if p.device.type == "cpu":
         plain = slot_walk_reference if kind == "slot" else forward_walk_reference
         return plain(p, leaves, walk)
-    s = leaves.shape[2]
     if kind == "static":
         if geometry.setdefault("chunk", _STATIC_CHUNK) != _STATIC_CHUNK:
             raise ValueError(f"B8 is compiled for a step of {_STATIC_CHUNK} "
@@ -1240,6 +1308,7 @@ def static_walk(
     the build fails) and launch it (``_row_walk``; ``geometry`` as there)."""
     _check(p, leaves, walk)
     _not_differentiable("static_walk", p, leaves)
+    _refuse_wide("static", leaves.shape[2])
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
     return _row_walk(p, leaves, walk, "static", **geometry)
@@ -1261,6 +1330,7 @@ def fold_walk(
     k, s = p.shape[-3], leaves.shape[2]
     if fold < 1 or k % fold:
         raise ValueError(f"fold {fold} does not divide {k} categories")
+    _refuse_wide("fold", s)
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
     if fold not in FOLD_WIDTHS[s]:
@@ -1281,12 +1351,16 @@ def slot_walk(
     the slots in shared memory: ``_row_walk``) or, with ``stream``,
     ``pruning_stream_f32`` (B5: P staged in shared memory, the slots in
     device memory, (B, K, n_slots, sites, S + 1) float32, one launch per
-    batch chunk that fits free device memory), on the current stream."""
+    batch chunk that fits free device memory), on the current stream. B4
+    is not built at 64 states and raises there (``_refuse_wide``); B5 is.
+    """
     global STREAM_LAUNCHES
     _check(p, leaves, walk)
     _not_differentiable("slot_walk", p, leaves)
-    if not stream or p.device.type == "cpu":
+    if not stream:
         return _row_walk(p, leaves, walk, "slot")
+    if p.device.type == "cpu":
+        return slot_walk_reference(p, leaves, walk)
     lib = _cuda_library(p, leaves)
     batched = p.dim() == 5
     pb = p if batched else p[None]
@@ -1295,6 +1369,11 @@ def slot_walk(
     device = p.device
     sl = walk.slots
     nslot, cnode, csrc, cleaf, counts = sl.on(device)
+    if 4 * 3 * cnode.shape[1] * s * _p_row(s) > _REVERSE_SMEM:
+        raise ValueError(
+            f"the stream walk's P stage does not hold a node of "
+            f"{cnode.shape[1]} children at {s} states; compile the schedule "
+            "binarized")
     root = torch.empty((b, k, sites, s), dtype=torch.float32, device=device)
     root_e = torch.empty((b, k, sites), dtype=torch.float32, device=device)
     chunk = _batch_chunk(b, k * sl.n_slots * sites * (s + 1) * 4, device)
@@ -1328,9 +1407,9 @@ def saveall_stage(s: int, n_edges: int) -> Tuple[int, int]:
     the kernel stages P in a ring of 3 steps, each the P blocks of
     ``_SAVEALL_CHUNK[s]`` consecutive edges of the walk (fewer where the
     walk has fewer), whatever node they belong to, so the ring does not
-    depend on the widest node's children."""
+    depend on the widest node's children (rows ``_p_row`` apart)."""
     chunk = max(1, min(n_edges, _SAVEALL_CHUNK[s]))
-    return chunk, 4 * 3 * chunk * s * s
+    return chunk, 4 * 3 * chunk * s * _p_row(s)
 
 
 def saveall_walk(
@@ -1392,7 +1471,10 @@ def saveall_walk(
 def _reverse_smem_bytes(tile: int, cmax: int, s: int) -> int:
     """Shared memory of one deferred reverse block of ``tile`` sites: the
     3-stage P ring, two visits' warp dP sums and, at 20 states, each warp's
-    gy and x rows (csrc/pruning_reverse.cu)."""
+    gy and x rows (csrc/pruning_reverse.cu); at 64 states the P ring with
+    rows ``_WIDE_ROW`` floats apart and the block's gy and x tiles."""
+    if s == KERNEL_STATES[-1]:
+        return 4 * _WIDE_ROW * (3 * cmax * s + 2 * tile)
     warps = tile // 32
     floats = (3 + 2 * warps) * cmax * s * s
     if s != 4:
@@ -1406,9 +1488,11 @@ def reverse_tile(s: int, cmax: int) -> int:
     block fits ``_REVERSE_SMEM`` bytes of shared memory. The widest was the
     fastest at every shape measured on an NVIDIA H100 80GB HBM3 (700 W),
     and at B = 1 every width took the same device time (kernel_turns.py,
-    PERF.md section 6). Raises where not even one warp's block fits (a node
-    of very many children; the classic reverse takes any)."""
-    for tile in _REVERSE_TILES:
+    PERF.md section 6). At 64 states the block is ``_WIDE_TILE`` sites (256
+    threads, four a column), so a node of at most 3 children fits. Raises
+    where not even one warp's block fits (a node of very many children; the
+    classic reverse takes any, but not at 64 states)."""
+    for tile in ((_WIDE_TILE,) if s == KERNEL_STATES[-1] else _REVERSE_TILES):
         if _reverse_smem_bytes(tile, cmax, s) <= _REVERSE_SMEM:
             return tile
     raise ValueError(
@@ -1563,6 +1647,7 @@ def classic_reverse_walk(
     global CLASSIC_REVERSE_LAUNCHES
     seeds = _seed_array(seed_ids, walk)
     _check_classic(p, leaves, res_x, res_e, gseeds, seeds, walk)
+    _refuse_wide("classic_reverse", leaves.shape[2])
     _not_differentiable("classic_reverse_walk", p, leaves, res_x, res_e,
                         gseeds)
     if p.device.type == "cpu":
@@ -1664,6 +1749,12 @@ class _FusedLoglik(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, leaves, freqs, walk):
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            sites, s = leaves.shape[1:]
+            if s == KERNEL_STATES[-1] and choose_reverse(
+                    p.shape[0] if p.dim() == 5 else 1, p.shape[-3],
+                    walk.n_nodes, walk.reverse.n_gslots, sites, s, p.device,
+                    walk.children.shape[1]) == "classic":
+                _refuse_wide("classic_reverse", s)   # before any launch
             res_x, res_e = saveall_walk(p, leaves, walk)
             row = walk.root - walk.n_leaves
             root_p, root_e = res_x[..., row, :, :], res_e[..., row, :]
@@ -1707,6 +1798,34 @@ class _FusedLoglik(torch.autograd.Function):
         return dp, dleaf, dfreqs, None
 
 
+def _pad_states(t: torch.Tensor, s_pad: int, dims: int) -> torch.Tensor:
+    """``t`` with its last ``dims`` dimensions (each S long) padded with
+    zeros to ``s_pad`` (differentiable: the gradient is the slice)."""
+    d = s_pad - t.shape[-1]
+    return torch.nn.functional.pad(t, (0, d) * dims) if d else t
+
+
+class _PaddedLeaves:
+    """The leaves padded to ``padded_states``, made once per leaf tensor and
+    kept: the engines pass the same leaves on every call, and at 100 taxa x
+    4096 codon patterns the padded copy is 105 MB. Leaves that require grad
+    are padded per call (their cotangent flows back through the pad)."""
+
+    def __init__(self):
+        self._src = self._version = self._padded = None
+
+    def __call__(self, leaves: torch.Tensor, s_pad: int) -> torch.Tensor:
+        if leaves.shape[-1] == s_pad:
+            return leaves
+        if leaves.requires_grad and torch.is_grad_enabled():
+            return _pad_states(leaves, s_pad, 1)
+        if (leaves is not self._src or leaves._version != self._version
+                or self._padded.shape[-1] != s_pad):
+            self._padded = _pad_states(leaves.detach(), s_pad, 1).contiguous()
+            self._src, self._version = leaves, leaves._version
+        return self._padded
+
+
 def make_fused_loglik_fn(schedule: PruningSchedule):
     """Counterpart of the whole-tree ``pallas_pruning.make_pallas_loglik_fn``.
 
@@ -1723,14 +1842,25 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
     forward walk runs
     alone, chosen by ``choose_walk``: the classic walk while the classic
     lowerings' whole-tree scratch would fit ``CLASSIC_SCRATCH_BUDGET``,
-    else the slot walk (DNA) or the stream walk (protein). The leaves' cotangent is computed
-    only when they require grad (the engine passes them as data).
+    else the slot walk (DNA) or the stream walk (protein; at 64 states
+    always). The leaves' cotangent is computed only when they require grad
+    (the engine passes them as data).
+
+    A state count that is not compiled (``KERNEL_STATES``) is padded with
+    zero states to ``padded_states``: P with zero rows and columns, the
+    leaves with zero columns (kept across calls), ``freqs`` with zeros. The
+    padded states stay exact zeros through every walk, so the real states'
+    fmaf chains and the rescale's maximum are those of the unpadded walk,
+    and the gradients are sliced back to S.
     """
     walk = WalkSchedule(schedule)
+    pad_leaves = _PaddedLeaves()
 
     def fused_ll(p_matrices, leaf_partials, freqs):
-        p32 = p_matrices.to(torch.float32).contiguous()
-        l32 = leaf_partials.to(torch.float32).contiguous()
+        s_pad = padded_states(leaf_partials.shape[-1])
+        p32 = _pad_states(p_matrices.to(torch.float32), s_pad, 2).contiguous()
+        l32 = pad_leaves(leaf_partials.to(torch.float32).contiguous(), s_pad)
+        freqs = _pad_states(freqs, s_pad, 1)
         if torch.is_grad_enabled() and (
                 p32.requires_grad or l32.requires_grad or freqs.requires_grad):
             return _FusedLoglik.apply(p32, l32, freqs, walk)
@@ -1814,11 +1944,20 @@ def make_cuda_prune_fn(schedule: PruningSchedule):
     engines' float64 root reduction). Differentiable in both inputs: the
     backward replays ``ops.pruning.make_prune_fn`` under autograd on the
     saved inputs, as ``make_pallas_prune_fn`` replays the XLA pruner.
+    A state count that is not compiled is padded with zero states to
+    ``padded_states`` as in ``make_fused_loglik_fn`` (the leaves kept across
+    calls), and the root partials are sliced back to S.
     """
     walk = WalkSchedule(schedule)
     plain = make_prune_fn(schedule)
+    pad_leaves = _PaddedLeaves()
 
     def prune(p_matrices, leaf_partials):
-        return _CudaPrune.apply(p_matrices, leaf_partials, walk, plain)
+        s = leaf_partials.shape[-1]
+        s_pad = padded_states(s)
+        root, logscale = _CudaPrune.apply(
+            _pad_states(p_matrices, s_pad, 2),
+            pad_leaves(leaf_partials, s_pad), walk, plain)
+        return root[..., :s], logscale
 
     return prune

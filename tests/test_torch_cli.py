@@ -176,6 +176,84 @@ def test_fit_se_matches_jax_cli(simulated, tmp_path, capsys):
     assert lines and "loglik" in lines[0] and "patterns_per_s" in lines[0]
 
 
+@pytest.fixture(scope="module")
+def codon_inputs(tmp_path_factory):
+    """60 codons simulated by the JAX package under GY94 (kappa 2.5, omega
+    0.3) on a 5-taxon tree (one codon gapped), their F3x4 frequencies as
+    --params JSON."""
+    from phylo_utils_tpu.models.codon import empirical_codon_frequencies
+
+    tree = "(a:0.2,b:0.3,(c:0.25,(d:0.2,e:0.3):0.15):0.2);"
+    aln = simulate_alignment(jax.random.key(8), j_parse_newick(tree),
+                             jmodels.GY94, 60,
+                             params={"kappa": 2.5, "omega": 0.3})
+    aln["e"] = "---" + aln["e"][3:]
+    path = tmp_path_factory.mktemp("codon") / "codon.fa"
+    write_fasta(aln, path=str(path))
+    freqs = empirical_codon_frequencies(aln, "f3x4").tolist()
+    return tree, str(path), freqs
+
+
+@pytest.mark.parametrize("model", ["GY94", "MG94+G4"])
+def test_codon_loglik_matches_jax_cli(codon_inputs, capsys, model):
+    tree, fasta, freqs = codon_inputs
+    params = {"model": {"kappa": 2.5, "omega": 0.3}}
+    if model == "GY94":
+        params["model"]["freqs"] = freqs
+    port, want = _both(["loglik", "--tree", tree, "--alignment", fasta,
+                        "--model", model, "--sitewise", "--params",
+                        json.dumps(params)], capsys)
+    assert _rel(port["loglik"], want["loglik"]) <= 1e-10
+    assert len(port["sitewise"]) == 60
+    assert _rel(port["sitewise"], want["sitewise"]) <= 1e-10
+
+
+def test_codon_fit_dn_ds_matches_jax_cli(codon_inputs, capsys):
+    """``fit --model GY94`` with kappa, omega and the branch lengths free
+    (codeml's F3x4 frequencies held): logL to 1e-6 relative, estimates to
+    1e-3, and the ``dn_ds`` block to 1e-3 at each package's own estimates
+    (omega == dN/dS, S + N == 3)."""
+    tree, fasta, freqs = codon_inputs
+    args = ["fit", "--tree", tree, "--alignment", fasta, "--model", "GY94",
+            "--params", json.dumps({"model": {"freqs": freqs}}), "--free",
+            "branch_lengths,model.kappa,model.omega", "--max-steps", "200"]
+    port, want = _both(args, capsys)
+    assert _rel(port["loglik"], want["loglik"]) <= 1e-6
+    for key in ("kappa", "omega"):
+        assert _rel(port["params"]["model"][key],
+                    want["params"]["model"][key]) <= 1e-3, key
+    got, ref = port["dn_ds"], want["dn_ds"]
+    assert set(got) == set(ref)
+    for key in ("omega", "S", "N", "dN", "dS"):
+        assert _rel(got[key], ref[key]) <= 1e-3, key
+    assert abs(got["S"] + got["N"] - 3.0) < 1e-12
+    np.testing.assert_allclose(np.asarray(got["dN"]) / np.asarray(got["dS"]),
+                               got["omega"], rtol=1e-10)
+
+
+@pytest.mark.parametrize("asc,counts", [("lewis", None),
+                                        ("felsenstein", "25"),
+                                        ("stamatakis", "10,15")])
+def test_mk_asc_loglik_matches_jax_cli(tmp_path, capsys, asc, counts):
+    """``loglik --model MK2 --asc ...`` on a variable-only binary matrix."""
+    rng = np.random.default_rng(3)
+    cols = [c for c in rng.integers(0, 2, (60, 5)) if len(set(c)) > 1]
+    aln = {n: "".join(str(c[i]) for c in cols) for i, n in enumerate("abcde")}
+    fasta = tmp_path / "mk.fa"
+    write_fasta(aln, path=str(fasta))
+    tree = "(a:0.1,b:0.2,(c:0.15,(d:0.1,e:0.2):0.1):0.08);"
+    args = ["loglik", "--tree", tree, "--alignment", str(fasta), "--model",
+            "MK2+G4", "--asc", asc, "--sitewise"]
+    if counts:
+        args += ["--asc-counts", counts]
+    port, want = _both(args, capsys)
+    assert _rel(port["loglik"], want["loglik"]) <= 1e-10
+    assert _rel(port["sitewise"], want["sitewise"]) <= 1e-10
+    with pytest.raises(SystemExit, match="requires --asc"):
+        cli.main(["loglik", "--tree", tree, "--alignment", str(fasta),
+                  "--model", "MK2", "--asc-counts", "3", "--device", "cpu"])
+
+
 def test_fit_checkpoint_and_resume(small_inputs, tmp_path, capsys):
     """A final-params checkpoint seeds a resumed fit; a full-state one
     (--checkpoint-every) resumes bit for bit."""
@@ -206,9 +284,8 @@ def test_unported_subcommands_name_their_roadmap_item(name, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--partitions", "parts.txt"], "A16"), (["--asc", "lewis"], "A14"),
+    (["--partitions", "parts.txt"], "A16"),
     (["--recode", "ry"], "A15"), (["--shard-sites"], "A12"),
-    (["--model", "GY94"], "A14"),
 ])
 def test_unported_flags_name_their_roadmap_item(small_inputs, flag, item):
     tree, fasta = small_inputs

@@ -112,8 +112,16 @@ def test_compress_patterns_same_sites():
     # pattern order may differ (numpy vs native); per-site rows may not
     np.testing.assert_array_equal(
         t.partials[:, t.site_to_pattern], j.partials[:, j.site_to_pattern])
-    with pytest.raises(NotImplementedError):
-        tio.compress_patterns(aln, "codon")
+    # the codon alphabet compresses codon columns, as the JAX package's
+    codons = {n: v.replace("-", "N")[:150] for n, v in aln.items()}
+    for n, v in codons.items():     # no stop codon: TAA/TAG/TGA -> TAC
+        trip = [v[i:i + 3] for i in range(0, 150, 3)]
+        codons[n] = "".join("TAC" if t in ("TAA", "TAG", "TGA", "TAR", "TRA")
+                            or t[:2] in ("TA", "TR") else t for t in trip)
+    jc = jio.compress_patterns(codons, "codon")
+    tc = tio.compress_patterns(codons, "codon")
+    np.testing.assert_array_equal(tc.partials, np.asarray(jc.partials))
+    np.testing.assert_array_equal(tc.weights, np.asarray(jc.weights))
 
 
 def test_gammainc_matches_scipy():
@@ -270,8 +278,9 @@ def test_model_registry_and_spec():
                                                         "free")
     assert tmodels.get_model("lg") is tmodels.LG
     assert tmodels.get_model("WAG") is tmodels.WAG
-    for name in ("GY94", "MG94", "MK4", "ORDERED5"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmodels.get_model(name)
+    for name, states in (("GY94", 61), ("MG94", 61), ("MK4", 4),
+                         ("ORDERED5", 5)):
+        assert tmodels.get_model(name).n_states == states
+        assert tmodels.parse_model_spec(name + "+G4")[0].name == name
     with pytest.raises(ValueError):
         tmodels.get_model("nonsense")

@@ -197,7 +197,7 @@ def test_bindings_match_c_signatures(entry):
 
 
 @pytest.mark.parametrize("cmax", [2, 3, 8, 48, 200])
-@pytest.mark.parametrize("s", [4, 20])
+@pytest.mark.parametrize("s", [4, 20, 64])
 def test_saveall_stage_sizing(s, cmax):
     """B2's shared memory on a star of ``cmax`` leaves beside a 12-taxon
     tree: a ring of three steps, each the S x S blocks of ``chunk``
@@ -217,7 +217,8 @@ def test_saveall_stage_sizing(s, cmax):
     n_edges = len(walk.edges)
     chunk, nbytes = cuda_pruning.saveall_stage(s, n_edges)
     assert 1 <= chunk <= n_edges
-    assert nbytes == 4 * 3 * chunk * s * s <= 232_448
+    # rows of a staged P block are 68 floats apart at 64 states
+    assert nbytes == 4 * 3 * chunk * s * (68 if s == 64 else s) <= 232_448
     steps = -(-n_edges // chunk)
     assert (steps - 1) * chunk < n_edges <= steps * chunk
     assert cuda_pruning.saveall_stage(s, 10 ** 6) == cuda_pruning.saveall_stage(
@@ -497,3 +498,173 @@ def test_saveall_and_reverse_kernels_match_reference_on_card():
     for got, ref in ((dp, wp), (dl, wl)):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+def _wide_inputs(s, seed=3, sites=37, newick=None):
+    """P (n_nodes, 4, S, S) f32 of a random reversible S-state model and
+    one-hot leaves with 5% all-ones rows, on a 9-taxon tree (or
+    ``newick``), made with numpy: the shapes of codon (61) and Mk (2)."""
+    rng = np.random.default_rng(seed)
+    tree = tio.parse_newick(newick or write_newick(random_tree(9, seed=4)))
+    sched = compile_schedule(tree)
+    sym = rng.uniform(0.2, 2.0, (s, s))
+    eig = tmodels.base.eigen_reversible(
+        torch.from_numpy(sym + sym.T), torch.from_numpy(
+            rng.dirichlet(np.full(s, 4.0))))
+    t = torch.from_numpy(np.asarray(tree.lengths)[:, None] * RATES)
+    p = extend_p_identity(transition_matrices(eig, t), sched.n_nodes)
+    lp = np.eye(s, dtype=np.float32)[rng.integers(0, s, (tree.n_leaves,
+                                                          sites))]
+    lp[rng.random((tree.n_leaves, sites)) < 0.05] = 1.0
+    return (sched, p.to(torch.float32), torch.from_numpy(lp),
+            eig.freqs)
+
+
+@pytest.mark.parametrize("s,s_pad", [(2, 4), (3, 4), (6, 20), (24, 64),
+                                     (60, 64), (61, 64)])
+def test_padded_walk_equals_unpadded_plain_walk(s, s_pad):
+    """``make_cuda_prune_fn`` and ``make_fused_loglik_fn`` pad S states with
+    zero states to ``padded_states(S)``; their roots (and the fused logL)
+    equal the unpadded plain walk's bit for bit, and the padded leaves are
+    made once per leaf tensor. (At 2 and 3 states the CPU einsum of the
+    plain walk sums 2 or 3 products in another order than the padded 4:
+    there the roots agree to 4 ulps, the exponent counts bit for bit. The
+    kernels' fmaf chains run in j order, so the padding's fmaf(0, 0, y)
+    leaves y as it was.)"""
+    assert cuda_pruning.padded_states(s) == s_pad
+    sched, p, lp, freqs = _wide_inputs(s)
+    walk = WalkSchedule(sched)
+    want_p, want_e = forward_walk_reference(p, lp, walk)
+    prune = cuda_pruning.make_cuda_prune_fn(sched)
+    root, logscale = prune(p, lp)
+    assert root.shape == want_p.shape
+    if s >= 4:
+        assert torch.equal(root, want_p)
+    else:
+        np.testing.assert_allclose(root.numpy(), want_p.numpy(),
+                                   rtol=2.0 ** -21, atol=0)
+    assert torch.equal(logscale, want_e.double() * LN2)
+    fused = make_fused_loglik_fn(sched)
+    ll = fused(p, lp, freqs)
+    want_ll = cuda_pruning._root_loglik(want_p, want_e, freqs)[0]
+    np.testing.assert_allclose(ll.numpy(), want_ll.numpy(),
+                               rtol=1e-15 if s >= 4 else 2.0 ** -21, atol=0)
+    # the gradient is the unpadded walk's, sliced back to S states
+    pg = p.clone().requires_grad_(True)
+    fg = freqs.clone().requires_grad_(True)
+    fused(pg, lp, fg).sum().backward()
+    pr = p.clone().requires_grad_(True)
+    fr = freqs.clone().requires_grad_(True)
+    rx, re = saveall_walk_reference(p, lp, walk)
+    row = walk.root - walk.n_leaves
+    cuda_pruning._root_loglik(rx[:, row], re[:, row], fr)[0].sum().backward()
+    assert pg.grad.shape == p.shape and fg.grad.shape == freqs.shape
+    np.testing.assert_allclose(fg.grad.numpy(), fr.grad.numpy(),
+                               rtol=1e-12 if s >= 4 else 2.0 ** -21)
+    if s_pad != s:
+        padded = cuda_pruning._PaddedLeaves()
+        first = padded(lp, s_pad)
+        assert first.shape == lp.shape[:-1] + (s_pad,)
+        assert padded(lp, s_pad) is first               # kept
+        assert torch.equal(first[..., s:], torch.zeros_like(first[..., s:]))
+        lp2 = lp.clone()
+        assert padded(lp2, s_pad) is not first          # another tensor
+
+
+def test_wide_walk_routing_and_sizes():
+    """At 32 states and more the value path streams (B5) whatever the size,
+    as ``_pallas_forward`` does at a padded width of 32; B3's block at 64
+    states holds a node of at most 3 children; B2 stages 2 edges a step."""
+    for b, sites in ((1, 8), (64, 100_000)):
+        assert cuda_pruning.choose_walk(b, 4, 99, sites, 64) == "stream"
+    assert cuda_pruning.choose_walk(1, 4, 99, 8, 20) == "classic"
+    for cmax in (2, 3):
+        assert cuda_pruning.reverse_tile(64, cmax) == 64
+        assert cuda_pruning._reverse_smem_bytes(64, cmax, 64) <= 232_448
+    with pytest.raises(ValueError, match="PHYLO_DEFERRED_VJP"):
+        cuda_pruning.reverse_tile(64, 4)
+    assert cuda_pruning.saveall_stage(64, 100) == (2, 4 * 3 * 2 * 64 * 68)
+    geo = cuda_pruning.row_geometry(1, 4, 4096, 64, 40)
+    assert geo.lanes in (2, 4) and geo.smem_bytes <= 232_448
+
+
+def test_kernels_not_built_at_64_states_refuse(monkeypatch):
+    """B4, B7, B8 and B9 are built at 4 and 20 states only: at 64 they raise
+    NotImplementedError naming ROADMAP B.1 item 1 on any device (here the
+    plain versions' CPU path), and the fused gradient refuses B7 at 64
+    (PHYLO_DEFERRED_VJP=0) before any walk runs; so does the value path
+    where PHYLO_STATIC_UNROLL_MAX asks for B8, which precedes streaming."""
+    sched, p, lp, freqs = _wide_inputs(61)
+    p64 = cuda_pruning._pad_states(p, 64, 2).contiguous()
+    l64 = cuda_pruning._pad_states(lp, 64, 1).contiguous()
+    walk = WalkSchedule(sched)
+    with pytest.raises(NotImplementedError, match="B4.*B.1 item 1"):
+        cuda_pruning.slot_walk(p64, l64, walk)
+    with pytest.raises(NotImplementedError, match="B4"):
+        forward_walk(p64, l64, walk, walk="slot")
+    with pytest.raises(NotImplementedError, match="B8"):
+        cuda_pruning.static_walk(p64, l64, walk)
+    with pytest.raises(NotImplementedError, match="B9"):
+        cuda_pruning.fold_walk(p64, l64, walk, 2)
+    rx, re = saveall_walk(p64, l64, walk)
+    gseed = torch.ones((4, 1) + tuple(l64.shape[1:]))
+    with pytest.raises(NotImplementedError, match="B7"):
+        cuda_pruning.classic_reverse_walk(p64, l64, rx, re, gseed,
+                                          [walk.root], walk)
+    # B1, B5 and B2 run at 64 (their plain versions here)
+    kp, ke = forward_walk(p64, l64, walk, walk="classic")
+    sp, se = cuda_pruning.slot_walk(p64, l64, walk, stream=True)
+    assert torch.equal(kp, sp) and torch.equal(ke, se)
+    assert torch.equal(kp, rx[:, walk.root - walk.n_leaves])
+    fused = make_fused_loglik_fn(sched)
+    calls = []
+    monkeypatch.setattr(cuda_pruning, "saveall_walk",
+                        lambda *a: calls.append(a) or saveall_walk(*a))
+    monkeypatch.setenv("PHYLO_DEFERRED_VJP", "0")
+    with pytest.raises(NotImplementedError, match="B7"):
+        fused(p.clone().requires_grad_(True), lp, freqs)
+    assert not calls
+    monkeypatch.setattr(cuda_pruning, "STATIC_UNROLL_MAX", 1000)
+    with pytest.raises(NotImplementedError, match="B8"):
+        fused(p, lp, freqs)
+
+
+@pytest.mark.gpu
+def test_codon_width_kernels_match_reference_on_card():
+    """B1, B5, B2 and B3 at 64 states (61 padded) on the card: B5's root and
+    B2's root row bit for bit B1's, the site log-likelihoods to the plain
+    walk's within a few f32 roundings a node, dP and dleaf to 1e-4 x
+    max|g|, dP bit-identical across two launches; B4 refuses before any
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sched, p, lp, freqs = _wide_inputs(61, sites=300)
+    walk = WalkSchedule(sched)
+    pd = cuda_pruning._pad_states(p, 64, 2).contiguous().cuda()
+    ld = cuda_pruning._pad_states(lp, 64, 1).contiguous().cuda()
+    fd = cuda_pruning._pad_states(freqs, 64, 1).cuda()
+    kp, ke = forward_walk(pd, ld, walk, walk="classic")
+    sp, se = cuda_pruning.slot_walk(pd, ld, walk, stream=True)
+    rx, re = saveall_walk(pd, ld, walk)
+    row = walk.root - walk.n_leaves
+    assert torch.equal(kp, sp) and torch.equal(ke, se)
+    assert torch.equal(rx[:, row], kp) and torch.equal(re[:, row], ke)
+    rp, rpe = forward_walk_reference(pd, ld, walk)
+    got = torch.log(kp.double() @ fd) + ke.double() * LN2
+    want = torch.log(rp.double() @ fd) + rpe.double() * LN2
+    assert float((got - want).abs().max()) <= len(walk.order) * 2.0 ** -21
+    lam = (1.0 / torch.einsum("ksi,i->ks", kp.double(), fd)).float()
+    f32 = fd.float().contiguous()
+    dp, dl = reverse_walk(pd, ld, rx, re, lam, f32, walk, want_dleaf=True)
+    dp2, _ = reverse_walk(pd, ld, rx, re, lam, f32, walk)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, dp2)
+    wp, wl = reverse_walk_reference(pd, ld, rx, re, lam, f32, walk,
+                                    want_dleaf=True)
+    for got, ref in ((dp, wp), (dl, wl)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * ref.abs().max().item())
+    before = cuda_pruning.SLOT_LAUNCHES
+    with pytest.raises(NotImplementedError, match="B4"):
+        cuda_pruning.slot_walk(pd, ld, walk)
+    assert cuda_pruning.SLOT_LAUNCHES == before
