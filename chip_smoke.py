@@ -6,7 +6,10 @@ CUDA kernels from ``phylo_utils_tpu_torch/csrc`` (one ``nvcc`` per source,
 all at once) and runs, in order, printing one line per phase:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the ``nvcc`` build, with its wall time;
+2. the ``nvcc`` build, with its wall time: the library of every kernel and
+   B8's libraries for three topologies (the flagship at 4 states, config 4
+   at 20, phase 27's vertebrate-mito tree at 64), all at once; any ptxas
+   spill fails it;
 3. the forward kernel (the classic walk) against its plain-PyTorch walk on
    the card, at the flagship shapes (64 taxa, 4 categories, 1024 and 1000
    sites, B = 1 and 64), on a 512-taxon caterpillar tree, and at 20 states
@@ -133,23 +136,43 @@ all at once) and runs, in order, printing one line per phase:
     against the f64 ``pruner="torch"`` engine; value calls launch B5 at 64
     and no B1, the gradient B2 and B3 at 64; 5 L-BFGS steps with kappa,
     omega and the branch lengths free (logL rises; dN/dS == omega and
-    S + N == 3 per ``dn_ds_by_branch``); B5 and B1 in turns, each kernel's
-    device time and bound, the engine's times and peak memory;
+    S + N == 3 per ``dn_ds_by_branch``); the other four kernels at 64
+    states: B4 (codon shape) and B8 and B9 with F = 2 (the
+    vertebrate-mito shape, within the classic budget) bit for bit against
+    B1, B7 against its plain version (one and two seeds) and B3 (dleaf bit
+    for bit, dP bit for bit where every block walks one tile), B7's blocks
+    a launch in turns; the engine under the knobs (counted): value calls
+    through B4 under ``PHYLO_FORCE_STREAM=0``, the gradient through B2 + B7
+    under ``PHYLO_DEFERRED_VJP=0``, the mito engine's values through B8
+    (``PHYLO_STATIC_UNROLL_MAX``) and B9 (``PHYLO_FOLD_CATEGORIES=auto``)
+    with streaming off; B5 and B1 in turns, each 64-state kernel's time in
+    turns with its plain version, device time and bound, the engine's
+    times and peak memory;
 28. the Mk family and the ascertainment engine: MK2 with the lewis
     correction on the flagship tree over 1024 simulated variable binary
     characters (2 states padded to 4), MK6 and ORDERED5 (padded to 20) and
     MK24 (padded to 64), f32 ``pruner="cuda"`` against the f64 path (logL
     to 1e-6, gradients to 5e-4 x max|g|); the CLI's ``loglik --model MK2
     --asc lewis`` and ``fit --model GY94`` as subprocesses against the same
-    calls made in this process.
+    calls made in this process;
+29. codon at full width: GY94+G4 (F3x4) on a 1000-taxon tree x 24,000
+    codon patterns simulated on the card (a ``torch.Generator``), whose
+    deferred reverse's dP rows (B3: one 64 x 64 row per node per 64-site
+    block, ~49 GB) no longer fit beside the leaves and residuals, so
+    ``value_and_grad`` under "auto" takes B2 and B7 and no B3; its value
+    and gradient against the same engine summed over 4 pattern slices,
+    which take B3 (logL to 1e-6 relative, gradients to 5e-4 x max|g|); the
+    reckoned scratch, its time, device times and peak memory.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-28; the kernel-against-plain phases are not counted. The last two lines
+23-29; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
-its bound and its main-path launches (also by state count) (the larger of its bytes over 3.35 TB/s and its f32 operations over
-67 TFLOP/s, the H100 SXM data sheet's peaks), and
+its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
+over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
+launches (also by state count), and the same at 64 states
+(``states_64``), and
 ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
@@ -218,6 +241,9 @@ WIDE_NODE_STAR, WIDE_NODE_SUB, WIDE_NODE_PATTERNS = 48, 48, 8192
 # (GY94+G4, F3x4), 5 fit steps; the vertebrate-mitochondrial check's shape;
 # the Mk characters of phase 28 and its CLI fit's codon shape
 CODON_TAXA, CODON_PATTERNS, CODON_FIT_STEPS = 100, 4096, 5
+# codon at full width (phase 29): a 1000-taxon tree x 24,000 simulated codon
+# patterns, past B3's scratch on an 80 GB card, and its reference slices
+CODON_WIDE_TAXA, CODON_WIDE_PATTERNS, CODON_WIDE_SLICES = 1000, 24_000, 4
 MITO_TAXA, MITO_PATTERNS = 32, 1024
 MK_CHARS, CLI_CODON_TAXA, CLI_CODON_PATTERNS = 1024, 16, 256
 # f32 codon logL against f64, relative: the JAX package's own f32 codon
@@ -455,7 +481,7 @@ def _random_alignment(names, n_sites, chars, seed):
     return {n: codes[i].tobytes().decode() for i, n in enumerate(names)}
 
 
-def _bound(kind, walk, p, leaves):
+def _bound(kind, walk, p, leaves, want_dleaf=False):
     """(bound_ms, bound_by) of one launch of kernel ``kind`` on these
     inputs: each input read once and each output written once at the
     card's memory rate, against the walk's f32 operations at the peak f32
@@ -463,8 +489,10 @@ def _bound(kind, walk, p, leaves):
     per child edge an S x S contraction (2 S^2) and the product (S), per
     node the rescale (2 S); the reverse walk adds P^T per internal node,
     a sibling contraction and the gy product per edge, and dP (2 S^2) per
-    edge; the classic reverse recomputes y, and forms P^T gy and dP, per
-    edge (6 S^2)."""
+    edge; the classic reverse recomputes y and forms dP per edge (4 S^2),
+    and P^T gy (2 S^2) per edge into an internal node, and into a leaf
+    only where ``want_dleaf``: without dleaf it does the deferred
+    reverse's work."""
     s = leaves.shape[-1]
     cols = (p.shape[0] if p.dim() == 5 else 1) * p.shape[-3] * leaves.shape[1]
     n_int, edges = len(walk.order), int(walk.counts.sum())
@@ -476,9 +504,13 @@ def _bound(kind, walk, p, leaves):
     elif kind == "reverse":
         nbytes += 4 * (cols * n_inner * (s + 1) + cols + s + p.numel())
         flops = cols * ((n_int - 1) * 2 * s * s + edges * (4 * s * s + 3 * s))
-    elif kind == "classic":     # one seed, no dleaf: residuals and the seed
+    elif kind == "classic":     # one seed: residuals and the seed
         nbytes += 4 * (cols * n_inner * (s + 1) + cols * s + p.numel())
-        flops = cols * edges * (6 * s * s + 3 * s)
+        into_leaves = walk.n_leaves if want_dleaf else 0
+        flops = cols * ((n_int - 1 + into_leaves) * 2 * s * s
+                        + edges * (4 * s * s + 3 * s))
+        if want_dleaf:
+            nbytes += 4 * cols * walk.n_leaves * s
     else:   # forward, slot, stream: the root and its exponent count
         nbytes += 4 * cols * (s + 1)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
@@ -630,13 +662,16 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build: the library of csrc/*.cu and B8's libraries for the
-    # flagship topology at 4 states and config 4's at 20, every nvcc at once
-    # (phase 22 builds the wide-node tree's)
+    # flagship topology at 4 states, config 4's at 20 and phase 27's
+    # vertebrate-mito tree's at 64, every nvcc at once (phase 22 builds the
+    # wide-node tree's)
     flagship_tree = random_tree(TAXA, seed=0)
     config4_tree = random_tree(CONFIG4_TAXA, seed=13, mean_brlen=0.2)
+    mito_tree = random_tree(MITO_TAXA, seed=28)
     static_walks = {
         "flagship_S4": (WalkSchedule(compile_schedule(flagship_tree)), 4),
-        "config4_S20": (WalkSchedule(compile_schedule(config4_tree)), 20)}
+        "config4_S20": (WalkSchedule(compile_schedule(config4_tree)), 20),
+        "mito_S64": (WalkSchedule(compile_schedule(mito_tree)), 64)}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1 + len(static_walks)) as pool:
         futures = [pool.submit(_build.load_library)] + [
@@ -1238,7 +1273,7 @@ def main():
     walk_shapes["protein_big"] = case_inputs[protein_key]
     walk_times = {}
     for label, (walk, p, leaves, _) in walk_shapes.items():
-        reps = 50 if label == "flagship_B1" else 10
+        reps = 20 if label == "flagship_B1" else 5
         fns = {how: functools.partial(forward_walk, p, leaves, walk,
                                       walk=how)
                for how in ("classic", "slot", "stream")}
@@ -2274,7 +2309,6 @@ def main():
     codon_inputs = padded_walk_inputs(c32, codon_params)
     codon_err = {"gy94": wide_kernel_checks("codon", *codon_inputs)}
     mito = make_gy94("vertebrate_mito")
-    mito_tree = random_tree(MITO_TAXA, seed=28)
     mito_params = {**CODON_PARAMS, "model": {**CODON_PARAMS["model"],
                                              "freqs": f3x4_frequencies(
                                                  nuc, "vertebrate_mito")}}
@@ -2282,9 +2316,10 @@ def main():
         mito_tree, codon_alignment(mito_tree, mito, mito_params,
                                    MITO_PATTERNS, 28, "vertebrate_mito"),
         mito, ncat=4, dtype=torch.float32, pruner="cuda", device=DEVICE)
+    mito_inputs = padded_walk_inputs(m32, mito_params)
     codon_err["gy94_vertebrate_mito"] = wide_kernel_checks(
-        "vertebrate mito", *padded_walk_inputs(m32, mito_params))
-    del m32
+        "vertebrate mito", *mito_inputs)
+    ll_m = m32.loglikelihood(mito_params)
     # the engine, main path: values through B5, the gradient B2 + B3
     reset_counts()
     ll_c = c32.loglikelihood(codon_params)
@@ -2338,37 +2373,218 @@ def main():
            and codon_fit_counts.get("REVERSE_LAUNCHES@64", 0) > 0,
            f"codon fit: logL {ll_c} -> {fit_c.loglik}, omega {omega_fit}, "
            f"S + N {dd['S'] + dd['N']}, launches {codon_fit_counts}")
-    # times: B5 and B1 in turns (B5, B1, B1, B5), each kernel in turns with
-    # its plain version, device time per launch, bounds; the engine
+    # B4, B7, B8 and B9 at 64 states, not counted: B4 on the codon shape
+    # and B8 (F = 1) and B9 (F = 2) on the vertebrate-mito shape, whose
+    # classic scratch (32 taxa x 1024 patterns: 33 MB) is within the budget,
+    # bit for bit against B1; B7 against its plain version and B3
     walk_c, p_c, l_c, f_c = codon_inputs
+    walk_m, p_m, l_m, f_m = mito_inputs
+    b1_c = forward_walk(p_c, l_c, walk_c, walk="classic")
+    b1_m = forward_walk(p_m, l_m, walk_m, walk="classic")
+    plain_c = site_ll(*forward_walk_reference(p_c, l_c, walk_c), f_c)
+    plain_m = site_ll(*forward_walk_reference(p_m, l_m, walk_m), f_m)
+    for name, got, want, plain, f_, err in (
+            ("B4", cuda_pruning.slot_walk(p_c, l_c, walk_c), b1_c, plain_c,
+             f_c, codon_err["gy94"]),
+            ("B8", static_walk(p_m, l_m, walk_m), b1_m, plain_m, f_m,
+             codon_err["gy94_vertebrate_mito"]),
+            ("B9", fold_walk(p_m, l_m, walk_m, 2), b1_m, plain_m, f_m,
+             codon_err["gy94_vertebrate_mito"])):
+        torch.cuda.synchronize()
+        _check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+               f"{name}'s root is not B1's bit for bit at 64 states")
+        # the kernel's own site-logL error against the plain walk
+        err[name] = float((site_ll(*got, f_) - plain).abs().max())
+    del plain_c, plain_m
     rx_c, re_c = saveall_walk(p_c, l_c, walk_c)
     lam_c = (1.0 / torch.einsum("ksi,i->ks", rx_c[:, walk_c.root
                                                    - walk_c.n_leaves].double(),
                                 f_c)).float().contiguous()
     f32_c = f_c.float().contiguous()
+    gseed_c = (lam_c[..., None] * f32_c).unsqueeze(-3).contiguous()
+    root_c = [walk_c.root]
+    d7, l7 = classic_reverse_walk(p_c, l_c, rx_c, re_c, gseed_c, root_c,
+                                  walk_c, want_dleaf=True)
+    d7b, _ = classic_reverse_walk(p_c, l_c, rx_c, re_c, gseed_c, root_c,
+                                  walk_c, want_dleaf=True)
+    d3, l3 = reverse_walk(p_c, l_c, rx_c, re_c, lam_c, f32_c, walk_c,
+                          want_dleaf=True)
+    w7, wl7 = classic_reverse_walk_reference(p_c, l_c, rx_c, re_c, gseed_c,
+                                             root_c, walk_c, want_dleaf=True)
+    seeds_c = [walk_c.root, int(walk_c.order[len(walk_c.order) // 2])]
+    g2_c = torch.as_tensor(np.random.default_rng(27).uniform(
+        0.5, 1.5, (4, 2) + tuple(l_c.shape[1:])), dtype=torch.float32,
+        device=dev)
+    d72, l72 = classic_reverse_walk(p_c, l_c, rx_c, re_c, g2_c, seeds_c,
+                                    walk_c, want_dleaf=True)
+    w72, wl72 = classic_reverse_walk_reference(p_c, l_c, rx_c, re_c, g2_c,
+                                               seeds_c, walk_c,
+                                               want_dleaf=True)
+    torch.cuda.synchronize()
+    b7_64 = {"dP_rel_max": _max_rel(d7, w7),
+             "dleaf_rel_max": _max_rel(l7, wl7),
+             "vs_B3_dP_rel_max": _max_rel(d7, d3),
+             "two_seed_dP_rel_max": _max_rel(d72, w72),
+             "two_seed_dleaf_rel_max": _max_rel(l72, wl72)}
+    _check(max(b7_64.values()) <= REVERSE_TOL and torch.equal(d7, d7b)
+           and torch.equal(l7, l3) and not bool(d7[walk_c.root].any()),
+           f"B7 at 64 states against its plain version and B3: {b7_64}, "
+           f"repeatable {torch.equal(d7, d7b)}, dleaf B3's "
+           f"{torch.equal(l7, l3)}")
+    codon_err["gy94"]["B7_dP"] = b7_64["dP_rel_max"]
+    codon_err["gy94"]["B7"] = b7_64
+    del d7b, w7, wl7, d72, l72, w72, wl72, g2_c
+    # B7 on the wide-node tree at 64 states (the root's 49 children past
+    # its 3 staged ones: P read through L1 in groups), codon sites
+    # simulated down it so that no product underflows
+    eig_c = models.GY94.eigen(codon_params["model"], dtype=torch.float64,
+                              device=dev)
+    rates_c = discrete_gamma(torch.tensor(codon_params["alpha"],
+                                          dtype=torch.float64), 4).to(dev)
+    walk_n, p_n, l_n, f_n = _wide_node_inputs(
+        eig_c, rates_c, WIDE_NODE_PATTERNS // 8, np.random.default_rng(27),
+        dev)
+    p_n = cuda_pruning._pad_states(p_n, 64, 2).contiguous()
+    l_n = cuda_pruning._pad_states(l_n, 64, 1).contiguous()
+    f_n = cuda_pruning._pad_states(f_n, 64, 1)
+    rx_n, re_n = saveall_walk(p_n, l_n, walk_n)
+    row_n = walk_n.root - walk_n.n_leaves
+    lam_n = (1.0 / torch.einsum("ksi,i->ks", rx_n[:, row_n].double(),
+                                f_n)).float()
+    g_n = (lam_n[..., None] * f_n.float()).unsqueeze(-3).contiguous()
+    d7n, l7n = classic_reverse_walk(p_n, l_n, rx_n, re_n, g_n, [walk_n.root],
+                                    walk_n, want_dleaf=True)
+    w7n, wl7n = classic_reverse_walk_reference(
+        p_n, l_n, rx_n, re_n, g_n, [walk_n.root], walk_n, want_dleaf=True)
+    torch.cuda.synchronize()
+    b7_64["wide_node"] = {
+        "root_children": int(walk_n.children.shape[1]),
+        "staged_children": cuda_pruning.classic_reverse_stage(
+            64, walk_n.children.shape[1])[0],
+        "dP_rel_max": _max_rel(d7n, w7n), "dleaf_rel_max": _max_rel(l7n, wl7n),
+        "ms": _cuda_ms(functools.partial(
+            classic_reverse_walk, p_n, l_n, rx_n, re_n, g_n, [walk_n.root],
+            walk_n), 3)}
+    _check(bool(torch.isfinite(d7n).all()) and bool(torch.isfinite(l7n).all())
+           and max(b7_64["wide_node"]["dP_rel_max"],
+                   b7_64["wide_node"]["dleaf_rel_max"]) <= REVERSE_TOL,
+           f"B7 on the wide node at 64 states: {b7_64['wide_node']}")
+    del walk_n, p_n, l_n, rx_n, re_n, d7n, l7n, w7n, wl7n
+    # B7's blocks a launch, in turns (132, 264, 528, 528, 264, 132): at 264
+    # every block walks one 64-site tile, so its dP is B3's bit for bit
+    b7_blocks, saved_blocks = {}, cuda_pruning._CLASSIC_REVERSE_BLOCKS[64]
+    b7_fn = functools.partial(classic_reverse_walk, p_c, l_c, rx_c, re_c,
+                              gseed_c, root_c, walk_c)
+    try:
+        for blocks in (132, 264, 528, 528, 264, 132):
+            cuda_pruning._CLASSIC_REVERSE_BLOCKS[64] = blocks
+            seen = b7_blocks.setdefault(blocks, {"runs": [], "rows": (
+                classic_reverse_scratch(1, 4, walk_c.n_nodes,
+                                        walk_c.reverse.n_gslots,
+                                        l_c.shape[1], 64)[0])})
+            seen["runs"].append(_cuda_ms(b7_fn, 5))
+        cuda_pruning._CLASSIC_REVERSE_BLOCKS[64] = 4 * 64
+        one_tile = classic_reverse_walk(p_c, l_c, rx_c, re_c, gseed_c,
+                                        root_c, walk_c)[0]
+    finally:
+        cuda_pruning._CLASSIC_REVERSE_BLOCKS[64] = saved_blocks
+    torch.cuda.synchronize()
+    _check(torch.equal(one_tile, d3),
+           "B7 with one 64-site tile a block is not B3's dP bit for bit")
+    b7_blocks = {str(b): {"ms": sum(v["runs"]) / 2, **v}
+                 for b, v in b7_blocks.items()}
+    del one_tile, d7, l7, d3, l3
+    # the engine under the knobs, main path: values through B4 under
+    # PHYLO_FORCE_STREAM=0 (past the classic budget), the gradient through
+    # B2 + B7 under PHYLO_DEFERRED_VJP=0; the mito engine's values through
+    # B8 (PHYLO_STATIC_UNROLL_MAX) and B9 (PHYLO_FOLD_CATEGORIES=auto) with
+    # streaming off, within the budget
+    with _env(PHYLO_FORCE_STREAM="0"):
+        reset_counts()
+        ll_b4 = c32.loglikelihood(codon_params)
+        sw_b4 = c32.sitewise_loglikelihoods(codon_params)
+        b4_counts = read_counts()
+    with _env(PHYLO_DEFERRED_VJP="0"):
+        reset_counts()
+        v_b7, g_b7 = c32.value_and_grad(codon_params)
+        b7_counts = read_counts()
+    with _env(PHYLO_FORCE_STREAM="0"), _static_unroll(cuda_pruning, 10 ** 6):
+        reset_counts()
+        ll_b8 = m32.loglikelihood(mito_params)
+        b8_counts = read_counts()
+    with _env(PHYLO_FORCE_STREAM="0", PHYLO_FOLD_CATEGORIES="auto"):
+        reset_counts()
+        ll_b9 = m32.loglikelihood(mito_params)
+        b9_counts = read_counts()
+    knob_64 = {
+        "B4_loglik_rel": abs(ll_b4 - ll_c) / abs(ll_c),
+        "B4_sitewise_max_abs": float(np.max(np.abs(sw_b4 - sw_c))),
+        "B7_value_rel": abs(float(v_b7) - float(v_c64)) / abs(float(v_c64)),
+        "B7_grad_rel_to_B3": _grad_errors(g_b7, g_c),
+        "B8_loglik_rel": abs(ll_b8 - ll_m) / abs(ll_m),
+        "B9_loglik_rel": abs(ll_b9 - ll_m) / abs(ll_m)}
+    _check(b4_counts.get("SLOT_LAUNCHES@64", 0) > 0
+           and b4_counts.get("STREAM_LAUNCHES@64", 0) == 0
+           and b7_counts.get("CLASSIC_REVERSE_LAUNCHES@64", 0) > 0
+           and b7_counts.get("REVERSE_LAUNCHES@64", 0) == 0
+           and b8_counts.get("STATIC_LAUNCHES@64", 0) > 0
+           and b9_counts.get("FOLD_LAUNCHES@64", 0) > 0
+           and b8_counts["STREAM_LAUNCHES"] + b9_counts["STREAM_LAUNCHES"]
+           + b8_counts["LAUNCHES"] + b9_counts["LAUNCHES"] == 0,
+           f"the knobs did not take B4, B7, B8 and B9 at 64 states: B4 "
+           f"{b4_counts}, B7 {b7_counts}, B8 {b8_counts}, B9 {b9_counts}")
+    _check(max(knob_64["B4_loglik_rel"], knob_64["B8_loglik_rel"],
+               knob_64["B9_loglik_rel"]) == 0.0
+           and knob_64["B4_sitewise_max_abs"] == 0.0
+           and knob_64["B7_value_rel"] <= CODON_RTOL
+           and max(knob_64["B7_grad_rel_to_B3"].values()) <= GRAD_TOL,
+           f"the codon engine under the knobs: {knob_64}")
+    del g_b7
+    # times: B5 and B1 in turns (B5, B1, B1, B5), each kernel in turns with
+    # its plain version, device time per launch, bounds; the engine
     fns_64 = {
         "stream": (functools.partial(cuda_pruning.slot_walk, p_c, l_c, walk_c,
                                      stream=True),
-                   functools.partial(slot_walk_reference, p_c, l_c, walk_c)),
+                   functools.partial(slot_walk_reference, p_c, l_c, walk_c),
+                   codon_inputs),
         "forward": (functools.partial(forward_walk, p_c, l_c, walk_c,
                                       walk="classic"),
                     functools.partial(forward_walk_reference, p_c, l_c,
-                                      walk_c)),
+                                      walk_c), codon_inputs),
         "saveall": (functools.partial(saveall_walk, p_c, l_c, walk_c),
                     functools.partial(saveall_walk_reference, p_c, l_c,
-                                      walk_c)),
+                                      walk_c), codon_inputs),
         "reverse": (functools.partial(reverse_walk, p_c, l_c, rx_c, re_c,
                                       lam_c, f32_c, walk_c),
                     functools.partial(reverse_walk_reference, p_c, l_c, rx_c,
-                                      re_c, lam_c, f32_c, walk_c)),
+                                      re_c, lam_c, f32_c, walk_c),
+                    codon_inputs),
+        "slot": (functools.partial(cuda_pruning.slot_walk, p_c, l_c, walk_c),
+                 functools.partial(slot_walk_reference, p_c, l_c, walk_c),
+                 codon_inputs),
+        "classic": (b7_fn, functools.partial(
+            classic_reverse_walk_reference, p_c, l_c, rx_c, re_c, gseed_c,
+            root_c, walk_c), codon_inputs),
+        "static": (functools.partial(static_walk, p_m, l_m, walk_m),
+                   functools.partial(forward_walk_reference, p_m, l_m,
+                                     walk_m), mito_inputs),
+        "fold": (functools.partial(fold_walk, p_m, l_m, walk_m, 2),
+                 functools.partial(forward_walk_reference, p_m, l_m, walk_m),
+                 mito_inputs),
     }
     t_b5_b1 = [_cuda_ms(fns_64[how][0], 10)
                for how in ("stream", "forward", "forward", "stream")]
     timings_64 = {}
-    for what, (fn, plain) in fns_64.items():
+    for what, (fn, plain, inputs) in fns_64.items():
         timings_64[what] = in_turns(fn, plain, 5, 1)
-        timings_64[what].update(zip(("bound_ms", "bound_by"),
-                                    _bound(what, walk_c, p_c, l_c)))
+        timings_64[what].update(zip(
+            ("bound_ms", "bound_by"),
+            _bound({"slot": "forward", "static": "forward",
+                    "fold": "forward"}.get(what, what), *inputs[:3])))
+        timings_64[what]["shape"] = (
+            f"{MITO_TAXA} taxa x {MITO_PATTERNS} vertebrate-mito codon "
+            "patterns, GY94+G4" if inputs is mito_inputs else
+            f"{CODON_TAXA} taxa x {CODON_PATTERNS} codon patterns, GY94+G4")
         # device us per launch (torch.profiler; 3 calls recorded none)
         timings_64[what]["device"] = _device_us(fn, 10)
     del rx_c, re_c
@@ -2384,13 +2600,18 @@ def main():
           fit_steps=fit_c.n_steps, fit_s=codon_fit_s,
           fit_launches=codon_fit_counts,
           dn_ds={"omega": dd["omega"], "S": dd["S"], "N": dd["N"]},
+          knob_errors=knob_64, knob_launches={
+              "B4_force_stream_0": b4_counts, "B7_deferred_vjp_0": b7_counts,
+              "B8_static_unroll": b8_counts, "B9_fold_auto": b9_counts},
+          b7_blocks=b7_blocks,
           stream_vs_classic_ms={"B5": (t_b5_b1[0] + t_b5_b1[3]) / 2,
                                 "B1": (t_b5_b1[1] + t_b5_b1[2]) / 2,
                                 "runs": t_b5_b1},
           kernels_64=timings_64, engine_ms=codon_ms,
           value_and_grad_peak_bytes=peak_c,
           leaves_padded_bytes=l_c.numel() * 4)
-    del c32, fit_c, codon_inputs, p_c, l_c, fns_64
+    del c32, m32, fit_c, codon_inputs, mito_inputs, p_c, l_c, p_m, l_m
+    del fns_64, b7_fn
     torch.cuda.empty_cache()
 
     # 28. the Mk family and the ascertainment engine, main path ----------
@@ -2536,12 +2757,127 @@ def main():
           cli_fit_launches=cli_counts_28)
     torch.cuda.empty_cache()
 
+    # 29. codon at full width, past B3's scratch, main path ---------------
+    # GY94+G4 (F3x4) on a 1000-taxon tree x 24,000 codon patterns simulated
+    # on the card: B3's dP rows (one 64 x 64 row per node per 64-site
+    # block) no longer fit beside the leaves and residuals, so "auto" takes
+    # B7; held against the same engine summed over pattern slices, which
+    # take B3
+    wide_c_tree = random_tree(CODON_WIDE_TAXA, seed=29)
+    walk_cw = WalkSchedule(compile_schedule(wide_c_tree))
+    n_inner_cw = walk_cw.n_nodes - walk_cw.n_leaves
+    gslots_cw, cmax_cw = walk_cw.reverse.n_gslots, walk_cw.children.shape[1]
+    rows_cw, slots_cw, row_cw = classic_reverse_scratch(
+        1, 4, walk_cw.n_nodes, gslots_cw, CODON_WIDE_PATTERNS, 64)
+    reckoned_cw = {
+        "leaf_bytes": 4 * CODON_WIDE_TAXA * CODON_WIDE_PATTERNS * 61,
+        "padded_leaf_bytes": 4 * CODON_WIDE_TAXA * CODON_WIDE_PATTERNS * 64,
+        "residual_bytes": 4 * 4 * n_inner_cw * CODON_WIDE_PATTERNS * 65,
+        "b3_scratch_bytes": reverse_scratch(
+            1, 4, walk_cw.n_nodes, gslots_cw, CODON_WIDE_PATTERNS, 64,
+            cmax_cw)[1],
+        "b7_scratch_bytes": slots_cw + rows_cw * row_cw,
+        "b7_dp_rows": rows_cw}
+    _emit(29, stage="reckoned", taxa=CODON_WIDE_TAXA,
+          patterns=CODON_WIDE_PATTERNS, **reckoned_cw)
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    eig_cw = models.GY94.eigen(codon_params["model"], dtype=torch.float64,
+                               device=dev)
+    rates_cw = discrete_gamma(torch.tensor(codon_params["alpha"],
+                                           dtype=torch.float64), 4).to(dev)
+    t_cw = torch.as_tensor(np.asarray(wide_c_tree.lengths),
+                           dtype=torch.float64, device=dev)
+    p_sim = transition_matrices(eig_cw, t_cw[:, None] * rates_cw)
+    states = torch.empty((wide_c_tree.n_nodes, CODON_WIDE_PATTERNS),
+                         dtype=torch.long, device=dev)
+    cat = torch.randint(0, 4, (CODON_WIDE_PATTERNS,), generator=gen,
+                        device=dev)
+    states[wide_c_tree.root] = torch.multinomial(
+        eig_cw.freqs, CODON_WIDE_PATTERNS, replacement=True, generator=gen)
+    for node in range(wide_c_tree.n_nodes - 1, -1, -1):  # ids are post-order
+        for child in wide_c_tree.children[node]:
+            cum = torch.cumsum(p_sim[child, cat, states[node]], dim=1)
+            u = torch.rand((CODON_WIDE_PATTERNS, 1), generator=gen,
+                           dtype=torch.float64, device=dev) * cum[:, -1:]
+            states[child] = (u > cum).sum(dim=1).clamp_max(60)
+    codes = states[:wide_c_tree.n_leaves].to(torch.uint8).cpu().numpy()
+    del p_sim, states, cat
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t_start
+    ca_cw = CompressedAlignment(
+        tuple(wide_c_tree.leaf_names), np.eye(61, dtype=np.float32)[codes],
+        np.ones(CODON_WIDE_PATTERNS),
+        np.arange(CODON_WIDE_PATTERNS, dtype=np.int32))
+    del codes
+    kw_cw = dict(tree=wide_c_tree, model=models.GY94, ncat=4,
+                 dtype=torch.float32, pruner="cuda", device=DEVICE)
+    wide_c = LikelihoodEngine(alignment=ca_cw, **kw_cw)
+    torch.cuda.synchronize()
+    stage_cw = {"simulate": sim_s,
+                "engine": time.perf_counter() - t_start - sim_s}
+    torch.cuda.empty_cache()
+    free_cw = torch.cuda.mem_get_info(dev)[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    v_cw, g_cw = wide_c.value_and_grad(codon_params)
+    torch.cuda.synchronize()
+    stage_cw["value_and_grad_first"] = time.perf_counter() - t0
+    cw_counts = read_counts()
+    peak_cw = torch.cuda.max_memory_allocated()
+    _check(cw_counts.get("CLASSIC_REVERSE_LAUNCHES@64", 0) > 0
+           and cw_counts["REVERSE_LAUNCHES"] == 0
+           and cw_counts.get("SAVEALL_LAUNCHES@64", 0) > 0,
+           f"the full-width codon gradient did not take B2 and B7 alone "
+           f"under auto: {cw_counts}")
+    # B2's and B7's bounds at this shape (shapes alone: meta tensors)
+    p_meta = torch.empty((walk_cw.n_nodes, 4, 64, 64), device="meta")
+    l_meta = torch.empty((CODON_WIDE_TAXA, CODON_WIDE_PATTERNS, 64),
+                         device="meta")
+    bounds_cw = {what: _bound(what, walk_cw, p_meta, l_meta)
+                 for what in ("saveall", "classic")}
+    cw_vg_ms = _cuda_ms(lambda: wide_c.value_and_grad(codon_params), 1)
+    cw_device = _device_us(lambda: wide_c.value_and_grad(codon_params), 1)
+    stage_cw["timings"] = (time.perf_counter() - t_start
+                           - sum(stage_cw.values()))
+    del wide_c
+    torch.cuda.empty_cache()
+    reset_counts()
+    v_ref_cw, g_ref_cw = _chunked_value_and_grad(
+        {k: v for k, v in kw_cw.items()}, ca_cw, codon_params,
+        CODON_WIDE_SLICES)
+    slice_counts = read_counts()
+    stage_cw["slices"] = (time.perf_counter() - t_start
+                          - sum(stage_cw.values()))
+    del ca_cw
+    torch.cuda.empty_cache()
+    rel_cw = abs(float(v_cw) - v_ref_cw) / abs(v_ref_cw)
+    g_err_cw = _grad_errors(g_cw, g_ref_cw)
+    _check(slice_counts.get("REVERSE_LAUNCHES@64", 0) > 0
+           and slice_counts["CLASSIC_REVERSE_LAUNCHES"] == 0,
+           f"the pattern slices did not take B3: {slice_counts}")
+    _check(math.isfinite(float(v_cw)) and rel_cw <= LOGL_RTOL
+           and max(g_err_cw.values()) <= GRAD_TOL,
+           f"full-width codon gradient through B7 against B3 on "
+           f"{CODON_WIDE_SLICES} pattern slices: value rel {rel_cw:.3e}, "
+           f"grads {g_err_cw}")
+    _emit(29, stage="measured", loglik=float(v_cw), loglik_slices=v_ref_cw,
+          value_rel_err=rel_cw, grad_rel_err=g_err_cw, launches=cw_counts,
+          slice_launches=slice_counts,
+          free_bytes_before_the_call=free_cw, peak_allocated_bytes=peak_cw,
+          value_and_grad_ms=cw_vg_ms,
+          device_us=cw_device, bounds=bounds_cw, b7_gslots=gslots_cw,
+          stage_s=stage_cw)
+    del g_cw, g_ref_cw
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
                    *knob_counts.values(), mix_counts, cli_counts,
                    codon_value_counts, codon_grad_counts, codon_fit_counts,
-                   *mk_counts.values(), cli_counts_28)
+                   b4_counts, b7_counts, b8_counts, b9_counts,
+                   *mk_counts.values(), cli_counts_28, cw_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -2552,8 +2888,8 @@ def main():
 
     def kernel(name, source, line, counter, err, timing, what, inputs,
                wide=None):
-        """The kernel's entry; ``wide``: (its phase-27 key, its error) where
-        it runs at 64 states, reported as ``states_64``."""
+        """The kernel's entry; ``wide``: (its phase-27 key, its error) at 64
+        states, reported as ``states_64``."""
         bound_ms, bound_by = _bound(what, *inputs[:3])
         entry = {"name": name, "route": "cuda",
                  "source": f"phylo_utils_tpu_torch/csrc/{source}",
@@ -2567,8 +2903,8 @@ def main():
         if wide is not None:
             t64 = timings_64[wide[0]]
             entry["states_64"] = {
-                "shape": f"{CODON_TAXA} taxa x {CODON_PATTERNS} codon "
-                         "patterns, GY94+G4",
+                "shape": t64["shape"], "launches": launches_by_states(
+                    counter)["64"],
                 "max_abs_err": wide[1], "ms": t64["ms"],
                 "plain_ms": t64["plain_ms"], "bound_ms": t64["bound_ms"],
                 "bound_by": t64["bound_by"], "device": t64["device"]}
@@ -2587,19 +2923,22 @@ def main():
                "reverse", flagship, ("reverse", codon_err["gy94"]["B3_dP"])),
         kernel("pruning_slot_f32", "pruning_slot.cu", 642, "SLOT_LAUNCHES",
                max(slot_err["slot"].values()), timings["slot"], "slot",
-               case_inputs[big_dna_key]),
+               case_inputs[big_dna_key], ("slot", codon_err["gy94"]["B4"])),
         kernel("pruning_stream_f32", "pruning_slot.cu", 704,
                "STREAM_LAUNCHES", max(slot_err["stream"].values()),
                timings["stream"], "stream", case_inputs[protein_key],
                ("stream", codon_err["gy94"]["B5"])),
         kernel("pruning_classic_reverse_f32", "pruning_classic_reverse.cu",
                879, "CLASSIC_REVERSE_LAUNCHES", b7_max,
-               timings[f"classic_B{BATCH}"], "classic", flagship),
+               timings[f"classic_B{BATCH}"], "classic", flagship,
+               ("classic", codon_err["gy94"]["B7_dP"])),
         kernel("pruning_fold_f32", "pruning_fold.cu", 333, "FOLD_LAUNCHES",
-               b9_max, timings[f"fold_B{BATCH}"], "forward", flagship),
+               b9_max, timings[f"fold_B{BATCH}"], "forward", flagship,
+               ("fold", codon_err["gy94_vertebrate_mito"]["B9"])),
         kernel("pruning_static_f32", "pruning_static.cu", 402,
                "STATIC_LAUNCHES", b8_max, timings[f"static_B{BATCH}"],
-               "forward", flagship),
+               "forward", flagship,
+               ("static", codon_err["gy94_vertebrate_mito"]["B8"])),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,8 +4,11 @@
 // per-column state rows, the child contraction and its transpose (P read
 // from device memory, or from a shared-memory stage as 16-byte vectors), the
 // cp.async copies that fill such a stage, the reverse walks' warp sums of
-// dP, the exact power-of-two rescale, and the dispatch from a run-time state
-// count to the compiled instantiations.
+// dP, the 64-state reverse walks' four-lane contractions, block dP sums
+// and per-child body,
+// the one kernel that sums the reverse walks' dP rows, the exact
+// power-of-two rescale, and the dispatch from a run-time state count to the
+// compiled instantiations.
 #pragma once
 
 #include <cfloat>
@@ -50,6 +53,26 @@ __device__ __forceinline__ void store_states(float* __restrict__ dst,
   } else {
 #pragma unroll
     for (int j = 0; j < S; ++j) dst[j] = x[j];
+  }
+}
+
+// A lane's kRows entries of a row, stored as the widest vectors they allow.
+template <int kRows>
+__device__ __forceinline__ void store_part(float* dst, const float (&v)[kRows]) {
+  if constexpr (kRows % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kRows / 4; ++q) {
+      reinterpret_cast<float4*>(dst)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else if constexpr (kRows % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < kRows / 2; ++q) {
+      reinterpret_cast<float2*>(dst)[q] = make_float2(v[2 * q], v[2 * q + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) dst[r] = v[r];
   }
 }
 
@@ -265,6 +288,159 @@ __device__ __forceinline__ void warp_dp_blocked(const float (&gy)[S],
   __syncwarp();  // the rows are read before the next child overwrites them
 }
 
+// The 64-state reverse walks (pruning_reverse.cu's B3 and
+// pruning_classic_reverse.cu's B7 at S = 64, codon's 61 or 60 states padded
+// with zero states): one thread's rows of g, the siblings' product, gy, x
+// and P^T gy would take ~5 x 64 registers, and a warp's 64 x 64 dP entries
+// fit neither registers nor S = 20's warp-private blocks. So kWideLanes
+// lanes share a column, lane h keeping rows lane_row(h, r) = 4 r + h of g
+// and gy, and a block of kWideTile columns (256 threads) sums each child's
+// dP from two shared tiles of its columns' gy and x rows, one 4 x 4
+// sub-block a thread.
+constexpr int kWideLanes = 4;
+constexpr int kWideTile = 64;
+
+// Floats of one 64-state reverse block: a P ring of kPStages stages of
+// `children` S x S blocks, rows p_row apart, then the gy and x tiles
+// (2, tile, p_row).
+template <int S>
+__host__ __device__ constexpr size_t wide_smem_floats(int children, int tile) {
+  return (static_cast<size_t>(kPStages) * children * S + 2 * static_cast<size_t>(tile)) *
+         p_row<S>();
+}
+
+// 16-byte vector q of row r of an S x S block of P: staged in shared memory
+// (kShared, rows p_row apart) or in device memory (row-major, read through
+// the read-only path).
+template <int S, bool kShared>
+__device__ __forceinline__ float4 wide_p_vec(const float* pm, int r, int q) {
+  if constexpr (kShared) {
+    return p_vec<S>(pm, r, q);
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(pm + r * S) + q);
+  }
+}
+
+// Steps of the j loops below unrolled: 4 (wide_times_child) or 2
+// (wide_transpose) with P in shared memory; 1 with P in device memory,
+// where ptxas otherwise keeps every unrolled step's 16-byte loads of P in
+// flight at once (B7's 64-state kernel took 255 registers and spilled 68
+// bytes with both of its paths unrolled alike: nvcc -Xptxas -v, sm_90a).
+template <bool kShared>
+__host__ __device__ constexpr int wide_unroll(int shared_steps) {
+  return kShared ? shared_steps : 1;
+}
+
+// gy[r] *= (P x)[lane_row(h, r)] for lane h's S / kWideLanes rows, with x a
+// row of S floats in device memory read as 16-byte vectors (not held in
+// registers): each row's fmaf chain in j order, times_child's.
+template <int S, bool kShared>
+__device__ __forceinline__ void wide_times_child(const float* pm,
+                                                 const float* x, int h,
+                                                 float (&gy)[S / kWideLanes]) {
+  constexpr int kL = kWideLanes;
+  constexpr int kRows = S / kL;
+  constexpr int kUnroll = wide_unroll<kShared>(4);
+  const float4* xo = reinterpret_cast<const float4*>(x);
+  float y[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
+#pragma unroll (kUnroll)
+  for (int q = 0; q < S / 4; ++q) {
+    const float4 xv = xo[q];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 v = wide_p_vec<S, kShared>(pm, lane_row<S, kL>(h, r), q);
+      y[r] = fmaf(v.x, xv.x, y[r]);
+      y[r] = fmaf(v.y, xv.y, y[r]);
+      y[r] = fmaf(v.z, xv.z, y[r]);
+      y[r] = fmaf(v.w, xv.w, y[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) gy[r] *= y[r];
+}
+
+// Entries [h kRows, (h + 1) kRows) of P^T gy, gy the column's whole row in
+// the shared gy tile: each an fmaf chain in j order (transpose_apply's).
+template <int S, bool kShared>
+__device__ __forceinline__ void wide_transpose(const float* pm,
+                                               const float* gy_row, int h,
+                                               float (&gc)[S / kWideLanes]) {
+  constexpr int kRows = S / kWideLanes;
+  constexpr int kUnroll = wide_unroll<kShared>(2);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) gc[r] = 0.0f;
+#pragma unroll (kUnroll)
+  for (int q = 0; q < S / 4; ++q) {
+    const float4 gv = *reinterpret_cast<const float4*>(gy_row + 4 * q);
+    const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int v = 0; v < kRows / 4; ++v) {
+        const float4 pv = wide_p_vec<S, kShared>(pm, 4 * q + jj, h * kRows / 4 + v);
+        gc[4 * v] = fmaf(pv.x, ga[jj], gc[4 * v]);
+        gc[4 * v + 1] = fmaf(pv.y, ga[jj], gc[4 * v + 1]);
+        gc[4 * v + 2] = fmaf(pv.z, ga[jj], gc[4 * v + 2]);
+        gc[4 * v + 3] = fmaf(pv.w, ga[jj], gc[4 * v + 3]);
+      }
+    }
+  }
+}
+
+// Lane h's rows of one node's row of S floats (g from its slot or a seed):
+// src[lane_row(h, r)].
+template <int S>
+__device__ __forceinline__ void wide_load_rows(const float* src, int h,
+                                               float (&v)[S / kWideLanes]) {
+#pragma unroll
+  for (int r = 0; r < S / kWideLanes; ++r) v[r] = src[lane_row<S, kWideLanes>(h, r)];
+}
+
+// One child of a 64-state reverse visit, up to its dP: lane h's gy rows into
+// the column's row of the gy tile and its quarter [h kRows, (h + 1) kRows)
+// of the child's partials row `x` (zeros past the sites) into the x tile,
+// a block barrier, then sub-block (ib, jb) of gy x^T summed over the
+// tile's columns in column order (two 16-byte loads per 16 FMAs) into acc.
+template <int S>
+__device__ __forceinline__ void wide_dp_tiles(float* gy_t, float* x_t, int col,
+                                              int h, bool live, const float* x,
+                                              const float (&gy)[S / kWideLanes],
+                                              float (&acc)[16]) {
+  constexpr int kRows = S / kWideLanes;
+  constexpr int LD = p_row<S>();
+  constexpr int kSub = S / 4;
+  float* gy_row = gy_t + col * LD;
+  float* x_row = x_t + col * LD;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) gy_row[lane_row<S, kWideLanes>(h, r)] = gy[r];
+  float4 xq[kRows / 4];
+#pragma unroll
+  for (int q = 0; q < kRows / 4; ++q) {
+    xq[q] = live ? reinterpret_cast<const float4*>(x)[h * kRows / 4 + q]
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int q = 0; q < kRows / 4; ++q) reinterpret_cast<float4*>(x_row + h * kRows)[q] = xq[q];
+  __syncthreads();  // both tiles are whole
+  const int ib = threadIdx.x / kSub;
+  const int jb = threadIdx.x % kSub;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+  for (int s2 = 0; s2 < kWideTile; ++s2) {
+    const float4 gv = *reinterpret_cast<const float4*>(gy_t + s2 * LD + 4 * ib);
+    const float4 xv = *reinterpret_cast<const float4*>(x_t + s2 * LD + 4 * jb);
+    const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+    const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a * 4 + e] = fmaf(ga[a], xa[e], acc[a * 4 + e]);
+    }
+  }
+}
+
 // Exact power-of-two rescale, bit for bit ops/pruning.pow2_rescale: scales
 // acc by 2^-floor(log2 m), m = max(max_r acc[r], FLT_MIN), and returns the
 // exponent floor(log2 m) (an exact integer, in f32).
@@ -287,14 +463,132 @@ __device__ __forceinline__ float exp2_int(float k) {
   return __int_as_float((ki + 127) << 23);
 }
 
-// Calls launch(std::integral_constant<int, S>{}) for the state counts the
-// kernels are compiled for: DNA 4, protein 20 and, where kWide (the
-// kernels of the codon path: B1, B2, B3 and B5), 64, the width codon's 61
+// 2^{-r_n} of one visit at one column: the exponent counts of the node's
+// internal children, summed in child order, minus the node's own (es holds
+// the internal nodes' counts, (n_inner, sites)).
+__device__ __forceinline__ float visit_inv_m(const int* __restrict__ kids,
+                                             int cnt, int node, int n_leaves,
+                                             const float* __restrict__ es,
+                                             size_t ns, int site) {
+  float esum = 0.0f;
+  for (int c = 0; c < cnt; ++c) {
+    const int child = __ldg(kids + c);
+    if (child >= n_leaves) {
+      esum += es[static_cast<size_t>(child - n_leaves) * ns + site];
+    }
+  }
+  return exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * ns + site]);
+}
+
+// Child c of a 64-state reverse visit: the body B3's and B7's 64-state
+// kernels share, which differ only in where a node's g comes from and in
+// how a block's dP row adds up over its tiles. gy = g x the siblings' y (in
+// child order) x inv_m; sub-block (threadIdx.x / 16, threadIdx.x % 16) of
+// the child's dP over the block's tile stored at dst (row-major S x S), or
+// added to what is there when `add`; then, where `out` is not null, lane
+// h's quarter of P_c^T gy, plus the same quarter of the row `plus` where
+// that is not null (a seed below another seed), stored into the row `out`.
+// p_of(c2) is child c2's P block (staged, rows p_row apart, when kShared)
+// and x_of(c2) its partials row at this column. Ends with a block barrier:
+// the tiles are read before the next child's overwrite them.
+template <int S, bool kShared, class POf, class XOf>
+__device__ __forceinline__ void wide_reverse_child(
+    int c, int cnt, const POf& p_of, const XOf& x_of, bool live,
+    const float (&g)[S / kWideLanes], float inv_m, float* gy_t, float* x_t,
+    int col, int h, float* dst, bool add, const float* plus, float* out) {
+  constexpr int kRows = S / kWideLanes;
+  constexpr int kSub = S / 4;
+  float gy[kRows];  // the siblings' product, then gy, rows 4 r + h
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) gy[r] = 1.0f;
+  if (live) {
+    for (int c2 = 0; c2 < cnt; ++c2) {
+      if (c2 == c) continue;
+      wide_times_child<S, kShared>(p_of(c2), x_of(c2), h, gy);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) gy[r] = g[r] * gy[r] * inv_m;
+  float acc[16];  // dP sub-block (ib, jb) of the child over the tile
+  wide_dp_tiles<S>(gy_t, x_t, col, h, live, x_of(c), gy, acc);
+  const int ib = threadIdx.x / kSub;
+  const int jb = threadIdx.x % kSub;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float4* d = reinterpret_cast<float4*>(dst + (4 * ib + a) * S + 4 * jb);
+    float4 v = make_float4(acc[a * 4], acc[a * 4 + 1], acc[a * 4 + 2], acc[a * 4 + 3]);
+    if (add) {
+      const float4 o = *d;
+      v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+    }
+    *d = v;
+  }
+  if (out != nullptr) {
+    float gc[kRows];
+    wide_transpose<S, kShared>(p_of(c), gy_t + col * p_row<S>(), h, gc);
+    if (plus != nullptr) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) gc[r] += plus[h * kRows + r];
+    }
+    store_part<kRows>(out + h * kRows, gc);
+  }
+  __syncthreads();
+}
+
+namespace {
+
+// dP[b, node, k] = sum over the rows of dp_rows[b, k, :, node] in row
+// order with a compensated (Kahan) add; zero for `root` (-1: none, the
+// caller zeroed its rows). One thread per entry of dP (B, n_nodes, K, S,
+// S). The one row sum of the reverse walks (B3 and B7), in the anonymous
+// namespace so that each source instantiates its own.
+template <int S>
+__global__ void __launch_bounds__(256)
+dp_rows_kernel(const float* __restrict__ dp_rows,  // (B, K, rows, n_nodes, S, S)
+               float* __restrict__ dp,             // (B, n_nodes, K, S, S)
+               int B, int K, int n_nodes, int rows, int root) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<size_t>(B) * n_nodes * K * S * S) return;
+  const int e = static_cast<int>(idx % (S * S));
+  const int k = static_cast<int>(idx / (S * S) % K);
+  const int node = static_cast<int>(idx / (static_cast<size_t>(S) * S * K) % n_nodes);
+  const size_t b = idx / (static_cast<size_t>(S) * S * K * n_nodes);
+  if (node == root) {  // no parent edge
+    dp[idx] = 0.0f;
+    return;
+  }
+  const size_t stride = static_cast<size_t>(n_nodes) * S * S;
+  const float* __restrict__ src = dp_rows + (b * K + k) * rows * stride +
+                                  static_cast<size_t>(node) * S * S + e;
+  float acc = 0.0f;
+  float comp = 0.0f;
+  for (int t = 0; t < rows; ++t) {
+    const float y = src[t * stride] - comp;
+    const float s = acc + y;
+    comp = (s - acc) - y;
+    acc = s;
+  }
+  dp[idx] = acc;
+}
+
+// Launches dp_rows_kernel<S> on `stream`; returns cudaGetLastError().
+template <int S>
+int launch_dp_rows(const float* dp_rows, float* dp, int B, int K,
+                   int n_nodes, int rows, int root, cudaStream_t stream) {
+  const size_t n = static_cast<size_t>(B) * n_nodes * K * S * S;
+  dp_rows_kernel<S><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      dp_rows, dp, B, K, n_nodes, rows, root);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Calls launch(std::integral_constant<int, S>{}) for the state counts every
+// kernel is compiled for: DNA 4, protein 20 and 64, the width codon's 61
 // (or 60) states and every count from 21 to 63 are padded to
 // (ops/cuda_pruning.py::padded_states). Any other count returns
-// cudaErrorInvalidValue without launching (and without instantiating the
-// kernel at 64 where not kWide).
-template <bool kWide = false, typename F>
+// cudaErrorInvalidValue without launching.
+template <typename F>
 int dispatch_states(int s, F&& launch) {
   switch (s) {
     case 4:
@@ -302,11 +596,7 @@ int dispatch_states(int s, F&& launch) {
     case 20:
       return launch(std::integral_constant<int, 20>{});
     case 64:
-      if constexpr (kWide) {
-        return launch(std::integral_constant<int, 64>{});
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
+      return launch(std::integral_constant<int, 64>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -310,7 +310,7 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
       static_cast<float*>(root),      static_cast<float*>(root_e),
       K, n_nodes, n_leaves, n_edges, sites,
       n_rows, smem_rows, cols, chunk, stage_leaves};
-  return pruning::launch_rows<1, true>(w, B, S, lanes, stream);
+  return pruning::launch_rows(w, B, S, lanes, stream);
 }
 
 // The forward walk keeping every internal node, the root included, in
@@ -335,7 +335,7 @@ extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return pruning::dispatch_states<true>(S, [&](auto s) {
+  return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
     const auto launch = [&](auto kernel, int per_block) {
       const size_t smem = static_cast<size_t>(pruning::kPStages) * chunk *

@@ -48,8 +48,8 @@
 //   FMAs, with only __syncwarp. The warps' sums are added in warp order at
 //   the next visit's barrier, and one plain store puts each entry in the
 //   block's own row of dp_rows, (B, K, tiles, n_nodes, S, S).
-//   pruning_dp_rows_kernel then sums the rows in tile order with a
-//   compensated add. No atomics and no read-modify-write: two launches on
+//   pruning_common.cuh's dp_rows_kernel (B7's too) then sums the rows in
+//   tile order with a compensated add. No atomics and no read-modify-write: two launches on
 //   the same inputs give bit-identical dP.
 // - Blocks are 256 sites wide (reverse_tile in ops/cuda_pruning.py:
 //   narrower only where a node's children would not fit the stage): the
@@ -72,7 +72,8 @@
 // take ~5 x 64 registers, and a warp's 64 x 64 dP entries fit neither
 // registers nor the warp-private layout of S = 20. So
 // pruning_reverse_wide_kernel splits a column over kWideLanes = 4 lanes
-// and sums dP over the whole block:
+// and sums dP over the whole block (pruning_common.cuh's wide_* helpers,
+// which B7's 64-state kernel shares):
 // - lane h keeps g, the siblings' product and gy for rows 4 r + h
 //   (r < 16), y = P x of a sibling formed row by row with the sibling's
 //   row read from device memory as 16-byte vectors, each row's fmaf chain
@@ -276,21 +277,11 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   flush(n_int - 1);
 }
 
-// Lanes a column of the 64-state reverse walk (see the header).
-constexpr int kWideLanes = 4;
-
-// Shared memory of one S-state (64) block of `tile` columns: the P ring
-// (kPStages, cmax, S, p_row) and the gy and x tiles (2, tile, p_row).
-template <int S>
-__host__ __device__ constexpr size_t wide_smem_floats(int cmax, int tile) {
-  return (static_cast<size_t>(pruning::kPStages) * cmax * S +
-          2 * static_cast<size_t>(tile)) * pruning::p_row<S>();
-}
-
-// The deferred reverse at S = 64 (see the header): kWideLanes lanes a
-// column, S^2 / 16 threads a block (a 4 x 4 dP sub-block each), so
-// S^2 / (16 kWideLanes) columns a block; same arguments and outputs as
-// pruning_reverse_walk_kernel.
+// The deferred reverse at S = 64 (see the header; the layout and its
+// helpers are pruning_common.cuh's wide_*): kWideLanes lanes a column,
+// kWideTile columns a block of 256 threads, one tile a block; same
+// arguments and outputs as pruning_reverse_walk_kernel. Each child is
+// wide_reverse_child, the body B7's 64-state kernel shares.
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
@@ -309,12 +300,12 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
                             int cmax, int sites, int n_gslots) {
-  constexpr int kL = kWideLanes;
-  constexpr int kRows = S / kL;        // rows of g, sib, gy a lane keeps
+  constexpr int kL = pruning::kWideLanes;
+  constexpr int kRows = S / kL;        // rows of g a lane keeps
   constexpr int kSub = S / 4;          // 4 x 4 dP sub-blocks a side
-  constexpr int kTile = kSub * kSub / kL;  // columns a block
+  constexpr int kTile = pruning::kWideTile;  // columns a block
   constexpr int LD = pruning::p_row<S>();   // floats between staged rows
-  static_assert(S % 16 == 0 && S + 4 <= LD && kSub * kSub <= kMaxTile,
+  static_assert(S % 16 == 0 && kTile * kL == kSub * kSub && kSub * kSub <= kMaxTile,
                 "16-byte vectors of a lane's quarter row, one sub-block a thread");
   extern __shared__ float4 smem_vec[];
   float* p_stage = reinterpret_cast<float*>(smem_vec);       // (kPStages, cmax, S, LD)
@@ -324,8 +315,6 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const int col = threadIdx.x / kL;
   const int site = blockIdx.x * kTile + col;
   const bool live = site < sites;
-  const int ib = threadIdx.x / kSub;   // the thread's dP sub-block
-  const int jb = threadIdx.x % kSub;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
   const size_t bk = static_cast<size_t>(b) * K + k;
@@ -388,163 +377,25 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
           g[r] = l * __ldg(freqs + pruning::lane_row<S, kL>(h, r));
         }
       } else {
-        const float* src = slots + (static_cast<size_t>(gs) * ns + site) * S;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) g[r] = src[pruning::lane_row<S, kL>(h, r)];
+        pruning::wide_load_rows<S>(slots + (static_cast<size_t>(gs) * ns + site) * S, h, g);
       }
-      // 2^{-r_n}: the children's exponent counts minus the node's
-      float esum = 0.0f;
-      for (int c = 0; c < cnt; ++c) {
-        const int child = __ldg(children + i * cmax + c);
-        if (child >= n_leaves) {
-          esum += es[static_cast<size_t>(child - n_leaves) * ns + site];
-        }
-      }
-      inv_m = pruning::exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * ns + site]);
+      inv_m = pruning::visit_inv_m(children + i * cmax, cnt, node, n_leaves, es, ns, site);
     }
+    const auto p_of = [&](int c) { return p_now + c * S * LD; };
+    const auto x_of = [&](int c) { return row_of(__ldg(children + i * cmax + c)); };
     for (int c = 0; c < cnt; ++c) {
       const int child = __ldg(children + i * cmax + c);
-      float gy[kRows];  // the siblings' product, then gy, rows 4 r + h
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) gy[r] = 1.0f;
-      if (live) {
-        for (int c2 = 0; c2 < cnt; ++c2) {
-          if (c2 == c) continue;
-          const float4* xo = reinterpret_cast<const float4*>(
-              row_of(__ldg(children + i * cmax + c2)));
-          const float* pm = p_now + c2 * S * LD;
-          float y[kRows];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
-#pragma unroll 4
-          for (int q = 0; q < S / 4; ++q) {
-            const float4 xv = xo[q];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float4 v =
-                  pruning::p_vec<S>(pm, pruning::lane_row<S, kL>(h, r), q);
-              y[r] = fmaf(v.x, xv.x, y[r]);
-              y[r] = fmaf(v.y, xv.y, y[r]);
-              y[r] = fmaf(v.z, xv.z, y[r]);
-              y[r] = fmaf(v.w, xv.w, y[r]);
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) gy[r] *= y[r];
-        }
+      float* out = nullptr;  // the child's outside vector: its slot, or dleaf
+      if (live && child >= n_leaves) {
+        out = slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S;
+      } else if (live && dls != nullptr) {
+        out = dls + (static_cast<size_t>(child) * ns + site) * S;
       }
-      // the column's gy and x_c rows into the tiles (zero past the sites)
-      float* gy_row = gy_t + col * LD;
-      float* x_row = x_t + col * LD;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        gy[r] = g[r] * gy[r] * inv_m;
-        gy_row[pruning::lane_row<S, kL>(h, r)] = gy[r];
-      }
-      {
-        float4 xq[kRows / 4];  // lane h's quarter [h kRows, (h + 1) kRows)
-        const float4* xc = reinterpret_cast<const float4*>(row_of(child));
-#pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          xq[q] = live ? xc[h * kRows / 4 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          reinterpret_cast<float4*>(x_row + h * kRows)[q] = xq[q];
-        }
-      }
-      __syncthreads();  // both tiles are whole
-      {  // dP sub-block (ib, jb) of the child: gy x^T summed over the
-         // tile's columns in column order, into the block's row
-        float acc[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
-        for (int s2 = 0; s2 < kTile; ++s2) {
-          const float4 gv = *reinterpret_cast<const float4*>(gy_t + s2 * LD + 4 * ib);
-          const float4 xv = *reinterpret_cast<const float4*>(x_t + s2 * LD + 4 * jb);
-          const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[a * 4 + e] = fmaf(ga[a], xa[e], acc[a * 4 + e]);
-          }
-        }
-        float* dst = rows + static_cast<size_t>(child) * S * S;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          reinterpret_cast<float4*>(dst + (4 * ib + a) * S + 4 * jb)[0] =
-              make_float4(acc[a * 4], acc[a * 4 + 1], acc[a * 4 + 2], acc[a * 4 + 3]);
-        }
-      }
-      if (live && (child >= n_leaves || dls != nullptr)) {
-        // entries [h kRows, (h + 1) kRows) of the child's outside vector
-        // P_c^T gy_c from the gy tile, each an fmaf chain in j order
-        const float* pm = p_now + c * S * LD + h * kRows;
-        float gc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) gc[r] = 0.0f;
-#pragma unroll 2
-        for (int q = 0; q < S / 4; ++q) {
-          const float4 gv = *reinterpret_cast<const float4*>(gy_row + 4 * q);
-          const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-            for (int v = 0; v < kRows / 4; ++v) {
-              const float4 pv = *reinterpret_cast<const float4*>(
-                  pm + (4 * q + jj) * LD + 4 * v);
-              gc[4 * v] = fmaf(pv.x, ga[jj], gc[4 * v]);
-              gc[4 * v + 1] = fmaf(pv.y, ga[jj], gc[4 * v + 1]);
-              gc[4 * v + 2] = fmaf(pv.z, ga[jj], gc[4 * v + 2]);
-              gc[4 * v + 3] = fmaf(pv.w, ga[jj], gc[4 * v + 3]);
-            }
-          }
-        }
-        float* out = child >= n_leaves
-            ? slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S
-            : dls + (static_cast<size_t>(child) * ns + site) * S;
-#pragma unroll
-        for (int v = 0; v < kRows / 4; ++v) {
-          reinterpret_cast<float4*>(out + h * kRows)[v] =
-              make_float4(gc[4 * v], gc[4 * v + 1], gc[4 * v + 2], gc[4 * v + 3]);
-        }
-      }
-      __syncthreads();  // the tiles are read before the next child's overwrite them
+      pruning::wide_reverse_child<S, true>(c, cnt, p_of, x_of, live, g, inv_m, gy_t, x_t,
+                                           col, h, rows + static_cast<size_t>(child) * S * S,
+                                           false, nullptr, out);
     }
   }
-}
-
-// dP[b, node, k] = sum over the rows of dp_rows[b, k, :, node] in row
-// order with a compensated (Kahan) add; zero for the root. One thread per
-// entry of dP (B, n_nodes, K, S, S).
-template <int S>
-__global__ void __launch_bounds__(256)
-pruning_dp_rows_kernel(const float* __restrict__ dp_rows,  // (B, K, rows, n_nodes, S, S)
-                       float* __restrict__ dp,             // (B, n_nodes, K, S, S)
-                       int B, int K, int n_nodes, int rows, int root) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(B) * n_nodes * K * S * S) return;
-  const int e = static_cast<int>(idx % (S * S));
-  const int k = static_cast<int>(idx / (S * S) % K);
-  const int node = static_cast<int>(idx / (static_cast<size_t>(S) * S * K) % n_nodes);
-  const size_t b = idx / (static_cast<size_t>(S) * S * K * n_nodes);
-  if (node == root) {  // no parent edge
-    dp[idx] = 0.0f;
-    return;
-  }
-  const size_t stride = static_cast<size_t>(n_nodes) * S * S;
-  const float* __restrict__ src = dp_rows + (b * K + k) * rows * stride +
-                                  static_cast<size_t>(node) * S * S + e;
-  float acc = 0.0f;
-  float comp = 0.0f;
-  for (int t = 0; t < rows; ++t) {
-    const float y = src[t * stride] - comp;
-    const float s = acc + y;
-    comp = (s - acc) - y;
-    acc = s;
-  }
-  dp[idx] = acc;
 }
 
 }  // namespace
@@ -577,7 +428,7 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (sites + tile - 1) / tile;
   const dim3 grid(tiles, K, B);
-  return pruning::dispatch_states<true>(S, [&](auto s) {
+  return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
     const auto launch = [&](auto walk, int threads, size_t smem) {
       if (smem > 48 * 1024) {
@@ -599,11 +450,11 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
     };
     cudaError_t err;
     if constexpr (kS == 64) {
-      if (tile * kWideLanes != (kS / 4) * (kS / 4)) {
+      if (tile != pruning::kWideTile) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      err = launch(pruning_reverse_wide_kernel<kS>, tile * kWideLanes,
-                   wide_smem_floats<kS>(cmax, tile) * sizeof(float));
+      err = launch(pruning_reverse_wide_kernel<kS>, tile * pruning::kWideLanes,
+                   pruning::wide_smem_floats<kS>(cmax, tile) * sizeof(float));
     } else {
       const size_t warps = tile / 32;
       size_t floats = (pruning::kPStages + 2 * warps) * cmax * kS * kS;
@@ -612,10 +463,8 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
                    floats * sizeof(float));
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t n = static_cast<size_t>(B) * n_nodes * K * kS * kS;
-    pruning_dp_rows_kernel<kS><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(dp_rows), static_cast<float*>(dp), B, K,
-        n_nodes, tiles, root);
-    return static_cast<int>(cudaGetLastError());
+    return pruning::launch_dp_rows<kS>(static_cast<const float*>(dp_rows),
+                                       static_cast<float*>(dp), B, K, n_nodes,
+                                       tiles, root, st);
   });
 }

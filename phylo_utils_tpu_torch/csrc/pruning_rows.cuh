@@ -104,26 +104,6 @@ size_t row_smem_bytes(int s, int cols, int chunk, int stage_leaves,
           static_cast<size_t>(smem_rows) * fold * cols * (s + 1));
 }
 
-// A lane's kRows entries of a row, stored as the widest vectors they allow.
-template <int kRows>
-__device__ __forceinline__ void store_part(float* dst, const float (&v)[kRows]) {
-  if constexpr (kRows % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < kRows / 4; ++q) {
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-  } else if constexpr (kRows % 2 == 0) {
-#pragma unroll
-    for (int q = 0; q < kRows / 2; ++q) {
-      reinterpret_cast<float2*>(dst)[q] = make_float2(v[2 * q], v[2 * q + 1]);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) dst[r] = v[r];
-  }
-}
-
 // A lane's kRows = S / kL entries of a row (lane_row's rows of the row
 // `dst`): the widest vectors they allow, interleaved scalars at 64 states.
 template <int S, int kL>
@@ -329,7 +309,7 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const RowWalk w) {
       const int c = v / kBlockVecs;
       const int q = v - c * kBlockVecs;
       const int child = __ldg(w.edges + f0 + c);
-      if constexpr (S == 64) {   // rows p_row apart (F = 1 at 64 states)
+      if constexpr (S == 64) {   // rows p_row apart, F blocks an edge
         cp_async16(dst + c * F * p_block<S>() + (q / (S * S / 4)) * p_block<S>() +
                        p_stage_offset<S>(q % (S * S / 4)),
                    at.pb + child * at.p_node_stride + 4 * q);
@@ -419,7 +399,8 @@ inline bool row_launch_ok(const RowWalk& w, int B, int lanes, int F) {
 // The lane counts compiled at S (1, 2, 4 at S = 4; 1, 2 at S = 20; 2, 4
 // at S = 64, where one lane's 64 accumulators beside its 64-entry child
 // row would leave few warps an SM) for F categories a column; any other
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue. (B9 compiles its own (F, lanes) pairs:
+// pruning_fold.cu.)
 template <int S, int F>
 int launch_lanes(const RowWalk& w, int B, int lanes, cudaStream_t st) {
   if constexpr (S != 64) {
@@ -433,18 +414,18 @@ int launch_lanes(const RowWalk& w, int B, int lanes, cudaStream_t st) {
 }
 
 // Launches the live-row walk `w` over B batch elements with `lanes` lanes a
-// column, one category a column (B1, B4), on `stream`; kWide compiles it
-// at 64 states too (B1 only). A launch that row_launch_ok refuses, or a
-// lane count or state count that is not compiled, returns
-// cudaErrorInvalidValue without launching. (A template, so that a source
-// that does not call it compiles none of its kernels.)
-template <int F = 1, bool kWide = false>
+// column, one category a column (B1, B4), on `stream`, at 4, 20 or 64
+// states. A launch that row_launch_ok refuses, or a lane count or state
+// count that is not compiled, returns cudaErrorInvalidValue without
+// launching. (A template, so that a source that does not call it compiles
+// none of its kernels.)
+template <int F = 1>
 int launch_rows(const RowWalk& w, int B, int S, int lanes, void* stream) {
   if (!row_launch_ok(w, B, lanes, F)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch_states<kWide>(S, [&](auto s) {
+  return dispatch_states(S, [&](auto s) {
     return launch_lanes<decltype(s)::value, F>(w, B, lanes, st);
   });
 }

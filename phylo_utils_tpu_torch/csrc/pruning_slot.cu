@@ -281,7 +281,7 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return pruning::dispatch_states<true>(S, [&](auto s) {
+  return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
     auto kernel = pruning_stream_kernel<kS>;
     const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax *
@@ -315,7 +315,9 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
 // n_rows = n_slots. Launch on `stream`; returns cudaGetLastError() after
 // the launch (0 = ok), the error of granting the shared memory, or
 // cudaErrorInvalidValue without launching for a geometry that is not
-// compiled. S is 4 or 20 (not built at 64).
+// compiled. S is 4, 20 or 64 (lanes 2 or 4 at 64, B1's body: the walk
+// that PHYLO_FORCE_STREAM=0 takes past the classic budget at codon width,
+// as _pallas_forward takes _dynamic_slot_kernel there).
 extern "C" int pruning_slot_f32(const void* p, const void* leaves,
                                 const void* edges, const void* eword,
                                 void* spill, void* spill_e, void* root,

@@ -1,16 +1,13 @@
 """Fused pruning on the GPU: the port of the whole-tree and big-tree paths
 of ``phylo_utils_tpu.ops.pallas_pruning``.
 
-Hand-written CUDA kernels, compiled for 4 (DNA) and 20 (protein) states
-and, on the codon path (B1, B2, B3 and B5), for 64, each with a
-plain-PyTorch version beside it that CPU tensors take (a CUDA tensor
-launches the kernel or raises). The entry points the engines call,
-``make_fused_loglik_fn`` and ``make_cuda_prune_fn``, pad every other state
-count with zero states up to the next compiled width (``padded_states``:
-2-3 -> 4, 5-19 -> 20, 21-63 -> 64, so codon's 61 and Mk's 2-32 states
-run); B4, B7, B8 and B9 are not built at 64 and raise
-``NotImplementedError`` there (ROADMAP B.1 item 1), on any device, before
-any launch:
+Hand-written CUDA kernels, every one compiled for 4 (DNA), 20 (protein)
+and 64 states, each with a plain-PyTorch version beside it that CPU
+tensors take (a CUDA tensor launches the kernel or raises). The entry
+points the engines call, ``make_fused_loglik_fn`` and
+``make_cuda_prune_fn``, pad every other state count with zero states up to
+the next compiled width (``padded_states``: 2-3 -> 4, 5-19 -> 20, 21-63 ->
+64, so codon's 61 and Mk's 2-32 states run):
 
 - ``forward_walk(..., walk="classic")`` (``csrc/pruning_forward.cu``,
   replaces the TPU kernel ``_dynamic_kernel``): a post-order walk that forms
@@ -49,7 +46,9 @@ any launch:
   of ``ReverseSchedule``, P staged in shared memory for every visit whose
   children fit the stage (``classic_reverse_stage``) and read through L1
   for a wider one; it stores no gy and takes a node of any number of
-  children. Plain version ``classic_reverse_walk_reference``.
+  children. At 64 states both reverses take four lanes a column and sum dP
+  over a block of 64 columns (``csrc/pruning_common.cuh``'s wide_*
+  helpers). Plain version ``classic_reverse_walk_reference``.
 
 - ``static_walk`` (``csrc/pruning_static.cu``, replaces ``_static_kernel``):
   the live-row walk over the DFS slots compiled for one topology
@@ -60,13 +59,14 @@ any launch:
   leaf row read once for all F. Both roots are bit for bit the forward
   kernel's; their plain version is ``forward_walk_reference``.
 
-``forward_walk(walk="auto")`` picks the walk (``choose_walk``) and, where
-that is the classic walk, its lowering as the JAX package's
-``_pallas_forward`` does (``choose_lowering``: static while the internal
-nodes are at most ``STATIC_UNROLL_MAX``, env ``PHYLO_STATIC_UNROLL_MAX``;
-else the fold of 2 under ``PHYLO_PACK_DNA=1`` at 4 states, or of
-``_pick_fold``'s F under ``PHYLO_FOLD_CATEGORIES``; else the forward
-kernel). All three knobs are off by default.
+``forward_walk(walk="auto")`` picks the walk (``choose_walk``, which reads
+``PHYLO_FORCE_STREAM`` as the JAX package does) and, where that is the
+classic walk, its lowering as the JAX package's ``_pallas_forward`` does
+(``choose_lowering``: static while the internal nodes are at most
+``STATIC_UNROLL_MAX``, env ``PHYLO_STATIC_UNROLL_MAX``; else the fold of 2
+under ``PHYLO_PACK_DNA=1`` at 4 states, or of ``_pick_fold``'s F under
+``PHYLO_FOLD_CATEGORIES``; else the forward kernel); the static walk also
+precedes a forced stream. The three lowering knobs are off by default.
 
 ``make_fused_loglik_fn`` ties them into a differentiable per-(category,
 site) log-likelihood: value calls run ``forward_walk``; calls that need a
@@ -168,38 +168,32 @@ STATIC_UNROLL_MAX = int(os.environ.get("PHYLO_STATIC_UNROLL_MAX", "0"))
 # (csrc/pruning_fold.cu's FoldWidths and fold_compiled): the lane counts
 # of _ROW_LANES at which ptxas takes the width without a spill (F = 4 at 4
 # states spilled at one and four lanes), where the TPU's fold stopped at
-# its 128 lanes
+# its 128 lanes (at 64 states F = 2, its widest there, at two lanes: four
+# spilled)
 FOLD_WIDTHS = {4: {2: (1, 2, 4), 4: (2,)},
-               20: {2: (1, 2), 3: (1, 2), 4: (1, 2), 5: (1, 2)}}
+               20: {2: (1, 2), 3: (1, 2), 4: (1, 2), 5: (1, 2)},
+               64: {2: (2,)}}
 
 # CUDA caps gridDim.z (the batch axis of the launch) at 65535
 _MAX_GRID_Z = 65535
 # share of the free device memory one launch's scratch may take
 _MEM_FRACTION = 0.9
-# the state counts the kernels of the codon path (B1, B2, B3, B5) are
-# compiled for: DNA, protein and 64, the width codon's 61 (or 60) states
-# pad to; every other count is padded up to the next (padded_states)
+# the state counts every kernel is compiled for: DNA, protein and 64, the
+# width codon's 61 (or 60) states pad to; every other count is padded up to
+# the next (padded_states)
 KERNEL_STATES = (4, 20, 64)
-# the kernels built at 4 and 20 states only, with the TPU kernel each
-# replaces (ROADMAP B.1 item 1: still to build at 64)
-_NOT_AT_64 = {
-    "slot": "B4 pruning_slot_f32 (_dynamic_slot_kernel, pallas_pruning.py:642)",
-    "static": "B8 pruning_static_f32 (_static_kernel, pallas_pruning.py:402)",
-    "fold": "B9 pruning_fold_f32 (_pick_fold's lowering, pallas_pruning.py:333)",
-    "classic_reverse": ("B7 pruning_classic_reverse_f32 (_dynamic_bwd_kernel, "
-                        "pallas_pruning.py:879)"),
-}
 # sites per block of the deferred reverse kernel, widest first
 # (reverse_tile)
 _REVERSE_TILES = (256, 128, 64, 32)
 # shared memory one block may take: an H100 SM's 227 KB
 _REVERSE_SMEM = 232_448
-# columns a block of the deferred reverse at 64 states (csrc/
-# pruning_reverse.cu pruning_reverse_wide_kernel: four lanes each, 256
-# threads), and floats between the rows of a P block staged in shared
-# memory at 64 states (csrc/pruning_common.cuh p_row; the reverse's gy and
-# x tiles too): 4 more than 64, so that the rows a column's four lanes read
-# at once fall in four bank quads
+# columns a block of the reverses at 64 states (csrc/pruning_common.cuh
+# kWideTile: B3's pruning_reverse_wide_kernel and B7's
+# classic_reverse_wide_kernel, four lanes each, 256 threads), and floats
+# between the rows of a P block staged in shared memory at 64 states
+# (csrc/pruning_common.cuh p_row; the reverses' gy and x tiles too): 4 more
+# than 64, so that the rows a column's four lanes read at once fall in four
+# bank quads
 _WIDE_TILE, _WIDE_ROW = 64, 68
 # edges of the walk a step of the saveall kernel stages (saveall_stage),
 # and lanes that share one of its columns, by state count: two lanes, each
@@ -211,8 +205,10 @@ _WIDE_TILE, _WIDE_ROW = 64, 68
 # and 2 edges a step: a ring of 96 KB, two blocks an SM
 _SAVEALL_CHUNK = {4: 64, 20: 8, 64: 2}
 _SAVEALL_LANES = {4: 1, 20: 2, 64: 4}
-# sites per block of the classic reverse kernel: 128 was slower than 256
-# at every shape but B = 1 (kernel_turns.py, NVIDIA H100 80GB HBM3, 700 W)
+# sites per block of the classic reverse kernel at 4 and 20 states: 128 was
+# slower than 256 at every shape but B = 1 (kernel_turns.py, NVIDIA H100
+# 80GB HBM3, 700 W); at 64 states its block is _WIDE_TILE columns
+# (_classic_reverse_tile)
 _CLASSIC_REVERSE_TILE = 256
 # blocks per classic reverse launch, over (site rows, K, B), by state
 # count. Each block owns one dP partial row, so this caps the rows. At 4
@@ -220,8 +216,12 @@ _CLASSIC_REVERSE_TILE = 256
 # walks one tile a block (0.58 ms against 0.65 at 264 blocks); at 20
 # states two, which its registers let an SM hold: more blocks measured
 # the same where the sites allowed them and would grow the rows that keep
-# the classic reverse's scratch small (kernel_turns.py)
-_CLASSIC_REVERSE_BLOCKS = {4: 1056, 20: 264}
+# the classic reverse's scratch small (kernel_turns.py). At 64 states one
+# an SM, which a block of 139 KB (two staged children) or 191 KB (three) of
+# shared memory fills: 5.94 ms at 100 taxa x 4096 codon patterns, against
+# 6.10 at 264 and 528 blocks (chip_smoke.py phase 27, in turns; NVIDIA H100
+# 80GB HBM3, 700 W)
+_CLASSIC_REVERSE_BLOCKS = {4: 1056, 20: 264, 64: 132}
 # shared memory a classic reverse block may take to stage a visit's P
 # (classic_reverse_stage): the whole SM's; a budget that staged 2 or 3
 # children at 20 states and left the rest to L1, which a wider visit
@@ -258,6 +258,14 @@ _ROW_WARPS = 12
 # an H100: its SMs, and what one SM holds (shared memory with the 1 KB a
 # block reserves, blocks, threads)
 _SMS, _SM_SMEM, _SM_BLOCKS, _SM_THREADS = 132, 233_472, 32, 2048
+
+
+def _static_chunk(s: int) -> int:
+    """B8's compiled step at ``s`` states: ``_STATIC_CHUNK``, and at 64
+    states the shortest of ``_ROW_CHUNKS``, 2 edges, which row_geometry
+    takes for B1 there (a ring of 8 edges of 64 x 68-float P blocks, 418
+    KB, would not fit a block)."""
+    return _ROW_CHUNKS[0] if s == KERNEL_STATES[-1] else _STATIC_CHUNK
 
 
 def _postorder_arrays(schedule: PruningSchedule):
@@ -552,16 +560,16 @@ class WalkSchedule:
 
     def static_library(self, s: int):
         """B8's library for this topology at ``s`` states: the DFS slot
-        walk (``slots.rows``) compiled in, with a step of ``_STATIC_CHUNK``
-        edges, at each lane count of ``_ROW_LANES[s]`` (built by
-        ``_build.load_static_library`` at first use)."""
+        walk (``slots.rows``) compiled in, with a step of
+        ``_static_chunk(s)`` edges, at each lane count of ``_ROW_LANES[s]``
+        (built by ``_build.load_static_library`` at first use)."""
         if s not in self._static:
             from phylo_utils_tpu_torch.ops._build import load_static_library
 
             rw = self.slots.rows
             self._static[s] = load_static_library(
                 rw.edges, rw.eword, rw.n_rows, self.n_nodes, self.n_leaves,
-                s, _STATIC_CHUNK, _ROW_LANES[s])
+                s, _static_chunk(s), _ROW_LANES[s])
         return self._static[s]
 
     @property
@@ -960,17 +968,6 @@ def _check_cuda(p: torch.Tensor, *tensors: torch.Tensor):
         )
 
 
-def _refuse_wide(kind: str, s: int):
-    """Raises ``NotImplementedError`` where ``kind``'s kernel (a key of
-    ``_NOT_AT_64``) is asked for 64 states, on any device and before any
-    launch: it is built at 4 and 20 states only, and no plain walk stands
-    in for it on the card."""
-    if s == KERNEL_STATES[-1]:
-        raise NotImplementedError(
-            f"{_NOT_AT_64[kind]} is not built for {s} states yet (ROADMAP "
-            "B.1 item 1); the codon path runs B1, B2, B3 and B5 at 64")
-
-
 def padded_states(s: int) -> int:
     """The compiled width ``s`` states run at: the smallest of
     ``KERNEL_STATES`` that holds them (2-3 -> 4, 5-19 -> 20, 21-63 -> 64),
@@ -992,23 +989,35 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _stream_forced(s: int) -> bool:
+    """Whether the value path streams whatever the size at ``s`` states:
+    ``PHYLO_FORCE_STREAM`` read as the JAX package's ``_pallas_forward``
+    reads it, "1" at every width, "auto" (the default) at 32 states and
+    more, anything else ("0") never."""
+    env = os.environ.get("PHYLO_FORCE_STREAM", "auto")
+    return env == "1" or (env == "auto" and s >= 32)
+
+
 def choose_walk(b: int, k: int, n_inner: int, sites: int, s: int) -> str:
     """The value path's walk for a launch of ``b`` batch elements, ``k``
     categories, ``n_inner`` internal nodes, ``sites`` sites, ``s`` states.
 
-    The classic walk while a whole-tree scratch, b k n_inner sites (s + 1)
-    float32, would fit ``CLASSIC_SCRATCH_BUDGET`` bytes (the line the turns
-    put it at; no walk allocates that scratch now); beyond that the
-    O(depth) slot walk: at 20 states and more the stream walk (B5), below
-    it the slot walk (B4). At 32 states and more (codon's 64) the stream
-    walk whatever the size, as the JAX package's ``_pallas_forward`` takes
+    The stream walk (B5) where ``_stream_forced``: under
+    ``PHYLO_FORCE_STREAM=1`` at every width, and by default at 32 states
+    and more (codon's 64), as the JAX package's ``_pallas_forward`` takes
     its streaming kernel by default at a padded width of 32 or more.
+    Otherwise the classic walk while a whole-tree scratch, b k n_inner
+    sites (s + 1) float32, would fit ``CLASSIC_SCRATCH_BUDGET`` bytes (the
+    line the turns put it at; no walk allocates that scratch now); beyond
+    that the O(depth) slot walk: the stream walk at 20 states, the slot
+    walk (B4) at 4 and, under ``PHYLO_FORCE_STREAM=0``, at 64, where JAX
+    takes ``_dynamic_slot_kernel``.
     """
-    if s >= 32:
+    if _stream_forced(s):
         return "stream"
     if b * k * n_inner * sites * (s + 1) * 4 <= CLASSIC_SCRATCH_BUDGET:
         return "classic"
-    return "stream" if s >= 20 else "slot"
+    return "stream" if 20 <= s < 32 else "slot"
 
 
 RowGeometry = collections.namedtuple(
@@ -1137,8 +1146,9 @@ def _pick_fold(k: int, s: int) -> int:
     """Categories per thread of the fold lowering under
     ``PHYLO_FOLD_CATEGORIES``, with the JAX package's ``_pick_fold``
     semantics: "0" (the default) 1; "auto" as many as divide ``k``, at 20
-    states only; "<int>" at most that many. The widest F is the widest
-    ``FOLD_WIDTHS`` compiles at ``s`` (the TPU's was 128 lanes), and F must
+    and 64 states (not at 4); "<int>" at most that many. The widest F is
+    the widest ``FOLD_WIDTHS`` compiles at ``s`` (the TPU's was 128 lanes:
+    F = 2 at 64 states in both packages), and F must
     divide ``k``: a K that no compiled F divides is not folded (never
     padded)."""
     env = os.environ.get("PHYLO_FOLD_CATEGORIES", "0")
@@ -1198,9 +1208,9 @@ def forward_walk(
     sites, s = leaves.shape[1:]
     n_inner = schedule.n_nodes - schedule.n_leaves
     if walk == "auto":
-        if s >= 32 and len(schedule.order) <= STATIC_UNROLL_MAX:
+        if _stream_forced(s) and len(schedule.order) <= STATIC_UNROLL_MAX:
             # the topology-compiled walk precedes streaming, as in
-            # _pallas_forward (at 64 states it is not built: it raises)
+            # _pallas_forward
             return static_walk(p, leaves, schedule)
         walk = choose_walk(b, k, n_inner, sites, s)
         if walk == "classic":
@@ -1234,20 +1244,19 @@ def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
     ``row_geometry`` that fix its choices (``smem_rows``: rows kept in
     shared memory, the rest in device memory; ``lanes``, ``cols``,
     ``chunk``, ``stage_leaves``); B8's step is the one compiled in
-    (``_STATIC_CHUNK``), and another raises. CPU tensors take the plain
+    (``_static_chunk``), and another raises. CPU tensors take the plain
     version (``slot_walk_reference`` for B4, else
     ``forward_walk_reference``); CUDA tensors launch the kernel, once per
     batch chunk whose spilled rows fit free device memory, on the current
     stream."""
     s = leaves.shape[2]
-    if kind != "forward":
-        _refuse_wide(kind, s)
     if p.device.type == "cpu":
         plain = slot_walk_reference if kind == "slot" else forward_walk_reference
         return plain(p, leaves, walk)
     if kind == "static":
-        if geometry.setdefault("chunk", _STATIC_CHUNK) != _STATIC_CHUNK:
-            raise ValueError(f"B8 is compiled for a step of {_STATIC_CHUNK} "
+        step = _static_chunk(s)
+        if geometry.setdefault("chunk", step) != step:
+            raise ValueError(f"B8 is compiled for a step of {step} "
                              f"edges, not {geometry['chunk']}")
         _check_cuda(p, leaves)
         lib = walk.static_library(s)
@@ -1308,7 +1317,6 @@ def static_walk(
     the build fails) and launch it (``_row_walk``; ``geometry`` as there)."""
     _check(p, leaves, walk)
     _not_differentiable("static_walk", p, leaves)
-    _refuse_wide("static", leaves.shape[2])
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
     return _row_walk(p, leaves, walk, "static", **geometry)
@@ -1330,7 +1338,6 @@ def fold_walk(
     k, s = p.shape[-3], leaves.shape[2]
     if fold < 1 or k % fold:
         raise ValueError(f"fold {fold} does not divide {k} categories")
-    _refuse_wide("fold", s)
     if p.device.type == "cpu":
         return forward_walk_reference(p, leaves, walk)
     if fold not in FOLD_WIDTHS[s]:
@@ -1351,8 +1358,7 @@ def slot_walk(
     the slots in shared memory: ``_row_walk``) or, with ``stream``,
     ``pruning_stream_f32`` (B5: P staged in shared memory, the slots in
     device memory, (B, K, n_slots, sites, S + 1) float32, one launch per
-    batch chunk that fits free device memory), on the current stream. B4
-    is not built at 64 states and raises there (``_refuse_wide``); B5 is.
+    batch chunk that fits free device memory), on the current stream.
     """
     global STREAM_LAUNCHES
     _check(p, leaves, walk)
@@ -1491,7 +1497,7 @@ def reverse_tile(s: int, cmax: int) -> int:
     PERF.md section 6). At 64 states the block is ``_WIDE_TILE`` sites (256
     threads, four a column), so a node of at most 3 children fits. Raises
     where not even one warp's block fits (a node of very many children; the
-    classic reverse takes any, but not at 64 states)."""
+    classic reverse takes any)."""
     for tile in ((_WIDE_TILE,) if s == KERNEL_STATES[-1] else _REVERSE_TILES):
         if _reverse_smem_bytes(tile, cmax, s) <= _REVERSE_SMEM:
             return tile
@@ -1578,17 +1584,24 @@ def reverse_walk(
     return dp, dleaf
 
 
+def _classic_reverse_tile(s: int) -> int:
+    """Sites a block of the classic reverse at ``s`` states:
+    ``_WIDE_TILE`` at 64 states (its four-lane layout), else
+    ``_CLASSIC_REVERSE_TILE``."""
+    return _WIDE_TILE if s == KERNEL_STATES[-1] else _CLASSIC_REVERSE_TILE
+
+
 def classic_reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
                             sites: int, s: int) -> Tuple[int, int, int]:
     """(dP rows per (batch, category), bytes of g slots, bytes of one dP
     row over the batch) of a classic reverse launch. Each block owns one
     row of per-node S x S partial sums and walks every ``rows``-th tile of
-    ``_CLASSIC_REVERSE_TILE`` sites, so the rows are capped by the launch's
+    ``_classic_reverse_tile`` sites, so the rows are capped by the launch's
     block count, not by the sites: its scratch is the g slots, (b, k,
     n_gslots, sites, S) float32, and rows x (b, k, n_nodes, S, S) float32
     (the deferred reverse's rows grow with its site tiles,
     ``reverse_scratch``)."""
-    n_tiles = -(-sites // _CLASSIC_REVERSE_TILE)
+    n_tiles = -(-sites // _classic_reverse_tile(s))
     rows = min(n_tiles, max(1, -(-_CLASSIC_REVERSE_BLOCKS[s] // (b * k))))
     return (rows, 4 * b * k * max(n_gslots, 1) * sites * s,
             4 * b * k * n_nodes * s * s)
@@ -1596,14 +1609,16 @@ def classic_reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
 
 def classic_reverse_stage(s: int, cmax: int) -> Tuple[int, int]:
     """(children a staged visit may have, bytes of shared memory) of a
-    classic reverse block of ``_CLASSIC_REVERSE_TILE`` sites at ``s``
+    classic reverse block of ``_classic_reverse_tile`` sites at ``s``
     states whose widest node has ``cmax`` children: the deferred reverse's
     block layout (``_reverse_smem_bytes``: the 3-stage P ring, two steps'
-    warp dP sums and, at 20 states, each warp's gy and x rows) for the most
-    children up to ``cmax`` that fit ``_CLASSIC_STAGE_BYTES`` (at least
-    one). A visit with more children reads its P through L1, in groups of
-    that many, so the block does not grow with ``cmax`` past them."""
-    tile = _CLASSIC_REVERSE_TILE
+    warp dP sums and, at 20 states, each warp's gy and x rows; at 64 states
+    the ring with rows ``_WIDE_ROW`` apart and the gy and x tiles, 3
+    children at most) for the most children up to ``cmax`` that fit
+    ``_CLASSIC_STAGE_BYTES`` (at least one). A visit with more children
+    reads its P through L1, in groups of that many, so the block does not
+    grow with ``cmax`` past them."""
+    tile = _classic_reverse_tile(s)
     per_child = _reverse_smem_bytes(tile, 2, s) - _reverse_smem_bytes(
         tile, 1, s)
     fixed = _reverse_smem_bytes(tile, 1, s) - per_child
@@ -1647,7 +1662,6 @@ def classic_reverse_walk(
     global CLASSIC_REVERSE_LAUNCHES
     seeds = _seed_array(seed_ids, walk)
     _check_classic(p, leaves, res_x, res_e, gseeds, seeds, walk)
-    _refuse_wide("classic_reverse", leaves.shape[2])
     _not_differentiable("classic_reverse_walk", p, leaves, res_x, res_e,
                         gseeds)
     if p.device.type == "cpu":
@@ -1686,7 +1700,7 @@ def classic_reverse_walk(
             None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
             nb, k, s, n_nodes, walk.n_leaves, len(rs.rnode),
             children.shape[1], sites, len(seeds), max(rs.n_gslots, 1), rows,
-            _CLASSIC_REVERSE_TILE, stage_children, stream,
+            _classic_reverse_tile(s), stage_children, stream,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_classic_reverse_f32 launch failed: "
@@ -1749,12 +1763,6 @@ class _FusedLoglik(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, leaves, freqs, walk):
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            sites, s = leaves.shape[1:]
-            if s == KERNEL_STATES[-1] and choose_reverse(
-                    p.shape[0] if p.dim() == 5 else 1, p.shape[-3],
-                    walk.n_nodes, walk.reverse.n_gslots, sites, s, p.device,
-                    walk.children.shape[1]) == "classic":
-                _refuse_wide("classic_reverse", s)   # before any launch
             res_x, res_e = saveall_walk(p, leaves, walk)
             row = walk.root - walk.n_leaves
             root_p, root_e = res_x[..., row, :, :], res_e[..., row, :]
@@ -1843,8 +1851,9 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
     alone, chosen by ``choose_walk``: the classic walk while the classic
     lowerings' whole-tree scratch would fit ``CLASSIC_SCRATCH_BUDGET``,
     else the slot walk (DNA) or the stream walk (protein; at 64 states
-    always). The leaves' cotangent is computed only when they require grad
-    (the engine passes them as data).
+    always unless ``PHYLO_FORCE_STREAM=0``, and at every width under
+    ``PHYLO_FORCE_STREAM=1``). The leaves' cotangent is computed only when
+    they require grad (the engine passes them as data).
 
     A state count that is not compiled (``KERNEL_STATES``) is padded with
     zero states to ``padded_states``: P with zero rows and columns, the

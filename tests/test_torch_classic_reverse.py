@@ -63,6 +63,9 @@ CASES = {
     "random12": (None, 4),
     "caterpillar40": (_caterpillar(40, 1.5), 4),
     "random8_lg": ("random8", 20),
+    # 61 states (a codon width, padded to 64 by the port): JAX's whole-tree
+    # _dynamic_bwd_kernel fits its VMEM budget at S_pad 64 at 6 taxa
+    "random6_s61": ("random6", 61),
 }
 
 
@@ -84,19 +87,30 @@ def _newick(case):
         return write_newick(random_tree(12, seed=7))
     if text == "random8":
         return write_newick(random_tree(8, seed=3, mean_brlen=0.2))
+    if text == "random6":
+        return write_newick(random_tree(6, seed=3, mean_brlen=0.2))
     return text
 
 
 def _inputs(newick, s, batch_scales=None, seed=0):
-    """Numpy f32 P (GTR at 4 states, LG at 20), leaves with 5% all-ones
-    rows, and the model's float64 frequencies."""
+    """Numpy f32 P (GTR at 4 states, LG at 20, a seeded random reversible
+    model at any other count), leaves with 5% all-ones rows, and the
+    model's float64 frequencies."""
     tree = tio.parse_newick(newick)
     sched = compile_schedule(tree)
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, s, (tree.n_leaves, SITES))
     lp = np.eye(s, dtype=np.float32)[codes]
     lp[rng.random((tree.n_leaves, SITES)) < 0.05] = 1.0
-    eig = tmodels.GTR.eigen(GTR) if s == 4 else tmodels.LG.eigen()
+    if s == 4:
+        eig = tmodels.GTR.eigen(GTR)
+    elif s == 20:
+        eig = tmodels.LG.eigen()
+    else:
+        sym = rng.uniform(0.2, 2.0, (s, s))
+        eig = tmodels.base.eigen_reversible(
+            torch.from_numpy(sym + sym.T),
+            torch.from_numpy(rng.dirichlet(np.full(s, 4.0))))
     lengths = np.asarray(tree.lengths)
     if batch_scales is not None:
         lengths = np.stack([lengths * b for b in batch_scales])
@@ -312,16 +326,20 @@ def test_reverse_scratch_and_row_sizing(case, b, sites, s):
 
 
 @pytest.mark.parametrize("cmax", [2, 3, 8, 48, 200])
-@pytest.mark.parametrize("s", [4, 20])
+@pytest.mark.parametrize("s", [4, 20, 64])
 def test_classic_reverse_stage_sizing(s, cmax):
     """B7's shared memory: the deferred reverse's block layout for the most
     children up to cmax that fit the stage's budget, itself within an SM's
     232,448 bytes; one more child would not fit, unless cmax is reached. A
     wider visit reads its P through L1 in groups of that many, so the block
     does not grow with cmax past them, and every child is covered in
-    ceil(cmax / children) groups."""
+    ceil(cmax / children) groups. At 64 states the block is B3's wide one
+    (64 columns, rows 68 floats apart), which holds 3 children."""
     children, nbytes = cuda_pruning.classic_reverse_stage(s, cmax)
-    tile = cuda_pruning._CLASSIC_REVERSE_TILE
+    tile = cuda_pruning._classic_reverse_tile(s)
+    assert tile == (64 if s == 64 else cuda_pruning._CLASSIC_REVERSE_TILE)
+    if s == 64:
+        assert children == min(cmax, 3)
     budget = cuda_pruning._CLASSIC_STAGE_BYTES
     assert budget <= 232_448
     assert 1 <= children <= cmax
@@ -363,7 +381,15 @@ def _wide_node_inputs(newick, s, sites, seed=11):
     frequencies."""
     tree = tio.parse_newick(newick)
     sched = compile_schedule(tree, binarize=False)
-    eig = tmodels.GTR.eigen(GTR) if s == 4 else tmodels.LG.eigen()
+    if s == 4:
+        eig = tmodels.GTR.eigen(GTR)
+    elif s == 20:
+        eig = tmodels.LG.eigen()
+    else:
+        sym = rng.uniform(0.2, 2.0, (s, s))
+        eig = tmodels.base.eigen_reversible(
+            torch.from_numpy(sym + sym.T),
+            torch.from_numpy(rng.dirichlet(np.full(s, 4.0))))
     t = torch.from_numpy(np.asarray(tree.lengths)[:, None] * RATES)
     p64 = transition_matrices(eig, t).numpy()
     freqs = eig.freqs.numpy()

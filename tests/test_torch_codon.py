@@ -142,6 +142,109 @@ def test_codon_walk_runs_padded_to_64_states(codon_problem, monkeypatch):
                     ("reverse_walk_reference", 64)]
 
 
+def _spy_walks(monkeypatch, names):
+    """Record the calls of ``cuda_pruning``'s ``names`` (wrappers and plain
+    versions) in order."""
+    seen = []
+    for name in names:
+        orig = getattr(cuda_pruning, name)
+
+        def spy(*a, _orig=orig, _name=name, **kw):
+            seen.append(_name)
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(cuda_pruning, name, spy)
+    return seen
+
+
+def _assert_matches_jax(cp, port, params):
+    """The f32 walk's logL, sitewise logL and value_and_grad against the
+    JAX f64 XLA engine: 2e-5 relative, 5e-4 x max|g| per leaf."""
+    j64 = cp["j64"]
+    want = j64.loglikelihood(cp["p"])
+    got = port.loglikelihood(params)
+    assert np.isfinite(got) and abs(got - want) / abs(want) < 2e-5
+    np.testing.assert_allclose(port.sitewise_loglikelihoods(params),
+                               j64.sitewise_loglikelihoods(cp["p"]),
+                               rtol=2e-5, atol=0)
+    lj, gj = j64.value_and_grad(cp["p"])
+    lt, gt = port.value_and_grad(params)
+    assert abs(float(lt) - float(lj)) < 2e-5 * abs(float(lj))
+    want_g = _flat(jax.tree.map(np.asarray, gj))
+    for path, g in _flat(gt).items():
+        w = want_g[path]
+        np.testing.assert_allclose(g.double().numpy(), w, rtol=0,
+                                   atol=5e-4 * np.abs(w).max(),
+                                   err_msg=str(path))
+
+
+def test_codon_gradient_through_classic_reverse(codon_problem, monkeypatch):
+    """The fault's pin (ROADMAP C): GY94, MG94 and mito GY94 +G4
+    ``value_and_grad`` under ``PHYLO_DEFERRED_VJP=0``, ``pruner="cuda"``
+    on the CPU, takes B2 and then B7 at 64 states (their plain versions)
+    and matches the JAX f64 XLA engine, which returns under the same
+    variable. (Before B7 was built at 64 the fused Function raised
+    ``NotImplementedError`` here, before B2 ran.)"""
+    cp = codon_problem
+    monkeypatch.setenv("PHYLO_DEFERRED_VJP", "0")
+    seen = _spy_walks(monkeypatch, ("saveall_walk_reference",
+                                    "classic_reverse_walk_reference",
+                                    "reverse_walk_reference"))
+    port = LikelihoodEngine(cp["tree"], cp["aln"], cp["tmodel"], ncat=4,
+                            dtype=torch.float32, pruner="cuda", device="cpu")
+    params = params_from_jax(cp["full"])
+    port.value_and_grad(params)
+    assert seen == ["saveall_walk_reference",
+                    "classic_reverse_walk_reference"]
+    _assert_matches_jax(cp, port, params)
+
+
+# each knob the JAX package reads, with the walk the port's value call
+# takes under it at 6 taxa x 40 codons (within CLASSIC_SCRATCH_BUDGET)
+WALK_KNOBS = {
+    "force_stream_0": ({"PHYLO_FORCE_STREAM": "0"}, "forward_walk_reference"),
+    "force_stream_1": ({"PHYLO_FORCE_STREAM": "1"}, "slot_walk"),
+    "force_stream_0_past_budget": ({"PHYLO_FORCE_STREAM": "0",
+                                    "CLASSIC_SCRATCH_BUDGET": 0},
+                                   "slot_walk"),
+    "static_unroll": ({"STATIC_UNROLL_MAX": 10 ** 6}, "static_walk"),
+    "fold_auto": ({"PHYLO_FORCE_STREAM": "0",
+                   "PHYLO_FOLD_CATEGORIES": "auto"}, "fold_walk"),
+    "fold_2": ({"PHYLO_FORCE_STREAM": "0", "PHYLO_FOLD_CATEGORIES": "2"},
+               "fold_walk"),
+    "static_over_force_stream_1": ({"PHYLO_FORCE_STREAM": "1",
+                                    "STATIC_UNROLL_MAX": 10 ** 6},
+                                   "static_walk"),
+    "deferred_vjp_1": ({"PHYLO_DEFERRED_VJP": "1"}, "slot_walk"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(WALK_KNOBS))
+def test_codon_engine_under_walk_knobs(codon_problem, monkeypatch, knob):
+    """Under each value-walk knob (``PHYLO_FORCE_STREAM``,
+    ``PHYLO_STATIC_UNROLL_MAX``, ``PHYLO_FOLD_CATEGORIES``), and under
+    ``PHYLO_DEFERRED_VJP=1``, the f32 codon engine's value calls take the
+    walk the JAX package's rule names (B1, B4 past the classic budget under
+    "0", B5 under "1" and by default, B8, B9 with F = 2), all at 64 states,
+    and logL, sitewise logL and value_and_grad match the JAX f64 XLA
+    engine."""
+    cp = codon_problem
+    settings, first = WALK_KNOBS[knob]
+    for name, value in settings.items():
+        if name.isupper() and name.startswith("PHYLO_"):
+            monkeypatch.setenv(name, value)
+        else:
+            monkeypatch.setattr(cuda_pruning, name, value)
+    seen = _spy_walks(monkeypatch, ("static_walk", "fold_walk", "slot_walk",
+                                    "forward_walk_reference"))
+    port = LikelihoodEngine(cp["tree"], cp["aln"], cp["tmodel"], ncat=4,
+                            dtype=torch.float32, pruner="cuda", device="cpu")
+    params = params_from_jax(cp["full"])
+    port.loglikelihood(params)
+    assert seen[0] == first
+    _assert_matches_jax(cp, port, params)
+
+
 @pytest.mark.parametrize("code", ["standard", "vertebrate_mito"])
 def test_encode_codon_alignment_matches_jax(code):
     aln = _codon_alignment([f"t{i}" for i in range(5)], 30, code, seed=9)

@@ -45,12 +45,13 @@ MULTIFURCATING = (
     "((a:0.1,b:0.2,c:0.05):0.1,(d:0.3,e:0.1,f:0.2,g:0.15):0.2,"
     "(h:0.1,(i:0.2,j:0.3):0.05):0.1,k:0.4,l:0.25);"
 )
-KNOBS = ("PHYLO_FOLD_CATEGORIES", "PHYLO_PACK_DNA")
+KNOBS = ("PHYLO_FOLD_CATEGORIES", "PHYLO_PACK_DNA", "PHYLO_FORCE_STREAM")
 
 
 @pytest.fixture(autouse=True)
 def _knobs_off(monkeypatch):
-    """Every test starts with the three knobs at their defaults (off)."""
+    """Every test starts with the lowering knobs at their defaults (off)
+    and ``PHYLO_FORCE_STREAM`` at its own ("auto")."""
     for name in KNOBS:
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(cuda_pruning, "STATIC_UNROLL_MAX", 0)
@@ -79,6 +80,25 @@ def _pallas_setup(n_taxa, sites, n_states=4, seed=0, ncat=4):
     t = jnp.asarray(tree.lengths, jnp.float32)[:, None] * rates[None, :]
     p = p_matrices_reversible(sym, freqs, t)
     return newick, sched, np.asarray(p), lp
+
+
+def _codon_width_setup(n_taxa=8, sites=100, s=61, seed=5):
+    """A codon width (61 states, padded to 64 by the port and to S_pad 64 by
+    the JAX package): f32 P of a seeded random reversible model over
+    linspace rates, leaves of random 0/1 rows floored at 1e-3, on ``n_taxa``
+    taxa and one 128-site tile. Returns (newick, JAX schedule, P, leaves)."""
+    newick, tree = _trees(n_taxa, seed)
+    sched = j_compile_schedule(tree)
+    rng = np.random.default_rng(seed)
+    lp = np.maximum((rng.random((n_taxa, sites, s)) > 0.5).astype(
+        np.float32), 1e-3)
+    sym = rng.uniform(0.2, 2.0, (s, s))
+    freqs = rng.dirichlet(np.full(s, 4.0))
+    rates = jnp.linspace(0.2, 2.0, 4, dtype=jnp.float32)
+    t = jnp.asarray(tree.lengths, jnp.float32)[:, None] * rates[None, :]
+    p = p_matrices_reversible(jnp.asarray(sym + sym.T, jnp.float32),
+                              jnp.asarray(freqs, jnp.float32), t)
+    return newick, sched, np.array(p), lp
 
 
 def _grouped_setup(seed_tree=10, seed=11, k=4, sites=260, s=4):
@@ -294,9 +314,17 @@ CASES = {
         knob={"PHYLO_FOLD_CATEGORIES": "auto"}),
     # tests/test_grouped_walk.py:123-140, the DNA pack (16 taxa, 260, K = 4)
     "pack": dict(setup=_grouped_setup, knob={"PHYLO_PACK_DNA": "1"}),
+    # a codon width (61 states, 8 taxa, one 128-site tile): the static walk,
+    # which precedes streaming there, and the fold of 2 with streaming off
+    "static_on_s61": dict(setup=_codon_width_setup,
+                          knob={"STATIC_UNROLL_MAX": 10 ** 6}),
+    "fold_auto_s61": dict(setup=_codon_width_setup,
+                          knob={"PHYLO_FOLD_CATEGORIES": "auto",
+                                "PHYLO_FORCE_STREAM": "0"}),
 }
 LOWERING = {"static_off": "forward_walk_reference", "static_on": "static_walk",
-            "fold_auto_k3": "fold_walk", "pack": "fold_walk"}
+            "fold_auto_k3": "fold_walk", "pack": "fold_walk",
+            "static_on_s61": "static_walk", "fold_auto_s61": "fold_walk"}
 
 
 def _set_knob(monkeypatch, knob):

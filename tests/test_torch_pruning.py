@@ -500,13 +500,14 @@ def test_saveall_and_reverse_kernels_match_reference_on_card():
                                    rtol=0, atol=1e-4 * ref.abs().max().item())
 
 
-def _wide_inputs(s, seed=3, sites=37, newick=None):
+def _wide_inputs(s, seed=3, sites=37, newick=None, sched=None):
     """P (n_nodes, 4, S, S) f32 of a random reversible S-state model and
     one-hot leaves with 5% all-ones rows, on a 9-taxon tree (or
-    ``newick``), made with numpy: the shapes of codon (61) and Mk (2)."""
+    ``newick``, compiled as ``sched`` where given), made with numpy: the
+    shapes of codon (61) and Mk (2)."""
     rng = np.random.default_rng(seed)
     tree = tio.parse_newick(newick or write_newick(random_tree(9, seed=4)))
-    sched = compile_schedule(tree)
+    sched = sched or compile_schedule(tree)
     sym = rng.uniform(0.2, 2.0, (s, s))
     eig = tmodels.base.eigen_reversible(
         torch.from_numpy(sym + sym.T), torch.from_numpy(
@@ -588,54 +589,97 @@ def test_wide_walk_routing_and_sizes():
     assert geo.lanes in (2, 4) and geo.smem_bytes <= 232_448
 
 
-def test_kernels_not_built_at_64_states_refuse(monkeypatch):
-    """B4, B7, B8 and B9 are built at 4 and 20 states only: at 64 they raise
-    NotImplementedError naming ROADMAP B.1 item 1 on any device (here the
-    plain versions' CPU path), and the fused gradient refuses B7 at 64
-    (PHYLO_DEFERRED_VJP=0) before any walk runs; so does the value path
-    where PHYLO_STATIC_UNROLL_MAX asks for B8, which precedes streaming."""
+def test_every_kernel_runs_at_64_states(monkeypatch):
+    """B4, B7, B8 and B9 run at 64 states (61 padded) like the other four:
+    on the CPU their wrappers take the plain versions and launch nothing;
+    B4's, B8's and B9's roots equal B1's bit for bit, and B7's dP from one
+    root seed equals B3's plain dP (within 1e-10 x max|dP| in float64: the
+    same per-node arithmetic), its dleaf too. The fused gradient takes B7
+    under PHYLO_DEFERRED_VJP=0 (B2 first) with B3's gradient, and the
+    value path takes B8 where PHYLO_STATIC_UNROLL_MAX asks for it, which
+    precedes streaming."""
     sched, p, lp, freqs = _wide_inputs(61)
     p64 = cuda_pruning._pad_states(p, 64, 2).contiguous()
     l64 = cuda_pruning._pad_states(lp, 64, 1).contiguous()
     walk = WalkSchedule(sched)
-    with pytest.raises(NotImplementedError, match="B4.*B.1 item 1"):
-        cuda_pruning.slot_walk(p64, l64, walk)
-    with pytest.raises(NotImplementedError, match="B4"):
-        forward_walk(p64, l64, walk, walk="slot")
-    with pytest.raises(NotImplementedError, match="B8"):
-        cuda_pruning.static_walk(p64, l64, walk)
-    with pytest.raises(NotImplementedError, match="B9"):
-        cuda_pruning.fold_walk(p64, l64, walk, 2)
-    rx, re = saveall_walk(p64, l64, walk)
-    gseed = torch.ones((4, 1) + tuple(l64.shape[1:]))
-    with pytest.raises(NotImplementedError, match="B7"):
-        cuda_pruning.classic_reverse_walk(p64, l64, rx, re, gseed,
-                                          [walk.root], walk)
-    # B1, B5 and B2 run at 64 (their plain versions here)
-    kp, ke = forward_walk(p64, l64, walk, walk="classic")
-    sp, se = cuda_pruning.slot_walk(p64, l64, walk, stream=True)
-    assert torch.equal(kp, sp) and torch.equal(ke, se)
-    assert torch.equal(kp, rx[:, walk.root - walk.n_leaves])
-    fused = make_fused_loglik_fn(sched)
     calls = []
-    monkeypatch.setattr(cuda_pruning, "saveall_walk",
-                        lambda *a: calls.append(a) or saveall_walk(*a))
-    monkeypatch.setenv("PHYLO_DEFERRED_VJP", "0")
-    with pytest.raises(NotImplementedError, match="B7"):
-        fused(p.clone().requires_grad_(True), lp, freqs)
-    assert not calls
+    for name in ("forward_walk_reference", "slot_walk_reference",
+                 "classic_reverse_walk_reference", "saveall_walk"):
+        real = getattr(cuda_pruning, name)
+        monkeypatch.setattr(
+            cuda_pruning, name,
+            lambda *a, _real=real, _name=name, **kw: calls.append(_name)
+            or _real(*a, **kw))
+    counters = ("LAUNCHES", "SLOT_LAUNCHES", "STATIC_LAUNCHES",
+                "FOLD_LAUNCHES", "CLASSIC_REVERSE_LAUNCHES")
+    before = [getattr(cuda_pruning, c) for c in counters]
+    kp, ke = forward_walk(p64, l64, walk, walk="classic")
+    runs = {"B4": (cuda_pruning.slot_walk(p64, l64, walk),
+                   "slot_walk_reference"),
+            "B4 via walk=slot": (forward_walk(p64, l64, walk, walk="slot"),
+                                 "slot_walk_reference"),
+            "B8": (cuda_pruning.static_walk(p64, l64, walk),
+                   "forward_walk_reference"),
+            "B9": (cuda_pruning.fold_walk(p64, l64, walk, 2),
+                   "forward_walk_reference")}
+    assert calls[0] == "forward_walk_reference"
+    for (name, ((rp, re_), plain)), called in zip(runs.items(), calls[1:]):
+        assert called == plain, name
+        assert torch.equal(rp, kp) and torch.equal(re_, ke), name
+    rx, re = saveall_walk_reference(p64, l64, walk)
+    row = walk.root - walk.n_leaves
+    assert torch.equal(kp, rx[:, row])
+    lam = (1.0 / torch.einsum("ksi,i->ks", kp.double(),
+                              cuda_pruning._pad_states(freqs, 64, 1))).float()
+    f32 = cuda_pruning._pad_states(freqs, 64, 1).float()
+    gseed = (lam[..., None] * f32).unsqueeze(-3).contiguous()
+    d7, l7 = cuda_pruning.classic_reverse_walk(p64, l64, rx, re, gseed,
+                                               [walk.root], walk,
+                                               want_dleaf=True)
+    assert calls[-1] == "classic_reverse_walk_reference"
+    d3, l3 = reverse_walk_reference(p64, l64, rx, re, lam, f32, walk,
+                                    want_dleaf=True)
+    for got, want in ((d7, d3), (l7, l3)):
+        np.testing.assert_allclose(
+            got.double().numpy(), want.double().numpy(), rtol=0,
+            atol=1e-10 * float(want.double().abs().max()))
+    assert [getattr(cuda_pruning, c) for c in counters] == before
+    fused = make_fused_loglik_fn(sched)
+    grads = {}
+    for env in ("0", "1"):
+        monkeypatch.setenv("PHYLO_DEFERRED_VJP", env)
+        calls.clear()
+        pg = p.clone().requires_grad_(True)
+        fused(pg, lp, freqs).sum().backward()
+        grads[env] = pg.grad
+        assert calls[0] == "saveall_walk"
+        assert ("classic_reverse_walk_reference" in calls) == (env == "0")
+    np.testing.assert_allclose(
+        grads["0"].numpy(), grads["1"].numpy(), rtol=0,
+        atol=1e-10 * float(grads["1"].abs().max()))
     monkeypatch.setattr(cuda_pruning, "STATIC_UNROLL_MAX", 1000)
-    with pytest.raises(NotImplementedError, match="B8"):
-        fused(p, lp, freqs)
+    monkeypatch.setattr(cuda_pruning, "static_walk",
+                        lambda *a, _real=cuda_pruning.static_walk:
+                        calls.append("static_walk") or _real(*a))
+    calls.clear()
+    ll = fused(p, lp, freqs)
+    assert calls[0] == "static_walk"
+    want = cuda_pruning._root_loglik(
+        kp, ke, cuda_pruning._pad_states(freqs, 64, 1))[0]
+    assert torch.equal(ll, want)
 
 
 @pytest.mark.gpu
 def test_codon_width_kernels_match_reference_on_card():
-    """B1, B5, B2 and B3 at 64 states (61 padded) on the card: B5's root and
-    B2's root row bit for bit B1's, the site log-likelihoods to the plain
-    walk's within a few f32 roundings a node, dP and dleaf to 1e-4 x
-    max|g|, dP bit-identical across two launches; B4 refuses before any
-    launch."""
+    """Every kernel at 64 states (61 padded) on the card: B5's, B4's, B8's
+    (F = 1) and B9's (F = 2) roots and B2's root row bit for bit B1's, the
+    site log-likelihoods to the plain walk's within a few f32 roundings a
+    node, B3's and B7's dP and dleaf to 1e-4 x max|g| of their plain
+    versions, B7's dP to 1e-4 x max|dP| of B3's and bit-identical across
+    two launches, B3's too; and B7 with two seeds and on a node of 5
+    children (a schedule kept whole, past B7's 3 staged children, on sites
+    simulated down the tree so that no product underflows: ROADMAP C)
+    against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     sched, p, lp, freqs = _wide_inputs(61, sites=300)
@@ -664,7 +708,76 @@ def test_codon_width_kernels_match_reference_on_card():
     for got, ref in ((dp, wp), (dl, wl)):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=0, atol=1e-4 * ref.abs().max().item())
-    before = cuda_pruning.SLOT_LAUNCHES
-    with pytest.raises(NotImplementedError, match="B4"):
-        cuda_pruning.slot_walk(pd, ld, walk)
-    assert cuda_pruning.SLOT_LAUNCHES == before
+    for name, (rp_, re_) in (
+            ("B4", cuda_pruning.slot_walk(pd, ld, walk)),
+            ("B8", cuda_pruning.static_walk(pd, ld, walk)),
+            ("B9", cuda_pruning.fold_walk(pd, ld, walk, 2))):
+        torch.cuda.synchronize()
+        assert torch.equal(rp_, kp) and torch.equal(re_, ke), name
+    gseed = (lam[..., None] * f32).unsqueeze(-3).contiguous()
+    d7, l7 = cuda_pruning.classic_reverse_walk(pd, ld, rx, re, gseed,
+                                               [walk.root], walk,
+                                               want_dleaf=True)
+    d7b, _ = cuda_pruning.classic_reverse_walk(pd, ld, rx, re, gseed,
+                                               [walk.root], walk)
+    torch.cuda.synchronize()
+    assert torch.equal(d7, d7b)
+    w7, wl7 = cuda_pruning.classic_reverse_walk_reference(
+        pd, ld, rx, re, gseed, [walk.root], walk, want_dleaf=True)
+    for got, ref in ((d7, w7), (l7, wl7), (d7, dp)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * ref.abs().max().item())
+    # two seeds, and a node of 5 children on simulated sites
+    seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
+    g2 = torch.rand((4, 2) + tuple(ld.shape[1:]), device="cuda") + 0.5
+    got2 = cuda_pruning.classic_reverse_walk(pd, ld, rx, re, g2, seeds,
+                                             walk, want_dleaf=True)
+    want2 = cuda_pruning.classic_reverse_walk_reference(
+        pd, ld, rx, re, g2, seeds, walk, want_dleaf=True)
+    star = ",".join(f"w{i}:0.05" for i in range(4))
+    sub = write_newick(random_tree(6, seed=2)).strip().rstrip(";")
+    tree5 = tio.parse_newick(f"({star},{sub}:0.1);")
+    sched5 = compile_schedule(tree5, binarize=False)
+    walk5 = WalkSchedule(sched5)
+    assert walk5.children.shape[1] == 5
+    assert cuda_pruning.classic_reverse_stage(64, 5)[0] == 3
+    _, p5, _, f5 = _wide_inputs(61, newick=f"({star},{sub}:0.1);",
+                                sched=sched5)
+    rng = np.random.default_rng(5)
+    p5_64 = cuda_pruning._pad_states(p5, 64, 2).contiguous().cuda()
+    states = _simulate_codes(tree5, p5.double().numpy(), 256, f5.numpy(), rng)
+    l5 = torch.zeros((tree5.n_leaves, 256, 64))
+    l5.scatter_(2, torch.from_numpy(states)[..., None], 1.0)
+    l5 = l5.cuda()
+    rx5, re5 = saveall_walk(p5_64, l5, walk5)
+    row5 = walk5.root - walk5.n_leaves
+    f5d = cuda_pruning._pad_states(f5, 64, 1).cuda()
+    lam5 = (1.0 / torch.einsum("ksi,i->ks", rx5[:, row5].double(),
+                               f5d)).float()
+    g5 = (lam5[..., None] * f5d.float()).unsqueeze(-3).contiguous()
+    got5 = cuda_pruning.classic_reverse_walk(p5_64, l5, rx5, re5, g5,
+                                             [walk5.root], walk5,
+                                             want_dleaf=True)
+    want5 = cuda_pruning.classic_reverse_walk_reference(
+        p5_64, l5, rx5, re5, g5, [walk5.root], walk5, want_dleaf=True)
+    torch.cuda.synchronize()
+    for got, ref in zip(got2 + got5, want2 + want5):
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+def _simulate_codes(tree, p_edges, n_sites, freqs, rng):
+    """(n_leaves, n_sites) states evolved down ``tree`` under ``p_edges``
+    (n_nodes, K, S, S) float64, a category drawn per site, the root from
+    ``freqs``."""
+    k, s = p_edges.shape[1], p_edges.shape[-1]
+    states = np.zeros((tree.n_nodes, n_sites), np.int64)
+    cat = rng.integers(0, k, n_sites)
+    states[tree.root] = rng.choice(s, n_sites, p=freqs / freqs.sum())
+    for node in range(tree.n_nodes - 1, -1, -1):  # ids are post-order
+        for child in tree.children[node]:
+            cum = np.cumsum(p_edges[child, cat, states[node]], axis=1)
+            u = rng.random(n_sites)[:, None] * cum[:, -1:]
+            states[child] = (u > cum).sum(axis=1)
+    return states[:tree.n_leaves]

@@ -172,6 +172,74 @@ def test_choose_walk_rule():
     assert choose_walk(1, 4, 1, n + 1, 20) == "stream"
 
 
+@pytest.mark.parametrize("env", ["0", "1", "auto"])
+def test_force_stream_rule(monkeypatch, env):
+    """``PHYLO_FORCE_STREAM`` as ``_pallas_forward`` reads it: "1" streams
+    at every width (4 states included); "auto" (the default) streams at 32
+    states and more and is the rule of ``test_choose_walk_rule`` below;
+    "0" at 64 states is that rule too, the classic walk within
+    ``CLASSIC_SCRATCH_BUDGET`` and the slot walk (B4) past it, where JAX
+    takes ``_dynamic_slot_kernel``. Within and past the budget at 4, 20
+    and 64 states; "auto" and "0" agree below 32 states."""
+    monkeypatch.setenv("PHYLO_FORCE_STREAM", env)
+    budget = cuda_pruning.CLASSIC_SCRATCH_BUDGET
+    for s in (4, 20, 64):
+        n = budget // (4 * (s + 1) * 4)     # B x n_inner x sites at the edge
+        within = choose_walk(1, 4, 1, n, s)
+        past = choose_walk(1, 4, 1, n + 1, s)
+        if env == "1" or (env == "auto" and s >= 32):
+            assert (within, past) == ("stream", "stream"), s
+        else:
+            assert within == "classic", s
+            assert past == ("stream" if s == 20 else "slot"), s
+    monkeypatch.delenv("PHYLO_FORCE_STREAM")
+    if env != "1":
+        for s in (4, 20):
+            for sites in (8, 10 ** 6):
+                monkeypatch.setenv("PHYLO_FORCE_STREAM", env)
+                got = choose_walk(1, 4, 99, sites, s)
+                monkeypatch.delenv("PHYLO_FORCE_STREAM")
+                assert got == choose_walk(1, 4, 99, sites, s)
+
+
+def test_force_stream_routes_the_value_walk(monkeypatch):
+    """``forward_walk(walk="auto")`` under ``PHYLO_FORCE_STREAM``: "1"
+    takes the stream walk at 4 states where the default takes the classic
+    one, and B8 still precedes it under ``STATIC_UNROLL_MAX``; "0" at 64
+    states takes the classic walk within the budget and B4 past it; every
+    walk gives the same bits (the plain versions on the CPU)."""
+    sched, p, lp = _inputs(TREES["random40"](), 4, 29)
+    walk = WalkSchedule(sched)
+    calls = []
+    for name in ("static_walk", "slot_walk", "forward_walk_reference"):
+        real = getattr(cuda_pruning, name)
+        monkeypatch.setattr(
+            cuda_pruning, name,
+            lambda *a, _real=real, _name=name, **kw: calls.append(
+                (_name, kw.get("stream"))) or _real(*a, **kw))
+    want = forward_walk_reference(p, lp, walk)
+    calls.clear()
+    monkeypatch.setenv("PHYLO_FORCE_STREAM", "1")
+    got = [forward_walk(p, lp, walk)]
+    monkeypatch.setattr(cuda_pruning, "STATIC_UNROLL_MAX", 10 ** 6)
+    got.append(forward_walk(p, lp, walk))
+    monkeypatch.setattr(cuda_pruning, "STATIC_UNROLL_MAX", 0)
+    assert [c for c in calls if c[0] != "forward_walk_reference"] == [
+        ("slot_walk", True), ("static_walk", None)]
+    p64 = cuda_pruning._pad_states(p, 64, 2).contiguous()
+    l64 = cuda_pruning._pad_states(lp, 64, 1).contiguous()
+    want64 = forward_walk_reference(p64, l64, walk)
+    monkeypatch.setenv("PHYLO_FORCE_STREAM", "0")
+    calls.clear()
+    got64 = [forward_walk(p64, l64, walk)]
+    monkeypatch.setattr(cuda_pruning, "CLASSIC_SCRATCH_BUDGET", 1024)
+    got64.append(forward_walk(p64, l64, walk))
+    assert calls == [("forward_walk_reference", None), ("slot_walk", False)]
+    for (r, e), (wr, we) in [(g, want) for g in got] + [
+            (g, want64) for g in got64]:
+        assert torch.equal(r, wr) and torch.equal(e, we)
+
+
 def test_forward_walk_routes_by_walk_argument(monkeypatch):
     """``walk=`` forces each walk; "auto" follows ``choose_walk``; on CPU
     tensors each takes its plain version and launches nothing."""
