@@ -65,12 +65,14 @@ all at once) and runs, in order, printing one line per phase:
     (B = 1 and 64), config 4 and big DNA, by device time per call from
     ``torch.profiler``;
 17. the classic reverse kernel (B7) against its plain version (dP to
-    9.5e-7 x max|dP|) and against the deferred reverse (B3) on the same
+    ``CLASSIC_TOL`` x max|dP|) and against the deferred reverse (B3) on the same
     residuals and seed (dleaf bit for bit), at phase 3's shapes and on the
     wide-node tree (B3 only at 4 states: its stage cannot hold 49 children
     at 20), with dleaf on and off and with two seeds; dP bit-identical
     across two launches; B3 and B7 timed in turns at each shape, with each
-    one's scratch;
+    one's scratch; its seeds come from its own generator, and B7's
+    one-seed dP error is read on ``SEED_SWEEP`` more seeds with B3's
+    beside it as the control;
 18. flagship ``value_and_grad`` and ``value_and_grad_many`` under
     ``PHYLO_DEFERRED_VJP=0`` against the f64 autograd: B7 runs, B3 not;
 19. the full-width gradient: 1000 taxa x 80,000 random LG+G4 patterns,
@@ -162,12 +164,27 @@ all at once) and runs, in order, printing one line per phase:
     ``value_and_grad`` under "auto" takes B2 and B7 and no B3; its value
     and gradient against the same engine summed over 4 pattern slices,
     which take B3 (logL to 1e-6 relative, gradients to 5e-4 x max|g|); the
-    reckoned scratch, its time, device times and peak memory.
+    reckoned scratch, its time, device times and peak memory;
+30. the simulation path (``phylo_utils_tpu_torch.simulate``): (a)
+    ``simulate_states`` on the card at the big-DNA tree x 100,000 sites,
+    GTR+G4+I, timed by CUDA events, its root frequencies, share of rate-0
+    sites and every edge's parent/child identity fraction within 5
+    binomial sigma of pi, pinv and sum_k w_k sum_i pi_i P_ii(t r_k); (b)
+    the CLI's ``simulate`` (64 taxa x 100,000 sites, GTR+G4, ``--seed
+    30``) and ``loglik --pruner cuda`` on its file as subprocesses,
+    against an f64 library engine on ``load_compressed`` of the file (1e-6
+    relative), with both wall times; (c) ``parametric_bootstrap`` at
+    config 5 (``random_tree(128, seed=5)``, 1024 sites simulated by
+    ``simulate_alignment``, fitted), 8 replicates of 20 refit steps through
+    ``pruner="cuda"``: the walk and reverse kernels run, every replicate
+    is finite, and the bootstrap SEs of alpha and the tree length are
+    within 0.2-5x of the observed information's (the GTR rates' are
+    reported only: ROADMAP C).
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-29; the kernel-against-plain phases are not counted. The last two lines
+23-30; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
@@ -205,10 +222,16 @@ GRAD_TOL = 5e-4
 # and the dP site sums are summed in another order
 REVERSE_TOL = 1e-4
 # the classic reverse's dP from one root seed against its plain version,
-# x max|dP|: its site sums are compensated across blocks, and its first
-# version came within this on an NVIDIA H100 80GB HBM3 (700 W); with two
-# seeds it is held to REVERSE_TOL, as before
-CLASSIC_TOL = 9.5e-7
+# x max|dP|: its site sums are compensated across blocks. Read on phase
+# 17's own seeds (SEED_SWEEP more a shape) on an NVIDIA H100 80GB HBM3
+# (700 W), the largest reading was 1.128e-6 (the 4-state wide node, where
+# B3, the control, reads the same bits: the gap is the plain version's
+# f32 site sums, not B7's); 9.5e-7, set from one draw, was below it. The
+# bound keeps 1.33x room over that reading. With two seeds B7 is held to
+# REVERSE_TOL, as before
+CLASSIC_TOL = 1.5e-6
+# phase 17 reads B7's one-seed error on this many more seeds of its own
+SEED_SWEEP = 5
 # mixture class posteriors, f32 walk against f64, absolute: a per-class
 # log-likelihood error e_k moves a posterior by gamma_k (e_k - sum_j
 # gamma_j e_j), and the f32 walk's e_k is ~1e-6 at 100 taxa x 20 states
@@ -250,6 +273,11 @@ MK_CHARS, CLI_CODON_TAXA, CLI_CODON_PATTERNS = 1024, 16, 256
 # bound (tests/test_codon.py)
 CODON_RTOL = 2e-5
 CODON_PARAMS = {"model": {"kappa": 2.4, "omega": 0.25}, "alpha": 0.6}
+# the simulation path (phase 30): sites of the big-DNA and realistic
+# shapes; every simulated frequency within SIGMA_BOUND binomial sigma of
+# its expectation; the bootstrap's MLE fit, replicates and refit steps
+SIM_SITES, SIGMA_BOUND = 100_000, 5.0
+BOOT_MLE_STEPS, BOOT_REPLICATES, BOOT_STEPS = 40, 8, 20
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -569,6 +597,255 @@ def _device_us(fn, reps):
     return {name: {"us": v["total"] / v["launches"],
                    "launches": v["launches"], "calls": reps}
             for name, v in out.items()} or "the profiler showed no device time"
+
+
+def _device_busy(fn):
+    """{"wall_ms", "device_ms", "busy_share", "top"} of one call of ``fn``
+    under torch.profiler: the wall time to a synchronize, the summed
+    device time of the kernels it launched, their ratio, and the three
+    kernels with the most device time ({name: [ms, launches]})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue            # a host op: its kernels are their own events
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        kernels[ev.key] = [us / 1e3, ev.count]
+    device_ms = sum(ms for ms, _ in kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3])
+    return {"wall_ms": 1e3 * wall, "device_ms": device_ms,
+            "busy_share": device_ms / (1e3 * wall), "top": top}
+
+
+def _simulation_path(dev, reset_counts, read_counts):
+    """Phase 30, the simulation path at full width (main path): (a)
+    ``simulate_states`` at the big-DNA shape, its root frequencies, rate-0
+    share and every edge's identity fraction held to SIGMA_BOUND binomial
+    sigma; (b) the CLI's ``simulate`` at the realistic shape and its
+    ``loglik --pruner cuda`` against a library engine on
+    ``load_compressed`` of the same file; (c) ``parametric_bootstrap`` at
+    config 5 through ``pruner="cuda"`` (counted), its alpha and tree-length
+    SEs against the observed information's. Returns the bootstrap's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.io import load_compressed, write_newick
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+    from phylo_utils_tpu_torch.native import native_available
+    from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
+    from phylo_utils_tpu_torch.ops.pmatrix import transition_matrices
+    from phylo_utils_tpu_torch.optimize import (
+        fisher_covariance,
+        fit,
+        parametric_bootstrap,
+    )
+    from phylo_utils_tpu_torch.simulate import (
+        simulate_alignment,
+        simulate_states,
+    )
+    from phylo_utils_tpu_torch.trees import random_tree
+
+    model_p, alpha = FLAGSHIP_PARAMS["model"], FLAGSHIP_PARAMS["alpha"]
+    pinv = FLAGSHIP_PARAMS["pinv"]
+    sim_params = {**model_p, "alpha": alpha}
+    f64 = torch.float64
+    stage_s, out = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) statistics at the big-DNA shape
+    tree_a = random_tree(BIG_DNA_TAXA, seed=10)
+    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    states, site_rates = simulate_states(
+        30, tree_a, models.GTR, SIM_SITES, sim_params, ncat=4, pinv=pinv,
+        device=dev)
+    end.record()
+    end.synchronize()
+    sim_ms = start.elapsed_time(end)
+    n = SIM_SITES
+    eig = models.GTR.eigen(model_p, dtype=f64, device=dev)
+    pi = eig.freqs
+    root_f = torch.bincount(states[tree_a.root], minlength=4).to(f64) / n
+    root_z = float(((root_f - pi).abs()
+                    / torch.sqrt(pi * (1.0 - pi) / n)).max())
+    inv_f = float((site_rates == 0.0).to(f64).mean())
+    inv_z = abs(inv_f - pinv) / math.sqrt(pinv * (1.0 - pinv) / n)
+    # each edge's parent/child identity: sum_k w_k sum_i pi_i P_ii(t r_k),
+    # over the 4 gamma rates (weight (1 - pinv) / 4) and rate 0 (pinv)
+    nodes = torch.as_tensor([v for v in range(tree_a.n_nodes)
+                             if v != tree_a.root], device=dev)
+    parents = torch.as_tensor(tree_a.parent, device=dev)[nodes]
+    ident = torch.cat([
+        (states[nodes[i:i + 256]] == states[parents[i:i + 256]]).to(f64)
+        .mean(dim=1) for i in range(0, nodes.numel(), 256)])
+    rates = discrete_gamma(torch.tensor(alpha, dtype=f64), 4).to(dev)
+    uniq = torch.cat([rates, torch.zeros(1, dtype=f64, device=dev)])
+    w = torch.tensor([(1.0 - pinv) / 4] * 4 + [pinv], dtype=f64, device=dev)
+    lengths = torch.as_tensor(tree_a.lengths, dtype=f64, device=dev)[nodes]
+    p_diag = torch.diagonal(transition_matrices(
+        eig, lengths[:, None] * uniq), dim1=-2, dim2=-1)  # (edges, 5, S)
+    expect = torch.einsum("eri,i,r->e", p_diag, pi, w)
+    edge_z = ((ident - expect).abs()
+              / torch.sqrt(expect * (1.0 - expect) / n))
+    del states, site_rates
+    # again with another seed, warm: the first call also loads the
+    # kernels it is the first to launch
+    start.record()
+    simulate_states(31, tree_a, models.GTR, SIM_SITES, sim_params, ncat=4,
+                    pinv=pinv, device=dev)
+    end.record()
+    end.synchronize()
+    warm_ms = start.elapsed_time(end)
+    # and once under the profiler: how much of a step is the card's
+    busy = _device_busy(lambda: simulate_states(
+        32, tree_a, models.GTR, SIM_SITES, sim_params, ncat=4, pinv=pinv,
+        device=dev))
+    stage_s["a"] = time.perf_counter() - t0
+    out["a"] = {
+        "taxa": BIG_DNA_TAXA, "sites": n, "simulate_ms": sim_ms,
+        "simulate_ms_warm": warm_ms,
+        "sites_per_s": n / (sim_ms / 1e3),
+        "sites_per_s_warm": n / (warm_ms / 1e3),
+        "node_sites_per_s_warm": tree_a.n_nodes * n / (warm_ms / 1e3),
+        "profiled": busy,
+        "root_freqs": root_f.tolist(), "root_max_sigma": root_z,
+        "rate0_share": inv_f, "rate0_sigma": inv_z,
+        "edges": int(nodes.numel()),
+        "edge_max_sigma": float(edge_z.max()),
+        "edge_identity_range": [float(ident.min()), float(ident.max())],
+        "bound_sigma": SIGMA_BOUND}
+    _check(root_z <= SIGMA_BOUND and inv_z <= SIGMA_BOUND
+           and float(edge_z.max()) <= SIGMA_BOUND,
+           f"simulated statistics outside {SIGMA_BOUND} sigma: {out['a']}")
+
+    # (b) the CLI at the realistic shape: simulate, then loglik reads it
+    tree_b = random_tree(TAXA, seed=0)
+    engine_p = {"model": model_p, "alpha": alpha}
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_",
+                                     dir=build) as tmp:
+        tree_path, fasta = (os.path.join(tmp, n_) for n_ in ("t.nwk",
+                                                            "sim.fa"))
+        with open(tree_path, "w") as fh:
+            fh.write(write_newick(tree_b) + "\n")
+        cli = [sys.executable, "-m", "phylo_utils_tpu_torch.cli"]
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        walls = {}
+        for name, cmd in (
+                ("simulate", ["simulate", "--tree", tree_path, "--model",
+                              "GTR", "--sites", str(SIM_SITES), "--ncat",
+                              "4", "--params", json.dumps(sim_params),
+                              "--seed", "30", "--out", fasta]),
+                ("loglik", ["loglik", "--tree", tree_path, "--alignment",
+                            fasta, "--model", "GTR+G4", "--params",
+                            json.dumps(engine_p), "--pruner", "cuda",
+                            "--dtype", "float32"])):
+            t1 = time.perf_counter()
+            res = subprocess.run(cli + cmd + ["--device", DEVICE], cwd=REPO,
+                                 env=env, capture_output=True, text=True,
+                                 timeout=600)
+            walls[name] = time.perf_counter() - t1
+            _check(res.returncode == 0,
+                   f"cli {name} exited {res.returncode}: {res.stderr}")
+            if name == "loglik":
+                cli_ll = json.loads(res.stdout.strip().splitlines()[-1])[
+                    "loglik"]
+        ca = load_compressed(fasta)
+        _check(ca.names == tree_b.leaf_names and ca.n_sites == SIM_SITES,
+               f"cli simulate wrote {len(ca.names)} taxa x {ca.n_sites} "
+               "sites")
+        ref = LikelihoodEngine(tree_b, ca, models.GTR, ncat=4,
+                               dtype=f64, pruner="torch", device=dev)
+        lib_ll = ref.loglikelihood(engine_p)
+        del ref, ca
+    rel_b = abs(cli_ll - lib_ll) / abs(lib_ll)
+    stage_s["b"] = time.perf_counter() - t0
+    out["b"] = {"taxa": TAXA, "sites": SIM_SITES, "cli_loglik": cli_ll,
+                "native_loader": native_available(),
+                "library_loglik_f64": lib_ll, "rel_err": rel_b,
+                "cli_wall_s": walls}
+    _check(math.isfinite(cli_ll) and rel_b <= LOGL_RTOL,
+           f"cli loglik {cli_ll} against the library's {lib_ll}: rel "
+           f"{rel_b:.3e} > {LOGL_RTOL}")
+
+    # (c) the parametric bootstrap at config 5
+    t0 = time.perf_counter()
+    tree_c = random_tree(CONFIG5_TAXA, seed=5)
+    aln_c = simulate_alignment(5, tree_c, models.GTR, SITES, sim_params,
+                               ncat=4, device=dev)
+    eng_c = LikelihoodEngine(tree_c, aln_c, models.GTR, ncat=4,
+                             dtype=torch.float32, pruner="cuda",
+                             device=dev)
+    mle = fit(eng_c, None, max_steps=BOOT_MLE_STEPS)
+    stage_s["c_fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_counts()
+    pb = parametric_bootstrap(eng_c, mle.params,
+                              n_replicates=BOOT_REPLICATES, seed=30,
+                              pruner="cuda", max_steps=BOOT_STEPS)
+    torch.cuda.synchronize()
+    boot_counts = read_counts()
+    stage_s["c_bootstrap"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cov, (names, _, sizes) = fisher_covariance(eng_c, mle.params)
+    stage_s["c_hessian"] = time.perf_counter() - t0
+    offs = dict(zip(names, np.cumsum([0] + sizes[:-1]).tolist()))
+    sizes = dict(zip(names, sizes))
+    bl = slice(offs[("branch_lengths",)],
+               offs[("branch_lengths",)] + sizes[("branch_lengths",)])
+    ok = np.isfinite(np.diag(cov))[bl]
+    se_h = {"alpha": float(np.sqrt(cov[offs[("alpha",)],
+                                       offs[("alpha",)]])),
+            "tree_length": float(np.sqrt(cov[bl, bl][np.ix_(ok, ok)].sum())),
+            "rates": np.sqrt(np.diag(cov)[
+                offs[("model", "rates")]:offs[("model", "rates")] + 6]
+                .clip(0.0)).tolist()}
+    reps = pb["replicates"]
+    se_b = {"alpha": float(pb["se"]["alpha"]),
+            "tree_length": float(reps["branch_lengths"].sum(axis=1)
+                                 .std(ddof=1)),
+            "rates": pb["se"]["model"]["rates"].tolist()}
+    ratio = {k: se_b[k] / se_h[k] for k in ("alpha", "tree_length")}
+    finite = bool(np.isfinite(pb["loglik"]).all()) and all(
+        bool(np.isfinite(a).all()) for a in
+        (reps["branch_lengths"], reps["alpha"], reps["model"]["rates"],
+         reps["model"]["freqs"]))
+    value_walks = sum(boot_counts[c] for c in ("LAUNCHES", "SLOT_LAUNCHES",
+                                               "STREAM_LAUNCHES"))
+    reverses = (boot_counts["REVERSE_LAUNCHES"]
+                + boot_counts["CLASSIC_REVERSE_LAUNCHES"])
+    out["c"] = {
+        "taxa": CONFIG5_TAXA, "sites": SITES, "mle_steps": mle.n_steps,
+        "mle_loglik": mle.loglik, "replicates": BOOT_REPLICATES,
+        "refit_steps": BOOT_STEPS, "loglik": pb["loglik"].tolist(),
+        "se_bootstrap": se_b, "se_hessian": se_h, "se_ratio": ratio,
+        "s_per_replicate": stage_s["c_bootstrap"] / BOOT_REPLICATES,
+        "launches": boot_counts}
+    _check(finite and value_walks > 0 and reverses > 0
+           and boot_counts["SAVEALL_LAUNCHES"] > 0,
+           f"bootstrap: finite {finite}, launches {boot_counts}")
+    _check(all(0.2 <= r <= 5.0 for r in ratio.values()),
+           f"bootstrap SEs against the Hessian's outside 0.2-5x: {ratio}")
+    _emit(30, **out, stage_s=stage_s,
+          peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    return boot_counts
 
 
 def main():
@@ -1337,7 +1614,11 @@ def main():
           b5_device_us=b5_device, b1_b4_device_us=row_device)
 
     # 17. classic reverse kernel (B7) vs its plain version and B3 ----------
-    b7_err, b7_max, b7_times = {}, 0.0, {}
+    # its own generator: its seeds do not depend on how earlier phases
+    # drew from the shared one; B7's one-seed dP error is read on
+    # SEED_SWEEP more seeds, with B3's beside it as the control
+    rng17 = np.random.default_rng(17)
+    b7_err, b7_max, b7_times, b7_sweep = {}, 0.0, {}, {}
     b7_keys = [f"flagship_B{b}_S{s_}" for b in (1, BATCH)
                for s_ in (SITES, SITES - 24)]
     b7_keys += [f"caterpillar{CATERPILLAR}_B1_S{SITES}",
@@ -1353,12 +1634,18 @@ def main():
         rx, re = saveall_walk(p, leaves, walk)
         row = walk.root - walk.n_leaves
         dot = torch.einsum("...ksi,i->...ks", rx[..., row, :, :].double(), f)
-        weights = torch.as_tensor(
-            rng.integers(0, 4, dot.shape[-1]), dtype=torch.float64,
-            device=dev)
-        lam = (weights / dot).float().contiguous()
         f32 = f.float()
-        gseed = (lam[..., None] * f32).unsqueeze(-3).contiguous()
+
+        def root_seed(gen):
+            """B3's lambda and B7's seed lambda pi from pattern weights
+            drawn from ``gen``."""
+            weights = torch.as_tensor(
+                gen.integers(0, 4, dot.shape[-1]), dtype=torch.float64,
+                device=dev)
+            lam_ = (weights / dot).float().contiguous()
+            return lam_, (lam_[..., None] * f32).unsqueeze(-3).contiguous()
+
+        lam, gseed = root_seed(rng17)
         root = [walk.root]
         dp, dl = classic_reverse_walk(p, leaves, rx, re, gseed, root, walk,
                                       want_dleaf=True)
@@ -1371,7 +1658,7 @@ def main():
         wp, wl = classic_reverse_walk_reference(p, leaves, rx, re, gseed,
                                                 root, walk, want_dleaf=True)
         seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
-        g2 = torch.as_tensor(rng.uniform(
+        g2 = torch.as_tensor(rng17.uniform(
             0.5, 1.5, gseed.shape[:-3] + (2,) + gseed.shape[-2:]),
             dtype=torch.float32, device=dev)
         d2, l2 = classic_reverse_walk(p, leaves, rx, re, g2, seeds, walk,
@@ -1390,6 +1677,19 @@ def main():
                and max(errs.values()) <= REVERSE_TOL,
                f"{key}: B7 vs plain (x max|g|) {errs} > {CLASSIC_TOL} (one "
                f"seed's dP), {REVERSE_TOL}")
+        sweep = {"b7_dP_rel": [], "b3_dP_rel": []}
+        for seed in range(SEED_SWEEP):
+            lam_s, gseed_s = root_seed(np.random.default_rng((17, seed)))
+            d7, _ = classic_reverse_walk(p, leaves, rx, re, gseed_s, root,
+                                         walk)
+            want, _ = classic_reverse_walk_reference(p, leaves, rx, re,
+                                                     gseed_s, root, walk)
+            sweep["b7_dP_rel"].append(_max_rel(d7, want))
+            if has_b3:
+                d3, _ = reverse_walk(p, leaves, rx, re, lam_s, f32, walk)
+                sweep["b3_dP_rel"].append(_max_rel(d3, want))
+            del d7, want
+        b7_sweep[key] = sweep
         abs_err = float((dp.double() - wp.double()).abs().max())
         b7_err[key] = {"dP_abs": abs_err, "cmax": int(cmax),
                        "staged_children": cuda_pruning.classic_reverse_stage(
@@ -1442,7 +1742,15 @@ def main():
         del rx, re, dp, dl, dp2, wp, wl, d2, d2b, l2, w2, wl2
     torch.cuda.empty_cache()
     _emit(17, errors=b7_err, times=b7_times, deterministic=True,
+          seed_sweep=b7_sweep,
           classic_B64=timings[f"classic_B{BATCH}"])
+    # after the line, so that a miss still prints every reading
+    for key, sweep in b7_sweep.items():
+        _check(max(sweep["b7_dP_rel"]) <= CLASSIC_TOL
+               and max(sweep["b3_dP_rel"], default=0.0) <= REVERSE_TOL,
+               f"{key}: one-seed dP against the plain version on "
+               f"{SEED_SWEEP} seeds {sweep}: B7 > {CLASSIC_TOL} or B3 > "
+               f"{REVERSE_TOL}")
 
     # 18. flagship value_and_grad through B7, main path ----------------------
     with _env(PHYLO_DEFERRED_VJP="0"):
@@ -2871,13 +3179,17 @@ def main():
           stage_s=stage_cw)
     del g_cw, g_ref_cw
 
+    # 30. the simulation path at full width, main path -------------------
+    boot_counts = _simulation_path(dev, reset_counts, read_counts)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
                    *knob_counts.values(), mix_counts, cli_counts,
                    codon_value_counts, codon_grad_counts, codon_fit_counts,
                    b4_counts, b7_counts, b8_counts, b9_counts,
-                   *mk_counts.values(), cli_counts_28, cw_counts)
+                   *mk_counts.values(), cli_counts_28, cw_counts,
+                   boot_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)

@@ -1,20 +1,40 @@
 """phylo_utils_tpu_torch: the PyTorch/CUDA port of ``phylo_utils_tpu``.
 
 Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
-distances, NJ trees and model and profile mixtures on an NVIDIA GPU (or the
-CPU), held against the JAX
-package on the same inputs. The ported public names of the JAX package are
-exported here; the CLI is ``python -m phylo_utils_tpu_torch.cli``.
+distances, NJ trees, model and profile mixtures, sequence simulation and
+the parametric bootstrap on an NVIDIA GPU (or the CPU), held against the
+JAX package on the same inputs. The ported public names of the JAX
+package are exported here (``tests/test_torch_names.py`` lists the rest by
+ROADMAP item); the CLI is ``python -m phylo_utils_tpu_torch.cli``.
 Importing the package loads no kernel: ``ops/_build.py`` compiles
 ``csrc/*.cu`` with ``nvcc`` at the first CUDA launch.
 """
 
 __version__ = "0.1.0"
 
+from phylo_utils_tpu_torch import models  # noqa: F401
+from phylo_utils_tpu_torch.alphabets import (  # noqa: F401
+    DNA,
+    PROTEIN,
+    Alphabet,
+    encode_alignment,
+    seq_to_partials,
+)
+from phylo_utils_tpu_torch.io import (  # noqa: F401
+    CompressedAlignment,
+    compress_patterns,
+    load_compressed,
+    parse_newick,
+    read_alignment,
+    read_fasta,
+    read_phylip,
+    write_newick,
+)
 from phylo_utils_tpu_torch.likelihood import (  # noqa: F401
     GammaMixture,
     LikelihoodEngine,
 )
+from phylo_utils_tpu_torch.markov import TransitionMatrix  # noqa: F401
 from phylo_utils_tpu_torch.mixtures import ModelMixtureEngine  # noqa: F401
 from phylo_utils_tpu_torch.nj import neighbor_joining  # noqa: F401
 from phylo_utils_tpu_torch.optimize import (  # noqa: F401
@@ -33,6 +53,12 @@ from phylo_utils_tpu_torch.profile_mixtures import (  # noqa: F401
     profile_mixture_from_nexus,
 )
 from phylo_utils_tpu_torch.server import EngineServer  # noqa: F401
+from phylo_utils_tpu_torch.simulate import (  # noqa: F401
+    SequenceSimulator,
+    simulate_alignment,
+    simulate_branch_alignment,
+    simulate_mixture_alignment,
+)
 from phylo_utils_tpu_torch.trees import (  # noqa: F401
     Tree,
     compile_schedule,

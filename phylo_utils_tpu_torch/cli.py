@@ -3,7 +3,8 @@ flags and JSON output).
 
 Run as ``python -m phylo_utils_tpu_torch.cli <subcommand> ...`` (or
 ``python -m phylo_utils_tpu_torch``). Ported subcommands: ``loglik``,
-``fit``, ``distances``, ``build-tree``, ``bootstrap`` and ``serve``. Engines
+``fit``, ``distances``, ``build-tree``, ``bootstrap``, ``serve`` and
+``simulate`` (FASTA through ``io.write_fasta``). Engines and the simulator
 run on the card (``--device cuda``, the default) unless ``--device cpu`` is
 given; ``--pruner`` is ``torch`` (plain PyTorch, the default, as the JAX
 CLI's ``xla``) or ``cuda`` (the hand-written kernels). ``--params`` JSON is
@@ -35,7 +36,7 @@ MODEL_NAMES = (
 
 # the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
 NOT_PORTED = {
-    "simulate": "A18", "benchmark": "A2", "lmap": "A18", "consense": "A19",
+    "benchmark": "A2", "lmap": "A18", "consense": "A19",
     "topologies": "A17", "search": "A17", "ancestral": "A18",
     "compare": "A18", "partitionfinder": "A16", "site-test": "A15",
     "branch-site-test": "A18", "clock-test": "A18", "date": "A18",
@@ -398,6 +399,24 @@ def cmd_build_tree(args) -> int:
     return 0
 
 
+def cmd_simulate(args) -> int:
+    from phylo_utils_tpu_torch.io import write_fasta
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+
+    try:
+        aln = simulate_alignment(
+            args.seed, _read_tree(args.tree), _get_model(args.model),
+            args.sites, params=_json_params(args.params), ncat=args.ncat,
+            pinv=args.pinv, device=args.device,
+        )
+    except RuntimeError as e:       # no card behind --device cuda
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+    text = write_fasta(aln, path=args.out)
+    if not args.out:
+        sys.stdout.write(text)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from phylo_utils_tpu_torch.server import serve
 
@@ -469,6 +488,18 @@ def main(argv=None) -> int:
                    help="bootstrap supports (not ported: A18)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_build_tree)
+
+    p = sub.add_parser("simulate", help="simulate an alignment")
+    p.add_argument("--tree", required=True)
+    p.add_argument("--model", default="JC69")
+    p.add_argument("--sites", type=int, required=True)
+    p.add_argument("--ncat", type=int, default=1)
+    p.add_argument("--pinv", type=float, default=0.0)
+    p.add_argument("--params", help="JSON params")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", help="output FASTA path (default stdout)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_simulate)
 
     p = sub.add_parser("serve", help="HTTP inference server for one engine")
     _add_engine_args(p)

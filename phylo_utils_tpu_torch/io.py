@@ -26,10 +26,15 @@ __all__ = [
     "write_newick",
     "read_fasta",
     "read_phylip",
+    "write_fasta",
+    "write_phylip",
     "read_alignment",
     "read_nexus",
+    "write_nexus",
+    "parse_newick_forest",
     "compress_patterns",
     "encode_codon_alignment",
+    "load_compressed",
     "CompressedAlignment",
 ]
 
@@ -435,6 +440,91 @@ def read_nexus(path_or_text: str) -> Dict[str, object]:
     return {"alignment": alignment, "trees": trees}
 
 
+def write_nexus(
+    alignment: Optional[Dict[str, str]] = None,
+    trees: Optional[Dict[str, "_trees.Tree"]] = None,
+    path: Optional[str] = None,
+    datatype: str = "DNA",
+) -> str:
+    """Write a NEXUS file with optional DATA and TREES blocks.
+
+    Round-trips through :func:`read_nexus` (names needing quotes are
+    quoted; no TRANSLATE table is emitted: full labels in the newick).
+    """
+    def q(name: str) -> str:
+        if any(c.isspace() or c in "()[]{}/\\,;:=*'\"`<>" for c in name):
+            return "'" + name.replace("'", "''") + "'"
+        return name
+
+    out = ["#NEXUS", ""]
+    if alignment:
+        lens = {len(s) for s in alignment.values()}
+        if len(lens) != 1:
+            raise ValueError("alignment rows have unequal lengths")
+        (nchar,) = lens
+        out += [
+            "BEGIN DATA;",
+            f"  DIMENSIONS NTAX={len(alignment)} NCHAR={nchar};",
+            f"  FORMAT DATATYPE={datatype} MISSING=? GAP=-;",
+            "  MATRIX",
+        ]
+        width = max(len(q(n)) for n in alignment)
+        for name, seq in alignment.items():
+            out.append(f"    {q(name):<{width}} {seq}")
+        out += ["  ;", "END;", ""]
+    if trees:
+        out.append("BEGIN TREES;")
+        for name, tree in trees.items():
+            out.append(f"  TREE {q(name)} = {write_newick(tree)}")
+        out += ["END;", ""]
+    text = "\n".join(out)
+    if path:
+        with open(path, "w") as fh:
+            fh.write(text)
+    return text
+
+
+def parse_newick_forest(path_or_text: str):
+    """Parse a file/string containing multiple ';'-terminated Newick trees."""
+    text = _maybe_read(path_or_text)
+    chunks = [c.strip() for c in text.split(";") if c.strip()]
+    return [parse_newick(c + ";") for c in chunks]
+
+
+def write_fasta(alignment: Dict[str, str], path: Optional[str] = None,
+                width: int = 80) -> str:
+    """Serialize an alignment to FASTA (returns the text; writes if path)."""
+    lines = []
+    for name, seq in alignment.items():
+        lines.append(f">{name}")
+        for i in range(0, len(seq), width):
+            lines.append(seq[i : i + width])
+    text = "\n".join(lines) + "\n"
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
+
+
+def write_phylip(alignment: Dict[str, str], path: Optional[str] = None) -> str:
+    """Serialize an alignment to sequential relaxed PHYLIP."""
+    if not alignment:
+        raise ValueError("empty alignment")
+    lengths = {len(s) for s in alignment.values()}
+    if len(lengths) != 1:
+        raise ValueError("sequences have unequal lengths")
+    (n_chars,) = lengths
+    pad = max(len(n) for n in alignment) + 2
+    lines = [f"{len(alignment)} {n_chars}"]
+    for name, seq in alignment.items():
+        lines.append(f"{name:<{pad}}{seq}")
+    text = "\n".join(lines) + "\n"
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
+
+
 # ---------------------------------------------------------------------------
 # Site-pattern compression
 # ---------------------------------------------------------------------------
@@ -551,4 +641,46 @@ def encode_codon_alignment(
         partials=np.ascontiguousarray(partials),
         weights=counts.astype(dtype),
         site_to_pattern=site_to_pattern.astype(np.int32).ravel(),
+    )
+
+
+def load_compressed(
+    path: str, alphabet="dna", dtype=np.float64
+) -> CompressedAlignment:
+    """File -> CompressedAlignment through the native (C++) data path.
+
+    FASTA files are parsed straight into an uppercased uint8 character
+    matrix and hash-compressed without per-character Python
+    (``native/src/phyloio.cpp``); other formats are read by the Python
+    readers and compressed natively. Patterns come out in order of first
+    occurrence, as the JAX package's ``load_compressed`` gives them. Where
+    the native library cannot be built or loaded, the Python readers +
+    ``compress_patterns`` (``np.unique`` order). A codon alphabet reads the
+    file and compresses codon columns (``encode_codon_alignment``).
+    """
+    from phylo_utils_tpu_torch.alphabets import get_alphabet, _charmap_table
+
+    name = str(getattr(alphabet, "name", alphabet))
+    if name == "codon" or name.startswith("codon:"):
+        return compress_patterns(read_alignment(path), alphabet, dtype=dtype)
+    try:
+        from phylo_utils_tpu_torch import native
+
+        try:
+            names, matrix = native.read_fasta_matrix_native(path)
+            uniq_cols, site_to_pattern, counts = \
+                native.compress_matrix_native(matrix)
+        except ValueError:          # not FASTA: PHYLIP, NEXUS
+            aln = read_alignment(path)
+            names = list(aln)
+            _, uniq_cols, site_to_pattern, counts = \
+                native.compress_chars_native([aln[n] for n in names])
+    except (ImportError, OSError, ValueError, MemoryError):
+        return compress_patterns(read_alignment(path), alphabet, dtype=dtype)
+    table = _charmap_table(get_alphabet(alphabet), dtype)
+    return CompressedAlignment(
+        names=tuple(names),
+        partials=table[uniq_cols],
+        weights=counts.astype(dtype),
+        site_to_pattern=site_to_pattern.astype(np.int32),
     )

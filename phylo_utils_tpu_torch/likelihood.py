@@ -151,6 +151,16 @@ def validate_param_keys(params, full, where: str,
             )
 
 
+# set by ``utils.metrics.enable_debug_checks``: an engine's value or
+# gradient that holds a NaN raises FloatingPointError
+DEBUG_NANS = False
+
+
+def _check_nans(what: str, *tensors: torch.Tensor) -> None:
+    if DEBUG_NANS and any(bool(torch.isnan(t).any()) for t in tensors):
+        raise FloatingPointError(f"NaN in the engine's {what}")
+
+
 def _value_key(t) -> bytes:
     return torch.as_tensor(t).detach().cpu().numpy().tobytes()
 
@@ -412,8 +422,10 @@ class LikelihoodEngine:
             rates = self.model_rates(full)
             if branch_lengths is not None:
                 full = {**full, "branch_lengths": branch_lengths}
-            return self._loglik_fn(full, self._leaf_partials, self._weights,
-                                   eig=eig, rates=rates)
+            total, sw = self._loglik_fn(full, self._leaf_partials,
+                                        self._weights, eig=eig, rates=rates)
+        _check_nans("log-likelihood", total, sw)
+        return total, sw
 
     def loglikelihood(self, params: Optional[Mapping] = None) -> float:
         total, _ = self._eval(self._full_params(params))
@@ -468,6 +480,7 @@ class LikelihoodEngine:
                                         allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
+        _check_nans("value_and_grad", total, *grads)
         return total.detach(), {**empty, **unflatten_params(names, grads)}
 
     def value_and_grad(

@@ -14,8 +14,9 @@ Also here: single-branch Newton (``newton_branch_length``), the 1-D
 minimizers (``golden_section``, ``brent_minimize``), pairwise ML distances
 (``ml_distance_matrix``), multistart fits (``fit_multistart``) and the
 observed-information covariance and standard errors (``fisher_covariance``,
-``standard_errors``). The parametric bootstrap waits for ``simulate.py``
-(ROADMAP A18).
+``standard_errors``), and the parametric bootstrap (``simulation_setup``,
+``parametric_bootstrap``: simulate at the fitted model with
+``simulate.simulate_alignment``, refit each replicate).
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ __all__ = [
     "golden_section",
     "brent_minimize",
     "ml_distance_matrix",
+    "simulation_setup",
+    "parametric_bootstrap",
 ]
 
 # ---------------------------------------------------------------------------
@@ -771,3 +774,128 @@ def ml_distance_matrix(
         out[ii, jj] = flat
         out[jj, ii] = flat
     return out
+
+
+# ---------------------------------------------------------------------------
+# Parametric bootstrap
+# ---------------------------------------------------------------------------
+
+_SIMULABLE_KEYS = {"branch_lengths", "model", "alpha", "pinv"}
+
+
+def simulation_setup(engine, params, what: str):
+    """(full, tree_at_mle, n_sites, flat sim params, pinv) for
+    simulate-at-the-fitted-model workflows (``parametric_bootstrap``).
+
+    Only an engine that computes the base ``LikelihoodEngine``'s likelihood
+    under the plain gamma (or no) rate mixture is taken, as in the JAX
+    package. The check is on behaviour: the engine's parameters must be
+    those ``simulate_alignment`` consumes (the model's, ``alpha``,
+    ``pinv``: the mixture engines add classes, weights and profiles), its
+    rates gamma rates (``rate_model="free"`` has FreeRate rates and
+    weights), and its log-likelihood at ``params`` the base engine's on
+    the same data (``AscertainmentEngine`` conditions on variable sites,
+    which the simulator does not). Simulating such an engine under factory
+    defaults would make the bootstrap null meaningless.
+    """
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+
+    def refuse():
+        raise ValueError(
+            f"{what} supports the base LikelihoodEngine only; "
+            f"{type(engine).__name__} has its own parameterization that "
+            "simulate_alignment cannot generate under (simulate with the "
+            "matching simulator (simulate_mixture_alignment / "
+            "simulate_branch_alignment) and drive the analysis manually)"
+        )
+
+    if (not isinstance(engine, LikelihoodEngine)
+            or set(engine.default_params()) - _SIMULABLE_KEYS):
+        refuse()
+    if engine.rate_model != "gamma":
+        raise ValueError(
+            f"{what} supports the (equal-weight) gamma rate mixture "
+            "only: simulate_alignment cannot generate under "
+            f"rate_model={engine.rate_model!r} (FreeRate rates/weights)"
+        )
+    full = engine._full_params(params)
+    with torch.no_grad():
+        data = (full, engine._leaf_partials, engine._weights)
+        cached = dict(eig=engine.model_eigen(full),
+                      rates=engine.model_rates(full))
+        own, _ = engine._loglik_fn(*data, **cached)
+        base, _ = LikelihoodEngine._loglik_fn(engine, *data, **cached)
+    if not torch.equal(own, base):
+        refuse()
+    tree_mle = engine.tree.with_lengths(
+        full["branch_lengths"].detach().to("cpu", torch.float64).numpy())
+    n_sites = int(round(float(engine._weights.sum())))
+    sim_params = {k: v.detach() for k, v in full.get("model", {}).items()}
+    if "alpha" in full:
+        sim_params["alpha"] = full["alpha"].detach()
+    pinv = float(full["pinv"]) if "pinv" in full else 0.0
+    return full, tree_mle, n_sites, sim_params, pinv
+
+
+def parametric_bootstrap(
+    engine,
+    params: Optional[Mapping] = None,
+    n_replicates: int = 100,
+    seed: int = 0,
+    free: Optional[Tuple[str, ...]] = None,
+    max_steps: int = 200,
+    pruner: str = "torch",
+    **fit_kwargs,
+):
+    """Parametric bootstrap of the ML estimates (seq-gen + refit).
+
+    Simulates ``n_replicates`` alignments of the original length under the
+    engine's model AT ``params`` (pass the MLE from ``fit``), refits each
+    replicate from those values, and returns the sampling distribution of
+    the estimates: the finite-sample complement to the asymptotic
+    ``standard_errors``, and the standard way to expose estimator bias.
+
+    Replicate ``i`` is simulated from a generator seeded ``seed + i`` on
+    the engine's device (as the JAX package keys ``seed + i``), so any
+    replicate's alignment can be rebuilt. The replicate engines take the
+    engine's device and dtype and ``pruner`` ("torch", as the JAX
+    package's "xla", or "cuda").
+
+    Returns a dict with "replicates" (the params dict with each leaf a
+    stacked (n_replicates, ...) float64 numpy array), "mean"/"se" (per
+    leaf) and "loglik" per replicate. Base ``LikelihoodEngine`` only
+    (``simulation_setup``).
+    """
+    from phylo_utils_tpu_torch.convert import params_to_numpy
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+
+    full, tree_mle, n_sites, sim_params, pinv = simulation_setup(
+        engine, params, what="parametric_bootstrap"
+    )
+    reps, lls = [], []
+    for i in range(n_replicates):
+        aln = simulate_alignment(
+            seed + i, tree_mle, engine.model, n_sites, params=sim_params,
+            ncat=engine.ncat, pinv=pinv, median=engine.median,
+            device=engine.device,
+        )
+        rep_engine = type(engine)(
+            tree_mle, aln, engine.model, ncat=engine.ncat,
+            invariant_sites=engine.invariant_sites, median=engine.median,
+            dtype=engine.dtype, pruner=pruner, device=engine.device,
+        )
+        res = fit(rep_engine, params0=full, free=free, max_steps=max_steps,
+                  **fit_kwargs)
+        reps.append(flatten_params(params_to_numpy(res.params)))
+        lls.append(res.loglik)
+
+    names = reps[0][0]
+    stacked = [np.stack([leaves[j] for _, leaves in reps])
+               for j in range(len(names))]
+    return {
+        "replicates": unflatten_params(names, stacked),
+        "mean": unflatten_params(names, [a.mean(axis=0) for a in stacked]),
+        "se": unflatten_params(names, [a.std(axis=0, ddof=1)
+                                       for a in stacked]),
+        "loglik": np.asarray(lls),
+    }

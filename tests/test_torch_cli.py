@@ -277,6 +277,47 @@ def test_fit_checkpoint_and_resume(small_inputs, tmp_path, capsys):
     assert resumed["params"] == whole["params"]
 
 
+@pytest.mark.parametrize("model,sites,width,alphabet", [
+    ("HKY85", 120, 1, "ACGT"), ("GY94", 40, 3, "ACGT"),
+    ("LG", 60, 1, "ARNDCQEGHILKMFPSTWYV")])
+def test_simulate_writes_fasta_that_loglik_reads(tmp_path, capsys, model,
+                                                 sites, width, alphabet):
+    """``simulate --device cpu`` writes FASTA through ``write_fasta`` (the
+    tree's leaf names, ``sites`` x the state width, the model's
+    alphabet); the same seed prints the same text to stdout; the port's
+    and the JAX CLI's ``loglik`` read the file back to the same logL
+    (1e-10 relative)."""
+    out = str(tmp_path / "sim.fa")
+    args = ["simulate", "--tree", TREE, "--model", model, "--sites",
+            str(sites), "--ncat", "4", "--params", '{"alpha": 0.7}',
+            "--seed", "11", "--device", "cpu"]
+    assert cli.main(args + ["--out", out]) == 0
+    with open(out) as f:
+        text = f.read()
+    assert cli.main(args) == 0
+    assert capsys.readouterr().out == text
+    from phylo_utils_tpu_torch.io import read_fasta
+
+    aln = read_fasta(out)
+    assert list(aln) == ["a", "b", "c", "d"]
+    assert {len(s) for s in aln.values()} == {sites * width}
+    assert set("".join(aln.values())) <= set(alphabet)
+    port, want = _both(["loglik", "--tree", TREE, "--alignment", out,
+                        "--model", model + "+G4"], capsys)
+    assert np.isfinite(port["loglik"])
+    assert _rel(port["loglik"], want["loglik"]) <= 1e-10
+
+
+def test_simulate_on_the_card_by_default(tmp_path):
+    """Without --device the simulator runs on the card, and says so where
+    there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default runs there")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main(["simulate", "--tree", TREE, "--sites", "10", "--out",
+                  str(tmp_path / "x.fa")])
+
+
 @pytest.mark.parametrize("name", sorted(cli.NOT_PORTED))
 def test_unported_subcommands_name_their_roadmap_item(name, capsys):
     with pytest.raises(SystemExit, match=f"ROADMAP {cli.NOT_PORTED[name]}"):
