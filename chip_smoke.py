@@ -179,12 +179,25 @@ all at once) and runs, in order, printing one line per phase:
     ``pruner="cuda"``: the walk and reverse kernels run, every replicate
     is finite, and the bootstrap SEs of alpha and the tree length are
     within 0.2-5x of the observed information's (the GTR rates' are
-    reported only: ROADMAP C).
+    reported only: ROADMAP C);
+31. the codon site models (``_site_models_path``): phase 27's tree x 4096
+    codon sites simulated here under an M8-like truth (10 Beta(0.5, 1.5)
+    classes at 90%, omega 3 at 10%), F3x4 held; M1a, M2a, M7, M8 and M8a
+    (10 beta classes) f32 ``pruner="cuda"`` against f64 (logL and sitewise
+    to 2e-5 relative, gradients to 5e-4 x max|g|), every value call
+    through B5 at 64 states; B5 at K = 11, 21 and 30 (M8's value call and
+    the two BEB passes) bit for bit against B1 and its plain version,
+    timed; ``omega_posteriors`` (M8, ``POSTERIOR_TOL``) and both BEB scans
+    (d = 10; ``BEB_TOL``) against f64, the M8 scans ranking the simulated
+    positive sites first; 5 fit steps of M7 and M8 and
+    ``positive_selection_test``; the CLI's ``site-test`` (m1a-m2a
+    ``--sites --beb``, m7-m8 ``--sites``, ``--pruner cuda``) and
+    ``compare --models JC69,HKY85+G`` as subprocesses side by side.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-30; the kernel-against-plain phases are not counted. The last two lines
+23-31; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
@@ -278,6 +291,19 @@ CODON_PARAMS = {"model": {"kappa": 2.4, "omega": 0.25}, "alpha": 0.6}
 # its expectation; the bootstrap's MLE fit, replicates and refit steps
 SIM_SITES, SIGMA_BOUND = 100_000, 5.0
 BOOT_MLE_STEPS, BOOT_REPLICATES, BOOT_STEPS = 40, 8, 20
+# the codon site models (phase 31): phase 27's tree and codon count, 10 beta
+# classes, the BEB grids at codeml's d = 10 (M8: 20 fine omegas), the fit's
+# steps, the CLI's steps and its 16-taxon x 1024-site DNA file for compare,
+# the f64 reference gradient's pattern slices
+SITE_NCAT, SITE_BEB_D, SITE_BEB_FINE, SITE_FIT_STEPS = 10, 10, 20, 5
+SITE_CLI_STEPS, CLI_DNA_SITES, SITE_SLICES = 15, 1024, 4
+# BEB site posteriors, f32 walk against f64, absolute. A grid point's
+# log-posterior sums the per-class site log-likelihood errors over the
+# patterns: ~1e-6 each (POSTERIOR_TOL), sqrt(4096) x 1e-6 = 6.4e-5 at this
+# shape if they are independent. That moves a grid weight by that share,
+# and a site posterior (a weighted mean of values in [0, 1]) by at most as
+# much; the posterior mean omega (values below 11) by 11 times that
+BEB_TOL = 1e-4
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -846,6 +872,394 @@ def _simulation_path(dev, reset_counts, read_counts):
     _emit(30, **out, stage_s=stage_s,
           peak_allocated_bytes=torch.cuda.max_memory_allocated())
     return boot_counts
+
+
+def _median_ms(fn, reps):
+    """Median milliseconds of ``reps`` calls of ``fn``, each timed on the
+    host clock to a ``torch.cuda.synchronize()``."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _site_models_path(dev, reset_counts, read_counts, smi):
+    """Phase 31, the codon site models at full width (main path): phase
+    27's 100-taxon tree x 4096 codon sites simulated here under an M8-like
+    truth (10 Beta(0.5, 1.5) classes at 90%, omega 3 at 10%; GY94, kappa
+    2.4), F3x4 frequencies held. (a) M1a, M2a, M7, M8 and M8a (10 beta
+    classes) in f32 ``pruner="cuda"`` against f64 ``pruner="torch"`` (its
+    gradient over ``SITE_SLICES`` pattern slices): logL, sitewise logL,
+    ``value_and_grad``, B5 launched by every value call, median times; (b) B5 at 64 states with K = 11 (M8's value call),
+    21 and 30 (the M2a and M8 BEB passes' P) bit for bit against B1 and
+    within rounding of its plain version; (c) ``omega_posteriors`` (M8),
+    ``beb_site_posteriors`` (M2a) and ``beb_site_posteriors_m8`` (M8)
+    against f64, and the M8 scan's ranking of the truly positive sites;
+    (d) 5 L-BFGS steps of M7 and of M8 as the CLI's m7-m8 frees them, and
+    ``positive_selection_test``; (e) the CLI's ``site-test`` (m1a-m2a with
+    ``--sites --beb``, m7-m8 with ``--sites``; ``--pruner cuda``) and
+    ``compare --models JC69,HKY85+G`` as subprocesses, all at once. (a),
+    (c) and (d) are counted. Returns their launch counts."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.io import encode_codon_alignment, write_fasta
+    from phylo_utils_tpu_torch.io import write_newick
+    from phylo_utils_tpu_torch.mixtures import (
+        M1aEngine,
+        M2aEngine,
+        M7Engine,
+        M8aEngine,
+        M8Engine,
+        _beb_omega_grid,
+        _omega_class_p,
+        beb_site_posteriors,
+        beb_site_posteriors_m8,
+        omega_posteriors,
+        positive_selection_test,
+    )
+    from phylo_utils_tpu_torch.models.codon import (
+        empirical_codon_frequencies,
+        f3x4_frequencies,
+    )
+    from phylo_utils_tpu_torch.ops import cuda_pruning
+    from phylo_utils_tpu_torch.ops.beta import discrete_beta
+    from phylo_utils_tpu_torch.ops.pruning import LN2
+    from phylo_utils_tpu_torch.optimize import fit
+    from phylo_utils_tpu_torch.simulate import (
+        simulate_alignment,
+        simulate_mixture_alignment,
+    )
+    from phylo_utils_tpu_torch.trees import random_tree
+
+    f32, f64 = torch.float32, torch.float64
+    stage_s, out = {}, {}
+    counted = []
+    t0 = time.perf_counter()
+    tree = random_tree(CODON_TAXA, seed=27)
+    beta = discrete_beta(0.5, 1.5, SITE_NCAT).tolist()
+    nuc = np.random.default_rng(31).dirichlet(np.full(4, 8.0), size=3)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    aln, classes = simulate_mixture_alignment(
+        gen, tree, models.GY94, CODON_PATTERNS,
+        [{"omega": w} for w in beta] + [{"omega": 3.0}],
+        weights=[0.9 / SITE_NCAT] * SITE_NCAT + [0.1],
+        shared={"kappa": 2.4, "freqs": f3x4_frequencies(nuc).tolist()})
+    positive = classes == SITE_NCAT
+    ca = encode_codon_alignment(aln)
+    freqs = empirical_codon_frequencies(aln, "f3x4").tolist()
+    shared = {"kappa": 2.4, "freqs": freqs}
+    engines = {
+        "M1a": (M1aEngine, {}, {"proportions": [0.6, 0.4], "omega0": 0.3}),
+        "M2a": (M2aEngine, {}, {"proportions": [0.55, 0.35, 0.1],
+                                "omega0": 0.3, "omega2_delta": 2.0}),
+        "M7": (M7Engine, {"ncat": SITE_NCAT},
+               {"beta_p": 0.5, "beta_q": 1.5}),
+        "M8": (M8Engine, {"ncat": SITE_NCAT},
+               {"beta_p": 0.5, "beta_q": 1.5, "p0": 0.9,
+                "omega_delta": 2.0}),
+        "M8a": (M8aEngine, {"ncat": SITE_NCAT},
+                {"beta_p": 0.5, "beta_q": 1.5, "p0": 0.9}),
+    }
+    stage_s["data"] = time.perf_counter() - t0
+
+    # (a) each engine's value and gradient, f32 cuda against f64 torch
+    t0 = time.perf_counter()
+    e32, e64, params, per = {}, {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for name, (cls, kw, hyper) in engines.items():
+        params[name] = {**hyper, "shared": shared}
+        e32[name] = cls(tree, ca, dtype=f32, pruner="cuda", device=DEVICE,
+                        **kw)
+        e64[name] = cls(tree, ca, dtype=f64, pruner="torch", device=DEVICE,
+                        **kw)
+        launches = []
+
+        def value_call(fn):
+            before = (cuda_pruning.STREAM_LAUNCHES, cuda_pruning.LAUNCHES)
+            got = fn()
+            launches.append((cuda_pruning.STREAM_LAUNCHES - before[0],
+                             cuda_pruning.LAUNCHES - before[1]))
+            return got
+
+        eng, p_ = e32[name], params[name]
+        ll = value_call(lambda: eng.loglikelihood(p_))
+        sw = value_call(lambda: eng.sitewise_loglikelihoods(p_))
+        value_ms = _median_ms(lambda: value_call(
+            lambda: eng.loglikelihood(p_)), 5)
+        torch.cuda.reset_peak_memory_stats()
+        v, g = eng.value_and_grad(p_)
+        grad_peak = torch.cuda.max_memory_allocated()
+        grad_ms = _median_ms(lambda: eng.value_and_grad(p_), 3)
+        ll_ref = e64[name].loglikelihood(p_)
+        sw_ref = e64[name].sitewise_loglikelihoods(p_)
+        # the f64 autograd over pattern slices: whole, M8's took 66.6 GB
+        v_ref, g_ref = _chunked_value_and_grad(
+            dict(tree=tree, dtype=f64, pruner="torch", device=DEVICE, **kw),
+            ca, p_, SITE_SLICES, engine_cls=cls)
+        per[name] = {
+            "classes": eng.ncat, "loglik": ll, "loglik_f64": ll_ref,
+            "rel_err": abs(ll - ll_ref) / abs(ll_ref),
+            "sitewise_max_rel_err": float(np.max(np.abs(sw - sw_ref)
+                                                 / np.abs(sw_ref))),
+            "value_rel_err": abs(float(v) - v_ref) / abs(v_ref),
+            "grad_rel_err": _grad_errors(g, g_ref),
+            "value_launches_b5_b1": launches, "loglik_ms_median": value_ms,
+            "value_and_grad_ms_median": grad_ms,
+            "grad_peak_allocated_bytes": grad_peak}
+        del v, g, v_ref, g_ref
+        _check(all(b5 >= 1 and b1 == 0 for b5, b1 in launches),
+               f"{name}: a value call did not launch B5 alone: {launches}")
+        _check(math.isfinite(ll) and per[name]["rel_err"] <= CODON_RTOL
+               and per[name]["sitewise_max_rel_err"] <= CODON_RTOL
+               and per[name]["value_rel_err"] <= CODON_RTOL
+               and max(per[name]["grad_rel_err"].values()) <= GRAD_TOL,
+               f"{name} f32 cuda against f64: {per[name]}")
+        torch.cuda.empty_cache()
+    # how much of M8's value and gradient calls is the card's
+    busy = {"M8_loglikelihood": _device_busy(
+                lambda: e32["M8"].loglikelihood(params["M8"])),
+            "M8_value_and_grad": _device_busy(
+                lambda: e32["M8"].value_and_grad(params["M8"]))}
+    counted.append(read_counts())
+    stage_s["engines"] = time.perf_counter() - t0
+
+    # (b) B5 at K = 11, 21 and 30 against B1 and its plain version (not
+    # counted): M8's value-call P and the two BEB passes' P, padded to 64
+    t0 = time.perf_counter()
+    m2a, m8 = e32["M2a"], e32["M8"]
+    walk = cuda_pruning.WalkSchedule(m8.schedule)
+    leaves = cuda_pruning._pad_states(m8._leaf_partials.float(), 64,
+                                      1).contiguous()
+    full8 = m8._full_params(params["M8"])
+    _, _, p_k11, f_k11 = m8._mixture_tensors(full8, f64)
+    with torch.no_grad():
+        p_k21, f_k21 = _omega_class_p(m2a, m2a._full_params(params["M2a"]),
+                                      _beb_omega_grid(SITE_BEB_D))
+        p_k30, f_k30 = _omega_class_p(m8, full8, _beb_omega_grid(
+            SITE_BEB_D, SITE_BEB_FINE))
+    b5 = {}
+    for label, p64, f in (("M8_K11", p_k11, f_k11),
+                          ("M2a_beb_K21", p_k21, f_k21),
+                          ("M8_beb_K30", p_k30, f_k30)):
+        p_pad = cuda_pruning._pad_states(p64.detach().float(), 64,
+                                         2).contiguous()
+        f_pad = cuda_pruning._pad_states(f.detach(), 64, 1)
+        sp, se = cuda_pruning.slot_walk(p_pad, leaves, walk, stream=True)
+        kp, ke = cuda_pruning.forward_walk(p_pad, leaves, walk,
+                                           walk="classic")
+        rp, re = cuda_pruning.slot_walk_reference(p_pad, leaves, walk)
+        torch.cuda.synchronize()
+
+        def ll_of(rt, ex):
+            return (torch.log(torch.einsum("ksi,ki->ks", rt.double(), f_pad))
+                    + ex.double() * LN2)
+
+        err = float((ll_of(sp, se) - ll_of(rp, re)).abs().max())
+        tol = len(walk.order) * 2.0 ** -21
+        plain_ms = _cuda_ms(lambda: cuda_pruning.slot_walk_reference(
+            p_pad, leaves, walk), 2)
+        kernel_ms = _cuda_ms(lambda: cuda_pruning.slot_walk(
+            p_pad, leaves, walk, stream=True), 5)
+        bound_ms, bound_by = _bound("stream", walk, p_pad, leaves)
+        b5[label] = {
+            "categories": int(p_pad.shape[1]),
+            "bit_identical_to_b1": bool(torch.equal(sp, kp)
+                                        and torch.equal(se, ke)),
+            "bit_identical_to_plain": bool(torch.equal(sp, rp)
+                                           and torch.equal(se, re)),
+            "max_abs_err_site_loglik": err, "tolerance": tol,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "p_bytes": 4 * p_pad.numel()}
+        _check(b5[label]["bit_identical_to_b1"] and err <= tol,
+               f"B5 at 64 states, {label}: {b5[label]}")
+        del p_pad, sp, se, kp, ke, rp, re
+    del p_k11, p_k21, p_k30
+    torch.cuda.empty_cache()
+    stage_s["b5_checks"] = time.perf_counter() - t0
+
+    # (c) the scans and (d) the fits, counted
+    t0 = time.perf_counter()
+    reset_counts()
+    scans, scan_ms = {}, {}
+    for label, fn, eng in (
+            ("neb_m8", lambda e: omega_posteriors(e, params["M8"]), "M8"),
+            ("beb_m2a", lambda e: beb_site_posteriors(
+                e, params["M2a"], d=SITE_BEB_D), "M2a"),
+            ("beb_m8", lambda e: beb_site_posteriors_m8(
+                e, params["M8"], d=SITE_BEB_D, n_fine=SITE_BEB_FINE),
+             "M8")):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fn(e32[eng])
+        torch.cuda.synchronize()
+        scan_ms[label] = 1e3 * (time.perf_counter() - t1)
+        scans[label] = (got, fn(e64[eng]))
+    (neb_w, neb_g), (neb_w_ref, neb_g_ref) = scans["neb_m8"]
+    om8 = float(1.0 + params["M8"]["omega_delta"])
+    scan_err = {
+        "neb_m8_posterior": float(np.abs(neb_g - neb_g_ref).max()),
+        "neb_m8_mean_omega": float(np.abs(neb_w - neb_w_ref).max())}
+    for label in ("beb_m2a", "beb_m8"):
+        (pp, mw), (pp_ref, mw_ref) = scans[label]
+        scan_err[f"{label}_positive"] = float(np.abs(pp - pp_ref).max())
+        scan_err[f"{label}_mean_omega"] = float(np.abs(mw - mw_ref).max())
+    bounds = {"neb_m8_posterior": POSTERIOR_TOL,
+              "neb_m8_mean_omega": om8 * POSTERIOR_TOL,
+              "beb_m2a_positive": BEB_TOL, "beb_m8_positive": BEB_TOL,
+              "beb_m2a_mean_omega": 11.0 * BEB_TOL,
+              "beb_m8_mean_omega": 11.0 * BEB_TOL}
+    p_pos8 = scans["beb_m8"][0][0]
+    ranking = {"beb_m8_positive_sites": float(p_pos8[positive].mean()),
+               "beb_m8_other_sites": float(p_pos8[~positive].mean()),
+               "neb_m8_positive_sites": float(neb_g[positive, -1].mean()),
+               "neb_m8_other_sites": float(neb_g[~positive, -1].mean())}
+    _check(all(scan_err[k] <= bounds[k] for k in bounds),
+           f"site scans f32 against f64: {scan_err} (bounds {bounds})")
+    _check(ranking["beb_m8_positive_sites"] > ranking["beb_m8_other_sites"]
+           and ranking["neb_m8_positive_sites"]
+           > ranking["neb_m8_other_sites"],
+           f"the M8 scans do not rank the positive sites higher: {ranking}")
+    del scans
+    stage_s["scans"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    params0 = {"shared": {"freqs": freqs}}
+    free7 = ("branch_lengths", "shared.kappa", "beta_p", "beta_q")
+    fits = {}
+    for name, free in (("M7", free7),
+                       ("M8", free7 + ("p0", "omega_delta"))):
+        eng = e32[name]
+        start = eng.loglikelihood(params0)
+        before = cuda_pruning.STREAM_LAUNCHES
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fit(eng, params0=params0, free=free, max_steps=SITE_FIT_STEPS,
+                  patience=10 ** 6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        # every evaluation launches B5 once; the fit ends with two value
+        # calls at the returned parameters
+        evals = cuda_pruning.STREAM_LAUNCHES - before - 2
+        fits[name] = {"start_loglik": start, "loglik": res.loglik,
+                      "trace": res.trace.tolist(), "steps": res.n_steps,
+                      "steps_per_s": res.n_steps / secs,
+                      "evaluations_per_step": evals / res.n_steps,
+                      "seconds": secs, "result": res}
+        _check(res.loglik > start and float(res.trace.max()) > start,
+               f"{name} fit did not raise logL: start {start}, "
+               f"trace {res.trace}")
+    lrt = positive_selection_test(fits["M7"]["loglik"], fits["M8"]["loglik"])
+    _check(0.0 <= lrt["pvalue"] <= 1.0, f"M7 vs M8 LRT: {lrt}")
+    counted.append(read_counts())
+    for f in fits.values():
+        del f["result"]
+    stage_s["fits"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del e32, e64
+    torch.cuda.empty_cache()
+
+    # (e) the CLI as subprocesses, all at once
+    t0 = time.perf_counter()
+    cli_tree = random_tree(CLI_CODON_TAXA, seed=31)
+    cli_aln, _ = simulate_mixture_alignment(
+        32, cli_tree, models.GY94, CLI_CODON_PATTERNS,
+        [{"omega": 0.1}, {"omega": 1.0}, {"omega": 3.0}],
+        weights=[0.6, 0.3, 0.1], shared={"kappa": 2.4}, device=dev)
+    dna = simulate_alignment(33, cli_tree, models.HKY85, CLI_DNA_SITES,
+                             params={"kappa": 3.0, "alpha": 0.5}, ncat=4,
+                             device=dev)
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    cli_out, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_site_",
+                                     dir=build) as tmp:
+        tree_path, codon_fa, dna_fa = (os.path.join(tmp, n_) for n_ in (
+            "t.nwk", "codon.fa", "dna.fa"))
+        with open(tree_path, "w") as fh:
+            fh.write(write_newick(cli_tree) + "\n")
+        write_fasta(cli_aln, path=codon_fa)
+        write_fasta(dna, path=dna_fa)
+        site = ["site-test", "--tree", tree_path, "--alignment", codon_fa,
+                "--max-steps", str(SITE_CLI_STEPS), "--sites", "--pruner",
+                "cuda"]
+        cmds = {
+            "site_test_m1a_m2a": site + ["--test", "m1a-m2a", "--beb"],
+            "site_test_m7_m8": site + ["--test", "m7-m8"],
+            "compare": ["compare", "--tree", tree_path, "--alignment",
+                        dna_fa, "--models", "JC69,HKY85+G", "--max-steps",
+                        "100"]}
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        procs = {}
+        for name, cmd in cmds.items():
+            # the engines in float32, the walk's own precision
+            extra = ["--dtype", "float32"] if name.startswith("site") else []
+            with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
+                    open(os.path.join(tmp, f"{name}.err"), "w") as fe:
+                procs[name] = (time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
+                    + extra + ["--device", DEVICE], cwd=REPO, env=env,
+                    stdout=fo, stderr=fe))
+        try:
+            for name, (t1, proc) in procs.items():
+                proc.wait(timeout=600)
+                walls[name] = time.perf_counter() - t1
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, (_, proc) in procs.items():
+            with open(os.path.join(tmp, f"{name}.err")) as fe:
+                stderr = fe.read()
+            _check(proc.returncode == 0,
+                   f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
+            with open(os.path.join(tmp, f"{name}.out")) as fo:
+                cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
+    site_keys = {"test", "loglik_null", "loglik_alt", "lrt", "alt_params",
+                 "site_mean_omega", "site_positive_posterior"}
+    beb_keys = {"beb_positive_posterior", "beb_mean_omega"}
+    cli_summary = {}
+    for name, want_keys in (("site_test_m1a_m2a", site_keys | beb_keys),
+                            ("site_test_m7_m8", site_keys)):
+        got = cli_out[name]
+        _check(set(got) == want_keys
+               and 0.0 <= got["lrt"]["pvalue"] <= 1.0
+               and all(len(got[k]) == CLI_CODON_PATTERNS
+                       for k in want_keys - {"test", "loglik_null",
+                                             "loglik_alt", "lrt",
+                                             "alt_params"})
+               and math.isfinite(got["loglik_alt"]),
+               f"cli {name}: keys {sorted(got)}, lrt {got.get('lrt')}")
+        cli_summary[name] = {k: got[k] for k in ("loglik_null",
+                                                 "loglik_alt", "lrt")}
+    cmp_ = cli_out["compare"]
+    _check(set(cmp_) == {"ranked", "best", "criterion"}
+           and len(cmp_["ranked"]) == 2
+           and all(math.isfinite(r["loglik"]) for r in cmp_["ranked"]),
+           f"cli compare: {cmp_}")
+    cli_summary["compare"] = cmp_
+    stage_s["cli"] = time.perf_counter() - t0
+
+    counts = {k: sum(c.get(k, 0) for c in counted)
+              for k in set().union(*counted)}
+    _emit(31, card=smi, taxa=CODON_TAXA, codon_sites=CODON_PATTERNS,
+          patterns=ca.n_patterns, positive_sites=int(positive.sum()),
+          engines=per, profiled=busy, b5_at_64=b5,
+          scan_max_abs_err=scan_err,
+          scan_bounds=bounds, scan_ranking=ranking, scan_ms=scan_ms,
+          fits=fits, m7_m8_lrt=lrt, cli=cli_summary, cli_wall_s=walls,
+          peak_allocated_bytes=peak, launches=counts, stage_s=stage_s)
+    return counts
 
 
 def main():
@@ -3182,6 +3596,9 @@ def main():
     # 30. the simulation path at full width, main path -------------------
     boot_counts = _simulation_path(dev, reset_counts, read_counts)
 
+    # 31. the codon site models at full width, main path -----------------
+    site_counts = _site_models_path(dev, reset_counts, read_counts, smi)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
@@ -3189,7 +3606,7 @@ def main():
                    codon_value_counts, codon_grad_counts, codon_fit_counts,
                    b4_counts, b7_counts, b8_counts, b9_counts,
                    *mk_counts.values(), cli_counts_28, cw_counts,
-                   boot_counts)
+                   boot_counts, site_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)

@@ -1,8 +1,9 @@
 """phylo_utils_tpu_torch: the PyTorch/CUDA port of ``phylo_utils_tpu``.
 
 Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
-distances, NJ trees, model and profile mixtures, sequence simulation and
-the parametric bootstrap on an NVIDIA GPU (or the CPU), held against the
+distances, NJ trees, model and profile mixtures, the codon site models
+(M1a-M8, their LRTs and NEB/BEB site scans), model selection, sequence
+simulation and the parametric bootstrap on an NVIDIA GPU (or the CPU), held against the
 JAX package on the same inputs. The ported public names of the JAX
 package are exported here (``tests/test_torch_names.py`` lists the rest by
 ROADMAP item); the CLI is ``python -m phylo_utils_tpu_torch.cli``.
@@ -35,7 +36,19 @@ from phylo_utils_tpu_torch.likelihood import (  # noqa: F401
     LikelihoodEngine,
 )
 from phylo_utils_tpu_torch.markov import TransitionMatrix  # noqa: F401
-from phylo_utils_tpu_torch.mixtures import ModelMixtureEngine  # noqa: F401
+from phylo_utils_tpu_torch.mixtures import (  # noqa: F401
+    M1aEngine,
+    M2aEngine,
+    M7Engine,
+    M8Engine,
+    ModelMixtureEngine,
+    beb_site_posteriors,
+    beb_site_posteriors_m8,
+    m1a_m2a_test,
+    omega_posteriors,
+    positive_selection_test,
+)
+from phylo_utils_tpu_torch.model_selection import compare_models  # noqa: F401
 from phylo_utils_tpu_torch.nj import neighbor_joining  # noqa: F401
 from phylo_utils_tpu_torch.optimize import (  # noqa: F401
     brent_minimize,

@@ -3,8 +3,11 @@ flags and JSON output).
 
 Run as ``python -m phylo_utils_tpu_torch.cli <subcommand> ...`` (or
 ``python -m phylo_utils_tpu_torch``). Ported subcommands: ``loglik``,
-``fit``, ``distances``, ``build-tree``, ``bootstrap``, ``serve`` and
-``simulate`` (FASTA through ``io.write_fasta``). Engines and the simulator
+``fit``, ``distances``, ``build-tree``, ``bootstrap``, ``serve``,
+``simulate`` (FASTA through ``io.write_fasta``), ``compare`` (model
+selection by AIC/AICc/BIC) and ``site-test`` (codeml's M1a-vs-M2a and
+M7-vs-M8 positive-selection LRTs, with the NEB site scan under ``--sites``
+and the M2a BEB scan under ``--beb``). Engines and the simulator
 run on the card (``--device cuda``, the default) unless ``--device cpu`` is
 given; ``--pruner`` is ``torch`` (plain PyTorch, the default, as the JAX
 CLI's ``xla``) or ``cuda`` (the hand-written kernels). ``--params`` JSON is
@@ -16,7 +19,9 @@ FILE.nex:NAME`` builds a ``ProfileMixtureEngine`` from an IQ-TREE
 matrix. ``--model`` takes the codon models GY94 and MG94 (on an in-frame
 nucleotide alignment; ``fit`` then prints the codeml-style ``dn_ds`` block)
 and the Mk family, ``MK<k>`` / ``ORDERED<k>``; ``--asc lewis|felsenstein|
-stamatakis`` (with ``--asc-counts``) builds an ``AscertainmentEngine``.
+stamatakis`` (with ``--asc-counts``) builds an ``AscertainmentEngine``;
+``--recode ry|dayhoff6|sr6|kgb6`` recodes the alignment into grouped
+states first (pair it with ``--model MK2`` / ``MK6``).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ MODEL_NAMES = (
 NOT_PORTED = {
     "benchmark": "A2", "lmap": "A18", "consense": "A19",
     "topologies": "A17", "search": "A17", "ancestral": "A18",
-    "compare": "A18", "partitionfinder": "A16", "site-test": "A15",
+    "partitionfinder": "A16",
     "branch-site-test": "A18", "clock-test": "A18", "date": "A18",
     "supports": "A18",
 }
@@ -46,7 +51,6 @@ NOT_PORTED = {
 # engine flags whose engines are not ported yet: (attribute, flag, item)
 _UNPORTED_FLAGS = (
     ("partitions", "--partitions", "A16"),
-    ("recode", "--recode", "A15"),
     ("shard_sites", "--shard-sites", "A12"),
 )
 # the flags --profile-mixture refuses with its own message, as the JAX CLI
@@ -173,7 +177,9 @@ def _add_engine_args(p: argparse.ArgumentParser):
                         "(felsenstein) or comma-separated per-state counts "
                         "(stamatakis)")
     p.add_argument("--recode", default=None,
-                   help="recode the alignment (not ported: A15)")
+                   help="recode the alignment before analysis: ry (DNA->"
+                        "purine/pyrimidine), dayhoff6/sr6/kgb6 (protein->"
+                        "6 classes); pair with --model MK2 / MK6")
     p.add_argument("--profile-mixture", default=None,
                    metavar="FILE.nex:NAME",
                    help="frequency-profile mixture (C10-C60/LG4X family) "
@@ -246,9 +252,17 @@ def _build_engine(args):
             extra["const_counts"] = counts[0] if len(counts) == 1 else counts
     elif getattr(args, "asc_counts", None):
         raise SystemExit("--asc-counts requires --asc")
+    aln = _read_aln(args.alignment)
+    if getattr(args, "recode", None):
+        from phylo_utils_tpu_torch.alphabets import recode_alignment
+
+        try:
+            aln = recode_alignment(aln, args.recode)
+        except ValueError as e:
+            raise SystemExit(f"--recode: {e}")
     try:
         return cls(
-            _read_tree(args.tree), _read_aln(args.alignment), model,
+            _read_tree(args.tree), aln, model,
             ncat=args.ncat, invariant_sites=args.invariant_sites,
             rate_model=rate_model, dtype=args.dtype, pruner=args.pruner,
             device=args.device, **extra,
@@ -417,6 +431,102 @@ def cmd_simulate(args) -> int:
     return 0
 
 
+def cmd_compare(args) -> int:
+    from phylo_utils_tpu_torch.model_selection import compare_models
+
+    try:
+        fits = compare_models(
+            _read_tree(args.tree), _read_aln(args.alignment),
+            candidates=args.models.split(",") if args.models else None,
+            criterion=args.criterion, max_steps=args.max_steps,
+            device=args.device,
+        )
+    except RuntimeError as e:       # no card behind --device cuda
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+    print(json.dumps({
+        "ranked": [f.as_dict() for f in fits],
+        "best": fits[0].name,
+        "criterion": args.criterion,
+    }))
+    return 0
+
+
+def _codon_freq_setup(aln, method):
+    """(params0, base_free) for codon engines: empirical codon frequencies
+    held fixed (codeml's CodonFreq convention) with kappa free, or the
+    uniform default with the whole shared block free."""
+    if method == "uniform":
+        return None, ("branch_lengths", "shared")
+    from phylo_utils_tpu_torch.models.codon import (
+        empirical_codon_frequencies,
+    )
+
+    f = empirical_codon_frequencies(aln, method)
+    return ({"shared": {"freqs": f.tolist()}},
+            ("branch_lengths", "shared.kappa"))
+
+
+def cmd_site_test(args) -> int:
+    """codeml-style site-model positive-selection LRTs (M1a/M2a, M7/M8)."""
+    from phylo_utils_tpu_torch.io import encode_codon_alignment
+    from phylo_utils_tpu_torch.mixtures import (
+        M1aEngine,
+        M2aEngine,
+        M7Engine,
+        M8Engine,
+        beb_site_posteriors,
+        m1a_m2a_test,
+        omega_posteriors,
+        positive_selection_test,
+    )
+    from phylo_utils_tpu_torch.optimize import fit
+
+    if args.beb and args.test != "m1a-m2a":
+        raise SystemExit("--beb requires --test m1a-m2a (M2a BEB)")
+    tree = _read_tree(args.tree)
+    aln = _read_aln(args.alignment)
+    ca = encode_codon_alignment(aln)
+    kw = {"dtype": args.dtype, "pruner": args.pruner, "device": args.device}
+    # codeml convention: codon frequencies fixed at their empirical
+    # estimate (CodonFreq); kappa free through the dotted parameter name
+    params0, base_free = _codon_freq_setup(aln, args.codon_freqs)
+    if args.test == "m1a-m2a":
+        null_cls, alt_cls, extra = M1aEngine, M2aEngine, {}
+        free = base_free + ("proportions", "omega0")
+        alt_free, test = free + ("omega2_delta",), m1a_m2a_test
+    else:
+        null_cls, alt_cls, extra = M7Engine, M8Engine, {"ncat": args.ncat}
+        free = base_free + ("beta_p", "beta_q")
+        alt_free, test = free + ("p0", "omega_delta"), positive_selection_test
+    try:
+        null = null_cls(tree, ca, **extra, **kw)
+    except RuntimeError as e:       # no card behind --device cuda
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+    res_null = fit(null, params0=params0, free=free,
+                   max_steps=args.max_steps)
+    alt = alt_cls(tree, ca, **extra, **kw)
+    res_alt = fit(alt, params0=params0, free=alt_free,
+                  max_steps=args.max_steps)
+    out = {
+        "test": args.test,
+        "loglik_null": res_null.loglik,
+        "loglik_alt": res_alt.loglik,
+        "lrt": test(res_null.loglik, res_alt.loglik),
+        "alt_params": _to_json(res_alt.params),
+    }
+    if args.sites:
+        # NEB site scan: the last class is the omega > 1 class in both tests
+        mean_omega, gam = omega_posteriors(alt, res_alt.params)
+        out["site_mean_omega"] = mean_omega.tolist()
+        out["site_positive_posterior"] = gam[:, -1].tolist()
+    if args.beb:
+        p_pos, mean_w = beb_site_posteriors(alt, res_alt.params)
+        out["beb_positive_posterior"] = p_pos.tolist()
+        out["beb_mean_omega"] = mean_w.tolist()
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_serve(args) -> int:
     from phylo_utils_tpu_torch.server import serve
 
@@ -506,6 +616,43 @@ def main(argv=None) -> int:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("compare", help="model selection (AIC/AICc/BIC)")
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--models", help="comma list, e.g. JC69,HKY85+G,GTR+G+I")
+    p.add_argument("--criterion", default="bic",
+                   choices=["aic", "aicc", "bic"])
+    p.add_argument("--max-steps", type=int, default=200)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser(
+        "site-test",
+        help="positive-selection LRT over sites (codeml M1a/M2a, M7/M8)",
+    )
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alignment", required=True,
+                   help="in-frame codon alignment (FASTA/PHYLIP)")
+    p.add_argument("--test", default="m1a-m2a",
+                   choices=["m1a-m2a", "m7-m8"])
+    p.add_argument("--ncat", type=int, default=10,
+                   help="beta discretization classes (m7-m8)")
+    p.add_argument("--max-steps", type=int, default=200)
+    p.add_argument("--sites", action="store_true",
+                   help="emit the per-site NEB positive-selection scan")
+    p.add_argument("--beb", action="store_true",
+                   help="emit the BEB site scan (Yang-Wong-Nielsen 2005; "
+                        "m1a-m2a only)")
+    p.add_argument("--codon-freqs", default="f3x4",
+                   choices=["f3x4", "f1x4", "f61", "uniform"],
+                   help="empirical codon frequencies, held fixed "
+                        "(codeml CodonFreq; 'uniform' frees the whole "
+                        "shared block instead)")
+    p.add_argument("--dtype", default=None)
+    p.add_argument("--pruner", default="torch", choices=["torch", "cuda"])
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_site_test)
 
     for name, item in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")

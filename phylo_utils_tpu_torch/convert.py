@@ -2,7 +2,10 @@
 
 The engine's parameters (``branch_lengths``, ``model{...}``, ``alpha``,
 ``pinv``, ...; the mixture engines' nested ``mixture{...}`` of per-class
-stacks, ``cat_weights`` and ``class_rates``) are the system's weights.
+stacks, ``cat_weights`` and ``class_rates``; the codon site models' nested
+``shared{kappa, freqs}`` beside ``proportions``, ``omega0``,
+``omega2_delta``, ``beta_p``, ``beta_q``, ``p0`` and ``omega_delta``) are
+the system's weights.
 ``params_from_jax`` takes the JAX engine's dict as numpy arrays
 (``np.asarray`` of each leaf of ``engine._full_params(...)``, or anything
 ``np.asarray`` accepts: lists, tuples of per-class rows) at any nesting and

@@ -245,9 +245,14 @@ def fit(
            .clone().requires_grad_(True) for t in raw0]
     opt = (optimizer or default_optimizer)(raw)
 
+    # a parameter-free model's (JC69, Mk) empty dict has no leaves to
+    # carry it through the flat list
+    empty = {k: {} for k, v in start.items() if isinstance(v, Mapping)
+             and not v}
+
     def params_of(tensors) -> Dict:
-        return _merge_params(frozen, untransform_params(
-            unflatten_params(names, tensors)))
+        return _merge_params(frozen, {**empty, **untransform_params(
+            unflatten_params(names, tensors))})
 
     def closure():
         opt.zero_grad()

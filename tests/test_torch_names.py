@@ -17,11 +17,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # each JAX public name the port does not export yet -> its ROADMAP item
 NOT_PORTED = {
-    # A15: the codon site models
-    "M1aEngine": "A15", "M2aEngine": "A15", "M7Engine": "A15",
-    "M8Engine": "A15", "beb_site_posteriors": "A15",
-    "beb_site_posteriors_m8": "A15", "m1a_m2a_test": "A15",
-    "omega_posteriors": "A15", "positive_selection_test": "A15",
     # A16: partitions
     "Partition": "A16", "PartitionedEngine": "A16",
     "StackedPartitionedEngine": "A16",
@@ -35,7 +30,7 @@ NOT_PORTED = {
     "clock_test": "A18", "node_height_errors": "A18",
     "alrt_supports": "A18", "bootstrap_tree_support": "A18",
     "ancestral_posteriors": "A18", "site_rate_posteriors": "A18",
-    "compare_models": "A18", "kh_test": "A18", "sh_test": "A18",
+    "kh_test": "A18", "sh_test": "A18",
 }
 
 
@@ -62,7 +57,7 @@ def test_every_jax_name_is_ported_or_mapped_to_an_item():
     for item in set(NOT_PORTED.values()):       # an item of a queue
         assert re.search(rf"\*\*{item}\b", roadmap), item
     ported = [n for n in jax_names if n in port_names]
-    assert len(ported) == 36
+    assert len(ported) == 46
     for name in ported:
         assert hasattr(phylo_utils_tpu_torch, name), name
 

@@ -44,6 +44,17 @@ def _aln(tree, sites, seed=0):
             for n in tree.leaf_names}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: these fits are thousands of tiny ops, which
+    several test workers' thread pools, each as wide as the machine, slow
+    several times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def simulated():
     """6 taxa, 300 sites simulated under HKY85+G4 (kappa 3, alpha 0.6), so
