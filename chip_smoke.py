@@ -192,12 +192,28 @@ all at once) and runs, in order, printing one line per phase:
     positive sites first; 5 fit steps of M7 and M8 and
     ``positive_selection_test``; the CLI's ``site-test`` (m1a-m2a
     ``--sites --beb``, m7-m8 ``--sites``, ``--pruner cuda``) and
-    ``compare --models JC69,HKY85+G`` as subprocesses side by side.
+    ``compare --models JC69,HKY85+G`` as subprocesses side by side;
+32. topology sets, search and supports (``_search_path``): 1000 GTR+G4
+    sites simulated on ``random_tree(64, seed=32)``, the search started
+    from the NJ tree of their ML distances: 64 NNI candidates scored by
+    ``TopologySetEngine`` (f64, the batched level walk in plain PyTorch)
+    against a ``LikelihoodEngine`` each, f64 ``pruner="torch"`` (1e-10
+    relative) and f32 ``pruner="cuda"`` (B1, 1e-6), its batched gradient
+    against their ``value_and_grad`` (B2 + B3, 5e-4 x max|g|) and its peak
+    memory; one ``nni_hill_climb`` round of NNI + SPR moves (~377
+    candidates, chunks of 64, 40 Adam steps) and up to 3 NNI rounds, each
+    timed, with the device-busy share of a chunk's ``PROFILE_STEPS``
+    steps; ``alrt_supports`` at the
+    searched tree (61 edges, 122 alternatives); a 100-replicate
+    ``bootstrap_tree_support`` with TBE and the consensus (Newton on the
+    card, NJ on the host, timed apart); the CLI's ``topologies --test
+    all``, ``search``, ``supports``, ``lmap``, ``consense`` and
+    ``build-tree --refine --bootstrap 10`` as subprocesses side by side.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-31; the kernel-against-plain phases are not counted. The last two lines
+23-32; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
@@ -304,6 +320,19 @@ SITE_CLI_STEPS, CLI_DNA_SITES, SITE_SLICES = 15, 1024, 4
 # and a site posterior (a weighted mean of values in [0, 1]) by at most as
 # much; the posterior mean omega (values below 11) by 11 times that
 BEB_TOL = 1e-4
+# the search path (phase 32): the JAX package's application bench shape,
+# 64 taxa x 1000 sites GTR+G4; candidates a chunk, Adam steps a candidate,
+# NNI rounds after the first ("both") round, aLRT's steps, bootstrap
+# replicates; the CLI's candidate file, bootstrap replicates and quartets
+SEARCH_TAXA, SEARCH_SITES, SEARCH_CHUNK, SEARCH_STEPS = 64, 1000, 64, 40
+SEARCH_SPR_TARGETS, SEARCH_NNI_ROUNDS, ALRT_STEPS = 2, 3, 60
+SUPPORT_REPS, CLI_TOPOLOGIES, CLI_BOOT_REPS = 100, 20, 10
+# Adam steps of one chunk under the profiler (its steps are alike; the
+# profiler's own processing of a whole chunk took ~40 s beside an NVIDIA
+# H100 80GB HBM3 at 700 W)
+PROFILE_STEPS = 10
+# the batched walk in f64 against the f64 plain engine, relative
+BATCHED_RTOL = 1e-10
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -1260,6 +1289,329 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
           fits=fits, m7_m8_lrt=lrt, cli=cli_summary, cli_wall_s=walls,
           peak_allocated_bytes=peak, launches=counts, stage_s=stage_s)
     return counts
+
+
+def _search_path(dev, reset_counts, read_counts, smi):
+    """Phase 32, topology sets, search and supports at full width (main
+    path): 1000 GTR+G4 sites simulated on ``random_tree(SEARCH_TAXA,
+    seed=32)``, the search started from the NJ tree of its ML distances.
+    (a) 64 NNI candidates scored by ``TopologySetEngine`` (f64) against one
+    ``LikelihoodEngine`` each, f64 ``pruner="torch"`` (``BATCHED_RTOL``)
+    and f32 ``pruner="cuda"`` (B1, ``LOGL_RTOL``), its batched gradient
+    against the cuda engines' ``value_and_grad`` (B2 + B3, ``GRAD_TOL`` x
+    max|g|), the gradient's peak memory (counted); (b) one
+    ``nni_hill_climb`` round of NNI + SPR moves (``SEARCH_SPR_TARGETS``
+    regraft targets, ``SEARCH_STEPS`` Adam steps, chunks of
+    ``SEARCH_CHUNK``), then up to ``SEARCH_NNI_ROUNDS`` NNI rounds, each
+    timed; the device-busy share of ``PROFILE_STEPS`` Adam steps of one
+    chunk; (c) ``alrt_supports`` at the
+    searched tree; (d) ``bootstrap_tree_support`` with ``SUPPORT_REPS``
+    replicates, TBE and the consensus, Newton on the card and NJ on the
+    host timed apart; (e) the CLI's ``topologies --test all``, ``search``,
+    ``supports``, ``lmap``, ``consense`` and ``build-tree --refine
+    --bootstrap`` as subprocesses side by side. Returns (a)'s launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import models, supports
+    from phylo_utils_tpu_torch.batched import (
+        TopologySetEngine,
+        nni_hill_climb,
+        optimize_branch_lengths,
+    )
+    from phylo_utils_tpu_torch.io import write_fasta, write_newick
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+    from phylo_utils_tpu_torch.nj import neighbor_joining
+    from phylo_utils_tpu_torch.optimize import ml_distance_matrix
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+    from phylo_utils_tpu_torch.trees import (
+        nni_neighbors,
+        random_tree,
+        robinson_foulds,
+        spr_neighbors,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    model_p = FLAGSHIP_PARAMS["model"]
+    params = {"model": model_p, "alpha": 0.5}
+    stage_s = {}
+    t0 = time.perf_counter()
+    truth = random_tree(SEARCH_TAXA, seed=32)
+    aln = simulate_alignment(32, truth, models.GTR, SEARCH_SITES,
+                             params={**model_p, "alpha": 0.5}, ncat=4,
+                             device=dev)
+    names = list(aln)
+    start = neighbor_joining(
+        ml_distance_matrix(aln, models.GTR, params=model_p, device=DEVICE),
+        names)
+    stage_s["data"] = time.perf_counter() - t0
+
+    # (a) 64 candidates, batched f64 against the plain and kernel engines
+    t0 = time.perf_counter()
+    cands = [start] + nni_neighbors(start)[:SEARCH_CHUNK - 1]
+    tse = TopologySetEngine(cands, aln, models.GTR, ncat=4, device=DEVICE)
+    lls = tse.loglikelihoods(params)
+    batched_ms = _median_ms(lambda: tse.loglikelihoods(params), 5)
+    tse.gradients(params)                   # first call: library set-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    grads = tse.gradients(params)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t1
+    grad_peak = torch.cuda.max_memory_allocated() - base
+    g_batched = grads["branch_lengths"].to("cpu", f64).numpy()
+    plain_rel = cuda_rel = 0.0
+    grad_err = {"branch_lengths": 0.0}
+    model_sum = None
+    t1 = time.perf_counter()
+    reset_counts()
+    for b, tree in enumerate(cands):
+        kw = dict(ncat=4, device=DEVICE)
+        ll64 = LikelihoodEngine(tree, aln, models.GTR, dtype=f64,
+                                pruner="torch", **kw).loglikelihood(params)
+        eng = LikelihoodEngine(tree, aln, models.GTR, dtype=f32,
+                               pruner="cuda", **kw)
+        ll32 = eng.loglikelihood(params)
+        _, g = eng.value_and_grad(params)
+        plain_rel = max(plain_rel, abs(lls[b] - ll64) / abs(ll64))
+        cuda_rel = max(cuda_rel, abs(lls[b] - ll32) / abs(lls[b]))
+        gb = g["branch_lengths"].to("cpu", f64).numpy()
+        grad_err["branch_lengths"] = max(
+            grad_err["branch_lengths"],
+            float(np.abs(g_batched[b] - gb).max() / np.abs(gb).max()))
+        leaves = {"alpha": g["alpha"], **{f"model.{k}": v for k, v in
+                                          g["model"].items()}}
+        leaves = {k: v.to("cpu", f64) for k, v in leaves.items()}
+        model_sum = leaves if model_sum is None else {
+            k: model_sum[k] + leaves[k] for k in leaves}
+    a_counts = read_counts()
+    stage_s["candidate_engines"] = time.perf_counter() - t1
+    for key, got in (("alpha", grads["alpha"]),
+                     *((f"model.{k}", v) for k, v in grads["model"].items())):
+        want = model_sum[key]
+        grad_err[key] = float((got.to("cpu", f64) - want).abs().max()
+                              / want.abs().max())
+    _check(plain_rel <= BATCHED_RTOL and cuda_rel <= LOGL_RTOL
+           and max(grad_err.values()) <= GRAD_TOL,
+           f"batched candidates: f64 plain rel {plain_rel:.3e}, f32 cuda "
+           f"rel {cuda_rel:.3e}, gradients {grad_err}")
+    _check(a_counts["LAUNCHES"] >= len(cands)
+           and a_counts["SAVEALL_LAUNCHES"] >= len(cands)
+           and a_counts["REVERSE_LAUNCHES"] >= len(cands),
+           f"the candidates' cuda engines did not run B1, B2 and B3: "
+           f"{a_counts}")
+    t1 = time.perf_counter()
+    chunk_busy = _device_busy(lambda: optimize_branch_lengths(
+        tse, params=params, steps=PROFILE_STEPS))
+    stage_s["profiled_chunk"] = time.perf_counter() - t1
+    del tse, grads
+    torch.cuda.empty_cache()
+    stage_s["candidates"] = time.perf_counter() - t0
+
+    # (b) one NNI + SPR round, then NNI rounds while they move
+    t0 = time.perf_counter()
+    n_round1 = 1 + len(nni_neighbors(start)) + len(spr_neighbors(
+        start, max_targets=SEARCH_SPR_TARGETS, seed=1))
+    rounds = []
+    current, last_ll = start, None
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(1 + SEARCH_NNI_ROUNDS):
+        moves = "both" if r == 0 else "nni"
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tree_r, ll_r, _ = nni_hill_climb(
+            current, aln, models.GTR, ncat=4, max_rounds=1,
+            brlen_steps=SEARCH_STEPS, moves=moves,
+            spr_max_targets=SEARCH_SPR_TARGETS,
+            batch_topologies=SEARCH_CHUNK, device=DEVICE)
+        torch.cuda.synchronize()
+        moved = robinson_foulds(tree_r, current) > 0
+        rounds.append({"moves": moves, "seconds": time.perf_counter() - t1,
+                       "loglik": ll_r, "moved": moved})
+        if moved:
+            _check(last_ll is None or ll_r > last_ll,
+                   f"round {r + 1} accepted a move that lowered logL: "
+                   f"{last_ll} -> {ll_r}")
+            last_ll = ll_r
+        current = tree_r
+        if not moved:
+            break
+    search_peak = torch.cuda.max_memory_allocated()
+    final_ll = rounds[-1]["loglik"]
+    rf_truth = robinson_foulds(current, truth)
+    stage_s["search"] = time.perf_counter() - t0
+
+    # (c) aLRT at the searched tree
+    t0 = time.perf_counter()
+    alrt = supports.alrt_supports(current, aln, models.GTR, ncat=4,
+                                  params=params, brlen_steps=ALRT_STEPS,
+                                  device=DEVICE)
+    alrt_s = time.perf_counter() - t0
+    n_internal = sum(1 for v in range(current.n_leaves, current.n_nodes)
+                     if v != current.root)
+    in_unit = all(((alrt[k] >= 0) & (alrt[k] <= 1)).all()
+                  for k in ("alrt", "sh_alrt", "abayes"))
+    _check(len(alrt["edges"]) == SEARCH_TAXA - 3 and in_unit
+           and np.isfinite(alrt["stat"]).all(),
+           f"aLRT: {len(alrt['edges'])} edges of {n_internal} internal "
+           f"nodes, supports in [0, 1]: {in_unit}")
+    stage_s["alrt"] = alrt_s
+
+    # (d) the bootstrap, Newton on the card and NJ on the host timed apart
+    split = {"newton": 0.0, "nj": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            if name == "newton":
+                torch.cuda.synchronize()
+            split[name] += time.perf_counter() - t1
+            return out
+        return run
+
+    newton, nj = supports.newton_branch_length, supports.neighbor_joining
+    supports.newton_branch_length = timed("newton", newton)
+    supports.neighbor_joining = timed("nj", nj)
+    t0 = time.perf_counter()
+    try:
+        boot = supports.bootstrap_tree_support(
+            current, aln, models.GTR, n_reps=SUPPORT_REPS, params=model_p,
+            consensus=True, tbe=True, device=DEVICE)
+    finally:
+        supports.newton_branch_length = newton
+        supports.neighbor_joining = nj
+    boot_s = time.perf_counter() - t0
+    _check(len(boot["edges"]) == SEARCH_TAXA - 3
+           and ((boot["support"] >= 0) & (boot["support"] <= 1)).all()
+           and (boot["tbe"] >= boot["support"] - 1e-12).all()
+           and boot["consensus"].n_leaves == SEARCH_TAXA,
+           f"bootstrap: {len(boot['edges'])} edges, supports "
+           f"{boot['support']}, TBE {boot['tbe']}")
+    stage_s["bootstrap"] = boot_s
+
+    # (e) the CLI as subprocesses, all at once
+    t0 = time.perf_counter()
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    cli_out, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_search_",
+                                     dir=build) as tmp:
+        fa, start_nwk, final_nwk, cands_nwk = (os.path.join(tmp, n_) for n_
+                                               in ("aln.fa", "start.nwk",
+                                                   "final.nwk", "cands.nwk"))
+        write_fasta(aln, path=fa)
+        for path, tree in ((start_nwk, start), (final_nwk, current)):
+            with open(path, "w") as fh:
+                fh.write(write_newick(tree) + "\n")
+        with open(cands_nwk, "w") as fh:
+            fh.write("\n".join(write_newick(t) for t in
+                               cands[:CLI_TOPOLOGIES]) + "\n")
+        engine = ["--model", "GTR", "--ncat", "4"]
+        cmds = {
+            "topologies": ["topologies", "--trees", cands_nwk, "--alignment",
+                           fa, "--test", "all"] + engine,
+            "search": ["search", "--tree", start_nwk, "--alignment", fa,
+                       "--max-rounds", "1"] + engine,
+            "supports": ["supports", "--tree", final_nwk, "--alignment",
+                         fa] + engine,
+            "lmap": ["lmap", "--alignment", fa, "--model", "GTR"],
+            "consense": ["consense", "--trees", cands_nwk],
+            "build_tree": ["build-tree", "--alignment", fa, "--refine",
+                           "--bootstrap", str(CLI_BOOT_REPS)] + engine,
+        }
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        procs = {}
+        for name, cmd in cmds.items():
+            with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
+                    open(os.path.join(tmp, f"{name}.err"), "w") as fe:
+                procs[name] = (time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
+                    + ["--device", DEVICE], cwd=REPO, env=env, stdout=fo,
+                    stderr=fe))
+        # each process's own wall time: poll them all until the last ends
+        deadline = time.perf_counter() + 900
+        try:
+            while len(walls) < len(procs) and time.perf_counter() < deadline:
+                for name, (t1, proc) in procs.items():
+                    if name not in walls and proc.poll() is not None:
+                        walls[name] = time.perf_counter() - t1
+                time.sleep(0.1)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, (_, proc) in procs.items():
+            with open(os.path.join(tmp, f"{name}.err")) as fe:
+                stderr = fe.read()
+            _check(name in walls and proc.returncode == 0,
+                   f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
+            with open(os.path.join(tmp, f"{name}.out")) as fo:
+                cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
+    # the JAX CLI's keys, from its code (cli.py cmd_topologies, cmd_search,
+    # cmd_supports, cmd_lmap, cmd_consense, cmd_build_tree)
+    want_keys = {
+        "topologies": {"n_trees", "logliks", "best_index", "kh", "sh", "au"},
+        "search": {"loglik", "rounds", "tree"},
+        "supports": {"loglik", "tree", "edges"},
+        "lmap": {"basins", "resolved", "star", "n_quartets", "points"},
+        "consense": {"n_trees", "consensus"},
+        "build_tree": {"tree", "loglik", "method", "bootstrap_support",
+                       "tbe_support", "consensus_tree"},
+    }
+    for name, keys in want_keys.items():
+        _check(set(cli_out[name]) == keys,
+               f"cli {name}: keys {sorted(cli_out[name])}")
+    top = cli_out["topologies"]
+    _check(top["n_trees"] == CLI_TOPOLOGIES
+           and all(math.isfinite(v) for v in top["logliks"])
+           and len(cli_out["supports"]["edges"]) == SEARCH_TAXA - 3
+           and len(cli_out["build_tree"]["bootstrap_support"])
+           == SEARCH_TAXA - 3
+           and math.isfinite(cli_out["search"]["loglik"]),
+           f"cli outputs: topologies {top['n_trees']}, supports "
+           f"{len(cli_out['supports']['edges'])} edges")
+    cli_summary = {
+        "topologies_best": top["best_index"],
+        "topologies_au_p_of_best": top["au"]["pvalue"][top["best_index"]],
+        "search": {k: cli_out["search"][k] for k in ("loglik", "rounds")},
+        "supports_loglik": cli_out["supports"]["loglik"],
+        "lmap": {k: cli_out["lmap"][k] for k in ("basins", "resolved",
+                                                 "star")},
+        "build_tree": {"loglik": cli_out["build_tree"]["loglik"],
+                       "method": cli_out["build_tree"]["method"]},
+    }
+    stage_s["cli"] = time.perf_counter() - t0
+
+    _emit(32, card=smi, taxa=SEARCH_TAXA, sites=SEARCH_SITES,
+          patterns=int(len(set(zip(*aln.values())))),
+          candidates={"n": len(cands), "logl_rel_err_plain_f64": plain_rel,
+                      "logl_rel_err_cuda_f32": cuda_rel,
+                      "grad_rel_err": grad_err,
+                      "batched_loglikelihoods_ms": batched_ms,
+                      "gradient_s": grad_s,
+                      "gradient_peak_bytes": grad_peak},
+          chunk_profiled=chunk_busy,
+          search={"round1_candidates": n_round1, "rounds": rounds,
+                  "final_loglik": final_ll, "rf_to_truth": rf_truth,
+                  "start_rf_to_truth": robinson_foulds(start, truth),
+                  "peak_allocated_bytes": search_peak},
+          alrt={"seconds": alrt_s, "edges": len(alrt["edges"]),
+                "alternatives": 2 * len(alrt["edges"]),
+                "median_sh_alrt": float(np.median(alrt["sh_alrt"])),
+                "median_alrt": float(np.median(alrt["alrt"])),
+                "loglik": alrt["loglik"]},
+          bootstrap={"seconds": boot_s, "newton_s": split["newton"],
+                     "nj_s": split["nj"], "replicates": SUPPORT_REPS,
+                     "median_support": float(np.median(boot["support"])),
+                     "median_tbe": float(np.median(boot["tbe"]))},
+          cli=cli_summary, cli_wall_s=walls, launches=a_counts,
+          stage_s=stage_s)
+    return a_counts
 
 
 def main():
@@ -3599,6 +3951,9 @@ def main():
     # 31. the codon site models at full width, main path -----------------
     site_counts = _site_models_path(dev, reset_counts, read_counts, smi)
 
+    # 32. topology sets, search and supports at full width, main path ----
+    search_counts = _search_path(dev, reset_counts, read_counts, smi)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
@@ -3606,7 +3961,7 @@ def main():
                    codon_value_counts, codon_grad_counts, codon_fit_counts,
                    b4_counts, b7_counts, b8_counts, b9_counts,
                    *mk_counts.values(), cli_counts_28, cw_counts,
-                   boot_counts, site_counts)
+                   boot_counts, site_counts, search_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)

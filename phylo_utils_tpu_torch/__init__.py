@@ -3,7 +3,9 @@
 Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
 distances, NJ trees, model and profile mixtures, the codon site models
 (M1a-M8, their LRTs and NEB/BEB site scans), model selection, sequence
-simulation and the parametric bootstrap on an NVIDIA GPU (or the CPU), held against the
+simulation and the parametric bootstrap, topology sets and NNI/SPR search,
+topology tests and branch supports on an NVIDIA GPU (or the CPU), held
+against the
 JAX package on the same inputs. The ported public names of the JAX
 package are exported here (``tests/test_torch_names.py`` lists the rest by
 ROADMAP item); the CLI is ``python -m phylo_utils_tpu_torch.cli``.
@@ -20,6 +22,11 @@ from phylo_utils_tpu_torch.alphabets import (  # noqa: F401
     Alphabet,
     encode_alignment,
     seq_to_partials,
+)
+from phylo_utils_tpu_torch.batched import (  # noqa: F401
+    TopologySetEngine,
+    nni_hill_climb,
+    optimize_branch_lengths,
 )
 from phylo_utils_tpu_torch.io import (  # noqa: F401
     CompressedAlignment,
@@ -72,6 +79,11 @@ from phylo_utils_tpu_torch.simulate import (  # noqa: F401
     simulate_branch_alignment,
     simulate_mixture_alignment,
 )
+from phylo_utils_tpu_torch.supports import (  # noqa: F401
+    alrt_supports,
+    bootstrap_tree_support,
+)
+from phylo_utils_tpu_torch.topology_tests import kh_test, sh_test  # noqa: F401
 from phylo_utils_tpu_torch.trees import (  # noqa: F401
     Tree,
     compile_schedule,

@@ -3,11 +3,15 @@ flags and JSON output).
 
 Run as ``python -m phylo_utils_tpu_torch.cli <subcommand> ...`` (or
 ``python -m phylo_utils_tpu_torch``). Ported subcommands: ``loglik``,
-``fit``, ``distances``, ``build-tree``, ``bootstrap``, ``serve``,
-``simulate`` (FASTA through ``io.write_fasta``), ``compare`` (model
-selection by AIC/AICc/BIC) and ``site-test`` (codeml's M1a-vs-M2a and
+``fit``, ``distances``, ``build-tree`` (with ``--refine``, the NNI/SPR
+hill-climb, and ``--bootstrap``, NJ bootstrap supports), ``bootstrap``,
+``serve``, ``simulate`` (FASTA through ``io.write_fasta``), ``compare``
+(model selection by AIC/AICc/BIC), ``site-test`` (codeml's M1a-vs-M2a and
 M7-vs-M8 positive-selection LRTs, with the NEB site scan under ``--sites``
-and the M2a BEB scan under ``--beb``). Engines and the simulator
+and the M2a BEB scan under ``--beb``), ``topologies`` (a candidate set
+scored in one batched pass, with the KH/SH/AU tests), ``search`` (NNI/SPR
+hill-climb), ``supports`` (aLRT, SH-aLRT, aBayes, sCF), ``lmap``
+(likelihood mapping) and ``consense``. Engines and the simulator
 run on the card (``--device cuda``, the default) unless ``--device cpu`` is
 given; ``--pruner`` is ``torch`` (plain PyTorch, the default, as the JAX
 CLI's ``xla``) or ``cuda`` (the hand-written kernels). ``--params`` JSON is
@@ -41,11 +45,8 @@ MODEL_NAMES = (
 
 # the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
 NOT_PORTED = {
-    "benchmark": "A2", "lmap": "A18", "consense": "A19",
-    "topologies": "A17", "search": "A17", "ancestral": "A18",
-    "partitionfinder": "A16",
+    "benchmark": "A2", "ancestral": "A18", "partitionfinder": "A16",
     "branch-site-test": "A18", "clock-test": "A18", "date": "A18",
-    "supports": "A18",
 }
 
 # engine flags whose engines are not ported yet: (attribute, flag, item)
@@ -392,24 +393,233 @@ def cmd_bootstrap(args) -> int:
     return 0
 
 
+def _on_card(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, exiting with a hint where ``--device cuda``
+    finds no card."""
+    try:
+        return fn(*args, **kwargs)
+    except RuntimeError as e:
+        if "torch.cuda.is_available() is False" not in str(e):
+            raise
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+
+
 def cmd_build_tree(args) -> int:
     from phylo_utils_tpu_torch.io import write_newick
     from phylo_utils_tpu_torch.nj import neighbor_joining
     from phylo_utils_tpu_torch.optimize import ml_distance_matrix
 
-    if args.refine:
-        _not_ported("build-tree --refine (NNI/SPR hill-climb)", "A17")
-    if args.bootstrap:
-        _not_ported("build-tree --bootstrap (tree supports)", "A18")
     model = _get_model(args.model)
     aln = _read_aln(args.alignment)
-    d = ml_distance_matrix(aln, model, params=_json_params(args.params),
-                           device=args.device)
-    text = write_newick(neighbor_joining(d, list(aln)))
+    d = _on_card(ml_distance_matrix, aln, model,
+                 params=_json_params(args.params), device=args.device)
+    tree = neighbor_joining(d, list(aln))
+    ll = None
+    if args.refine:
+        from phylo_utils_tpu_torch.batched import nni_hill_climb
+
+        tree, ll, _ = nni_hill_climb(tree, aln, model, ncat=args.ncat,
+                                     moves=args.moves, device=args.device)
+    text = write_newick(tree)
     if args.out:
         with open(args.out, "w") as f:
             f.write(text + "\n")
-    print(json.dumps({"tree": text, "loglik": None, "method": "nj"}))
+    out = {"tree": text, "loglik": ll,
+           "method": "nj+" + args.moves if args.refine else "nj"}
+    if args.bootstrap:
+        from phylo_utils_tpu_torch.supports import bootstrap_tree_support
+
+        bs = bootstrap_tree_support(
+            tree, aln, model, n_reps=args.bootstrap,
+            params=_json_params(args.params), consensus=True, tbe=True,
+            device=args.device,
+        )
+        out["bootstrap_support"] = {
+            str(int(e)): float(s)
+            for e, s in zip(bs["edges"], bs["support"])
+        }
+        out["tbe_support"] = {
+            str(int(e)): float(s)
+            for e, s in zip(bs["edges"], bs["tbe"])
+        }
+        out["consensus_tree"] = write_newick(bs["consensus"])
+        if args.out:
+            with open(args.out + ".consensus", "w") as f:
+                f.write(out["consensus_tree"] + "\n")
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_lmap(args) -> int:
+    """Likelihood mapping: quartet-resolution diagnostic of an alignment."""
+    from phylo_utils_tpu_torch.topology_tests import likelihood_mapping
+
+    model, ncat, inv, emp, _rate_model = _parse_model_spec(args.model)
+    if ncat > 1 or inv or emp:
+        raise SystemExit(
+            "lmap uses a plain single-rate model (drop +G/+R/+I/+F; pass "
+            "explicit frequencies via --params if needed)"
+        )
+    out = _on_card(
+        likelihood_mapping, _read_aln(args.alignment), model,
+        params=(_json_params(args.params) or {}).get("model"),
+        n_quartets=args.n_quartets, seed=args.seed, device=args.device,
+    )
+    print(json.dumps({
+        "basins": out["basins"].tolist(),
+        "resolved": out["resolved"],
+        "star": out["star"],
+        "n_quartets": int(out["points"].shape[0]),
+        "points": out["points"].round(4).tolist() if args.points else None,
+    }))
+    return 0
+
+
+def cmd_consense(args) -> int:
+    """Majority-rule consensus of a newick tree sample."""
+    from phylo_utils_tpu_torch.io import parse_newick_forest, write_newick
+    from phylo_utils_tpu_torch.trees import majority_rule_consensus
+
+    trees = parse_newick_forest(args.trees)
+    cons = majority_rule_consensus(trees, min_freq=args.min_freq)
+    text = write_newick(cons)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(json.dumps({"n_trees": len(trees), "consensus": text}))
+    return 0
+
+
+def _finite_or_none(v):
+    """+-inf (AU's degenerate-BP d statistic) is not valid JSON."""
+    if isinstance(v, list):
+        return [_finite_or_none(x) for x in v]
+    if isinstance(v, float) and not np.isfinite(v):
+        return None
+    return v
+
+
+def cmd_topologies(args) -> int:
+    from phylo_utils_tpu_torch.batched import TopologySetEngine
+    from phylo_utils_tpu_torch.io import parse_newick_forest
+
+    trees = parse_newick_forest(args.trees)
+    model = _get_model(args.model)
+    tse = _on_card(
+        TopologySetEngine, trees, _read_aln(args.alignment), model,
+        ncat=args.ncat, dtype=args.dtype, device=args.device,
+    )
+    params = _json_params(args.params)
+    out = {"n_trees": len(trees)}
+    if args.test:
+        from phylo_utils_tpu_torch.topology_tests import (
+            au_test,
+            kh_test,
+            sh_test,
+        )
+
+        sw = tse.sitewise_loglikelihoods(params)
+        out["logliks"] = sw.sum(axis=1).tolist()
+        out["best_index"] = int(np.argmax(out["logliks"]))
+        which = (("kh", "sh", "au") if args.test == "all"
+                 else (args.test,))
+        runners = {"kh": kh_test, "sh": sh_test, "au": au_test}
+        for name in which:
+            res = runners[name](sw, n_boot=args.n_boot, seed=args.seed)
+            out[name] = {
+                k: _finite_or_none(v.tolist() if hasattr(v, "tolist") else v)
+                for k, v in res.items()
+            }
+    else:
+        lls = tse.loglikelihoods(params)
+        out["logliks"] = lls.tolist()
+        out["best_index"] = int(lls.argmax())
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_search(args) -> int:
+    from phylo_utils_tpu_torch.batched import nni_hill_climb
+    from phylo_utils_tpu_torch.io import write_newick
+
+    best_tree, best_ll, rounds = _on_card(
+        nni_hill_climb,
+        _read_tree(args.tree),
+        _read_aln(args.alignment),
+        _get_model(args.model),
+        ncat=args.ncat,
+        max_rounds=args.max_rounds,
+        moves=args.moves,
+        verbose=args.verbose,
+        device=args.device,
+    )
+    out = {
+        "loglik": best_ll,
+        "rounds": rounds,
+        "tree": write_newick(best_tree),
+    }
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(out["tree"] + "\n")
+    print(json.dumps(out))
+    return 0
+
+
+def _in_clade(tree, anc: int, leaf: int) -> bool:
+    n = leaf
+    while n != -1:
+        if n == anc:
+            return True
+        n = int(tree.parent[n])
+    return False
+
+
+def cmd_supports(args) -> int:
+    """aLRT / SH-aLRT branch supports on a fixed topology."""
+    from phylo_utils_tpu_torch.io import write_newick
+    from phylo_utils_tpu_torch.supports import (
+        alrt_supports,
+        site_concordance,
+    )
+
+    scf = None
+    if args.scf:
+        scf = site_concordance(
+            _read_tree(args.tree), _read_aln(args.alignment),
+            n_quartets=args.scf,
+        )
+    out = _on_card(
+        alrt_supports, _read_tree(args.tree), _read_aln(args.alignment),
+        _get_model(args.model), ncat=args.ncat,
+        params=_json_params(args.params), n_boot=args.replicates,
+        device=args.device,
+    )
+    tree = out["tree"]
+    payload = {
+        "loglik": out["loglik"],
+        "tree": write_newick(tree),
+        "edges": [{
+            "node": int(e),
+            "clade": sorted(
+                n for i, n in enumerate(tree.leaf_names)
+                if _in_clade(tree, int(e), i)
+            ),
+            "stat": float(s),
+            "alrt": float(a),
+            "sh_alrt": float(sh),
+            "abayes": float(ab),
+        } for e, s, a, sh, ab in zip(out["edges"], out["stat"],
+                                     out["alrt"], out["sh_alrt"],
+                                     out["abayes"])],
+    }
+    if scf is not None:
+        payload["scf"] = {
+            str(int(e)): {"scf": float(c), "sdf1": float(d1),
+                          "sdf2": float(d2)}
+            for e, c, d1, d2 in zip(scf["edges"], scf["scf"],
+                                    scf["sdf1"], scf["sdf2"])
+        }
+    print(json.dumps(payload))
     return 0
 
 
@@ -590,14 +800,66 @@ def main(argv=None) -> int:
     p.add_argument("--ncat", type=int, default=1)
     p.add_argument("--params", help="JSON model params")
     p.add_argument("--refine", action="store_true",
-                   help="NNI/SPR hill-climb from the NJ tree (not ported: "
-                        "A17)")
+                   help="NNI/SPR hill-climb from the NJ tree")
     p.add_argument("--moves", default="nni", choices=["nni", "spr", "both"])
     p.add_argument("--out", help="write newick here")
     p.add_argument("--bootstrap", type=int, default=0, metavar="B",
-                   help="bootstrap supports (not ported: A18)")
+                   help="B Felsenstein bootstrap replicates: per-edge "
+                        "supports + majority-rule consensus tree "
+                        "(written to <out>.consensus)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_build_tree)
+
+    p = sub.add_parser("lmap",
+                       help="likelihood mapping (quartet resolution "
+                            "diagnostic, Strimmer-von Haeseler)")
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="JC69")
+    p.add_argument("--params", help="JSON params ({'model': {...}})")
+    p.add_argument("--n-quartets", type=int, default=200)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--points", action="store_true",
+                   help="include the simplex points in the output")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_lmap)
+
+    p = sub.add_parser("consense",
+                       help="majority-rule consensus of a tree sample")
+    p.add_argument("--trees", required=True,
+                   help="newick file with multiple ';'-separated trees")
+    p.add_argument("--min-freq", type=float, default=0.5,
+                   help="keep splits in MORE than this fraction (>=0.5)")
+    p.add_argument("--out", help="write consensus newick here")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_consense)
+
+    p = sub.add_parser("topologies",
+                       help="score a set of candidate trees in one pass")
+    p.add_argument("--trees", required=True,
+                   help="newick file with multiple ';'-separated trees")
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="GTR")
+    p.add_argument("--ncat", type=int, default=1)
+    p.add_argument("--params", help="JSON params")
+    p.add_argument("--dtype", default=None)
+    p.add_argument("--test", choices=["kh", "sh", "au", "all"],
+                   help="RELL topology significance test(s) to run")
+    p.add_argument("--n-boot", type=int, default=2000)
+    p.add_argument("--seed", type=int, default=0)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_topologies)
+
+    p = sub.add_parser("search", help="greedy NNI/SPR tree search")
+    p.add_argument("--tree", required=True, help="starting tree")
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="GTR")
+    p.add_argument("--ncat", type=int, default=1)
+    p.add_argument("--moves", default="nni", choices=["nni", "spr", "both"])
+    p.add_argument("--max-rounds", type=int, default=20)
+    p.add_argument("--out", help="write best tree (newick) here")
+    p.add_argument("--verbose", action="store_true")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_search)
 
     p = sub.add_parser("simulate", help="simulate an alignment")
     p.add_argument("--tree", required=True)
@@ -653,6 +915,22 @@ def main(argv=None) -> int:
     p.add_argument("--pruner", default="torch", choices=["torch", "cuda"])
     _add_device_arg(p)
     p.set_defaults(fn=cmd_site_test)
+
+    p = sub.add_parser(
+        "supports", help="aLRT / SH-aLRT branch supports (NNI-based)"
+    )
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="GTR")
+    p.add_argument("--ncat", type=int, default=1)
+    p.add_argument("--params", help="JSON model params (held fixed)")
+    p.add_argument("--replicates", type=int, default=1000,
+                   help="RELL replicates for SH-aLRT")
+    p.add_argument("--scf", type=int, default=0, metavar="Q",
+                   help="also report site concordance factors from Q "
+                        "sampled quartets per branch (IQ-TREE --scf)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_supports)
 
     for name, item in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")

@@ -65,6 +65,25 @@ def _canonical_dtype(dtype) -> torch.dtype:
     return out
 
 
+def _checked_device(device) -> torch.device:
+    """``device`` as a torch device: "cpu", or "cuda" where there is a card
+    (else RuntimeError)."""
+    out = torch.device(device)
+    if out.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={device!r} requested but "
+                "torch.cuda.is_available() is False"
+            )
+        # float32 products must stay full float32: TF32 keeps ~3
+        # decimal digits, far outside the 1e-6 logL budget
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif out.type != "cpu":
+        raise ValueError(f"device must be cpu or cuda, not {device!r}")
+    return out
+
+
 def rate_categories(engine, params, dtype, rates=None):
     """(rates, cat_weights) for the engine's RATE mixture (gamma/FreeRate/
     none). ``rates``: precomputed gamma category rates (cached by parameter
@@ -212,19 +231,7 @@ class LikelihoodEngine:
         self.rate_model = rate_model
         self.invariant_sites = bool(invariant_sites)
         self.dtype = _canonical_dtype(dtype)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device={device!r} requested but "
-                    "torch.cuda.is_available() is False"
-                )
-            # float32 products must stay full float32: TF32 keeps ~3
-            # decimal digits, far outside the 1e-6 logL budget
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        elif self.device.type != "cpu":
-            raise ValueError(f"device must be cpu or cuda, not {device!r}")
+        self.device = _checked_device(device)
 
         # Precision plan: partials stay in `dtype` through the pruning walk
         # (that's where the work is); P(t) construction, the root

@@ -20,17 +20,12 @@ NOT_PORTED = {
     # A16: partitions
     "Partition": "A16", "PartitionedEngine": "A16",
     "StackedPartitionedEngine": "A16",
-    # A17: topology sets and search
-    "TopologySetEngine": "A17", "nni_hill_climb": "A17",
-    "optimize_branch_lengths": "A17",
     # A18 part 2: the analyses
     "BranchModelEngine": "A18", "BranchSiteAEngine": "A18",
     "branch_site_test": "A18", "free_ratio_classes": "A18",
     "mark_branches": "A18", "mark_clade": "A18", "ClockEngine": "A18",
     "clock_test": "A18", "node_height_errors": "A18",
-    "alrt_supports": "A18", "bootstrap_tree_support": "A18",
     "ancestral_posteriors": "A18", "site_rate_posteriors": "A18",
-    "kh_test": "A18", "sh_test": "A18",
 }
 
 
@@ -57,7 +52,7 @@ def test_every_jax_name_is_ported_or_mapped_to_an_item():
     for item in set(NOT_PORTED.values()):       # an item of a queue
         assert re.search(rf"\*\*{item}\b", roadmap), item
     ported = [n for n in jax_names if n in port_names]
-    assert len(ported) == 46
+    assert len(ported) == 53
     for name in ported:
         assert hasattr(phylo_utils_tpu_torch, name), name
 
