@@ -259,3 +259,29 @@ def test_default_device_is_the_card(tree_set):
     trees, aln = tree_set
     with pytest.raises(RuntimeError, match="cuda"):
         TopologySetEngine(trees, aln, models.JC69)
+
+
+def test_unrest_gradient_at_uniform_rates_unlike_the_reference():
+    """UNREST at its default (uniform) rates: the port's batched gradient
+    of the rates is finite and matches central differences (1e-6 of its
+    largest entry); the JAX package's is NaN there (its stationary
+    distribution's least-squares solve differentiates through an SVD
+    with repeated singular values; ROADMAP C)."""
+    trees = [random_tree(6, seed=s) for s in range(3)]
+    rng = np.random.default_rng(1)
+    aln = {n: "".join(rng.choice(list("ACGT"), size=50))
+           for n in trees[0].leaf_names}
+    port = TopologySetEngine(trees, aln, models.UNREST, ncat=2,
+                             device="cpu")
+    got = port.gradients()["model"]["rates"].numpy()
+    r0 = port.default_params()["model"]["rates"].numpy()
+    fd = np.empty_like(r0)
+    for i in range(r0.size):
+        up, dn = r0.copy(), r0.copy()
+        up[i] += 1e-6
+        dn[i] -= 1e-6
+        fd[i] = (port.loglikelihoods({"model": {"rates": up}}).sum()
+                 - port.loglikelihoods({"model": {"rates": dn}}).sum()) / 2e-6
+    assert np.isfinite(got).all() and _rel(got, fd) <= 1e-6
+    ref = JaxTSE(_jax_trees(trees), aln, jmodels.UNREST, ncat=2)
+    assert np.isnan(np.asarray(ref.gradients()["model"]["rates"])).any()
