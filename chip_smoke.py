@@ -208,17 +208,33 @@ all at once) and runs, in order, printing one line per phase:
     ``bootstrap_tree_support`` with TBE and the consensus (Newton on the
     card, NJ on the host, timed apart); the CLI's ``topologies --test
     all``, ``search``, ``supports``, ``lmap``, ``consense`` and
-    ``build-tree --refine --bootstrap 10`` as subprocesses side by side.
+    ``build-tree --refine --bootstrap 10`` as subprocesses side by side;
+33. partitioned engines (``_partition_path``): a multi-gene matrix of 48
+    GTR+G4 loci of 300-1500 sites (~43,000 in all, per-locus frequencies,
+    rates, alpha and partition rates 0.3-3) simulated by
+    ``simulate_partitions`` on ``random_tree(64, seed=33)``: the
+    ``StackedPartitionedEngine`` (f32, one launch of each walk over the
+    stack) against ``PartitionedEngine`` in f64 (logL, per-partition logL,
+    gradients); each of the eight kernels on the stack's per-locus leaves
+    (and B3's per-locus frequencies) against its plain version, against
+    itself locus by locus (bit for bit) and, the forwards, against B1;
+    value and gradient medians and busy shares of the stack and of one
+    engine a locus; 10 L-BFGS steps of the stacked fit; a DNA + protein
+    ``PartitionedEngine`` (B1 at 4 states, B5 at 20) against f64; the
+    CLI's ``loglik`` and ``fit --partitions`` (a RAxML-style file with
+    '+F' entries and a '\\3' stride) and ``partitionfinder`` side by side,
+    and the server's ``/partitions`` and ``/health``.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-32; the kernel-against-plain phases are not counted. The last two lines
+23-33; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
-launches (also by state count), and the same at 64 states
-(``states_64``), and
+launches (also by state count), the same at 64 states (``states_64``) and
+on phase 33's stack of loci (``batched_leaves``, its error against the
+plain version also as ``batched_leaf_err``), and
 ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
@@ -333,6 +349,18 @@ SUPPORT_REPS, CLI_TOPOLOGIES, CLI_BOOT_REPS = 100, 20, 10
 PROFILE_STEPS = 10
 # the batched walk in f64 against the f64 plain engine, relative
 BATCHED_RTOL = 1e-10
+# the partition path (phase 33): a multi-gene matrix of PART_LOCI GTR+G4
+# loci of PART_MIN_SITES to PART_MAX_SITES sites on a PART_TAXA-taxon tree;
+# calls a median (one engine a locus's gradient, ~2.5 s a call on an
+# NVIDIA H100 80GB HBM3 at 700 W, over PART_LOCUS_GRAD_REPS), the stacked
+# fit's L-BFGS steps; the mixed-alphabet
+# engine's DNA and protein sites (past the classic budget at 20 states, so
+# the protein locus streams); the CLI's fit steps, and partitionfinder's
+# subsets, sites a subset and fit steps
+PART_TAXA, PART_LOCI, PART_MIN_SITES, PART_MAX_SITES = 64, 48, 300, 1500
+PART_REPS, PART_LOCUS_GRAD_REPS, PART_FIT_STEPS = 20, 5, 10
+MIXED_DNA_SITES, MIXED_PROT_SITES = 1000, 4000
+CLI_PART_FIT_STEPS, PF_SUBSETS, PF_SITES, PF_STEPS = 3, 4, 200, 4
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -577,7 +605,8 @@ def _bound(kind, walk, p, leaves, want_dleaf=False):
     only where ``want_dleaf``: without dleaf it does the deferred
     reverse's work."""
     s = leaves.shape[-1]
-    cols = (p.shape[0] if p.dim() == 5 else 1) * p.shape[-3] * leaves.shape[1]
+    cols = ((p.shape[0] if p.dim() == 5 else 1) * p.shape[-3]
+            * leaves.shape[-2])
     n_int, edges = len(walk.order), int(walk.counts.sum())
     n_inner = walk.n_nodes - walk.n_leaves
     nbytes = 4 * (p.numel() + leaves.numel())
@@ -654,17 +683,23 @@ def _device_us(fn, reps):
             for name, v in out.items()} or "the profiler showed no device time"
 
 
-def _device_busy(fn):
+def _device_busy(fn, host_ops=True):
     """{"wall_ms", "device_ms", "busy_share", "top"} of one call of ``fn``
     under torch.profiler: the wall time to a synchronize, the summed
     device time of the kernels it launched, their ratio, and the three
-    kernels with the most device time ({name: [ms, launches]})."""
+    kernels with the most device time ({name: [ms, launches]}).
+    ``host_ops=False`` records the card's activity alone: with the host
+    ops, the two profiled calls of phase 33's one-engine-a-locus partitions
+    (tens of thousands of host ops each) took ~70 s more of the phase on
+    an NVIDIA H100 80GB HBM3 (700 W)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1612,6 +1647,494 @@ def _search_path(dev, reset_counts, read_counts, smi):
           cli=cli_summary, cli_wall_s=walls, launches=a_counts,
           stage_s=stage_s)
     return a_counts
+
+
+def _locus_ll(rp, re, freqs):
+    """(B, K, sites) float64 site log-likelihoods of a stack's roots, each
+    batch element's under its own frequencies ``freqs`` (B, S)."""
+    import torch
+
+    dot = torch.einsum("bksi,bi->bks", rp.double(), freqs.double())
+    return torch.log(dot) + re.double() * math.log(2.0)
+
+
+def _partition_path(dev, reset_counts, read_counts, smi):
+    """Phase 33, partitioned engines at full width (main path): a 64-taxon
+    x PART_LOCI-locus GTR+G4 multi-gene matrix (``random_tree(PART_TAXA,
+    seed=33)``, locus lengths, frequencies, rates, alpha and partition
+    rates 0.3-3 drawn from seed 33), simulated by ``simulate_partitions``.
+    (a) ``StackedPartitionedEngine`` (f32, ``pruner="cuda"``) against
+    ``PartitionedEngine`` (f64, ``pruner="torch"``): total and
+    per-partition logL within LOGL_RTOL, gradients within GRAD_TOL x
+    max|g|; the value call is one forward launch and the gradient one B2
+    and one reverse launch over the stack (counted). (b) Each of the eight
+    kernels on the stack's operands, leaves (G, n_leaves, P, S) and, for
+    B3, frequencies (G, S): against its plain version (the forwards to
+    phase 3's bound on the site logL, B2 to phase 7's, B3 to
+    REVERSE_TOL, B7 to CLASSIC_TOL), bit for bit against itself launched
+    locus by locus, the forwards bit for bit against B1; times in turns
+    with the plain version and bounds. (c) ``loglikelihood`` and
+    ``value_and_grad`` medians over PART_REPS calls (one engine a locus's
+    gradient over PART_LOCUS_GRAD_REPS) and device-busy shares, stacked
+    and one engine a locus (``PartitionedEngine``, f32, cuda), and
+    the stack's padded share of pattern columns. (d) PART_FIT_STEPS L-BFGS
+    steps of the stacked fit: steps/s, peak memory (counted). (e) A
+    ``PartitionedEngine`` of one GTR+G4 DNA and one LG+G4 protein locus
+    (B1 at 4 states, B5 at 20) against f64 (counted). (f) The CLI's
+    ``loglik`` and ``fit`` with a RAxML-style ``--partitions`` file ('+F'
+    entries, a '\\3' stride) and ``partitionfinder`` (PF_SUBSETS subsets,
+    two candidates) side by side, with the JAX CLI's keys, against the
+    same engine in this process; ``EngineServer``'s ``/partitions`` and
+    ``/health`` in process. Returns ((a), (d) and (e)'s launch counts,
+    {kernel: its batched-leaf entry for the kernels line})."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.io import write_fasta, write_newick
+    from phylo_utils_tpu_torch.ops import cuda_pruning
+    from phylo_utils_tpu_torch.ops.cuda_pruning import (
+        WalkSchedule,
+        classic_reverse_walk,
+        classic_reverse_walk_reference,
+        fold_walk,
+        forward_walk,
+        forward_walk_reference,
+        reverse_walk,
+        reverse_walk_reference,
+        saveall_walk,
+        saveall_walk_reference,
+        slot_walk,
+        slot_walk_reference,
+        static_walk,
+    )
+    from phylo_utils_tpu_torch.optimize import fit
+    from phylo_utils_tpu_torch.partition import (
+        Partition,
+        PartitionedEngine,
+        StackedPartitionedEngine,
+        partitions_from_file,
+        simulate_partitions,
+    )
+    from phylo_utils_tpu_torch.server import EngineServer
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+    from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
+
+    t0 = time.perf_counter()
+    stage_s = {}
+    tree = random_tree(PART_TAXA, seed=33)
+    walk = WalkSchedule(compile_schedule(tree))
+    # B8 for this topology, built while the matrix is simulated
+    b8_pool = concurrent.futures.ThreadPoolExecutor(1)
+    b8_future = b8_pool.submit(walk.static_library, 4)
+    rng = np.random.default_rng(33)
+    lengths = rng.integers(PART_MIN_SITES, PART_MAX_SITES + 1, PART_LOCI)
+    names = [f"locus{i:02d}" for i in range(PART_LOCI)]
+    truth = {
+        "partition_rates": rng.uniform(0.3, 3.0, PART_LOCI).tolist(),
+        "partitions": {n: {"model": {
+            "rates": rng.uniform(0.5, 4.0, 6).tolist(),
+            "freqs": rng.dirichlet(np.full(4, 8.0)).tolist()},
+            "alpha": float(rng.uniform(0.3, 2.0))} for n in names}}
+    holder = PartitionedEngine(tree, [
+        Partition(n, {t: "A" * int(k) for t in tree.leaf_names}, models.GTR,
+                  ncat=4) for n, k in zip(names, lengths)], device=DEVICE)
+    sim = simulate_partitions(33, holder, truth)
+    del holder
+    parts = [Partition(n, sim[n], models.GTR, ncat=4) for n in names]
+    kw32 = dict(dtype=torch.float32, pruner="cuda", device=DEVICE)
+    stacked = StackedPartitionedEngine(tree, parts, **kw32)
+    general = PartitionedEngine(tree, parts, **kw32)
+    ref = PartitionedEngine(tree, parts, device=DEVICE)      # f64, torch
+    torch.cuda.synchronize()
+    stage_s["simulate_and_engines"] = time.perf_counter() - t0
+    pmax = int(stacked._weights.shape[1])
+
+    # (a) the stacked engine against f64, counted ----------------------------
+    forwards = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
+                "STATIC_LAUNCHES", "FOLD_LAUNCHES")
+    reset_counts()
+    ll_s = stacked.loglikelihood(truth)
+    value_counts = read_counts()
+    _check(sum(value_counts[c] for c in forwards) == 1,
+           f"the stacked value call was not one forward launch: "
+           f"{value_counts}")
+    reset_counts()
+    v_s, g_s = stacked.value_and_grad(truth)
+    grad_counts = read_counts()
+    _check(grad_counts["SAVEALL_LAUNCHES"] == 1
+           and grad_counts["REVERSE_LAUNCHES"]
+           + grad_counts["CLASSIC_REVERSE_LAUNCHES"] == 1,
+           f"the stacked gradient was not one B2 and one reverse launch: "
+           f"{grad_counts}")
+    per_s = stacked.partition_loglikelihoods(truth)
+    ll_r, per_r = ref.loglikelihood(truth), ref.partition_loglikelihoods(
+        truth)
+    v_r, g_r = ref.value_and_grad(truth)
+    rel = abs(ll_s - ll_r) / abs(ll_r)
+    part_rel = max(abs(per_s[n] - per_r[n]) / abs(per_r[n]) for n in names)
+    g_err = _grad_errors(g_s, g_r)
+    g_err_max = {"branch_lengths": g_err["branch_lengths"],
+                 "partition_rates": g_err["partition_rates"],
+                 "per_locus_max": max(v for k, v in g_err.items()
+                                      if k.startswith("partitions."))}
+    _check(math.isfinite(ll_s) and rel <= LOGL_RTOL and part_rel <= LOGL_RTOL
+           and abs(float(v_s) - ll_s) <= 1e-9 * abs(ll_s)
+           and max(g_err.values()) <= GRAD_TOL,
+           f"stacked vs f64: logL {rel:.3e}, per partition {part_rel:.3e}, "
+           f"gradients {g_err_max}")
+    stage_s["engines_vs_f64"] = time.perf_counter() - t0 - sum(
+        stage_s.values())
+
+    # (b) the eight kernels on the stack's operands, not counted -------------
+    captured = {}
+    fused = stacked._template._fused_ll
+
+    def capture(p_, leaves_, freqs_):
+        captured.update(p=p_, leaves=leaves_, freqs=freqs_)
+        return fused(p_, leaves_, freqs_)
+
+    stacked._template._fused_ll = capture
+    try:
+        stacked.loglikelihood(truth)
+    finally:
+        stacked._template._fused_ll = fused
+    p32 = captured["p"].to(torch.float32).contiguous()
+    l32 = captured["leaves"].to(torch.float32).contiguous()
+    f64 = captured["freqs"].to(torch.float64)
+    f32 = f64.float().contiguous()
+    g_loci = p32.shape[0]
+    b8_future.result()
+    b8_pool.shutdown()
+    tol_fwd = len(walk.order) * 2.0 ** -21
+    kernels = {
+        "B1": ("pruning_forward_f32", lambda p_, l_: forward_walk(
+            p_, l_, walk, walk="classic"), forward_walk_reference),
+        "B4": ("pruning_slot_f32", lambda p_, l_: slot_walk(p_, l_, walk),
+               slot_walk_reference),
+        "B5": ("pruning_stream_f32", lambda p_, l_: slot_walk(
+            p_, l_, walk, stream=True), slot_walk_reference),
+        "B8": ("pruning_static_f32", lambda p_, l_: static_walk(
+            p_, l_, walk), forward_walk_reference),
+        "B9": ("pruning_fold_f32", lambda p_, l_: fold_walk(
+            p_, l_, walk, 2), forward_walk_reference),
+    }
+    batched, kp1 = {}, None
+    plain_roots = {}
+    for key, (name, run, plain) in kernels.items():
+        kp, ke = run(p32, l32)
+        torch.cuda.synchronize()
+        if kp1 is None:
+            kp1, ke1 = kp, ke
+        _check(torch.equal(kp, kp1) and torch.equal(ke, ke1),
+               f"{key} on the stack is not B1's bits")
+        if plain not in plain_roots:
+            plain_roots[plain] = _locus_ll(*plain(p32, l32, walk), f64)
+        err = float((_locus_ll(kp, ke, f64) - plain_roots[plain]).abs().max())
+        _check(err <= tol_fwd, f"{key} on the stack vs plain: max |dlogL| "
+               f"{err:.3e} > {tol_fwd:.3e}")
+        by_locus = all(
+            torch.equal(kp[g], one[0][0]) and torch.equal(ke[g], one[1][0])
+            for g in range(g_loci) for one in [run(p32[g:g + 1], l32[g])])
+        _check(by_locus, f"{key} on the stack is not its locus-by-locus bits")
+        batched[name] = {"max_abs_err": err, "locus_by_locus_bitwise": True,
+                         "what": "forward"}
+    # B2 against plain and against B1's root
+    rx, re = saveall_walk(p32, l32, walk)
+    row = walk.root - walk.n_leaves
+    _check(torch.equal(rx[:, :, row], kp1) and torch.equal(re[:, :, row],
+                                                             ke1),
+           "B2's root row on the stack is not B1's")
+    wx, we = saveall_walk_reference(p32, l32, walk)
+    b2_err = float((rx.double() * torch.exp2((re - we).double())[..., None]
+                    - wx.double()).abs().max())
+    _check(b2_err <= tol_fwd, f"B2 on the stack vs plain {b2_err:.3e}")
+    del wx, we
+    by_locus = True
+    for g in range(g_loci):
+        ox, oe = saveall_walk(p32[g:g + 1], l32[g], walk)
+        by_locus &= torch.equal(rx[g], ox[0]) and torch.equal(re[g], oe[0])
+    _check(by_locus, "B2 on the stack is not its locus-by-locus bits")
+    batched["pruning_saveall_f32"] = {"max_abs_err": b2_err,
+                                      "locus_by_locus_bitwise": True,
+                                      "what": "saveall"}
+    # B3 with per-locus root frequencies, and B7 from the same seed
+    dot = torch.einsum("bksi,bi->bks", kp1.double(), f64)
+    lam = (torch.as_tensor(stacked._weights, dtype=torch.float64)[:, None]
+           / dot).float().contiguous()
+    d3, l3 = reverse_walk(p32, l32, rx, re, lam, f32, walk, want_dleaf=True)
+    w3, wl3 = reverse_walk_reference(p32, l32, rx, re, lam, f32, walk,
+                                     want_dleaf=True)
+    b3_rel = max(_max_rel(d3, w3), _max_rel(l3, wl3))
+    _check(bool(torch.isfinite(d3).all()) and b3_rel <= REVERSE_TOL,
+           f"B3 on the stack vs plain {b3_rel:.3e} x max")
+    gseed = (lam[..., None] * f32[:, None, None, :]).unsqueeze(-3).contiguous()
+    d7, l7 = classic_reverse_walk(p32, l32, rx, re, gseed, [walk.root], walk,
+                                  want_dleaf=True)
+    w7, wl7 = classic_reverse_walk_reference(p32, l32, rx, re, gseed,
+                                             [walk.root], walk,
+                                             want_dleaf=True)
+    b7_rel = max(_max_rel(d7, w7), _max_rel(l7, wl7))
+    _check(bool(torch.isfinite(d7).all()) and b7_rel <= CLASSIC_TOL,
+           f"B7 on the stack vs plain {b7_rel:.3e} x max")
+    by3 = by7 = True
+    for g in range(g_loci):
+        sl = slice(g, g + 1)
+        o3 = reverse_walk(p32[sl], l32[g], rx[sl], re[sl], lam[sl], f32[g],
+                          walk, want_dleaf=True)
+        by3 &= torch.equal(d3[g], o3[0][0]) and torch.equal(l3[g], o3[1][0])
+        o7 = classic_reverse_walk(p32[sl], l32[g], rx[sl], re[sl],
+                                  gseed[sl].contiguous(), [walk.root], walk,
+                                  want_dleaf=True)
+        by7 &= torch.equal(d7[g], o7[0][0]) and torch.equal(l7[g], o7[1][0])
+    _check(by3 and by7, f"the reverses on the stack are not their "
+           f"locus-by-locus bits: B3 {by3}, B7 {by7}")
+    batched["pruning_reverse_f32"] = {
+        "max_abs_err": float((d3.double() - w3.double()).abs().max()),
+        "rel_max": b3_rel, "locus_by_locus_bitwise": True,
+        "what": "reverse"}
+    batched["pruning_classic_reverse_f32"] = {
+        "max_abs_err": float((d7.double() - w7.double()).abs().max()),
+        "rel_max": b7_rel, "locus_by_locus_bitwise": True,
+        "what": "classic"}
+    del w3, wl3, w7, wl7, d7, l7
+    # times in turns (plain, kernel, kernel, plain) and bounds
+    runs = {name: (lambda run=run: run(p32, l32), lambda plain=plain:
+                   plain(p32, l32, walk))
+            for _, (name, run, plain) in kernels.items()}
+    runs["pruning_saveall_f32"] = (
+        lambda: saveall_walk(p32, l32, walk),
+        lambda: saveall_walk_reference(p32, l32, walk))
+    runs["pruning_reverse_f32"] = (
+        lambda: reverse_walk(p32, l32, rx, re, lam, f32, walk),
+        lambda: reverse_walk_reference(p32, l32, rx, re, lam, f32, walk))
+    runs["pruning_classic_reverse_f32"] = (
+        lambda: classic_reverse_walk(p32, l32, rx, re, gseed, [walk.root],
+                                     walk),
+        lambda: classic_reverse_walk_reference(p32, l32, rx, re, gseed,
+                                               [walk.root], walk))
+    for name, (kern, plain) in runs.items():
+        plain_a = _cuda_ms(plain, 1)
+        k_a, k_b = _cuda_ms(kern, 5), _cuda_ms(kern, 5)
+        plain_b = _cuda_ms(plain, 1)
+        bound_ms, bound_by = _bound(batched[name]["what"], walk, p32, l32)
+        batched[name].update(
+            shape=f"G={g_loci} x {PART_TAXA} taxa x K=4 x P={pmax}, S=4",
+            ms=min(k_a, k_b), plain_ms=min(plain_a, plain_b),
+            bound_ms=bound_ms, bound_by=bound_by)
+    del rx, re, d3, l3
+    torch.cuda.empty_cache()
+    stage_s["kernels"] = time.perf_counter() - t0 - sum(stage_s.values())
+
+    # (c) timings: the stack against one engine a locus, at the parameters
+    # as tensors on the card (as fit and repeated calls pass them) ------------
+    timing = {}
+    for label, eng in (("stacked", stacked), ("per_locus", general)):
+        full = eng._full_params(truth)
+        eng.loglikelihood(full)
+        eng.value_and_grad(full)
+        many = eng is general       # tens of thousands of host ops a call
+        timing[label] = {
+            "loglikelihood_ms": _median_ms(
+                lambda: eng.loglikelihood(full), PART_REPS),
+            "value_and_grad_ms": _median_ms(
+                lambda: eng.value_and_grad(full),
+                PART_LOCUS_GRAD_REPS if many else PART_REPS),
+            "loglikelihood_busy": _device_busy(
+                lambda: eng.loglikelihood(full), host_ops=not many),
+            "value_and_grad_busy": _device_busy(
+                lambda: eng.value_and_grad(full), host_ops=not many),
+        }
+    _check(abs(general.loglikelihood(truth) - ll_s) <= LOGL_RTOL * abs(ll_s),
+           "one engine a locus disagrees with the stack")
+    stage_s["timings"] = time.perf_counter() - t0 - sum(stage_s.values())
+
+    # (d) the stacked fit, counted -------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = fit(stacked, max_steps=PART_FIT_STEPS, patience=PART_FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    fit_counts = read_counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    _check(res.n_steps == PART_FIT_STEPS and res.loglik > stacked
+           .loglikelihood() and abs(res.loglik - stacked.loglikelihood(
+               res.params)) <= 1e-9 * abs(res.loglik),
+           f"the stacked fit: {res.n_steps} steps, logL {res.loglik}")
+    stage_s["fit"] = time.perf_counter() - t0 - sum(stage_s.values())
+
+    # (e) a DNA and a protein locus, counted --------------------------------
+    dna = simulate_alignment(331, tree, models.GTR, MIXED_DNA_SITES,
+                             params={"alpha": 0.7}, ncat=4, device=DEVICE)
+    prot = simulate_alignment(332, tree, models.LG, MIXED_PROT_SITES,
+                              params={"alpha": 0.9}, ncat=4, device=DEVICE)
+    mparts = [Partition("dna", dna, models.GTR, ncat=4),
+              Partition("prot", prot, models.LG, ncat=4)]
+    mixed = PartitionedEngine(tree, mparts, **kw32)
+    mref = PartitionedEngine(tree, mparts, device=DEVICE)
+    mparams = {"partition_rates": [0.8, 1.4],
+               "partitions": {"dna": {"alpha": 0.7},
+                              "prot": {"alpha": 0.9}}}
+    reset_counts()
+    mll = mixed.loglikelihood(mparams)
+    mixed_value_counts = read_counts()
+    mv, mg = mixed.value_and_grad(mparams)
+    mixed_counts = read_counts()
+    _check(mixed_value_counts.get("LAUNCHES@4", 0) >= 1
+           and mixed_value_counts.get("STREAM_LAUNCHES@20", 0) >= 1,
+           f"the mixed engine's value call did not take B1 at 4 states and "
+           f"B5 at 20: {mixed_value_counts}")
+    mll_r = mref.loglikelihood(mparams)
+    _, mg_r = mref.value_and_grad(mparams)
+    m_rel = abs(mll - mll_r) / abs(mll_r)
+    mg_err = _grad_errors(mg, mg_r)
+    _check(m_rel <= LOGL_RTOL and max(mg_err.values()) <= GRAD_TOL,
+           f"mixed alphabets vs f64: logL {m_rel:.3e}, gradients {mg_err}")
+    stage_s["mixed"] = time.perf_counter() - t0 - sum(stage_s.values())
+
+    # (f) the CLI side by side and the server in process ---------------------
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    concat = {t: "".join(sim[n][t] for n in names) for t in tree.leaf_names}
+    ends = np.cumsum(lengths)
+    starts = ends - lengths + 1
+    lines = [f"GTR+G4+F, {names[0]}_pos12 = {starts[0]}-{ends[0]}\\3, "
+             f"{starts[0] + 1}-{ends[0]}\\3",
+             f"GTR+G4, {names[0]}_pos3 = {starts[0] + 2}-{ends[0]}\\3"]
+    lines += [f"GTR+G4{'+F' if i % 3 == 0 else ''}, {n} = {a}-{b}"
+              for i, (n, a, b) in enumerate(zip(names, starts, ends)) if i]
+    parts_text = "\n".join(lines) + "\n"
+    pf_aln = {t: "".join(sim[n][t][:PF_SITES] for n in names[:PF_SUBSETS])
+              for t in tree.leaf_names}
+    pf_text = "".join(f"DNA, s{i} = {i * PF_SITES + 1}-{(i + 1) * PF_SITES}\n"
+                      for i in range(PF_SUBSETS))
+    cli_out, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parts_",
+                                     dir=build) as tmp:
+        fa, pf_fa, nwk, parts_file, pf_file = (
+            os.path.join(tmp, n_) for n_ in ("aln.fa", "pf.fa", "tree.nwk",
+                                             "parts.txt", "subsets.txt"))
+        write_fasta(concat, path=fa)
+        write_fasta(pf_aln, path=pf_fa)
+        with open(nwk, "w") as fh:
+            fh.write(write_newick(tree) + "\n")
+        for path, text in ((parts_file, parts_text), (pf_file, pf_text)):
+            with open(path, "w") as fh:
+                fh.write(text)
+        engine = ["--tree", nwk, "--alignment", fa, "--partitions",
+                  parts_file, "--pruner", "cuda", "--dtype", "float32"]
+        cmds = {
+            "loglik": ["loglik"] + engine,
+            "fit": ["fit"] + engine + ["--max-steps",
+                                       str(CLI_PART_FIT_STEPS)],
+            "partitionfinder": ["partitionfinder", "--tree", nwk,
+                                "--alignment", pf_fa, "--subsets", pf_file,
+                                "--models", "JC69,HKY85+G", "--max-steps",
+                                str(PF_STEPS)],
+        }
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        procs = {}
+        for name, cmd in cmds.items():
+            with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
+                    open(os.path.join(tmp, f"{name}.err"), "w") as fe:
+                procs[name] = (time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
+                    + ["--device", DEVICE], cwd=REPO, env=env, stdout=fo,
+                    stderr=fe))
+        # the server in this process while the CLI runs
+        cli_parts, cli_init = partitions_from_file(parts_text, concat)
+        cli_eng = StackedPartitionedEngine(tree, cli_parts, **kw32)
+        srv = EngineServer(stacked, port=0)
+        srv.start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
+                health = json.loads(r.read())
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/partitions",
+                data=json.dumps({"params": truth}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served = json.loads(r.read())["partitions"]
+        finally:
+            srv.stop()
+        deadline = time.perf_counter() + 900
+        try:
+            while len(walls) < len(procs) and time.perf_counter() < deadline:
+                for name, (t1, proc) in procs.items():
+                    if name not in walls and proc.poll() is not None:
+                        walls[name] = time.perf_counter() - t1
+                time.sleep(0.1)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, (_, proc) in procs.items():
+            with open(os.path.join(tmp, f"{name}.err")) as fe:
+                stderr = fe.read()
+            _check(name in walls and proc.returncode == 0,
+                   f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
+            with open(os.path.join(tmp, f"{name}.out")) as fo:
+                cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
+    # the JAX CLI's keys (cli.py cmd_loglik, cmd_fit,
+    # cmd_partition_finder) and the server's (server.py /health,
+    # /partitions)
+    want_keys = {"loglik": {"loglik", "partition_logliks"},
+                 "fit": {"loglik", "n_steps", "converged", "params"},
+                 "partitionfinder": {"scheme", "score", "criterion",
+                                     "n_rounds", "merged_from"}}
+    for name, keys in want_keys.items():
+        _check(set(cli_out[name]) == keys,
+               f"cli {name}: keys {sorted(cli_out[name])}")
+    cli_ll = cli_eng.loglikelihood(cli_init)
+    cli_rel = abs(cli_out["loglik"]["loglik"] - cli_ll) / abs(cli_ll)
+    fit_rel = abs(cli_out["fit"]["loglik"] - cli_eng.loglikelihood(
+        cli_out["fit"]["params"])) / abs(cli_ll)
+    rows = cli_out["partitionfinder"]["scheme"]
+    _check(cli_rel <= 1e-9 and fit_rel <= 1e-9
+           and cli_out["fit"]["loglik"] > cli_ll
+           and len(cli_out["loglik"]["partition_logliks"]) == PART_LOCI + 1
+           and all(set(r) == {"name", "model", "loglik", "k", "bic",
+                              "n_sites"} and math.isfinite(r["loglik"])
+                   for r in rows)
+           and sum(r["n_sites"] for r in rows) == PF_SUBSETS * PF_SITES,
+           f"cli: loglik {cli_rel:.3e} from the engine, fit {fit_rel:.3e}, "
+           f"partitionfinder rows {rows}")
+    _check(served == per_s and health["model"] == {
+        n: "GTR" for n in names} and health["n_patterns"] == sum(
+        stacked._n_patterns) and set(health) == {
+        "status", "device", "device_name", "pruner", "model", "n_patterns"},
+           f"server: /partitions {served == per_s}, /health {health}")
+    stage_s["cli_and_server"] = time.perf_counter() - t0 - sum(
+        stage_s.values())
+
+    _emit(33, card=smi, taxa=PART_TAXA, loci=PART_LOCI,
+          sites=int(lengths.sum()), patterns=sum(stacked._n_patterns),
+          padded_patterns=pmax, padded_fraction=stacked.padded_fraction,
+          engines={"logl_rel_err": rel, "partition_logl_rel_err": part_rel,
+                   "grad_rel_err": g_err_max, "loglik": ll_s,
+                   "value_launches": value_counts,
+                   "gradient_launches": grad_counts},
+          kernels=batched, timing=timing,
+          fit={"steps": res.n_steps, "seconds": fit_s,
+               "steps_per_s": res.n_steps / fit_s,
+               "loglik": [float(res.trace[0]), res.loglik],
+               "peak_allocated_bytes": fit_peak, "launches": fit_counts},
+          mixed={"logl_rel_err": m_rel, "grad_rel_err": mg_err,
+                 "value_launches": mixed_value_counts},
+          cli={"loglik_rel_err": cli_rel, "fit_rel_err": fit_rel,
+               "fit_loglik": cli_out["fit"]["loglik"],
+               "partitionfinder": {
+                   k: cli_out["partitionfinder"][k]
+                   for k in ("n_rounds", "merged_from", "score")},
+               "partitionfinder_models": [r["model"] for r in rows]},
+          cli_wall_s=walls, server={"health": health},
+          stage_s=stage_s)
+    return [value_counts, grad_counts, fit_counts, mixed_counts], batched
 
 
 def main():
@@ -3954,6 +4477,10 @@ def main():
     # 32. topology sets, search and supports at full width, main path ----
     search_counts = _search_path(dev, reset_counts, read_counts, smi)
 
+    # 33. partitioned engines at full width, main path -------------------
+    part_counts, part_kernels = _partition_path(dev, reset_counts,
+                                                read_counts, smi)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
@@ -3961,7 +4488,7 @@ def main():
                    codon_value_counts, codon_grad_counts, codon_fit_counts,
                    b4_counts, b7_counts, b8_counts, b9_counts,
                    *mk_counts.values(), cli_counts_28, cw_counts,
-                   boot_counts, site_counts, search_counts)
+                   boot_counts, site_counts, search_counts, *part_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -3973,7 +4500,9 @@ def main():
     def kernel(name, source, line, counter, err, timing, what, inputs,
                wide=None):
         """The kernel's entry; ``wide``: (its phase-27 key, its error) at 64
-        states, reported as ``states_64``."""
+        states, reported as ``states_64``; its run on phase 33's stack of
+        loci (leaves (G, n_leaves, P, S)) as ``batched_leaves``, its error
+        there against its plain version as ``batched_leaf_err``."""
         bound_ms, bound_by = _bound(what, *inputs[:3])
         entry = {"name": name, "route": "cuda",
                  "source": f"phylo_utils_tpu_torch/csrc/{source}",
@@ -3983,7 +4512,10 @@ def main():
                  "max_abs_err": err,
                  "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                  "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": None}
+                 "library_ms": None,
+                 "batched_leaf_err": part_kernels[name]["max_abs_err"],
+                 "batched_leaves": {k: v for k, v in part_kernels[name]
+                                    .items() if k != "what"}}
         if wide is not None:
             t64 = timings_64[wide[0]]
             entry["states_64"] = {

@@ -187,7 +187,9 @@ def _build_parent(parent: Path, nvcc_flags, nvcc):
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
     shared = ctypes.CDLL(str(lib_path))
-    for name, n_ptr, n_int in _build.SIGNATURES:
+    # the earlier entry points end at the stream: the current wrappers'
+    # trailing strides (0, shared leaves) go past their last parameter
+    for name, n_ptr, n_int, _ in _build.SIGNATURES:
         if name in SHARED_ENTRIES:
             fn = getattr(shared, name)
             fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]

@@ -4,7 +4,8 @@ Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
 distances, NJ trees, model and profile mixtures, the codon site models
 (M1a-M8, their LRTs and NEB/BEB site scans), model selection, sequence
 simulation and the parametric bootstrap, topology sets and NNI/SPR search,
-topology tests and branch supports on an NVIDIA GPU (or the CPU), held
+topology tests and branch supports, and partitioned (multi-locus) engines
+on an NVIDIA GPU (or the CPU), held
 against the
 JAX package on the same inputs. The ported public names of the JAX
 package are exported here (``tests/test_torch_names.py`` lists the rest by
@@ -66,6 +67,11 @@ from phylo_utils_tpu_torch.optimize import (  # noqa: F401
     ml_distance_matrix,
     newton_branch_length,
     standard_errors,
+)
+from phylo_utils_tpu_torch.partition import (  # noqa: F401
+    Partition,
+    PartitionedEngine,
+    StackedPartitionedEngine,
 )
 from phylo_utils_tpu_torch.profile_mixtures import (  # noqa: F401
     ProfileMixtureEngine,

@@ -11,21 +11,26 @@ M7-vs-M8 positive-selection LRTs, with the NEB site scan under ``--sites``
 and the M2a BEB scan under ``--beb``), ``topologies`` (a candidate set
 scored in one batched pass, with the KH/SH/AU tests), ``search`` (NNI/SPR
 hill-climb), ``supports`` (aLRT, SH-aLRT, aBayes, sCF), ``lmap``
-(likelihood mapping) and ``consense``. Engines and the simulator
-run on the card (``--device cuda``, the default) unless ``--device cpu`` is
-given; ``--pruner`` is ``torch`` (plain PyTorch, the default, as the JAX
-CLI's ``xla``) or ``cuda`` (the hand-written kernels). ``--params`` JSON is
-read through ``convert.params_from_jax``, so both packages read one file
-alike. Every other subcommand, and the flags whose engines are not ported
-yet, exit non-zero naming their ROADMAP item. ``--profile-mixture
-FILE.nex:NAME`` builds a ``ProfileMixtureEngine`` from an IQ-TREE
+(likelihood mapping), ``consense`` and ``partitionfinder`` (a model per
+subset of a partition file and greedy merging of subsets). Engines and the
+simulator run on the card (``--device cuda``, the default) unless
+``--device cpu`` is given; ``--pruner`` is ``torch`` (plain PyTorch, the
+default, as the JAX CLI's ``xla``) or ``cuda`` (the hand-written kernels).
+``--params`` JSON is read through ``convert.params_from_jax``, so both
+packages read one file alike. Every other subcommand, and the flags whose
+engines are not ported yet, exit non-zero naming their ROADMAP item.
+``--profile-mixture FILE.nex:NAME`` builds a ``ProfileMixtureEngine`` from an IQ-TREE
 ``models.nex`` definition, with ``--model`` as the shared exchangeability
 matrix. ``--model`` takes the codon models GY94 and MG94 (on an in-frame
 nucleotide alignment; ``fit`` then prints the codeml-style ``dn_ds`` block)
 and the Mk family, ``MK<k>`` / ``ORDERED<k>``; ``--asc lewis|felsenstein|
 stamatakis`` (with ``--asc-counts``) builds an ``AscertainmentEngine``;
 ``--recode ry|dayhoff6|sr6|kgb6`` recodes the alignment into grouped
-states first (pair it with ``--model MK2`` / ``MK6``).
+states first (pair it with ``--model MK2`` / ``MK6``). ``--partitions
+FILE`` (RAxML/IQ-TREE lines or NEXUS charsets) scores per-locus models over
+one tree: a ``StackedPartitionedEngine`` where every locus shares one model
+family and mixture, else a ``PartitionedEngine``; ``loglik`` then also
+prints ``partition_logliks``.
 """
 from __future__ import annotations
 
@@ -45,17 +50,18 @@ MODEL_NAMES = (
 
 # the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
 NOT_PORTED = {
-    "benchmark": "A2", "ancestral": "A18", "partitionfinder": "A16",
+    "benchmark": "A2", "ancestral": "A18",
     "branch-site-test": "A18", "clock-test": "A18", "date": "A18",
 }
 
 # engine flags whose engines are not ported yet: (attribute, flag, item)
 _UNPORTED_FLAGS = (
-    ("partitions", "--partitions", "A16"),
     ("shard_sites", "--shard-sites", "A12"),
 )
 # the flags --profile-mixture refuses with its own message, as the JAX CLI
-_PROFILE_REFUSED = ("recode", "shard_sites")
+# refuses --recode and --shard-sites (the JAX CLI builds a partitioned
+# engine and drops the profile mixture under --partitions)
+_PROFILE_REFUSED = ("recode", "shard_sites", "partitions")
 
 
 def _not_ported(what: str, item: str):
@@ -124,8 +130,21 @@ def _to_json(tree) -> Dict:
 
 
 def _engine_params(args, engine) -> Optional[Dict]:
-    """--params JSON, plus --empirical-freqs observed '+F' frequencies."""
+    """--params JSON, plus --empirical-freqs observed '+F' frequencies (per
+    partition under --partitions: the file's '+F' entries)."""
     params = _json_params(args.params) or {}
+    init = getattr(engine, "_partition_init_params", None)
+    if init:
+        # per-partition '+F' observed frequencies; explicit --params wins
+        user_parts = dict(params.get("partitions") or {})
+        for name, pv in init.get("partitions", {}).items():
+            up = dict(user_parts.get(name, {}))
+            um = dict(up.get("model", {}))
+            for k, v in pv["model"].items():
+                um.setdefault(k, v)
+            up["model"] = um
+            user_parts[name] = up
+        params["partitions"] = user_parts
     if getattr(args, "empirical_freqs", False):
         if "freqs" not in engine.model.param_defaults:
             raise SystemExit(
@@ -167,7 +186,9 @@ def _add_engine_args(p: argparse.ArgumentParser):
     p.add_argument("--shard-sites", action="store_true",
                    help="shard patterns over all devices (not ported: A12)")
     p.add_argument("--partitions", default=None,
-                   help="partition file (not ported: A16)")
+                   help="RAxML/IQ-TREE-style partition file (or NEXUS "
+                        "charsets): per-locus models over one tree; "
+                        "entries without a model use --model")
     p.add_argument("--asc", default=None,
                    choices=["lewis", "felsenstein", "stamatakis"],
                    help="ascertainment-bias correction for variable-sites-"
@@ -192,7 +213,7 @@ def _add_engine_args(p: argparse.ArgumentParser):
 def _profile_mixture_engine(args):
     """The ``--profile-mixture FILE.nex:NAME`` engine, with the JAX CLI's
     refusals: +G/+I (the profile classes are the mixture axis), --recode
-    and --shard-sites."""
+    and --shard-sites; and --partitions."""
     from phylo_utils_tpu_torch.profile_mixtures import (
         profile_mixture_from_nexus,
     )
@@ -210,8 +231,8 @@ def _profile_mixture_engine(args):
             "the file's class rates, or drop the suffix"
         )
     if any(getattr(args, attr, None) for attr in _PROFILE_REFUSED):
-        raise SystemExit(
-            "--profile-mixture does not support --recode/--shard-sites")
+        raise SystemExit("--profile-mixture does not support --recode/"
+                         "--shard-sites/--partitions")
     try:
         return profile_mixture_from_nexus(
             path, name, _read_tree(args.tree), _read_aln(args.alignment),
@@ -219,6 +240,44 @@ def _profile_mixture_engine(args):
         )
     except (OSError, ValueError) as e:
         raise SystemExit(f"--profile-mixture: {e}")
+
+
+def _partitioned_engine(args):
+    """The ``--partitions FILE`` engine: the loci stacked on one batch axis
+    of one engine where they share one model family and mixture, else one
+    engine per locus, as the JAX CLI builds it; the file's '+F'
+    frequencies ride on the engine for ``_engine_params``."""
+    from phylo_utils_tpu_torch.partition import (
+        PartitionedEngine,
+        StackedPartitionedEngine,
+        partitions_from_file,
+    )
+
+    if getattr(args, "empirical_freqs", False):
+        raise SystemExit(
+            "--empirical-freqs is per-partition under --partitions: use "
+            "'+F' in the partition file's model strings"
+        )
+    try:
+        parts, init = partitions_from_file(
+            args.partitions, _read_aln(args.alignment),
+            default_model=args.model, get_model=_get_model,
+        )
+    except ValueError as e:
+        raise SystemExit(f"--partitions: {e}")
+    kw = dict(dtype=args.dtype, pruner=args.pruner, device=args.device)
+    tree = _read_tree(args.tree)
+    try:
+        try:
+            engine = StackedPartitionedEngine(tree, parts, **kw)
+        except ValueError as e:
+            if "share the model family" not in str(e):
+                raise SystemExit(f"--partitions: {e}")
+            engine = PartitionedEngine(tree, parts, **kw)
+    except RuntimeError as e:       # no card behind --device cuda
+        raise SystemExit(f"{e}; pass --device cpu to run on the CPU")
+    engine._partition_init_params = init
+    return engine
 
 
 def _build_engine(args):
@@ -229,6 +288,8 @@ def _build_engine(args):
         if getattr(args, attr, None) and not (
                 profile and attr in _PROFILE_REFUSED):
             _not_ported(flag, item)
+    if getattr(args, "partitions", None) and not profile:
+        return _partitioned_engine(args)
     if profile:
         try:
             return _profile_mixture_engine(args)
@@ -280,7 +341,14 @@ def cmd_loglik(args) -> int:
     engine = _build_engine(args)
     params = engine._full_params(_engine_params(args, engine))
     out = {"loglik": engine.loglikelihood(params)}
+    if hasattr(engine, "partition_loglikelihoods"):
+        out["partition_logliks"] = engine.partition_loglikelihoods(params)
     if args.sitewise:
+        if hasattr(engine, "partition_loglikelihoods"):
+            raise SystemExit(
+                "--sitewise is not supported with --partitions (use the "
+                "per-partition totals in 'partition_logliks')"
+            )
         out["sitewise"] = engine.sitewise_loglikelihoods(params).tolist()
     print(json.dumps(out))
     return 0
@@ -310,7 +378,10 @@ def cmd_fit(args) -> int:
             params0 = state["params"]
     free = tuple(args.free.split(",")) if args.free else None
     t0 = time.perf_counter()
-    n_pat = int(engine._weights.shape[0])
+    # patterns a step scores (a stack of loci: its padded columns too)
+    n_pat = (sum(int(w.shape[0]) for w in engine._weights)
+             if isinstance(engine._weights, tuple)
+             else int(engine._weights.numel()))
     with MetricsLogger(args.metrics, echo=args.verbose) as logger:
 
         def callback(step, ll, params):
@@ -661,6 +732,32 @@ def cmd_compare(args) -> int:
     return 0
 
 
+def cmd_partition_finder(args) -> int:
+    from phylo_utils_tpu_torch.io import parse_partition_file
+    from phylo_utils_tpu_torch.model_selection import partition_finder
+    from phylo_utils_tpu_torch.partition import _expand_ranges
+
+    aln = _read_aln(args.alignment)
+    n_sites = len(next(iter(aln.values())))
+    try:
+        specs = parse_partition_file(args.subsets)
+        subsets = {
+            s["name"]: _expand_ranges(s["ranges"], n_sites) for s in specs
+        }
+        res = _on_card(
+            partition_finder, _read_tree(args.tree), aln, subsets,
+            candidates=args.models.split(",") if args.models else None,
+            criterion=args.criterion, merge=not args.no_merge,
+            max_steps=args.max_steps, device=args.device,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    for row in res["scheme"]:
+        row["n_sites"] = len(row.pop("columns"))
+    print(json.dumps(res))
+    return 0
+
+
 def _codon_freq_setup(aln, method):
     """(params0, base_free) for codon engines: empirical codon frequencies
     held fixed (codeml's CodonFreq convention) with kappa free, or the
@@ -888,6 +985,26 @@ def main(argv=None) -> int:
     p.add_argument("--max-steps", type=int, default=200)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser(
+        "partitionfinder",
+        help="best model per subset + greedy scheme merging "
+             "(PartitionFinder-style)",
+    )
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--subsets", required=True,
+                   help="partition file defining the INITIAL subsets "
+                        "(RAxML lines or NEXUS charsets; models in the "
+                        "file are ignored: selection picks them)")
+    p.add_argument("--models", help="comma list of candidate model strings")
+    p.add_argument("--criterion", default="bic",
+                   choices=["aic", "aicc", "bic"])
+    p.add_argument("--no-merge", action="store_true",
+                   help="only pick per-subset models; skip greedy merging")
+    p.add_argument("--max-steps", type=int, default=200)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_partition_finder)
 
     p = sub.add_parser(
         "site-test",

@@ -12,7 +12,9 @@ the system's weights.
 returns the port's dict of tensors; ``params_to_numpy`` goes the other way,
 for JSON.
 Neither imports JAX. ``flatten_params``/``unflatten_params`` turn a nested
-dict into the flat tensor list that autograd and optimizers take, and back.
+dict into the flat tensor list that autograd and optimizers take, and back
+(with ``empty_paths``, the empty dicts a parameter-free model leaves, at
+any depth: a partitioned engine's JC69 locus).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ __all__ = [
     "params_to_numpy",
     "flatten_params",
     "unflatten_params",
+    "empty_paths",
 ]
 
 
@@ -70,9 +73,26 @@ def flatten_params(tree: Mapping, prefix: Tuple[str, ...] = ()
     return paths, leaves
 
 
-def unflatten_params(paths, leaves) -> Dict:
-    """Inverse of ``flatten_params``."""
+def empty_paths(tree: Mapping, prefix: Tuple[str, ...] = ()
+                ) -> List[Tuple[str, ...]]:
+    """Key paths of the empty dicts in ``tree`` at any depth (a
+    parameter-free model's ``model``): ``flatten_params`` has no leaf to
+    carry them."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out += empty_paths(v, prefix + (k,)) if v else [prefix + (k,)]
+    return out
+
+
+def unflatten_params(paths, leaves, empty=()) -> Dict:
+    """Inverse of ``flatten_params``; ``empty``: key paths of empty dicts
+    to put back (``empty_paths``)."""
     out: Dict = {}
+    for path in empty:
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
     for path, leaf in zip(paths, leaves):
         node = out
         for k in path[:-1]:

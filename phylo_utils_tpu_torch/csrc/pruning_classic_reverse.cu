@@ -152,7 +152,7 @@ struct StepRing {
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
-                            const float* __restrict__ leaves,  // (n_leaves, sites, S)
+                            const float* __restrict__ leaves,  // (B?, n_leaves, sites, S): leaf_rows
                             const int* __restrict__ rnode,     // (n_int,) pre-order
                             const int* __restrict__ gslot,     // (n_int,)
                             const int* __restrict__ children,  // (n_int, cmax)
@@ -167,7 +167,7 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
                             int cmax, int sites, int n_seed, int n_gslots,
-                            int stage_children) {
+                            int stage_children, int leaf_rows) {
   const int cs = stage_children;
   extern __shared__ float4 smem_vec[];
   const int warps = blockDim.x >> 5;
@@ -181,6 +181,7 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
+  const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
   const size_t bk = static_cast<size_t>(b) * K + k;
   const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
   const size_t ns = static_cast<size_t>(sites);
@@ -274,7 +275,7 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                 const int other = __ldg(children + i * cmax + c2);
                 float xo[S];
                 if (other < n_leaves) {
-                  load_states<S>(leaves + (static_cast<size_t>(other) * ns + site) * S, xo);
+                  load_states<S>(leaves + (static_cast<size_t>(lrow0 + other) * ns + site) * S, xo);
                 } else {
                   load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * ns + site) * S, xo);
                 }
@@ -293,7 +294,7 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
             for (int r = 0; r < S; ++r) x[r] = 0.0f;
             if (live) {
               if (child < n_leaves) {
-                load_states<S>(leaves + (static_cast<size_t>(child) * ns + site) * S, x);
+                load_states<S>(leaves + (static_cast<size_t>(lrow0 + child) * ns + site) * S, x);
               } else {
                 load_states<S>(xs + (static_cast<size_t>(child - n_leaves) * ns + site) * S, x);
               }
@@ -363,7 +364,7 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
-                            const float* __restrict__ leaves,  // (n_leaves, sites, S)
+                            const float* __restrict__ leaves,  // (B?, n_leaves, sites, S): leaf_rows
                             const int* __restrict__ rnode,     // (n_int,) pre-order
                             const int* __restrict__ gslot,     // (n_int,)
                             const int* __restrict__ children,  // (n_int, cmax)
@@ -378,7 +379,7 @@ classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
                             int cmax, int sites, int n_seed, int n_gslots,
-                            int stage_children) {
+                            int stage_children, int leaf_rows) {
   constexpr int kL = pruning::kWideLanes;
   constexpr int kRows = S / kL;              // rows of g and gy a lane keeps
   constexpr int kSub = S / 4;                // 4 x 4 dP sub-blocks a side
@@ -396,6 +397,7 @@ classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const int col = threadIdx.x / kL;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
+  const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
   const size_t bk = static_cast<size_t>(b) * K + k;
   const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
   const size_t ns = static_cast<size_t>(sites);
@@ -425,7 +427,7 @@ classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
     // a node's partials row at this column: a leaf's or its residual
     auto row_of = [&](int node) {
       return node < n_leaves
-                 ? leaves + (static_cast<size_t>(node) * ns + site) * S
+                 ? leaves + (static_cast<size_t>(lrow0 + node) * ns + site) * S
                  : xs + (static_cast<size_t>(node - n_leaves) * ns + site) * S;
     };
     for (int i = 0; i < n_int; ++i) {
@@ -505,6 +507,7 @@ classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
 // (kWideTile); a visit of at most `stage_children` children (>= 1) is
 // staged in shared memory, whose size
 // (ops/cuda_pruning.py::classic_reverse_stage) must fit the SM's 227 KB.
+// leaf_batch as pruning_forward_f32's (csrc/pruning_forward.cu).
 extern "C" int pruning_classic_reverse_f32(
     const void* p, const void* leaves, const void* rnode, const void* gslot,
     const void* children, const void* cslot, const void* counts,
@@ -512,10 +515,11 @@ extern "C" int pruning_classic_reverse_f32(
     const void* gseeds, void* g_slots, void* dp_rows, void* dp, void* dleaf,
     int B, int K, int S, int n_nodes, int n_leaves, int n_int, int cmax,
     int sites, int n_seed, int n_gslots, int rows, int tile,
-    int stage_children, void* stream) {
+    int stage_children, void* stream, long long leaf_batch) {
+  const int leaf_rows = pruning::leaf_rows_of(leaf_batch, B, sites, S);
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_seed <= 0 ||
       n_gslots <= 0 || rows <= 0 || tile < 32 || tile > kMaxTile ||
-      tile % 32 != 0 || stage_children <= 0) {
+      tile % 32 != 0 || stage_children <= 0 || leaf_rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -538,7 +542,7 @@ extern "C" int pruning_classic_reverse_f32(
           static_cast<const float*>(gseeds), static_cast<float*>(g_slots),
           static_cast<float*>(dp_rows), static_cast<float*>(dleaf), K,
           n_nodes, n_leaves, n_int, cmax, sites, n_seed, n_gslots,
-          stage_children);
+          stage_children, leaf_rows);
       return cudaGetLastError();
     };
     cudaError_t err;

@@ -20,6 +20,21 @@ namespace pruning {
 
 constexpr int kThreads = 256;   // walk kernels: one thread per column
 
+// Leaf rows between batch elements' leaves from an entry point's
+// leaf_batch (floats between them): 0 where the batch shares one
+// (n_leaves, sites, S) set, n_leaves for leaves (B, n_leaves, sites, S);
+// -1 for a stride of no whole leaf rows, or one whose B batch elements'
+// rows pass an int. Batch element b of every walk reads leaf row b
+// leaf_rows + leaf: one int row offset, one kernel for both forms.
+inline int leaf_rows_of(long long leaf_batch, int B, int sites, int s) {
+  const long long row = static_cast<long long>(sites) * s;
+  if (leaf_batch < 0 || leaf_batch % row != 0 ||
+      (leaf_batch / row) * B >= (1LL << 31)) {
+    return -1;
+  }
+  return static_cast<int>(leaf_batch / row);
+}
+
 // One node's S states of one column: rows are S contiguous floats. When S is
 // a multiple of 4 a row is whole 16-byte vectors (16 bytes at S = 4, 80 at
 // S = 20), and every row offset is a multiple of 16 bytes.

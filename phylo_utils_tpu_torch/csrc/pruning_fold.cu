@@ -97,7 +97,7 @@ int dispatch_among(int v, L&& launch, std::integer_sequence<int, Vs...>) {
 // `stream`; returns cudaGetLastError() after the launch (0 = ok), the error
 // of granting the shared memory, or cudaErrorInvalidValue without launching
 // when F does not divide K, or F or its lanes are not compiled at s. s is
-// 4, 20 or 64.
+// 4, 20 or 64. leaf_batch as pruning_forward_f32's.
 extern "C" int pruning_fold_f32(const void* p, const void* leaves,
                                 const void* edges, const void* eword,
                                 void* spill, void* spill_e, void* root,
@@ -105,14 +105,16 @@ extern "C" int pruning_fold_f32(const void* p, const void* leaves,
                                 int n_nodes, int n_leaves, int n_edges,
                                 int sites, int n_rows, int smem_rows,
                                 int lanes, int cols, int chunk,
-                                int stage_leaves, void* stream) {
+                                int stage_leaves, void* stream,
+                                long long leaf_batch) {
   const pruning::RowWalk w{
       static_cast<const float*>(p),   static_cast<const float*>(leaves),
       static_cast<const int*>(edges), static_cast<const int2*>(eword),
       static_cast<float*>(spill),     static_cast<float*>(spill_e),
       static_cast<float*>(root),      static_cast<float*>(root_e),
       K, n_nodes, n_leaves, n_edges, sites,
-      n_rows, smem_rows, cols, chunk, stage_leaves};
+      n_rows, smem_rows, cols, chunk, stage_leaves,
+      pruning::leaf_rows_of(leaf_batch, B, sites, s)};
   if (!pruning::row_launch_ok(w, B, lanes, F)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

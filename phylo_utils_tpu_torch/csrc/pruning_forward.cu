@@ -111,14 +111,14 @@ using pruning::kThreads;
 template <int S, int kL>
 __global__ void __launch_bounds__(kThreads)
 pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S, S)
-                       const float* __restrict__ leaves,    // (n_leaves, sites, S)
+                       const float* __restrict__ leaves,    // (B?, n_leaves, sites, S): leaf_rows
                        const int* __restrict__ order,       // (n_int,)
                        const int* __restrict__ edges,       // (n_edges,)
                        const int* __restrict__ counts,      // (n_int,)
                        float* __restrict__ res_x,           // (B, K, n_inner, sites, S)
                        float* __restrict__ res_e,           // (B, K, n_inner, sites)
                        int K, int n_nodes, int n_leaves, int n_int, int n_edges,
-                       int sites, int chunk) {
+                       int sites, int chunk, int leaf_rows) {
   constexpr int kRows = S / kL;   // rows a lane forms
   static_assert(S % kL == 0 && kRows % 2 == 0,
                 "a lane's rows are stored as 8-byte vectors");
@@ -131,6 +131,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
   const bool live = site < sites;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
+  const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
   const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
   const size_t bk = static_cast<size_t>(b) * K + k;
   float* __restrict__ xs = res_x + bk * n_inner * sites * S;
@@ -192,7 +193,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
         if (live) {
           const float* src;
           if (child < n_leaves) {
-            src = leaves + (static_cast<size_t>(child) * sites + site) * S;
+            src = leaves + (static_cast<size_t>(lrow0 + child) * sites + site) * S;
           } else {
             const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
             src = xs + row * S;
@@ -220,7 +221,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
       if (live) {
         if (child < n_leaves) {
-          pruning::load_states<S>(leaves + (static_cast<size_t>(child) * sites + site) * S, x);
+          pruning::load_states<S>(leaves + (static_cast<size_t>(lrow0 + child) * sites + site) * S, x);
         } else {
           const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
           pruning::load_states<S>(xs + row * S, x);
@@ -294,7 +295,11 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
 // or read from device memory. Launch on `stream`; returns
 // cudaGetLastError() after the launch (0 = ok), the error of granting the
 // shared memory, or cudaErrorInvalidValue without launching for a geometry
-// that is not compiled. S is 4, 20 or 64 (lanes 2 or 4 at 64).
+// that is not compiled. S is 4, 20 or 64 (lanes 2 or 4 at 64). Batch
+// element b reads its leaves at leaves + b leaf_batch floats: 0 when the
+// batch shares one (n_leaves, sites, S) set, n_leaves sites S for leaves
+// (B, n_leaves, sites, S), one set a batch element (every entry point of
+// csrc/ takes leaf_batch the same way, after the stream).
 extern "C" int pruning_forward_f32(const void* p, const void* leaves,
                                    const void* edges, const void* eword,
                                    void* spill, void* spill_e, void* root,
@@ -302,14 +307,16 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
                                    int n_nodes, int n_leaves, int n_edges,
                                    int sites, int n_rows, int smem_rows,
                                    int lanes, int cols, int chunk,
-                                   int stage_leaves, void* stream) {
+                                   int stage_leaves, void* stream,
+                                   long long leaf_batch) {
   const pruning::RowWalk w{
       static_cast<const float*>(p),   static_cast<const float*>(leaves),
       static_cast<const int*>(edges), static_cast<const int2*>(eword),
       static_cast<float*>(spill),     static_cast<float*>(spill_e),
       static_cast<float*>(root),      static_cast<float*>(root_e),
       K, n_nodes, n_leaves, n_edges, sites,
-      n_rows, smem_rows, cols, chunk, stage_leaves};
+      n_rows, smem_rows, cols, chunk, stage_leaves,
+      pruning::leaf_rows_of(leaf_batch, B, sites, S)};
   return pruning::launch_rows(w, B, S, lanes, stream);
 }
 
@@ -323,15 +330,18 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
 // or 4 at S = 64. Returns cudaGetLastError() after the launch (0 = ok), the
 // error of granting the shared memory, or cudaErrorInvalidValue without
 // launching for a lane or state count that is not compiled. S is 4, 20 or
-// 64.
+// 64. leaf_batch as pruning_forward_f32's.
 extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
                                    const void* order, const void* edges,
                                    const void* counts, void* res_x,
                                    void* res_e, int B, int K, int S,
                                    int n_nodes, int n_leaves, int n_int,
                                    int n_edges, int sites, int chunk,
-                                   int lanes, void* stream) {
-  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || chunk <= 0) {
+                                   int lanes, void* stream,
+                                   long long leaf_batch) {
+  const int leaf_rows = pruning::leaf_rows_of(leaf_batch, B, sites, S);
+  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || chunk <= 0 ||
+      leaf_rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -352,7 +362,7 @@ extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
           static_cast<const int*>(order), static_cast<const int*>(edges),
           static_cast<const int*>(counts), static_cast<float*>(res_x),
           static_cast<float*>(res_e), K, n_nodes, n_leaves, n_int, n_edges,
-          sites, chunk);
+          sites, chunk, leaf_rows);
       return static_cast<int>(cudaGetLastError());
     };
     if constexpr (kS == 64) {   // 64 accumulators a lane would cost warps

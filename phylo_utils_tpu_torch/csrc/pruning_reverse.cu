@@ -107,7 +107,7 @@ constexpr int kMaxTile = 256;   // sites per block, one per thread (the widest)
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
-                            const float* __restrict__ leaves,  // (n_leaves, sites, S)
+                            const float* __restrict__ leaves,  // (B?, n_leaves, sites, S): leaf_rows
                             const int* __restrict__ rnode,     // (n_int,) pre-order
                             const int* __restrict__ gslot,     // (n_int,)
                             const int* __restrict__ children,  // (n_int, cmax)
@@ -116,12 +116,13 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
                             const float* __restrict__ res_e,   // (B, K, n_inner, sites)
                             const float* __restrict__ lam,     // (B, K, sites)
-                            const float* __restrict__ freqs,   // (S,)
+                            const float* __restrict__ freqs,   // (B?, S): freqs_batch
                             float* __restrict__ g_slots,       // (B, K, n_gslots, sites, S)
                             float* __restrict__ dp_rows,       // (B, K, rows, n_nodes, S, S)
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
-                            int cmax, int sites, int n_gslots) {
+                            int cmax, int sites, int n_gslots,
+                            int leaf_rows, int freqs_batch) {
   constexpr int kBlockVecs = S * S / 4;
   extern __shared__ float4 smem_vec[];
   const int warps = blockDim.x >> 5;
@@ -137,6 +138,9 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const bool live = site < sites;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
+  // b's first leaf row and root frequencies (0: shared by the batch)
+  const int lrow0 = b * leaf_rows;
+  const int f0 = b * freqs_batch;
   const size_t bk = static_cast<size_t>(b) * K + k;
   const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
   const size_t ns = static_cast<size_t>(sites);
@@ -201,7 +205,7 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
       if (gs < 0) {  // the root: g = seed = lambda pi
         const float l = lam[bk * ns + site];
 #pragma unroll
-        for (int r = 0; r < S; ++r) g[r] = l * __ldg(freqs + r);
+        for (int r = 0; r < S; ++r) g[r] = l * __ldg(freqs + (f0 + r));
       } else {
         load_states<S>(slots + (static_cast<size_t>(gs) * ns + site) * S, g);
       }
@@ -226,7 +230,7 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
           const int other = __ldg(children + i * cmax + c2);
           float x[S];
           if (other < n_leaves) {
-            load_states<S>(leaves + (static_cast<size_t>(other) * ns + site) * S, x);
+            load_states<S>(leaves + (static_cast<size_t>(lrow0 + other) * ns + site) * S, x);
           } else {
             load_states<S>(xs + (static_cast<size_t>(other - n_leaves) * ns + site) * S, x);
           }
@@ -241,7 +245,7 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
       for (int r = 0; r < S; ++r) x[r] = 0.0f;
       if (live) {
         if (child < n_leaves) {
-          load_states<S>(leaves + (static_cast<size_t>(child) * ns + site) * S, x);
+          load_states<S>(leaves + (static_cast<size_t>(lrow0 + child) * ns + site) * S, x);
         } else {
           load_states<S>(xs + (static_cast<size_t>(child - n_leaves) * ns + site) * S, x);
         }
@@ -285,7 +289,7 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
-                            const float* __restrict__ leaves,  // (n_leaves, sites, S)
+                            const float* __restrict__ leaves,  // (B?, n_leaves, sites, S): leaf_rows
                             const int* __restrict__ rnode,     // (n_int,) pre-order
                             const int* __restrict__ gslot,     // (n_int,)
                             const int* __restrict__ children,  // (n_int, cmax)
@@ -294,12 +298,13 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             const float* __restrict__ res_x,   // (B, K, n_inner, sites, S)
                             const float* __restrict__ res_e,   // (B, K, n_inner, sites)
                             const float* __restrict__ lam,     // (B, K, sites)
-                            const float* __restrict__ freqs,   // (S,)
+                            const float* __restrict__ freqs,   // (B?, S): freqs_batch
                             float* __restrict__ g_slots,       // (B, K, n_gslots, sites, S)
                             float* __restrict__ dp_rows,       // (B, K, rows, n_nodes, S, S)
                             float* __restrict__ dleaf,         // (B, K, n_leaves, sites, S) or null
                             int K, int n_nodes, int n_leaves, int n_int,
-                            int cmax, int sites, int n_gslots) {
+                            int cmax, int sites, int n_gslots,
+                            int leaf_rows, int freqs_batch) {
   constexpr int kL = pruning::kWideLanes;
   constexpr int kRows = S / kL;        // rows of g a lane keeps
   constexpr int kSub = S / 4;          // 4 x 4 dP sub-blocks a side
@@ -317,6 +322,9 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const bool live = site < sites;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
+  // b's first leaf row and root frequencies (0: shared by the batch)
+  const int lrow0 = b * leaf_rows;
+  const int f0 = b * freqs_batch;
   const size_t bk = static_cast<size_t>(b) * K + k;
   const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
   const size_t ns = static_cast<size_t>(sites);
@@ -333,7 +341,7 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   // a node's partials row at this column: a leaf's or its residual
   auto row_of = [&](int node) {
     return node < n_leaves
-               ? leaves + (static_cast<size_t>(node) * ns + site) * S
+               ? leaves + (static_cast<size_t>(lrow0 + node) * ns + site) * S
                : xs + (static_cast<size_t>(node - n_leaves) * ns + site) * S;
   };
 
@@ -374,7 +382,7 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
         const float l = lam[bk * ns + site];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          g[r] = l * __ldg(freqs + pruning::lane_row<S, kL>(h, r));
+          g[r] = l * __ldg(freqs + (f0 + pruning::lane_row<S, kL>(h, r)));
         }
       } else {
         pruning::wide_load_rows<S>(slots + (static_cast<size_t>(gs) * ns + site) * S, h, g);
@@ -409,7 +417,9 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
 // `root` is rnode[0]. `tile` is 32, 64, 128 or 256, and the block's shared
 // memory (ops/cuda_pruning.py::_reverse_smem_bytes) must fit the SM's
 // 227 KB. At S = 64 `tile` must be 64 (pruning_reverse_wide_kernel's
-// columns a block; 256 threads).
+// columns a block; 256 threads). leaf_batch as pruning_forward_f32's
+// (csrc/pruning_forward.cu); batch element b seeds its root with
+// freqs + b freqs_batch: 0 for one (S,) vector, S for freqs (B, S).
 extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
                                    const void* rnode, const void* gslot,
                                    const void* children, const void* cslot,
@@ -420,9 +430,13 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
                                    int B, int K, int S, int n_nodes,
                                    int n_leaves, int n_int, int cmax,
                                    int sites, int n_gslots, int tile,
-                                   int root, void* stream) {
+                                   int root, void* stream,
+                                   long long leaf_batch,
+                                   long long freqs_batch) {
+  const int leaf_rows = pruning::leaf_rows_of(leaf_batch, B, sites, S);
   if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_gslots <= 0 ||
-      tile < 32 || tile > kMaxTile || tile % 32 != 0) {
+      tile < 32 || tile > kMaxTile || tile % 32 != 0 || leaf_rows < 0 ||
+      (freqs_batch != 0 && freqs_batch != S)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -445,7 +459,8 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
           static_cast<const float*>(res_e), static_cast<const float*>(lam),
           static_cast<const float*>(freqs), static_cast<float*>(g_slots),
           static_cast<float*>(dp_rows), static_cast<float*>(dleaf), K,
-          n_nodes, n_leaves, n_int, cmax, sites, n_gslots);
+          n_nodes, n_leaves, n_int, cmax, sites, n_gslots,
+          leaf_rows, static_cast<int>(freqs_batch));
       return cudaGetLastError();
     };
     cudaError_t err;

@@ -55,6 +55,14 @@
 //   still puts several warps on every SM. The lanes pass __syncwarp after
 //   reading the children, before a lane writes a row that may be a
 //   child's, and again after writing it.
+// - Leaves shared by the batch, or one set a batch element (a stack of
+//   loci): batch element b reads leaf row b leaf_rows + leaf, leaf_rows 0
+//   for shared leaves (pruning_common.cuh's leaf_rows_of). One category a
+//   column (B1, B4, B8) folds b leaf_rows into its leaf pointer once; F >
+//   1 (B9) adds it to the leaf row at each read: folded, ptxas spilled
+//   B9's (20 states, 2 lanes, F = 4) and (4, 1, 2) kernels, and added at
+//   each read, B1 and B4 ran 13-14% slower at 512-taxon LG (nvcc 12.8,
+//   sm_90a; forward_ab.py, PERF.md section 6).
 // - One body: row_place gives a thread its place (RowPlace), row_edge runs
 //   one edge; row_walk_kernel loops over the edges' words around them, B8
 //   (csrc/pruning_static.cu) unrolls the walk with constant words.
@@ -73,7 +81,7 @@ namespace {
 // The buffers and sizes of one live-row launch (passed by value).
 struct RowWalk {
   const float* p;        // (B, n_nodes, K, S, S)
-  const float* leaves;   // (n_leaves, sites, S)
+  const float* leaves;   // (n_leaves, sites, S), or (B, ...): leaf_rows
   const int* edges;      // (n_edges,) children of the walk's nodes, in order
   const int2* eword;     // (n_edges + 1,) {child's row or -1 - leaf, row out}
   float* spill;          // (B, K, n_rows - smem_rows, sites, S)
@@ -82,6 +90,8 @@ struct RowWalk {
   float* root_e;         // (B, K, sites)
   int K, n_nodes, n_leaves, n_edges, sites;
   int n_rows, smem_rows, cols, chunk, stage_leaves;
+  int leaf_rows;         // leaf rows between batch elements' leaves (0:
+                         // shared), -1 where leaf_rows_of refused them
 };
 
 // Floats of one ring stage: the step's P blocks, `fold` a edge (rows
@@ -166,8 +176,10 @@ struct RowPlace {
   float* rows_e;          // (smem_rows, F, cols)
   float* spill;           // category k0's spilled rows; k0 + c's from
   float* spill_e;         //   + c n_spill sites S (and + c n_spill sites)
-  const float* leaf_col;  // leaf 0's row at the column's site
+  const float* leaf_col;  // leaf row 0's entries at the column's site
   size_t leaf_stride;     // one leaf's rows
+  int lrow0;              // leaf rows to add at each read: b leaf_rows at
+                          // F > 1, else 0 (folded into leaf_col)
   size_t bk;              // (b, k0): the column's first category
   size_t n_spill;         // rows in device memory
   int cols, col, site, h;
@@ -204,7 +216,15 @@ __device__ __forceinline__ RowPlace row_place(const RowWalk& w, int chunk) {
   at.n_spill = static_cast<size_t>(w.n_rows - w.smem_rows);
   at.spill = at.n_spill ? w.spill + at.bk * at.n_spill * w.sites * S : nullptr;
   at.spill_e = at.n_spill ? w.spill_e + at.bk * at.n_spill * w.sites : nullptr;
-  at.leaf_col = w.leaves + static_cast<size_t>(at.site) * S;
+  const int lrow0 = b * w.leaf_rows;  // b's first leaf row (0: shared)
+  if constexpr (F == 1) {   // folded into leaf_col (see the top of file)
+    at.lrow0 = 0;
+    at.leaf_col =
+        w.leaves + (static_cast<size_t>(lrow0) * w.sites + at.site) * S;
+  } else {
+    at.lrow0 = lrow0;
+    at.leaf_col = w.leaves + static_cast<size_t>(at.site) * S;
+  }
   at.leaf_stride = static_cast<size_t>(w.sites) * S;
   return at;
 }
@@ -232,7 +252,7 @@ __device__ __forceinline__ void row_edge(const RowWalk& w, const RowPlace& at,
         if (w.stage_leaves) {
           load_states<S>(now + at.p_floats + (in_step * at.cols + at.col) * S, x);
         } else if (at.live) {
-          load_states<S>(at.leaf_col + static_cast<size_t>(-1 - src) * at.leaf_stride, x);
+          load_states<S>(at.leaf_col + static_cast<size_t>(at.lrow0 - 1 - src) * at.leaf_stride, x);
         } else {
 #pragma unroll
           for (int j = 0; j < S; ++j) x[j] = 0.0f;
@@ -327,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const RowWalk w) {
         const int child = __ldg(w.edges + f0 + c);
         if (child < w.n_leaves) {
           cp_async16(leaf_dst + c * at.cols * S + 4 * q,
-                     at.leaf_col + static_cast<size_t>(child) * at.leaf_stride + 4 * q);
+                     at.leaf_col + static_cast<size_t>(at.lrow0 + child) * at.leaf_stride + 4 * q);
         }
       }
     }
@@ -392,6 +412,7 @@ int launch_row_kernel(const RowWalk& w, int B, cudaStream_t stream) {
 inline bool row_launch_ok(const RowWalk& w, int B, int lanes, int F) {
   const int threads = w.cols * lanes;
   return B > 0 && w.K > 0 && F > 0 && w.K % F == 0 && w.sites > 0 &&
+         w.leaf_rows >= 0 &&
          w.n_edges > 0 && w.cols > 0 && w.chunk > 0 && threads <= kThreads &&
          threads % 32 == 0 && w.smem_rows >= 0 && w.smem_rows <= w.n_rows;
 }

@@ -103,7 +103,7 @@ __host__ __device__ constexpr int stream_lanes() {
 template <int S>
 __global__ void __launch_bounds__(kThreads)
 pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
-                      const float* __restrict__ leaves,   // (n_leaves, sites, S)
+                      const float* __restrict__ leaves,   // (B?, n_leaves, sites, S): leaf_rows
                       const int* __restrict__ nslot,      // (n_int,)
                       const int* __restrict__ cnode,      // (n_int, cmax)
                       const int* __restrict__ csrc,       // (n_int, cmax)
@@ -114,7 +114,7 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
                       float* __restrict__ root,           // (B, K, sites, S)
                       float* __restrict__ root_e,         // (B, K, sites)
                       int K, int n_nodes, int n_slots, int n_int, int cmax,
-                      int sites) {
+                      int sites, int leaf_rows) {
   constexpr int kL = stream_lanes<S>();
   constexpr int kRows = S / kL;   // rows a lane forms
   static_assert(kRows % 2 == 0, "a lane's rows are stored as 8-byte vectors");
@@ -126,6 +126,7 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
   const bool active = site < sites;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
+  const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
   const size_t bk = static_cast<size_t>(b) * K + k;
   float* __restrict__ xs = slots + bk * n_slots * sites * S;
   float* __restrict__ es = slots_e + bk * n_slots * sites;
@@ -177,7 +178,7 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
         if (active) {
           const float* row_src;
           if (__ldg(cleaf + i * cmax + c)) {
-            row_src = leaves + (static_cast<size_t>(src) * sites + site) * S;
+            row_src = leaves + (static_cast<size_t>(lrow0 + src) * sites + site) * S;
           } else {
             const size_t row = static_cast<size_t>(src) * sites + site;
             row_src = xs + row * S;
@@ -205,7 +206,7 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
       if (active) {
         if (__ldg(cleaf + i * cmax + c)) {
-          pruning::load_states<S>(leaves + (static_cast<size_t>(src) * sites + site) * S, x);
+          pruning::load_states<S>(leaves + (static_cast<size_t>(lrow0 + src) * sites + site) * S, x);
         } else {
           const size_t row = static_cast<size_t>(src) * sites + site;
           pruning::load_states<S>(xs + row * S, x);
@@ -276,8 +277,11 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
                   const void* cnode, const void* csrc, const void* cleaf,
                   const void* counts, void* slots, void* slots_e, void* root,
                   void* root_e, int B, int K, int S, int n_nodes, int n_slots,
-                  int n_int, int cmax, int sites, void* stream) {
-  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_slots <= 0) {
+                  int n_int, int cmax, int sites, void* stream,
+                  long long leaf_batch) {
+  const int leaf_rows = pruning::leaf_rows_of(leaf_batch, B, sites, S);
+  if (B <= 0 || K <= 0 || sites <= 0 || n_int <= 0 || n_slots <= 0 ||
+      leaf_rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -302,7 +306,7 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
         static_cast<const int*>(counts), static_cast<float*>(slots),
         static_cast<float*>(slots_e), static_cast<float*>(root),
         static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax,
-        sites);
+        sites, leaf_rows);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -325,14 +329,16 @@ extern "C" int pruning_slot_f32(const void* p, const void* leaves,
                                 int n_nodes, int n_leaves, int n_edges,
                                 int sites, int n_rows, int smem_rows,
                                 int lanes, int cols, int chunk,
-                                int stage_leaves, void* stream) {
+                                int stage_leaves, void* stream,
+                                long long leaf_batch) {
   const pruning::RowWalk w{
       static_cast<const float*>(p),   static_cast<const float*>(leaves),
       static_cast<const int*>(edges), static_cast<const int2*>(eword),
       static_cast<float*>(spill),     static_cast<float*>(spill_e),
       static_cast<float*>(root),      static_cast<float*>(root_e),
       K, n_nodes, n_leaves, n_edges, sites,
-      n_rows, smem_rows, cols, chunk, stage_leaves};
+      n_rows, smem_rows, cols, chunk, stage_leaves,
+      pruning::leaf_rows_of(leaf_batch, B, sites, S)};
   return pruning::launch_rows(w, B, S, lanes, stream);
 }
 
@@ -344,6 +350,7 @@ extern "C" int pruning_slot_f32(const void* p, const void* leaves,
 // (0 = ok). Device pointers to contiguous float32 / int32 buffers, every
 // one 16-byte aligned; the caller allocates every buffer. S is 4, 20 or 64
 // (3 cmax S^2 floats of shared memory must fit a block: cmax <= 4 at 64).
+// leaf_batch as pruning_forward_f32's (csrc/pruning_forward.cu).
 extern "C" int pruning_stream_f32(const void* p, const void* leaves,
                                   const void* nslot, const void* cnode,
                                   const void* csrc, const void* cleaf,
@@ -351,8 +358,8 @@ extern "C" int pruning_stream_f32(const void* p, const void* leaves,
                                   void* slots_e, void* root, void* root_e,
                                   int B, int K, int S, int n_nodes,
                                   int n_slots, int n_int, int cmax, int sites,
-                                  void* stream) {
+                                  void* stream, long long leaf_batch) {
   return launch_stream(p, leaves, nslot, cnode, csrc, cleaf, counts, slots,
                        slots_e, root, root_e, B, K, S, n_nodes, n_slots, n_int,
-                       cmax, sites, stream);
+                       cmax, sites, stream, leaf_batch);
 }

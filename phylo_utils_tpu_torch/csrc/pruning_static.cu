@@ -216,23 +216,25 @@ int launch_static(const pruning::RowWalk& w, int B, cudaStream_t stream) {
 // (SlotSchedule.rows, the walk compiled in), rows [0, smem_rows) in shared memory, the
 // others in spill (B, K, n_rows - smem_rows, sites, S) and spill_e (B, K,
 // n_rows - smem_rows, sites) (null when none), root (B, K, sites, S),
-// root_e (B, K, sites). Launch on `stream`; returns cudaGetLastError()
-// after the launch (0 = ok), the error of granting the shared memory, or
-// cudaErrorInvalidValue without launching when the walk, the states, the
-// step or the lanes are not the ones this object was compiled for.
+// root_e (B, K, sites), leaf_batch as pruning_forward_f32's. Launch on
+// `stream`; returns cudaGetLastError() after the launch (0 = ok), the
+// error of granting the shared memory, or cudaErrorInvalidValue without
+// launching when the walk, the states, the step, the lanes or the leaves'
+// stride are not the ones this object was compiled for.
 extern "C" int PRUNING_STATIC_ENTRY(PRUNING_STATIC_LANES)(
     const void* p, const void* leaves, const void* edges, const void* eword,
     void* spill, void* spill_e, void* root, void* root_e, int B, int K, int s,
     int n_nodes, int n_leaves, int n_edges, int sites, int n_rows,
     int smem_rows, int lanes, int cols, int chunk, int stage_leaves,
-    void* stream) {
+    void* stream, long long leaf_batch) {
   const pruning::RowWalk w{
       static_cast<const float*>(p),   static_cast<const float*>(leaves),
       static_cast<const int*>(edges), static_cast<const int2*>(eword),
       static_cast<float*>(spill),     static_cast<float*>(spill_e),
       static_cast<float*>(root),      static_cast<float*>(root_e),
       K, n_nodes, n_leaves, n_edges, sites,
-      n_rows, smem_rows, cols, chunk, stage_leaves};
+      n_rows, smem_rows, cols, chunk, stage_leaves,
+      pruning::leaf_rows_of(leaf_batch, B, sites, s)};
   if (!pruning::row_launch_ok(w, B, lanes, 1) || s != topo::kS ||
       n_nodes != topo::kNNodes || n_leaves != topo::kNLeaves ||
       n_edges != kNEdges || n_rows != topo::kNRows || chunk != kChunk ||

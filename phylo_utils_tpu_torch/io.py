@@ -1,8 +1,9 @@
 """Alignment and tree I/O + site-pattern compression (host-side numpy).
 
 Copied from ``phylo_utils_tpu.io`` so the port never imports the JAX
-package: a self-contained Newick parser, FASTA/PHYLIP/NEXUS readers, and
-pattern compression. Identical alignment columns are collapsed to unique
+package: a self-contained Newick parser, FASTA/PHYLIP/NEXUS readers,
+partition files (RAxML/IQ-TREE lines and NEXUS charsets), and pattern
+compression. Identical alignment columns are collapsed to unique
 patterns with integer weights so logL = sum_p w_p * lnL_p.
 
 Not ported yet: the native C++ pattern path (``phylo_utils_tpu.native``);
@@ -36,6 +37,7 @@ __all__ = [
     "encode_codon_alignment",
     "load_compressed",
     "CompressedAlignment",
+    "parse_partition_file",
 ]
 
 # ---------------------------------------------------------------------------
@@ -523,6 +525,106 @@ def write_phylip(alignment: Dict[str, str], path: Optional[str] = None) -> str:
         with open(path, "w") as f:
             f.write(text)
     return text
+
+
+# ---------------------------------------------------------------------------
+# Partition files
+# ---------------------------------------------------------------------------
+
+def _parse_site_ranges(text: str) -> List[tuple]:
+    """'1-500, 600, 900-1200\\3' -> [(1,500,1), (600,600,1), (900,1200,3)].
+
+    1-based inclusive (the RAxML/IQ-TREE partition-file convention);
+    '\\k' is a codon-position stride."""
+    ranges = []
+    for piece in text.split(","):
+        piece = piece.strip()
+        if not piece:
+            continue
+        stride = 1
+        if "\\" in piece:
+            piece, _, s = piece.partition("\\")
+            stride = int(s.strip())
+            if stride < 1:
+                raise ValueError(f"bad stride in site range {piece!r}")
+        piece = piece.strip()
+        if "-" in piece:
+            a, _, b = piece.partition("-")
+            start, end = int(a.strip()), int(b.strip())
+        else:
+            start = end = int(piece)
+        if start < 1 or end < start:
+            raise ValueError(f"bad site range {piece!r} (1-based, start<=end)")
+        ranges.append((start, end, stride))
+    if not ranges:
+        raise ValueError("empty site-range list")
+    return ranges
+
+
+def parse_partition_file(path_or_text: str) -> List[Dict[str, object]]:
+    """Parse a partition definition: RAxML-style lines or NEXUS charsets.
+
+    RAxML/IQ-TREE style — one partition per line::
+
+        DNA, gene1 = 1-500
+        GTR+G4, gene2 = 501-900\\3, 1000-1100
+        LG, prot = 1-100
+
+    NEXUS style — ``charset`` statements (any block)::
+
+        #NEXUS
+        begin sets;
+          charset gene1 = 1-500;
+          charset gene2 = 501-900;
+        end;
+
+    Returns ``[{"model": str|None, "name": str, "ranges": [(start, end,
+    stride)]}]`` with 1-based inclusive coordinates. NEXUS charsets carry
+    no model (``None``); the caller supplies a default.
+    """
+    text = _maybe_read(path_or_text)
+    out: List[Dict[str, object]] = []
+    if text.lstrip()[:6].upper() == "#NEXUS":
+        body = _strip_nexus_comments(text)
+        for st in body.split(";"):
+            words = st.split()
+            if not words or words[0].upper() != "CHARSET":
+                continue
+            rest = " ".join(words[1:])
+            name, _, ranges = rest.partition("=")
+            if not _ or not name.strip():
+                raise ValueError(f"malformed charset statement: {st.strip()!r}")
+            out.append({
+                "model": None,
+                "name": name.strip(),
+                "ranges": _parse_site_ranges(ranges),
+            })
+        if not out:
+            raise ValueError("NEXUS partition file contains no charset "
+                             "statements")
+        return out
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if not ln or ln.startswith("#") or ln.startswith("//"):
+            continue
+        head, _, rhs = ln.partition("=")
+        if not _:
+            raise ValueError(f"malformed partition line (missing '='): {ln!r}")
+        model = None
+        name = head.strip()
+        if "," in head:
+            model, _, name = head.partition(",")
+            model, name = model.strip(), name.strip()
+        if not name:
+            raise ValueError(f"partition line has no name: {ln!r}")
+        out.append({
+            "model": model or None,
+            "name": name,
+            "ranges": _parse_site_ranges(rhs),
+        })
+    if not out:
+        raise ValueError("partition file contains no partitions")
+    return out
 
 
 # ---------------------------------------------------------------------------

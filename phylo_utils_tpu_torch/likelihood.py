@@ -28,7 +28,11 @@ import torch
 
 from phylo_utils_tpu_torch import io as pio
 from phylo_utils_tpu_torch import trees as ptrees
-from phylo_utils_tpu_torch.convert import flatten_params, unflatten_params
+from phylo_utils_tpu_torch.convert import (
+    empty_paths,
+    flatten_params,
+    unflatten_params,
+)
 from phylo_utils_tpu_torch.models.base import Eigen, Model
 from phylo_utils_tpu_torch.ops.cuda_pruning import (
     make_cuda_prune_fn,
@@ -477,18 +481,17 @@ class LikelihoodEngine:
         names, leaves = flatten_params(full)
         leaves = [t.detach().requires_grad_(True) for t in leaves]
         # a parameter-free model's (JC69, Mk) empty dict has no leaves
-        empty = {k: {} for k, v in full.items() if isinstance(v, Mapping)
-                 and not v}
+        empty = empty_paths(full)
         with torch.enable_grad():
             total, _ = self._loglik_fn(
-                {**empty, **unflatten_params(names, leaves)},
+                unflatten_params(names, leaves, empty),
                 self._leaf_partials, self._weights)
             grads = torch.autograd.grad(total.sum(), leaves,
                                         allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
         _check_nans("value_and_grad", total, *grads)
-        return total.detach(), {**empty, **unflatten_params(names, grads)}
+        return total.detach(), unflatten_params(names, grads, empty)
 
     def value_and_grad(
         self, params: Optional[Mapping] = None

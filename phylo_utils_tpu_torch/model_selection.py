@@ -6,7 +6,8 @@ Each candidate is fitted by ``optimize.fit`` (exact gradients through the
 pruning pass); parameter counts follow the JAX package's conventions
 (branch lengths + free model parameters + mixture parameters). The engines
 run on the card unless ``device="cpu"`` is given. ``partition_finder``
-waits for the partitioned engines (ROADMAP A16).
+selects a model per subset of a partition scheme and merges subsets
+greedily (PartitionFinder's "greedy" algorithm).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from phylo_utils_tpu_torch.optimize import fit
 
 __all__ = ["count_free_parameters", "compare_models", "ModelFit",
            "likelihood_ratio_test", "goldman_cox_test",
-           "unconstrained_loglikelihood"]
+           "unconstrained_loglikelihood", "partition_finder"]
 
 
 _MODEL_K = {
@@ -197,4 +198,123 @@ def goldman_cox_test(
         "pvalue": pvalue,
         "loglik": float(ll_model),
         "unconstrained": float(unconstrained_loglikelihood(engine)),
+    }
+
+
+def _scheme_score(fits, criterion: str) -> float:
+    """Joint criterion for a partition scheme: additive logL and k, one
+    shared penalty at the total sample size."""
+    ll = sum(f.loglik for f in fits)
+    k = sum(f.k for f in fits)
+    n = sum(f.n for f in fits)
+    if criterion == "aic":
+        return 2 * k - 2 * ll
+    if criterion == "aicc":
+        return 2 * k - 2 * ll + (2 * k * (k + 1)) / max(n - k - 1, 1.0)
+    if criterion == "bic":
+        return k * np.log(n) - 2 * ll
+    raise ValueError(f"unknown criterion {criterion!r}")
+
+
+def partition_finder(
+    tree,
+    alignment: Mapping[str, str],
+    subsets: Mapping[str, Sequence[int]],
+    candidates: Optional[Sequence[str]] = None,
+    criterion: str = "bic",
+    merge: bool = True,
+    max_steps: int = 200,
+    device="cuda",
+    **fit_kwargs,
+) -> Dict:
+    """PartitionFinder-style model selection over a partition scheme.
+
+    For every subset (name -> 0-based column indices into the
+    concatenated ``alignment``) the best-fitting model among
+    ``candidates`` is chosen by ``compare_models``; with ``merge=True``
+    the scheme is then greedily coarsened (PartitionFinder's "greedy"
+    algorithm, Lanfear et al. 2012): at each round the pair merge that
+    most improves the joint ``criterion`` is accepted, until no merge
+    improves it. Subsets are fitted independently (unlinked branch
+    lengths — each subset's k includes its own branch lengths), so the
+    joint criterion is additive with one shared penalty at the total
+    sample size.
+
+    Returns ``{"scheme": [{"name", "columns", "model", "loglik", "k",
+    criterion: ...}], "score", "criterion", "n_rounds", "merged_from"}``.
+    The result's subsets feed ``partition.Partition`` /
+    ``PartitionedEngine`` directly for a final joint fit. Every fit runs
+    on ``device`` (``compare_models``).
+    """
+    if not subsets:
+        raise ValueError("no subsets given")
+    lens = {len(s) for s in alignment.values()}
+    if len(lens) != 1:
+        raise ValueError("sequences have unequal lengths")
+    (n_sites,) = lens
+    for nm, cols in subsets.items():
+        bad = [c for c in cols if not 0 <= c < n_sites]
+        if bad:
+            raise ValueError(
+                f"subset {nm!r} has out-of-range columns {bad[:3]}"
+            )
+
+    cache: Dict[Tuple[int, ...], ModelFit] = {}
+
+    def best_fit(cols: Tuple[int, ...]) -> ModelFit:
+        if cols not in cache:
+            sub = {k: "".join(s[i] for i in cols)
+                   for k, s in alignment.items()}
+            cache[cols] = compare_models(
+                tree, sub, candidates=candidates, criterion=criterion,
+                max_steps=max_steps, device=device, **fit_kwargs,
+            )[0]
+        return cache[cols]
+
+    scheme = {nm: tuple(sorted(cols)) for nm, cols in subsets.items()}
+    fits = {nm: best_fit(cols) for nm, cols in scheme.items()}
+    merged_from: Dict[str, List[str]] = {nm: [nm] for nm in scheme}
+    score = _scheme_score(list(fits.values()), criterion)
+    n_rounds = 0
+
+    while merge and len(scheme) > 1:
+        n_rounds += 1
+        names = sorted(scheme)
+        best = None  # (new_score, a, b, merged_cols, merged_fit)
+        for i in range(len(names)):
+            for j in range(i + 1, len(names)):
+                a, b = names[i], names[j]
+                cols = tuple(sorted(scheme[a] + scheme[b]))
+                f = best_fit(cols)
+                others = [fits[nm] for nm in names if nm not in (a, b)]
+                s = _scheme_score(others + [f], criterion)
+                if s < score and (best is None or s < best[0]):
+                    best = (s, a, b, cols, f)
+        if best is None:
+            break
+        s, a, b, cols, f = best
+        new_name = f"{a}+{b}"
+        merged_from[new_name] = merged_from.pop(a) + merged_from.pop(b)
+        for nm in (a, b):
+            del scheme[nm], fits[nm]
+        scheme[new_name] = cols
+        fits[new_name] = f
+        score = s
+
+    return {
+        "scheme": [
+            {
+                "name": nm,
+                "columns": list(scheme[nm]),
+                "model": fits[nm].name,
+                "loglik": fits[nm].loglik,
+                "k": fits[nm].k,
+                criterion: getattr(fits[nm], criterion),
+            }
+            for nm in sorted(scheme)
+        ],
+        "score": score,
+        "criterion": criterion,
+        "n_rounds": n_rounds,
+        "merged_from": merged_from,
     }

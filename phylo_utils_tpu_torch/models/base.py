@@ -56,18 +56,21 @@ def _forward_only(*tensors: torch.Tensor) -> None:
 
 
 def normalize_q(q: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
-    """Set diagonal to -rowsum and scale so -sum_i pi_i Q_ii == 1."""
+    """Set diagonal to -rowsum and scale so -sum_i pi_i Q_ii == 1. Leading
+    dims of ``q`` (..., S, S) and ``freqs`` (..., S) are a batch of models
+    (a stack of loci)."""
     s = q.shape[-1]
     off = q * (1.0 - torch.eye(s, dtype=q.dtype, device=q.device))
-    q = off - torch.diag(off.sum(dim=1))
-    scale = -(freqs * torch.diagonal(q)).sum()
-    return q / scale
+    q = off - torch.diag_embed(off.sum(dim=-1))
+    scale = -(freqs * torch.diagonal(q, dim1=-2, dim2=-1)).sum(dim=-1)
+    return q / scale[..., None, None]
 
 
 def build_rate_matrix(sym_rates: torch.Tensor,
                       freqs: torch.Tensor) -> torch.Tensor:
-    """Q from symmetric exchangeabilities S and frequencies pi (normalized)."""
-    return normalize_q(sym_rates * freqs[None, :], freqs)
+    """Q from symmetric exchangeabilities S and frequencies pi (normalized),
+    batched over leading dims as ``normalize_q``."""
+    return normalize_q(sym_rates * freqs[..., None, :], freqs)
 
 
 def eigen_reversible(sym_rates: torch.Tensor, freqs: torch.Tensor) -> Eigen:
@@ -76,7 +79,9 @@ def eigen_reversible(sym_rates: torch.Tensor, freqs: torch.Tensor) -> Eigen:
     B = diag(sqrt(pi)) Q diag(1/sqrt(pi)) is symmetric for reversible Q;
     eigh(B) -> (w, U); V = diag(1/sqrt(pi)) U, V^-1 = U^T diag(sqrt(pi)).
     Computed in float64 on the host; returned in ``sym_rates``' dtype on its
-    device.
+    device. Leading dims of ``sym_rates`` (..., S, S) and ``freqs`` (..., S)
+    are a batch of models, factorized by one batched ``eigh``: every field
+    of the result then has them too.
     """
     _forward_only(sym_rates, freqs)
     dtype, device = sym_rates.dtype, sym_rates.device
@@ -84,12 +89,13 @@ def eigen_reversible(sym_rates: torch.Tensor, freqs: torch.Tensor) -> Eigen:
     pi = freqs.to("cpu", torch.float64)
     q = build_rate_matrix(sym, pi)
     sqrtp = torch.sqrt(pi)
-    b = (sqrtp[:, None] * q) / sqrtp[None, :]
-    b = 0.5 * (b + b.T)  # exact symmetry against rounding
+    b = (sqrtp[..., :, None] * q) / sqrtp[..., None, :]
+    b = 0.5 * (b + b.transpose(-1, -2))  # exact symmetry against rounding
     w, u = torch.linalg.eigh(b)
-    v = u / sqrtp[:, None]
-    vi = u.T * sqrtp[None, :]
-    recon = v.T[:, :, None] * vi[:, None, :]       # (S modes, S, S)
+    v = u / sqrtp[..., :, None]
+    vi = u.transpose(-1, -2) * sqrtp[..., None, :]
+    # (..., S modes, S, S)
+    recon = v.transpose(-1, -2)[..., :, :, None] * vi[..., :, None, :]
     out = [x.to(device=device, dtype=dtype) for x in (w, v, vi, pi, q, recon)]
     return Eigen(evals=out[0], evecs=out[1], ivecs=out[2], freqs=out[3],
                  q=out[4], recon=out[5])

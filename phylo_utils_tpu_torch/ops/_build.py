@@ -87,28 +87,37 @@ def _nvcc() -> str:
     return found
 
 
-# (entry point, device pointers, int arguments) of the main library, in
-# the order of the C signatures in csrc/: the pointers come first, then the
-# counts, then the stream
+# (entry point, device pointers, int arguments, strides) of the main
+# library, in the order of the C signatures in csrc/: the pointers come
+# first, then the counts, then the stream, then the per-batch strides in
+# floats (``long long``: the leaves', and the deferred reverse's root
+# frequencies')
 SIGNATURES = (
-    ("pruning_forward_f32", 8, 13),
-    ("pruning_saveall_f32", 7, 10),
-    ("pruning_reverse_f32", 15, 11),
-    ("pruning_slot_f32", 8, 13),
-    ("pruning_stream_f32", 11, 8),
-    ("pruning_classic_reverse_f32", 15, 13),
-    ("pruning_fold_f32", 8, 14),
+    ("pruning_forward_f32", 8, 13, 1),
+    ("pruning_saveall_f32", 7, 10, 1),
+    ("pruning_reverse_f32", 15, 11, 2),
+    ("pruning_slot_f32", 8, 13, 1),
+    ("pruning_stream_f32", 11, 8, 1),
+    ("pruning_classic_reverse_f32", 15, 13, 1),
+    ("pruning_fold_f32", 8, 14, 1),
 )
+# B8's entry points (pruning_static_f32_l<lanes>), as pruning_forward_f32
+STATIC_SIGNATURE = (8, 13, 1)
+
+
+def _argtypes(n_ptr: int, n_int: int, n_stride: int) -> list:
+    """Every pointer and the stream as ``c_void_p``, every count as
+    ``c_int``, every stride as ``c_longlong``."""
+    return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+            + [ctypes.c_void_p] + [ctypes.c_longlong] * n_stride)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Every pointer and the stream as ``c_void_p``, every count as
-    ``c_int``, by ``SIGNATURES``."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in SIGNATURES:
+    """The argument types of every entry point, by ``SIGNATURES``."""
+    for name, *counts in SIGNATURES:
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
-        fn.restype = ci
+        fn.argtypes = _argtypes(*counts)
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -276,8 +285,7 @@ def load_static_library(edges, eword, n_rows: int, n_nodes: int,
     lib = ctypes.CDLL(str(target))
     for n in lanes:
         fn = getattr(lib, f"pruning_static_f32_l{n}")
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [
-            ctypes.c_void_p]
+        fn.argtypes = _argtypes(*STATIC_SIGNATURE)
         fn.restype = ctypes.c_int
     with _static_lock:
         _static_libs[key] = lib

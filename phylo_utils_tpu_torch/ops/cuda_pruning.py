@@ -609,19 +609,26 @@ def _check(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule):
             f"P must be (n_nodes, K, S, S) or (B, n_nodes, K, S, S); got "
             f"{tuple(p.shape)}"
         )
-    if leaves.dim() != 3:
+    if leaves.dim() == 4 and not (p.dim() == 5
+                                  and leaves.shape[0] == p.shape[0]):
         raise ValueError(
-            f"leaves must be (n_leaves, sites, S); got {tuple(leaves.shape)}"
+            f"leaves (B, n_leaves, sites, S) {tuple(leaves.shape)} need P "
+            f"(B, n_nodes, K, S, S) of the same B; got {tuple(p.shape)}"
         )
-    s = leaves.shape[2]
+    if leaves.dim() not in (3, 4):
+        raise ValueError(
+            f"leaves must be (n_leaves, sites, S) or (B, n_leaves, sites, "
+            f"S); got {tuple(leaves.shape)}"
+        )
+    s = leaves.shape[-1]
     if p.shape[-4] != walk.n_nodes or p.shape[-2:] != (s, s):
         raise ValueError(
             f"P {tuple(p.shape)} does not match {walk.n_nodes} nodes x "
             f"{s} states"
         )
-    if leaves.shape[0] != walk.n_leaves:
+    if leaves.shape[-3] != walk.n_leaves:
         raise ValueError(
-            f"leaves has {leaves.shape[0]} rows; the tree has "
+            f"leaves has {leaves.shape[-3]} rows; the tree has "
             f"{walk.n_leaves} leaves"
         )
     if p.dtype != torch.float32 or leaves.dtype != torch.float32:
@@ -646,13 +653,26 @@ def _not_differentiable(name: str, *tensors: torch.Tensor):
         )
 
 
+def _leaf_term(eq: str, a: torch.Tensor, leaves: torch.Tensor,
+               c: int) -> torch.Tensor:
+    """``einsum(eq, a, leaf c's rows)`` over a batch (B, ...) of ``a``: with
+    leaves (n_leaves, sites, S) the rows every batch element shares; with
+    leaves (B, n_leaves, sites, S) batch element b's own rows, by the
+    product a walk with b's leaves alone forms, so that a batch of loci
+    gives each locus its own walk's bits."""
+    if leaves.dim() == 3:
+        return torch.einsum(eq, a, leaves[c])
+    return torch.cat([torch.einsum(eq, a[b:b + 1], leaves[b, c])
+                      for b in range(leaves.shape[0])])
+
+
 def _node_partials(pb, leaves, n_leaves, kids, x_of, e_of):
     """One node of the plain walk: (rescaled partials, exponent count) from
     its children, batched over (B, K, sites)."""
     acc, esum = None, None
     for c in kids:
         if c < n_leaves:
-            y = torch.einsum("bkij,sj->bksi", pb[:, c], leaves[c])
+            y = _leaf_term("bkij,sj->bksi", pb[:, c], leaves, c)
         else:
             y = torch.einsum("bkij,bksj->bksi", pb[:, c], x_of(c))
             ec = e_of(c)
@@ -676,8 +696,11 @@ def forward_walk_reference(
     with the same rescale, vectorised over (batch, category, site).
 
     ``p`` (n_nodes, K, S, S) or (B, n_nodes, K, S, S), float32;
-    ``leaves`` (n_leaves, sites, S), float32. Returns the root partials
-    (B?, K, sites, S) and the root exponent count (B?, K, sites), float32.
+    ``leaves`` (n_leaves, sites, S), shared by the batch, or, with a
+    batched P, (B, n_leaves, sites, S), one set a batch element (a stack of
+    loci), float32. Returns the root partials (B?, K, sites, S) and the
+    root exponent count (B?, K, sites), float32. Every walk takes leaves
+    both ways.
     """
     _check(p, leaves, walk)
     batched = p.dim() == 5
@@ -731,7 +754,7 @@ def saveall_walk_reference(
     pb = p if batched else p[None]
     n_leaves = walk.n_leaves
     b, _, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
+    sites, s = leaves.shape[-2:]
     n_inner = walk.n_nodes - n_leaves
     res_x = pb.new_empty((b, k, n_inner, sites, s))
     res_e = pb.new_empty((b, k, n_inner, sites))
@@ -746,11 +769,12 @@ def saveall_walk_reference(
 def _check_residuals(p, leaves, res_x, res_e, walk, freqs=None,
                      **cotangents):
     """Shapes, dtype and device of the reverse walks' inputs: the
-    residuals, ``freqs`` (S,) when given, and each of ``cotangents``,
-    ``name=(tensor, its shape after the batch dims of P)``."""
+    residuals, ``freqs`` (S,) or, with a batched P, (B, S) when given, and
+    each of ``cotangents``, ``name=(tensor, its shape after the batch dims
+    of P)``."""
     _check(p, leaves, walk)
     lead = tuple(p.shape[:-4])
-    k, sites, s = p.shape[-3], leaves.shape[1], leaves.shape[2]
+    k, sites, s = p.shape[-3], leaves.shape[-2], leaves.shape[-1]
     n_inner = walk.n_nodes - walk.n_leaves
     want = {
         "res_x": (res_x, lead + (k, n_inner, sites, s)),
@@ -759,7 +783,7 @@ def _check_residuals(p, leaves, res_x, res_e, walk, freqs=None,
     want.update({name: (t, lead + shape)
                  for name, (t, shape) in cotangents.items()})
     if freqs is not None:
-        want["freqs"] = (freqs, (s,))
+        want["freqs"] = (freqs, (lead + (s,)) if freqs.dim() == 2 else (s,))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
@@ -770,17 +794,22 @@ def _check_residuals(p, leaves, res_x, res_e, walk, freqs=None,
 
 
 def _child_terms(pb, leaves, rx, n_leaves):
-    """(x_of, y_of) of the plain reverse walks: a node's partials (a leaf
-    row or its residual) and y = P x, batched over (B, K, sites)."""
-
-    def x_of(c):
-        return leaves[c] if c < n_leaves else rx[:, :, c - n_leaves]
+    """(y_of, dp_of) of the plain reverse walks, batched over (B, K,
+    sites): y = P x of a node (x a leaf row or its residual) and its dP
+    term sum_sites gy x^T."""
 
     def y_of(c):
-        eq = "bkij,sj->bksi" if c < n_leaves else "bkij,bksj->bksi"
-        return torch.einsum(eq, pb[:, c], x_of(c))
+        if c < n_leaves:
+            return _leaf_term("bkij,sj->bksi", pb[:, c], leaves, c)
+        return torch.einsum("bkij,bksj->bksi", pb[:, c],
+                            rx[:, :, c - n_leaves])
 
-    return x_of, y_of
+    def dp_of(c, gy):
+        if c < n_leaves:
+            return _leaf_term("bksi,sj->bkij", gy, leaves, c)
+        return torch.einsum("bksi,bksj->bkij", gy, rx[:, :, c - n_leaves])
+
+    return y_of, dp_of
 
 
 def reverse_walk_reference(
@@ -793,22 +822,24 @@ def reverse_walk_reference(
     (not autograd).
 
     ``res_x``/``res_e``: ``saveall_walk``'s residuals; ``lam`` (B?, K,
-    sites): the root cotangent ct / (pi . x_root); ``freqs`` (S,). All
+    sites): the root cotangent ct / (pi . x_root); ``freqs`` (S,), or, with
+    a batched P, (B, S): each batch element's root frequencies. All
     float32. Returns ``dp`` (B?, n_nodes, K, S, S), the layout of P, with a
     zero root row, and, when ``want_dleaf``, ``dleaf`` (B?, K, n_leaves,
     sites, S) = P_l^T gy_l per leaf (else None).
     """
     _check_residuals(p, leaves, res_x, res_e, walk, freqs=freqs,
-                     lam=(lam, (p.shape[-3], leaves.shape[1])))
+                     lam=(lam, (p.shape[-3], leaves.shape[-2])))
     batched = p.dim() == 5
     pb, rx, re, lm = ((p, res_x, res_e, lam) if batched else
                       (p[None], res_x[None], res_e[None], lam[None]))
     n_leaves = walk.n_leaves
-    x_of, y_of = _child_terms(pb, leaves, rx, n_leaves)
+    y_of, dp_of = _child_terms(pb, leaves, rx, n_leaves)
+    pi = freqs if freqs.dim() == 1 else freqs[:, None, None, :]
     gy = {}
     for node, kids in reversed(_walk_nodes(walk)):
         if node == walk.root:
-            g = lm[..., None] * freqs
+            g = lm[..., None] * pi
         else:
             g = torch.einsum("bkji,bksj->bksi", pb[:, node], gy[node])
         esum = torch.zeros_like(lm)
@@ -824,8 +855,7 @@ def reverse_walk_reference(
             gy[c] = g * sib * inv_m
     dp = torch.zeros_like(pb)
     for node, g in gy.items():
-        eq = "bksi,sj->bkij" if node < n_leaves else "bksi,bksj->bkij"
-        dp[:, node] = torch.einsum(eq, g, x_of(node))
+        dp[:, node] = dp_of(node, g)
     dleaf = None
     if want_dleaf:
         dleaf = torch.stack([
@@ -849,7 +879,7 @@ def _seed_array(seed_ids, walk: WalkSchedule) -> np.ndarray:
 
 def _check_classic(p, leaves, res_x, res_e, gseeds, seeds, walk):
     _check_residuals(p, leaves, res_x, res_e, walk, gseeds=(
-        gseeds, (p.shape[-3], len(seeds)) + tuple(leaves.shape[1:])))
+        gseeds, (p.shape[-3], len(seeds)) + tuple(leaves.shape[-2:])))
 
 
 def classic_reverse_walk_reference(
@@ -881,7 +911,7 @@ def classic_reverse_walk_reference(
     pb, rx, re, gs = ((p, res_x, res_e, gseeds) if batched else
                       (p[None], res_x[None], res_e[None], gseeds[None]))
     n_leaves = walk.n_leaves
-    x_of, y_of = _child_terms(pb, leaves, rx, n_leaves)
+    y_of, dp_of = _child_terms(pb, leaves, rx, n_leaves)
     seed_of = {int(node): j for j, node in enumerate(seeds)}
     g = {node: gs[:, :, j] for node, j in seed_of.items()}
     dp = torch.zeros_like(pb)
@@ -902,8 +932,7 @@ def classic_reverse_walk_reference(
                 if c2 != c:
                     sib = sib * y_of(c2)
             gy = gn * sib * inv_m
-            eq = "bksi,sj->bkij" if c < n_leaves else "bksi,bksj->bkij"
-            dp[:, c] += torch.einsum(eq, gy, x_of(c))
+            dp[:, c] += dp_of(c, gy)
             gc = torch.einsum("bkji,bksj->bksi", pb[:, c], gy)
             g[c] = gc + g[c] if c in g else gc
     dleaf = None
@@ -983,6 +1012,16 @@ def _cuda_library(p: torch.Tensor, *tensors: torch.Tensor):
     from phylo_utils_tpu_torch.ops._build import load_library
 
     return load_library()
+
+
+def _leaf_args(leaves: torch.Tensor, b0: int, nb: int) -> Tuple[int, int]:
+    """(pointer, stride in floats) of the leaves of batch elements [b0, b0
+    + nb) for one launch: the shared (n_leaves, sites, S) leaves with a
+    stride of 0, or, from (B, n_leaves, sites, S) leaves, those elements'
+    own sets, n_leaves sites S floats apart."""
+    if leaves.dim() == 3:
+        return leaves.data_ptr(), 0
+    return leaves[b0:b0 + nb].data_ptr(), leaves[0].numel()
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -1205,7 +1244,7 @@ def forward_walk(
     _not_differentiable("forward_walk", p, leaves)
     b = p.shape[0] if p.dim() == 5 else 1
     k = p.shape[-3]
-    sites, s = leaves.shape[1:]
+    sites, s = leaves.shape[-2:]
     n_inner = schedule.n_nodes - schedule.n_leaves
     if walk == "auto":
         if _stream_forced(s) and len(schedule.order) <= STATIC_UNROLL_MAX:
@@ -1249,7 +1288,7 @@ def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
     ``forward_walk_reference``); CUDA tensors launch the kernel, once per
     batch chunk whose spilled rows fit free device memory, on the current
     stream."""
-    s = leaves.shape[2]
+    s = leaves.shape[-1]
     if p.device.type == "cpu":
         plain = slot_walk_reference if kind == "slot" else forward_walk_reference
         return plain(p, leaves, walk)
@@ -1266,7 +1305,7 @@ def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
-    sites = leaves.shape[1]
+    sites = leaves.shape[-2]
     geo = row_geometry(b, k, sites, s, rw.n_rows, fold=fold, **geometry)
     n_spill = rw.n_rows - geo.smem_rows
     device = p.device
@@ -1289,14 +1328,15 @@ def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
                                 dtype=torch.float32, device=device)
             spill_e = torch.empty((nb, k, n_spill, sites),
                                   dtype=torch.float32, device=device)
+        leaf_ptr, leaf_batch = _leaf_args(leaves, b0, nb)
         rc = launch(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), edges.data_ptr(),
+            pb[b0:b0 + nb].data_ptr(), leaf_ptr, edges.data_ptr(),
             eword.data_ptr(), None if spill is None else spill.data_ptr(),
             None if spill_e is None else spill_e.data_ptr(),
             root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr(), nb,
             k, *states, walk.n_nodes, walk.n_leaves, len(rw.edges), sites,
             rw.n_rows, geo.smem_rows, geo.lanes, geo.cols, geo.chunk,
-            int(geo.stage_leaves), stream)
+            int(geo.stage_leaves), stream, leaf_batch)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
         globals()[counter] += 1
@@ -1335,7 +1375,7 @@ def fold_walk(
     the kernel (``_row_walk``; ``geometry`` as there)."""
     _check(p, leaves, walk)
     _not_differentiable("fold_walk", p, leaves)
-    k, s = p.shape[-3], leaves.shape[2]
+    k, s = p.shape[-3], leaves.shape[-1]
     if fold < 1 or k % fold:
         raise ValueError(f"fold {fold} does not divide {k} categories")
     if p.device.type == "cpu":
@@ -1371,7 +1411,7 @@ def slot_walk(
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
+    sites, s = leaves.shape[-2:]
     device = p.device
     sl = walk.slots
     nslot, cnode, csrc, cleaf, counts = sl.on(device)
@@ -1390,13 +1430,14 @@ def slot_walk(
                             dtype=torch.float32, device=device)
         slots_e = torch.empty((nb, k, sl.n_slots, sites),
                               dtype=torch.float32, device=device)
+        leaf_ptr, leaf_batch = _leaf_args(leaves, b0, nb)
         rc = lib.pruning_stream_f32(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), nslot.data_ptr(),
+            pb[b0:b0 + nb].data_ptr(), leaf_ptr, nslot.data_ptr(),
             cnode.data_ptr(), csrc.data_ptr(), cleaf.data_ptr(),
             counts.data_ptr(), slots.data_ptr(), slots_e.data_ptr(),
             root[b0:b0 + nb].data_ptr(), root_e[b0:b0 + nb].data_ptr(), nb,
             k, s, walk.n_nodes, sl.n_slots, len(sl.nslot), cnode.shape[1],
-            sites, cuda_stream,
+            sites, cuda_stream, leaf_batch,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_stream_f32 launch failed: CUDA "
@@ -1436,7 +1477,7 @@ def saveall_walk(
     batched = p.dim() == 5
     pb = p if batched else p[None]
     b, _, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
+    sites, s = leaves.shape[-2:]
     n_inner = walk.n_nodes - walk.n_leaves
     device = p.device
     need = b * k * n_inner * sites * (s + 1) * 4
@@ -1459,12 +1500,14 @@ def saveall_walk(
     stream = _stream(device)
     for b0 in range(0, b, _MAX_GRID_Z):
         nb = min(_MAX_GRID_Z, b - b0)
+        leaf_ptr, leaf_batch = _leaf_args(leaves, b0, nb)
         rc = lib.pruning_saveall_f32(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), order.data_ptr(),
+            pb[b0:b0 + nb].data_ptr(), leaf_ptr, order.data_ptr(),
             edges.data_ptr(), counts.data_ptr(),
             res_x[b0:b0 + nb].data_ptr(), res_e[b0:b0 + nb].data_ptr(), nb,
             k, s, walk.n_nodes, walk.n_leaves, len(walk.order),
             len(walk.edges), sites, chunk, _SAVEALL_LANES[s], stream,
+            leaf_batch,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_saveall_f32 launch failed: CUDA "
@@ -1532,7 +1575,7 @@ def reverse_walk(
     (``reverse_scratch``) fits free device memory, on the current stream."""
     global REVERSE_LAUNCHES
     _check_residuals(p, leaves, res_x, res_e, walk, freqs=freqs,
-                     lam=(lam, (p.shape[-3], leaves.shape[1])))
+                     lam=(lam, (p.shape[-3], leaves.shape[-2])))
     _not_differentiable("reverse_walk", p, leaves, res_x, res_e, lam, freqs)
     if p.device.type == "cpu":
         return reverse_walk_reference(p, leaves, res_x, res_e, lam, freqs,
@@ -1542,7 +1585,7 @@ def reverse_walk(
     pb, rx, re, lm = ((p, res_x, res_e, lam) if batched else
                       (p[None], res_x[None], res_e[None], lam[None]))
     b, n_nodes, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
+    sites, s = leaves.shape[-2:]
     device = p.device
     rs = walk.reverse
     n_gslots = max(rs.n_gslots, 1)
@@ -1561,16 +1604,19 @@ def reverse_walk(
                               dtype=torch.float32, device=device)
         rows = torch.empty((nb, k, -(-sites // tile), n_nodes, s, s),
                            dtype=torch.float32, device=device)
+        leaf_ptr, leaf_batch = _leaf_args(leaves, b0, nb)
+        per_b = freqs.dim() == 2      # (B, S): each element's own freqs
         rc = lib.pruning_reverse_f32(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
+            pb[b0:b0 + nb].data_ptr(), leaf_ptr, rnode.data_ptr(),
             gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
             counts.data_ptr(), rx[b0:b0 + nb].data_ptr(),
             re[b0:b0 + nb].data_ptr(), lm[b0:b0 + nb].data_ptr(),
-            freqs.data_ptr(), g_slots.data_ptr(), rows.data_ptr(),
+            (freqs[b0:b0 + nb] if per_b else freqs).data_ptr(),
+            g_slots.data_ptr(), rows.data_ptr(),
             dp[b0:b0 + nb].data_ptr(),
             None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
             nb, k, s, n_nodes, walk.n_leaves, len(rs.rnode), cmax, sites,
-            n_gslots, tile, walk.root, stream,
+            n_gslots, tile, walk.root, stream, leaf_batch, s if per_b else 0,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_reverse_f32 launch failed: CUDA "
@@ -1672,7 +1718,7 @@ def classic_reverse_walk(
     pb, rx, re, gs = ((p, res_x, res_e, gseeds) if batched else
                       (p[None], res_x[None], res_e[None], gseeds[None]))
     b, n_nodes, k = pb.shape[:3]
-    sites, s = leaves.shape[1:]
+    sites, s = leaves.shape[-2:]
     device = p.device
     rs = walk.reverse
     rows = _classic_rows(b, k, n_nodes, rs.n_gslots, sites, s, device)
@@ -1690,8 +1736,9 @@ def classic_reverse_walk(
                               dtype=torch.float32, device=device)
         dp_rows = torch.zeros((nb, k, rows, n_nodes, s, s),
                               dtype=torch.float32, device=device)
+        leaf_ptr, leaf_batch = _leaf_args(leaves, b0, nb)
         rc = lib.pruning_classic_reverse_f32(
-            pb[b0:b0 + nb].data_ptr(), leaves.data_ptr(), rnode.data_ptr(),
+            pb[b0:b0 + nb].data_ptr(), leaf_ptr, rnode.data_ptr(),
             gslot.data_ptr(), children.data_ptr(), cslot.data_ptr(),
             counts.data_ptr(), node_seed.data_ptr(),
             rx[b0:b0 + nb].data_ptr(), re[b0:b0 + nb].data_ptr(),
@@ -1700,7 +1747,7 @@ def classic_reverse_walk(
             None if dleaf is None else dleaf[b0:b0 + nb].data_ptr(),
             nb, k, s, n_nodes, walk.n_leaves, len(rs.rnode),
             children.shape[1], sites, len(seeds), max(rs.n_gslots, 1), rows,
-            _classic_reverse_tile(s), stage_children, stream,
+            _classic_reverse_tile(s), stage_children, stream, leaf_batch,
         )
         if rc != 0:
             raise RuntimeError(f"pruning_classic_reverse_f32 launch failed: "
@@ -1742,9 +1789,13 @@ def choose_reverse(b: int, k: int, n_nodes: int, n_gslots: int,
 
 
 def _root_loglik(root_p, root_e, freqs):
-    """(ll, pi . x_root, x_root) in ``freqs``' dtype from the walk's root."""
+    """(ll, pi . x_root, x_root) in ``freqs``' dtype from the walk's root;
+    ``freqs`` (S,), or (B, S) for a batched root (B, K, sites, S)."""
     root_r = root_p.to(freqs.dtype)
-    dot = torch.einsum("...ksi,i->...ks", root_r, freqs)
+    if freqs.dim() == 1:
+        dot = torch.einsum("...ksi,i->...ks", root_r, freqs)
+    else:
+        dot = torch.einsum("bksi,bi->bks", root_r, freqs)
     return torch.log(dot) + root_e.to(freqs.dtype) * LN2, dot, root_r
 
 
@@ -1757,8 +1808,10 @@ class _FusedLoglik(torch.autograd.Function):
     computed in the reduction dtype and cast to float32 (the classic
     reverse takes the seed lambda pi, formed in float32 as the deferred
     kernel forms it), takes the reverse ``choose_reverse`` names, and forms
-    dfreqs = sum lambda x_root outside the kernel in that dtype. It has no
-    second derivative (``first_derivative_only``)."""
+    dfreqs = sum lambda x_root outside the kernel in that dtype. Per-batch
+    leaves (B, n_leaves, sites, S) and freqs (B, S), a stack of loci, get
+    their own cotangents: dleaf summed over the categories only, dfreqs
+    (B, S). It has no second derivative (``first_derivative_only``)."""
 
     @staticmethod
     def forward(ctx, p, leaves, freqs, walk):
@@ -1784,7 +1837,7 @@ class _FusedLoglik(torch.autograd.Function):
             walk = ctx.walk
             lam32 = lam.to(torch.float32).contiguous()
             f32 = freqs.to(torch.float32).contiguous()
-            sites, s = leaves.shape[1:]
+            sites, s = leaves.shape[-2:]
             b = p.shape[0] if p.dim() == 5 else 1
             if choose_reverse(b, p.shape[-3], walk.n_nodes,
                               walk.reverse.n_gslots, sites, s, p.device,
@@ -1793,16 +1846,21 @@ class _FusedLoglik(torch.autograd.Function):
                     p, leaves, res_x, res_e, lam32, f32, walk,
                     want_dleaf=ctx.needs_input_grad[1])
             else:
-                gseed = (lam32[..., None] * f32).unsqueeze(-3).contiguous()
+                pi = f32 if f32.dim() == 1 else f32[:, None, None, :]
+                gseed = (lam32[..., None] * pi).unsqueeze(-3).contiguous()
                 dp, dleaf_k = classic_reverse_walk(
                     p, leaves, res_x, res_e, gseed, [walk.root], walk,
                     want_dleaf=ctx.needs_input_grad[1])
             if not ctx.needs_input_grad[0]:
                 dp = None
-            if dleaf_k is not None:   # leaves are shared by batch and category
+            if dleaf_k is not None and leaves.dim() == 4:   # per batch
+                dleaf = dleaf_k.sum(dim=1)
+            elif dleaf_k is not None:   # shared by batch and category
                 dleaf = dleaf_k.sum(dim=tuple(range(dleaf_k.dim() - 3)))
         if ctx.needs_input_grad[2]:
-            dfreqs = torch.einsum("...ks,...ksi->i", lam, root_r)
+            dfreqs = (torch.einsum("...ks,...ksi->i", lam, root_r)
+                      if freqs.dim() == 1 else
+                      torch.einsum("bks,bksi->bi", lam, root_r))
         return dp, dleaf, dfreqs, None
 
 
@@ -1842,6 +1900,10 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
     ``ll[k, s] = log(sum_i freqs_i * true_root_partials[k, s, i])``. The
     walk runs in float32; the root reduction and the exponent count x ln 2
     run in ``freqs.dtype`` (pass float64 freqs for the precision plan).
+    With P (B, n_nodes, K, S, S) the leaves may be (B, n_leaves, sites, S)
+    and ``freqs`` (B, S), one set a batch element: a stack of loci, as the
+    JAX function under ``vmap`` takes them; one launch of each walk scores
+    the whole stack.
 
     Differentiable in all three inputs. When P or the leaves require grad
     (and grad mode is on), the saveall kernel runs forward and a reverse
@@ -1906,7 +1968,7 @@ class _CudaPrune(torch.autograd.Function):
     def backward(ctx, ct_root, ct_logscale):
         p, leaves = ctx.saved_tensors
         need_p, need_l = ctx.needs_input_grad[:2]
-        sites, s = leaves.shape[1:]
+        sites, s = leaves.shape[-2:]
         per_site = (ctx.walk.n_nodes * p.shape[-3] * s * leaves.element_size()
                     * (p.shape[0] if p.dim() == 5 else 1))
         step = max(1, _REPLAY_BYTES // per_site)
@@ -1916,7 +1978,7 @@ class _CudaPrune(torch.autograd.Function):
             sl = slice(s0, min(sites, s0 + step))
             with torch.enable_grad():
                 pp = p.detach().requires_grad_(need_p)
-                ll = leaves[:, sl].detach().requires_grad_(need_l)
+                ll = leaves[..., sl, :].detach().requires_grad_(need_l)
                 root, logscale = ctx.plain(pp, ll)
                 inputs = [t for t, need in ((pp, need_p), (ll, need_l))
                           if need]
@@ -1933,7 +1995,7 @@ class _CudaPrune(torch.autograd.Function):
                 if g is not None:
                     dp = g if dp is None else dp + g
             if need_l and grads[0] is not None:
-                dleaf[:, sl] = grads[0]
+                dleaf[..., sl, :] = grads[0]
         if need_p and dp is None:
             dp = torch.zeros_like(p)
         return dp, dleaf, None, None
@@ -1945,8 +2007,9 @@ def make_cuda_prune_fn(schedule: PruningSchedule):
     and profile mixtures).
 
     Returns ``prune(p_matrices (B?, n_nodes, K, S, S), leaf_partials
-    (n_leaves, sites, S)) -> (root_partials (B?, K, sites, S), root_logscale
-    (B?, K, sites))``: the walk runs in float32 through ``forward_walk``,
+    (n_leaves, sites, S), or (B, n_leaves, sites, S) with a batched P) ->
+    (root_partials (B?, K, sites, S), root_logscale (B?, K, sites))``: the
+    walk runs in float32 through ``forward_walk``,
     whatever walk and lowering it picks; the root partials come back in the
     leaves' dtype and the logscale, in ln units, in float64 (JAX's comes in
     the leaves' dtype; float64 keeps the exponent count x ln 2 exact for the

@@ -149,26 +149,29 @@ def gamma_quantile(a, q) -> torch.Tensor:
 def discrete_gamma(alpha, ncat: int, median: bool = False) -> torch.Tensor:
     """PAML-style discrete gamma category rates, mean 1 (Yang 1994).
 
-    ``alpha``: 0-d tensor or float (a float becomes float64 on the CPU).
-    Returns (ncat,) rates in ``alpha``'s dtype and device.
+    ``alpha``: 0-d tensor or float (a float becomes float64 on the CPU),
+    or a tensor (...,) of shapes, one per locus of a stack. Returns
+    (..., ncat) rates in ``alpha``'s dtype and device.
     """
     alpha = torch.as_tensor(alpha)
     if not alpha.is_floating_point():
         alpha = alpha.to(torch.float64)
     dtype, device = alpha.dtype, alpha.device
+    edge = alpha.shape + (1,)      # one bin edge of every alpha
     if ncat == 1:
-        return torch.ones((1,), dtype=dtype, device=device)
+        return torch.ones(edge, dtype=dtype, device=device)
+    alpha = alpha[..., None]       # against the categories
     if median:
         qs = (2.0 * torch.arange(ncat, dtype=dtype, device=device) + 1.0) / (
             2.0 * ncat
         )
         rates = gamma_quantile(alpha, qs) / alpha
-        return rates * (ncat / rates.sum())
+        return rates * (ncat / rates.sum(dim=-1, keepdim=True))
     qs = torch.arange(1, ncat, dtype=dtype, device=device) / ncat
     cuts = gamma_quantile(alpha, qs) / alpha  # quantiles of Gamma(a, rate=a)
     # mean-in-bin via regularized incomplete gamma at shape alpha+1:
     # E[X 1{a<X<b}] = I(alpha+1, alpha*b) - I(alpha+1, alpha*a) for rate=alpha
     upper = gammainc(alpha + 1.0, cuts * alpha)
-    hi = torch.cat([upper, torch.ones((1,), dtype=dtype, device=device)])
-    lo = torch.cat([torch.zeros((1,), dtype=dtype, device=device), upper])
+    hi = torch.cat([upper, torch.ones(edge, dtype=dtype, device=device)], -1)
+    lo = torch.cat([torch.zeros(edge, dtype=dtype, device=device), upper], -1)
     return ncat * (hi - lo)

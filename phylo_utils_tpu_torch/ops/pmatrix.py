@@ -10,6 +10,11 @@ not run in TF32: the engine turns TF32 off for every CUDA device it uses.
 ``p_matrices_reversible`` is differentiable in (sym, freqs, t) through the
 reverse-mode form of the JAX package's Daleckii-Krein derivative, which is
 exact and smooth through degenerate eigenvalues (JC69, K80, F81).
+
+A stack of models (one a locus of a partitioned analysis) is an ``Eigen``
+whose fields have a leading model dim G (``eigen_reversible`` of (G, S, S)
+exchangeabilities) with times ``t`` (G, ...): both functions then give each
+model its own times' P, (G, ..., S, S), in one batched product.
 """
 from __future__ import annotations
 
@@ -54,7 +59,8 @@ def extend_p_identity(p: torch.Tensor, n_total: int) -> torch.Tensor:
 
 def transition_matrices(eig: Eigen, t: torch.Tensor,
                         out_dtype=None) -> torch.Tensor:
-    """P(t) for a batch of times. t: (...,) -> P: (..., S, S).
+    """P(t) for a batch of times. t: (...,) -> P: (..., S, S); for a stack
+    of models (``eig``'s fields (G, ...)), t: (G, ...) -> (G, ..., S, S).
 
     ``out_dtype``: dtype of the RECONSTRUCT step (and the returned P). The
     eigenvalue exponentials e^{lambda t} stay in ``t``'s dtype (f64 under
@@ -64,26 +70,35 @@ def transition_matrices(eig: Eigen, t: torch.Tensor,
     entries and vanishes in the pattern sum.
     """
     t = torch.as_tensor(t)
+    tm = _model_times(eig, t)                               # (..., M)
     if eig.evals is None:
-        qt = eig.q * t[..., None, None]
+        qt = eig.q[..., None, :, :] * tm[..., None, None]
         # f32 scaling-and-squaring can round tiny entries negative too
         p = torch.linalg.matrix_exp(qt).clamp_min(0.0)
-        return p if out_dtype is None else p.to(out_dtype)
-    ew = torch.exp(eig.evals * t[..., None])               # (..., S)
+        p = p if out_dtype is None else p.to(out_dtype)
+        return p.reshape(t.shape + p.shape[-2:])
+    ew = torch.exp(eig.evals[..., None, :] * tm[..., None])  # (..., M, S)
     if eig.recon is not None:
         recon = eig.recon
         if out_dtype is not None:
             ew = ew.to(out_dtype)
             recon = recon.to(out_dtype)
-        p = torch.einsum("...k,kij->...ij", ew, recon)
+        p = torch.einsum("...mk,...kij->...mij", ew, recon)
     else:
-        p = torch.einsum("ik,...k,kj->...ij", eig.evecs, ew, eig.ivecs)
+        p = torch.einsum("...ik,...mk,...kj->...mij", eig.evecs, ew,
+                         eig.ivecs)
         if out_dtype is not None:
             p = p.to(out_dtype)
     # True transition probabilities are >= 0, but the reconstruction rounds
     # tiny off-diagonals slightly negative for near-zero t, which can flip
     # a site likelihood negative deep in the pruning product. Clamp.
-    return p.clamp_min(0.0)
+    return p.clamp_min(0.0).reshape(t.shape + p.shape[-2:])
+
+
+def _model_times(eig: Eigen, t: torch.Tensor) -> torch.Tensor:
+    """``t`` flattened to (M,) times, or to (G, M) for a stack of G models
+    (``eig.freqs`` (G, S)): model g's times in row g."""
+    return t.reshape(eig.freqs.shape[:-1] + (-1,))
 
 
 def _exp_divided_difference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -107,7 +122,9 @@ def _exp_divided_difference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 class _ReversibleP(torch.autograd.Function):
     """P(t) = expm(Q t) with Q = ``q`` (the graph-carrying output of
-    ``build_rate_matrix``); ``eig`` is its eigensystem, a constant.
+    ``build_rate_matrix``); ``eig`` is its eigensystem, a constant. For a
+    stack of models, ``q`` (G, S, S), ``t`` (G, ...) and ``eig``'s fields
+    have a leading G, and each model's Q_bar sums over its own times.
 
     Backward is the adjoint of the Daleckii-Krein derivative the JAX package
     uses as its JVP, dP = V (Phi o (V^-1 dA V)) V^-1 with A = Q t and
@@ -133,15 +150,19 @@ class _ReversibleP(torch.autograd.Function):
         (t,) = ctx.saved_tensors
         eig = ctx.eig
         v, vi, lam = eig.evecs, eig.ivecs, eig.evals
-        lt = lam * t[..., None]                                # (..., S)
+        tm = _model_times(eig, t)                              # (..., M)
+        pm = p_bar.reshape(tm.shape + p_bar.shape[-2:])        # (..., M, S, S)
+        lt = lam[..., None, :] * tm[..., None]                 # (..., M, S)
         phi = _exp_divided_difference(lt[..., :, None], lt[..., None, :])
-        m = torch.einsum("ki,...kl,jl->...ij", v, p_bar, vi)   # V^T P_bar V^-T
-        a_bar = torch.einsum("ki,...kl,jl->...ij", vi, phi * m, v)
+        # V^T P_bar V^-T
+        m = torch.einsum("...ki,...mkl,...jl->...mij", v, pm, vi)
+        a_bar = torch.einsum("...ki,...mkl,...jl->...mij", vi, phi * m, v)
         q_bar = t_bar = None
         if ctx.needs_input_grad[0]:
-            q_bar = torch.einsum("...,...ij->ij", t, a_bar)
+            q_bar = torch.einsum("...m,...mij->...ij", tm, a_bar)
         if ctx.needs_input_grad[1]:
-            t_bar = torch.einsum("ij,...ij->...", eig.q, a_bar)
+            t_bar = torch.einsum("...ij,...mij->...m", eig.q,
+                                 a_bar).reshape(t.shape)
         return q_bar, t_bar, None
 
 
@@ -154,7 +175,8 @@ def p_matrices_reversible(sym: torch.Tensor, freqs: torch.Tensor,
     a constant of the backward (``_ReversibleP``), and autograd carries
     Q_bar through ``build_rate_matrix``. Plain autograd through ``eigh``
     would have 1/(lambda_i - lambda_j) terms, wrong or NaN at degenerate
-    eigenvalues.
+    eigenvalues. ``sym`` (G, S, S) and ``freqs`` (G, S) are a stack of G
+    models, with ``t`` (G, ...): one batched ``eigh``, P (G, ..., S, S).
     """
     eig = eigen_reversible(sym.detach(), freqs.detach())
     t = torch.as_tensor(t, dtype=eig.evals.dtype, device=eig.evals.device)

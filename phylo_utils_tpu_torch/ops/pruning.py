@@ -85,7 +85,9 @@ def make_prune_fn(
 
     - ``p_matrices``    (..., n_nodes, K, S, S) — P for the edge above each
       node (root row unused); leading dims are a batch,
-    - ``leaf_partials`` (n_leaves, sites, S),
+    - ``leaf_partials`` (n_leaves, sites, S), shared by the batch, or, with
+      one leading batch dim B of P, (B, n_leaves, sites, S): each batch
+      element's own leaves (a stack of loci),
     - ``root_partials`` (..., K, sites, S), ``root_logscale`` (..., K, sites)
       in ln units.
     """
@@ -103,17 +105,25 @@ def make_prune_fn(
         dtype, device = leaf_partials.dtype, leaf_partials.device
         batch = tuple(p_matrices.shape[:-4])
         k = p_matrices.shape[-3]
-        sites, s = leaf_partials.shape[1], leaf_partials.shape[2]
+        sites, s = leaf_partials.shape[-2], leaf_partials.shape[-1]
         tiny = torch.finfo(dtype).tiny
         nb = len(batch)
         p_nodes = p_matrices.movedim(-4, 0).to(dtype)   # (n_nodes, ..., K, S, S)
 
         # buffer rows: [leaves | internals | trash]; batch and categories
-        # broadcast at leaves
+        # broadcast at leaves (per-batch leaves broadcast over categories)
         buf = leaf_partials.new_zeros((n_nodes + 1,) + batch + (k, sites, s))
-        buf[:n_leaves] = leaf_partials.reshape(
-            (n_leaves,) + (1,) * (nb + 1) + (sites, s)
-        )
+        if leaf_partials.dim() == 4:
+            if batch != leaf_partials.shape[:1]:
+                raise ValueError(
+                    f"leaves {tuple(leaf_partials.shape)} need P of one "
+                    f"batch dim of {leaf_partials.shape[0]}; got P "
+                    f"{tuple(p_matrices.shape)}")
+            buf[:n_leaves] = leaf_partials.movedim(0, 1)[:, :, None]
+        else:
+            buf[:n_leaves] = leaf_partials.reshape(
+                (n_leaves,) + (1,) * (nb + 1) + (sites, s)
+            )
         logscale = leaf_partials.new_zeros((n_nodes + 1,) + batch + (k, sites))
 
         for nodes, children, mask in levels:
@@ -150,7 +160,11 @@ def make_prune_fn(
 def invariant_site_likelihood(leaf_partials: torch.Tensor,
                               freqs: torch.Tensor) -> torch.Tensor:
     """Per-site likelihood of the zero-rate (invariant) component:
-    sum_i pi_i * prod_leaves leaf_partials[l, s, i]. (sites,)"""
+    sum_i pi_i * prod_leaves leaf_partials[l, s, i]. (sites,); for a stack
+    of loci, leaves (B, n_leaves, sites, S) and freqs (B, S), (B, sites)."""
+    if leaf_partials.dim() == 4:
+        prod = leaf_partials.prod(dim=1)  # (B, sites, S)
+        return torch.einsum("bsi,bi->bs", prod, freqs.to(prod.dtype))
     prod = leaf_partials.prod(dim=0)  # (sites, S)
     return prod @ freqs.to(prod.dtype)
 
@@ -158,22 +172,26 @@ def invariant_site_likelihood(leaf_partials: torch.Tensor,
 def mixture_loglik(
     root_partials: torch.Tensor,     # (..., K, sites, S)
     root_logscale: torch.Tensor,     # (..., K, sites)
-    freqs: torch.Tensor,             # (S,)
-    cat_weights: torch.Tensor,       # (K,)
-    pattern_weights: torch.Tensor,   # (sites,)
-    pinv: Optional[torch.Tensor] = None,
+    freqs: torch.Tensor,             # (S,) or (..., S)
+    cat_weights: torch.Tensor,       # (K,) or (..., K)
+    pattern_weights: torch.Tensor,   # (sites,) or (..., sites)
+    pinv: Optional[torch.Tensor] = None,   # () or (..., 1)
     inv_lik: Optional[torch.Tensor] = None,   # (sites,) required with pinv
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Root reduction + rate-category mixing with scale re-alignment:
-    L_s = pinv*I_s + (1-pinv)*sum_c w_c L_{s,c}. Leading dims are a batch.
+    L_s = pinv*I_s + (1-pinv)*sum_c w_c L_{s,c}. Leading dims are a batch;
+    a stack of loci gives each batch element its own freqs, category
+    weights, pattern weights and pinv.
 
     Returns (total_loglik (...,), sitewise_loglik (..., sites)).
     """
     dtype = root_partials.dtype
-    site_lik = torch.einsum("...ksi,i->...ks", root_partials, freqs.to(dtype))
+    site_lik = (torch.einsum("...ksi,i->...ks", root_partials, freqs.to(dtype))
+                if freqs.dim() == 1 else torch.einsum(
+                    "...ksi,...i->...ks", root_partials, freqs.to(dtype)))
     m = root_logscale.amax(dim=-2)  # (..., sites)
     mixed = (
-        cat_weights[:, None].to(dtype)
+        cat_weights[..., :, None].to(dtype)
         * site_lik
         * torch.exp(root_logscale - m[..., None, :])
     ).sum(dim=-2)
@@ -214,7 +232,7 @@ def mixture_loglik_from_ll(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Category mixing given per-category LOG likelihoods (fused-root path).
 
-    Same semantics as ``mixture_loglik`` but starting from
+    Same semantics (and batches) as ``mixture_loglik`` but starting from
     ``ll[..., k, s] = log L_{s|k}``: a weighted logsumexp over categories,
     optional +I, then the weighted pattern sum.
     """
@@ -222,7 +240,7 @@ def mixture_loglik_from_ll(
     m = ll.amax(dim=-2)                                       # (..., sites)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # all--inf guard
     mixed = (
-        cat_weights[:, None].to(dtype) * torch.exp(ll - m[..., None, :])
+        cat_weights[..., :, None].to(dtype) * torch.exp(ll - m[..., None, :])
     ).sum(dim=-2)
     log_var = torch.log(mixed) + m
     if pinv is not None:

@@ -25,7 +25,11 @@ from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from phylo_utils_tpu_torch.convert import flatten_params, unflatten_params
+from phylo_utils_tpu_torch.convert import (
+    empty_paths,
+    flatten_params,
+    unflatten_params,
+)
 from phylo_utils_tpu_torch.models.base import Eigen
 from phylo_utils_tpu_torch.ops.pmatrix import transition_matrices
 
@@ -247,12 +251,11 @@ def fit(
 
     # a parameter-free model's (JC69, Mk) empty dict has no leaves to
     # carry it through the flat list
-    empty = {k: {} for k, v in start.items() if isinstance(v, Mapping)
-             and not v}
+    empty = empty_paths(start)
 
     def params_of(tensors) -> Dict:
-        return _merge_params(frozen, {**empty, **untransform_params(
-            unflatten_params(names, tensors))})
+        return _merge_params(frozen, untransform_params(
+            unflatten_params(names, tensors, empty)))
 
     def closure():
         opt.zero_grad()

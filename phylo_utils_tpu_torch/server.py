@@ -16,8 +16,11 @@ POST /gradient          {"params": {...}?}         -> {"gradient": {...}}
 POST /fit               {"params": ..., "max_steps": n, "free": [...]}
                         -> {"loglik", "n_steps", "converged", "params"}
 POST /bootstrap         {"n": 100, "seed": 0}      -> {"logliks": [...]}
-POST /ancestral, /site_rates, /partitions
-                        -> 501 until the port has them (ROADMAP A16, A18)
+POST /partitions        {"params": {...}?}         -> {"partitions": {name: x}}
+                        (a partitioned engine; 501 for any other, and
+                        /sitewise 501 for a partitioned one)
+POST /ancestral, /site_rates
+                        -> 501 until the port has them (ROADMAP A18)
 """
 from __future__ import annotations
 
@@ -35,8 +38,6 @@ __all__ = ["EngineServer", "serve"]
 _NOT_PORTED = {
     "/ancestral": "ancestral reconstruction is not ported yet (ROADMAP A18)",
     "/site_rates": "site rates are not ported yet (ROADMAP A18)",
-    "/partitions": "per-partition logL requires a PartitionedEngine "
-                   "(ROADMAP A16)",
 }
 
 
@@ -52,8 +53,19 @@ def _device_name(device: torch.device) -> str:
     return device.type
 
 
+def _n_patterns(engine) -> int:
+    """Patterns the engine scores: the sum over the loci of a partitioned
+    engine (a stack's real patterns, without its padding)."""
+    if hasattr(engine, "_n_patterns"):
+        return int(sum(engine._n_patterns))
+    if isinstance(engine._weights, tuple):
+        return sum(int(w.shape[0]) for w in engine._weights)
+    return int(engine._weights.shape[0])
+
+
 class EngineServer:
-    """Wraps a LikelihoodEngine behind HTTP."""
+    """Wraps a likelihood engine (a ``LikelihoodEngine``, a mixture or a
+    partitioned engine) behind HTTP."""
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 8080):
         self.engine = engine
@@ -70,20 +82,37 @@ class EngineServer:
         params = body.get("params")
         with self._lock:  # one engine call at a time
             if route == "/health":
+                model = getattr(engine, "model", None)
                 return {
                     "status": "ok",
                     "device": str(engine.device),
                     "device_name": _device_name(engine.device),
                     "pruner": engine.pruner,
-                    "model": engine.model.name,
-                    "n_patterns": int(engine._weights.shape[0]),
+                    # a partitioned engine: each partition's model
+                    "model": model.name if model is not None else {
+                        p.name: p.model.name
+                        for p in getattr(engine, "partitions", [])},
+                    "n_patterns": _n_patterns(engine),
                 }
             if route == "/loglik":
                 return {"loglik": engine.loglikelihood(params)}
             if route == "/sitewise":
+                if not hasattr(engine, "sitewise_loglikelihoods"):
+                    raise NotImplementedError(
+                        "sitewise is not supported by "
+                        f"{type(engine).__name__}; use /partitions"
+                    )
                 return {
                     "sitewise": engine.sitewise_loglikelihoods(params).tolist()
                 }
+            if route == "/partitions":
+                if not hasattr(engine, "partition_loglikelihoods"):
+                    raise NotImplementedError(
+                        "per-partition logL requires a PartitionedEngine"
+                    )
+                return {"partitions": {
+                    k: float(v) for k, v in
+                    engine.partition_loglikelihoods(params).items()}}
             if route == "/bootstrap":
                 boots = engine.bootstrap_loglikelihoods(
                     int(body.get("n", 100)), params,

@@ -26,7 +26,7 @@ from phylo_utils_tpu.io import parse_newick as j_parse_newick
 from phylo_utils_tpu.io import write_fasta
 from phylo_utils_tpu.simulate import simulate_alignment
 from phylo_utils_tpu_torch import cli
-from phylo_utils_tpu_torch.io import parse_newick, write_newick
+from phylo_utils_tpu_torch.io import parse_newick, read_alignment, write_newick
 from phylo_utils_tpu_torch.trees import robinson_foulds
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -339,11 +339,28 @@ def test_unported_subcommands_name_their_roadmap_item(name, capsys):
     pytest.param(["--partitions", "parts.txt"], "A16", id="flag0-A16"),
     pytest.param(["--shard-sites"], "A12", id="flag2-A12"),
 ])
-def test_unported_flags_name_their_roadmap_item(small_inputs, flag, item):
+def test_unported_flags_name_their_roadmap_item(small_inputs, flag, item,
+                                                tmp_path, monkeypatch,
+                                                capsys):
+    """--shard-sites (A12) is refused naming its item; --partitions (A16),
+    refused until its item was ported, now runs and prints the JAX CLI's
+    keys (``tests/test_torch_cli_partition.py`` holds its values to
+    JAX's)."""
     tree, fasta = small_inputs
+    args = ["loglik", "--tree", tree, "--alignment", fasta, "--device",
+            "cpu"] + flag
+    if item == "A16":
+        monkeypatch.chdir(tmp_path)
+        n = len(next(iter(read_alignment(fasta).values())))
+        (tmp_path / "parts.txt").write_text(
+            f"DNA, a = 1-{n // 2}\nDNA, b = {n // 2 + 1}-{n}\n")
+        assert cli.main(args) == 0
+        out = json.loads(capsys.readouterr().out)
+        assert set(out) == {"loglik", "partition_logliks"}
+        assert set(out["partition_logliks"]) == {"a", "b"}
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        cli.main(["loglik", "--tree", tree, "--alignment", fasta,
-                  "--device", "cpu"] + flag)
+        cli.main(args)
 
 
 @pytest.mark.parametrize("flag,item", [(["--refine"], "A17"),

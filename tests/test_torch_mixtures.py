@@ -421,7 +421,7 @@ def test_cli_profile_mixture_matches_jax_cli(nexus_cli_inputs, capsys):
                          (["--invariant-sites"], "does not compose"),
                          (["--recode", "dayhoff6"], "does not support"),
                          (["--shard-sites"], "does not support"),
-                         (["--partitions", "p.txt"], "ROADMAP A16")):
+                         (["--partitions", "p.txt"], "does not support")):
         with pytest.raises(SystemExit, match=match):
             cli.main(base + extra)
     with pytest.raises(SystemExit, match="FILE.nex:MODELNAME"):

@@ -17,9 +17,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # each JAX public name the port does not export yet -> its ROADMAP item
 NOT_PORTED = {
-    # A16: partitions
-    "Partition": "A16", "PartitionedEngine": "A16",
-    "StackedPartitionedEngine": "A16",
     # A18 part 2: the analyses
     "BranchModelEngine": "A18", "BranchSiteAEngine": "A18",
     "branch_site_test": "A18", "free_ratio_classes": "A18",
@@ -52,7 +49,7 @@ def test_every_jax_name_is_ported_or_mapped_to_an_item():
     for item in set(NOT_PORTED.values()):       # an item of a queue
         assert re.search(rf"\*\*{item}\b", roadmap), item
     ported = [n for n in jax_names if n in port_names]
-    assert len(ported) == 53
+    assert len(ported) == 56
     for name in ported:
         assert hasattr(phylo_utils_tpu_torch, name), name
 

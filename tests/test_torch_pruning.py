@@ -184,16 +184,20 @@ def test_forward_walk_rejects_bad_inputs():
 def test_bindings_match_c_signatures(entry):
     """``_build.SIGNATURES`` (the ctypes argument types) against the
     ``extern "C"`` signature in csrc/: as many pointers and ints, in that
-    order, then the stream. ctypes cannot check a call's arity against the
-    library, so a mismatch would show only on the card."""
+    order, then the stream, then the per-batch strides (``long long``).
+    ctypes cannot check a call's arity against the library, so a mismatch
+    would show only on the card."""
     import re
 
-    _, n_ptr, n_int = next(s for s in _build.SIGNATURES if s[0] == entry)
+    _, n_ptr, n_int, n_stride = next(s for s in _build.SIGNATURES
+                                     if s[0] == entry)
     src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
     m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
     assert m, entry
-    kinds = ["ptr" if "*" in a else "int" for a in m.group(1).split(",")]
-    assert kinds == ["ptr"] * n_ptr + ["int"] * n_int + ["ptr"]
+    kinds = ["ptr" if "*" in a else "stride" if "long long" in a else "int"
+             for a in m.group(1).split(",")]
+    assert kinds == (["ptr"] * n_ptr + ["int"] * n_int + ["ptr"]
+                     + ["stride"] * n_stride)
 
 
 @pytest.mark.parametrize("cmax", [2, 3, 8, 48, 200])
@@ -781,3 +785,112 @@ def _simulate_codes(tree, p_edges, n_sites, freqs, rng):
             u = rng.random(n_sites)[:, None] * cum[:, -1:]
             states[child] = (u > cum).sum(axis=1)
     return states[:tree.n_leaves]
+
+
+def _stacked_inputs(s: int, g: int = 3, k: int = 2, sites: int = 37):
+    """A stack of ``g`` loci on one 9-taxon tree: P (g, n_nodes, k, s, s)
+    from each locus's own random reversible model, one-hot leaves with gaps
+    (g, n_leaves, sites, s), per-locus root frequencies (g, s); float32."""
+    tree = random_tree(9, seed=s)
+    sched = compile_schedule(tree)
+    rng = np.random.default_rng(s)
+    freqs = rng.dirichlet(np.ones(s), size=g)
+    ps = []
+    for f in freqs:
+        sym = rng.uniform(0.2, 3.0, (s, s))
+        sym = torch.from_numpy(sym + sym.T)
+        eig = tmodels.base.eigen_reversible(sym, torch.from_numpy(f))
+        t = torch.from_numpy(np.asarray(tree.lengths)[:, None]
+                             * rng.uniform(0.2, 2.0, k))
+        ps.append(extend_p_identity(transition_matrices(eig, t),
+                                    sched.n_nodes))
+    codes = rng.integers(0, s, (g, tree.n_leaves, sites))
+    lp = np.eye(s, dtype=np.float32)[codes]
+    lp[rng.random((g, tree.n_leaves, sites)) < 0.05] = 1.0
+    return (sched, torch.stack(ps).float().contiguous(),
+            torch.from_numpy(lp), torch.from_numpy(freqs).float())
+
+
+@pytest.mark.parametrize("s", [4, 20, 64])
+def test_every_walk_takes_per_batch_leaves(s):
+    """Leaves (B, n_leaves, sites, S) and, for the deferred reverse, root
+    frequencies (B, S): every walk's plain version (and every wrapper, which
+    on CPU tensors takes it) gives each batch element of a stack of loci
+    the bits of the same walk run on that locus alone, with its leaves
+    (n_leaves, sites, S) and frequencies (S,): the forward walks' roots,
+    the saveall residuals, B3's and B7's dP and dleaf. The fused logL and
+    dfreqs (B, S) equal the per-locus ones to 1e-12 relative (the root
+    reduction's batched contraction sums in another order), dP and the
+    per-locus dleaf (summed over the categories only) to 1e-6 x max, a
+    float32 rounding of the seed lambda = ct / (pi . x_root); the plain
+    pruner takes the same stack to 1e-12 in float64."""
+    sched, p, lp, freqs = _stacked_inputs(s)
+    walk = WalkSchedule(sched)
+    g = p.shape[0]
+    forwards = {
+        "B1": lambda p_, l_: forward_walk(p_, l_, walk, walk="classic"),
+        "B1 auto": lambda p_, l_: forward_walk(p_, l_, walk),
+        "B4": lambda p_, l_: cuda_pruning.slot_walk(p_, l_, walk),
+        "B5": lambda p_, l_: cuda_pruning.slot_walk(p_, l_, walk,
+                                                   stream=True),
+        "B8": lambda p_, l_: cuda_pruning.static_walk(p_, l_, walk),
+        "B9": lambda p_, l_: cuda_pruning.fold_walk(p_, l_, walk, 2),
+        "plain B4": lambda p_, l_: cuda_pruning.slot_walk_reference(
+            p_, l_, walk),
+    }
+    for name, run in forwards.items():
+        rp, re_ = run(p, lp)
+        assert rp.shape[0] == g
+        for i in range(g):
+            one_p, one_e = run(p[i:i + 1], lp[i])
+            assert torch.equal(rp[i], one_p[0]), (name, i)
+            assert torch.equal(re_[i], one_e[0]), (name, i)
+    rx, re = saveall_walk(p, lp, walk)
+    row = walk.root - walk.n_leaves
+    lam = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.5, 2.0, rx[:, :, row, :, 0].shape)).float()
+    d3, l3 = reverse_walk(p, lp, rx, re, lam, freqs, walk, want_dleaf=True)
+    gseed = (lam[..., None] * freqs[:, None, None, :]).unsqueeze(-3)
+    d7, l7 = cuda_pruning.classic_reverse_walk(
+        p, lp, rx, re, gseed.contiguous(), [walk.root], walk,
+        want_dleaf=True)
+    for i in range(g):
+        one_x, one_e = saveall_walk(p[i:i + 1], lp[i], walk)
+        assert torch.equal(rx[i], one_x[0]) and torch.equal(re[i], one_e[0])
+        one = reverse_walk(p[i:i + 1], lp[i], one_x, one_e, lam[i:i + 1],
+                           freqs[i], walk, want_dleaf=True)
+        assert torch.equal(d3[i], one[0][0]) and torch.equal(l3[i],
+                                                              one[1][0])
+        one = cuda_pruning.classic_reverse_walk(
+            p[i:i + 1], lp[i], one_x, one_e, gseed[i:i + 1].contiguous(),
+            [walk.root], walk, want_dleaf=True)
+        assert torch.equal(d7[i], one[0][0]) and torch.equal(l7[i],
+                                                              one[1][0])
+    with pytest.raises(ValueError, match="same B"):
+        forward_walk(p[:2], lp, walk)
+    # the fused function and the plain pruner over the stack
+    fused = make_fused_loglik_fn(sched)
+    f64 = freqs.double()
+    pg, lg, fg = (t.clone().requires_grad_(True) for t in (p, lp, f64))
+    ll = fused(pg, lg, fg)
+    ll.sum().backward()
+    for i in range(g):
+        pi, li, fi = (t[i].clone().requires_grad_(True) for t in (p, lp, f64))
+        one = fused(pi[None], li, fi)
+        one.sum().backward()
+        np.testing.assert_allclose(ll[i].detach().numpy(),
+                                   one[0].detach().numpy(), rtol=1e-12)
+        for got, want in ((pg.grad[i], pi.grad), (lg.grad[i], li.grad)):
+            np.testing.assert_allclose(got.double().numpy(),
+                                       want.double().numpy(), rtol=0,
+                                       atol=1e-6 * float(want.abs().max()))
+        np.testing.assert_allclose(fg.grad[i].numpy(), fi.grad.numpy(),
+                                   rtol=1e-12)
+    prune = make_prune_fn(sched)
+    root, scale = prune(p.double(), lp.double())
+    for i in range(g):
+        one_r, one_s = prune(p[i].double(), lp[i].double())
+        np.testing.assert_allclose(root[i].numpy(), one_r.numpy(),
+                                   rtol=1e-12, atol=0)
+        np.testing.assert_allclose(scale[i].numpy(), one_s.numpy(),
+                                   rtol=1e-12, atol=1e-12)
