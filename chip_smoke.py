@@ -223,18 +223,37 @@ all at once) and runs, in order, printing one line per phase:
     ``PartitionedEngine`` (B1 at 4 states, B5 at 20) against f64; the
     CLI's ``loglik`` and ``fit --partitions`` (a RAxML-style file with
     '+F' entries and a '\\3' stride) and ``partitionfinder`` side by side,
-    and the server's ``/partitions`` and ``/health``.
+    and the server's ``/partitions`` and ``/health``;
+34. ancestral reconstruction, branch models and the clock
+    (``_analyses_path``): ``ancestral_posteriors`` (B2's partials as the
+    down pass), ``joint_ancestral_states`` and ``site_rate_posteriors`` at
+    the flagship (GTR+G4+I, simulated) and at phase 27's codon shape,
+    f32 ``pruner="cuda"`` against the f64 plain engine (posteriors within
+    ``POSTERIOR_TOL``; joint states equal but at ties, judged by each
+    assignment's f64 log-probability); a two-ratio ``BranchModelEngine``
+    and a ``BranchSiteAEngine`` at the codon shape against f64 (B5 value
+    calls, B2 + B3 gradients at 64 states), the BEB scan (d = 10: four B5
+    walks of 32 categories) within ``BEB_TOL``, B5 at K = 32 bit for bit
+    against B1, a 3-step ``branch_site_test``; at config 5's shape the
+    ``ClockEngine`` against f64 (again under ``PHYLO_DEFERRED_VJP=0``:
+    B7), ``clock_test``, ``node_height_errors`` at its clock fit and
+    ``penalized_likelihood_dating`` of its free fit's phylogram on the
+    card; ``site_rate_posteriors`` under B8, B9 and B4; the CLI's
+    ``ancestral --joint``, ``branch-site-test``, ``clock-test`` and
+    ``date`` as subprocesses against the same calls in process, and the
+    server's ``/ancestral`` and ``/site_rates``.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-33; the kernel-against-plain phases are not counted. The last two lines
+23-34; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
 launches (also by state count), the same at 64 states (``states_64``) and
 on phase 33's stack of loci (``batched_leaves``, its error against the
-plain version also as ``batched_leaf_err``), and
+plain version also as ``batched_leaf_err``), phase 34's launches
+(``launches_phase_34``), and
 ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
@@ -361,6 +380,13 @@ PART_TAXA, PART_LOCI, PART_MIN_SITES, PART_MAX_SITES = 64, 48, 300, 1500
 PART_REPS, PART_LOCUS_GRAD_REPS, PART_FIT_STEPS = 20, 5, 10
 MIXED_DNA_SITES, MIXED_PROT_SITES = 1000, 4000
 CLI_PART_FIT_STEPS, PF_SUBSETS, PF_SITES, PF_STEPS = 3, 4, 200, 4
+# the analyses path (phase 34): the BEB grid (codeml's d = 10: 121 pairs,
+# four walks of K = 32), the branch-site test's and the clock test's fit
+# steps, the dating's Adam steps; the clock engine's f32 logL against f64,
+# relative (the BASELINE metric), and the f32 joint reconstruction's log
+# P(states, data) against f64, relative
+ANC_BEB_D, BS_TEST_STEPS, CLOCK_FIT_STEPS, DATE_STEPS = 10, 3, 40, 2000
+CLOCK_RTOL, JOINT_RTOL = 1e-6, 1e-6
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -592,7 +618,7 @@ def _random_alignment(names, n_sites, chars, seed):
     return {n: codes[i].tobytes().decode() for i, n in enumerate(names)}
 
 
-def _bound(kind, walk, p, leaves, want_dleaf=False):
+def _bound(kind, walk, p, leaves, want_dleaf=False, states=None):
     """(bound_ms, bound_by) of one launch of kernel ``kind`` on these
     inputs: each input read once and each output written once at the
     card's memory rate, against the walk's f32 operations at the peak f32
@@ -603,21 +629,26 @@ def _bound(kind, walk, p, leaves, want_dleaf=False):
     edge; the classic reverse recomputes y and forms dP per edge (4 S^2),
     and P^T gy (2 S^2) per edge into an internal node, and into a leaf
     only where ``want_dleaf``: without dleaf it does the deferred
-    reverse's work."""
-    s = leaves.shape[-1]
+    reverse's work. ``states``: the model's own S where ``p`` and
+    ``leaves`` are padded to the kernel's width (61 or 60 codons to 64):
+    the bound counts the model's function, not the padding's bytes and
+    operations."""
+    width = leaves.shape[-1]
+    s = states or width
+    p_elems = p.numel() // (width * width) * s * s
     cols = ((p.shape[0] if p.dim() == 5 else 1) * p.shape[-3]
             * leaves.shape[-2])
     n_int, edges = len(walk.order), int(walk.counts.sum())
     n_inner = walk.n_nodes - walk.n_leaves
-    nbytes = 4 * (p.numel() + leaves.numel())
+    nbytes = 4 * (p_elems + leaves.numel() // width * s)
     flops = cols * (edges * (2 * s * s + s) + n_int * 2 * s)
     if kind == "saveall":
         nbytes += 4 * cols * n_inner * (s + 1)
     elif kind == "reverse":
-        nbytes += 4 * (cols * n_inner * (s + 1) + cols + s + p.numel())
+        nbytes += 4 * (cols * n_inner * (s + 1) + cols + s + p_elems)
         flops = cols * ((n_int - 1) * 2 * s * s + edges * (4 * s * s + 3 * s))
     elif kind == "classic":     # one seed: residuals and the seed
-        nbytes += 4 * (cols * n_inner * (s + 1) + cols * s + p.numel())
+        nbytes += 4 * (cols * n_inner * (s + 1) + cols * s + p_elems)
         into_leaves = walk.n_leaves if want_dleaf else 0
         flops = cols * ((n_int - 1 + into_leaves) * 2 * s * s
                         + edges * (4 * s * s + 3 * s))
@@ -1134,7 +1165,8 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
             p_pad, leaves, walk), 2)
         kernel_ms = _cuda_ms(lambda: cuda_pruning.slot_walk(
             p_pad, leaves, walk, stream=True), 5)
-        bound_ms, bound_by = _bound("stream", walk, p_pad, leaves)
+        bound_ms, bound_by = _bound("stream", walk, p_pad, leaves,
+                                    states=m8._leaf_partials.shape[-1])
         b5[label] = {
             "categories": int(p_pad.shape[1]),
             "bit_identical_to_b1": bool(torch.equal(sp, kp)
@@ -2135,6 +2167,579 @@ def _partition_path(dev, reset_counts, read_counts, smi):
           cli_wall_s=walls, server={"health": health},
           stage_s=stage_s)
     return [value_counts, grad_counts, fit_counts, mixed_counts], batched
+
+
+def _assignment_log_prob(engine, params, states, category):
+    """(n_sites,) float64 log P(states, data) of a joint assignment at
+    ``params``: ``states`` (n_internal, n_sites) by internal node id,
+    ``category`` (n_sites,) (``ncat`` for the +I component), each under its
+    category's P and weight; the check that two reconstructions differ only
+    where both assignments are optimal (ties)."""
+    import torch
+
+    full = engine._full_params(params)
+    with torch.no_grad():
+        _, w, p, freqs = engine._mixture_tensors(full, torch.float64)
+    tree = engine.tree
+    k = p.shape[1]
+    dev = p.device
+    s2p = torch.as_tensor(engine._compressed.site_to_pattern, device=dev)
+    leaves = engine._leaf_partials.to(torch.float64)[:, s2p]
+    st = torch.as_tensor(states, device=dev).long()
+    cat = torch.as_tensor(category, device=dev).long()
+    kk = cat.clamp(max=k - 1)
+    nl = tree.n_leaves
+    sites = torch.arange(st.shape[1], device=dev)
+    lp = torch.log(w[kk]) + torch.log(freqs[st[tree.root - nl]])
+    for v in range(tree.n_nodes):
+        if v == tree.root:
+            continue
+        ps = st[int(tree.parent[v]) - nl]
+        if v < nl:
+            lp = lp + torch.log((p[v][kk, ps] * leaves[v]).sum(-1))
+        else:
+            lp = lp + torch.log(p[v][kk, ps, st[v - nl]])
+    if getattr(engine, "invariant_sites", False):
+        pinv = full["pinv"].to(torch.float64)
+        x = st[tree.root - nl]
+        fbar = (w[:, None] * freqs.expand(w.shape[0], -1)).sum(0)
+        inv = torch.log(pinv) + torch.log(
+            fbar[x] * leaves[:, sites, x].prod(0))
+        lp = torch.where(cat == k, inv, lp + torch.log1p(-pinv))
+    return lp
+
+
+def _analyses_path(dev, reset_counts, read_counts, smi):
+    """Phase 34, ancestral reconstruction, branch models and the clock at
+    full width (main path). (a) Ancestral, on the flagship (``random_tree(
+    64, seed=0)`` x 1024 sites simulated under GTR+G4+I) and on phase 27's
+    codon shape (``random_tree(100, seed=27)`` x 4096 GY94+G4 codons
+    simulated here): ``ancestral_posteriors`` (the down pass from B2),
+    ``joint_ancestral_states`` and ``site_rate_posteriors`` (a value walk)
+    of the f32 ``pruner="cuda"`` engine against the f64 plain engine:
+    posteriors within POSTERIOR_TOL, joint states equal but at ties (both
+    assignments' f64 log-probability optimal within JOINT_RTOL), log_prob
+    within JOINT_RTOL (counted). (b) At the codon shape: a two-ratio
+    ``BranchModelEngine`` and a ``BranchSiteAEngine`` (foreground: the
+    clade of the tree's first two leaves) against f64, logL within
+    CODON_RTOL, gradients within GRAD_TOL x max|g| (B2 + B3 at 64);
+    ``branch_site_test`` with BS_TEST_STEPS fit steps; ``beb_branch_site``
+    (d = ANC_BEB_D: 121 pairs, four walks of K = 32) within BEB_TOL; B5 at
+    K = 32 on the first BEB chunk's P bit for bit against B1 and its plain
+    version (not counted). (c) BASELINE config 5's shape (``random_tree(
+    128, seed=5)`` x 1024 GTR+G4 sites simulated here): ``ClockEngine`` logL
+    within CLOCK_RTOL of f64 and its gradient within GRAD_TOL, again under
+    ``PHYLO_DEFERRED_VJP=0`` (B7); ``clock_test`` with CLOCK_FIT_STEPS
+    steps a fit, ``node_height_errors`` at its clock fit (finite and
+    positive at every internal node) and ``penalized_likelihood_dating`` of
+    its free-length fit's phylogram; the flagship ``site_rate_posteriors``
+    under B8 (``STATIC_UNROLL_MAX``) and B9 (``PHYLO_PACK_DNA=1``), the
+    codon one under B4 (``PHYLO_FORCE_STREAM=0``), against the default
+    walk's. (d) The CLI's ``ancestral --joint``, ``branch-site-test``,
+    ``clock-test`` and ``date`` as subprocesses on files of (a)-(c)'s data,
+    against the same calls made here (``clock-test`` at the engines'
+    default, f64 plain PyTorch); ``EngineServer``'s ``/ancestral``
+    (marginal and joint) and ``/site_rates`` in process. Every engine of
+    (a)-(c) reads its tree and alignment back from those files. Returns
+    the counted launches."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.ancestral import (
+        ancestral_posteriors,
+        joint_ancestral_states,
+        site_rate_posteriors,
+        site_rates,
+    )
+    from phylo_utils_tpu_torch.branch_models import (
+        BranchModelEngine,
+        BranchSiteAEngine,
+        _branch_site_pair_p,
+        beb_branch_site,
+        branch_site_test,
+        mark_clade,
+    )
+    from phylo_utils_tpu_torch.clock import (
+        ClockEngine,
+        clock_test,
+        node_height_errors,
+        penalized_likelihood_dating,
+    )
+    from phylo_utils_tpu_torch.io import (
+        encode_codon_alignment,
+        parse_newick,
+        read_alignment,
+        write_newick,
+    )
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+    from phylo_utils_tpu_torch.models.codon import (
+        empirical_codon_frequencies,
+    )
+    from phylo_utils_tpu_torch.ops import cuda_pruning
+    from phylo_utils_tpu_torch.ops.pruning import LN2
+    from phylo_utils_tpu_torch.server import EngineServer
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+    from phylo_utils_tpu_torch.trees import random_tree
+
+    t_start = time.perf_counter()
+    stage_s = {}
+    kw32 = dict(dtype=torch.float32, pruner="cuda", device=DEVICE)
+    kw64 = dict(device=DEVICE)                    # float64, pruner="torch"
+    forwards = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
+                "STATIC_LAUNCHES", "FOLD_LAUNCHES")
+    counted = []
+    tmp = tempfile.mkdtemp(prefix="phase34_")
+
+    def stage(name, t0):
+        stage_s[name] = time.perf_counter() - t0
+
+    def simulated(name, tree, model, n_sites, params, **kw):
+        """(newick path, FASTA path, tree, alignment) of sites simulated on
+        the card and written to ``tmp``; the tree and alignment are read
+        back from the files."""
+        aln = simulate_alignment(int(name[-2:]), tree, model, n_sites,
+                                 params=params, device=DEVICE, **kw)
+        nwk, fa = (os.path.join(tmp, f"{name}.nwk"),
+                   os.path.join(tmp, f"{name}.fa"))
+        with open(nwk, "w") as fh:
+            fh.write(write_newick(tree) + "\n")
+        _write_fasta(aln, fa)
+        with open(nwk) as fh:
+            return nwk, fa, parse_newick(fh.read()), read_alignment(fa)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # the data of (a)-(c), simulated on the card, through files (the name's
+    # last two digits seed each) ------------------------------------------
+    t0 = time.perf_counter()
+    files = {
+        "flagship": simulated(
+            "flagship34", random_tree(TAXA, seed=0), models.GTR, SITES,
+            {**FLAGSHIP_PARAMS["model"], "alpha": FLAGSHIP_PARAMS["alpha"]},
+            ncat=4, pinv=FLAGSHIP_PARAMS["pinv"]),
+        "codon": simulated(
+            "codon27", random_tree(CODON_TAXA, seed=27), models.GY94,
+            CODON_PATTERNS, {**CODON_PARAMS["model"],
+                             "alpha": CODON_PARAMS["alpha"]}, ncat=4),
+        "config5": simulated(
+            "config05", random_tree(CONFIG5_TAXA, seed=5), models.GTR, SITES,
+            {**BIG_DNA_PARAMS["model"], "alpha": 0.5}, ncat=4)}
+    stage("simulate", t0)
+
+    # (a) ancestral reconstruction, counted -----------------------------
+    t0 = time.perf_counter()
+    anc, timing = {}, {}
+    cases = (("flagship", models.GTR, FLAGSHIP_PARAMS,
+              dict(ncat=4, invariant_sites=True)),
+             ("codon", models.GY94, CODON_PARAMS, dict(ncat=4)))
+    engines32 = {}
+    for name, model, params, ekw in cases:
+        _, _, tree, aln = files[name]
+        e32 = LikelihoodEngine(tree, aln, model, **ekw, **kw32)
+        e64 = LikelihoodEngine(tree, aln, model, **ekw, **kw64)
+        engines32[name] = e32
+        ancestral_posteriors(e32, params)              # warm
+        reset_counts()
+        post, ms = timed(lambda: ancestral_posteriors(e32, params))
+        post_counts = read_counts()
+        joint, joint_ms = timed(lambda: joint_ancestral_states(e32, params))
+        srp, srp_ms = timed(lambda: site_rate_posteriors(e32, params))
+        counts = read_counts()
+        counted.append(counts)
+        s = model.n_states
+        _check(post_counts["SAVEALL_LAUNCHES"] == 1
+               and sum(post_counts[c] for c in forwards) == 0
+               and post_counts["REVERSE_LAUNCHES"] == 0,
+               f"{name}: ancestral_posteriors did not launch B2 alone: "
+               f"{post_counts}")
+        _check(sum(counts[c] for c in forwards) == 1,
+               f"{name}: site_rate_posteriors launched {counts}")
+        post64, ms64 = timed(lambda: ancestral_posteriors(e64, params))
+        joint64, joint64_ms = timed(
+            lambda: joint_ancestral_states(e64, params))
+        srp64 = site_rate_posteriors(e64, params)
+        post_err = float(np.abs(post - post64).max())
+        srp_err = float(np.abs(srp - srp64).max())
+        lp_rel = float(np.max(np.abs(joint["log_prob"] - joint64["log_prob"])
+                              / np.abs(joint64["log_prob"])))
+        differ = ((joint["states"] != joint64["states"]).any(axis=0)
+                  | (joint["category"] != joint64["category"]))
+        own = _assignment_log_prob(e64, params, joint64["states"],
+                                   joint64["category"]).cpu().numpy()
+        theirs = _assignment_log_prob(e64, params, joint["states"],
+                                      joint["category"]).cpu().numpy()
+        eval_rel = float(np.max(np.abs(own - joint64["log_prob"])
+                                / np.abs(joint64["log_prob"])))
+        tie_gap = (float(np.max((own - theirs)[differ] / np.abs(own[differ])))
+                   if differ.any() else 0.0)
+        anc[name] = {"posterior_max_abs_err": post_err,
+                     "site_rate_posterior_max_abs_err": srp_err,
+                     "joint_log_prob_rel_err": lp_rel,
+                     "joint_sites_differing": int(differ.sum()),
+                     "joint_tie_gap": tie_gap,
+                     "assignment_eval_rel_err": eval_rel,
+                     "padded_state_mass": float(post.sum(axis=2).max() - 1.0),
+                     "shape": list(post.shape), "launches": counts}
+        timing[name] = {"ancestral_ms": ms, "ancestral_f64_ms": ms64,
+                        "joint_ms": joint_ms, "joint_f64_ms": joint64_ms,
+                        "site_rate_posteriors_ms": srp_ms}
+        _check(post_err <= POSTERIOR_TOL and srp_err <= POSTERIOR_TOL
+               and lp_rel <= JOINT_RTOL and eval_rel <= 1e-12
+               and tie_gap <= JOINT_RTOL and post.shape[2] == s,
+               f"{name}: ancestral against f64: {anc[name]}")
+        del e64, post64, joint64
+        torch.cuda.empty_cache()
+    stage("ancestral", t0)
+
+    # (b) branch and branch-site models at the codon shape ---------------
+    t0 = time.perf_counter()
+    codon_nwk, codon_fa, codon_tree, codon_aln = files["codon"]
+    ca = encode_codon_alignment(codon_aln)
+    fg = mark_clade(codon_tree, codon_tree.leaf_names[:2])
+    f3x4 = empirical_codon_frequencies(codon_aln, "f3x4").tolist()
+    bm_params = {"alpha": CODON_PARAMS["alpha"],
+                 "shared": {"kappa": CODON_PARAMS["model"]["kappa"]}}
+    bs_params = {"proportions": [0.6, 0.25, 0.15], "omega0": 0.2,
+                 "omega2_delta": 2.0,
+                 "shared": {"kappa": CODON_PARAMS["model"]["kappa"]}}
+    branch = {}
+    for name, make, params in (
+            ("two_ratio", lambda kw: BranchModelEngine(
+                codon_tree, ca, models.GY94, fg,
+                [{"omega": 0.25}, {"omega": 1.5}], ncat=4, **kw), bm_params),
+            ("branch_site_a", lambda kw: BranchSiteAEngine(
+                codon_tree, ca, fg, **kw), bs_params)):
+        e32, e64 = make(kw32), make(kw64)
+        e32.value_and_grad(params)                     # warm
+        reset_counts()
+        ll, ll_ms = timed(lambda: e32.loglikelihood(params))
+        value_counts = read_counts()
+        reset_counts()
+        (v, g), vg_ms = timed(lambda: e32.value_and_grad(params))
+        grad_counts = read_counts()
+        counted += [value_counts, grad_counts]
+        ll64 = e64.loglikelihood(params)
+        _, g64 = e64.value_and_grad(params)
+        rel = abs(ll - ll64) / abs(ll64)
+        g_err = _grad_errors(g, g64)
+        branch[name] = {"logl_rel_err": rel, "grad_rel_err": g_err,
+                        "loglik_ms": ll_ms, "value_and_grad_ms": vg_ms,
+                        "value_launches": value_counts,
+                        "gradient_launches": grad_counts}
+        _check(rel <= CODON_RTOL and max(g_err.values()) <= GRAD_TOL
+               and value_counts.get("STREAM_LAUNCHES@64", 0) == 1
+               and grad_counts.get("SAVEALL_LAUNCHES@64", 0) == 1
+               and (grad_counts.get("REVERSE_LAUNCHES@64", 0)
+                    + grad_counts.get("CLASSIC_REVERSE_LAUNCHES@64", 0))
+               == 1, f"{name} against f64: {branch[name]}")
+        if name == "branch_site_a":
+            bs32, bs64 = e32, e64
+        else:
+            del e64
+    # the BEB scan: four walks of K = 32 (counted), against f64
+    beb_params = {**bs_params, "shared": {**bs_params["shared"],
+                                          "freqs": f3x4}}
+    reset_counts()
+    beb32, beb_ms = timed(lambda: beb_branch_site(bs32, beb_params,
+                                                  d=ANC_BEB_D))
+    beb_counts = read_counts()
+    counted.append(beb_counts)
+    beb64 = beb_branch_site(bs64, beb_params, d=ANC_BEB_D)
+    beb_err = [float(np.abs(a - b).max()) for a, b in zip(beb32, beb64)]
+    n_walks = -(-(ANC_BEB_D + 1) ** 2 // 32)
+    _check(max(beb_err) <= BEB_TOL
+           and beb_counts.get("STREAM_LAUNCHES@64", 0) == n_walks
+           and sum(beb_counts[c] for c in forwards) == n_walks,
+           f"BEB: errors {beb_err}, launches {beb_counts}")
+    del bs64
+    torch.cuda.empty_cache()
+    # B5 at K = 32 on the first BEB chunk's P (not counted)
+    w0 = (np.arange(ANC_BEB_D) + 0.5) / ANC_BEB_D
+    w2 = 1.0 + (np.arange(ANC_BEB_D) + 0.5) * (10.0 / ANC_BEB_D)
+    pairs = np.asarray([(a, a) for a in w0] + [(1.0, 1.0)]
+                       + [(a, b) for a in w0 for b in w2][:21])
+    with torch.no_grad():
+        p32, f32_ = _branch_site_pair_p(bs32, bs32._full_params(beb_params),
+                                        pairs)
+    walk = cuda_pruning.WalkSchedule(bs32.schedule)
+    leaves = cuda_pruning._pad_states(bs32._leaf_partials.float(), 64,
+                                      1).contiguous()
+    p_pad = cuda_pruning._pad_states(p32.float(), 64, 2).contiguous()
+    f_pad = cuda_pruning._pad_states(f32_, 64, 1)
+    sp, se = cuda_pruning.slot_walk(p_pad, leaves, walk, stream=True)
+    kp, ke = cuda_pruning.forward_walk(p_pad, leaves, walk, walk="classic")
+    rp, re = cuda_pruning.slot_walk_reference(p_pad, leaves, walk)
+    torch.cuda.synchronize()
+
+    def ll_of(rt, ex):
+        return (torch.log(torch.einsum("ksi,i->ks", rt.double(), f_pad))
+                + ex.double() * LN2)
+
+    k32_err = float((ll_of(sp, se) - ll_of(rp, re)).abs().max())
+    bound_ms, bound_by = _bound("stream", walk, p_pad, leaves,
+                                states=bs32._leaf_partials.shape[-1])
+    b5_k32 = {"categories": int(p_pad.shape[1]),
+              "bit_identical_to_b1": bool(torch.equal(sp, kp)
+                                          and torch.equal(se, ke)),
+              "bit_identical_to_plain": bool(torch.equal(sp, rp)
+                                             and torch.equal(se, re)),
+              "max_abs_err_site_loglik": k32_err,
+              "tolerance": len(walk.order) * 2.0 ** -21,
+              "ms": _cuda_ms(lambda: cuda_pruning.slot_walk(
+                  p_pad, leaves, walk, stream=True), 5),
+              "plain_ms": _cuda_ms(lambda: cuda_pruning.slot_walk_reference(
+                  p_pad, leaves, walk), 2),
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    _check(b5_k32["categories"] == 32 and b5_k32["bit_identical_to_b1"]
+           and k32_err <= b5_k32["tolerance"], f"B5 at K = 32: {b5_k32}")
+    del p_pad, sp, se, kp, ke, rp, re, leaves
+    torch.cuda.empty_cache()
+    # the branch-site LRT as the CLI runs it (F3x4 held, all else free)
+    reset_counts()
+    bs_test, bs_test_ms = timed(lambda: branch_site_test(
+        codon_tree, ca, fg, params0={"shared": {"freqs": f3x4}},
+        engine_kwargs=kw32, max_steps=BS_TEST_STEPS))
+    bs_test_counts = read_counts()
+    counted.append(bs_test_counts)
+    _check(math.isfinite(bs_test["lrt"]["statistic"])
+           and bs_test["lrt"]["df"] == 1
+           and float(bs_test["null"].params["omega2_delta"]) == 0.0
+           and bs_test_counts.get("SAVEALL_LAUNCHES@64", 0) > 0,
+           f"branch_site_test: {bs_test['lrt']}, launches {bs_test_counts}")
+    stage("branch_models", t0)
+
+    # (c) the clock at config 5's shape ----------------------------------
+    t0 = time.perf_counter()
+    c5_nwk, c5_fa, c5_tree, c5_aln = files["config5"]
+    clock_params = {"model": BIG_DNA_PARAMS["model"], "alpha": 0.5}
+    ce32 = ClockEngine(c5_tree, c5_aln, models.GTR, ncat=4, **kw32)
+    ce64 = ClockEngine(c5_tree, c5_aln, models.GTR, ncat=4, **kw64)
+    ce32.value_and_grad(clock_params)                 # warm
+    reset_counts()
+    cll, cll_ms = timed(lambda: ce32.loglikelihood(clock_params))
+    (cv, cg), cvg_ms = timed(lambda: ce32.value_and_grad(clock_params))
+    clock_counts = read_counts()
+    with _env(PHYLO_DEFERRED_VJP="0"):
+        _, cg7 = ce32.value_and_grad(clock_params)
+    clock_b7_counts = {k: v - clock_counts[k]
+                       for k, v in read_counts().items()
+                       if k in clock_counts}
+    counted.append(read_counts())
+    cll64 = ce64.loglikelihood(clock_params)
+    _, cg64 = ce64.value_and_grad(clock_params)
+    clock_rel = abs(cll - cll64) / abs(cll64)
+    clock_gerr = _grad_errors(cg, cg64)
+    clock_gerr7 = _grad_errors(cg7, cg64)
+    _check(clock_rel <= CLOCK_RTOL and max(clock_gerr.values()) <= GRAD_TOL
+           and max(clock_gerr7.values()) <= GRAD_TOL
+           and clock_counts["SAVEALL_LAUNCHES"] == 1
+           and clock_counts["REVERSE_LAUNCHES"] == 1
+           and clock_b7_counts["CLASSIC_REVERSE_LAUNCHES"] == 1,
+           f"clock against f64: logL {clock_rel:.3e}, grads {clock_gerr}, "
+           f"under B7 {clock_gerr7}; launches {clock_counts}")
+    del ce64
+    reset_counts()
+    ctest, ctest_ms = timed(lambda: clock_test(
+        c5_tree, c5_aln, models.GTR, ncat=4, engine_kwargs=kw32,
+        max_steps=CLOCK_FIT_STEPS))
+    ctest_counts = read_counts()
+    counted.append(ctest_counts)
+    reset_counts()
+    heights_se, se_ms = timed(lambda: node_height_errors(
+        ctest["null_engine"], ctest["null"].params))
+    se_counts = read_counts()
+    counted.append(se_counts)
+    n_int = c5_tree.n_nodes - c5_tree.n_leaves
+    _check(len(heights_se) == n_int
+           and all(math.isfinite(v) and v > 0 for v in heights_se.values())
+           and ctest["df"] >= 1,
+           f"node_height_errors at the clock fit: "
+           f"{sorted(heights_se.values())[:3]}..., df {ctest['df']}")
+    alt = ctest["alt"]
+    phylogram = c5_tree.with_lengths(
+        alt.params["branch_lengths"].double().cpu().numpy())
+    gram_nwk = os.path.join(tmp, "phylogram.nwk")
+    with open(gram_nwk, "w") as fh:
+        fh.write(write_newick(phylogram) + "\n")
+    with open(gram_nwk) as fh:
+        phylogram = parse_newick(fh.read())
+    dating, dating_ms = timed(lambda: penalized_likelihood_dating(
+        phylogram, SITES, lam=1.0, steps=DATE_STEPS, device=DEVICE))
+    ages = dating["ages"]
+    _check(all(math.isfinite(a) and a >= 0 for a in ages.values())
+           and ages[c5_tree.root] == 1.0
+           and math.isfinite(dating["objective"]),
+           f"dating: root {ages[c5_tree.root]}, objective "
+           f"{dating['objective']}")
+    # the lowering knobs on site_rate_posteriors (counted): B8 and B9 at
+    # the flagship, B4 at the codon shape, against the default walk's
+    knobs = {}
+    for name, label, ctx in (
+            ("flagship", "STATIC_LAUNCHES",
+             lambda: _static_unroll(cuda_pruning, 10 ** 6)),
+            ("flagship", "FOLD_LAUNCHES", lambda: _env(PHYLO_PACK_DNA="1")),
+            ("codon", "SLOT_LAUNCHES", lambda: _env(PHYLO_FORCE_STREAM="0"))):
+        e32 = engines32[name]
+        params = FLAGSHIP_PARAMS if name == "flagship" else CODON_PARAMS
+        base = site_rate_posteriors(e32, params)
+        reset_counts()
+        with ctx():
+            got = site_rate_posteriors(e32, params)
+        c = read_counts()
+        counted.append(c)
+        knobs[label] = {"launches": c, "max_abs_diff_to_default": float(
+            np.abs(got - base).max())}
+        _check(c[label] == 1 and knobs[label]["max_abs_diff_to_default"]
+               <= POSTERIOR_TOL, f"{label} knob: {knobs[label]}")
+    stage("clock", t0)
+
+    # (d) the CLI and the server, side by side ---------------------------
+    t0 = time.perf_counter()
+    flag_nwk, flag_fa, flag_tree, flag_aln = files["flagship"]
+    cmds = {
+        "ancestral": ["ancestral", "--tree", flag_nwk, "--alignment", flag_fa,
+                      "--model", "GTR+G4+I", "--params",
+                      json.dumps(FLAGSHIP_PARAMS), "--joint", "--pruner",
+                      "cuda", "--dtype", "float32"],
+        "branch-site-test": ["branch-site-test", "--tree", codon_nwk,
+                             "--alignment", codon_fa, "--foreground",
+                             ",".join(codon_tree.leaf_names[:2]), "--clade",
+                             "--max-steps", str(BS_TEST_STEPS), "--pruner",
+                             "cuda", "--dtype", "float32"],
+        "clock-test": ["clock-test", "--tree", c5_nwk, "--alignment", c5_fa,
+                       "--model", "GTR", "--ncat", "4", "--max-steps",
+                       str(CLOCK_FIT_STEPS)],
+        "date": ["date", "--tree", gram_nwk, "--sites", str(SITES),
+                 "--steps", str(DATE_STEPS)],
+    }
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs, walls, cli_out = {}, {}, {}
+    for name, cmd in cmds.items():
+        with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
+                open(os.path.join(tmp, f"{name}.err"), "w") as fe:
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
+                + ["--device", DEVICE], cwd=REPO, env=env, stdout=fo,
+                stderr=fe))
+    # the server in this process while the CLI runs
+    flag32 = engines32["flagship"]
+    srv = EngineServer(flag32, port=0)
+    srv.start()
+    served = {}
+    try:
+        for route, body in (("/ancestral", {"params": FLAGSHIP_PARAMS}),
+                            ("joint", {"params": FLAGSHIP_PARAMS,
+                                       "joint": True}),
+                            ("/site_rates", {"params": FLAGSHIP_PARAMS})):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}"
+                f"{'/ancestral' if route == 'joint' else route}",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                served[route] = json.loads(r.read())
+    finally:
+        srv.stop()
+    post_f = ancestral_posteriors(flag32, FLAGSHIP_PARAMS)
+    joint_f = joint_ancestral_states(flag32, FLAGSHIP_PARAMS)
+    # the CLI's clock-test runs the engines' default, f64 plain PyTorch
+    ctest_f64 = clock_test(c5_tree, c5_aln, models.GTR, ncat=4,
+                           engine_kwargs=kw64, max_steps=CLOCK_FIT_STEPS)
+    server_ok = {
+        "/ancestral": served["/ancestral"]["map_states"]
+        == post_f.argmax(axis=2).tolist()
+        and np.array_equal(served["/ancestral"]["max_posterior"],
+                           post_f.max(axis=2)),
+        "joint": all(np.array_equal(served["joint"][k], joint_f[k])
+                     for k in ("states", "log_prob", "category")),
+        "/site_rates": np.array_equal(served["/site_rates"]["site_rates"],
+                                      site_rates(flag32, FLAGSHIP_PARAMS))}
+    deadline = time.perf_counter() + 900
+    try:
+        while len(walls) < len(procs) and time.perf_counter() < deadline:
+            for name, (t1, proc) in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t1
+            time.sleep(0.1)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (_, proc) in procs.items():
+        with open(os.path.join(tmp, f"{name}.err")) as fe:
+            stderr = fe.read()
+        _check(name in walls and proc.returncode == 0,
+               f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
+        with open(os.path.join(tmp, f"{name}.out")) as fo:
+            cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
+    _check(all(server_ok.values()), f"server: {server_ok}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-300)
+
+    a_out = cli_out["ancestral"]
+    cli_err = {
+        "ancestral": max(
+            float(np.abs(np.asarray(a_out["max_posterior"])
+                         - post_f.max(axis=2)).max()),
+            float(np.max(np.abs(np.asarray(a_out["joint_log_prob"])
+                                - joint_f["log_prob"])))),
+        "branch-site-test": max(
+            rel(cli_out["branch-site-test"]["loglik_null"],
+                bs_test["null"].loglik),
+            rel(cli_out["branch-site-test"]["loglik_alt"],
+                bs_test["alt"].loglik)),
+        "clock-test": max(rel(cli_out["clock-test"]["loglik_clock"],
+                              ctest_f64["null"].loglik),
+                          rel(cli_out["clock-test"]["loglik_unconstrained"],
+                              ctest_f64["alt"].loglik)),
+        "date": max(rel(cli_out["date"]["ages"][str(k)], v)
+                    for k, v in ages.items() if v > 0)}
+    _check(a_out["map_states"] == post_f.argmax(axis=2).tolist()
+           and a_out["joint_states"] == joint_f["states"].tolist()
+           and cli_out["clock-test"]["df"] == ctest_f64["df"]
+           and max(cli_err.values()) <= 1e-8,
+           f"cli against the same calls in process: {cli_err}")
+    stage("cli_and_server", t0)
+
+    _emit(34, card=smi, ancestral=anc, branch_models=branch,
+          beb={"d": ANC_BEB_D, "max_abs_err": beb_err, "seconds":
+               beb_ms / 1e3, "launches": beb_counts, "walks": n_walks},
+          b5_k32=b5_k32,
+          branch_site_test={"seconds": bs_test_ms / 1e3,
+                            "steps": BS_TEST_STEPS,
+                            "lrt": bs_test["lrt"],
+                            "loglik": [bs_test["null"].loglik,
+                                       bs_test["alt"].loglik],
+                            "launches": bs_test_counts},
+          clock={"logl_rel_err": clock_rel, "grad_rel_err": clock_gerr,
+                 "grad_rel_err_b7": clock_gerr7, "loglik_ms": cll_ms,
+                 "value_and_grad_ms": cvg_ms, "launches": clock_counts,
+                 "b7_launches": clock_b7_counts,
+                 "clock_test": {"seconds": ctest_ms / 1e3,
+                                "steps": CLOCK_FIT_STEPS,
+                                "lrt": ctest["lrt"], "df": ctest["df"],
+                                "launches": ctest_counts},
+                 "node_height_errors": {
+                     "seconds": se_ms / 1e3, "root": heights_se[
+                         c5_tree.root],
+                     "min": min(heights_se.values()),
+                     "max": max(heights_se.values()),
+                     "launches": se_counts},
+                 "dating": {"seconds": dating_ms / 1e3,
+                            "steps": DATE_STEPS,
+                            "objective": dating["objective"]}},
+          knobs=knobs, timing=timing, cli_rel_err=cli_err,
+          cli_wall_s=walls, server=server_ok, stage_s=stage_s,
+          seconds=time.perf_counter() - t_start)
+    return counted
 
 
 def main():
@@ -4177,7 +4782,9 @@ def main():
         timings_64[what].update(zip(
             ("bound_ms", "bound_by"),
             _bound({"slot": "forward", "static": "forward",
-                    "fold": "forward"}.get(what, what), *inputs[:3])))
+                    "fold": "forward"}.get(what, what), *inputs[:3],
+                   states=(m32 if inputs is mito_inputs
+                           else c32)._leaf_partials.shape[-1])))
         timings_64[what]["shape"] = (
             f"{MITO_TAXA} taxa x {MITO_PATTERNS} vertebrate-mito codon "
             "patterns, GY94+G4" if inputs is mito_inputs else
@@ -4432,7 +5039,8 @@ def main():
     p_meta = torch.empty((walk_cw.n_nodes, 4, 64, 64), device="meta")
     l_meta = torch.empty((CODON_WIDE_TAXA, CODON_WIDE_PATTERNS, 64),
                          device="meta")
-    bounds_cw = {what: _bound(what, walk_cw, p_meta, l_meta)
+    bounds_cw = {what: _bound(what, walk_cw, p_meta, l_meta,
+                              states=ca_cw.partials.shape[-1])
                  for what in ("saveall", "classic")}
     cw_vg_ms = _cuda_ms(lambda: wide_c.value_and_grad(codon_params), 1)
     cw_device = _device_us(lambda: wide_c.value_and_grad(codon_params), 1)
@@ -4481,6 +5089,9 @@ def main():
     part_counts, part_kernels = _partition_path(dev, reset_counts,
                                                 read_counts, smi)
 
+    # 34. ancestral reconstruction, branch models and the clock, main path
+    analyses_counts = _analyses_path(dev, reset_counts, read_counts, smi)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
@@ -4488,7 +5099,8 @@ def main():
                    codon_value_counts, codon_grad_counts, codon_fit_counts,
                    b4_counts, b7_counts, b8_counts, b9_counts,
                    *mk_counts.values(), cli_counts_28, cw_counts,
-                   boot_counts, site_counts, search_counts, *part_counts)
+                   boot_counts, site_counts, search_counts, *part_counts,
+                   *analyses_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -4509,6 +5121,8 @@ def main():
                  "replaces": f"phylo_utils_tpu/ops/pallas_pruning.py:{line}",
                  "launches": launches(counter),
                  "launches_by_states": launches_by_states(counter),
+                 "launches_phase_34": sum(c[counter]
+                                          for c in analyses_counts),
                  "max_abs_err": err,
                  "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                  "bound_ms": bound_ms, "bound_by": bound_by,

@@ -4,12 +4,12 @@ Felsenstein-pruning log-likelihoods, gradients, fits, standard errors, ML
 distances, NJ trees, model and profile mixtures, the codon site models
 (M1a-M8, their LRTs and NEB/BEB site scans), model selection, sequence
 simulation and the parametric bootstrap, topology sets and NNI/SPR search,
-topology tests and branch supports, and partitioned (multi-locus) engines
-on an NVIDIA GPU (or the CPU), held
-against the
-JAX package on the same inputs. The ported public names of the JAX
-package are exported here (``tests/test_torch_names.py`` lists the rest by
-ROADMAP item); the CLI is ``python -m phylo_utils_tpu_torch.cli``.
+topology tests and branch supports, partitioned (multi-locus) engines,
+ancestral reconstruction, branch and branch-site models and the molecular
+clock on an NVIDIA GPU (or the CPU), held against the JAX package on the
+same inputs. Every public name of the JAX package is exported here
+(``tests/test_torch_names.py``); the CLI is ``python -m
+phylo_utils_tpu_torch.cli``.
 Importing the package loads no kernel: ``ops/_build.py`` compiles
 ``csrc/*.cu`` with ``nvcc`` at the first CUDA launch.
 """
@@ -24,10 +24,27 @@ from phylo_utils_tpu_torch.alphabets import (  # noqa: F401
     encode_alignment,
     seq_to_partials,
 )
+from phylo_utils_tpu_torch.ancestral import (  # noqa: F401
+    ancestral_posteriors,
+    site_rate_posteriors,
+)
 from phylo_utils_tpu_torch.batched import (  # noqa: F401
     TopologySetEngine,
     nni_hill_climb,
     optimize_branch_lengths,
+)
+from phylo_utils_tpu_torch.branch_models import (  # noqa: F401
+    BranchModelEngine,
+    BranchSiteAEngine,
+    branch_site_test,
+    free_ratio_classes,
+    mark_branches,
+    mark_clade,
+)
+from phylo_utils_tpu_torch.clock import (  # noqa: F401
+    ClockEngine,
+    clock_test,
+    node_height_errors,
 )
 from phylo_utils_tpu_torch.io import (  # noqa: F401
     CompressedAlignment,

@@ -11,9 +11,14 @@ M7-vs-M8 positive-selection LRTs, with the NEB site scan under ``--sites``
 and the M2a BEB scan under ``--beb``), ``topologies`` (a candidate set
 scored in one batched pass, with the KH/SH/AU tests), ``search`` (NNI/SPR
 hill-climb), ``supports`` (aLRT, SH-aLRT, aBayes, sCF), ``lmap``
-(likelihood mapping), ``consense`` and ``partitionfinder`` (a model per
-subset of a partition file and greedy merging of subsets). Engines and the
-simulator run on the card (``--device cuda``, the default) unless
+(likelihood mapping), ``consense``, ``partitionfinder`` (a model per
+subset of a partition file and greedy merging of subsets), ``ancestral``
+(marginal posteriors and MAP sequences, with ``--joint`` the joint ML
+reconstruction), ``branch-site-test`` (branch-site Model A LRT on a
+foreground lineage), ``clock-test`` (strict clock against free branch
+lengths) and ``date`` (penalized-likelihood dating of a phylogram,
+calibrated or with a cross-validated lambda). Engines, the dating fits and
+the simulator run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; ``--pruner`` is ``torch`` (plain PyTorch, the
 default, as the JAX CLI's ``xla``) or ``cuda`` (the hand-written kernels).
 ``--params`` JSON is read through ``convert.params_from_jax``, so both
@@ -49,10 +54,7 @@ MODEL_NAMES = (
 )
 
 # the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
-NOT_PORTED = {
-    "benchmark": "A2", "ancestral": "A18",
-    "branch-site-test": "A18", "clock-test": "A18", "date": "A18",
-}
+NOT_PORTED = {"benchmark": "A2"}
 
 # engine flags whose engines are not ported yet: (attribute, flag, item)
 _UNPORTED_FLAGS = (
@@ -834,6 +836,163 @@ def cmd_site_test(args) -> int:
     return 0
 
 
+def _node_label(tree, nid: int) -> str:
+    return tree.names[nid] or f"node{nid}"
+
+
+def cmd_ancestral(args) -> int:
+    from phylo_utils_tpu_torch.ancestral import (
+        ancestral_posteriors,
+        joint_ancestral_states,
+        site_rate_posteriors,
+    )
+    from phylo_utils_tpu_torch.io import write_fasta
+    from phylo_utils_tpu_torch.simulate import _state_chars
+
+    engine = _build_engine(args)
+    params = _json_params(args.params)
+    post = ancestral_posteriors(engine, params)
+    map_states = post.argmax(axis=2)
+    out = {
+        "n_internal_nodes": post.shape[0],
+        "n_sites": post.shape[1],
+        "map_states": map_states.tolist(),
+        "max_posterior": post.max(axis=2).tolist(),
+    }
+    # MAP sequences: per-state characters from the model's alphabet
+    chars = _state_chars(engine.model)
+    tree = engine.tree
+    seqs = {_node_label(tree, tree.n_leaves + k): "".join(chars[row])
+            for k, row in enumerate(map_states)}
+    out["map_sequences"] = seqs
+    if args.out_fasta:
+        write_fasta(seqs, path=args.out_fasta)
+    if args.joint:
+        joint = joint_ancestral_states(engine, params)
+        out["joint_states"] = joint["states"].tolist()
+        out["joint_log_prob"] = joint["log_prob"].tolist()
+        jseqs = {_node_label(tree, tree.n_leaves + k): "".join(chars[row])
+                 for k, row in enumerate(joint["states"])}
+        out["joint_sequences"] = jseqs
+        if args.out_fasta:
+            # a path of its own: the marginal MAP FASTA went to out_fasta
+            write_fasta(jseqs, path=args.out_fasta + ".joint")
+    if args.full:
+        out["posteriors"] = post.tolist()
+    if args.ncat > 1:
+        out["site_rate_posteriors"] = site_rate_posteriors(
+            engine, params).tolist()
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_branch_site_test(args) -> int:
+    """Branch-site Model A positive-selection LRT on a foreground clade."""
+    from phylo_utils_tpu_torch.branch_models import (
+        branch_site_test,
+        mark_branches,
+        mark_clade,
+    )
+    from phylo_utils_tpu_torch.io import encode_codon_alignment
+
+    tree = _read_tree(args.tree)
+    aln = _read_aln(args.alignment)
+    ca = encode_codon_alignment(aln)
+    names = args.foreground.split(",")
+    fg = (mark_clade(tree, names) if args.clade and len(names) > 1
+          else mark_branches(tree, names))
+    params0, _ = _codon_freq_setup(aln, args.codon_freqs)
+    res = _on_card(
+        branch_site_test, tree, ca, fg, params0=params0,
+        engine_kwargs={"dtype": args.dtype, "pruner": args.pruner,
+                       "device": args.device},
+        max_steps=args.max_steps,
+    )
+    print(json.dumps({
+        "loglik_null": res["null"].loglik,
+        "loglik_alt": res["alt"].loglik,
+        "lrt": res["lrt"],
+        "alt_params": _to_json(res["alt"].params),
+    }))
+    return 0
+
+
+def cmd_clock_test(args) -> int:
+    """Molecular-clock LRT: strict clock vs unconstrained branch lengths."""
+    from phylo_utils_tpu_torch.clock import clock_test
+    from phylo_utils_tpu_torch.io import write_newick
+
+    out = _on_card(
+        clock_test, _read_tree(args.tree), _read_aln(args.alignment),
+        _get_model(args.model), ncat=args.ncat, max_steps=args.max_steps,
+        engine_kwargs={"device": args.device},
+    )
+    print(json.dumps({
+        "loglik_clock": out["null"].loglik,
+        "loglik_unconstrained": out["alt"].loglik,
+        "df": out["df"],
+        "lrt": out["lrt"],
+        "chronogram": write_newick(
+            out["null_engine"].chronogram(out["null"].params)),
+    }))
+    return 0
+
+
+def _calibrations(specs) -> Dict:
+    """--calibrate LEAF,...=AGE | LEAF,...=MIN:MAX -> {leaves: age or
+    (lo, hi)}."""
+    out = {}
+    for spec in specs:
+        if "=" not in spec:
+            raise SystemExit(
+                f"--calibrate {spec!r}: expected LEAF,...=AGE or "
+                "LEAF,...=MIN:MAX"
+            )
+        leaves, _, bounds = spec.partition("=")
+        key = tuple(s.strip() for s in leaves.split(","))
+        if ":" in bounds:
+            lo, _, hi = bounds.partition(":")
+            out[key] = (float(lo) if lo else None, float(hi) if hi else None)
+        else:
+            out[key] = float(bounds)
+    return out
+
+
+def cmd_date(args) -> int:
+    """Penalized-likelihood dating: relative, CV-lambda, or calibrated."""
+    from phylo_utils_tpu_torch.clock import (
+        cross_validate_lambda,
+        penalized_likelihood_dating,
+    )
+    from phylo_utils_tpu_torch.io import write_newick
+
+    tree = _read_tree(args.tree)
+    calibrations = _calibrations(args.calibrate)
+    lam, cv = args.lam, None
+    if args.cv_lambda:
+        grid = tuple(float(x) for x in args.cv_lambda.split(","))
+        cv = _on_card(cross_validate_lambda, tree, args.sites, lambdas=grid,
+                      root_age=args.root_age, steps=args.steps,
+                      device=args.device)
+        lam = cv["lambda"]
+    out = _on_card(
+        penalized_likelihood_dating, tree, args.sites,
+        root_age=args.root_age, lam=lam, steps=args.steps,
+        calibrations=calibrations or None, device=args.device,
+    )
+    payload = {
+        "lambda": lam,
+        "ages": {str(k): v for k, v in out["ages"].items()},
+        "max_calibration_violation": out["max_calibration_violation"],
+        "objective": out["objective"],
+        "chronogram": write_newick(out["chronogram"]),
+    }
+    if cv is not None:
+        payload["cv_scores"] = {str(k): v for k, v in cv["scores"].items()}
+    print(json.dumps(payload))
+    return 0
+
+
 def cmd_serve(args) -> int:
     from phylo_utils_tpu_torch.server import serve
 
@@ -883,6 +1042,18 @@ def main(argv=None) -> int:
     p.add_argument("--format", default="json", choices=["json", "phylip"])
     _add_device_arg(p)
     p.set_defaults(fn=cmd_distances)
+
+    p = sub.add_parser("ancestral", help="ancestral state reconstruction")
+    _add_engine_args(p)
+    p.add_argument("--full", action="store_true",
+                   help="emit full posterior tensors (large)")
+    p.add_argument("--out-fasta", dest="out_fasta",
+                   help="write MAP ancestral sequences as FASTA here")
+    p.add_argument("--joint", action="store_true",
+                   help="also run JOINT ML reconstruction (Pupko 2000 "
+                        "max-product DP); with --out-fasta the joint "
+                        "sequences go to <out>.joint")
+    p.set_defaults(fn=cmd_ancestral)
 
     p = sub.add_parser("bootstrap", help="bootstrap logL replicates")
     _add_engine_args(p)
@@ -1032,6 +1203,64 @@ def main(argv=None) -> int:
     p.add_argument("--pruner", default="torch", choices=["torch", "cuda"])
     _add_device_arg(p)
     p.set_defaults(fn=cmd_site_test)
+
+    p = sub.add_parser(
+        "branch-site-test",
+        help="branch-site Model A LRT (foreground lineage selection)",
+    )
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alignment", required=True,
+                   help="in-frame codon alignment (FASTA/PHYLIP)")
+    p.add_argument("--foreground", required=True,
+                   help="comma-separated node names marking foreground edges")
+    p.add_argument("--clade", action="store_true",
+                   help="treat --foreground names as a clade (mark the whole "
+                        "subtree under their MRCA)")
+    p.add_argument("--codon-freqs", default="f3x4",
+                   choices=["f3x4", "f1x4", "f61", "uniform"],
+                   help="empirical codon frequencies, held fixed "
+                        "(codeml CodonFreq; 'uniform' frees the whole "
+                        "shared block instead)")
+    p.add_argument("--max-steps", type=int, default=200)
+    p.add_argument("--dtype", default=None)
+    p.add_argument("--pruner", default="torch", choices=["torch", "cuda"])
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_branch_site_test)
+
+    p = sub.add_parser(
+        "clock-test",
+        help="molecular-clock LRT (strict clock vs free branch lengths)",
+    )
+    p.add_argument("--tree", required=True)
+    p.add_argument("--alignment", required=True)
+    p.add_argument("--model", default="GTR")
+    p.add_argument("--ncat", type=int, default=1)
+    p.add_argument("--max-steps", type=int, default=200)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_clock_test)
+
+    p = sub.add_parser(
+        "date",
+        help="penalized-likelihood divergence dating (Sanderson/r8s)",
+    )
+    p.add_argument("--tree", required=True,
+                   help="fitted phylogram (lengths in subs/site)")
+    p.add_argument("--sites", type=int, required=True,
+                   help="alignment length the phylogram was fitted on")
+    p.add_argument("--lam", type=float, default=1.0,
+                   help="rate-autocorrelation smoothing strength")
+    p.add_argument("--cv-lambda", default=None,
+                   help="comma list of lambdas: pick by Sanderson "
+                        "cross-validation instead of --lam")
+    p.add_argument("--root-age", type=float, default=1.0,
+                   help="relative-mode root age (ignored with --calibrate)")
+    p.add_argument("--calibrate", action="append", default=[],
+                   metavar="LEAF,LEAF,...=AGE | LEAF,...=MIN:MAX",
+                   help="absolute age (or min:max interval) for the MRCA "
+                        "of the listed leaves; repeatable")
+    p.add_argument("--steps", type=int, default=2000)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_date)
 
     p = sub.add_parser(
         "supports", help="aLRT / SH-aLRT branch supports (NNI-based)"

@@ -35,6 +35,7 @@ from phylo_utils_tpu_torch.convert import (
 )
 from phylo_utils_tpu_torch.models.base import Eigen, Model
 from phylo_utils_tpu_torch.ops.cuda_pruning import (
+    WalkSchedule,
     make_cuda_prune_fn,
     make_fused_loglik_fn,
 )
@@ -52,7 +53,7 @@ from phylo_utils_tpu_torch.ops.pruning import (
 )
 
 __all__ = ["LikelihoodEngine", "GammaMixture", "rate_categories",
-           "mixture_rates_and_p", "validate_param_keys"]
+           "mixture_rates_and_p", "validate_param_keys", "root_split"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -174,6 +175,19 @@ def validate_param_keys(params, full, where: str,
             )
 
 
+def root_split(tree, names) -> list:
+    """[{("branch_lengths",): +1 at the root's first child, -1 at its
+    second}] when the branch lengths are free and the root has two
+    children, else []: under a reversible, stationary model only the sum
+    of the two root edges is identifiable."""
+    kids = tree.children[tree.root]
+    if ("branch_lengths",) not in names or len(kids) != 2:
+        return []
+    v = np.zeros(tree.n_nodes)
+    v[kids[0]], v[kids[1]] = 1.0, -1.0
+    return [{("branch_lengths",): v}]
+
+
 # set by ``utils.metrics.enable_debug_checks``: an engine's value or
 # gradient that holds a NaN raises FloatingPointError
 DEBUG_NANS = False
@@ -285,9 +299,11 @@ class LikelihoodEngine:
                     stacklevel=2,
                 )
             # value and gradient of the base engine in one Function; the
-            # engines that take the root partials prune through _prune
-            self._fused_ll = make_fused_loglik_fn(self.schedule)
-            self._prune = make_cuda_prune_fn(self.schedule)
+            # engines that take the root partials prune through _prune,
+            # and the ancestral down pass walks _walk through B2
+            self._walk = WalkSchedule(self.schedule)
+            self._fused_ll = make_fused_loglik_fn(self.schedule, self._walk)
+            self._prune = make_cuda_prune_fn(self.schedule, self._walk)
         elif pruner == "torch":
             self._prune = make_prune_fn(self.schedule)
         else:
@@ -395,13 +411,25 @@ class LikelihoodEngine:
 
     # -- core computation ----------------------------------------------------
 
+    def _mixture_tensors(self, params, dtype, eig=None, rates=None):
+        """Hook: (rates, cat_weights, p, freqs) for this engine's mixture.
+
+        ``p`` is the (n_nodes, K, S, S) batch of per-edge-per-category
+        transition matrices. Subclasses whose P(t) varies per EDGE as well
+        as per category (branch models: per-edge omega classes) or whose
+        branch lengths derive from other parameters (the clock) override
+        only this: the value and gradient (the fused kernels under
+        ``pruner="cuda"``), the fits and the ancestral analyses all flow
+        through it unchanged."""
+        return mixture_rates_and_p(self, params, dtype, eig=eig, rates=rates)
+
     def _loglik_fn(self, params, leaf_partials, weights, eig=None,
                    rates=None):
         dtype, rdt = self.dtype, self._reduce_dtype
         # P(t), rates, weights, freqs built in the high-precision dtype;
         # only the pruning pass itself runs in `dtype`.
-        _, cat_weights, p, freqs = mixture_rates_and_p(
-            self, params, rdt, eig=eig, rates=rates
+        _, cat_weights, p, freqs = self._mixture_tensors(
+            params, rdt, eig=eig, rates=rates
         )
         pinv = params.get("pinv") if self.invariant_sites else None
         inv = (
@@ -421,6 +449,16 @@ class LikelihoodEngine:
             root_partials.to(rdt), root_logscale.to(rdt), freqs,
             cat_weights, weights.to(rdt), pinv=pinv, inv_lik=inv,
         )
+
+    def _flat_directions(self, names, leaves):
+        """Directions of the free parameters (``names``, ``leaves`` as
+        ``fisher_covariance`` flattens them) along which the likelihood is
+        flat for every data set: a list of {key path: array of the leaf's
+        shape}. Here the split of a two-child root's edges under a
+        reversible model (the pulley principle)."""
+        if not self.model.reversible:
+            return []
+        return root_split(self.tree, names)
 
     # -- public API ----------------------------------------------------------
 

@@ -174,10 +174,12 @@ class ModelMixtureEngine(LikelihoodEngine):
                            for i in range(sym_k.shape[0])])
         return extend_p_identity(p_k.transpose(0, 1), self.schedule.n_nodes)
 
-    def _mixture_tensors(self, params, dtype):
+    def _mixture_tensors(self, params, dtype, eig=None, rates=None):
         """(class rates, cat_weights, P (n_nodes, K, S, S), per-class
-        frequencies (K, S)) in ``dtype``: what ``_loglik_fn`` and
-        ``category_posteriors`` share."""
+        frequencies (K, S)) in ``dtype``: what ``_loglik_fn``,
+        ``category_posteriors`` and the ancestral analyses share. ``eig``
+        and ``rates`` (the base engine's caches) do not apply to a mixture
+        and are ignored."""
         mixture, cat_weights = self._category_model_params(params)
         t = params["branch_lengths"].to(dtype)                # (n_nodes,)
         sym_k, freqs_k = self._class_syms_freqs(mixture, dtype)

@@ -1892,7 +1892,7 @@ class _PaddedLeaves:
         return self._padded
 
 
-def make_fused_loglik_fn(schedule: PruningSchedule):
+def make_fused_loglik_fn(schedule: PruningSchedule, walk=None):
     """Counterpart of the whole-tree ``pallas_pruning.make_pallas_loglik_fn``.
 
     Returns ``f(p_matrices (B?, n_nodes, K, S, S), leaf_partials
@@ -1922,9 +1922,10 @@ def make_fused_loglik_fn(schedule: PruningSchedule):
     leaves with zero columns (kept across calls), ``freqs`` with zeros. The
     padded states stay exact zeros through every walk, so the real states'
     fmaf chains and the rescale's maximum are those of the unpadded walk,
-    and the gradients are sliced back to S.
+    and the gradients are sliced back to S. ``walk``: the schedule's
+    ``WalkSchedule`` where the caller keeps one (the engine's).
     """
-    walk = WalkSchedule(schedule)
+    walk = WalkSchedule(schedule) if walk is None else walk
     pad_leaves = _PaddedLeaves()
 
     def fused_ll(p_matrices, leaf_partials, freqs):
@@ -2001,7 +2002,7 @@ class _CudaPrune(torch.autograd.Function):
         return dp, dleaf, None, None
 
 
-def make_cuda_prune_fn(schedule: PruningSchedule):
+def make_cuda_prune_fn(schedule: PruningSchedule, walk=None):
     """Counterpart of ``pallas_pruning.make_pallas_prune_fn``: the pruning
     function of the engines that take the root partials themselves (model
     and profile mixtures).
@@ -2018,9 +2019,10 @@ def make_cuda_prune_fn(schedule: PruningSchedule):
     saved inputs, as ``make_pallas_prune_fn`` replays the XLA pruner.
     A state count that is not compiled is padded with zero states to
     ``padded_states`` as in ``make_fused_loglik_fn`` (the leaves kept across
-    calls), and the root partials are sliced back to S.
+    calls), and the root partials are sliced back to S. ``walk`` as in
+    ``make_fused_loglik_fn``.
     """
-    walk = WalkSchedule(schedule)
+    walk = WalkSchedule(schedule) if walk is None else walk
     plain = make_prune_fn(schedule)
     pad_leaves = _PaddedLeaves()
 

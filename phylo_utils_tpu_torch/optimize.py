@@ -452,7 +452,10 @@ def fisher_covariance(
     takes the difference: P(t)'s reverse rule holds the eigensystem
     constant, which is exact once but not twice, so it refuses a second
     derivative. ``pruner="cuda"`` always takes the difference: the
-    kernels' Function has no second derivative.
+    kernels' Function has no second derivative. On the difference path
+    the directions along which the likelihood is flat for every data set
+    (``_flat_basis``) are left out of the inverse, where the exact
+    Hessian's ``pinv`` drops them: the entries then read as JAX's.
     """
     base = engine._full_params(params)
     if free is None:
@@ -477,6 +480,7 @@ def fisher_covariance(
         total, _ = engine._loglik_fn(full, lp, w, eig=eig, rates=rates)
         return -total.to(torch.float64)
 
+    flat = None
     try:
         with torch.enable_grad():
             h = torch.autograd.functional.hessian(negll, vec)
@@ -488,13 +492,54 @@ def fisher_covariance(
         # differences OF THE EXACT GRADIENT, the standard "numerical
         # observed information from analytic scores"
         h = _hessian_fd_of_gradient(negll, vec, fd_step(engine.dtype))
+        flat = _flat_basis(engine, names, leaves, sizes, h)
     h = 0.5 * (h + h.T)
     n = vec.numel()
     finite = np.isfinite(h).all(axis=0) & np.isfinite(h).all(axis=1)
     cov = np.full((n, n), np.nan)
     if finite.any():
-        cov[np.ix_(finite, finite)] = np.linalg.pinv(h[np.ix_(finite, finite)])
+        hf = h[np.ix_(finite, finite)]
+        if flat is None:
+            cov[np.ix_(finite, finite)] = np.linalg.pinv(hf)
+        else:
+            q = _complement(flat[finite])
+            cov[np.ix_(finite, finite)] = (
+                q @ np.linalg.pinv(q.T @ hf @ q) @ q.T)
     return cov, (names, leaves, sizes)
+
+
+def _flat_basis(engine, names, leaves, sizes, h: np.ndarray) -> np.ndarray:
+    """(n, m) directions of the flattened free parameters along which the
+    likelihood is flat for every data set: the engine's
+    (``_flat_directions``: a two-child root's edge split under a reversible
+    model, the partition rates' common scale) and each parameter the
+    likelihood never reads (an exactly zero row and column of the
+    difference Hessian, as in the exact one). An exact Hessian is zero
+    along them; central differences of the gradient there are noise, which
+    ``pinv`` would invert, so ``fisher_covariance`` inverts the Hessian on
+    their orthogonal complement instead."""
+    offsets = dict(zip(names, np.cumsum([0] + sizes[:-1])))
+    n = sum(sizes)
+    cols = []
+    hook = getattr(engine, "_flat_directions", None)
+    for direction in (hook(names, leaves) if hook else []):
+        v = np.zeros(n)
+        for path, d in direction.items():
+            d = np.asarray(d, np.float64).reshape(-1)
+            v[offsets[path]:offsets[path] + d.size] = d
+        cols.append(v)
+    for i in np.flatnonzero((h == 0).all(axis=0) & (h == 0).all(axis=1)):
+        cols.append(np.eye(n)[i])
+    return np.stack(cols, axis=1) if cols else np.zeros((n, 0))
+
+
+def _complement(u: np.ndarray) -> np.ndarray:
+    """Orthonormal basis (n, n - rank) of the complement of span(u)."""
+    if u.shape[1] == 0:
+        return np.eye(u.shape[0])
+    left, sv, _ = np.linalg.svd(u, full_matrices=True)
+    rank = int((sv > 1e-12 * sv.max()).sum()) if sv.size else 0
+    return left[:, rank:]
 
 
 def standard_errors(

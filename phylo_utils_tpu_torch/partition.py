@@ -42,6 +42,7 @@ from phylo_utils_tpu_torch.likelihood import (
     LikelihoodEngine,
     _check_nans,
     _value_key,
+    root_split,
 )
 from phylo_utils_tpu_torch.models.base import Eigen, Model, eigen_reversible
 from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
@@ -205,6 +206,19 @@ class PartitionedEngine:
                         cur[kk] = self._tensor(vv)
                 full["partitions"][pname] = cur
         return full
+
+    def _flat_directions(self, names, leaves):
+        """The likelihood's flat directions (see
+        ``LikelihoodEngine._flat_directions``): the split of a two-child
+        root's edges when every locus's model is reversible, and the
+        partition rates' common scale (their site-weighted mean is 1, so
+        the rates r and c r score the same)."""
+        out = (root_split(self.tree, names)
+               if all(p.model.reversible for p in self.partitions) else [])
+        if ("partition_rates",) in names:
+            r = leaves[names.index(("partition_rates",))]
+            out.append({("partition_rates",): r.to("cpu").numpy()})
+        return out
 
     def model_eigen(self, full_params):
         """None: each locus has its own model (``optimize.fit`` then builds

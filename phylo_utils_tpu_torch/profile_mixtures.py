@@ -120,8 +120,9 @@ class ProfileMixtureEngine(ModelMixtureEngine):
             params["class_rates"] = self._tensor(self._rates0)
         return params
 
-    def _mixture_tensors(self, params, dtype):
-        """Per-class P with the optional per-class branch-rate coupling."""
+    def _mixture_tensors(self, params, dtype, eig=None, rates=None):
+        """Per-class P with the optional per-class branch-rate coupling
+        (``eig`` and ``rates`` ignored, as in ``ModelMixtureEngine``)."""
         mixture, cat_weights = self._category_model_params(params)
         cat_weights = cat_weights.to(dtype)
         t = params["branch_lengths"].to(dtype)               # (n_nodes,)

@@ -19,8 +19,10 @@ POST /bootstrap         {"n": 100, "seed": 0}      -> {"logliks": [...]}
 POST /partitions        {"params": {...}?}         -> {"partitions": {name: x}}
                         (a partitioned engine; 501 for any other, and
                         /sitewise 501 for a partitioned one)
-POST /ancestral, /site_rates
-                        -> 501 until the port has them (ROADMAP A18)
+POST /ancestral         {"params": {...}?, "joint": bool?}
+                        -> {"map_states", "max_posterior"} (marginal), or
+                        with "joint" {"states", "log_prob", "category"}
+POST /site_rates        {"params": {...}?}         -> {"site_rates": [...]}
 """
 from __future__ import annotations
 
@@ -35,10 +37,8 @@ from phylo_utils_tpu_torch.convert import params_to_numpy
 
 __all__ = ["EngineServer", "serve"]
 
-_NOT_PORTED = {
-    "/ancestral": "ancestral reconstruction is not ported yet (ROADMAP A18)",
-    "/site_rates": "site rates are not ported yet (ROADMAP A18)",
-}
+# the JAX server's routes that the port does not have yet: none
+_NOT_PORTED: dict = {}
 
 
 def _tree_to_json(tree) -> dict:
@@ -121,6 +121,28 @@ class EngineServer:
                 return {"logliks": boots.tolist()}
             if route == "/gradient":
                 return {"gradient": _tree_to_json(engine.gradient(params))}
+            if route == "/ancestral":
+                from phylo_utils_tpu_torch.ancestral import (
+                    ancestral_posteriors,
+                    joint_ancestral_states,
+                )
+
+                if body.get("joint"):
+                    joint = joint_ancestral_states(engine, params)
+                    return {
+                        "states": joint["states"].tolist(),
+                        "log_prob": joint["log_prob"].tolist(),
+                        "category": joint["category"].tolist(),
+                    }
+                post = ancestral_posteriors(engine, params)
+                return {
+                    "map_states": post.argmax(axis=2).tolist(),
+                    "max_posterior": post.max(axis=2).tolist(),
+                }
+            if route == "/site_rates":
+                from phylo_utils_tpu_torch.ancestral import site_rates
+
+                return {"site_rates": site_rates(engine, params).tolist()}
             if route == "/fit":
                 from phylo_utils_tpu_torch.optimize import fit
 

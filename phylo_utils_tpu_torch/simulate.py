@@ -80,6 +80,13 @@ def _state_codes(model: Model) -> np.ndarray:
         len(states), -1)
 
 
+def _state_chars(model: Model) -> np.ndarray:
+    """(S,) per-state output strings (a codon state's are 3 characters): the
+    rows of ``_state_codes`` as text."""
+    return np.asarray([row.tobytes().decode("ascii")
+                       for row in _state_codes(model)])
+
+
 def _leaf_strings(tree: ptrees.Tree, chars: np.ndarray) -> Dict[str, str]:
     """name -> sequence of the (n_leaves, n_sites, width) uint8 chars."""
     return {name: chars[i].tobytes().decode("ascii")

@@ -1,7 +1,8 @@
 """The round's first done-condition, checkable: every public name of the
 JAX package's ``__init__`` (each name its ``from ... import`` statements
 bind) is either exported by ``phylo_utils_tpu_torch`` under the same name,
-or not ported yet and mapped here to the ROADMAP item that ports it. The
+or not ported yet and mapped here to the ROADMAP item that ports it (all
+67 are ported). The
 port exports nothing the JAX package lacks: a name beyond the JAX
 ``__init__``'s must be a public name of the JAX module that corresponds to
 the port module defining it (``fit_multistart`` of ``optimize``, ...).
@@ -15,15 +16,9 @@ import phylo_utils_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# each JAX public name the port does not export yet -> its ROADMAP item
-NOT_PORTED = {
-    # A18 part 2: the analyses
-    "BranchModelEngine": "A18", "BranchSiteAEngine": "A18",
-    "branch_site_test": "A18", "free_ratio_classes": "A18",
-    "mark_branches": "A18", "mark_clade": "A18", "ClockEngine": "A18",
-    "clock_test": "A18", "node_height_errors": "A18",
-    "ancestral_posteriors": "A18", "site_rate_posteriors": "A18",
-}
+# each JAX public name the port does not export yet -> its ROADMAP item:
+# none since the A18 analyses (ancestral, branch models, the clock)
+NOT_PORTED = {}
 
 
 def _imported_names(package: str):
@@ -49,7 +44,7 @@ def test_every_jax_name_is_ported_or_mapped_to_an_item():
     for item in set(NOT_PORTED.values()):       # an item of a queue
         assert re.search(rf"\*\*{item}\b", roadmap), item
     ported = [n for n in jax_names if n in port_names]
-    assert len(ported) == 56
+    assert len(ported) == 67
     for name in ported:
         assert hasattr(phylo_utils_tpu_torch, name), name
 

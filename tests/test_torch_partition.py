@@ -313,18 +313,22 @@ def test_simulate_partitions_rejects_freerate():
 
 
 def test_partitioned_standard_errors():
-    """standard_errors through PartitionedEngine: finite positive SEs for
-    the identifiable shared branch lengths and a nested per-partition
-    model parameter, against the JAX package's at the same parameters.
-    Tree-like data (simulated under the tree), so the MLE is interior.
+    """standard_errors through PartitionedEngine against the JAX package's
+    at the same parameters, every entry: finite positive SEs for the
+    identifiable shared branch lengths and a nested per-partition model
+    parameter, and JAX's values along the directions where the information
+    is flat for every data set. Tree-like data (simulated under the tree),
+    so the MLE is interior.
 
     The information is flat along the partition rates' common scale (their
-    site-weighted mean is 1) and along the split of the root's two edges.
-    JAX's Hessian is exact there and its pseudo-inverse drops those
-    directions; the port's is central differences of the gradient (its
-    P reverse rule has no second derivative), whose noise the same
-    pseudo-inverse inverts, so those entries are held to nothing here
-    (ROADMAP C)."""
+    site-weighted mean is 1), along the split of the root's two edges, and
+    in the root's own length, which the likelihood never reads. JAX's
+    Hessian is exact there and its pseudo-inverse drops those directions;
+    the port's Hessian is central differences of the gradient (its P
+    reverse rule has no second derivative), so ``fisher_covariance``
+    inverts it on their orthogonal complement: the root edges read JAX's
+    split SE, the partition rates JAX's SEs, and the root's own length nan
+    as in JAX."""
     newick = "((a:0.1,b:0.2):0.05,(c:0.3,d:0.15):0.07);"
     sim_eng = PartitionedEngine(newick, [
         Partition("g1", {t: "A" * 150 for t in "abcd"}, models.JC69),
@@ -341,9 +345,8 @@ def test_partitioned_standard_errors():
     bl = se["branch_lengths"]
     assert bl.shape == tuple(res.params["branch_lengths"].shape)
     assert se["partition_rates"].shape == (2,)
-    # the four edges below the root's children; the root's two edges and
-    # its pseudo-edge are flat or pinned
-    assert np.isfinite(bl[:4]).all() and (bl[:4] > 0).all()
+    assert np.isfinite(bl[:6]).all() and (bl[:6] > 0).all()
+    assert np.isnan(bl[6])
     kappa_se = float(se["partitions"]["g2"]["model"]["kappa"])
     assert np.isfinite(kappa_se) and kappa_se > 0
     jeng = jpart.PartitionedEngine(newick, [
@@ -352,9 +355,10 @@ def test_partitioned_standard_errors():
     want = _by_path(_jax_tree(jax_standard_errors(
         jeng, jeng._full_params(_numpy_params(res.params)))))
     got = _by_path(se)
-    for path, idx in ((("branch_lengths",), slice(0, 4)),
-                      (("partitions", "g2", "model", "kappa"), ())):
-        w = np.asarray(want[path])[idx]
-        assert np.isfinite(w).all()
-        np.testing.assert_allclose(np.asarray(got[path])[idx], w, rtol=1e-4,
-                                   err_msg=str(path))
+    assert set(got) == {p for p, w in want.items() if np.size(w)}
+    for path, g in got.items():
+        w = np.asarray(want[path])
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w),
+                                      err_msg=str(path))
+        np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)],
+                                   rtol=1e-4, err_msg=str(path))

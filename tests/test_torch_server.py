@@ -1,7 +1,8 @@
 """The port's HTTP server on the CPU: routes that are ported answer with the
 engine's own values (/gradient with ``engine.gradient``, /fit with the fit's
-re-evaluated logL); routes that are not return a clean 501; and the port
-imports no JAX."""
+re-evaluated logL, /ancestral and /site_rates with ``ancestral``'s);
+/partitions on an engine that is not partitioned returns a clean 501; and
+the port imports no JAX."""
 import json
 import os
 import subprocess
@@ -14,7 +15,13 @@ import pytest
 import torch
 
 from phylo_utils_tpu_torch import models
+from phylo_utils_tpu_torch.ancestral import (
+    ancestral_posteriors,
+    joint_ancestral_states,
+    site_rates,
+)
 from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+from phylo_utils_tpu_torch import server as server_module
 from phylo_utils_tpu_torch.server import EngineServer
 from phylo_utils_tpu_torch.trees import random_tree
 
@@ -119,10 +126,29 @@ def test_fit_route_returns_fit_loglik(server):
 
 @pytest.mark.parametrize("route", ["/ancestral", "/site_rates", "/partitions"])
 def test_unported_routes_return_501(server, route):
-    srv, _ = server
-    code, body = _post_status(srv, route, {"params": PARAMS})
-    assert code == 501
-    assert "not ported" in body["error"] or "requires" in body["error"]
+    """/partitions answers 501 on an engine that is not partitioned;
+    /ancestral and /site_rates, 501 until the port had them, now answer
+    with the library's values (``tests/test_torch_ancestral.py`` holds
+    those to JAX's)."""
+    srv, engine = server
+    assert server_module._NOT_PORTED == {}
+    if route == "/partitions":
+        code, body = _post_status(srv, route, {"params": PARAMS})
+        assert code == 501 and "requires" in body["error"]
+        return
+    out = _post(srv, route, {"params": PARAMS})
+    if route == "/site_rates":
+        np.testing.assert_array_equal(out["site_rates"],
+                                      site_rates(engine, PARAMS))
+        return
+    post = ancestral_posteriors(engine, PARAMS)
+    np.testing.assert_array_equal(out["map_states"], post.argmax(axis=2))
+    np.testing.assert_array_equal(out["max_posterior"], post.max(axis=2))
+    joint = _post(srv, route, {"params": PARAMS, "joint": True})
+    want = joint_ancestral_states(engine, PARAMS)
+    assert set(joint) == {"states", "log_prob", "category"}
+    for k in joint:
+        np.testing.assert_array_equal(joint[k], want[k])
 
 
 def test_errors_are_clean(server):
