@@ -241,19 +241,32 @@ all at once) and runs, in order, printing one line per phase:
     card; ``site_rate_posteriors`` under B8, B9 and B4; the CLI's
     ``ancestral --joint``, ``branch-site-test``, ``clock-test`` and
     ``date`` as subprocesses against the same calls in process, and the
-    server's ``/ancestral`` and ``/site_rates``.
+    server's ``/ancestral`` and ``/site_rates``;
+35. site sharding on one card (``_sharding_path``): 4 shards of the card
+    (``make_mesh(["cuda:0"] * 4)``, one contiguous pattern slice a shard)
+    at 64 taxa x 100,000 simulated GTR+G4+I sites, f32 ``pruner="cuda"``:
+    ``loglikelihood``, ``sitewise_loglikelihoods`` and ``value_and_grad``
+    against the unsharded engine on the card (one forward walk, one B2 and
+    one B3 a shard, counted), both engines' medians; a 3-step sharded fit
+    against the unsharded fit; phase 33's 48-locus stack through both
+    partitioned engines with ``sharding=``; phase 32's 64 NNI candidates
+    through ``TopologySetEngine(sharding=)``; the CLI's ``loglik
+    --shard-sites`` in process against the library; two ranks of
+    ``python -m phylo_utils_tpu_torch.parallel.multihost`` on gloo with
+    CUDA tensors and the dry run ``python -m
+    phylo_utils_tpu_torch.parallel.dryrun 4`` as subprocesses.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-34; the kernel-against-plain phases are not counted. The last two lines
+23-35; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
 launches (also by state count), the same at 64 states (``states_64``) and
 on phase 33's stack of loci (``batched_leaves``, its error against the
-plain version also as ``batched_leaf_err``), phase 34's launches
-(``launches_phase_34``), and
+plain version also as ``batched_leaf_err``), phase 34's and 35's launches
+(``launches_phase_34``, ``launches_phase_35``), and
 ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
@@ -387,6 +400,11 @@ CLI_PART_FIT_STEPS, PF_SUBSETS, PF_SITES, PF_STEPS = 3, 4, 200, 4
 # P(states, data) against f64, relative
 ANC_BEB_D, BS_TEST_STEPS, CLOCK_FIT_STEPS, DATE_STEPS = 10, 3, 40, 2000
 CLOCK_RTOL, JOINT_RTOL = 1e-6, 1e-6
+# the sharding path (phase 35): phases 5 and 9's shape (64 taxa x 100,000
+# DNA sites, GTR+G4+I, f32) on SHARDS shards of one card; the fit's L-BFGS
+# steps; calls a median; each rank's shards in the two-process run
+SHARD_TAXA, SHARD_SITES, SHARDS, SHARD_FIT_STEPS = 64, 100_000, 4, 3
+SHARD_REPS, RANK_SHARDS = 5, 2
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -1358,6 +1376,68 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
     return counts
 
 
+# phase 32's and 33's data, made once and read again by phase 35
+_DATA = {}
+
+
+def _search_data(dev):
+    """Phase 32's data: (true tree, SEARCH_SITES GTR+G4 sites simulated on
+    it, the NJ tree of their ML distances, the model parameters)."""
+    if "search" not in _DATA:
+        from phylo_utils_tpu_torch import models
+        from phylo_utils_tpu_torch.nj import neighbor_joining
+        from phylo_utils_tpu_torch.optimize import ml_distance_matrix
+        from phylo_utils_tpu_torch.simulate import simulate_alignment
+        from phylo_utils_tpu_torch.trees import random_tree
+
+        model_p = FLAGSHIP_PARAMS["model"]
+        truth = random_tree(SEARCH_TAXA, seed=32)
+        aln = simulate_alignment(32, truth, models.GTR, SEARCH_SITES,
+                                 params={**model_p, "alpha": 0.5}, ncat=4,
+                                 device=dev)
+        start = neighbor_joining(
+            ml_distance_matrix(aln, models.GTR, params=model_p,
+                               device=DEVICE), list(aln))
+        _DATA["search"] = (truth, aln, start,
+                           {"model": model_p, "alpha": 0.5})
+    return _DATA["search"]
+
+
+def _partition_data():
+    """Phase 33's multi-gene matrix: (tree, locus names, locus lengths, the
+    true parameters, {locus: alignment}, Partitions), simulated once."""
+    if "partitions" not in _DATA:
+        import numpy as np
+
+        from phylo_utils_tpu_torch import models
+        from phylo_utils_tpu_torch.partition import (
+            Partition,
+            PartitionedEngine,
+            simulate_partitions,
+        )
+        from phylo_utils_tpu_torch.trees import random_tree
+
+        tree = random_tree(PART_TAXA, seed=33)
+        rng = np.random.default_rng(33)
+        lengths = rng.integers(PART_MIN_SITES, PART_MAX_SITES + 1,
+                               PART_LOCI)
+        names = [f"locus{i:02d}" for i in range(PART_LOCI)]
+        truth = {
+            "partition_rates": rng.uniform(0.3, 3.0, PART_LOCI).tolist(),
+            "partitions": {n: {"model": {
+                "rates": rng.uniform(0.5, 4.0, 6).tolist(),
+                "freqs": rng.dirichlet(np.full(4, 8.0)).tolist()},
+                "alpha": float(rng.uniform(0.3, 2.0))} for n in names}}
+        holder = PartitionedEngine(tree, [
+            Partition(n, {t: "A" * int(k) for t in tree.leaf_names},
+                      models.GTR, ncat=4)
+            for n, k in zip(names, lengths)], device=DEVICE)
+        sim = simulate_partitions(33, holder, truth)
+        parts = [Partition(n, sim[n], models.GTR, ncat=4) for n in names]
+        _DATA["partitions"] = (tree, names, lengths, truth, sim, parts)
+    return _DATA["partitions"]
+
+
 def _search_path(dev, reset_counts, read_counts, smi):
     """Phase 32, topology sets, search and supports at full width (main
     path): 1000 GTR+G4 sites simulated on ``random_tree(SEARCH_TAXA,
@@ -1389,29 +1469,18 @@ def _search_path(dev, reset_counts, read_counts, smi):
     )
     from phylo_utils_tpu_torch.io import write_fasta, write_newick
     from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
-    from phylo_utils_tpu_torch.nj import neighbor_joining
-    from phylo_utils_tpu_torch.optimize import ml_distance_matrix
-    from phylo_utils_tpu_torch.simulate import simulate_alignment
     from phylo_utils_tpu_torch.trees import (
         nni_neighbors,
-        random_tree,
         robinson_foulds,
         spr_neighbors,
     )
 
     f32, f64 = torch.float32, torch.float64
     model_p = FLAGSHIP_PARAMS["model"]
-    params = {"model": model_p, "alpha": 0.5}
     stage_s = {}
     t0 = time.perf_counter()
-    truth = random_tree(SEARCH_TAXA, seed=32)
-    aln = simulate_alignment(32, truth, models.GTR, SEARCH_SITES,
-                             params={**model_p, "alpha": 0.5}, ncat=4,
-                             device=dev)
+    truth, aln, start, params = _search_data(dev)
     names = list(aln)
-    start = neighbor_joining(
-        ml_distance_matrix(aln, models.GTR, params=model_p, device=DEVICE),
-        names)
     stage_s["data"] = time.perf_counter() - t0
 
     # (a) 64 candidates, batched f64 against the plain and kernel engines
@@ -1746,7 +1815,6 @@ def _partition_path(dev, reset_counts, read_counts, smi):
         PartitionedEngine,
         StackedPartitionedEngine,
         partitions_from_file,
-        simulate_partitions,
     )
     from phylo_utils_tpu_torch.server import EngineServer
     from phylo_utils_tpu_torch.simulate import simulate_alignment
@@ -1759,21 +1827,7 @@ def _partition_path(dev, reset_counts, read_counts, smi):
     # B8 for this topology, built while the matrix is simulated
     b8_pool = concurrent.futures.ThreadPoolExecutor(1)
     b8_future = b8_pool.submit(walk.static_library, 4)
-    rng = np.random.default_rng(33)
-    lengths = rng.integers(PART_MIN_SITES, PART_MAX_SITES + 1, PART_LOCI)
-    names = [f"locus{i:02d}" for i in range(PART_LOCI)]
-    truth = {
-        "partition_rates": rng.uniform(0.3, 3.0, PART_LOCI).tolist(),
-        "partitions": {n: {"model": {
-            "rates": rng.uniform(0.5, 4.0, 6).tolist(),
-            "freqs": rng.dirichlet(np.full(4, 8.0)).tolist()},
-            "alpha": float(rng.uniform(0.3, 2.0))} for n in names}}
-    holder = PartitionedEngine(tree, [
-        Partition(n, {t: "A" * int(k) for t in tree.leaf_names}, models.GTR,
-                  ncat=4) for n, k in zip(names, lengths)], device=DEVICE)
-    sim = simulate_partitions(33, holder, truth)
-    del holder
-    parts = [Partition(n, sim[n], models.GTR, ncat=4) for n in names]
+    tree, names, lengths, truth, sim, parts = _partition_data()
     kw32 = dict(dtype=torch.float32, pruner="cuda", device=DEVICE)
     stacked = StackedPartitionedEngine(tree, parts, **kw32)
     general = PartitionedEngine(tree, parts, **kw32)
@@ -2740,6 +2794,280 @@ def _analyses_path(dev, reset_counts, read_counts, smi):
           cli_wall_s=walls, server=server_ok, stage_s=stage_s,
           seconds=time.perf_counter() - t_start)
     return counted
+
+
+def _sharding_path(dev, reset_counts, read_counts, smi):
+    """Phase 35, site sharding on one card (main path): SHARDS shards of
+    ``dev`` (``make_mesh([dev] * SHARDS)``), each a contiguous pattern
+    slice walked by the same kernels. (a) ``random_tree(SHARD_TAXA,
+    seed=0)`` x SHARD_SITES GTR+G4+I sites simulated here, f32
+    ``pruner="cuda"``: the sharded engine's ``loglikelihood``,
+    ``sitewise_loglikelihoods`` and ``value_and_grad`` against the
+    unsharded engine on the same card (logL and sitewise to LOGL_RTOL,
+    gradients to GRAD_TOL x max|g|), one forward walk (B1 or B4, as
+    ``choose_walk`` picks for a shard's shape) a shard a value call and
+    one B2 and one B3 a shard a gradient (counted); both engines' value
+    and gradient medians; (b) SHARD_FIT_STEPS L-BFGS steps of the sharded
+    fit against the unsharded fit (counted); (c) phase 33's 48-locus stack
+    with ``sharding=`` on ``StackedPartitionedEngine`` (value and
+    gradient) and ``PartitionedEngine`` (value) against the unsharded
+    stack (counted); (d) phase 32's 64 NNI candidates through
+    ``TopologySetEngine(sharding=)`` (f64, the plain level walk) against
+    the unsharded engine, logL to BATCHED_RTOL and gradients to 1e-8 x
+    max|g|; (e) the CLI's ``loglik --shard-sites --sitewise`` in process on
+    (a)'s file, its JSON equal to the same call made through the library
+    (counted); (f) side by side, as subprocesses: two ranks of
+    ``python -m phylo_utils_tpu_torch.parallel.multihost loglik`` on gloo
+    with CUDA tensors (RANK_SHARDS shards each, f32 ``pruner="cuda"``) on
+    (a)'s files, model and parameters: the global logL the same on both
+    ranks and within LOGL_RTOL of each rank's unsharded engine and of
+    (a)'s, the gathered sitewise values within LOGL_RTOL, each rank's
+    gradient within GRAD_TOL, ``from_process_local`` of each rank's half
+    equal to its engine's shards; and the dry run ``python -m
+    phylo_utils_tpu_torch.parallel.dryrun SHARDS``.
+    Returns the launch counts of (a), (b), (c) and (e)."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import cli as port_cli
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.batched import TopologySetEngine
+    from phylo_utils_tpu_torch.io import (
+        compress_patterns,
+        read_alignment,
+        write_fasta,
+        write_newick,
+    )
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+    from phylo_utils_tpu_torch.optimize import fit
+    from phylo_utils_tpu_torch.parallel import SiteSharding, make_mesh
+    from phylo_utils_tpu_torch.partition import (
+        PartitionedEngine,
+        StackedPartitionedEngine,
+    )
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+    from phylo_utils_tpu_torch.trees import nni_neighbors, random_tree
+
+    t0 = time.perf_counter()
+    stage_s = {}
+    f64 = torch.float64
+    dev_name = f"{dev.type}:0" if dev.type == "cuda" else "cpu"
+    sharding = SiteSharding(make_mesh([dev_name] * SHARDS))
+    params = FLAGSHIP_PARAMS
+    tree = random_tree(SHARD_TAXA, seed=0)
+    aln = simulate_alignment(35, tree, models.GTR, SHARD_SITES,
+                             params={**params["model"], "alpha": 0.5},
+                             ncat=4, pinv=0.1, device=dev)
+    ca = compress_patterns(aln, models.GTR.alphabet)
+    kw = dict(ncat=4, invariant_sites=True, dtype=torch.float32,
+              pruner="cuda", device=DEVICE)
+    single = LikelihoodEngine(tree, ca, models.GTR, **kw)
+    sharded = LikelihoodEngine(tree, ca, models.GTR, sharding=sharding, **kw)
+    lp = sharded._leaf_partials
+    _check(len(lp.shards) == SHARDS
+           and all(t.is_contiguous() and t.device.type == dev.type
+                   for t in lp.shards),
+           f"the shards are not {SHARDS} contiguous tensors on {dev}: {lp}")
+    stage_s["data"] = time.perf_counter() - t0
+
+    # (a) value, sitewise and gradient, counted -------------------------------
+    t1 = time.perf_counter()
+    reset_counts()
+    ll_d = sharded.loglikelihood(params)
+    sw_d = sharded.sitewise_loglikelihoods(params, per_pattern=True)
+    v_d, g_d = sharded.value_and_grad(params)
+    a_counts = read_counts()
+    reset_counts()
+    ll_s = single.loglikelihood(params)
+    sw_s = single.sitewise_loglikelihoods(params, per_pattern=True)
+    v_s, g_s = single.value_and_grad(params)
+    s_counts = read_counts()
+    value_rel = abs(ll_d - ll_s) / abs(ll_s)
+    sw_rel = float(np.abs(sw_d - sw_s).max() / np.abs(sw_s).max())
+    vg_rel = abs(float(v_d) - float(v_s)) / abs(float(v_s))
+    g_err = _grad_errors(g_d, g_s)
+    _check(max(value_rel, sw_rel, vg_rel) <= LOGL_RTOL
+           and max(g_err.values()) <= GRAD_TOL,
+           f"sharded against unsharded: logL rel {value_rel:.3e}, sitewise "
+           f"{sw_rel:.3e}, value_and_grad {vg_rel:.3e}, gradients {g_err}")
+    forwards = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
+                "STATIC_LAUNCHES", "FOLD_LAUNCHES")
+    _check(sum(a_counts[k] for k in forwards) == 2 * SHARDS
+           and a_counts["SAVEALL_LAUNCHES"] == SHARDS
+           and a_counts["REVERSE_LAUNCHES"] == SHARDS,
+           f"not one forward walk a shard a value call and one B2 and B3 a "
+           f"shard a gradient: {a_counts} (unsharded: {s_counts})")
+    times = {}
+    for label, eng in (("unsharded", single), ("sharded", sharded),
+                       ("sharded_again", sharded),
+                       ("unsharded_again", single)):
+        times[label] = {
+            "value_ms": _median_ms(lambda: eng.loglikelihood(params),
+                                   SHARD_REPS),
+            "value_and_grad_ms": _median_ms(
+                lambda: eng.value_and_grad(params), SHARD_REPS)}
+    stage_s["engine"] = time.perf_counter() - t1
+
+    # (b) the sharded fit against the unsharded fit, counted ------------------
+    t1 = time.perf_counter()
+    reset_counts()
+    res_d = fit(sharded, params, max_steps=SHARD_FIT_STEPS)
+    b_counts = read_counts()
+    res_s = fit(single, params, max_steps=SHARD_FIT_STEPS)
+    fit_rel = abs(res_d.loglik - res_s.loglik) / abs(res_s.loglik)
+    _check(res_d.loglik > res_d.trace[0] and fit_rel <= LOGL_RTOL,
+           f"sharded fit {res_d.loglik} (start {res_d.trace[0]}) against "
+           f"unsharded {res_s.loglik}: rel {fit_rel:.3e}")
+    stage_s["fit"] = time.perf_counter() - t1
+    del single
+
+    # (c) phase 33's stack of loci, sharded, counted --------------------------
+    t1 = time.perf_counter()
+    ptree, names, _, truth, _, parts = _partition_data()
+    kw32 = dict(dtype=torch.float32, pruner="cuda", device=DEVICE)
+    stack = StackedPartitionedEngine(ptree, parts, **kw32)
+    stack_d = StackedPartitionedEngine(ptree, parts, sharding=sharding, **kw32)
+    general_d = PartitionedEngine(ptree, parts, sharding=sharding, **kw32)
+    reset_counts()
+    pll_d = stack_d.loglikelihood(truth)
+    pv_d, pg_d = stack_d.value_and_grad(truth)
+    gll_d = general_d.loglikelihood(truth)
+    c_counts = read_counts()
+    pll = stack.loglikelihood(truth)
+    _, pg = stack.value_and_grad(truth)
+    per = stack.partition_loglikelihoods(truth)
+    per_d = stack_d.partition_loglikelihoods(truth)
+    stack_rel = max(abs(x - pll) / abs(pll) for x in (pll_d, float(pv_d),
+                                                      gll_d))
+    per_rel = max(abs(per_d[n] - per[n]) / abs(per[n]) for n in names)
+    stack_g = _grad_errors(pg_d, pg)
+    _check(stack_rel <= LOGL_RTOL and per_rel <= LOGL_RTOL
+           and max(stack_g.values()) <= GRAD_TOL,
+           f"sharded stack: logL rel {stack_rel:.3e}, per locus "
+           f"{per_rel:.3e}, gradients {stack_g}")
+    _check(sum(c_counts[k] for k in forwards) >= 2 * SHARDS
+           and c_counts["SAVEALL_LAUNCHES"] == SHARDS
+           and c_counts["REVERSE_LAUNCHES"] == SHARDS,
+           f"the sharded stack's walks: {c_counts}")
+    stack_times = {
+        "sharded_value_ms": _median_ms(lambda: stack_d.loglikelihood(truth),
+                                       SHARD_REPS),
+        "value_ms": _median_ms(lambda: stack.loglikelihood(truth),
+                               SHARD_REPS)}
+    padded = int(stack_d._weights.shape[1])
+    del stack, stack_d, general_d
+    stage_s["partitions"] = time.perf_counter() - t1
+
+    # (d) phase 32's 64 NNI candidates, sharded -------------------------------
+    t1 = time.perf_counter()
+    _, saln, start, sparams = _search_data(dev)
+    cands = [start] + nni_neighbors(start)[:SEARCH_CHUNK - 1]
+    tse = TopologySetEngine(cands, saln, models.GTR, ncat=4, device=DEVICE)
+    tse_d = TopologySetEngine(cands, saln, models.GTR, ncat=4, device=DEVICE,
+                              sharding=sharding)
+    lls, lls_d = tse.loglikelihoods(sparams), tse_d.loglikelihoods(sparams)
+    tse_rel = float(np.max(np.abs(lls_d - lls) / np.abs(lls)))
+    tse_g = _grad_errors(tse_d.gradients(sparams), tse.gradients(sparams))
+    _check(tse_rel <= BATCHED_RTOL and max(tse_g.values()) <= 1e-8,
+           f"sharded candidates: logL rel {tse_rel:.3e}, gradients {tse_g}")
+    tse_times = {"sharded_ms": _median_ms(
+        lambda: tse_d.loglikelihoods(sparams), 3), "unsharded_ms":
+        _median_ms(lambda: tse.loglikelihoods(sparams), 3)}
+    del tse, tse_d
+    stage_s["candidates"] = time.perf_counter() - t1
+
+    # (e) the CLI's --shard-sites in process, counted; (f) two ranks and the
+    # dry run, as subprocesses side by side ----------------------------------
+    t1 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "shard.fa")
+        tree_path = os.path.join(tmp, "shard.nwk")
+        write_fasta(aln, path=fasta)
+        Path(tree_path).write_text(write_newick(tree))
+        procs = {"dryrun": subprocess.Popen(
+            [sys.executable, "-m", "phylo_utils_tpu_torch.parallel.dryrun",
+             str(SHARDS), "--device", dev.type], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        # (a)'s data, model and parameters, each rank on its half
+        for rank in range(2):
+            procs[f"rank{rank}"] = subprocess.Popen(
+                [sys.executable, "-m",
+                 "phylo_utils_tpu_torch.parallel.multihost", "loglik",
+                 str(rank), "2", port, "--device", dev_name, "--pruner",
+                 "cuda", "--dtype", "float32", "--shards",
+                 str(RANK_SHARDS), "--tree", tree_path, "--alignment",
+                 fasta, "--invariant-sites", "--params",
+                 json.dumps(params)], cwd=REPO, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        args = ["loglik", "--tree", tree_path, "--alignment", fasta,
+                "--model", "GTR+G4+I", "--params", json.dumps(params),
+                "--dtype", "float32", "--pruner", "cuda", "--device",
+                dev.type, "--sitewise", "--shard-sites"]
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = port_cli.main(args)
+        e_counts = read_counts()
+        _check(rc == 0, f"loglik --shard-sites returned {rc}")
+        got = json.loads(out.getvalue())
+        library = LikelihoodEngine(
+            tree, read_alignment(fasta), models.GTR, sharding=SiteSharding(
+                make_mesh(["cpu"] if dev.type == "cpu" else None)), **kw)
+        want = {"loglik": library.loglikelihood(params),
+                "sitewise": library.sitewise_loglikelihoods(params).tolist()}
+        _check(got == want and sum(e_counts[k] for k in forwards) >= 1,
+               f"loglik --shard-sites: {got['loglik']} against the "
+               f"library's {want['loglik']} (sitewise equal: "
+               f"{got['sitewise'] == want['sitewise']}), {e_counts}")
+        _check(abs(got["loglik"] - ll_s) / abs(ll_s) <= LOGL_RTOL,
+               f"loglik --shard-sites {got['loglik']} against {ll_s}")
+        del library
+        results = {}
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            _check(proc.returncode == 0,
+                   f"{name} exited {proc.returncode}: {stderr[-3000:]}")
+            results[name] = json.loads(stdout.strip().splitlines()[-1])
+    ranks = [results["rank0"], results["rank1"]]
+    _check(all(r["backend"] == "gloo" and r["ingest_equal"]
+               and r["global_shards"] == 2 * RANK_SHARDS
+               and r["sitewise_patterns"] == ca.n_patterns for r in ranks)
+           and ranks[0]["sharded_loglik"] == ranks[1]["sharded_loglik"]
+           and all(max(abs(r["sharded_loglik"] - r["local_loglik"])
+                       / abs(r["local_loglik"]),
+                       abs(r["sharded_loglik"] - ll_s) / abs(ll_s),
+                       r["sitewise_max_rel"]) <= LOGL_RTOL
+                   and r["grad_max_rel"] <= GRAD_TOL for r in ranks),
+           f"two ranks on one card against (a)'s unsharded {ll_s}: {ranks}")
+    stage_s["cli_ranks_dryrun"] = time.perf_counter() - t1
+    _emit(35, path="sharding", card=smi, shards=SHARDS,
+          devices=[str(d) for d in sharding.devices], taxa=SHARD_TAXA,
+          sites=SHARD_SITES, patterns=int(ca.n_patterns),
+          padded_patterns=int(lp.shape[1]), loglik=ll_d,
+          loglik_rel_err=value_rel, sitewise_rel_err=sw_rel,
+          value_and_grad_rel_err=vg_rel, grad_rel_err=g_err,
+          launches=a_counts, unsharded_launches=s_counts, times_ms=times,
+          fit={"steps": SHARD_FIT_STEPS, "loglik": res_d.loglik,
+               "unsharded_loglik": res_s.loglik, "rel_err": fit_rel,
+               "launches": b_counts},
+          stack={"loci": len(names), "padded_patterns": padded,
+                 "loglik_rel_err": stack_rel, "per_locus_rel_err": per_rel,
+                 "grad_rel_err": stack_g, "launches": c_counts,
+                 **stack_times},
+          candidates={"n": len(cands), "loglik_rel_err": tse_rel,
+                      "grad_rel_err": tse_g, **tse_times},
+          cli={"launches": e_counts}, two_ranks={"backend": "gloo",
+                                                 "ranks": ranks},
+          dryrun=results["dryrun"], stage_s=stage_s)
+    return a_counts, b_counts, c_counts, e_counts
 
 
 def main():
@@ -5092,6 +5420,9 @@ def main():
     # 34. ancestral reconstruction, branch models and the clock, main path
     analyses_counts = _analyses_path(dev, reset_counts, read_counts, smi)
 
+    # 35. site sharding on one card, main path ----------------------------
+    shard_counts = _sharding_path(dev, reset_counts, read_counts, smi)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
@@ -5100,7 +5431,7 @@ def main():
                    b4_counts, b7_counts, b8_counts, b9_counts,
                    *mk_counts.values(), cli_counts_28, cw_counts,
                    boot_counts, site_counts, search_counts, *part_counts,
-                   *analyses_counts)
+                   *analyses_counts, *shard_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -5123,6 +5454,8 @@ def main():
                  "launches_by_states": launches_by_states(counter),
                  "launches_phase_34": sum(c[counter]
                                           for c in analyses_counts),
+                 "launches_phase_35": sum(c[counter]
+                                          for c in shard_counts),
                  "max_abs_err": err,
                  "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                  "bound_ms": bound_ms, "bound_by": bound_by,

@@ -35,6 +35,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from phylo_utils_tpu_torch.parallel.sharding import gather_sites
 from phylo_utils_tpu_torch.trees import PruningSchedule
 
 __all__ = [
@@ -225,7 +226,8 @@ def ancestral_posteriors(
     schedule = engine.schedule
     full = engine._full_params(params)
     rdt = engine._reduce_dtype
-    leaf_partials = engine._leaf_partials
+    # the whole (padded) pattern axis of a sharded engine
+    leaf_partials = gather_sites(engine._leaf_partials, engine.device)
     with torch.no_grad():
         # engine hook: per-edge-per-category P and the mixture weights;
         # branch-model and model-mixture engines plug in here too (the
@@ -372,7 +374,8 @@ def joint_ancestral_states(
     schedule = engine.schedule
     full = engine._full_params(params)
     rdt = engine._reduce_dtype
-    leaf_partials = engine._leaf_partials
+    # the whole (padded) pattern axis of a sharded engine
+    leaf_partials = gather_sites(engine._leaf_partials, engine.device)
     device = leaf_partials.device
     with torch.no_grad():
         _, cat_weights, p, freqs = engine._mixture_tensors(full, rdt)

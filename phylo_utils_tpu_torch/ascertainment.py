@@ -141,7 +141,7 @@ class AscertainmentEngine(LikelihoodEngine):
             log_v = torch.logsumexp(sw_const, dim=-1)
             # log(1 - V) via expm1: accurate as V -> 1 (tiny trees)
             log_denom = torch.log(-torch.expm1(log_v))
-            n_sites = torch.sum(weights).to(rdt)
+            n_sites = weights.sum().to(device=total.device, dtype=rdt)
             return total - n_sites * log_denom, sw - log_denom[..., None]
         if self.correction == "felsenstein":
             log_v = torch.logsumexp(sw_const, dim=-1)

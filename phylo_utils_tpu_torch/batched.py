@@ -32,6 +32,7 @@ from phylo_utils_tpu_torch.likelihood import (
     validate_param_keys,
 )
 from phylo_utils_tpu_torch.models.base import Eigen, Model
+from phylo_utils_tpu_torch.ops.cuda_pruning import _on_device
 from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
 from phylo_utils_tpu_torch.ops.pmatrix import (
     extend_p_identity,
@@ -44,6 +45,7 @@ from phylo_utils_tpu_torch.ops.pruning import (
     mixture_loglik,
     pow2_rescale,
 )
+from phylo_utils_tpu_torch.parallel.sharding import map_sites, place
 
 __all__ = ["pad_schedules", "TopologySetEngine", "optimize_branch_lengths",
            "chunked_brlen_optimize", "nni_hill_climb",
@@ -263,7 +265,10 @@ class TopologySetEngine:
 
     ``dtype``: partials dtype (None = float64); P(t), the rates and the
     root reduction run in float64. ``device``: "cuda" (default; raises
-    where there is no card) or "cpu". ``sharding`` is not ported (A12).
+    where there is no card) or "cpu". ``sharding``
+    (``parallel.SiteSharding``): the patterns are padded and sharded over
+    its mesh; every candidate's walk runs shard by shard on the replicated
+    schedules and P, reduced once (``parallel.sharding.map_sites``).
     """
 
     def __init__(
@@ -280,11 +285,8 @@ class TopologySetEngine:
         regroup="auto",
         device="cuda",
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding is not ported to phylo_utils_tpu_torch yet "
-                "(ROADMAP A12)")
         self.model = model
+        self.sharding = sharding
         self.ncat = int(ncat)
         self.median = bool(median)
         self.dtype = _canonical_dtype(dtype)
@@ -309,10 +311,9 @@ class TopologySetEngine:
                 site_to_pattern=np.arange(arr.shape[1], dtype=np.int32),
             )
         self._compressed = ca
-        self._leaf_partials = torch.from_numpy(
-            np.ascontiguousarray(ca.partials)).to(self.device).to(self.dtype)
-        self._weights = torch.as_tensor(ca.weights, dtype=torch.float64,
-                                        device=self.device)
+        self._leaf_partials, self._weights = place(
+            sharding, ca.partials, ca.weights, self.device, self.dtype,
+            torch.float64)
         # padded (L, W, C) dims; grow monotonically so a pinned shape keeps
         # serving later candidate sets (pad_to pins the minimum)
         self._pad_dims = pad_to
@@ -379,7 +380,24 @@ class TopologySetEngine:
         self._brlens0 = torch.as_tensor(
             np.stack([t.lengths for t in trees]), dtype=self.dtype,
             device=dev)
+        # the schedule and permutation on each other shard device
+        self._walk_on = {}
         return self
+
+    def _walk_arrays(self, device: torch.device):
+        """(schedule arrays, leaf permutation) on ``device``: the engine's
+        own, or copies made once per candidate set for a shard device."""
+        if device == self._leaf_perm.device:
+            return self._sched, self._leaf_perm
+        sched = self._sched
+        child_rows, mask, perm, *levels = _on_device(
+            self._walk_on, device, (sched["child_rows"], sched["mask"],
+                                    self._leaf_perm,
+                                    *(a for lvl in sched["levels"]
+                                      for a in lvl)))
+        return ({"child_rows": child_rows, "mask": mask,
+                 "levels": [tuple(levels[i:i + 4])
+                            for i in range(0, len(levels), 4)]}, perm)
 
     def _tensor(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=self.dtype, device=self.device)
@@ -448,10 +466,18 @@ class TopologySetEngine:
                 Eigen(evals=None, evecs=None, ivecs=None, freqs=freqs, q=q),
                 ts)
         p = extend_p_identity(p, self.n_nodes).to(self.dtype)
-        leaves = self._leaf_partials[self._leaf_perm]        # (B, n_leaves, P, S)
-        rp, rsc = _prune_dynamic(self._sched, p, leaves, self.root)
+        return map_sites(self._block_loglik, (p, freqs, cat_weights),
+                         self._leaf_partials, self._weights, self.device)
+
+    def _block_loglik(self, p, freqs, cat_weights, leaf_partials, weights):
+        """(totals (B,), sitewise (B, P)) of one block of patterns (all of
+        them, or one shard) for every candidate."""
+        rdt = torch.float64
+        sched, perm = self._walk_arrays(leaf_partials.device)
+        leaves = leaf_partials[perm]                         # (B, n_leaves, P, S)
+        rp, rsc = _prune_dynamic(sched, p, leaves, self.root)
         return mixture_loglik(rp.to(rdt), rsc.to(rdt), freqs, cat_weights,
-                              self._weights)
+                              weights)
 
     def _eval(self, params):
         full = self._full_params(params)

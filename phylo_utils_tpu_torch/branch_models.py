@@ -39,6 +39,7 @@ from phylo_utils_tpu_torch.ops.pmatrix import (
     extend_p_identity,
     p_matrices_reversible,
 )
+from phylo_utils_tpu_torch.parallel.sharding import gather_sites
 from phylo_utils_tpu_torch.trees import Tree
 
 __all__ = [
@@ -578,7 +579,8 @@ def beb_branch_site(engine: "BranchSiteAEngine",
     logf = _branch_site_pair_logliks(engine, full, pairs)
     n_pat = engine._compressed.n_patterns
     logf = logf[:, :n_pat]
-    weights = engine._weights.to("cpu", torch.float64).numpy()[:n_pat]
+    weights = gather_sites(engine._weights).to(
+        "cpu", torch.float64).numpy()[:n_pat]
     m = logf.max(axis=0)
     f = np.exp(logf - m[None, :])
     f0 = f[:d]                                        # (d, P)

@@ -56,10 +56,6 @@ MODEL_NAMES = (
 # the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
 NOT_PORTED = {"benchmark": "A2"}
 
-# engine flags whose engines are not ported yet: (attribute, flag, item)
-_UNPORTED_FLAGS = (
-    ("shard_sites", "--shard-sites", "A12"),
-)
 # the flags --profile-mixture refuses with its own message, as the JAX CLI
 # refuses --recode and --shard-sites (the JAX CLI builds a partitioned
 # engine and drops the profile mixture under --partitions)
@@ -186,7 +182,7 @@ def _add_engine_args(p: argparse.ArgumentParser):
     p.add_argument("--pruner", default="torch", choices=["torch", "cuda"])
     _add_device_arg(p)
     p.add_argument("--shard-sites", action="store_true",
-                   help="shard patterns over all devices (not ported: A12)")
+                   help="shard patterns over all devices")
     p.add_argument("--partitions", default=None,
                    help="RAxML/IQ-TREE-style partition file (or NEXUS "
                         "charsets): per-locus models over one tree; "
@@ -267,9 +263,10 @@ def _partitioned_engine(args):
         )
     except ValueError as e:
         raise SystemExit(f"--partitions: {e}")
-    kw = dict(dtype=args.dtype, pruner=args.pruner, device=args.device)
     tree = _read_tree(args.tree)
     try:
+        kw = dict(dtype=args.dtype, pruner=args.pruner, device=args.device,
+                  sharding=_site_sharding(args))
         try:
             engine = StackedPartitionedEngine(tree, parts, **kw)
         except ValueError as e:
@@ -282,14 +279,27 @@ def _partitioned_engine(args):
     return engine
 
 
+def _site_sharding(args):
+    """``--shard-sites``: a ``SiteSharding`` over this process's cards (the
+    CPU, one device, under ``--device cpu``) and over the process group
+    where the environment configures one (torch.distributed's env://
+    variables); None without the flag."""
+    if not getattr(args, "shard_sites", False):
+        return None
+    from phylo_utils_tpu_torch.parallel import (
+        SiteSharding,
+        distributed_init,
+        make_mesh,
+    )
+
+    distributed_init()
+    return SiteSharding(make_mesh(["cpu"] if args.device == "cpu" else None))
+
+
 def _build_engine(args):
     from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 
     profile = getattr(args, "profile_mixture", None)
-    for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr, None) and not (
-                profile and attr in _PROFILE_REFUSED):
-            _not_ported(flag, item)
     if getattr(args, "partitions", None) and not profile:
         return _partitioned_engine(args)
     if profile:
@@ -329,7 +339,7 @@ def _build_engine(args):
             _read_tree(args.tree), aln, model,
             ncat=args.ncat, invariant_sites=args.invariant_sites,
             rate_model=rate_model, dtype=args.dtype, pruner=args.pruner,
-            device=args.device, **extra,
+            device=args.device, sharding=_site_sharding(args), **extra,
         )
     except RuntimeError as e:       # no card behind --device cuda
         raise SystemExit(f"{e}; pass --device cpu to run on the CPU")

@@ -15,8 +15,11 @@ torch autograd: P(t) through the reverse rule of
 own ``gammainc``, and, with ``pruner="cuda"``, the walk through the saveall
 kernel and a reverse kernel: the deferred one while its scratch fits the
 card, else the classic one (``cuda_pruning.choose_reverse``,
-``PHYLO_DEFERRED_VJP``). ``GammaMixture`` is the stateful facade of the
-JAX package's (and its reference's) API over one engine.
+``PHYLO_DEFERRED_VJP``). With ``sharding=`` (``parallel.SiteSharding``)
+the patterns are padded and placed once, one contiguous shard per device,
+and every walk runs shard by shard on the same kernels, reduced once
+(``parallel.sharding.map_sites``). ``GammaMixture`` is the stateful facade
+of the JAX package's (and its reference's) API over one engine.
 """
 from __future__ import annotations
 
@@ -50,6 +53,11 @@ from phylo_utils_tpu_torch.ops.pruning import (
     make_prune_fn,
     mixture_loglik,
     mixture_loglik_from_ll,
+)
+from phylo_utils_tpu_torch.parallel.sharding import (
+    map_sites,
+    place,
+    sharded_prune,
 )
 
 __all__ = ["LikelihoodEngine", "GammaMixture", "rate_categories",
@@ -222,6 +230,9 @@ class LikelihoodEngine:
         'cat_weights' are free, rates renormalized to weighted mean 1)
     device : torch device for every tensor of the engine ("cuda" default;
         raises where there is no card: pass device="cpu" to run on the CPU)
+    sharding : optional ``parallel.SiteSharding``: the patterns are padded
+        and placed shard by shard on its mesh, each shard walked on its
+        device; totals, sitewise values and gradients land on ``device``
     """
 
     def __init__(
@@ -237,11 +248,13 @@ class LikelihoodEngine:
         pruner: str = "torch",
         rate_model: str = "gamma",
         device="cuda",
+        sharding=None,
     ):
         if isinstance(tree, str):
             tree = pio.parse_newick(tree)
         self.tree = tree
         self.model = model
+        self.sharding = sharding
         self.ncat = int(ncat)
         self.median = bool(median)
         if rate_model not in ("gamma", "free"):
@@ -311,14 +324,11 @@ class LikelihoodEngine:
                 f"unknown pruner {pruner!r}; use 'torch' or 'cuda'"
             )
         self.pruner = pruner
+        # takes SiteShards leaves too: the roots of every shard, in order
+        self._prune = sharded_prune(self._prune, self.device)
 
-        # moved in the array's own dtype and cast on the device: a big f32
-        # alignment for an f64 engine is not doubled on the host first
-        self._leaf_partials = torch.from_numpy(
-            np.ascontiguousarray(leaf_partials)).to(self.device).to(
-            self.dtype)
-        self._weights = torch.as_tensor(ca.weights, dtype=self.dtype,
-                                        device=self.device)
+        self._leaf_partials, self._weights = place(
+            sharding, leaf_partials, ca.weights, self.device, self.dtype)
         self._eig_cache_key = None
         self._eig_cache = None
         self._rates_cache_key = None
@@ -425,13 +435,22 @@ class LikelihoodEngine:
 
     def _loglik_fn(self, params, leaf_partials, weights, eig=None,
                    rates=None):
-        dtype, rdt = self.dtype, self._reduce_dtype
+        rdt = self._reduce_dtype
         # P(t), rates, weights, freqs built in the high-precision dtype;
         # only the pruning pass itself runs in `dtype`.
         _, cat_weights, p, freqs = self._mixture_tensors(
             params, rdt, eig=eig, rates=rates
         )
         pinv = params.get("pinv") if self.invariant_sites else None
+        return map_sites(self._site_loglik,
+                         (p.to(self.dtype), freqs, cat_weights, pinv),
+                         leaf_partials, weights, self.device)
+
+    def _site_loglik(self, p, freqs, cat_weights, pinv, leaf_partials,
+                     weights):
+        """(total, sitewise) of one block of patterns (the whole alignment,
+        or one shard) from the replicated mixture tensors."""
+        rdt = self._reduce_dtype
         inv = (
             invariant_site_likelihood(leaf_partials.to(rdt), freqs)
             if self.invariant_sites
@@ -440,11 +459,11 @@ class LikelihoodEngine:
         if self._fused_ll is not None:
             # per-category sitewise logL straight from the walk (root
             # reduction fused)
-            ll = self._fused_ll(p.to(dtype), leaf_partials, freqs)
+            ll = self._fused_ll(p, leaf_partials, freqs)
             return mixture_loglik_from_ll(
                 ll, cat_weights, weights.to(rdt), pinv=pinv, inv_lik=inv
             )
-        root_partials, root_logscale = self._prune(p.to(dtype), leaf_partials)
+        root_partials, root_logscale = self._prune(p, leaf_partials)
         return mixture_loglik(
             root_partials.to(rdt), root_logscale.to(rdt), freqs,
             cat_weights, weights.to(rdt), pinv=pinv, inv_lik=inv,

@@ -48,6 +48,7 @@ from phylo_utils_tpu_torch.ops.pmatrix import (
     p_matrices_reversible,
 )
 from phylo_utils_tpu_torch.ops.pruning import invariant_site_likelihood
+from phylo_utils_tpu_torch.parallel.sharding import gather_sites, map_sites
 
 __all__ = ["ModelMixtureEngine", "M1aEngine", "M2aEngine",
            "M7Engine", "M8Engine", "M8aEngine",
@@ -203,14 +204,25 @@ class ModelMixtureEngine(LikelihoodEngine):
         frequencies. ``eig`` and ``rates`` (the base engine's caches) do not
         apply to a mixture and are ignored."""
         rdt = self._reduce_dtype
-        cat_weights, site_lik, root_logscale, freqs_k = self._root_terms(
-            params, leaf_partials)
+        _, cat_weights, p, freqs_k = self._mixture_tensors(params, rdt)
+        pinv = params["pinv"].to(rdt) if self.invariant_sites else None
+        return map_sites(self._site_loglik,
+                         (p.to(self.dtype), freqs_k, cat_weights, pinv),
+                         leaf_partials, weights, self.device)
+
+    def _site_loglik(self, p, freqs_k, cat_weights, pinv, leaf_partials,
+                     weights):
+        """(total, sitewise) of one block of patterns (the whole alignment,
+        or one shard)."""
+        rdt = self._reduce_dtype
+        root_partials, root_logscale = self._prune(p, leaf_partials)
+        site_lik = torch.einsum("ksi,ki->ks", root_partials.to(rdt), freqs_k)
+        root_logscale = root_logscale.to(rdt)
         m = root_logscale.amax(dim=0)
         mixed = (cat_weights[:, None] * site_lik
                  * torch.exp(root_logscale - m[None, :])).sum(dim=0)
         log_var = torch.log(mixed) + m
-        if self.invariant_sites:
-            pinv = params["pinv"].to(rdt)
+        if pinv is not None:
             # the invariant component under the weight-averaged frequencies
             freqs_bar = torch.einsum("k,ki->i", cat_weights, freqs_k)
             inv = invariant_site_likelihood(leaf_partials.to(rdt), freqs_bar)
@@ -562,7 +574,8 @@ def beb_site_posteriors(engine, params: Optional[Mapping] = None,
     w0, w2 = omegas[:d], omegas[d + 1:]
     logf = _site_class_logliks(engine, full, omegas)  # (2d+1, P)
     n_pat = engine._compressed.n_patterns
-    weights = engine._weights.to("cpu", torch.float64).numpy()[:n_pat]
+    weights = gather_sites(engine._weights).to(
+        "cpu", torch.float64).numpy()[:n_pat]
     logf = logf[:, :n_pat]
 
     # proportion grid: square midpoints folded onto the triangle
@@ -631,7 +644,8 @@ def beb_site_posteriors_m8(engine, params: Optional[Mapping] = None,
     w_s = omegas[n_fine:]                                # (1,11) grid
     logf = _site_class_logliks(engine, full, omegas)     # (n_fine+d, P)
     n_pat = engine._compressed.n_patterns
-    weights = engine._weights.to("cpu", torch.float64).numpy()[:n_pat]
+    weights = gather_sites(engine._weights).to(
+        "cpu", torch.float64).numpy()[:n_pat]
     logf = logf[:, :n_pat]
     m = logf.max(axis=0)
     f = np.exp(logf - m[None, :])                        # scaled liks

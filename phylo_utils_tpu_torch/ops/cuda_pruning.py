@@ -417,9 +417,10 @@ def _gslot_schedule(schedule: PruningSchedule):
 
 
 def _on_device(cache: dict, device: torch.device, arrays):
-    """``arrays`` as contiguous int32 tensors on ``device``, made once."""
+    """``arrays`` (numpy arrays or tensors) as contiguous tensors of their
+    own dtype on ``device``, made once."""
     if device not in cache:
-        cache[device] = tuple(torch.from_numpy(a).to(device).contiguous()
+        cache[device] = tuple(torch.as_tensor(a).to(device).contiguous()
                               for a in arrays)
     return cache[device]
 
@@ -1028,6 +1029,22 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _on_p_device(launcher):
+    """Runs ``launcher(p, ...)`` with ``p``'s card as the current device:
+    the kernels launch through the runtime on ``_stream(p.device)``, which
+    the runtime refuses while another card is current (a shard on cuda:1,
+    an autograd backward on another thread)."""
+
+    @functools.wraps(launcher)
+    def run(p, *args, **kwargs):
+        if p.device.type != "cuda":
+            return launcher(p, *args, **kwargs)
+        with torch.cuda.device(p.device):
+            return launcher(p, *args, **kwargs)
+
+    return run
+
+
 def _stream_forced(s: int) -> bool:
     """Whether the value path streams whatever the size at ``s`` states:
     ``PHYLO_FORCE_STREAM`` read as the JAX package's ``_pallas_forward``
@@ -1272,6 +1289,7 @@ _ROW_KERNELS = {
 }
 
 
+@_on_p_device
 def _row_walk(p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
               kind: str, fold: int = 1,
               **geometry) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1387,6 +1405,7 @@ def fold_walk(
     return _row_walk(p, leaves, walk, "fold", fold=fold, **geometry)
 
 
+@_on_p_device
 def slot_walk(
     p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule,
     stream: bool = False,
@@ -1459,6 +1478,7 @@ def saveall_stage(s: int, n_edges: int) -> Tuple[int, int]:
     return chunk, 4 * 3 * chunk * s * _p_row(s)
 
 
+@_on_p_device
 def saveall_walk(
     p: torch.Tensor, leaves: torch.Tensor, walk: WalkSchedule
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1562,6 +1582,7 @@ def reverse_scratch(b: int, k: int, n_nodes: int, n_gslots: int,
     return tile, slot_bytes + 4 * b * k * -(-sites // tile) * n_nodes * s * s
 
 
+@_on_p_device
 def reverse_walk(
     p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
     res_e: torch.Tensor, lam: torch.Tensor, freqs: torch.Tensor,
@@ -1688,6 +1709,7 @@ def _classic_rows(b: int, k: int, n_nodes: int, n_gslots: int, sites: int,
     return min(rows, (budget - slot_bytes) // row_bytes)
 
 
+@_on_p_device
 def classic_reverse_walk(
     p: torch.Tensor, leaves: torch.Tensor, res_x: torch.Tensor,
     res_e: torch.Tensor, gseeds: torch.Tensor, seed_ids: Sequence[int],

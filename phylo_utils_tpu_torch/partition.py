@@ -27,7 +27,10 @@ frequencies (the per-batch operands of ``ops.cuda_pruning``), as the JAX
 engine ``vmap``s one engine over the stack.
 
 Both engines run on the card (``device="cuda"``) unless ``device="cpu"`` is
-given. ``sharding`` is not ported (ROADMAP A12).
+given. ``sharding`` (``parallel.SiteSharding``): ``PartitionedEngine``'s
+loci each shard their own pattern axis; the stack pads its common pattern
+count to the sharding's multiple and shards (G, n_leaves, P, S) along P,
+so one walk per shard scores every locus's slice.
 """
 from __future__ import annotations
 
@@ -55,6 +58,11 @@ from phylo_utils_tpu_torch.ops.pruning import (
     invariant_site_likelihood,
     mixture_loglik,
     mixture_loglik_from_ll,
+)
+from phylo_utils_tpu_torch.parallel.sharding import (
+    gather_sites,
+    map_sites,
+    place,
 )
 from phylo_utils_tpu_torch.simulate import Seed, simulate_alignment
 
@@ -89,12 +97,8 @@ def _copy_dicts(tree: Mapping) -> Dict:
             for k, v in tree.items()}
 
 
-def _checked_partitions(tree, partitions, sharding):
+def _checked_partitions(tree, partitions):
     """(tree, partitions list) after the checks both engines share."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding is not ported to phylo_utils_tpu_torch yet "
-            "(ROADMAP A12)")
     if isinstance(tree, str):
         tree = pio.parse_newick(tree)
     if not partitions:
@@ -107,8 +111,9 @@ def _checked_partitions(tree, partitions, sharding):
 
 class PartitionedEngine:
     """Joint likelihood over partitions sharing one tree: one port
-    ``LikelihoodEngine`` per locus (``pruner`` "torch" or "cuda", ``dtype``
-    and ``device`` as there)."""
+    ``LikelihoodEngine`` per locus (``pruner`` "torch" or "cuda", ``dtype``,
+    ``device`` and ``sharding`` as there: each locus shards its own
+    patterns)."""
 
     def __init__(
         self,
@@ -120,7 +125,7 @@ class PartitionedEngine:
         sharding=None,
         device="cuda",
     ):
-        tree, partitions = _checked_partitions(tree, partitions, sharding)
+        tree, partitions = _checked_partitions(tree, partitions)
         self.tree = tree
         self.partitions = partitions
         self.link_rates = bool(link_rates)
@@ -131,6 +136,7 @@ class PartitionedEngine:
                 tree, p.alignment, p.model, ncat=p.ncat,
                 invariant_sites=p.invariant_sites, dtype=dtype,
                 pruner=pruner, rate_model=p.rate_model, device=device,
+                sharding=sharding,
             )
             for p in partitions
         ]
@@ -284,7 +290,8 @@ class PartitionedEngine:
         self, params: Optional[Mapping] = None
     ) -> Dict[str, float]:
         _, sws = self._eval(self._full_params(params))
-        return {p.name: float((w.to(torch.float64) * sw).sum())
+        return {p.name: float((gather_sites(w, self.device).to(torch.float64)
+                               * sw).sum())
                 for p, w, sw in zip(self.partitions, self._weights, sws)}
 
     # (total, gradient dict of the full parameters), the base engine's
@@ -324,7 +331,7 @@ class StackedPartitionedEngine(PartitionedEngine):
         sharding=None,
         device="cuda",
     ):
-        tree, partitions = _checked_partitions(tree, partitions, sharding)
+        tree, partitions = _checked_partitions(tree, partitions)
         first = partitions[0]
         for p in partitions[1:]:
             if (
@@ -351,6 +358,7 @@ class StackedPartitionedEngine(PartitionedEngine):
             tree, first.alignment, first.model, ncat=first.ncat,
             invariant_sites=first.invariant_sites, dtype=dtype,
             pruner=pruner, rate_model=first.rate_model, device=device,
+            sharding=sharding,
         )
         self.dtype = self._template.dtype
         self.device = self._template.device
@@ -369,6 +377,8 @@ class StackedPartitionedEngine(PartitionedEngine):
                     f"partition {p.name!r} missing taxa {sorted(missing)}"
                 )
         pmax = max(ca.partials.shape[1] for ca in comps)
+        if sharding is not None:
+            pmax = sharding.padded_size(pmax)
         np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
         lps, ws = [], []
         for ca in comps:
@@ -386,10 +396,11 @@ class StackedPartitionedEngine(PartitionedEngine):
         self._compressed = comps
         self._n_sites = [ca.n_sites for ca in comps]
         self._n_patterns = [ca.partials.shape[1] for ca in comps]
-        # (G, n_leaves, P, S) and (G, P)
-        self._leaf_partials = torch.from_numpy(np.stack(lps)).to(self.device)
-        self._weights = torch.from_numpy(np.stack(ws)).to(
-            device=self.device, dtype=self.dtype)
+        # (G, n_leaves, P, S) and (G, P); sharded along P, one contiguous
+        # (G, n_leaves, P / n, S) block a shard
+        self._leaf_partials, self._weights = place(
+            sharding, np.stack(lps), np.stack(ws), self.device,
+            weight_dtype=self.dtype)
         self._set_site_counts([float(w.sum()) for w in ws])
         self._model_keys = list(first.model.param_defaults)
         self._eig_key = self._eig = None
@@ -522,26 +533,35 @@ class StackedPartitionedEngine(PartitionedEngine):
                                               ivecs=None, freqs=freqs, q=a),
                                         ts)
         p = extend_p_identity(p, t.schedule.n_nodes).to(self.dtype)
-        pinv = inv = None
-        if t.invariant_sites:
-            pinv = self._stack(params, "pinv")[:, None]
-            inv = invariant_site_likelihood(leaf_partials.to(f64), freqs)
+        pinv = (self._stack(params, "pinv")[:, None] if t.invariant_sites
+                else None)
+        totals, sw = map_sites(self._stack_loglik,
+                               (p, freqs, cat_weights, pinv),
+                               leaf_partials, weights, self.device)
+        return totals.sum(), sw
+
+    def _stack_loglik(self, p, freqs, cat_weights, pinv, leaf_partials,
+                      weights):
+        """(totals (G,), sitewise (G, P)) of one block of the stacked
+        patterns (all of them, or one shard), from ONE walk."""
+        t, f64 = self._template, torch.float64
+        inv = (invariant_site_likelihood(leaf_partials.to(f64), freqs)
+               if pinv is not None else None)
         if t._fused_ll is not None:
             ll = t._fused_ll(p, leaf_partials, freqs)     # (G, K, P)
-            totals, sw = mixture_loglik_from_ll(
+            return mixture_loglik_from_ll(
                 ll, cat_weights, weights.to(f64), pinv=pinv, inv_lik=inv)
-        else:
-            root, logscale = t._prune(p, leaf_partials)
-            totals, sw = mixture_loglik(
-                root.to(f64), logscale.to(f64), freqs, cat_weights,
-                weights.to(f64), pinv=pinv, inv_lik=inv)
-        return totals.sum(), sw
+        root, logscale = t._prune(p, leaf_partials)
+        return mixture_loglik(
+            root.to(f64), logscale.to(f64), freqs, cat_weights,
+            weights.to(f64), pinv=pinv, inv_lik=inv)
 
     def partition_loglikelihoods(
         self, params: Optional[Mapping] = None
     ) -> Dict[str, float]:
         _, sws = self._eval(self._full_params(params))
-        per = (self._weights.to(torch.float64) * sws).sum(dim=-1).cpu()
+        per = (gather_sites(self._weights, self.device).to(torch.float64)
+               * sws).sum(dim=-1).cpu()
         return {p.name: float(per[i]) for i, p in enumerate(self.partitions)}
 
 

@@ -6,7 +6,8 @@ the step counter, is plain tensors and numbers, so a checkpoint is exact:
 a run restored from one continues bit for bit. Format: one ``torch.save``
 file, written to a temporary file in the target's directory and renamed
 over the target, so a reader never sees a half-written checkpoint. Loading
-uses ``weights_only=True``: tensors, containers and numbers only.
+uses ``weights_only=True``: tensors, containers and numbers only. Across
+processes only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -21,7 +22,16 @@ __all__ = ["save_checkpoint", "load_checkpoint"]
 
 def save_checkpoint(path: str, state: Dict[str, Any], step: int = 0) -> None:
     """Atomically write ``state`` (a dict of tensors, containers and
-    numbers) with its step counter to ``path``."""
+    numbers) with its step counter to ``path``.
+
+    Multi-process safe: where a ``torch.distributed`` process group is
+    initialized, only rank 0 writes; the other ranks return at once (their
+    replicated state is the same).
+    """
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_rank() != 0):
+        return
     payload = {"state": state, "step": int(step)}
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)

@@ -233,10 +233,33 @@ def test_trash_row_is_never_read(name):
 
 
 def test_sharding_is_refused(tree_set):
+    """Sharding, once refused, now runs: the port's engine over eight CPU
+    shards with ``tile=7`` (the patterns padded to a multiple of 56) against
+    JAX's sharded engine on its 8-device mesh, logL and sitewise logL to
+    1e-10 relative and gradients to 1e-8, and against the port's unsharded
+    engine."""
+    from phylo_utils_tpu.parallel import SiteSharding as JaxSharding
+    from phylo_utils_tpu.parallel import make_mesh as jax_make_mesh
+    from phylo_utils_tpu_torch.parallel import SiteSharding, make_mesh
+
     trees, aln = tree_set
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TopologySetEngine(trees, aln, models.JC69, sharding=object(),
-                          device="cpu")
+    sharding = SiteSharding(make_mesh(["cpu"] * 8), tile=7)
+    port = TopologySetEngine(trees, aln, models.HKY85, ncat=2,
+                             sharding=sharding, device="cpu")
+    single = TopologySetEngine(trees, aln, models.HKY85, ncat=2,
+                               device="cpu")
+    ref = JaxTSE(_jax_trees(trees), aln, jmodels.HKY85, ncat=2,
+                 sharding=JaxSharding(jax_make_mesh(), tile=7))
+    assert port._leaf_partials.shape[1] == ref._leaf_partials.shape[1] == 168
+    lls = port.loglikelihoods()
+    assert _rel(lls, ref.loglikelihoods()) <= 1e-10
+    assert _rel(lls, single.loglikelihoods()) <= 1e-12
+    assert _rel(port.sitewise_loglikelihoods(),
+                ref.sitewise_loglikelihoods()) <= 1e-10
+    g, gj = port.gradients(), ref.gradients()
+    assert _rel(g["branch_lengths"], gj["branch_lengths"]) <= 1e-8
+    assert _rel(g["model"]["kappa"], gj["model"]["kappa"]) <= 1e-8
+    assert _rel(g["alpha"], gj["alpha"]) <= 1e-8
 
 
 def test_float32_matches_float64(tree_set, gtr_pair):

@@ -380,10 +380,11 @@ def test_unported_subcommands_name_their_roadmap_item(name, small_inputs,
 def test_unported_flags_name_their_roadmap_item(small_inputs, flag, item,
                                                 tmp_path, monkeypatch,
                                                 capsys):
-    """--shard-sites (A12) is refused naming its item; --partitions (A16),
-    refused until its item was ported, now runs and prints the JAX CLI's
-    keys (``tests/test_torch_cli_partition.py`` holds its values to
-    JAX's)."""
+    """--shard-sites (A12) and --partitions (A16), each refused until its
+    item was ported, now run: --shard-sites (one CPU shard under --device
+    cpu) prints the JAX CLI's JSON on its 8-device mesh, logL and sitewise
+    values to 1e-10 relative; --partitions prints the JAX CLI's keys
+    (``tests/test_torch_cli_partition.py`` holds its values to JAX's)."""
     tree, fasta = small_inputs
     args = ["loglik", "--tree", tree, "--alignment", fasta, "--device",
             "cpu"] + flag
@@ -397,8 +398,13 @@ def test_unported_flags_name_their_roadmap_item(small_inputs, flag, item,
         assert set(out) == {"loglik", "partition_logliks"}
         assert set(out["partition_logliks"]) == {"a", "b"}
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        cli.main(args)
+    args += ["--model", "GTR+G4+I", "--sitewise"]
+    port = _run(cli.main, args, capsys)
+    want = _run(jax_main, [a for a in args if a not in ("--device", "cpu")],
+                capsys)
+    assert set(port) == set(want) == {"loglik", "sitewise"}
+    assert _rel(port["loglik"], want["loglik"]) <= 1e-10
+    assert _rel(port["sitewise"], want["sitewise"]) <= 1e-10
 
 
 @pytest.mark.parametrize("flag,item", [(["--refine"], "A17"),

@@ -163,6 +163,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import phylo_utils_tpu_torch.likelihood\n"
         "import phylo_utils_tpu_torch.server\n"
+        "import phylo_utils_tpu_torch.parallel.dryrun\n"
+        "import phylo_utils_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'phylo_utils_tpu',"
         " 'oracle'))\n"

@@ -166,16 +166,34 @@ def test_stacked_fit_matches_general(setup):
     assert rs.loglik == pytest.approx(rg.loglik, rel=1e-8)
 
 
-def test_stacked_rejects_heterogeneous():
+def test_stacked_rejects_heterogeneous(setup):
+    """Loci of two model families are refused; a sharded stack (eight CPU
+    shards, the (G, n_leaves, P, S) stack split along P) equals the
+    unsharded stack: logL to 1e-12 relative, per locus to 1e-10, gradients
+    to ``rtol=1e-8, atol=1e-10``."""
+    from phylo_utils_tpu_torch.parallel import SiteSharding, make_mesh
+
     jtree = random_tree(6, seed=0)
     a = simulate_alignment(jax.random.PRNGKey(0), jtree, jmodels.JC69,
                            n_sites=60)
-    parts = [Partition("x", a, models.JC69), Partition("y", a, models.HKY85)]
+    het = [Partition("x", a, models.JC69), Partition("y", a, models.HKY85)]
     with pytest.raises(ValueError, match="share the model family"):
-        StackedPartitionedEngine(_port_tree(jtree), parts, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        StackedPartitionedEngine(_port_tree(jtree), parts[:1], device="cpu",
-                                 sharding=object())
+        StackedPartitionedEngine(_port_tree(jtree), het, device="cpu")
+    _, tree, _, parts = setup
+    stk = StackedPartitionedEngine(tree, parts, device="cpu")
+    sharded = StackedPartitionedEngine(
+        tree, parts, device="cpu",
+        sharding=SiteSharding(make_mesh(["cpu"] * 8)))
+    lp = sharded._leaf_partials
+    assert len(lp.shards) == 8 and lp.axis == 2
+    assert lp.shape[2] % 8 == 0 and lp.shape[2] >= stk._leaf_partials.shape[2]
+    assert sharded.loglikelihood(PARAMS) == pytest.approx(
+        stk.loglikelihood(PARAMS), rel=1e-12)
+    ps, pd = (stk.partition_loglikelihoods(PARAMS),
+              sharded.partition_loglikelihoods(PARAMS))
+    for k in ps:
+        assert pd[k] == pytest.approx(ps[k], rel=1e-10)
+    _assert_grads_close(sharded.gradient(PARAMS), stk.gradient(PARAMS))
 
 
 def test_stacked_walk_is_one_call(setup, monkeypatch):
