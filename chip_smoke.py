@@ -201,7 +201,7 @@ all at once) and runs, in order, printing one line per phase:
     relative) and f32 ``pruner="cuda"`` (B1, 1e-6), its batched gradient
     against their ``value_and_grad`` (B2 + B3, 5e-4 x max|g|) and its peak
     memory; one ``nni_hill_climb`` round of NNI + SPR moves (~377
-    candidates, chunks of 64, 40 Adam steps) and up to 3 NNI rounds, each
+    candidates, chunks of 64, 40 Adam steps) and one NNI round, each
     timed, with the device-busy share of a chunk's ``PROFILE_STEPS``
     steps; ``alrt_supports`` at the
     searched tree (61 edges, 122 alternatives); a 100-replicate
@@ -254,19 +254,32 @@ all at once) and runs, in order, printing one line per phase:
     --shard-sites`` in process against the library; two ranks of
     ``python -m phylo_utils_tpu_torch.parallel.multihost`` on gloo with
     CUDA tensors and the dry run ``python -m
-    phylo_utils_tpu_torch.parallel.dryrun 4`` as subprocesses.
+    phylo_utils_tpu_torch.parallel.dryrun 4`` as subprocesses;
+36. the worked examples and the CLI's benchmark (``_examples_path``):
+    ``phylo_utils_tpu_torch.examples``' ``full_analysis`` (10 taxa x 1500
+    HKY85+G4 sites), ``uncertainty_analysis`` (8 x 1200 K80+G4) and
+    ``selection_analysis`` (6 taxa x 150 + 150 GY94 codons), each through
+    its ``run(..., pruner="cuda")`` at its JAX example's sizes (the
+    steps of its costliest fits cut: ``EXAMPLE_ARGS``), counted, every
+    fit, sitewise set and posterior against a ``pruner="torch"`` engine on
+    the card at the same parameters, each stage's seconds and the peak
+    memory; the CLI's ``benchmark --pruner cuda`` in process at the
+    flagship and at 64 x 100,000, its ``step_ms`` against the value call
+    timed by CUDA events (counted); each example as a fresh ``python -m``
+    process at cut sizes, side by side.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
 it: phases 4-6 (serving), 9-11 (gradient and fit), 13, 14, 15, 18-20 and
-23-35; the kernel-against-plain phases are not counted. The last two lines
+23-36; the kernel-against-plain phases are not counted. The last two lines
 are a JSON record of the kernels, each with its time, its plain version's,
 its bound (the larger of its bytes over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s, the H100 SXM data sheet's peaks) and its main-path
 launches (also by state count), the same at 64 states (``states_64``) and
 on phase 33's stack of loci (``batched_leaves``, its error against the
-plain version also as ``batched_leaf_err``), phase 34's and 35's launches
-(``launches_phase_34``, ``launches_phase_35``), and
+plain version also as ``batched_leaf_err``), phase 34's, 35's and 36's
+launches (``launches_phase_34``, ``launches_phase_35``,
+``launches_phase_36``), and
 ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
@@ -370,27 +383,30 @@ SITE_CLI_STEPS, CLI_DNA_SITES, SITE_SLICES = 15, 1024, 4
 BEB_TOL = 1e-4
 # the search path (phase 32): the JAX package's application bench shape,
 # 64 taxa x 1000 sites GTR+G4; candidates a chunk, Adam steps a candidate,
-# NNI rounds after the first ("both") round, aLRT's steps, bootstrap
-# replicates; the CLI's candidate file, bootstrap replicates and quartets
+# NNI rounds after the first ("both") round (each round repeats the last
+# one's work and timing: 3 before phase 36 was added), aLRT's steps,
+# bootstrap replicates; the CLI's candidate file, bootstrap replicates and
+# quartets
 SEARCH_TAXA, SEARCH_SITES, SEARCH_CHUNK, SEARCH_STEPS = 64, 1000, 64, 40
-SEARCH_SPR_TARGETS, SEARCH_NNI_ROUNDS, ALRT_STEPS = 2, 3, 60
+SEARCH_SPR_TARGETS, SEARCH_NNI_ROUNDS, ALRT_STEPS = 2, 1, 60
 SUPPORT_REPS, CLI_TOPOLOGIES, CLI_BOOT_REPS = 100, 20, 10
 # Adam steps of one chunk under the profiler (its steps are alike; the
 # profiler's own processing of a whole chunk took ~40 s beside an NVIDIA
-# H100 80GB HBM3 at 700 W)
-PROFILE_STEPS = 10
+# H100 80GB HBM3 at 700 W, and 10 steps 5.9 s)
+PROFILE_STEPS = 3
 # the batched walk in f64 against the f64 plain engine, relative
 BATCHED_RTOL = 1e-10
 # the partition path (phase 33): a multi-gene matrix of PART_LOCI GTR+G4
 # loci of PART_MIN_SITES to PART_MAX_SITES sites on a PART_TAXA-taxon tree;
 # calls a median (one engine a locus's gradient, ~2.5 s a call on an
-# NVIDIA H100 80GB HBM3 at 700 W, over PART_LOCUS_GRAD_REPS), the stacked
+# NVIDIA H100 80GB HBM3 at 700 W, over PART_LOCUS_GRAD_REPS: 5 before
+# phase 36 was added), the stacked
 # fit's L-BFGS steps; the mixed-alphabet
 # engine's DNA and protein sites (past the classic budget at 20 states, so
 # the protein locus streams); the CLI's fit steps, and partitionfinder's
 # subsets, sites a subset and fit steps
 PART_TAXA, PART_LOCI, PART_MIN_SITES, PART_MAX_SITES = 64, 48, 300, 1500
-PART_REPS, PART_LOCUS_GRAD_REPS, PART_FIT_STEPS = 20, 5, 10
+PART_REPS, PART_LOCUS_GRAD_REPS, PART_FIT_STEPS = 20, 3, 10
 MIXED_DNA_SITES, MIXED_PROT_SITES = 1000, 4000
 CLI_PART_FIT_STEPS, PF_SUBSETS, PF_SITES, PF_STEPS = 3, 4, 200, 4
 # the analyses path (phase 34): the BEB grid (codeml's d = 10: 121 pairs,
@@ -405,6 +421,47 @@ CLOCK_RTOL, JOINT_RTOL = 1e-6, 1e-6
 # steps; calls a median; each rank's shards in the two-process run
 SHARD_TAXA, SHARD_SITES, SHARDS, SHARD_FIT_STEPS = 64, 100_000, 4, 3
 SHARD_REPS, RANK_SHARDS = 5, 2
+# the worked examples (phase 36): each example's ``simulate`` sizes and
+# ``run`` steps over its JAX example's own (an empty dict keeps them all);
+# the CLI benchmark's calls; the three examples as fresh processes, side by
+# side, at these cut sizes (their full-size run is (a)'s), and the lines
+# each must print (their starts)
+# (their fits are host-bound: at the JAX steps the three took 47.9, 86.0
+# and 31.0 s on an NVIDIA H100 80GB HBM3 at 700 W, 34.6 s of the first in
+# compare_models' four 120-step fits and 75.0 s of the second in the
+# parametric bootstrap's ten 150-step refits, so those and the codon fits
+# are cut; every step still runs, fewer times)
+EXAMPLE_ARGS = {
+    "full_analysis": {"compare_steps": 40},
+    "uncertainty_analysis": {"pb_reps": 3, "pb_steps": 50},
+    "selection_analysis": {"m1a_steps": 30, "m2a_steps": 30,
+                           "branch_site_steps": 30},
+}
+BENCH_ITERS = 30
+EXAMPLE_CLI_ARGS = {
+    "full_analysis": ["--n-sites", "300", "--max-rounds", "1",
+                      "--compare-steps", "5", "--fit-steps", "10",
+                      "--n-boot", "10"],
+    "uncertainty_analysis": ["--n-sites", "300", "--fit-steps", "10",
+                             "--pb-reps", "2", "--pb-steps", "5",
+                             "--bs-reps", "5", "--n-boot", "50"],
+    "selection_analysis": ["--n-purifying", "30", "--n-positive", "30",
+                           "--m1a-steps", "5", "--m2a-steps", "5",
+                           "--branch-site-steps", "3",
+                           "--free-ratio-steps", "3", "--clock-steps", "5"],
+}
+EXAMPLE_LINES = {
+    "full_analysis": ("simulated", "NJ +", "model ranking (BIC):", "fit:",
+                      "site-rate posteriors", "bootstrap logL sd:",
+                      "SH test:"),
+    "uncertainty_analysis": ("simulated", "MLE:", "parametric bootstrap",
+                             "edge supports (FBP / TBE):", "consensus:",
+                             "tree  dlnL", "marginal-vs-joint",
+                             "site rates:"),
+    "selection_analysis": ("M1a lnL=", "positive class omega",
+                           "NEB sites", "BEB sites", "branch-site A:",
+                           "free-ratio:", "clock LRT:"),
+}
 # H100 SXM data sheet peaks, for each kernel's bound
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 
@@ -679,6 +736,333 @@ def _bound(kind, walk, p, leaves, want_dleaf=False, states=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _examples_path(dev, reset_counts, read_counts, smi):
+    """Phase 36, the worked examples and the CLI's ``benchmark`` (main
+    path). (a) ``full_analysis``, ``uncertainty_analysis`` and
+    ``selection_analysis`` (``phylo_utils_tpu_torch.examples``), each
+    simulated by its ``simulate`` on the card and run through its
+    ``run(..., pruner="cuda")`` at its JAX example's sizes and steps, the
+    costliest fits' steps cut (``EXAMPLE_ARGS``), counted, with each
+    stage's host seconds to a
+    synchronize and the peak memory; every fit, sitewise set and posterior
+    it returns recomputed at the same parameters through a
+    ``pruner="torch"`` engine on the card: logL to LOGL_RTOL, the candidate
+    sets' sitewise values (f64 level walk against the f64 plain engine) to
+    BATCHED_RTOL, posteriors to POSTERIOR_TOL (BEB to BEB_TOL); the K80
+    standard errors' and joint states' agreement reported; (b) ``cli.main(
+    ["benchmark", ...])`` with ``--pruner cuda --dtype float32`` at the
+    flagship (TAXA x SITES) and at TAXA x BIG_SITES, GTR+G4+I sites
+    simulated here: its six keys, its ``n_patterns`` the engine's, its
+    ``step_ms`` within 2x of the same engine's value call timed here by
+    CUDA events (counted); (c) each example as a fresh process, side by
+    side (``python -m phylo_utils_tpu_torch.examples.<name> --pruner cuda``
+    at ``EXAMPLE_CLI_ARGS``): exit 0 and its lines (``EXAMPLE_LINES``).
+    Returns the launch counts of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from phylo_utils_tpu_torch import cli as port_cli
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.ancestral import (
+        ancestral_posteriors,
+        joint_ancestral_states,
+        site_rate_posteriors,
+        site_rates,
+    )
+    from phylo_utils_tpu_torch.branch_models import (
+        BranchModelEngine,
+        BranchSiteAEngine,
+        free_ratio_classes,
+        mark_clade,
+    )
+    from phylo_utils_tpu_torch.clock import ClockEngine
+    from phylo_utils_tpu_torch.examples import (
+        full_analysis,
+        selection_analysis,
+        uncertainty_analysis,
+    )
+    from phylo_utils_tpu_torch.io import (
+        read_alignment,
+        write_fasta,
+        write_newick,
+    )
+    from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
+    from phylo_utils_tpu_torch.mixtures import (
+        M1aEngine,
+        M2aEngine,
+        beb_site_posteriors,
+        omega_posteriors,
+    )
+    from phylo_utils_tpu_torch.optimize import standard_errors
+    from phylo_utils_tpu_torch.simulate import simulate_alignment
+    from phylo_utils_tpu_torch.trees import random_tree
+
+    plain = dict(pruner="torch", device=DEVICE)
+    modules = {"full_analysis": full_analysis,
+               "uncertainty_analysis": uncertainty_analysis,
+               "selection_analysis": selection_analysis}
+    counts, report = {}, {}
+
+    def rel(got, want):
+        got = np.asarray(got, np.float64)
+        want = np.asarray(want, np.float64)
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    def absdiff(got, want):
+        return float(np.max(np.abs(np.asarray(got, np.float64)
+                                   - np.asarray(want, np.float64))))
+
+    def at_fit(engine, fit_res, twin):
+        """The kernel engine's and the fit's logL against the plain twin's
+        at the fitted parameters (the larger of the two)."""
+        want = twin.loglikelihood(fit_res.params)
+        return max(rel(engine.loglikelihood(fit_res.params), want),
+                   rel(fit_res.loglik, want))
+
+    # (a) the examples at their JAX sizes ------------------------------------
+    t_a = time.perf_counter()
+    for name, module in modules.items():
+        over = EXAMPLE_ARGS[name]
+        sizes = {k: over.get(k, v) for k, v in module.SIZES.items()}
+        steps = {k: over.get(k, v) for k, v in module.STEPS.items()}
+        if name == "selection_analysis":
+            steps["n_purifying"] = sizes["n_purifying"]
+        tree, aln = module.simulate(0, *sizes.values(), dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = module.run(aln, tree, device=DEVICE, pruner="cuda", **steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = c = read_counts()
+        report[name] = {"sizes": sizes, "wall_s": wall,
+                        "stage_s": out["stage_s"],
+                        "peak_allocated_bytes":
+                            torch.cuda.max_memory_allocated(),
+                        "launches": c}
+        t0 = time.perf_counter()
+        logl, tight, post = {}, {}, {}
+        if name == "full_analysis":
+            params = out["fit"].params
+            twin = LikelihoodEngine(out["tree"], aln, models.HKY85, ncat=4,
+                                    **plain)
+            logl["fit"] = at_fit(out["engine"], out["fit"], twin)
+            logl["bootstrap_logliks"] = rel(
+                out["bootstrap_logliks"], twin.bootstrap_loglikelihoods(
+                    len(out["bootstrap_logliks"]), params, seed=1))
+            for f in out["model_fits"]:
+                model, ncat, inv, _, rate_model = models.parse_model_spec(
+                    f.name)
+                logl[f"compare_{f.name}"] = rel(f.loglik, LikelihoodEngine(
+                    out["tree"], aln, model, ncat=ncat, invariant_sites=inv,
+                    rate_model=rate_model, **plain).loglikelihood(f.params))
+            shared = {"model": params["model"], "alpha": params["alpha"]}
+            tight["sitewise"] = max(rel(
+                sw, LikelihoodEngine(c_, aln, models.HKY85, ncat=4, **plain)
+                .sitewise_loglikelihoods(shared))
+                for c_, sw in zip(out["candidates"], out["sitewise"]))
+            post["site_rate_posteriors"] = absdiff(
+                out["site_rate_posteriors"],
+                site_rate_posteriors(twin, params))
+            post["ancestral_posteriors"] = absdiff(
+                out["ancestral_posteriors"],
+                ancestral_posteriors(twin, params))
+            report[name]["numbers"] = {
+                k: out[k] for k in ("search_loglik", "search_rounds",
+                                    "rf_to_truth", "model_ranking",
+                                    "fit_loglik", "kappa", "alpha",
+                                    "root_map_state_site0", "bootstrap_sd",
+                                    "sh_best", "sh_rejected")}
+        elif name == "uncertainty_analysis":
+            params = out["fit"].params
+            twin = LikelihoodEngine(tree, aln, models.K80, ncat=4, **plain)
+            logl["fit"] = at_fit(out["engine"], out["fit"], twin)
+            shared = {"model": {"kappa": out["kappa"]}, "alpha": out["alpha"]}
+            tight["sitewise"] = max(rel(
+                sw, LikelihoodEngine(c_, aln, models.K80, ncat=4, **plain)
+                .sitewise_loglikelihoods(shared))
+                for c_, sw in zip(out["candidates"], out["sitewise"]))
+            post["ancestral_posteriors"] = absdiff(
+                out["ancestral_posteriors"], ancestral_posteriors(twin,
+                                                                  params))
+            rates = site_rates(twin, params)
+            # a posterior-mean rate moves by a posterior's error times a rate
+            post["site_rates_over_max_rate"] = absdiff(
+                out["site_rates"], rates) / float(out["site_rates"].max())
+            # reported, not bounded: central differences of f32 gradients
+            # (ROADMAP C: the SEs follow the Hessian's noise)
+            se = standard_errors(twin, params)
+            se_rel = {"kappa": rel(out["standard_errors"]["model"]["kappa"],
+                                   se["model"]["kappa"]),
+                      "alpha": rel(out["standard_errors"]["alpha"],
+                                   se["alpha"])}
+            joint = joint_ancestral_states(twin, params)
+            report[name]["standard_errors_rel_err"] = se_rel
+            report[name]["joint_states_equal_share"] = float(
+                (out["joint"]["states"] == joint["states"]).mean())
+            report[name]["numbers"] = {
+                k: out[k] for k in ("fit_loglik", "kappa", "alpha",
+                                    "kappa_se", "kappa_pb_se", "fbp", "tbe",
+                                    "consensus", "delta", "p_kh", "p_sh",
+                                    "p_au", "marginal_joint_agreement",
+                                    "site_rate_min", "site_rate_max",
+                                    "site_rate_mean")}
+        else:
+            ca = out["codons"]
+            m2a = M2aEngine(tree, ca, **plain)
+            p2 = out["m2a_fit"].params
+            logl["m1a"] = at_fit(out["m1a"], out["m1a_fit"],
+                                 M1aEngine(tree, ca, **plain))
+            logl["m2a"] = at_fit(out["m2a"], out["m2a_fit"], m2a)
+            bs = out["branch_site"]
+            fg = mark_clade(tree, ["e", "f"])
+            for key in ("alt", "null"):
+                logl[f"branch_site_{key}"] = at_fit(
+                    bs[f"{key}_engine"], bs[key],
+                    BranchSiteAEngine(tree, ca, fg, **plain))
+            logl["free_ratio"] = at_fit(
+                out["free_ratio"], out["free_ratio_fit"], BranchModelEngine(
+                    tree, ca, models.GY94, free_ratio_classes(tree),
+                    class_params=[{"omega": 1.0}
+                                  for _ in range(tree.n_nodes)],
+                    shared={"freqs": out["f3x4"]}, **plain))
+            ct = out["clock"]
+            logl["clock_null"] = at_fit(ct["null_engine"], ct["null"],
+                                        ClockEngine(tree, aln, models.HKY85,
+                                                    **plain))
+            logl["clock_alt"] = at_fit(ct["alt_engine"], ct["alt"],
+                                       LikelihoodEngine(tree, aln,
+                                                        models.HKY85,
+                                                        **plain))
+            _, gam = omega_posteriors(m2a, p2)
+            post["neb_posteriors"] = absdiff(out["neb_posteriors"], gam)
+            p_pos, _ = beb_site_posteriors(m2a, p2)
+            beb = absdiff(out["beb_positive"], p_pos)
+            _check(beb <= BEB_TOL, f"{name}: BEB {beb:.3e} against the "
+                   f"plain engine's (BEB_TOL {BEB_TOL})")
+            report[name]["beb_abs_err"] = beb
+            report[name]["numbers"] = {
+                k: out[k] for k in ("m1a_loglik", "m2a_loglik",
+                                    "m1a_m2a_pvalue", "omega2", "neb_called",
+                                    "neb_frac_right", "beb_called",
+                                    "beb_frac_right",
+                                    "branch_site_alt_loglik",
+                                    "branch_site_null_loglik",
+                                    "branch_site_pvalue",
+                                    "free_ratio_loglik",
+                                    "free_ratio_omega_min",
+                                    "free_ratio_omega_max", "clock_df",
+                                    "clock_pvalue", "clock_loglik",
+                                    "free_loglik")}
+        _check(max(logl.values()) <= LOGL_RTOL
+               and max(tight.values(), default=0.0) <= BATCHED_RTOL
+               and max(post.values()) <= POSTERIOR_TOL,
+               f"{name} against plain engines at the same parameters: logL "
+               f"{logl}, sitewise {tight}, posteriors {post}")
+        forwards = c["LAUNCHES"] + c["SLOT_LAUNCHES"] + c["STREAM_LAUNCHES"]
+        reverses = c["REVERSE_LAUNCHES"] + c["CLASSIC_REVERSE_LAUNCHES"]
+        _check(forwards > 0 and c["SAVEALL_LAUNCHES"] > 0 and reverses > 0
+               and (name != "selection_analysis"
+                    or c["STREAM_LAUNCHES"] > 0),
+               f"{name} did not run its kernels: {c}")
+        report[name].update(logl_rel_err=logl, sitewise_rel_err=tight,
+                            posterior_abs_err=post,
+                            check_s=time.perf_counter() - t0)
+        del out
+    torch.cuda.empty_cache()
+    stage_a = time.perf_counter() - t_a
+
+    # (b) the CLI's benchmark, counted ---------------------------------------
+    t_b = time.perf_counter()
+    bench = {}
+    keys = {"patterns_per_s", "patterns_per_s_per_chip", "step_ms",
+            "n_patterns", "n_devices", "pruner"}
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_",
+                                     dir=build) as tmp:
+        for label, n_sites in (("flagship", SITES), ("realistic", BIG_SITES)):
+            tree = random_tree(TAXA, seed=0)
+            aln = simulate_alignment(
+                36, tree, models.GTR, n_sites,
+                params={**FLAGSHIP_PARAMS["model"],
+                        "alpha": FLAGSHIP_PARAMS["alpha"]},
+                ncat=4, pinv=FLAGSHIP_PARAMS["pinv"], device=dev)
+            fasta = os.path.join(tmp, f"{label}.fa")
+            nwk = os.path.join(tmp, f"{label}.nwk")
+            write_fasta(aln, path=fasta)
+            Path(nwk).write_text(write_newick(tree))
+            buf = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(buf):
+                rc = port_cli.main([
+                    "benchmark", "--tree", nwk, "--alignment", fasta,
+                    "--model", "GTR+G4+I", "--params",
+                    json.dumps(FLAGSHIP_PARAMS), "--dtype", "float32",
+                    "--pruner", "cuda", "--device", dev.type, "--iters",
+                    str(BENCH_ITERS)])
+            counts[f"benchmark_{label}"] = b_counts = read_counts()
+            got = json.loads(buf.getvalue().strip().splitlines()[-1])
+            eng = LikelihoodEngine(tree, read_alignment(fasta), models.GTR,
+                                   ncat=4, invariant_sites=True,
+                                   dtype=torch.float32, pruner="cuda",
+                                   device=DEVICE)
+            full = eng._full_params(port_cli._json_params(
+                json.dumps(FLAGSHIP_PARAMS)))
+            with torch.no_grad():
+                event_ms = _cuda_ms(lambda: eng._loglik_fn(
+                    full, eng._leaf_partials, eng._weights), BENCH_ITERS)
+            n_pat = int(eng._weights.shape[0])
+            ratio = got["step_ms"] / event_ms
+            _check(rc == 0 and set(got) == keys
+                   and got["n_patterns"] == n_pat
+                   and got["pruner"] == "cuda"
+                   and got["n_devices"] == torch.cuda.device_count()
+                   and 0.5 <= ratio <= 2.0,
+                   f"benchmark {label}: rc {rc}, {got} against the engine's "
+                   f"{n_pat} patterns and {event_ms:.4f} ms by CUDA events")
+            _check(sum(b_counts[k] for k in ("LAUNCHES", "SLOT_LAUNCHES"))
+                   >= BENCH_ITERS + 1,
+                   f"benchmark {label} did not run a forward kernel a call: "
+                   f"{b_counts}")
+            print(json.dumps(got), flush=True)
+            bench[label] = {"sites": n_sites, **got,
+                            "event_ms": event_ms, "step_over_event": ratio,
+                            "launches": b_counts}
+            del eng
+    stage_b = time.perf_counter() - t_b
+
+    # (c) each example as a fresh process, side by side ---------------------
+    t_c = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", f"phylo_utils_tpu_torch.examples.{name}",
+         "--pruner", "cuda", "--device", dev.type] + args,
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for name, args in EXAMPLE_CLI_ARGS.items()}
+    fresh = {}
+    for name, (t1, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        lines = [ln.strip() for ln in stdout.splitlines()]
+        missing = [w for w in EXAMPLE_LINES[name]
+                   if not any(ln.startswith(w) for ln in lines)]
+        _check(proc.returncode == 0 and not missing,
+               f"python -m phylo_utils_tpu_torch.examples.{name} exited "
+               f"{proc.returncode}, lines missing {missing}: "
+               f"{stderr[-3000:]}")
+        fresh[name] = {"wall_s": time.perf_counter() - t1,
+                       "lines": len([ln for ln in lines if ln])}
+    stage_c = time.perf_counter() - t_c
+
+    _emit(36, path="examples", card=smi, examples=report, benchmark=bench,
+          fresh_processes=fresh,
+          stage_s={"examples": stage_a, "benchmark": stage_b,
+                   "fresh_processes": stage_c})
+    return tuple(counts.values())
+
+
 def _cuda_ms(fn, reps):
     """Milliseconds per call of ``fn`` by CUDA events over ``reps`` calls,
     after one warm call."""
@@ -850,10 +1234,11 @@ def _simulation_path(dev, reset_counts, read_counts):
     end.record()
     end.synchronize()
     warm_ms = start.elapsed_time(end)
-    # and once under the profiler: how much of a step is the card's
+    # and once under the profiler, the card's activity alone: how much of
+    # a step is the card's
     busy = _device_busy(lambda: simulate_states(
         32, tree_a, models.GTR, SIM_SITES, sim_params, ncat=4, pinv=pinv,
-        device=dev))
+        device=dev), host_ops=False)
     stage_s["a"] = time.perf_counter() - t0
     out["a"] = {
         "taxa": BIG_DNA_TAXA, "sites": n, "simulate_ms": sim_ms,
@@ -5423,6 +5808,9 @@ def main():
     # 35. site sharding on one card, main path ----------------------------
     shard_counts = _sharding_path(dev, reset_counts, read_counts, smi)
 
+    # 36. the worked examples and the CLI's benchmark, main path ----------
+    example_counts = _examples_path(dev, reset_counts, read_counts, smi)
+
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,
                    unc_counts, wide_auto_counts, wide_engine_counts,
@@ -5431,7 +5819,7 @@ def main():
                    b4_counts, b7_counts, b8_counts, b9_counts,
                    *mk_counts.values(), cli_counts_28, cw_counts,
                    boot_counts, site_counts, search_counts, *part_counts,
-                   *analyses_counts, *shard_counts)
+                   *analyses_counts, *shard_counts, *example_counts)
 
     def launches(name):
         return sum(c[name] for c in path_counts)
@@ -5456,6 +5844,8 @@ def main():
                                           for c in analyses_counts),
                  "launches_phase_35": sum(c[counter]
                                           for c in shard_counts),
+                 "launches_phase_36": sum(c[counter]
+                                          for c in example_counts),
                  "max_abs_err": err,
                  "ms": timing["ms"], "plain_ms": timing["plain_ms"],
                  "bound_ms": bound_ms, "bound_by": bound_by,

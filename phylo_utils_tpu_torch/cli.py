@@ -5,7 +5,8 @@ Run as ``python -m phylo_utils_tpu_torch.cli <subcommand> ...`` (or
 ``python -m phylo_utils_tpu_torch``). Ported subcommands: ``loglik``,
 ``fit``, ``distances``, ``build-tree`` (with ``--refine``, the NNI/SPR
 hill-climb, and ``--bootstrap``, NJ bootstrap supports), ``bootstrap``,
-``serve``, ``simulate`` (FASTA through ``io.write_fasta``), ``compare``
+``serve``, ``simulate`` (FASTA through ``io.write_fasta``), ``benchmark``
+(the value call's pruning throughput), ``compare``
 (model selection by AIC/AICc/BIC), ``site-test`` (codeml's M1a-vs-M2a and
 M7-vs-M8 positive-selection LRTs, with the NEB site scan under ``--sites``
 and the M2a BEB scan under ``--beb``), ``topologies`` (a candidate set
@@ -22,8 +23,8 @@ the simulator run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; ``--pruner`` is ``torch`` (plain PyTorch, the
 default, as the JAX CLI's ``xla``) or ``cuda`` (the hand-written kernels).
 ``--params`` JSON is read through ``convert.params_from_jax``, so both
-packages read one file alike. Every other subcommand, and the flags whose
-engines are not ported yet, exit non-zero naming their ROADMAP item.
+packages read one file alike. The port has all twenty of the JAX CLI's
+subcommands.
 ``--profile-mixture FILE.nex:NAME`` builds a ``ProfileMixtureEngine`` from an IQ-TREE
 ``models.nex`` definition, with ``--model`` as the shared exchangeability
 matrix. ``--model`` takes the codon models GY94 and MG94 (on an in-frame
@@ -54,7 +55,7 @@ MODEL_NAMES = (
 )
 
 # the JAX CLI's subcommands that the port does not have yet, by ROADMAP item
-NOT_PORTED = {"benchmark": "A2"}
+NOT_PORTED: dict = {}
 
 # the flags --profile-mixture refuses with its own message, as the JAX CLI
 # refuses --recode and --shard-sites (the JAX CLI builds a partitioned
@@ -436,6 +437,42 @@ def cmd_fit(args) -> int:
             "dN": dd["dN"].tolist(), "dS": dd["dS"].tolist(),
         }
     print(json.dumps(out))
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    """The engine's value call (``_loglik_fn``, the JAX CLI's ``_jit_fn``)
+    timed over ``--iters`` calls after one warm-up, the card synchronized
+    before the clock starts and before it stops."""
+    import torch
+
+    engine = _build_engine(args)
+    params = engine._full_params(_json_params(args.params))
+    fargs = (params, engine._leaf_partials, engine._weights)
+
+    def sync():
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+
+    with torch.no_grad():
+        engine._loglik_fn(*fargs)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            engine._loglik_fn(*fargs)
+        sync()
+        dt = (time.perf_counter() - t0) / args.iters
+    n_pat = int(engine._weights.shape[0])
+    # the JAX CLI counts jax.devices(): the cards here, the CPU as one
+    n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
+    print(json.dumps({
+        "patterns_per_s": n_pat / dt,
+        "patterns_per_s_per_chip": n_pat / dt / n_dev,
+        "step_ms": dt * 1e3,
+        "n_patterns": n_pat,
+        "n_devices": n_dev,
+        "pruner": args.pruner,
+    }))
     return 0
 
 
@@ -1150,6 +1187,11 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="output FASTA path (default stdout)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("benchmark", help="pruning throughput")
+    _add_engine_args(p)
+    p.add_argument("--iters", type=int, default=30)
+    p.set_defaults(fn=cmd_benchmark)
 
     p = sub.add_parser("serve", help="HTTP inference server for one engine")
     _add_engine_args(p)

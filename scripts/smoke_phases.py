@@ -21,8 +21,8 @@ each ROOT in the order given, a fresh process with ROOT first on its path:
 - runs the named phases of ROOT's ``chip_smoke.py`` in order, through its
   path functions (30 ``_simulation_path``, 31 ``_site_models_path``, 32
   ``_search_path``, 33 ``_partition_path``, 34 ``_analyses_path``, 35
-  ``_sharding_path``), each timed by the host clock; they run their own
-  checks, and a failed check ends the process.
+  ``_sharding_path``, 36 ``_examples_path``), each timed by the host clock;
+  they run their own checks, and a failed check ends the process.
 
 Prints the card's name and power limit, then one JSON line a ROOT (the
 phases' own lines go to ``--logs``, by default ``build/smoke_phases/``)
@@ -42,7 +42,7 @@ from pathlib import Path
 
 _PATHS = {30: "_simulation_path", 31: "_site_models_path",
           32: "_search_path", 33: "_partition_path", 34: "_analyses_path",
-          35: "_sharding_path"}
+          35: "_sharding_path", 36: "_examples_path"}
 _COUNTERS = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
              "SAVEALL_LAUNCHES", "REVERSE_LAUNCHES",
              "CLASSIC_REVERSE_LAUNCHES", "STATIC_LAUNCHES", "FOLD_LAUNCHES")

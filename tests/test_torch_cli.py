@@ -331,7 +331,7 @@ def test_simulate_on_the_card_by_default(tmp_path):
 
 # the subcommands refused until their ROADMAP item was ported, and the keys
 # each prints now (``tests/test_torch_cli_analyses.py`` holds the values to
-# the JAX CLI's)
+# the JAX CLI's; ``benchmark``'s are held to the JAX CLI's here)
 _NOW_PORTED = {
     "ancestral": {"n_internal_nodes", "n_sites", "map_states",
                   "max_posterior", "map_sequences"},
@@ -342,21 +342,33 @@ _NOW_PORTED = {
              "chronogram"},
 }
 
+# each package's default pruner, and the kernels' pruner
+_PRUNERS = {"xla": "torch", "pallas": "cuda"}
+
 
 @pytest.mark.parametrize("name", ["ancestral", "benchmark",
                                   "branch-site-test", "clock-test", "date"])
 def test_unported_subcommands_name_their_roadmap_item(name, small_inputs,
                                                       capsys):
-    """``benchmark`` (A2) is the one subcommand still refused, naming its
-    item; the four A18 analyses, refused until their item was ported, now
-    run and print the JAX CLI's keys."""
-    assert cli.NOT_PORTED == {"benchmark": "A2"}
-    if name in cli.NOT_PORTED:
-        with pytest.raises(SystemExit,
-                           match=f"ROADMAP {cli.NOT_PORTED[name]}"):
-            cli.main([name, "--tree", TREE])
-        return
+    """Every subcommand refused until its ROADMAP item was ported now runs
+    (no subcommand is refused): the four A18 analyses print the JAX CLI's
+    keys, and ``benchmark`` (A2) prints the JAX CLI's six keys with its
+    pattern count and the counterpart of its default pruner, on one
+    device (the JAX CLI counts conftest's 8 virtual CPU devices)."""
+    assert cli.NOT_PORTED == {}
     tree, fasta = small_inputs
+    if name == "benchmark":
+        port, ref = _both(["benchmark", "--tree", tree, "--alignment", fasta,
+                           "--iters", "2"], capsys)
+        assert set(port) == set(ref) == {
+            "patterns_per_s", "patterns_per_s_per_chip", "step_ms",
+            "n_patterns", "n_devices", "pruner"}
+        assert port["n_patterns"] == ref["n_patterns"] == 10
+        assert port["pruner"] == _PRUNERS[ref["pruner"]]
+        assert port["n_devices"] == 1
+        assert port["step_ms"] > 0 and port["patterns_per_s"] == \
+            port["patterns_per_s_per_chip"]
+        return
     codons = os.path.join(os.path.dirname(fasta), "codons.fa")
     with open(codons, "w") as f:
         f.write(">a\nATGAAACGT\n>b\nATGAAGCGT\n>c\nATGCAACGC\n"
