@@ -10,7 +10,7 @@ fold walk (B9, ``pruning_fold_f32``) and the topology-compiled walk (B8,
 
 Usage, from the root of a checkout::
 
-    python3 kernel_turns.py --parent DIR [--out FILE]
+    python3 kernel_turns.py --parent DIR [--out FILE] [--states 4,20,64]
 
 ``DIR`` holds the earlier ``pruning_forward.cu``, ``pruning_reverse.cu``,
 ``pruning_slot.cu``, ``pruning_classic_reverse.cu``, ``pruning_fold.cu``,
@@ -20,17 +20,24 @@ phylo_utils_tpu_torch/csrc | tar -x -C DIR --strip-components 2``. The
 script builds them with ``nvcc`` into ``build/kernel_turns/`` beside the
 current library (``ops/_build.py``); the earlier B8 once per topology,
 against a header of that topology's post-order, children and counts in
-its own format. B1, B2, B3, B4, B5 and B7 keep the C signatures they had
-before B8 and B9 took the live-row walk, so the earlier library runs them
-under the current wrappers; B8 and B9 are bound with their earlier
-signatures (a post-order with a children table, whole-tree scratch in
-device memory). Then, on the same inputs, at
+its own format. B1, B2, B3, B4, B5 and B7 keep their C signatures (the
+64-bit leaf and frequency strides after the stream included), so the earlier library runs
+them under the current wrappers; B8 and B9 are bound with the signatures
+they had before they took the live-row walk (a post-order with a children
+table, whole-tree scratch in device memory), so their turns need sources
+of that time. Then, on the same inputs, at
 the flagship (64 taxa, GTR+G4, 1024 sites) at B = 1 and 64, on BASELINE
 config 4's tree at 20 states (32 taxa, LG+G4, 1024 sites), the 1000-taxon
 GTR+G4 tree and the 512-taxon LG+G4 tree at 8192 patterns, on the
 wide-node tree (a root of 48 leaf children beside a 48-taxon subtree, kept
 whole, 8192 patterns simulated down it) at 4 and 20 states, and for B9 at
-12 categories on the flagship's tree and 60 on config 4's (the widths):
+12 categories on the flagship's tree and 60 on config 4's (the widths);
+and at 64 states (GY94 codons, 61 states padded to 64, sites simulated
+down the tree under the port's P) on ``chip_smoke.py`` phase 27's tree
+(``random_tree(100, seed=27)`` x 4096 sites, GY94+G4), with phase 31's 30
+categories, and on a 1000-taxon slice (``random_tree(1000, seed=29)`` x
+2048 sites, phase 29's tree). ``--states`` keeps the shapes of the listed
+state counts only:
 
 1. checks: B1's and B4's roots, with 0, 1 and all their rows in shared
    memory, bit for bit the earlier B1's (and the earlier B4's); B8's (at
@@ -43,7 +50,11 @@ whole, 8192 patterns simulated down it) at 4 and 20 states, and for B9 at
    bit-identical across two launches, with one seed (lambda pi at the
    root) and two (the root and an inner node), its dleaf bit for bit the
    earlier B7's and, where B3 runs, B3's; B3's dP and dleaf bit for bit the
-   earlier B3's; B5's root the earlier one's and B1's;
+   earlier B3's; B5's root the earlier one's and B1's; at 64 states B5
+   (phase 27's shape and K = 30), B3 and B7 (phase 27's shape and the
+   1000-taxon slice) the same way, B3's dP also bit-identical across two
+   launches and within 1e-4 x max|dP| of its plain version, and B7 with
+   one tile a block bit for bit B3's dP;
 2. times each kernel in turns (earlier, current, current, earlier; CUDA
    events over repeated launches), with its bound;
 3. reads each kernel's device time per launch from ``torch.profiler``
@@ -57,11 +68,14 @@ whole, 8192 patterns simulated down it) at 4 and 20 states, and for B9 at
    per step (``_SAVEALL_CHUNK``) and lanes (``_SAVEALL_LANES``); B7's
    blocks per launch (``_CLASSIC_REVERSE_BLOCKS``) and block width
    (``_CLASSIC_REVERSE_TILE``), and its shared-memory budget on the wide
-   node at 20 states (``_CLASSIC_STAGE_BYTES``);
+   node at 20 states (``_CLASSIC_STAGE_BYTES``); at 64 states B7's blocks
+   per launch (132, 264, 528) at phase 27's shape;
 5. counts global loads (``LDG``), shared-memory loads (``LDS`` by width),
    FMAs and barriers in the SASS of both builds' B1 and B4 (at 4 and 20
    states), B9 (every compiled F and lanes), B8 (the flagship's and config
-   4's topologies) and 20-state B2, B7 and B3 (``cuobjdump -sass``), writes
+   4's topologies), 20-state B2, B7 and B3 and 64-state B5, B7 and B3
+   (``cuobjdump -sass``; for the 64-state ones also loads per FMA, whole
+   and in each hot loop, and their ptxas lines), writes
    those functions' SASS to ``build/kernel_turns/``, and lists both
    builds' ptxas registers, shared memory and spills, B8's included (a
    spill in the current build fails the run), and each B8 build's
@@ -73,6 +87,8 @@ whole, 8192 patterns simulated down it) at 4 and 20 states, and for B9 at
 
 It prints the card's ``nvidia-smi`` name and power limit, then one JSON
 object, also written to ``--out`` (default ``build/kernel_turns.json``).
+``python3 kernel_turns.py --sass-loops DIR`` (no GPU) prints the hot loops'
+loads per FMA of SASS files it wrote.
 """
 import argparse
 import collections
@@ -109,7 +125,18 @@ SASS_KERNELS = {
     "B2": r"pruning_saveall_kernelILi20E",
     "B7": r"classic_reverse_walk_kernelILi20E",
     "B3": r"pruning_reverse_walk_kernelILi20E",
+    "B5_64": r"pruning_stream_(?:wide_)?kernelILi64E",
+    "B7_64": r"classic_reverse_wide_kernelILi64E",
+    "B3_64": r"pruning_reverse_wide_kernelILi64E",
 }
+# trees of nodes of at most 3 and 4 children, kept whole at 64 states
+WIDE3 = ("((a:0.1,b:0.2,c:0.05):0.1,(d:0.3,e:0.1,f:0.2):0.2,"
+         "(h:0.1,(i:0.2,j:0.3):0.05):0.1);")
+WIDE4 = ("((a:0.1,b:0.2,c:0.05,x:0.1):0.1,(d:0.3,e:0.1,f:0.2,g:0.15):0.2,"
+         "(h:0.1,(i:0.2,j:0.3):0.05):0.1,k:0.4);")
+# GY94 at phase 27's parameters (chip_smoke.CODON_PARAMS, F3x4 from the
+# same seeded nucleotide frequencies)
+CODON_KAPPA, CODON_OMEGA, CODON_ALPHA = 2.4, 0.25, 0.6
 
 
 def _earlier_static_header(order, children, counts, n_nodes: int,
@@ -187,12 +214,12 @@ def _build_parent(parent: Path, nvcc_flags, nvcc):
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
     shared = ctypes.CDLL(str(lib_path))
-    # the earlier entry points end at the stream: the current wrappers'
-    # trailing strides (0, shared leaves) go past their last parameter
-    for name, n_ptr, n_int, _ in _build.SIGNATURES:
+    # the shared entry points take the current signatures, the leaf and
+    # frequency strides (64-bit) after the stream included
+    for name, *counts in _build.SIGNATURES:
         if name in SHARED_ENTRIES:
             fn = getattr(shared, name)
-            fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+            fn.argtypes = _build._argtypes(*counts)
             fn.restype = ci
     walks = ctypes.CDLL(str(lib_path))
     walks.pruning_fold_f32.argtypes = [vp] * 9 + [ci] * 9 + [vp]
@@ -228,6 +255,40 @@ def _sass_counts(lines):
         if op and op.group(1).startswith(("LDG", "LDS", "FFMA", "BAR")):
             counts[op.group(1)] += 1
     return dict(counts)
+
+
+def _hot_loops(lines, min_ffma=32):
+    """[(start address, instructions, FFMA, LDS, LDG, loads per FMA)] of
+    every loop (a backward branch) of one function's SASS that holds at
+    least ``min_ffma`` FFMAs: the loads its own iterations issue per FMA
+    (asynchronous copies into shared memory, LDGSTS, not counted)."""
+    ins = []
+    for ln in lines:
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", ln)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, args in ins:
+        target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target is None or int(target.group(1), 16) >= addr:
+            continue
+        body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
+        ffma = sum(o == "FFMA" for o in body)
+        lds = sum(o.startswith("LDS") for o in body)
+        ldg = sum(o.startswith("LDG") and not o.startswith(("LDGSTS", "LDGDEPBAR"))
+                  for o in body)
+        if ffma >= min_ffma:
+            loops.append((target.group(1), len(body), ffma, lds, ldg,
+                          (lds + ldg) / ffma))
+    return loops
+
+
+def _sass_loops(directory: Path):
+    """{file: _hot_loops} of every ``*.sass`` file in ``directory`` (the
+    SASS this script writes to ``build/kernel_turns/``)."""
+    return {f.name: _hot_loops(f.read_text().splitlines())
+            for f in sorted(Path(directory).glob("*.sass"))}
 
 
 def _sass_key(fn: str) -> str:
@@ -290,6 +351,213 @@ def _fold_pairs_ptxas(nvcc, nvcc_flags):
     return _ptxas_table(res.stdout + res.stderr)
 
 
+def _codon_inputs(tree, sites, k, rng, dev, binarize=True):
+    """Phase 27's codon walk inputs on ``tree``: (schedule, f32 P, f32
+    leaves, f64 frequencies), padded from GY94's 61 states to 64 as the
+    engines' entry points pad them, with ``k`` categories (the gamma rates
+    at k = 4, else k rates from 0.1 to 3.0: phase 31's omega classes'
+    count) and ``sites`` sites simulated down the tree under the port's
+    f64 P; its multifurcations kept whole unless ``binarize``."""
+    import numpy as np
+    import torch
+    from chip_smoke import _simulate_states
+    from phylo_utils_tpu_torch import models
+    from phylo_utils_tpu_torch.models.codon import f3x4_frequencies
+    from phylo_utils_tpu_torch.ops import cuda_pruning as cp
+    from phylo_utils_tpu_torch.ops.cuda_pruning import WalkSchedule
+    from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
+    from phylo_utils_tpu_torch.ops.pmatrix import (extend_p_identity,
+                                                   transition_matrices)
+    from phylo_utils_tpu_torch.trees import compile_schedule
+
+    nuc = np.random.default_rng(27).dirichlet(np.full(4, 8.0), size=3)
+    eig = models.GY94.eigen({"kappa": CODON_KAPPA, "omega": CODON_OMEGA,
+                             "freqs": f3x4_frequencies(nuc).tolist()},
+                            dtype=torch.float64, device=dev)
+    r = (discrete_gamma(torch.tensor(CODON_ALPHA, dtype=torch.float64),
+                        4).to(dev) if k == 4 else
+         torch.linspace(0.1, 3.0, k, dtype=torch.float64, device=dev))
+    t = torch.as_tensor(np.asarray(tree.lengths), dtype=torch.float64,
+                        device=dev)
+    p64 = transition_matrices(eig, t[:, None] * r)
+    freqs = eig.freqs.cpu().numpy()
+    states = _simulate_states(tree, p64.cpu().numpy(), sites,
+                              freqs / freqs.sum(), rng)
+    sched = compile_schedule(tree, binarize=binarize)
+    s_pad = cp.padded_states(p64.shape[-1])
+    p = cp._pad_states(extend_p_identity(p64.float(), sched.n_nodes), s_pad,
+                       2).contiguous()
+    leaves = cp._pad_states(torch.as_tensor(
+        np.eye(p64.shape[-1], dtype=np.float32)[states], device=dev), s_pad,
+        1).contiguous()
+    return (WalkSchedule(sched), p, leaves,
+            cp._pad_states(eig.freqs, s_pad, 1))
+
+
+def _rel(got, want):
+    """max |got - want| / max |want|"""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _wide_turns(shapes, earlier, rng, reps_of, cuda_ms, device_us, bound,
+                timed):
+    """The 64-state checks of B5, B3 and B7 on ``shapes`` ({label: (walk, P,
+    leaves, f64 frequencies, kernels)}), and their turns on the shapes
+    ``timed``: ({label: checks},
+    {name_label: turns}, {name_label: device us}, {label: B7's blocks in
+    turns}, [labels whose checks failed])."""
+    import functools
+
+    import torch
+    from phylo_utils_tpu_torch.ops import cuda_pruning as cp
+    from phylo_utils_tpu_torch.ops.cuda_pruning import (
+        classic_reverse_walk, classic_reverse_walk_reference, forward_walk,
+        reverse_walk, reverse_walk_reference, saveall_walk, slot_walk)
+
+    checks, turns, dev_us, sweeps, failed = {}, {}, {}, {}, []
+    for label, (walk, p, leaves, f64, names) in shapes.items():
+        f = f64.float().contiguous()
+        reps = reps_of[label]
+        states = 61    # the bound counts GY94's own states
+        chk = {"cmax": int(walk.children.shape[1]), "sites": leaves.shape[1],
+               "categories": p.shape[-3]}
+        ok = True
+        kernels = {}
+        ob1 = earlier(forward_walk, p, leaves, walk, walk="classic")()
+        if "B5" in names:
+            sp, se = slot_walk(p, leaves, walk, stream=True)
+            op, oe = earlier(slot_walk, p, leaves, walk, stream=True)()
+            torch.cuda.synchronize()
+            chk["b5_equals_earlier_and_b1"] = bool(
+                torch.equal(sp, op) and torch.equal(se, oe)
+                and torch.equal(sp, ob1[0]) and torch.equal(se, ob1[1]))
+            ok = ok and chk["b5_equals_earlier_and_b1"]
+            kernels["B5"] = ("stream", functools.partial(
+                slot_walk, p, leaves, walk, stream=True),
+                earlier(slot_walk, p, leaves, walk, stream=True))
+            del sp, se, op, oe
+        if "B3" in names or "B7" in names:
+            rx, re_ = saveall_walk(p, leaves, walk)
+            row = walk.root - walk.n_leaves
+            lam = (1.0 / torch.einsum("ksi,i->ks", rx[:, row].double(), f64)
+                   ).float().contiguous()
+            gseed = (lam[..., None] * f).unsqueeze(-3).contiguous()
+            root = [walk.root]
+            seeds = [walk.root, int(walk.order[len(walk.order) // 2])]
+            g2 = torch.as_tensor(rng.uniform(
+                0.5, 1.5, (p.shape[-3], 2) + tuple(leaves.shape[1:])),
+                dtype=torch.float32, device=p.device)
+        if "B3" in names:
+            d3, l3 = reverse_walk(p, leaves, rx, re_, lam, f, walk, True)
+            d3b, _ = reverse_walk(p, leaves, rx, re_, lam, f, walk)
+            o3, ol3 = earlier(reverse_walk, p, leaves, rx, re_, lam, f, walk,
+                              True)()
+            w3, wl3 = reverse_walk_reference(p, leaves, rx, re_, lam, f, walk,
+                                             True)
+            torch.cuda.synchronize()
+            chk.update({
+                "b3_equals_earlier": bool(torch.equal(d3, o3)
+                                          and torch.equal(l3, ol3)),
+                "b3_repeat_equal": bool(torch.equal(d3, d3b)),
+                "b3_vs_plain": _rel(d3, w3), "b3_dleaf_vs_plain": _rel(l3, wl3)})
+            ok = (ok and chk["b3_equals_earlier"] and chk["b3_repeat_equal"]
+                  and max(chk["b3_vs_plain"], chk["b3_dleaf_vs_plain"]) <= TOL)
+            del d3b, o3, ol3, w3, wl3
+            kernels["B3"] = ("reverse", functools.partial(
+                reverse_walk, p, leaves, rx, re_, lam, f, walk),
+                earlier(reverse_walk, p, leaves, rx, re_, lam, f, walk))
+        if "B7" in names:
+            d7, l7 = classic_reverse_walk(p, leaves, rx, re_, gseed, root,
+                                          walk, True)
+            d7b, _ = classic_reverse_walk(p, leaves, rx, re_, gseed, root,
+                                          walk)
+            o7, ol7 = earlier(classic_reverse_walk, p, leaves, rx, re_, gseed,
+                              root, walk, True)()
+            e7, el7 = classic_reverse_walk(p, leaves, rx, re_, g2, seeds,
+                                           walk, True)
+            oe7, oel7 = earlier(classic_reverse_walk, p, leaves, rx, re_, g2,
+                                seeds, walk, True)()
+            w7, wl7 = classic_reverse_walk_reference(p, leaves, rx, re_,
+                                                     gseed, root, walk, True)
+            saved = cp._CLASSIC_REVERSE_BLOCKS[64]
+            try:    # one 64-site tile a block: B3's dP bit for bit
+                cp._CLASSIC_REVERSE_BLOCKS[64] = p.shape[-3] * -(
+                    -leaves.shape[1] // cp._WIDE_TILE)
+                one_tile = classic_reverse_walk(p, leaves, rx, re_, gseed,
+                                                root, walk)[0]
+            finally:
+                cp._CLASSIC_REVERSE_BLOCKS[64] = saved
+            torch.cuda.synchronize()
+            chk.update({
+                "b7_vs_plain": _rel(d7, w7), "b7_dleaf_vs_plain": _rel(l7, wl7),
+                "b7_vs_earlier": _rel(d7, o7),
+                "b7_two_seeds_vs_earlier": _rel(e7, oe7),
+                "b7_dleaf_equals_earlier": bool(torch.equal(l7, ol7)
+                                                and torch.equal(el7, oel7)),
+                "b7_repeat_equal": bool(torch.equal(d7, d7b)),
+                "b7_root_row_zero": float(
+                    d7.select(-4, walk.root).abs().max()) == 0.0,
+                "b7_stage_children": cp.classic_reverse_stage(
+                    64, int(walk.children.shape[1]))[0]})
+            if "B3" in names:   # B3's dleaf, and its dP with one tile a block
+                chk["b7_dleaf_equals_b3"] = bool(torch.equal(l7, l3))
+                chk["b7_one_tile_equals_b3"] = bool(torch.equal(one_tile, d3))
+                ok = (ok and chk["b7_dleaf_equals_b3"]
+                      and chk["b7_one_tile_equals_b3"])
+            ok = (ok and max(chk["b7_vs_plain"], chk["b7_dleaf_vs_plain"],
+                             chk["b7_vs_earlier"],
+                             chk["b7_two_seeds_vs_earlier"]) <= TOL
+                  and chk["b7_dleaf_equals_earlier"]
+                  and chk["b7_repeat_equal"] and chk["b7_root_row_zero"])
+            b7 = functools.partial(classic_reverse_walk, p, leaves, rx, re_,
+                                   gseed, root, walk)
+            kernels["B7"] = ("classic", b7, earlier(
+                classic_reverse_walk, p, leaves, rx, re_, gseed, root, walk))
+            del d7, l7, d7b, o7, ol7, e7, el7, oe7, oel7, w7, wl7, one_tile
+        checks[label] = chk
+        if not ok:
+            failed.append(label)
+            print(json.dumps({label: chk}), flush=True)
+            continue
+        if label not in timed:   # checks only: launches of a few microseconds
+            kernels = {}
+        for name, (kind, new_fn, old_fn) in kernels.items():
+            t = [cuda_ms(old_fn, reps), cuda_ms(new_fn, reps),
+                 cuda_ms(new_fn, reps), cuda_ms(old_fn, reps)]
+            bound_ms, bound_by = bound(kind, walk, p, leaves, states=states)
+            new_ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            turns[f"{name}_{label}"] = {
+                "earlier_ms": old_ms, "ms": new_ms, "runs": t,
+                "speedup": old_ms / new_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_share": bound_ms / new_ms,
+                "earlier_bound_share": bound_ms / old_ms}
+            dev_us[f"{name}_{label}"] = {
+                "earlier": device_us(old_fn, min(reps, 10)),
+                "current": device_us(new_fn, min(reps, 10))}
+        if label == "codon27" and "B7" in kernels:
+            saved = cp._CLASSIC_REVERSE_BLOCKS[64]
+            b7 = kernels["B7"][1]
+            try:
+                runs = {}
+                for blocks in (132, 264, 528, 528, 264, 132):
+                    cp._CLASSIC_REVERSE_BLOCKS[64] = blocks
+                    runs.setdefault(str(blocks), []).append(cuda_ms(b7, reps))
+            finally:
+                cp._CLASSIC_REVERSE_BLOCKS[64] = saved
+            sweeps[label] = {"B7_blocks": {
+                k: {"ms": sum(v) / len(v), "runs": v} for k, v in runs.items()}}
+        print(json.dumps({label: {"checks": chk, "turns": {
+            k: v for k, v in turns.items() if k.endswith(label)}}}),
+            flush=True)
+        del kernels
+        if "B3" in names or "B7" in names:
+            del rx, re_
+        if "B3" in names:
+            del d3, l3
+        torch.cuda.empty_cache()
+    return checks, turns, dev_us, sweeps, failed
+
+
 def _turns(fns, reps, cuda_ms):
     """{label: mean ms} of each of ``fns`` (label -> callable) timed in
     turns: in order, then in reverse order."""
@@ -303,7 +571,11 @@ def _turns(fns, reps, cuda_ms):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, type=Path,
+    ap.add_argument("--sass-loops", type=Path, metavar="DIR",
+                    help="print the hot loops' loads per FMA of the SASS "
+                    "files in DIR (as this script writes them) and exit; "
+                    "needs no GPU")
+    ap.add_argument("--parent", type=Path,
                     help="directory of the earlier pruning_forward.cu, "
                     "pruning_reverse.cu, pruning_slot.cu, "
                     "pruning_classic_reverse.cu, pruning_fold.cu, "
@@ -311,7 +583,16 @@ def main():
     ap.add_argument("--out", type=Path,
                     default=REPO / "build" / "kernel_turns.json",
                     help="where to write the JSON result")
+    ap.add_argument("--states", default="4,20,64",
+                    help="the state counts whose shapes to run (comma "
+                    "separated)")
     args = ap.parse_args()
+    if args.sass_loops is not None:
+        print(json.dumps(_sass_loops(args.sass_loops), indent=1))
+        return
+    if args.parent is None:
+        ap.error("--parent is required")
+    want = {int(v) for v in args.states.split(",")}
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -330,6 +611,7 @@ def main():
     from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
     from phylo_utils_tpu_torch.ops.pmatrix import (
         extend_p_identity, transition_matrices)
+    from phylo_utils_tpu_torch.io import parse_newick
     from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
 
     smi = subprocess.run(
@@ -347,6 +629,8 @@ def main():
     ptxas_current = _ptxas_table(log) if log else {}
     spilled = {k: v for k, v in ptxas_current.items()
                if not re.search(r"\b0 bytes spill stores", v)}
+    print(json.dumps({"ptxas_64": {k: v for k, v in ptxas_current.items()
+                                   if "<64>" in k}}), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     rates = discrete_gamma(torch.tensor(0.5, dtype=torch.float64), 4).to(dev)
@@ -419,18 +703,25 @@ def main():
 
     tree_flag = random_tree(64, seed=0)
     tree_config4 = random_tree(32, seed=13, mean_brlen=0.2)
-    shapes = {
-        "flagship_B1": inputs(tree_flag, 1024, 1, 4),
-        "flagship_B64": inputs(tree_flag, 1024, 64, 4),
-        "config4_S20": inputs(tree_config4, 1024, 1, 20),
-        "dna1000": inputs(random_tree(1000, seed=10), 8192, 1, 4),
-        "protein512_LG": inputs(random_tree(512, seed=11), 8192, 1, 20),
-        "wide_node_S4": _wide_node_inputs(eigs[4], rates, 8192, rng, dev),
-        "wide_node_S20": _wide_node_inputs(eigs[20], rates, 8192, rng, dev),
+    specs = {
+        "flagship_B1": (4, lambda: inputs(tree_flag, 1024, 1, 4)),
+        "flagship_B64": (4, lambda: inputs(tree_flag, 1024, 64, 4)),
+        "config4_S20": (20, lambda: inputs(tree_config4, 1024, 1, 20)),
+        "dna1000": (4, lambda: inputs(random_tree(1000, seed=10), 8192, 1,
+                                      4)),
+        "protein512_LG": (20, lambda: inputs(random_tree(512, seed=11), 8192,
+                                             1, 20)),
+        "wide_node_S4": (4, lambda: _wide_node_inputs(eigs[4], rates, 8192,
+                                                      rng, dev)),
+        "wide_node_S20": (20, lambda: _wide_node_inputs(eigs[20], rates,
+                                                        8192, rng, dev)),
         # B9's widths: 12 categories at 4 states, 60 at 20
-        "widths_S4_K12": inputs(tree_flag, 1024, 1, 4, 12),
-        "widths_S20_K60": inputs(tree_config4, 1024, 1, 20, 60),
+        "widths_S4_K12": (4, lambda: inputs(tree_flag, 1024, 1, 4, 12)),
+        "widths_S20_K60": (20, lambda: inputs(tree_config4, 1024, 1, 20,
+                                              60)),
     }
+    shapes = {label: make() for label, (s_, make) in specs.items()
+              if s_ in want}
     reps_of = {"flagship_B1": 200, "flagship_B64": 50, "config4_S20": 100,
                "dna1000": 20, "protein512_LG": 5, "wide_node_S4": 20,
                "wide_node_S20": 3, "widths_S4_K12": 50, "widths_S20_K60": 10}
@@ -444,10 +735,13 @@ def main():
     folds_of.update({label: tuple(
         f_ for f_ in cp.FOLD_WIDTHS[shapes[label][2].shape[2]]
         if shapes[label][1].shape[-3] % f_ == 0)
-        for label in ("config4_S20", "widths_S4_K12", "widths_S20_K60")})
+        for label in ("config4_S20", "widths_S4_K12", "widths_S20_K60")
+        if label in shapes})
     # B8 by shape: the topology its libraries are built for
-    static_of = {"flagship_B1": "flagship", "flagship_B64": "flagship",
-                 "config4_S20": "config4", "wide_node_S4": "wide_node_S4"}
+    static_of = {label: top for label, top in (
+        ("flagship_B1", "flagship"), ("flagship_B64", "flagship"),
+        ("config4_S20", "config4"), ("wide_node_S4", "wide_node_S4"))
+        if label in shapes}
     # B8's libraries, current and earlier, one topology at a time, so that
     # each build's seconds are its own
     static_old, static_cur, b8_build = {}, {}, {}
@@ -749,7 +1043,38 @@ def main():
             "sweeps": sweeps}}), flush=True)
         del kernels
         torch.cuda.empty_cache()
-    sass = {}
+    if 64 in want:   # phase 27's codon shape (K = 4 and 30), 1000 taxa
+        tree27 = random_tree(100, seed=27)
+        wide = {
+            "codon27": (*_codon_inputs(tree27, 4096, 4, rng, dev),
+                        ("B5", "B3", "B7")),
+            "codon27_K30": (*_codon_inputs(tree27, 4096, 30, rng, dev),
+                            ("B5",)),
+            "codon1000": (*_codon_inputs(random_tree(1000, seed=29), 2048, 4,
+                                         rng, dev), ("B3", "B7")),
+        }
+        # nodes of 3 and 4 children kept whole, at a site count that leaves
+        # the last 64-site tile ragged: B5's and B3's stages at their widest
+        # (4 and 3 children), B7 staged at 3 and through L1 at 4 (checked,
+        # not timed)
+        for label, newick in (("codon_cmax3", WIDE3), ("codon_cmax4", WIDE4)):
+            wide[label] = (*_codon_inputs(parse_newick(newick), 1000, 4, rng,
+                                          dev, binarize=False),
+                           ("B5", "B3", "B7") if label == "codon_cmax3"
+                           else ("B5", "B7"))
+        checks, turns, dev_us, sweeps, bad = _wide_turns(
+            wide, earlier, rng, {"codon27": 10, "codon27_K30": 5,
+                                 "codon1000": 3, "codon_cmax3": 3,
+                                 "codon_cmax4": 3}, _cuda_ms, _device_us,
+            _bound, ("codon27", "codon27_K30", "codon1000"))
+        result["checks"].update(checks)
+        result["turns"].update(turns)
+        result["device_us"].update(dev_us)
+        result["sweeps"].update(sweeps)
+        failed += bad
+        del wide
+        torch.cuda.empty_cache()
+    sass, sass_lines = {}, {}
     libs = {"earlier": [old_path] + [v[1] for v in static_old.values()],
             "current": [cur_path] + [Path(v["path"])
                                      for v in static_cur.values()]}
@@ -759,17 +1084,37 @@ def main():
             for i, (fn, lines) in enumerate(_sass(path, pattern).items()):
                 sass[f"{kernel} {which} {path.stem} {fn}"] = _sass_counts(
                     lines)
+                sass_lines[f"{kernel} {which} {path.stem} {fn}"] = lines
                 (OUT_DIR / f"{kernel}_{which}_{path.stem}_{i}.sass"
                  ).write_text(f"{fn}\n" + "\n".join(lines))
     result["sass"] = sass
+    # the 64-state kernels' loads per FMA: their hot loops', and the whole
+    # function's (staging and epilogue code included)
+    result["hot_loops_64"] = {
+        key: _hot_loops(lines) for key, lines in sass_lines.items()
+        if key.split()[0].endswith("_64")}
+    result["loads_per_fma_64"] = {
+        key: {"lds": sum(v for op, v in c.items() if op.startswith("LDS")),
+              "ldg": sum(v for op, v in c.items() if op.startswith("LDG")),
+              "ffma": c.get("FFMA", 0),
+              "loads_per_fma": sum(v for op, v in c.items()
+                                   if op.startswith(("LDS", "LDG")))
+              / max(c.get("FFMA", 0), 1)}
+        for key, c in sass.items() if key.split()[0].endswith("_64")}
+    result["ptxas_64"] = {
+        which: {k: v for k, v in table.items() if "<64>" in k and re.match(
+            r"(pruning_stream|pruning_reverse_wide|classic_reverse_wide)", k)}
+        for which, table in (("earlier", _ptxas_table(old_log)),
+                             ("current", ptxas_current))}
     # B1 and B4 (F = 1) instruction for instruction against the earlier
     # build's
     result["sass_diff_b1_b4"] = _sass_diff(
         _sass(old_path, SASS_KERNELS["B1_B4"]),
         _sass(cur_path, SASS_KERNELS["B1_B4"]))
-    result["ptxas_fold_pairs"] = _fold_pairs_ptxas(
-        _build._nvcc(), (*_build.NVCC_FLAGS,
-                         *_build.PTXAS_FLAGS["pruning_fold.cu"]))
+    if want & {4, 20}:
+        result["ptxas_fold_pairs"] = _fold_pairs_ptxas(
+            _build._nvcc(), (*_build.NVCC_FLAGS,
+                             *_build.PTXAS_FLAGS["pruning_fold.cu"]))
     result["ptxas_earlier"] = _ptxas_table(old_log)
     result["ptxas_b8"] = {
         top: {"earlier": _ptxas_table(static_old[top][3]),

@@ -63,17 +63,16 @@
 // the siblings' product, gy, x and P^T gy, and a warp's 64 x 64 dP entries
 // fit neither registers nor S = 20's warp-private blocks. So
 // classic_reverse_wide_kernel takes B3's 64-state layout (pruning_reverse.cu,
-// pruning_common.cuh's wide_* helpers): four lanes a column, each keeping
-// rows 4 r + h of g and gy; 64 columns a block of 256 threads; P staged with
-// rows 68 floats apart; per child the block's gy and x rows in two shared
-// tiles, from which thread t sums dP's 4 x 4 sub-block (t / 16, t % 16) over
-// the tile's columns and adds it into the block's row (the first tile
-// stores), and lane h forms entries [16 h, 16 h + 16) of P^T gy. B7's
-// contract stays: several seeds, one dP row a block over every gridDim.x-th
-// tile, and a visit of more children than the stage holds (at most 3 in
-// 227 KB, ops/cuda_pruning.py::classic_reverse_stage) read through L1 in
-// groups. A child's work is B3's own code (pruning_common.cuh's
-// wide_reverse_child), so with one seed at the root its dleaf is B3's bit
+// pruning_common.cuh's wide_* helpers): a block of 256 threads over a tile
+// of 64 columns, each contraction one tiled product (4 x 4 micro-tiles),
+// a step's P blocks and x tiles staged one step ahead in a ring of two
+// stages, a staged visit B3's own code (wide_reverse_visit), which adds
+// its dP into the block's row (the first tile stores). B7's contract
+// stays: several seeds, one dP row a block over every gridDim.x-th tile,
+// and a visit of more children than the stage holds (at most 3 in 227 KB,
+// ops/cuda_pruning.py::classic_reverse_stage) read through L1 in groups:
+// there each child's gy takes its siblings' y again, P and x through L1,
+// the same micro-tiles. With one seed at the root its dleaf is B3's bit
 // for bit, and so is its dP where every block walks one tile. The outer
 // loops stay two: B3's walks one tile a block and stages each visit whole
 // (its scratch grows with the sites); B7's walks its block's tiles in turn
@@ -91,7 +90,11 @@
 // of device time at the flagship's B = 64 (903 before; B3 493) and 160 at
 // B = 1 (266; B3 158). A visit read through L1 is as slow as before: the
 // root of 49 children at 20 states takes 21.6 ms (23.2 before), its 49 x
-// 48 sibling contractions a load per FMA.
+// 48 sibling contractions a load per FMA. At 64 states (kernel_turns.py
+// --states 64, in turns against the first 64-state design, same card):
+// 3.781 ms at 100 taxa x 4096 codon sites (6.001 before; 24% of its
+// operations bound) and 20.35 ms at 1000 taxa x 2048 (31.00), its hot
+// loops at 0.125 loads an FMA (pruning_common.cuh).
 
 #include "pruning_common.cuh"
 
@@ -109,7 +112,8 @@ constexpr int kMaxTile = 256;   // sites per block, one per thread (the widest)
 // copies the next step not yet staged, at (st, si, sc), into stage
 // `staged` % kPStages of the P ring when its visit is staged (count <= cs:
 // the whole visit, P blocks p_block<S>() floats apart, rows p_row<S>()
-// apart), and commits the group. Both of this file's kernels walk it.
+// apart), and commits the group. classic_reverse_walk_kernel walks it; the
+// 64-state kernel keeps its own cursor, which stages x tiles as well.
 template <int S>
 struct StepRing {
   float* p_stage;                 // (kPStages, cs, p_block<S>()) floats
@@ -354,13 +358,14 @@ classic_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   if (prev_i >= 0) flush((step - 1) & 1);
 }
 
-// The classic reverse at S = 64: B3's wide layout (pruning_common.cuh's
-// wide_*: kWideLanes lanes a column, kWideTile columns a block of 256
-// threads, P rows p_row apart, each child's dP summed over the block from
-// the shared gy and x tiles, one 4 x 4 sub-block a thread) with B7's
-// contract: several seeds, the block's tiles walked in turn into its own dP
-// row, and a visit of more than `stage_children` children read through L1
-// in groups. Same arguments and outputs as classic_reverse_walk_kernel.
+// The classic reverse at S = 64: B3's tiled layout (pruning_common.cuh's
+// wide_*: a block of 256 threads over a tile of kWideTile columns, 4 x 4
+// micro-tiles, P and x rows 68 floats apart) with B7's contract: several
+// seeds, the block's tiles walked in turn into its own dP row, and a
+// visit of more than `stage_children` children read through L1 in groups.
+// A step's P blocks and x tiles are staged one step ahead in a ring of two
+// stages; a staged visit is wide_reverse_visit, B3's body. Same arguments
+// and outputs as classic_reverse_walk_kernel.
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
@@ -380,21 +385,16 @@ classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             int K, int n_nodes, int n_leaves, int n_int,
                             int cmax, int sites, int n_seed, int n_gslots,
                             int stage_children, int leaf_rows) {
-  constexpr int kL = pruning::kWideLanes;
-  constexpr int kRows = S / kL;              // rows of g and gy a lane keeps
-  constexpr int kSub = S / 4;                // 4 x 4 dP sub-blocks a side
   constexpr int kTile = pruning::kWideTile;  // columns a block
   constexpr int LD = pruning::p_row<S>();    // floats between staged rows
-  constexpr int kBlock = S * LD;             // floats of a staged P block
-  static_assert(S % 16 == 0 && kTile * kL == kSub * kSub && kSub * kSub <= kMaxTile,
-                "16-byte vectors of a lane's quarter row, one sub-block a thread");
+  constexpr int kTileF = pruning::wide_tile_floats<S>();
+  constexpr int kRowVecs = S / 4;
+  static_assert(S == kTile, "a 16 x 16 grid of 4 x 4 micro-tiles");
   const int cs = stage_children;
   extern __shared__ float4 smem_vec[];
-  float* p_stage = reinterpret_cast<float*>(smem_vec);  // (kPStages, cs, S, LD)
-  float* gy_t = p_stage + pruning::kPStages * cs * kBlock;  // (kTile, LD)
-  float* x_t = gy_t + kTile * LD;                           // (kTile, LD)
-  const int h = threadIdx.x % kL;
-  const int col = threadIdx.x / kL;
+  float* ring = reinterpret_cast<float*>(smem_vec);  // (2, 2 cs, tile): P, then x
+  float* gy_tiles = ring + 2 * 2 * cs * kTileF;       // (n_gy, tile)
+  const int n_gy = pruning::wide_gy_tiles(cs);
   const int k = blockIdx.y;
   const int b = blockIdx.z;
   const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
@@ -413,79 +413,189 @@ classic_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
       p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
   const size_t p_node_stride = static_cast<size_t>(K) * S * S;
   const int n_tiles = (sites + kTile - 1) / kTile;
+  // a node's partials row at site s0: a leaf's or its residual
+  auto row_of = [&](int node, int s0) {
+    return node < n_leaves
+               ? leaves + (static_cast<size_t>(lrow0 + node) * ns + s0) * S
+               : xs + (static_cast<size_t>(node - n_leaves) * ns + s0) * S;
+  };
 
-  StepRing<S> ring{p_stage, pb, p_node_stride, counts, children, cmax,
-                   n_int, n_tiles, cs, static_cast<int>(blockIdx.x), 0, 0, 0};
-  ring.next();
-  ring.next();
+  // The steps of the block's walk, in walk order, tile after tile (every
+  // gridDim.x-th tile from its own): visit si's children [sc, sc + cs)
+  // (one step for a visit of none). next() copies the next step not yet
+  // staged, at (st, si, sc), into ring stage `staged` % 2 when its visit
+  // is staged (count <= cs: the whole visit's P blocks, then its x tiles,
+  // zeros past the sites), and commits the group.
+  int st = blockIdx.x, si = 0, sc = 0, staged = 0;
+  auto next = [&]() {
+    if (st < n_tiles) {
+      const int cnt = __ldg(counts + si);
+      if (cnt <= cs) {
+        float* dst = ring + (staged & 1) * 2 * cs * kTileF;
+        const int s0 = st * kTile;
+        for (int c = 0; c < cnt; ++c) {
+          const int child = __ldg(children + si * cmax + c);
+          const float* ps = pb + child * p_node_stride;
+          const float* xsrc = row_of(child, s0);
+          for (int q = threadIdx.x; q < S * kRowVecs; q += blockDim.x) {
+            pruning::cp_async16(dst + c * kTileF + pruning::p_stage_offset<S>(q), ps + 4 * q);
+            const int col = q / kRowVecs;
+            float* xd = dst + (cs + c) * kTileF + col * LD + 4 * (q % kRowVecs);
+            if (s0 + col < sites) {
+              pruning::cp_async16(xd, xsrc + col * S + 4 * (q % kRowVecs));
+            } else {
+              *reinterpret_cast<float4*>(xd) = make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+        }
+      }
+      sc += cs;
+      if (sc >= cnt) {
+        sc = 0;
+        if (++si == n_int) {
+          si = 0;
+          st += gridDim.x;
+        }
+      }
+    }
+    ++staged;
+    pruning::cp_async_commit();
+  };
+  next();
 
   int step = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int site = tile * kTile + col;
-    const bool live = site < sites;
+    const int site0 = tile * kTile;
+    const int n_live = min(kTile, sites - site0);  // the tile's columns within the sites
     const bool first = tile == blockIdx.x;  // the block's first tile stores its row
-    // a node's partials row at this column: a leaf's or its residual
-    auto row_of = [&](int node) {
-      return node < n_leaves
-                 ? leaves + (static_cast<size_t>(lrow0 + node) * ns + site) * S
-                 : xs + (static_cast<size_t>(node - n_leaves) * ns + site) * S;
-    };
     for (int i = 0; i < n_int; ++i) {
       const int node = __ldg(rnode + i);
       const int cnt = __ldg(counts + i);
-      float g[kRows];  // rows 4 r + h of the node's outside vector
+      const int gs = __ldg(gslot + i);
+      const int nseed = __ldg(node_seed + node);
+      // the node's outside vector at (row, col): its slot or its seed, else
+      // zero; and its 2^{-r_n}
+      const auto gval = [&](int r, int col) -> float {
+        const size_t site = site0 + col;
+        return gs >= 0      ? slots[(static_cast<size_t>(gs) * ns + site) * S + r]
+               : nseed >= 0 ? seeds[(static_cast<size_t>(nseed) * ns + site) * S + r]
+                            : 0.0f;
+      };
+      int kids[pruning::kWideStaged];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
-      float inv_m = 0.0f;
-      if (live) {
-        const int gs = __ldg(gslot + i);
-        const int seed = __ldg(node_seed + node);
-        if (gs >= 0) {
-          pruning::wide_load_rows<S>(slots + (static_cast<size_t>(gs) * ns + site) * S, h, g);
-        } else if (seed >= 0) {
-          pruning::wide_load_rows<S>(seeds + (static_cast<size_t>(seed) * ns + site) * S, h, g);
-        }
-        inv_m = pruning::visit_inv_m(children + i * cmax, cnt, node, n_leaves, es, ns, site);
+      for (int c = 0; c < pruning::kWideStaged; ++c) {
+        kids[c] = c < cnt ? __ldg(children + i * cmax + c) : 0;
       }
+      const auto invm = [&](const int (&cl)[4], float (&out)[4]) {
+        pruning::wide_inv_m(kids, cnt, node, n_leaves, es, ns, site0, cl, n_live, out);
+      };
+      const auto dst_of = [&](int c) {
+        return row + static_cast<size_t>(__ldg(children + i * cmax + c)) * S * S;
+      };
+      // the child's outside vector: its slot, or dleaf
+      const auto out_of = [&](int c, int col) -> float* {
+        if (col >= n_live) return nullptr;
+        const int child = __ldg(children + i * cmax + c);
+        const size_t site = site0 + col;
+        if (child >= n_leaves) {
+          return slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S;
+        }
+        return dls == nullptr ? nullptr : dls + (static_cast<size_t>(child) * ns + site) * S;
+      };
+      // a seed below another seed adds to the child's g
+      const auto plus_of = [&](int c, int col) -> const float* {
+        const int seed = __ldg(node_seed + __ldg(children + i * cmax + c));
+        return seed < 0 ? nullptr
+                        : seeds + (static_cast<size_t>(seed) * ns + site0 + col) * S;
+      };
+      // a visit wider than the stage: g and 2^{-r_n} held over its steps,
+      // 4 x 4 micro-tiles over the block's 256 threads
+      const int rg = pruning::wide_rg();
+      const int cg = pruning::wide_cg();
+      int cols[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cols[j] = cg + 16 * j;
+      float g[4][4];
+      float inv_m[4];
       int c0 = 0;
       do {
-        pruning::cp_async_wait_one();  // this step's P has landed (this thread's part)
+        pruning::cp_async_wait_all();  // this step's stage has landed (this thread's part)
         __syncthreads();               // ... and every other thread's
-        ring.next();                  // into the stage the last step read
-        const float* p_now =
-            p_stage + static_cast<size_t>(step % pruning::kPStages) * cs * kBlock;
-        const int c1 = min(c0 + cs, cnt);
-        // children [c0, c1), P from the stage or through L1: one body
-        // compiled for each, chosen once per step
-        auto group = [&](auto staged_tag) {
-          constexpr bool kStaged = decltype(staged_tag)::value;
-          const auto p_of = [&](int c) {
-            return kStaged ? p_now + c * kBlock
-                           : pb + __ldg(children + i * cmax + c) * p_node_stride;
-          };
-          const auto x_of = [&](int c) { return row_of(__ldg(children + i * cmax + c)); };
-          for (int c = c0; c < c1; ++c) {
-            const int child = __ldg(children + i * cmax + c);
-            const int seed = __ldg(node_seed + child);
-            float* out = nullptr;  // the child's outside vector: its slot, or dleaf
-            if (live && child >= n_leaves) {
-              out = slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S;
-            } else if (live && dls != nullptr) {
-              out = dls + (static_cast<size_t>(child) * ns + site) * S;
-            }
-            // a seed below another seed adds to the child's g; the block's
-            // later tiles add their dP in tile order
-            pruning::wide_reverse_child<S, kStaged>(
-                c, cnt, p_of, x_of, live, g, inv_m, gy_t, x_t, col, h,
-                row + static_cast<size_t>(child) * S * S, !first,
-                seed >= 0 ? seeds + (static_cast<size_t>(seed) * ns + site) * S : nullptr,
-                out);
-          }
-        };
+        next();                        // into the stage the last step read
+        float* now = ring + (step & 1) * 2 * cs * kTileF;
         if (cnt <= cs) {
-          group(std::true_type{});
+          pruning::wide_reverse_visit<S>(cnt, now, now + cs * kTileF, gval, invm, n_live,
+                                         gy_tiles, n_gy, dst_of, !first, out_of, plus_of);
         } else {
-          group(std::false_type{});
+          if (c0 == 0) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool live = cols[j] < n_live;
+              inv_m[j] = live ? pruning::visit_inv_m(children + i * cmax, cnt, node,
+                                                     n_leaves, es, ns, site0 + cols[j])
+                              : 0.0f;
+#pragma unroll
+              for (int a = 0; a < 4; ++a) g[a][j] = live ? gval(rg + 16 * a, cols[j]) : 0.0f;
+            }
+          }
+          // children [c0, c0 + cs): P and the siblings' x through L1, each
+          // child's gy from all its siblings' y in child order, its x tile
+          // copied for its dP
+          const int c1 = min(c0 + cs, cnt);
+          for (int c = c0; c < c1; ++c) {
+            float gy[4][4];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) gy[a][j] = 1.0f;
+            }
+            for (int c2 = 0; c2 < cnt; ++c2) {
+              if (c2 == c) continue;
+              const int sib = __ldg(children + i * cmax + c2);
+              const float* pr[4];
+              const float* xc[4];
+#pragma unroll
+              for (int a = 0; a < 4; ++a) pr[a] = pb + sib * p_node_stride + (rg + 16 * a) * S;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {  // a dead column reads column 0's row
+                xc[j] = row_of(sib, site0) + (cols[j] < n_live ? cols[j] : 0) * S;
+              }
+              float y[4][4];
+              pruning::wide_product<S, true>(pr, xc, y);
+#pragma unroll
+              for (int a = 0; a < 4; ++a) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) gy[a][j] *= y[a][j];
+              }
+            }
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                gy[a][j] = cols[j] < n_live ? g[a][j] * gy[a][j] * inv_m[j] : 0.0f;
+              }
+            }
+            const int child = __ldg(children + i * cmax + c);
+            float* x_t = now + (cs + c - c0) * kTileF;
+            const float* xsrc = row_of(child, site0);
+            for (int v = threadIdx.x; v < kTile * kRowVecs; v += blockDim.x) {
+              const int col = v / kRowVecs;
+              const int q = v % kRowVecs;
+              *reinterpret_cast<float4*>(x_t + col * LD + 4 * q) =
+                  col < n_live ? __ldg(reinterpret_cast<const float4*>(xsrc + col * S) + q)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            pruning::wide_put<S>(gy_tiles, rg, cg, gy);
+            __syncthreads();  // both tiles are whole
+            pruning::wide_dp<S>(gy_tiles, x_t, dst_of(c), !first);
+            const float* gc[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) gc[j] = gy_tiles + cols[j] * LD;
+            float out[4][4];
+            pruning::wide_transpose<S, true>(pb + child * p_node_stride, S, 4 * rg, gc, out);
+            pruning::wide_store_out(c, 4 * rg, cols, out, out_of, plus_of);
+            __syncthreads();  // the tiles are read before the next child's
+          }
         }
         ++step;
         c0 += cs;
@@ -547,11 +657,11 @@ extern "C" int pruning_classic_reverse_f32(
     };
     cudaError_t err;
     if constexpr (kS == 64) {
-      if (tile != pruning::kWideTile) {
+      if (tile != pruning::kWideTile || stage_children > pruning::kWideStaged) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      err = launch(classic_reverse_wide_kernel<kS>, tile * pruning::kWideLanes,
-                   pruning::wide_smem_floats<kS>(stage_children, tile) * sizeof(float));
+      err = launch(classic_reverse_wide_kernel<kS>, kMaxTile,
+                   pruning::wide_smem_floats<kS>(stage_children) * sizeof(float));
     } else {
       const size_t warps = tile / 32;
       size_t floats = (pruning::kPStages + 2 * warps) * stage_children * kS * kS;

@@ -4,8 +4,8 @@
 // per-column state rows, the child contraction and its transpose (P read
 // from device memory, or from a shared-memory stage as 16-byte vectors), the
 // cp.async copies that fill such a stage, the reverse walks' warp sums of
-// dP, the 64-state reverse walks' four-lane contractions, block dP sums
-// and per-child body,
+// dP, the 64-state walks' tiled products (B5, B3, B7), block dP sums and
+// the reverses' staged visit,
 // the one kernel that sums the reverse walks' dP rows, the exact
 // power-of-two rescale, and the dispatch from a run-time state count to the
 // compiled instantiations.
@@ -217,6 +217,11 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// wait until every committed group has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 // Stages of the P ring of the walks that stage P in shared memory: node
 // i + 2's blocks are copied (cp.async) into stage (i + 2) % 3 while node i
 // computes from stage i % 3, right after the barrier of node i. That one
@@ -303,156 +308,237 @@ __device__ __forceinline__ void warp_dp_blocked(const float (&gy)[S],
   __syncwarp();  // the rows are read before the next child overwrites them
 }
 
-// The 64-state reverse walks (pruning_reverse.cu's B3 and
-// pruning_classic_reverse.cu's B7 at S = 64, codon's 61 or 60 states padded
-// with zero states): one thread's rows of g, the siblings' product, gy, x
-// and P^T gy would take ~5 x 64 registers, and a warp's 64 x 64 dP entries
-// fit neither registers nor S = 20's warp-private blocks. So kWideLanes
-// lanes share a column, lane h keeping rows lane_row(h, r) = 4 r + h of g
-// and gy, and a block of kWideTile columns (256 threads) sums each child's
-// dP from two shared tiles of its columns' gy and x rows, one 4 x 4
-// sub-block a thread.
-constexpr int kWideLanes = 4;
+// The 64-state walks' tiled products: the stream walk (pruning_slot.cu's
+// B5) and the reverse walks (pruning_reverse.cu's B3, pruning_classic_
+// reverse.cu's B7) at S = 64, codon's 61 or 60 states padded with zero
+// states. A block of 256 threads owns a tile of kWideTile columns (sites),
+// and each contraction is one product over the tile, P X or P^T GY, with
+// the tile's rows of x (or gy) and P staged in shared memory, rows
+// p_row<64>() = 68 floats apart. Thread t = 32 w + l forms a 4 x 4
+// micro-tile: rows wide_rg() + 16 a of P X and rows 4 wide_rg() + a of
+// P^T GY, columns wide_cg() + 16 b (a, b < 4), with wide_rg() = 8 (w & 1)
+// + (l & 7) and wide_cg() = 4 (w >> 1) + (l >> 3). Per four steps j of
+// its chains it reads four 16-byte vectors of P and four of x: eight FMAs
+// a load, where the first 64-state design (four lanes a column, each
+// column's row read once a lane from device memory) read one vector of P
+// per four FMAs. A warp reads 8 consecutive rows of P (or 8 consecutive
+// quads of one row) and 4 consecutive columns of x, each set in distinct
+// bank quads at 68 floats a row. A warp's LDS.128 moves 512 bytes to its
+// lanes at the SM's 128 bytes a clock, so eight FMAs a load hold these
+// loops to half the card's f32 rate. 8 x 4 micro-tiles (10.7 FMAs a load)
+// measured no faster: B5 in blocks of 128 threads (half the warps), B3 and
+// B7 with a binary visit's two children on the block's two halves. Every
+// entry stays one fmaf chain in j order, times_child's and
+// transpose_apply_shared's, so the bits do not change. Measured in turns
+// against the first 64-state design (kernel_turns.py --states 64, NVIDIA
+// H100 80GB HBM3, 700 W) at 100 taxa x 4096 codon sites, 4 categories: B5
+// 1.124 ms (2.186 before; 33% of its operations bound), B3 3.662 (5.840;
+// 25%), B7 3.781 (6.001; 24%); the hot loops read 0.125 loads an FMA
+// (0.27 before), and the rest of the gap is the loads, barriers and
+// staging around them.
 constexpr int kWideTile = 64;
+// children a staged 64-state reverse visit may have (their y = P x held
+// in registers at once)
+constexpr int kWideStaged = 3;
 
-// Floats of one 64-state reverse block: a P ring of kPStages stages of
-// `children` S x S blocks, rows p_row apart, then the gy and x tiles
-// (2, tile, p_row).
+__device__ __forceinline__ int wide_rg() {
+  return ((threadIdx.x >> 5) & 1) * 8 + (threadIdx.x & 7);
+}
+
+__device__ __forceinline__ int wide_cg() {
+  return (threadIdx.x >> 6) * 4 + ((threadIdx.x >> 3) & 3);
+}
+
+// Floats of one tile of rows (kWideTile columns, or an S x S block of P)
+// staged in shared memory at 64 states.
 template <int S>
-__host__ __device__ constexpr size_t wide_smem_floats(int children, int tile) {
-  return (static_cast<size_t>(kPStages) * children * S + 2 * static_cast<size_t>(tile)) *
-         p_row<S>();
+__host__ __device__ constexpr int wide_tile_floats() {
+  return kWideTile * p_row<S>();
 }
 
-// 16-byte vector q of row r of an S x S block of P: staged in shared memory
-// (kShared, rows p_row apart) or in device memory (row-major, read through
-// the read-only path).
-template <int S, bool kShared>
-__device__ __forceinline__ float4 wide_p_vec(const float* pm, int r, int q) {
-  if constexpr (kShared) {
-    return p_vec<S>(pm, r, q);
+// gy tiles of a 64-state reverse block whose visits stage `children`
+// children: two where a visit has at most two (one barrier a child), else
+// one (a second barrier a child).
+__host__ __device__ constexpr int wide_gy_tiles(int children) {
+  return children <= 2 ? 2 : 1;
+}
+
+// Floats of one 64-state reverse block (B3's and B7's): a ring of two
+// stages, each `children` P blocks then their x tiles, then the gy tiles.
+template <int S>
+__host__ __device__ constexpr size_t wide_smem_floats(int children) {
+  return (2 * 2 * static_cast<size_t>(children) + wide_gy_tiles(children)) *
+         wide_tile_floats<S>();
+}
+
+// 16 bytes at p: from shared memory, or (kGlobal) from device memory
+// through the read-only path.
+template <bool kGlobal>
+__device__ __forceinline__ float4 wide_ld4(const float* p) {
+  if constexpr (kGlobal) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   } else {
-    return __ldg(reinterpret_cast<const float4*>(pm + r * S) + q);
+    return *reinterpret_cast<const float4*>(p);
   }
 }
 
-// Steps of the j loops below unrolled: 4 (wide_times_child) or 2
-// (wide_transpose) with P in shared memory; 1 with P in device memory,
-// where ptxas otherwise keeps every unrolled step's 16-byte loads of P in
-// flight at once (B7's 64-state kernel took 255 registers and spilled 68
-// bytes with both of its paths unrolled alike: nvcc -Xptxas -v, sm_90a).
-template <bool kShared>
-__host__ __device__ constexpr int wide_unroll(int shared_steps) {
-  return kShared ? shared_steps : 1;
+// entry i (a constant once unrolled) of v
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// gy[r] *= (P x)[lane_row(h, r)] for lane h's S / kWideLanes rows, with x a
-// row of S floats in device memory read as 16-byte vectors (not held in
-// registers): each row's fmaf chain in j order, times_child's.
-template <int S, bool kShared>
-__device__ __forceinline__ void wide_times_child(const float* pm,
-                                                 const float* x, int h,
-                                                 float (&gy)[S / kWideLanes]) {
-  constexpr int kL = kWideLanes;
-  constexpr int kRows = S / kL;
-  constexpr int kUnroll = wide_unroll<kShared>(4);
-  const float4* xo = reinterpret_cast<const float4*>(x);
-  float y[kRows];
+// y[a][b] = sum_j pr[a][j] xc[b][j]: rows pr[a] of P and columns xc[b]
+// (each a row of S states), in shared memory or (kGlobal) device memory;
+// each an fmaf chain in j order (times_child's). Through L1 one step at a
+// time: unrolled, ptxas keeps every step's loads in flight at once.
+template <int S, bool kGlobal>
+__device__ __forceinline__ void wide_product(const float* const (&pr)[4],
+                                             const float* const (&xc)[4],
+                                             float (&y)[4][4]) {
+  constexpr int kUnroll = kGlobal ? 1 : 2;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
-#pragma unroll (kUnroll)
-  for (int q = 0; q < S / 4; ++q) {
-    const float4 xv = xo[q];
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 v = wide_p_vec<S, kShared>(pm, lane_row<S, kL>(h, r), q);
-      y[r] = fmaf(v.x, xv.x, y[r]);
-      y[r] = fmaf(v.y, xv.y, y[r]);
-      y[r] = fmaf(v.z, xv.z, y[r]);
-      y[r] = fmaf(v.w, xv.w, y[r]);
-    }
+    for (int b = 0; b < 4; ++b) y[a][b] = 0.0f;
   }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) gy[r] *= y[r];
-}
-
-// Entries [h kRows, (h + 1) kRows) of P^T gy, gy the column's whole row in
-// the shared gy tile: each an fmaf chain in j order (transpose_apply's).
-template <int S, bool kShared>
-__device__ __forceinline__ void wide_transpose(const float* pm,
-                                               const float* gy_row, int h,
-                                               float (&gc)[S / kWideLanes]) {
-  constexpr int kRows = S / kWideLanes;
-  constexpr int kUnroll = wide_unroll<kShared>(2);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) gc[r] = 0.0f;
 #pragma unroll (kUnroll)
   for (int q = 0; q < S / 4; ++q) {
-    const float4 gv = *reinterpret_cast<const float4*>(gy_row + 4 * q);
-    const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
+    float4 pv[4], xv[4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int a = 0; a < 4; ++a) pv[a] = wide_ld4<kGlobal>(pr[a] + 4 * q);
 #pragma unroll
-      for (int v = 0; v < kRows / 4; ++v) {
-        const float4 pv = wide_p_vec<S, kShared>(pm, 4 * q + jj, h * kRows / 4 + v);
-        gc[4 * v] = fmaf(pv.x, ga[jj], gc[4 * v]);
-        gc[4 * v + 1] = fmaf(pv.y, ga[jj], gc[4 * v + 1]);
-        gc[4 * v + 2] = fmaf(pv.z, ga[jj], gc[4 * v + 2]);
-        gc[4 * v + 3] = fmaf(pv.w, ga[jj], gc[4 * v + 3]);
+    for (int b = 0; b < 4; ++b) xv[b] = wide_ld4<kGlobal>(xc[b] + 4 * q);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        y[a][b] = fmaf(pv[a].x, xv[b].x, y[a][b]);
+        y[a][b] = fmaf(pv[a].y, xv[b].y, y[a][b]);
+        y[a][b] = fmaf(pv[a].z, xv[b].z, y[a][b]);
+        y[a][b] = fmaf(pv[a].w, xv[b].w, y[a][b]);
       }
     }
   }
 }
 
-// Lane h's rows of one node's row of S floats (g from its slot or a seed):
-// src[lane_row(h, r)].
-template <int S>
-__device__ __forceinline__ void wide_load_rows(const float* src, int h,
-                                               float (&v)[S / kWideLanes]) {
+// out[a][b] = (P^T gy)[r0 + a] at column b, for one S x S block P (rows
+// ldp floats apart) in shared memory or (kGlobal) device memory and gc[b]
+// the column's row of gy in shared memory; each an fmaf chain in j order
+// (transpose_apply_shared's).
+template <int S, bool kGlobal>
+__device__ __forceinline__ void wide_transpose(const float* pm, int ldp, int r0,
+                                               const float* const (&gc)[4],
+                                               float (&out)[4][4]) {
+  constexpr int kUnroll = kGlobal ? 1 : 2;
 #pragma unroll
-  for (int r = 0; r < S / kWideLanes; ++r) v[r] = src[lane_row<S, kWideLanes>(h, r)];
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) out[a][b] = 0.0f;
+  }
+#pragma unroll (kUnroll)
+  for (int q = 0; q < S / 4; ++q) {
+    float4 gv[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) gv[b] = *reinterpret_cast<const float4*>(gc[b] + 4 * q);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float4 pv = wide_ld4<kGlobal>(pm + (4 * q + jj) * ldp + r0);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float gj = f4_at(gv[b], jj);
+        out[0][b] = fmaf(pv.x, gj, out[0][b]);
+        out[1][b] = fmaf(pv.y, gj, out[1][b]);
+        out[2][b] = fmaf(pv.z, gj, out[2][b]);
+        out[3][b] = fmaf(pv.w, gj, out[3][b]);
+      }
+    }
+  }
 }
 
-// One child of a 64-state reverse visit, up to its dP: lane h's gy rows into
-// the column's row of the gy tile and its quarter [h kRows, (h + 1) kRows)
-// of the child's partials row `x` (zeros past the sites) into the x tile,
-// a block barrier, then sub-block (ib, jb) of gy x^T summed over the
-// tile's columns in column order (two 16-byte loads per 16 FMAs) into acc.
+// Sub-block (ib, jb) = (t / 16, t % 16) of gy x^T summed over the tile's
+// columns in column order, from the gy and x tiles ((kWideTile, p_row)
+// each): two 16-byte loads per 16 FMAs. Stored at dst (row-major S x S),
+// or added to what is there when `add`, which is read before the sum (a
+// load consumed at once stalls the warp for a round trip to L2).
 template <int S>
-__device__ __forceinline__ void wide_dp_tiles(float* gy_t, float* x_t, int col,
-                                              int h, bool live, const float* x,
-                                              const float (&gy)[S / kWideLanes],
-                                              float (&acc)[16]) {
-  constexpr int kRows = S / kWideLanes;
+__device__ __forceinline__ void wide_dp(const float* gy_t, const float* x_t,
+                                        float* dst, bool add) {
   constexpr int LD = p_row<S>();
   constexpr int kSub = S / 4;
-  float* gy_row = gy_t + col * LD;
-  float* x_row = x_t + col * LD;
+  static_assert(kSub * kSub == 256, "one 4 x 4 sub-block a thread");
+  const int i0 = 4 * (threadIdx.x / kSub);
+  const int jb = threadIdx.x % kSub;
+  float4 old[4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) gy_row[lane_row<S, kWideLanes>(h, r)] = gy[r];
-  float4 xq[kRows / 4];
-#pragma unroll
-  for (int q = 0; q < kRows / 4; ++q) {
-    xq[q] = live ? reinterpret_cast<const float4*>(x)[h * kRows / 4 + q]
+  for (int a = 0; a < 4; ++a) {
+    old[a] = add ? *reinterpret_cast<const float4*>(dst + (i0 + a) * S + 4 * jb)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  float acc[4][4];
 #pragma unroll
-  for (int q = 0; q < kRows / 4; ++q) reinterpret_cast<float4*>(x_row + h * kRows)[q] = xq[q];
-  __syncthreads();  // both tiles are whole
-  const int ib = threadIdx.x / kSub;
-  const int jb = threadIdx.x % kSub;
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0.0f;
+  }
   for (int s2 = 0; s2 < kWideTile; ++s2) {
-    const float4 gv = *reinterpret_cast<const float4*>(gy_t + s2 * LD + 4 * ib);
+    const float4 gv = *reinterpret_cast<const float4*>(gy_t + s2 * LD + i0);
     const float4 xv = *reinterpret_cast<const float4*>(x_t + s2 * LD + 4 * jb);
-    const float ga[4] = {gv.x, gv.y, gv.z, gv.w};
-    const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a * 4 + e] = fmaf(ga[a], xa[e], acc[a * 4 + e]);
+      const float ga = f4_at(gv, a);
+      acc[a][0] = fmaf(ga, xv.x, acc[a][0]);
+      acc[a][1] = fmaf(ga, xv.y, acc[a][1]);
+      acc[a][2] = fmaf(ga, xv.z, acc[a][2]);
+      acc[a][3] = fmaf(ga, xv.w, acc[a][3]);
     }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float4 v = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    if (add) {
+      v = make_float4(old[a].x + v.x, old[a].y + v.y, old[a].z + v.z, old[a].w + v.w);
+    }
+    *reinterpret_cast<float4*>(dst + (i0 + a) * S + 4 * jb) = v;
+  }
+}
+
+// Writes the thread's entries v[a][b] (rows rg + 16 a, columns cg + 16 b)
+// into a tile of rows (kWideTile, p_row) in shared memory.
+template <int S>
+__device__ __forceinline__ void wide_put(float* tile, int rg, int cg,
+                                         const float (&v)[4][4]) {
+  constexpr int LD = p_row<S>();
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) tile[(cg + 16 * b) * LD + rg + 16 * a] = v[a][b];
+  }
+}
+
+// Child c's outside vector at the thread's columns cols[b]: out[a][b]
+// (rows r0 + a), plus the same rows of plus_of(c, col) where that is not
+// null (a seed below another seed), stored as one 16-byte vector into
+// out_of(c, col) where that is not null (a dead column, or a leaf without
+// dleaf).
+template <class OutOf, class PlusOf>
+__device__ __forceinline__ void wide_store_out(int c, int r0, const int (&cols)[4],
+                                               float (&out)[4][4],
+                                               const OutOf& out_of,
+                                               const PlusOf& plus_of) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    float* o = out_of(c, cols[b]);
+    if (o == nullptr) continue;
+    const float* pl = plus_of(c, cols[b]);
+    if (pl != nullptr) {
+      const float4 v = *reinterpret_cast<const float4*>(pl + r0);
+      out[0][b] += v.x;
+      out[1][b] += v.y;
+      out[2][b] += v.z;
+      out[3][b] += v.w;
+    }
+    *reinterpret_cast<float4*>(o + r0) =
+        make_float4(out[0][b], out[1][b], out[2][b], out[3][b]);
   }
 }
 
@@ -495,59 +581,115 @@ __device__ __forceinline__ float visit_inv_m(const int* __restrict__ kids,
   return exp2_int(esum - es[static_cast<size_t>(node - n_leaves) * ns + site]);
 }
 
-// Child c of a 64-state reverse visit: the body B3's and B7's 64-state
-// kernels share, which differ only in where a node's g comes from and in
-// how a block's dP row adds up over its tiles. gy = g x the siblings' y (in
-// child order) x inv_m; sub-block (threadIdx.x / 16, threadIdx.x % 16) of
-// the child's dP over the block's tile stored at dst (row-major S x S), or
-// added to what is there when `add`; then, where `out` is not null, lane
-// h's quarter of P_c^T gy, plus the same quarter of the row `plus` where
-// that is not null (a seed below another seed), stored into the row `out`.
-// p_of(c2) is child c2's P block (staged, rows p_row apart, when kShared)
-// and x_of(c2) its partials row at this column. Ends with a block barrier:
-// the tiles are read before the next child's overwrite them.
-template <int S, bool kShared, class POf, class XOf>
-__device__ __forceinline__ void wide_reverse_child(
-    int c, int cnt, const POf& p_of, const XOf& x_of, bool live,
-    const float (&g)[S / kWideLanes], float inv_m, float* gy_t, float* x_t,
-    int col, int h, float* dst, bool add, const float* plus, float* out) {
-  constexpr int kRows = S / kWideLanes;
-  constexpr int kSub = S / 4;
-  float gy[kRows];  // the siblings' product, then gy, rows 4 r + h
+// visit_inv_m at the thread's columns cols[j] of a tile from column site0
+// (zero at a column past n_live), for a visit of cnt <= kWideStaged
+// children kids[c]: every exponent load issued before any is summed (a
+// chain of loads each summed at once stalls the warp for a round trip to
+// L2 per load), then the same sums in child order.
+__device__ __forceinline__ void wide_inv_m(const int (&kids)[kWideStaged], int cnt,
+                                           int node, int n_leaves,
+                                           const float* __restrict__ es, size_t ns,
+                                           int site0, const int (&cols)[4], int n_live,
+                                           float (&inv_m)[4]) {
+  float en[4];
+  float ek[kWideStaged][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) gy[r] = 1.0f;
-  if (live) {
-    for (int c2 = 0; c2 < cnt; ++c2) {
-      if (c2 == c) continue;
-      wide_times_child<S, kShared>(p_of(c2), x_of(c2), h, gy);
+  for (int j = 0; j < 4; ++j) {
+    const bool live = cols[j] < n_live;
+    const size_t site = static_cast<size_t>(site0) + cols[j];
+    en[j] = live ? es[static_cast<size_t>(node - n_leaves) * ns + site] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < kWideStaged; ++c) {
+      ek[c][j] = live && c < cnt && kids[c] >= n_leaves
+                     ? es[static_cast<size_t>(kids[c] - n_leaves) * ns + site]
+                     : 0.0f;
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) gy[r] = g[r] * gy[r] * inv_m;
-  float acc[16];  // dP sub-block (ib, jb) of the child over the tile
-  wide_dp_tiles<S>(gy_t, x_t, col, h, live, x_of(c), gy, acc);
-  const int ib = threadIdx.x / kSub;
-  const int jb = threadIdx.x % kSub;
+  for (int j = 0; j < 4; ++j) {
+    float esum = 0.0f;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float4* d = reinterpret_cast<float4*>(dst + (4 * ib + a) * S + 4 * jb);
-    float4 v = make_float4(acc[a * 4], acc[a * 4 + 1], acc[a * 4 + 2], acc[a * 4 + 3]);
-    if (add) {
-      const float4 o = *d;
-      v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+    for (int c = 0; c < kWideStaged; ++c) {
+      if (c < cnt && kids[c] >= n_leaves) esum += ek[c][j];
     }
-    *d = v;
+    inv_m[j] = cols[j] < n_live ? exp2_int(esum - en[j]) : 0.0f;
   }
-  if (out != nullptr) {
-    float gc[kRows];
-    wide_transpose<S, kShared>(p_of(c), gy_t + col * p_row<S>(), h, gc);
-    if (plus != nullptr) {
+}
+
+// One staged visit of a 64-state reverse walk: the body B3's and B7's
+// 64-state kernels share, which differ only in where a node's g comes from
+// and how a block's dP row adds up over its tiles. Its cnt <= kWideStaged
+// children's P blocks (p, S x p_row floats each) and x tiles (x, (kWideTile,
+// p_row) each, zeros past the sites) are staged in shared memory.
+// gval(row, col) is the node's g at a live column col < n_live of the
+// tile, invm(cols, inv_m) its 2^{-r_n} at columns cols (wide_inv_m); dst_of(c) child c's dP row (added to when
+// `add`); out_of(c, col) and plus_of(c, col) as wide_store_out's. In 4 x 4
+// micro-tiles: y_c = P_c x_c for every child once (the first design formed
+// the siblings' y again for each child), then for each child gy_c = g x
+// the siblings' y (in child order) x inv_m, zero on dead columns, put in gy
+// tile c % n_gy; a block barrier; its dP rows (wide_dp); P_c^T gy_c. With
+// one gy tile, a second barrier a child before the next overwrites it;
+// with two, the next child's barrier orders it, and the caller's next
+// barrier frees the stage.
+template <int S, class GVal, class InvM, class DstOf, class OutOf, class PlusOf>
+__device__ __forceinline__ void wide_reverse_visit(
+    int cnt, const float* p, const float* x, const GVal& gval,
+    const InvM& invm, int n_live, float* gy_tiles, int n_gy,
+    const DstOf& dst_of, bool add, const OutOf& out_of,
+    const PlusOf& plus_of) {
+  constexpr int LD = p_row<S>();
+  constexpr int kTileF = wide_tile_floats<S>();
+  const int rg = wide_rg();
+  const int cg = wide_cg();
+  int cols[4];
+  float g[4][4];
+  float inv_m[4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) gc[r] += plus[h * kRows + r];
-    }
-    store_part<kRows>(out + h * kRows, gc);
+  for (int b = 0; b < 4; ++b) {
+    cols[b] = cg + 16 * b;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) g[a][b] = cols[b] < n_live ? gval(rg + 16 * a, cols[b]) : 0.0f;
   }
-  __syncthreads();
+  invm(cols, inv_m);
+  float y[kWideStaged][4][4];
+#pragma unroll
+  for (int c = 0; c < kWideStaged; ++c) {
+    if (c < cnt) {
+      const float* pr[4];
+      const float* xc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pr[a] = p + c * kTileF + (rg + 16 * a) * LD;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) xc[b] = x + c * kTileF + cols[b] * LD;
+      wide_product<S, false>(pr, xc, y[c]);
+    }
+  }
+  for (int c = 0; c < cnt; ++c) {
+    float gy[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float prod = 1.0f;
+#pragma unroll
+        for (int c2 = 0; c2 < kWideStaged; ++c2) {
+          if (c2 < cnt && c2 != c) prod *= y[c2][a][b];
+        }
+        gy[a][b] = cols[b] < n_live ? g[a][b] * prod * inv_m[b] : 0.0f;
+      }
+    }
+    float* gy_t = gy_tiles + (c % n_gy) * kTileF;
+    wide_put<S>(gy_t, rg, cg, gy);
+    __syncthreads();  // the gy tile is whole
+    wide_dp<S>(gy_t, x + c * kTileF, dst_of(c), add);
+    const float* gc[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) gc[b] = gy_t + cols[b] * LD;
+    float out[4][4];
+    wide_transpose<S, false>(p + c * kTileF, LD, 4 * rg, gc, out);
+    wide_store_out(c, 4 * rg, cols, out, out_of, plus_of);
+    if (n_gy == 1) __syncthreads();  // the tile is read before the next child's
+  }
 }
 
 namespace {

@@ -71,27 +71,35 @@
 // ops/cuda_pruning.py) one thread's rows of g, sib, gy, x and P^T gy would
 // take ~5 x 64 registers, and a warp's 64 x 64 dP entries fit neither
 // registers nor the warp-private layout of S = 20. So
-// pruning_reverse_wide_kernel splits a column over kWideLanes = 4 lanes
-// and sums dP over the whole block (pruning_common.cuh's wide_* helpers,
-// which B7's 64-state kernel shares):
-// - lane h keeps g, the siblings' product and gy for rows 4 r + h
-//   (r < 16), y = P x of a sibling formed row by row with the sibling's
-//   row read from device memory as 16-byte vectors, each row's fmaf chain
-//   in j order (times_child's);
-// - P is staged as in the narrow kernel, two visits ahead in a 3-stage
-//   cp.async ring, but with rows p_row = 68 floats apart, so that the
-//   four lanes' rows 4 r + h fall in four different bank quads (as in B1,
-//   B2 and B5 at 64 states);
-// - per child the block puts its 64 columns' gy and x rows in two shared
-//   tiles (rows 68 floats apart) and, after a barrier, thread t sums the
-//   4 x 4 sub-block (t / 16, t % 16) of gy x^T over the tile's columns in
-//   column order (two 16-byte loads per 16 FMAs) and stores it in the
-//   block's dP row: the same rows and the same compensated row sum as
-//   S = 4 and 20, so dP is bit-identical across launches;
-// - lane h forms entries [16 h, 16 h + 16) of the child's P^T gy from the
-//   gy tile, each an fmaf chain in j order (transpose_apply_shared's);
-// - 64 columns a block, 256 threads; the ring holds at most 3 children a
-//   visit (cmax <= 3 in 227 KB: ops/cuda_pruning.py::reverse_tile).
+// pruning_reverse_wide_kernel gives a block of 256 threads one tile of 64
+// columns and forms each contraction as one product over the tile
+// (pruning_common.cuh's wide_* helpers, which B7's 64-state kernel
+// shares):
+// - each visit's children's P blocks and x rows (their residuals or leaf
+//   rows at the tile's columns, zeros past the sites) are staged one visit
+//   ahead (cp.async) in a ring of two stages, rows p_row = 68 floats apart;
+// - y_c = P_c x_c once for every child (the first design formed a
+//   sibling's y again for each child), thread t forming the 4 x 4
+//   micro-tile of rows wide_rg() + 16 a and columns wide_cg() + 16 b (eight
+//   FMAs a 16-byte load), each row's fmaf chain in j order (times_child's);
+// - per child, gy = g x the siblings' y (in child order) x 2^{-r_n} into a
+//   shared gy tile (two tiles where a visit has at most two children, so
+//   one barrier a child), then thread t sums the 4 x 4 sub-block (t / 16, t
+//   % 16) of gy x^T over the tile's columns in column order (two 16-byte
+//   loads per 16 FMAs) into the block's dP row: the same rows and the same
+//   compensated row sum as S = 4 and 20, so dP is bit-identical across
+//   launches and to the first 64-state design's;
+// - P^T gy as a tiled product over the gy tile, thread t forming rows 4
+//   wide_rg() + a of columns wide_cg() + 16 b (transpose_apply_shared's
+//   chains), stored as 16-byte vectors;
+// - the loads a visit's arithmetic waits on (g, the exponent counts) are
+//   issued before its products (wide_inv_m);
+// - a node of at most 3 children (227 KB: ops/cuda_pruning.py::
+//   reverse_tile).
+// Measured in turns against the first 64-state design (kernel_turns.py
+// --states 64, NVIDIA H100 80GB HBM3, 700 W): 3.662 ms at 100 taxa x 4096
+// codon sites, 4 categories (5.840 before; 25% of its operations bound),
+// and 18.47 ms at 1000 taxa x 2048 (29.29).
 // The entry point is compiled for S = 4, 20 and 64 and refuses any other.
 
 #include "pruning_common.cuh"
@@ -282,10 +290,11 @@ pruning_reverse_walk_kernel(const float* __restrict__ p,       // (B, n_nodes, K
 }
 
 // The deferred reverse at S = 64 (see the header; the layout and its
-// helpers are pruning_common.cuh's wide_*): kWideLanes lanes a column,
-// kWideTile columns a block of 256 threads, one tile a block; same
-// arguments and outputs as pruning_reverse_walk_kernel. Each child is
-// wide_reverse_child, the body B7's 64-state kernel shares.
+// helpers are pruning_common.cuh's wide_*): a block of 256 threads walks
+// one tile of kWideTile columns; same arguments and outputs as
+// pruning_reverse_walk_kernel. Each visit's children's P blocks and x
+// tiles are staged one visit ahead in a ring of two stages; the visit is
+// wide_reverse_visit, the body B7's 64-state kernel shares.
 template <int S>
 __global__ void __launch_bounds__(kMaxTile)
 pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
@@ -305,21 +314,17 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
                             int K, int n_nodes, int n_leaves, int n_int,
                             int cmax, int sites, int n_gslots,
                             int leaf_rows, int freqs_batch) {
-  constexpr int kL = pruning::kWideLanes;
-  constexpr int kRows = S / kL;        // rows of g a lane keeps
-  constexpr int kSub = S / 4;          // 4 x 4 dP sub-blocks a side
   constexpr int kTile = pruning::kWideTile;  // columns a block
-  constexpr int LD = pruning::p_row<S>();   // floats between staged rows
-  static_assert(S % 16 == 0 && kTile * kL == kSub * kSub && kSub * kSub <= kMaxTile,
-                "16-byte vectors of a lane's quarter row, one sub-block a thread");
+  constexpr int LD = pruning::p_row<S>();    // floats between staged rows
+  constexpr int kTileF = pruning::wide_tile_floats<S>();
+  constexpr int kRowVecs = S / 4;
+  static_assert(S == kTile, "a 16 x 16 grid of 4 x 4 micro-tiles");
   extern __shared__ float4 smem_vec[];
-  float* p_stage = reinterpret_cast<float*>(smem_vec);       // (kPStages, cmax, S, LD)
-  float* gy_t = p_stage + pruning::kPStages * cmax * S * LD;  // (kTile, LD)
-  float* x_t = gy_t + kTile * LD;                             // (kTile, LD)
-  const int h = threadIdx.x % kL;
-  const int col = threadIdx.x / kL;
-  const int site = blockIdx.x * kTile + col;
-  const bool live = site < sites;
+  float* ring = reinterpret_cast<float*>(smem_vec);  // (2, 2 cmax, tile): P, then x
+  float* gy_tiles = ring + 2 * 2 * cmax * kTileF;     // (n_gy, tile)
+  const int n_gy = pruning::wide_gy_tiles(cmax);
+  const int site0 = blockIdx.x * kTile;
+  const int n_live = min(kTile, sites - site0);  // the tile's columns within the sites
   const int k = blockIdx.y;
   const int b = blockIdx.z;
   // b's first leaf row and root frequencies (0: shared by the batch)
@@ -338,71 +343,78 @@ pruning_reverse_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K
   const float* __restrict__ pb =
       p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
   const size_t p_node_stride = static_cast<size_t>(K) * S * S;
-  // a node's partials row at this column: a leaf's or its residual
+  // a node's partials row at site0: a leaf's or its residual
   auto row_of = [&](int node) {
     return node < n_leaves
-               ? leaves + (static_cast<size_t>(lrow0 + node) * ns + site) * S
-               : xs + (static_cast<size_t>(node - n_leaves) * ns + site) * S;
+               ? leaves + (static_cast<size_t>(lrow0 + node) * ns + site0) * S
+               : xs + (static_cast<size_t>(node - n_leaves) * ns + site0) * S;
   };
 
-  // visit i's children's P blocks -> its stage, rows LD floats apart
+  // visit i's children's P blocks (rows LD floats apart) and x tiles
+  // (zeros past the sites) -> ring stage i % 2
   auto stage = [&](int i) {
     if (i >= n_int) return;
     const int cnt = __ldg(counts + i);
-    float* dst = p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * LD;
-    for (int v = threadIdx.x; v < cnt * S * kSub; v += blockDim.x) {
-      const int c = v / (S * kSub);
-      const int q = v - c * S * kSub;
+    float* dst = ring + (i & 1) * 2 * cmax * kTileF;
+    for (int c = 0; c < cnt; ++c) {
       const int child = __ldg(children + i * cmax + c);
-      pruning::cp_async16(dst + c * S * LD + pruning::p_stage_offset<S>(q),
-                          pb + child * p_node_stride + 4 * q);
+      const float* ps = pb + child * p_node_stride;
+      const float* xsrc = row_of(child);
+      for (int q = threadIdx.x; q < S * kRowVecs; q += blockDim.x) {
+        pruning::cp_async16(dst + c * kTileF + pruning::p_stage_offset<S>(q), ps + 4 * q);
+        const int col = q / kRowVecs;
+        float* xd = dst + (cmax + c) * kTileF + col * LD + 4 * (q % kRowVecs);
+        if (site0 + col < sites) {
+          pruning::cp_async16(xd, xsrc + col * S + 4 * (q % kRowVecs));
+        } else {
+          *reinterpret_cast<float4*>(xd) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
     }
   };
   stage(0);
   pruning::cp_async_commit();
-  stage(1);
-  pruning::cp_async_commit();
 
   for (int i = 0; i < n_int; ++i) {
-    pruning::cp_async_wait_one();  // visit i's P has landed (this thread's part)
+    pruning::cp_async_wait_all();  // visit i's stage has landed (this thread's part)
     __syncthreads();               // ... and every other thread's
-    stage(i + 2);                  // into the stage visit i - 1 read
+    stage(i + 1);                  // into the stage visit i - 1 read
     pruning::cp_async_commit();
-    const float* p_now =
-        p_stage + static_cast<size_t>(i % pruning::kPStages) * cmax * S * LD;
+    float* p_now = ring + (i & 1) * 2 * cmax * kTileF;
     const int node = __ldg(rnode + i);
     const int cnt = __ldg(counts + i);
-    float g[kRows];  // rows 4 r + h of the node's outside vector
+    const int gs = __ldg(gslot + i);
+    // the node's outside vector at (row, col): the root's seed lambda pi,
+    // else its slot; and its 2^{-r_n}
+    const auto gval = [&](int r, int col) {
+      const size_t site = site0 + col;
+      return gs < 0 ? lam[bk * ns + site] * __ldg(freqs + (f0 + r))
+                    : slots[(static_cast<size_t>(gs) * ns + site) * S + r];
+    };
+    int kids[pruning::kWideStaged];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
-    float inv_m = 0.0f;
-    if (live) {
-      const int gs = __ldg(gslot + i);
-      if (gs < 0) {  // the root: g = seed = lambda pi
-        const float l = lam[bk * ns + site];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          g[r] = l * __ldg(freqs + (f0 + pruning::lane_row<S, kL>(h, r)));
-        }
-      } else {
-        pruning::wide_load_rows<S>(slots + (static_cast<size_t>(gs) * ns + site) * S, h, g);
-      }
-      inv_m = pruning::visit_inv_m(children + i * cmax, cnt, node, n_leaves, es, ns, site);
+    for (int c = 0; c < pruning::kWideStaged; ++c) {
+      kids[c] = c < cnt ? __ldg(children + i * cmax + c) : 0;
     }
-    const auto p_of = [&](int c) { return p_now + c * S * LD; };
-    const auto x_of = [&](int c) { return row_of(__ldg(children + i * cmax + c)); };
-    for (int c = 0; c < cnt; ++c) {
+    const auto invm = [&](const int (&cols)[4], float (&out)[4]) {
+      pruning::wide_inv_m(kids, cnt, node, n_leaves, es, ns, site0, cols, n_live, out);
+    };
+    const auto dst_of = [&](int c) {
+      return rows + static_cast<size_t>(__ldg(children + i * cmax + c)) * S * S;
+    };
+    // the child's outside vector: its slot, or dleaf
+    const auto out_of = [&](int c, int col) -> float* {
+      if (col >= n_live) return nullptr;
       const int child = __ldg(children + i * cmax + c);
-      float* out = nullptr;  // the child's outside vector: its slot, or dleaf
-      if (live && child >= n_leaves) {
-        out = slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S;
-      } else if (live && dls != nullptr) {
-        out = dls + (static_cast<size_t>(child) * ns + site) * S;
+      const size_t site = site0 + col;
+      if (child >= n_leaves) {
+        return slots + (static_cast<size_t>(__ldg(cslot + i * cmax + c)) * ns + site) * S;
       }
-      pruning::wide_reverse_child<S, true>(c, cnt, p_of, x_of, live, g, inv_m, gy_t, x_t,
-                                           col, h, rows + static_cast<size_t>(child) * S * S,
-                                           false, nullptr, out);
-    }
+      return dls == nullptr ? nullptr : dls + (static_cast<size_t>(child) * ns + site) * S;
+    };
+    const auto no_plus = [](int, int) -> const float* { return nullptr; };
+    pruning::wide_reverse_visit<S>(cnt, p_now, p_now + cmax * kTileF, gval, invm, n_live,
+                                   gy_tiles, n_gy, dst_of, false, out_of, no_plus);
   }
 }
 
@@ -465,11 +477,11 @@ extern "C" int pruning_reverse_f32(const void* p, const void* leaves,
     };
     cudaError_t err;
     if constexpr (kS == 64) {
-      if (tile != pruning::kWideTile) {
+      if (tile != pruning::kWideTile || cmax > pruning::kWideStaged) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      err = launch(pruning_reverse_wide_kernel<kS>, tile * pruning::kWideLanes,
-                   pruning::wide_smem_floats<kS>(cmax, tile) * sizeof(float));
+      err = launch(pruning_reverse_wide_kernel<kS>, kMaxTile,
+                   pruning::wide_smem_floats<kS>(cmax) * sizeof(float));
     } else {
       const size_t warps = tile / 32;
       size_t floats = (pruning::kPStages + 2 * warps) * cmax * kS * kS;

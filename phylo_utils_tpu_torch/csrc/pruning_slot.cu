@@ -64,14 +64,21 @@
 //   make_async_copy landing pads).
 // - Leaf and slot rows are read straight from device memory (coalesced
 //   16-byte vectors): no other column uses them.
-// - At 64 states (codon, padded by ops/cuda_pruning.py) four lanes share a
-//   column, 16 rows each, rows r 4 + h of P staged with rows 68 floats
-//   apart (pruning_common.cuh's lane_row, p_row: 64 apart, the four rows
-//   read at once conflicted 4-way on every LDS.128: PERF.md section 6),
-//   and the child's row streams from device memory as
-//   16-byte vectors instead of sitting in 64 registers (80 registers a
-//   thread, not 162: two blocks an SM). Bound by operations (2 S^2 flops
-//   a child and column); its time beside its bound: PERF.md section 6.
+// - At 64 states (codon, padded by ops/cuda_pruning.py) its first body had
+//   four lanes share a column, 16 rows each, every lane reading the
+//   child's row from device memory and one LDS.128 of P per four FMAs:
+//   2.186 ms at 100 taxa x 4096 codon sites (4 categories), 17% of its
+//   operations bound. pruning_stream_wide_kernel forms a node's product
+//   over a block of 64 columns as one tiled product a child
+//   (pruning_common.cuh's wide_product, 4 x 4 micro-tiles, 8 FMAs a load),
+//   the children's rows staged in shared memory beside P: 1.124 ms there,
+//   33% (8.13 ms at 30 categories, 16.76 before), in turns on an NVIDIA
+//   H100 80GB HBM3 at 700 W (kernel_turns.py --states 64). What bounds it:
+//   the shared-memory datapath (a warp's LDS.128 moves 512 bytes at 128
+//   bytes a clock, so 8 FMAs a load cap the loop at half the f32 rate; 8 x
+//   4 micro-tiles over 128 threads, 10.7 a load, ran slower on half the
+//   warps) and a round trip to L2 a node for the x rows staged after the
+//   node's last read.
 // The rows, the fmaf order and the rescale are B1's, so the roots keep
 // B1's bits. Threads past the last site stay in the loop for the barriers
 // and skip the loads and stores. Measured on an NVIDIA H100 80GB HBM3 at
@@ -84,15 +91,14 @@ namespace {
 
 using pruning::kThreads;
 
-// Lanes per column of the stream walk: at 20 states two lanes share a
-// column, each forming half of its rows, which doubles the warps in flight
-// (the walk waits on row latency with ~8 warps an SM at one lane a column);
-// at 4 states one lane (the split measured slower there); at 64 (codon)
-// four, 16 rows a lane beside the child's 64-entry row in registers (two
-// lanes' 32 rows would halve the warps of a launch of ~16,000 columns).
+// Lanes per column of the stream walk at 4 and 20 states: at 20 two lanes
+// share a column, each forming half of its rows, which doubles the warps
+// in flight (the walk waits on row latency with ~8 warps an SM at one lane
+// a column); at 4 one lane (the split measured slower there). 64 states
+// take pruning_stream_wide_kernel.
 template <int S>
 __host__ __device__ constexpr int stream_lanes() {
-  return S >= 64 ? 4 : (S >= 20 ? 2 : 1);
+  return S >= 20 ? 2 : 1;
 }
 
 // The stream walk (B5): the slot walk with the children's P staged in
@@ -167,40 +173,6 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
     for (int c = 0; c < cnt; ++c) {
       const int src = __ldg(csrc + i * cmax + c);
       const float* pm = p_now + c * kBlock;
-      if constexpr (S == 64) {
-        // the child's row streamed as 16-byte vectors, as the saveall
-        // kernel does at 64 states: the whole row in registers took 162 a
-        // thread (ptxas), one block an SM; each row's fmaf chain stays in
-        // j order, so the bits are B1's
-        float y[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
-        if (active) {
-          const float* row_src;
-          if (__ldg(cleaf + i * cmax + c)) {
-            row_src = leaves + (static_cast<size_t>(lrow0 + src) * sites + site) * S;
-          } else {
-            const size_t row = static_cast<size_t>(src) * sites + site;
-            row_src = xs + row * S;
-            e += es[row];
-          }
-#pragma unroll 4
-          for (int q = 0; q < S / 4; ++q) {
-            const float4 xv = reinterpret_cast<const float4*>(row_src)[q];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float4 v = pruning::p_vec<S>(pm, pruning::lane_row<S, kL>(h, r), q);
-              y[r] = fmaf(v.x, xv.x, y[r]);
-              y[r] = fmaf(v.y, xv.y, y[r]);
-              y[r] = fmaf(v.z, xv.z, y[r]);
-              y[r] = fmaf(v.w, xv.w, y[r]);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] *= y[r];
-        continue;
-      }
       float x[S];
 #pragma unroll
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
@@ -256,19 +228,222 @@ pruning_stream_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, 
       } else {  // may be a child's slot: every child was read above
         row = static_cast<size_t>(__ldg(nslot + i)) * sites + site;
       }
-      if constexpr (S == 64) {  // the lane's rows r kL + h (lane_row)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          dst[row * S + pruning::lane_row<S, kL>(h, r)] = acc[r];
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < kRows / 2; ++q) {
-          reinterpret_cast<float2*>(dst + row * S + h * kRows)[q] =
-              make_float2(acc[2 * q], acc[2 * q + 1]);
-        }
+      for (int q = 0; q < kRows / 2; ++q) {
+        reinterpret_cast<float2*>(dst + row * S + h * kRows)[q] =
+            make_float2(acc[2 * q], acc[2 * q + 1]);
       }
       if (h == 0) dst_e[row] = e;
+    }
+  }
+}
+
+// children a node of the 64-state stream walk may have (its P ring: cmax
+// <= 4 in 227 KB, ops/cuda_pruning.py::stream_smem_bytes)
+constexpr int kStreamWideMaxChildren = 4;
+
+// Floats of a 64-state stream block (pruning_stream_wide_kernel) whose
+// widest node has cmax children: a ring of two stages of cmax P blocks,
+// one stage of cmax x tiles, and two rows of kWideTile column maxima
+// (ops/cuda_pruning.py::stream_smem_bytes mirrors it).
+template <int S>
+__host__ __device__ constexpr size_t stream_wide_smem_floats(int cmax) {
+  return 3 * static_cast<size_t>(cmax) * pruning::wide_tile_floats<S>() +
+         2 * pruning::kWideTile;
+}
+
+// The stream walk at 64 states (B5, codon's 61 or 60 states padded): the
+// block's kWideTile columns as one tiled product a child (pruning_common.
+// cuh's wide_product, a 4 x 4 micro-tile a thread over 256 threads: 8
+// FMAs a 16-byte load). Node i's children's P blocks are staged one node
+// ahead in a ring of two stages, and their x rows (leaf or slot rows of
+// the block's columns) into one stage of x tiles once node i - 1 has read
+// its own, at node i - 1's second barrier: all but the child that node i
+// - 1 formed, whose rows the threads put into the tile from registers as
+// they store them. The loads a node's epilogue reads (its slot children's
+// exponents, the next node's children) are issued before its products.
+// Threads past the last site copy nothing and store nothing. Same
+// arguments and outputs as pruning_stream_kernel.
+template <int S>
+__global__ void __launch_bounds__(kThreads, 2)
+pruning_stream_wide_kernel(const float* __restrict__ p,        // (B, n_nodes, K, S, S)
+                           const float* __restrict__ leaves,   // (B?, n_leaves, sites, S): leaf_rows
+                           const int* __restrict__ nslot,      // (n_int,)
+                           const int* __restrict__ cnode,      // (n_int, cmax)
+                           const int* __restrict__ csrc,       // (n_int, cmax)
+                           const int* __restrict__ cleaf,      // (n_int, cmax)
+                           const int* __restrict__ counts,     // (n_int,)
+                           float* __restrict__ slots,          // (B, K, n_slots, sites, S)
+                           float* __restrict__ slots_e,        // (B, K, n_slots, sites)
+                           float* __restrict__ root,           // (B, K, sites, S)
+                           float* __restrict__ root_e,         // (B, K, sites)
+                           int K, int n_nodes, int n_slots, int n_int, int cmax,
+                           int sites, int leaf_rows) {
+  constexpr int T = pruning::kWideTile;
+  constexpr int LD = pruning::p_row<S>();
+  constexpr int kTileF = pruning::wide_tile_floats<S>();
+  constexpr int kRowVecs = S / 4;  // 16-byte vectors of a row
+  static_assert(S == T && kThreads == 256, "a 16 x 16 grid of 4 x 4 micro-tiles");
+  extern __shared__ float4 smem_vec[];
+  float* p_stage = reinterpret_cast<float*>(smem_vec);  // (2, cmax, S, LD)
+  float* x_tile = p_stage + 2 * cmax * kTileF;           // (cmax, T, LD)
+  float* red = x_tile + cmax * kTileF;                   // (2, T)
+  const int rg = pruning::wide_rg();
+  const int cg = pruning::wide_cg();
+  const int site0 = blockIdx.x * T;
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  float* __restrict__ xs = slots + bk * n_slots * sites * S;
+  float* __restrict__ es = slots_e + bk * n_slots * sites;
+  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
+  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
+  bool live[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) live[j] = site0 + cg + 16 * j < sites;
+
+  // node i's children's P blocks -> P stage i % 2 (all threads share)
+  auto stage_p = [&](int i) {
+    if (i >= n_int) return;
+    const int cnt = __ldg(counts + i);
+    float* dst = p_stage + (i & 1) * cmax * kTileF;
+    for (int c = 0; c < cnt; ++c) {
+      const float* src = pb + __ldg(cnode + i * cmax + c) * p_node_stride;
+      for (int q = threadIdx.x; q < S * kRowVecs; q += kThreads) {
+        pruning::cp_async16(dst + c * kTileF + pruning::p_stage_offset<S>(q), src + 4 * q);
+      }
+    }
+  };
+  // node i's children's rows at the block's live columns -> the x tiles,
+  // but child `fwd` (the node just formed, put there from registers)
+  auto stage_x = [&](int i, int fwd) {
+    if (i >= n_int) return;
+    const int cnt = __ldg(counts + i);
+    for (int c = 0; c < cnt; ++c) {
+      if (c == fwd) continue;
+      const int src = __ldg(csrc + i * cmax + c);
+      const float* base = (__ldg(cleaf + i * cmax + c)
+                               ? leaves + static_cast<size_t>(lrow0 + src) * sites * S
+                               : xs + static_cast<size_t>(src) * sites * S) +
+                          static_cast<size_t>(site0) * S;
+      for (int v = threadIdx.x; v < T * kRowVecs; v += kThreads) {
+        const int col = v / kRowVecs;
+        const int q = v % kRowVecs;
+        if (site0 + col < sites) {
+          pruning::cp_async16(x_tile + (c * T + col) * LD + 4 * q, base + col * S + 4 * q);
+        }
+      }
+    }
+  };
+  stage_p(0);
+  stage_x(0, -1);
+  pruning::cp_async_commit();
+
+  for (int i = 0; i < n_int; ++i) {
+    pruning::cp_async_wait_all();  // node i's P and x rows (this thread's part)
+    __syncthreads();               // ... and every other thread's
+    stage_p(i + 1);                // into the stage node i - 1 read
+    pruning::cp_async_commit();
+    const float* p_now = p_stage + (i & 1) * cmax * kTileF;
+    const int cnt = __ldg(counts + i);
+    const bool last = i == n_int - 1;  // the root is last in DFS post-order
+    const int own = __ldg(nslot + i);
+    // the slot children's exponents, and the child of node i + 1 that node
+    // i forms (fwd, or -1), read before the products and used after them
+    float ce[kStreamWideMaxChildren][4];
+#pragma unroll
+    for (int c = 0; c < kStreamWideMaxChildren; ++c) {
+      const bool slot = c < cnt && rg == 0 && !__ldg(cleaf + i * cmax + c);
+      const size_t row = slot ? static_cast<size_t>(__ldg(csrc + i * cmax + c)) * sites + site0 : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ce[c][j] = slot && live[j] ? es[row + cg + 16 * j] : 0.0f;
+    }
+    int fwd = -1;
+    if (!last) {
+      const int cnt1 = __ldg(counts + i + 1);
+      for (int c = 0; c < cnt1; ++c) {
+        if (!__ldg(cleaf + (i + 1) * cmax + c) && __ldg(csrc + (i + 1) * cmax + c) == own) fwd = c;
+      }
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[a][j] = 1.0f;
+    }
+    for (int c = 0; c < cnt; ++c) {
+      const float* pr[4];
+      const float* xc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pr[a] = p_now + c * kTileF + (rg + 16 * a) * LD;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xc[j] = x_tile + (c * T + cg + 16 * j) * LD;
+      float y[4][4];
+      pruning::wide_product<S, false>(pr, xc, y);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[a][j] *= y[a][j];
+      }
+    }
+    float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the exponents in child order
+#pragma unroll
+    for (int c = 0; c < kStreamWideMaxChildren; ++c) {
+      if (c < cnt && !__ldg(cleaf + i * cmax + c)) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e[j] += ce[c][j];
+      }
+    }
+    // rescale_pow2 over each column's S rows: the max over the thread's
+    // rows, the 8 row groups of its warp (exact shuffles) and the other
+    // warp's 8 (through `red`), then the same scale and exponent
+    float m[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m[j] = FLT_MIN;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) m[j] = fmaxf(m[j], acc[a][j]);
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        m[j] = fmaxf(m[j], __shfl_xor_sync(0xffffffffu, m[j], off));
+      }
+    }
+    if ((rg & 7) == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[(rg >> 3) * T + cg + 16 * j] = m[j];
+    }
+    __syncthreads();  // the x tiles are read and the maxima written
+    stage_x(i + 1, fwd);
+    pruning::cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m[j] = fmaxf(red[cg + 16 * j], red[T + cg + 16 * j]);
+      int eb = (__float_as_int(m[j]) >> 23) & 0xFF;
+      eb = min(max(eb, 1), 253);
+      const float scale = __int_as_float((254 - eb) << 23);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) acc[a][j] *= scale;
+      e[j] += static_cast<float>(eb - 127);
+    }
+    if (fwd >= 0) pruning::wide_put<S>(x_tile + fwd * kTileF, rg, cg, acc);
+    float* dst = xs;
+    float* dst_e = es;
+    size_t row;
+    if (last) {
+      dst = root;
+      dst_e = root_e;
+      row = bk * sites + site0;
+    } else {  // may be a child's slot: every child was staged above
+      row = static_cast<size_t>(own) * sites + site0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = cg + 16 * j;
+      if (!live[j]) continue;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dst[(row + col) * S + rg + 16 * a] = acc[a][j];
+      if (rg == 0) dst_e[row + col] = e[j];
     }
   }
 }
@@ -287,27 +462,33 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    auto kernel = pruning_stream_kernel<kS>;
-    const size_t smem = static_cast<size_t>(pruning::kPStages) * cmax *
-                        pruning::p_block<kS>() * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+    const auto launch = [&](auto kernel, int per_block, int threads, size_t smem) {
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      const dim3 grid((sites + per_block - 1) / per_block, K, B);
+      kernel<<<grid, threads, smem, st>>>(
+          static_cast<const float*>(p), static_cast<const float*>(leaves),
+          static_cast<const int*>(nslot), static_cast<const int*>(cnode),
+          static_cast<const int*>(csrc), static_cast<const int*>(cleaf),
+          static_cast<const int*>(counts), static_cast<float*>(slots),
+          static_cast<float*>(slots_e), static_cast<float*>(root),
+          static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax,
+          sites, leaf_rows);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if constexpr (kS == 64) {  // kWideTile sites a block
+      if (cmax > kStreamWideMaxChildren) return static_cast<int>(cudaErrorInvalidValue);
+      return launch(pruning_stream_wide_kernel<kS>, pruning::kWideTile, kThreads,
+                    stream_wide_smem_floats<kS>(cmax) * sizeof(float));
+    } else {  // kThreads / stream_lanes sites a block
+      return launch(pruning_stream_kernel<kS>, kThreads / stream_lanes<kS>(), kThreads,
+                    static_cast<size_t>(pruning::kPStages) * cmax *
+                        pruning::p_block<kS>() * sizeof(float));
     }
-    // kThreads a block, kThreads / stream_lanes sites a block
-    const int per_block = kThreads / stream_lanes<kS>();
-    const dim3 grid((sites + per_block - 1) / per_block, K, B);
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(p), static_cast<const float*>(leaves),
-        static_cast<const int*>(nslot), static_cast<const int*>(cnode),
-        static_cast<const int*>(csrc), static_cast<const int*>(cleaf),
-        static_cast<const int*>(counts), static_cast<float*>(slots),
-        static_cast<float*>(slots_e), static_cast<float*>(root),
-        static_cast<float*>(root_e), K, n_nodes, n_slots, n_int, cmax,
-        sites, leaf_rows);
-    return static_cast<int>(cudaGetLastError());
   });
 }
 

@@ -46,9 +46,10 @@ the next compiled width (``padded_states``: 2-3 -> 4, 5-19 -> 20, 21-63 ->
   of ``ReverseSchedule``, P staged in shared memory for every visit whose
   children fit the stage (``classic_reverse_stage``) and read through L1
   for a wider one; it stores no gy and takes a node of any number of
-  children. At 64 states both reverses take four lanes a column and sum dP
-  over a block of 64 columns (``csrc/pruning_common.cuh``'s wide_*
-  helpers). Plain version ``classic_reverse_walk_reference``.
+  children. At 64 states both reverses, and the stream walk, form each
+  contraction as one product over a block of 64 columns, a 4 x 4 micro-tile
+  a thread (``csrc/pruning_common.cuh``'s wide_* helpers). Plain version
+  ``classic_reverse_walk_reference``.
 
 - ``static_walk`` (``csrc/pruning_static.cu``, replaces ``_static_kernel``):
   the live-row walk over the DFS slots compiled for one topology
@@ -125,6 +126,7 @@ __all__ = [
     "padded_states",
     "row_geometry",
     "row_smem_bytes",
+    "stream_smem_bytes",
     "choose_reverse",
     "choose_lowering",
     "forward_walk",
@@ -187,13 +189,13 @@ KERNEL_STATES = (4, 20, 64)
 _REVERSE_TILES = (256, 128, 64, 32)
 # shared memory one block may take: an H100 SM's 227 KB
 _REVERSE_SMEM = 232_448
-# columns a block of the reverses at 64 states (csrc/pruning_common.cuh
-# kWideTile: B3's pruning_reverse_wide_kernel and B7's
-# classic_reverse_wide_kernel, four lanes each, 256 threads), and floats
-# between the rows of a P block staged in shared memory at 64 states
-# (csrc/pruning_common.cuh p_row; the reverses' gy and x tiles too): 4 more
-# than 64, so that the rows a column's four lanes read at once fall in four
-# bank quads
+# columns a block of the 64-state tiled walks (csrc/pruning_common.cuh
+# kWideTile: B5's pruning_stream_wide_kernel, B3's
+# pruning_reverse_wide_kernel and B7's classic_reverse_wide_kernel, 256
+# threads of 4 x 4 micro-tiles), and floats between the rows of a P block
+# or a tile of x or gy rows staged in shared memory at 64 states
+# (csrc/pruning_common.cuh p_row): 4 more than 64, so that the 8 rows (or
+# 4 columns) a warp reads at once fall in distinct bank quads
 _WIDE_TILE, _WIDE_ROW = 64, 68
 # edges of the walk a step of the saveall kernel stages (saveall_stage),
 # and lanes that share one of its columns, by state count: two lanes, each
@@ -1087,6 +1089,18 @@ def _p_row(s: int) -> int:
     return _WIDE_ROW if s == KERNEL_STATES[-1] else s
 
 
+def stream_smem_bytes(s: int, cmax: int) -> int:
+    """Shared memory of one stream-walk block (B5) whose widest node has
+    ``cmax`` children: a ring of 3 stages of the children's P blocks at 4
+    and 20 states (``csrc/pruning_slot.cu`` ``pruning_stream_kernel``);
+    at 64 states (``stream_wide_smem_floats``) a ring of 2 such stages,
+    one stage of the children's ``_WIDE_TILE``-column x tiles, rows
+    ``_WIDE_ROW`` floats apart, and two rows of column maxima."""
+    if s == KERNEL_STATES[-1]:
+        return 4 * (3 * cmax * _WIDE_TILE * _WIDE_ROW + 2 * _WIDE_TILE)
+    return 4 * 3 * cmax * s * s
+
+
 def row_smem_bytes(s: int, cols: int, chunk: int, stage_leaves: bool,
                    smem_rows: int, fold: int = 1) -> int:
     """Dynamic shared memory of one B1 / B4 / B8 / B9 block
@@ -1434,7 +1448,7 @@ def slot_walk(
     device = p.device
     sl = walk.slots
     nslot, cnode, csrc, cleaf, counts = sl.on(device)
-    if 4 * 3 * cnode.shape[1] * s * _p_row(s) > _REVERSE_SMEM:
+    if stream_smem_bytes(s, cnode.shape[1]) > _REVERSE_SMEM:
         raise ValueError(
             f"the stream walk's P stage does not hold a node of "
             f"{cnode.shape[1]} children at {s} states; compile the schedule "
@@ -1537,13 +1551,21 @@ def saveall_walk(
     return (res_x, res_e) if batched else (res_x[0], res_e[0])
 
 
+def _wide_gy_tiles(children: int) -> int:
+    """gy tiles of a 64-state reverse block whose visits stage ``children``
+    children (``csrc/pruning_common.cuh`` ``wide_gy_tiles``): two where a
+    visit has at most two, one barrier a child, else one."""
+    return 2 if children <= 2 else 1
+
+
 def _reverse_smem_bytes(tile: int, cmax: int, s: int) -> int:
     """Shared memory of one deferred reverse block of ``tile`` sites: the
     3-stage P ring, two visits' warp dP sums and, at 20 states, each warp's
-    gy and x rows (csrc/pruning_reverse.cu); at 64 states the P ring with
-    rows ``_WIDE_ROW`` floats apart and the block's gy and x tiles."""
+    gy and x rows (csrc/pruning_reverse.cu); at 64 states
+    (``wide_smem_floats``) a ring of 2 stages of the children's P blocks
+    and x tiles, rows ``_WIDE_ROW`` floats apart, then the gy tiles."""
     if s == KERNEL_STATES[-1]:
-        return 4 * _WIDE_ROW * (3 * cmax * s + 2 * tile)
+        return 4 * _WIDE_ROW * tile * (4 * cmax + _wide_gy_tiles(cmax))
     warps = tile // 32
     floats = (3 + 2 * warps) * cmax * s * s
     if s != 4:
@@ -1653,7 +1675,7 @@ def reverse_walk(
 
 def _classic_reverse_tile(s: int) -> int:
     """Sites a block of the classic reverse at ``s`` states:
-    ``_WIDE_TILE`` at 64 states (its four-lane layout), else
+    ``_WIDE_TILE`` at 64 states (its tiled layout), else
     ``_CLASSIC_REVERSE_TILE``."""
     return _WIDE_TILE if s == KERNEL_STATES[-1] else _CLASSIC_REVERSE_TILE
 
@@ -1680,16 +1702,16 @@ def classic_reverse_stage(s: int, cmax: int) -> Tuple[int, int]:
     states whose widest node has ``cmax`` children: the deferred reverse's
     block layout (``_reverse_smem_bytes``: the 3-stage P ring, two steps'
     warp dP sums and, at 20 states, each warp's gy and x rows; at 64 states
-    the ring with rows ``_WIDE_ROW`` apart and the gy and x tiles, 3
-    children at most) for the most children up to ``cmax`` that fit
-    ``_CLASSIC_STAGE_BYTES`` (at least one). A visit with more children
-    reads its P through L1, in groups of that many, so the block does not
-    grow with ``cmax`` past them."""
+    the 2-stage ring of P blocks and x tiles, rows ``_WIDE_ROW`` apart, and
+    the gy tiles, 3 children at most) for the most children up to ``cmax``
+    that fit ``_CLASSIC_STAGE_BYTES`` (at least one). A visit with more
+    children reads its P through L1, in groups of that many, so the block
+    does not grow with ``cmax`` past them."""
     tile = _classic_reverse_tile(s)
-    per_child = _reverse_smem_bytes(tile, 2, s) - _reverse_smem_bytes(
-        tile, 1, s)
-    fixed = _reverse_smem_bytes(tile, 1, s) - per_child
-    children = max(1, min(cmax, (_CLASSIC_STAGE_BYTES - fixed) // per_child))
+    children = 1
+    while (children < cmax and _reverse_smem_bytes(tile, children + 1, s)
+           <= _CLASSIC_STAGE_BYTES):
+        children += 1
     return children, _reverse_smem_bytes(tile, children, s)
 
 

@@ -333,13 +333,17 @@ def test_classic_reverse_stage_sizing(s, cmax):
     232,448 bytes; one more child would not fit, unless cmax is reached. A
     wider visit reads its P through L1 in groups of that many, so the block
     does not grow with cmax past them, and every child is covered in
-    ceil(cmax / children) groups. At 64 states the block is B3's wide one
-    (64 columns, rows 68 floats apart), which holds 3 children."""
+    ceil(cmax / children) groups. At 64 states the block is B3's tiled
+    one (64 columns; a ring of two stages of the children's P blocks and
+    x tiles, rows 68 floats apart, then two gy tiles up to two children
+    and one past them), which holds 3 children."""
     children, nbytes = cuda_pruning.classic_reverse_stage(s, cmax)
     tile = cuda_pruning._classic_reverse_tile(s)
     assert tile == (64 if s == 64 else cuda_pruning._CLASSIC_REVERSE_TILE)
     if s == 64:
         assert children == min(cmax, 3)
+        assert nbytes == 4 * 64 * 68 * (4 * children
+                                         + (2 if children <= 2 else 1))
     budget = cuda_pruning._CLASSIC_STAGE_BYTES
     assert budget <= 232_448
     assert 1 <= children <= cmax
@@ -381,6 +385,7 @@ def _wide_node_inputs(newick, s, sites, seed=11):
     frequencies."""
     tree = tio.parse_newick(newick)
     sched = compile_schedule(tree, binarize=False)
+    rng = np.random.default_rng(seed)
     if s == 4:
         eig = tmodels.GTR.eigen(GTR)
     elif s == 20:
@@ -393,7 +398,6 @@ def _wide_node_inputs(newick, s, sites, seed=11):
     t = torch.from_numpy(np.asarray(tree.lengths)[:, None] * RATES)
     p64 = transition_matrices(eig, t).numpy()
     freqs = eig.freqs.numpy()
-    rng = np.random.default_rng(seed)
     cat = rng.integers(0, len(RATES), sites)
     states = np.zeros((tree.n_nodes, sites), np.int64)
     states[tree.root] = rng.choice(s, sites, p=freqs / freqs.sum())
@@ -543,17 +547,22 @@ def test_classic_scratch_does_not_grow_with_the_tree_times_sites(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [4, 20])
+@pytest.mark.parametrize("s", [4, 20, 64])
 def test_classic_kernel_takes_a_wide_node_on_card(s):
     """B7 on the wide-node tree (a root of 49 children: staged at 4
-    states, read through L1 in groups at 20) against its plain version,
-    two seeds with dleaf; dP bit-identical across two launches."""
+    states, read through L1 in groups at 20 and at 64, a small codon
+    shape of 61 states padded) against its plain version, two seeds with
+    dleaf; dP bit-identical across two launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    sched, p, lp, _ = _wide_node_inputs(_wide_node_newick(), s, SITES)
+    sched, p, lp, _ = _wide_node_inputs(_wide_node_newick(),
+                                        61 if s == 64 else s, SITES)
     walk = WalkSchedule(sched)
     assert walk.children.shape[1] == 49
     pd, ld = torch.from_numpy(p).cuda(), torch.from_numpy(lp).cuda()
+    if s == 64:
+        pd = cuda_pruning._pad_states(pd, s, 2).contiguous()
+        ld = cuda_pruning._pad_states(ld, s, 1).contiguous()
     rx, re = saveall_walk(pd, ld, walk)
     g = torch.rand((4, 2, SITES, s), device="cuda") + 0.5
     seeds = [walk.root, int(walk.order[len(walk.order) // 2])]

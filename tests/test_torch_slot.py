@@ -50,7 +50,10 @@ MULTIFURCATING = (
 )
 MODELS = {4: (tmodels.GTR, {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0],
                             "freqs": [0.3, 0.2, 0.22, 0.28]}),
-          20: (tmodels.LG, None)}
+          20: (tmodels.LG, None),
+          # a codon width: GY94's 61 states, padded to 64 as the engines'
+          # entry points pad them
+          64: (tmodels.GY94, None)}
 RATES = np.array([0.1, 0.6, 1.2, 2.1])
 TOL = 1e-5
 
@@ -71,12 +74,14 @@ TREES = {
 
 def _inputs(newick, s, sites, batch_scales=None, seed=0):
     """numpy-made f32 P (identity blocks for pseudo-nodes) and one-hot
-    leaves with 5% all-ones rows, for ``s`` states."""
+    leaves with 5% all-ones rows, for ``s`` states (at 64, GY94's 61
+    padded with zero states)."""
     tree = tio.parse_newick(newick)
     sched = compile_schedule(tree)
     model, params = MODELS[s]
+    n = 61 if s == 64 else s
     rng = np.random.default_rng(seed)
-    lp = np.eye(s, dtype=np.float32)[rng.integers(0, s, (tree.n_leaves,
+    lp = np.eye(n, dtype=np.float32)[rng.integers(0, n, (tree.n_leaves,
                                                           sites))]
     lp[rng.random((tree.n_leaves, sites)) < 0.05] = 1.0
     lengths = np.asarray(tree.lengths)
@@ -84,8 +89,12 @@ def _inputs(newick, s, sites, batch_scales=None, seed=0):
         lengths = np.stack([lengths * b for b in batch_scales])
     t = torch.from_numpy(lengths[..., None] * RATES)
     p = extend_p_identity(transition_matrices(model.eigen(params), t),
-                          sched.n_nodes)
-    return sched, p.to(torch.float32).contiguous(), torch.from_numpy(lp)
+                          sched.n_nodes).to(torch.float32)
+    lp = torch.from_numpy(lp)
+    if s != n:
+        p = cuda_pruning._pad_states(p, s, 2)
+        lp = cuda_pruning._pad_states(lp, s, 1)
+    return sched, p.contiguous(), lp.contiguous()
 
 
 @pytest.mark.parametrize("case", sorted(TREES))
@@ -315,10 +324,12 @@ def _cuda_or_skip():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [4, 20])
+@pytest.mark.parametrize("s", [4, 20, 64])
 def test_slot_and_stream_kernels_on_card(s):
     """B4 and B5 on the card: bit-identical to the forward kernel and to
-    their plain version, at 4 and 20 states, single and batched."""
+    their plain version, at 4 and 20 states and at 64 (a small codon
+    shape: 301 sites leave the last 64-column tile ragged), single and
+    batched."""
     _cuda_or_skip()
     for case in ("random40", "caterpillar30", "multifurcating"):
         sched, p, lp = _inputs(TREES[case](), s, 301,
@@ -381,7 +392,7 @@ WIDE_ROOT = ("((a:0.1,b:0.2,c:0.3,d:0.1):0.1,(e:0.2,(f:0.1,g:0.3):0.2):0.3,"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [4, 20])
+@pytest.mark.parametrize("s", [4, 20, 64])
 def test_stream_kernel_with_multifurcations_on_card(s):
     """B5 on a tree with a trifurcating root and a 4-child node, at a
     ragged site count: bit-identical to the forward kernel and within TOL
