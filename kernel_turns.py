@@ -54,7 +54,14 @@ state counts only:
    (phase 27's shape and K = 30), B3 and B7 (phase 27's shape and the
    1000-taxon slice) the same way, B3's dP also bit-identical across two
    launches and within 1e-4 x max|dP| of its plain version, and B7 with
-   one tile a block bit for bit B3's dP;
+   one tile a block bit for bit B3's dP; B1, B4, B8 and B9 (F = 2) at
+   phase 27's shape (B1, B4, B9 also on the 3- and 4-child trees) bit for
+   bit the earlier B1 and each its earlier self (the earlier B1, B4 and B9
+   under the earlier lane counts, the earlier B8 built per topology from
+   the earlier ``pruning_static.cu``), with 0, 1 and all rows in shared
+   memory and with leaf rows staged, where a block holds them; B2's
+   residuals bit for bit the earlier B2's, its root row the earlier
+   B1's;
 2. times each kernel in turns (earlier, current, current, earlier; CUDA
    events over repeated launches), with its bound;
 3. reads each kernel's device time per launch from ``torch.profiler``
@@ -69,11 +76,13 @@ state counts only:
    blocks per launch (``_CLASSIC_REVERSE_BLOCKS``) and block width
    (``_CLASSIC_REVERSE_TILE``), and its shared-memory budget on the wide
    node at 20 states (``_CLASSIC_STAGE_BYTES``); at 64 states B7's blocks
-   per launch (132, 264, 528) at phase 27's shape;
+   per launch (132, 264, 528), B2's children a step (1, 2, 3) and B4's
+   columns x edges a step x rows on the SM at phase 27's shape;
 5. counts global loads (``LDG``), shared-memory loads (``LDS`` by width),
    FMAs and barriers in the SASS of both builds' B1 and B4 (at 4 and 20
    states), B9 (every compiled F and lanes), B8 (the flagship's and config
-   4's topologies), 20-state B2, B7 and B3 and 64-state B5, B7 and B3
+   4's topologies), 20-state B2, B7 and B3 and 64-state B5, B7, B3, B2,
+   B1/B4 and B9
    (``cuobjdump -sass``; for the 64-state ones also loads per FMA, whole
    and in each hot loop, and their ptxas lines), writes
    those functions' SASS to ``build/kernel_turns/``, and lists both
@@ -126,6 +135,9 @@ SASS_KERNELS = {
     "B7": r"classic_reverse_walk_kernelILi20E",
     "B3": r"pruning_reverse_walk_kernelILi20E",
     "B5_64": r"pruning_stream_(?:wide_)?kernelILi64E",
+    "B2_64": r"pruning_saveall_(?:wide_)?kernelILi64E",
+    "B1_B4_64": r"row_walk_wide_kernelILi1E|row_walk_kernelILi64ELi\d+ELi1E",
+    "B9_64": r"row_walk_wide_kernelILi2E|row_walk_kernelILi64ELi\d+ELi2E",
     "B7_64": r"classic_reverse_wide_kernelILi64E",
     "B3_64": r"pruning_reverse_wide_kernelILi64E",
 }
@@ -221,6 +233,12 @@ def _build_parent(parent: Path, nvcc_flags, nvcc):
             fn = getattr(shared, name)
             fn.argtypes = _build._argtypes(*counts)
             fn.restype = ci
+    # the earlier B9 under the current wrapper too, for the 64-state turns
+    # against sources that share its current signature
+    for name, *counts in _build.SIGNATURES:
+        if name == "pruning_fold_f32":
+            shared.pruning_fold_f32.argtypes = _build._argtypes(*counts)
+            shared.pruning_fold_f32.restype = ci
     walks = ctypes.CDLL(str(lib_path))
     walks.pruning_fold_f32.argtypes = [vp] * 9 + [ci] * 9 + [vp]
     walks.pruning_fold_f32.restype = ci
@@ -399,20 +417,31 @@ def _rel(got, want):
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
+def _equal(a, b):
+    """Both outputs (partials, exponent counts) bit for bit."""
+    import torch
+
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
 def _wide_turns(shapes, earlier, rng, reps_of, cuda_ms, device_us, bound,
-                timed):
-    """The 64-state checks of B5, B3 and B7 on ``shapes`` ({label: (walk, P,
-    leaves, f64 frequencies, kernels)}), and their turns on the shapes
-    ``timed``: ({label: checks},
-    {name_label: turns}, {name_label: device us}, {label: B7's blocks in
-    turns}, [labels whose checks failed])."""
+                timed, earlier64, earlier_static):
+    """The 64-state checks of B1, B4, B2, B8, B9, B5, B3 and B7 on
+    ``shapes`` ({label: (walk, P, leaves, f64 frequencies, kernels)}), and
+    their turns on the shapes ``timed``: ({label: checks},
+    {name_label: turns}, {name_label: device us}, {label: B7's blocks, B2's
+    children a step and B4's columns and step in turns}, [labels whose
+    checks failed]). ``earlier64`` runs a wrapper against the earlier
+    library under the earlier 64-state lane counts (B1, B4 and B9),
+    ``earlier_static(walk, p, leaves)`` gives the earlier B8."""
     import functools
 
     import torch
     from phylo_utils_tpu_torch.ops import cuda_pruning as cp
     from phylo_utils_tpu_torch.ops.cuda_pruning import (
-        classic_reverse_walk, classic_reverse_walk_reference, forward_walk,
-        reverse_walk, reverse_walk_reference, saveall_walk, slot_walk)
+        classic_reverse_walk, classic_reverse_walk_reference, fold_walk,
+        forward_walk, reverse_walk, reverse_walk_reference, saveall_walk,
+        slot_walk, static_walk)
 
     checks, turns, dev_us, sweeps, failed = {}, {}, {}, {}, []
     for label, (walk, p, leaves, f64, names) in shapes.items():
@@ -424,6 +453,62 @@ def _wide_turns(shapes, earlier, rng, reps_of, cuda_ms, device_us, bound,
         ok = True
         kernels = {}
         ob1 = earlier(forward_walk, p, leaves, walk, walk="classic")()
+        row = walk.root - walk.n_leaves
+        for name, kind, fn, old_fn in (
+                ("B1", "forward",
+                 functools.partial(forward_walk, p, leaves, walk,
+                                   walk="classic"),
+                 earlier64(forward_walk, p, leaves, walk, walk="classic")),
+                ("B4", "slot", functools.partial(slot_walk, p, leaves, walk),
+                 earlier64(slot_walk, p, leaves, walk)),
+                ("B9", "forward",
+                 functools.partial(fold_walk, p, leaves, walk, 2),
+                 earlier64(fold_walk, p, leaves, walk, 2)),
+                ("B8", "forward",
+                 functools.partial(static_walk, p, leaves, walk), None)):
+            if name not in names:
+                continue
+            if name == "B8":
+                old_fn = earlier_static(walk, p, leaves)
+            got, old = fn(), old_fn()
+            # the row-walk kernels also with 0, 1 and all rows on the SM
+            n_rows = (walk.rows if name == "B1" else walk.slots.rows).n_rows
+            kind_of = {"B1": "forward", "B4": "slot", "B9": "fold",
+                       "B8": "static"}[name]
+            fold = 2 if name == "B9" else 1
+            placed = []
+            for forced in ([{"smem_rows": m} for m in sorted({0, 1, n_rows})]
+                           + [{"stage_leaves": True, "smem_rows": 0}]):
+                try:
+                    placed.append(cp._row_walk(p, leaves, walk, kind_of,
+                                               fold=fold, **forced))
+                except ValueError:   # more than a block holds
+                    pass
+            torch.cuda.synchronize()
+            key = name.lower()
+            chk[f"{key}_equals_earlier_and_b1"] = (
+                _equal(got, old) and _equal(got, ob1)
+                and all(_equal(x, ob1) for x in placed))
+            chk[f"{key}_placements_checked"] = len(placed)
+            chk[f"{key}_geometry"] = cp.row_geometry(
+                1, p.shape[-3], leaves.shape[1], 64, n_rows,
+                fold=fold)._asdict()
+            ok = ok and chk[f"{key}_equals_earlier_and_b1"]
+            kernels[name] = (kind, fn, old_fn)
+            del got, old, placed
+        if "B2" in names:
+            rx2 = saveall_walk(p, leaves, walk)
+            orx2 = earlier(saveall_walk, p, leaves, walk)()
+            torch.cuda.synchronize()
+            chk["b2_equals_earlier"] = _equal(rx2, orx2)
+            chk["b2_root_row_equals_b1"] = _equal(
+                (rx2[0][:, row], rx2[1][:, row]), ob1)
+            ok = (ok and chk["b2_equals_earlier"]
+                  and chk["b2_root_row_equals_b1"])
+            kernels["B2"] = ("saveall", functools.partial(
+                saveall_walk, p, leaves, walk),
+                earlier(saveall_walk, p, leaves, walk))
+            del rx2, orx2
         if "B5" in names:
             sp, se = slot_walk(p, leaves, walk, stream=True)
             op, oe = earlier(slot_walk, p, leaves, walk, stream=True)()
@@ -438,7 +523,6 @@ def _wide_turns(shapes, earlier, rng, reps_of, cuda_ms, device_us, bound,
             del sp, se, op, oe
         if "B3" in names or "B7" in names:
             rx, re_ = saveall_walk(p, leaves, walk)
-            row = walk.root - walk.n_leaves
             lam = (1.0 / torch.einsum("ksi,i->ks", rx[:, row].double(), f64)
                    ).float().contiguous()
             gseed = (lam[..., None] * f).unsqueeze(-3).contiguous()
@@ -534,6 +618,39 @@ def _wide_turns(shapes, earlier, rng, reps_of, cuda_ms, device_us, bound,
             dev_us[f"{name}_{label}"] = {
                 "earlier": device_us(old_fn, min(reps, 10)),
                 "current": device_us(new_fn, min(reps, 10))}
+        if label == "codon27" and "B2" in kernels:
+            saved = cp._SAVEALL_CHUNK[64]
+            b2 = kernels["B2"][1]
+            try:
+                runs = {}
+                for chunk in (1, 2, 3, 3, 2, 1):
+                    cp._SAVEALL_CHUNK[64] = chunk
+                    runs.setdefault(str(chunk), []).append(cuda_ms(b2, reps))
+            finally:
+                cp._SAVEALL_CHUNK[64] = saved
+            sweeps.setdefault(label, {})["B2_chunk"] = {
+                k: {"ms": sum(v) / len(v), "runs": v} for k, v in runs.items()}
+        if label == "codon27" and "B4" in kernels:
+            n_rows = walk.slots.rows.n_rows
+            settings = []
+            for cols in (64, 32):
+                for chunk in (2, 4):
+                    for m in (0, n_rows):
+                        try:    # the geometry refuses a ring that cannot fit
+                            cp.row_geometry(1, p.shape[-3], leaves.shape[1],
+                                            64, n_rows, cols=cols,
+                                            chunk=chunk, smem_rows=m)
+                            settings.append((cols, chunk, m))
+                        except ValueError:
+                            pass
+            runs = {}
+            for cols, chunk, m in settings + settings[::-1]:
+                run = functools.partial(cp._row_walk, p, leaves, walk, "slot",
+                                        cols=cols, chunk=chunk, smem_rows=m)
+                runs.setdefault(f"{cols}x{chunk} rows {m}", []).append(
+                    cuda_ms(run, reps))
+            sweeps.setdefault(label, {})["B4_cols_x_chunk_x_rows"] = {
+                k: {"ms": sum(v) / len(v), "runs": v} for k, v in runs.items()}
         if label == "codon27" and "B7" in kernels:
             saved = cp._CLASSIC_REVERSE_BLOCKS[64]
             b7 = kernels["B7"][1]
@@ -544,8 +661,8 @@ def _wide_turns(shapes, earlier, rng, reps_of, cuda_ms, device_us, bound,
                     runs.setdefault(str(blocks), []).append(cuda_ms(b7, reps))
             finally:
                 cp._CLASSIC_REVERSE_BLOCKS[64] = saved
-            sweeps[label] = {"B7_blocks": {
-                k: {"ms": sum(v) / len(v), "runs": v} for k, v in runs.items()}}
+            sweeps.setdefault(label, {})["B7_blocks"] = {
+                k: {"ms": sum(v) / len(v), "runs": v} for k, v in runs.items()}
         print(json.dumps({label: {"checks": chk, "turns": {
             k: v for k, v in turns.items() if k.endswith(label)}}}),
             flush=True)
@@ -672,6 +789,50 @@ def main():
             finally:
                 _build._lib = saved
         return run
+
+    # the earlier sources' 64-state live-row body: the tiled one (four
+    # threads a column, the current lane counts) or the first
+    tiled_parent = "row_walk_wide_kernel" in (
+        args.parent / "pruning_rows.cuh").read_text()
+
+    def earlier64(fn, *a, **kw):
+        """``earlier`` under the earlier 64-state lane counts: for the first
+        64-state body two or four lanes a column for B1 and B4, B9's F = 2
+        at two, which ``row_geometry`` picks from as it did for it."""
+        run = earlier(fn, *a, **kw)
+        if tiled_parent:
+            return run
+
+        def go():
+            saved = cp._ROW_LANES[64], cp.FOLD_WIDTHS[64]
+            cp._ROW_LANES[64], cp.FOLD_WIDTHS[64] = (2, 4), {2: (2,)}
+            cp.row_geometry.cache_clear()
+            try:
+                return run()
+            finally:
+                cp._ROW_LANES[64], cp.FOLD_WIDTHS[64] = saved
+                cp.row_geometry.cache_clear()
+        return go
+
+    earlier_b8 = set()   # the earlier B8 libraries' paths
+
+    def earlier_static(walk, p, leaves):
+        """The earlier B8 at 64 states: the earlier ``pruning_static.cu``
+        and headers built for ``walk``'s topology (in the current header
+        format, which sources with the tiled 64-state stream walk share)
+        under the earlier lane counts, run by the current wrapper."""
+        twin = WalkSchedule(walk._schedule)
+        saved = _build.STATIC_SOURCE, _build.CSRC, _build.STATIC_PTXAS_64
+        _build.STATIC_SOURCE = args.parent / "pruning_static.cu"
+        _build.CSRC = args.parent
+        if not tiled_parent:   # the first body was built at B8's level
+            _build.STATIC_PTXAS_64 = _build.PTXAS_FLAGS["pruning_static.cu"]
+        try:
+            earlier_b8.add(earlier64(twin.static_library, 64)()._name)
+        finally:
+            (_build.STATIC_SOURCE, _build.CSRC,
+             _build.STATIC_PTXAS_64) = saved
+        return earlier64(static_walk, p, leaves, twin)
 
     def old_lowering(walk, p, leaves, fold=1, lib=None):
         """The earlier B9 (``fold`` categories a thread) or, with ``lib``,
@@ -1047,7 +1208,7 @@ def main():
         tree27 = random_tree(100, seed=27)
         wide = {
             "codon27": (*_codon_inputs(tree27, 4096, 4, rng, dev),
-                        ("B5", "B3", "B7")),
+                        ("B1", "B4", "B2", "B8", "B9", "B5", "B3", "B7")),
             "codon27_K30": (*_codon_inputs(tree27, 4096, 30, rng, dev),
                             ("B5",)),
             "codon1000": (*_codon_inputs(random_tree(1000, seed=29), 2048, 4,
@@ -1060,13 +1221,15 @@ def main():
         for label, newick in (("codon_cmax3", WIDE3), ("codon_cmax4", WIDE4)):
             wide[label] = (*_codon_inputs(parse_newick(newick), 1000, 4, rng,
                                           dev, binarize=False),
-                           ("B5", "B3", "B7") if label == "codon_cmax3"
-                           else ("B5", "B7"))
+                           ("B1", "B4", "B2", "B9", "B5", "B3", "B7")
+                           if label == "codon_cmax3" else
+                           ("B1", "B4", "B2", "B9", "B5", "B7"))
         checks, turns, dev_us, sweeps, bad = _wide_turns(
             wide, earlier, rng, {"codon27": 10, "codon27_K30": 5,
                                  "codon1000": 3, "codon_cmax3": 3,
                                  "codon_cmax4": 3}, _cuda_ms, _device_us,
-            _bound, ("codon27", "codon27_K30", "codon1000"))
+            _bound, ("codon27", "codon27_K30", "codon1000"), earlier64,
+            earlier_static)
         result["checks"].update(checks)
         result["turns"].update(turns)
         result["device_us"].update(dev_us)
@@ -1102,8 +1265,10 @@ def main():
               / max(c.get("FFMA", 0), 1)}
         for key, c in sass.items() if key.split()[0].endswith("_64")}
     result["ptxas_64"] = {
-        which: {k: v for k, v in table.items() if "<64>" in k and re.match(
-            r"(pruning_stream|pruning_reverse_wide|classic_reverse_wide)", k)}
+        which: {k: v for k, v in table.items() if re.match(
+            r"(pruning_stream\w*|pruning_reverse_wide|classic_reverse_wide|"
+            r"pruning_saveall\w*)<64>|row_walk_kernel<64,|row_walk_wide_kernel<",
+            k)}
         for which, table in (("earlier", _ptxas_table(old_log)),
                              ("current", ptxas_current))}
     # B1 and B4 (F = 1) instruction for instruction against the earlier
@@ -1121,6 +1286,16 @@ def main():
               "current": _ptxas_table(static_cur[top]["log"])}
         for top in static_old}
     result["ptxas_current"] = ptxas_current or "library reused"
+    # the current B8 libraries built at 64 states (past their unroll
+    # budget: the tiled live-row body)
+    result["ptxas_b8_64"] = {
+        Path(v["path"]).stem: _ptxas_table(v["log"])
+        for v in _build.static_build_info().values()
+        if v["s"] == 64 and v["path"] not in earlier_b8}
+    spilled.update({f"B8 {lib} {k}": v
+                    for lib, table in result["ptxas_b8_64"].items()
+                    for k, v in table.items()
+                    if not re.search(r"\b0 bytes spill stores", v)})
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

@@ -92,10 +92,10 @@ __device__ __forceinline__ void store_part(float* dst, const float (&v)[kRows]) 
 }
 
 // Floats between the rows of an S x S block of P staged in shared memory:
-// S, and S + 4 at 64 states. There the lanes that share a column form rows
-// r kL + h (lane_row): rows 64 floats apart would put the rows the lanes
-// read at once in one bank quad (a 4-way conflict on every LDS.128), 68
-// apart puts them in four.
+// S, and S + 4 at 64 states, where a quarter-warp of the tiled products
+// reads 8 consecutive rows at once: 64 floats apart they would share one
+// bank quad (an 8-way conflict on every LDS.128), 68 apart they take
+// eight.
 template <int S>
 __host__ __device__ constexpr int p_row() {
   return S == 64 ? S + 4 : S;
@@ -112,14 +112,6 @@ __host__ __device__ constexpr int p_block() {
 template <int S>
 __device__ __forceinline__ int p_stage_offset(int q) {
   return (q / (S / 4)) * p_row<S>() + 4 * (q % (S / 4));
-}
-
-// The r-th of the S / kL rows lane h of the kL lanes of a column forms:
-// h S / kL + r, a contiguous share, below 64 states; r kL + h at 64
-// (see p_row).
-template <int S, int kL>
-__device__ __forceinline__ int lane_row(int h, int r) {
-  return S == 64 ? r * kL + h : h * (S / kL) + r;
 }
 
 // Four consecutive entries of row r of an S x S block P (row-major, rows
@@ -391,11 +383,14 @@ __device__ __forceinline__ float f4_at(const float4& v, int i) {
 // (each a row of S states), in shared memory or (kGlobal) device memory;
 // each an fmaf chain in j order (times_child's). Through L1 one step at a
 // time: unrolled, ptxas keeps every step's loads in flight at once.
-template <int S, bool kGlobal>
+// kXGlobal (P in shared memory): the columns in device memory, read by
+// plain loads, which see rows the block wrote earlier in the walk (the
+// read-only path of __ldg need not). kUnroll: steps of four j unrolled.
+template <int S, bool kGlobal, bool kXGlobal = kGlobal,
+          int kUnroll = (kGlobal || kXGlobal) ? 1 : 2>
 __device__ __forceinline__ void wide_product(const float* const (&pr)[4],
                                              const float* const (&xc)[4],
                                              float (&y)[4][4]) {
-  constexpr int kUnroll = kGlobal ? 1 : 2;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -407,7 +402,10 @@ __device__ __forceinline__ void wide_product(const float* const (&pr)[4],
 #pragma unroll
     for (int a = 0; a < 4; ++a) pv[a] = wide_ld4<kGlobal>(pr[a] + 4 * q);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) xv[b] = wide_ld4<kGlobal>(xc[b] + 4 * q);
+    for (int b = 0; b < 4; ++b) {
+      xv[b] = kXGlobal && !kGlobal ? *reinterpret_cast<const float4*>(xc[b] + 4 * q)
+                                   : wide_ld4<kGlobal>(xc[b] + 4 * q);
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -499,6 +497,46 @@ __device__ __forceinline__ void wide_dp(const float* gy_t, const float* x_t,
       v = make_float4(old[a].x + v.x, old[a].y + v.y, old[a].z + v.z, old[a].w + v.w);
     }
     *reinterpret_cast<float4*>(dst + (i0 + a) * S + 4 * jb) = v;
+  }
+}
+
+// The 64-state walks whose columns each belong to one warp: B2
+// (pruning_forward.cu's pruning_saveall_wide_kernel) and the live-row body
+// (pruning_rows.cuh's row_walk_wide_kernel, B1, B4, B8 and B9). Lane l of
+// warp w forms the 4 x 4 micro-tile of rows tile_rg() + 16 a and columns
+// tile_col(b) = 8 w + (l >> 4) + 2 b (a, b < 4): the wide_product of
+// B5's layout, but a column's 64 rows lie in the 16 lanes of one
+// half-warp. So a column's rescale max is 4 exact shuffles (no shared row
+// and block barrier), and the rows a warp forms are read back only by
+// that warp, after __syncwarp. A quarter-warp's 8 lanes read 8 rows of P
+// (68 floats apart: distinct bank quads) and one column's x vector (a
+// broadcast), so x rows may lie 64 floats apart, as the live rows do.
+__device__ __forceinline__ int tile_rg() { return threadIdx.x & 15; }
+
+__device__ __forceinline__ int tile_col(int b) {
+  return 8 * (threadIdx.x >> 5) + ((threadIdx.x >> 4) & 1) + 2 * b;
+}
+
+// rescale_pow2 over each of the thread's four columns (acc[a][b], rows
+// tile_rg() + 16 a of column tile_col(b)): the max over the column's 64
+// rows by exact shuffles within its half-warp, then the same scale; the
+// exponents are added to e[b].
+__device__ __forceinline__ void tile_rescale(float (&acc)[4][4], float (&e)[4]) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    float m = FLT_MIN;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) m = fmaxf(m, acc[a][b]);
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    int eb = (__float_as_int(m) >> 23) & 0xFF;
+    eb = min(max(eb, 1), 253);
+    const float scale = __int_as_float((254 - eb) << 23);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a][b] *= scale;
+    e[b] += static_cast<float>(eb - 127);
   }
 }
 

@@ -56,22 +56,21 @@ namespace {
 
 // The fold widths compiled at state count S (FoldWidths<S>), and whether F
 // is compiled at `lanes` lanes a column there: every lane count of the
-// state count (1, 2, 4 at 4 states; 1, 2 at 20; 2 at 64) whose kernel
+// state count (1, 2, 4 at 4 states; 1, 2 at 20; 4 at 64) whose kernel
 // ptxas takes without a spill. It spilled F = 4 at 4 states at one lane
 // ("Used 128 registers ... 8 bytes spill stores") and at four ("Used 64
 // registers ... 8 bytes spill stores"; kernel_turns.py's
 // ptxas_fold_pairs), so that width runs at two lanes only. At 64 states
 // (codon) F = 2, the widest the JAX package folds there (F S_pad <= 128
-// lanes): at four lanes ptxas held it to 128 registers and spilled 24
-// bytes, at two it took 224 and spilled nothing (nvcc -Xptxas -v for
-// sm_90a at this source's level), so it runs at two lanes.
+// lanes), on the tiled body (pruning_rows.cuh's row_walk_wide_kernel,
+// four threads a column: 2 x 16 accumulators a thread).
 template <int S>
 using FoldWidths = std::conditional_t<
     S == 4, std::integer_sequence<int, 2, 4>,
     std::conditional_t<S == 64, std::integer_sequence<int, 2>,
                        std::integer_sequence<int, 2, 3, 4, 5>>>;
 constexpr bool fold_compiled(int s, int f, int lanes) {
-  if (s == 64) return lanes == 2;
+  if (s == 64) return lanes == 4;
   const bool lane_count = lanes == 1 || lanes == 2 || (s == 4 && lanes == 4);
   return lane_count && !(s == 4 && f == 4 && lanes != 2);
 }

@@ -18,9 +18,10 @@
 // root (B, K, sites, S), root_e (B, K, sites). Compiled for S = 4 (DNA),
 // S = 20 (protein) and S = 64 (codon's 61 or 60 states, and every count
 // from 21 to 63, padded with zero states by ops/cuda_pruning.py); the entry
-// points refuse any other count. At 64 states two or four lanes share a
-// column (16 or 32 rows a lane beside the child's 64-entry row in
-// registers), and a stage of P is 16 KB an edge.
+// points refuse any other count. At 64 states both walks form each
+// contraction as one product over a block's columns in 4 x 4 micro-tiles
+// (pruning_common.cuh's tile_rg / tile_col), and a stage of P is 17 KB an
+// edge (rows 68 floats apart).
 //
 // What bounded its first body, measured on an NVIDIA H100 80GB HBM3 at
 // 700 W (PERF.md section 6): one thread a column walked the tree with every
@@ -82,10 +83,16 @@
 //   flight where a launch has about one block an SM.
 // - Threads past the last site stay in the loop for the barriers and
 //   store nothing.
-// - At 64 states four lanes share a column, forming rows r 4 + h of P
-//   staged with rows 68 floats apart (no bank conflict among the four),
-//   and the child's row streams from device memory as 16-byte vectors (64
-//   of them in registers beside the accumulators spilled); 2 edges a step.
+// - At 64 states its first body had four lanes share a column, each
+//   streaming the child's whole row from device memory beside its 16
+//   accumulators (spilled) at one LDS.128 of P per four FMAs: 2.08-2.21
+//   ms at 100 taxa x 4096 codon sites (4 categories), 16-18% of its
+//   operations bound. pruning_saveall_wide_kernel (below) forms a
+//   block's 64 columns as one tiled product a child, the children's rows
+//   staged beside P, 8 FMAs a 16-byte load: 1.011 ms there in turns
+//   against 2.082 (36% of the bound; kernel_turns.py --states 64, NVIDIA
+//   H100 80GB HBM3, 700 W; 2 children a step, against 1.087 ms at 1 and
+//   1.203 at 3, one block an SM).
 // Every row's fmaf chain keeps its j order and the children their order, so
 // the residuals are bit for bit the forward's arithmetic: the root row
 // equals pruning_forward_f32's root.
@@ -183,39 +190,6 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
       }
       const int child = __ldg(edges + f);
       const float* pm = p_now + in_step * kBlock;
-      if constexpr (S == 64) {
-        // the child's row streamed as 16-byte vectors: 64 entries held
-        // beside a lane's accumulators spilled (ptxas, 12 bytes); each
-        // row's fmaf chain stays in j order, so the bits are B1's
-        float y[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) y[r] = 0.0f;
-        if (live) {
-          const float* src;
-          if (child < n_leaves) {
-            src = leaves + (static_cast<size_t>(lrow0 + child) * sites + site) * S;
-          } else {
-            const size_t row = static_cast<size_t>(child - n_leaves) * sites + site;
-            src = xs + row * S;
-            e += es[row];
-          }
-#pragma unroll 4
-          for (int q = 0; q < S / 4; ++q) {
-            const float4 xv = reinterpret_cast<const float4*>(src)[q];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float4 v = pruning::p_vec<S>(pm, pruning::lane_row<S, kL>(h, r), q);
-              y[r] = fmaf(v.x, xv.x, y[r]);
-              y[r] = fmaf(v.y, xv.y, y[r]);
-              y[r] = fmaf(v.z, xv.z, y[r]);
-              y[r] = fmaf(v.w, xv.w, y[r]);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] *= y[r];
-        continue;
-      }
       float x[S];
 #pragma unroll
       for (int j = 0; j < S; ++j) x[j] = 0.0f;
@@ -259,12 +233,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
     e += static_cast<float>(eb - 127);
     if (live) {
       const size_t row = static_cast<size_t>(node - n_leaves) * sites + site;
-      if constexpr (S == 64) {  // the lane's rows r kL + h (lane_row)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          xs[row * S + pruning::lane_row<S, kL>(h, r)] = acc[r];
-        }
-      } else if constexpr (kL == 1) {
+      if constexpr (kL == 1) {
         pruning::store_states<S>(xs + row * S, acc);
       } else {
 #pragma unroll
@@ -278,6 +247,202 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
     if constexpr (kL > 1) {
       __syncwarp();  // the column's row is whole before a lane reads it
     }
+  }
+}
+
+
+// children a step of the 64-state saveall walk may stage
+constexpr int kSaveallWideMaxChunk = 3;
+
+// Floats of a 64-state saveall block staging `chunk` children a step: a
+// ring of two stages of chunk P blocks, then one stage of chunk x tiles
+// (ops/cuda_pruning.py::saveall_stage mirrors it).
+template <int S>
+__host__ __device__ constexpr size_t saveall_wide_smem_floats(int chunk) {
+  return 3 * static_cast<size_t>(chunk) * pruning::wide_tile_floats<S>();
+}
+
+// The saveall walk at 64 states (B2, codon's 61 or 60 states padded): a
+// block's kWideTile columns as one tiled product a child, 4 x 4
+// micro-tiles with a column's rows in one half-warp (pruning_common.cuh's
+// tile_rg / tile_col). A step is up to `chunk` consecutive children of one
+// node, so a node of any number of children runs in steps. Step t + 1's P
+// blocks are staged (cp.async) into the other of two P stages at step t's
+// barrier; its x rows (leaf rows, or residual rows this block wrote
+// earlier, read back through L2 by cp.async.cg) into the one stage of x
+// tiles by each warp for its own columns, once the warp has read step t's
+// tiles: all but the node step t forms where it is among step t + 1's
+// children, which the threads put there from registers. The exponents a
+// step adds are loaded before its products. Threads past the last site
+// copy nothing and store nothing. Same arguments and outputs as
+// pruning_saveall_kernel.
+template <int S>
+__global__ void __launch_bounds__(kThreads, 2)
+pruning_saveall_wide_kernel(const float* __restrict__ p,       // (B, n_nodes, K, S, S)
+                            const float* __restrict__ leaves,  // (B?, n_leaves, sites, S): leaf_rows
+                            const int* __restrict__ order,     // (n_int,)
+                            const int* __restrict__ edges,     // (n_edges,)
+                            const int* __restrict__ counts,    // (n_int,)
+                            float* __restrict__ res_x,         // (B, K, n_inner, sites, S)
+                            float* __restrict__ res_e,         // (B, K, n_inner, sites)
+                            int K, int n_nodes, int n_leaves, int n_int, int n_edges,
+                            int sites, int chunk, int leaf_rows) {
+  constexpr int T = pruning::kWideTile;
+  constexpr int LD = pruning::p_row<S>();
+  constexpr int kTileF = pruning::wide_tile_floats<S>();
+  constexpr int kRowVecs = S / 4;  // 16-byte vectors of a row
+  static_assert(S == T && kThreads == 256, "8 warps of 8 columns, 4 x 4 micro-tiles");
+  extern __shared__ float4 smem_vec[];
+  float* p_stage = reinterpret_cast<float*>(smem_vec);  // (2, chunk, S, LD)
+  float* x_tile = p_stage + 2 * chunk * kTileF;           // (chunk, T, LD)
+  const int rg = pruning::tile_rg();
+  const int q_own = threadIdx.x & 15;  // the vector of a row this lane copies
+  const int site0 = blockIdx.x * T;
+  int cols[4];
+  bool live[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    cols[j] = pruning::tile_col(j);
+    live[j] = site0 + cols[j] < sites;
+  }
+  const int k = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lrow0 = b * leaf_rows;  // b's first leaf row (0: shared)
+  const size_t n_inner = static_cast<size_t>(n_nodes - n_leaves);
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  float* __restrict__ xs = res_x + bk * n_inner * sites * S;
+  float* __restrict__ es = res_e + bk * n_inner * sites;
+  const float* __restrict__ pb = p + (static_cast<size_t>(b) * n_nodes * K + k) * S * S;
+  const size_t p_node_stride = static_cast<size_t>(K) * S * S;
+
+  // the P blocks of edges [f0, f0 + n) -> P stage `slot` (all threads share)
+  auto stage_p = [&](int f0, int n, int slot) {
+    float* dst = p_stage + slot * chunk * kTileF;
+    for (int v = threadIdx.x; v < n * S * kRowVecs; v += kThreads) {
+      const int c = v / (S * kRowVecs);
+      const int q = v - c * (S * kRowVecs);
+      pruning::cp_async16(dst + c * kTileF + pruning::p_stage_offset<S>(q),
+                          pb + __ldg(edges + f0 + c) * p_node_stride + 4 * q);
+    }
+  };
+  // the rows of edges [f0, f0 + n) at this warp's live columns -> the x
+  // tiles, but edge f0 + fwd's (the node just formed, put from registers)
+  auto stage_x = [&](int f0, int n, int fwd) {
+    for (int c = 0; c < n; ++c) {
+      if (c == fwd) continue;
+      const int child = __ldg(edges + f0 + c);
+      const float* base = (child < n_leaves
+                               ? leaves + static_cast<size_t>(lrow0 + child) * sites * S
+                               : xs + static_cast<size_t>(child - n_leaves) * sites * S) +
+                          static_cast<size_t>(site0) * S + 4 * q_own;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (live[j]) {
+          pruning::cp_async16(x_tile + (c * T + cols[j]) * LD + 4 * q_own, base + cols[j] * S);
+        }
+      }
+    }
+  };
+
+  int i = 0;   // the step's node (order[i])
+  int c0 = 0;  // its first child in the step
+  int f = 0;   // that child's edge
+  int cnt = __ldg(counts);
+  int n = min(chunk, cnt);
+  stage_p(0, n, 0);
+  stage_x(0, n, -1);
+  pruning::cp_async_commit();
+  float acc[4][4];
+  float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[a][j] = 1.0f;
+  }
+  for (int t = 0; i < n_int; ++t) {
+    const bool last = c0 + n == cnt;  // the step ends node i
+    int i1 = i, c1 = c0 + n, cnt1 = cnt;
+    if (last) {
+      i1 = i + 1;
+      c1 = 0;
+      cnt1 = i1 < n_int ? __ldg(counts + i1) : 0;
+    }
+    const int f1 = f + n;
+    const int n1 = i1 < n_int ? min(chunk, cnt1 - c1) : 0;
+    pruning::cp_async_wait_all();  // step t's P and x rows (this thread's part)
+    __syncthreads();               // ... and every other thread's
+    if (n1) stage_p(f1, n1, (t + 1) & 1);  // into the stage step t - 1 read
+    pruning::cp_async_commit();
+    const float* p_now = p_stage + (t & 1) * chunk * kTileF;
+    // the step's residual children's exponents, read before the products
+    float ce[kSaveallWideMaxChunk][4];
+#pragma unroll
+    for (int c = 0; c < kSaveallWideMaxChunk; ++c) {
+      const int child = c < n ? __ldg(edges + f + c) : 0;
+      const bool inner = c < n && child >= n_leaves;
+      const size_t row = inner ? static_cast<size_t>(child - n_leaves) * sites + site0 : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ce[c][j] = inner && live[j] ? es[row + cols[j]] : 0.0f;
+    }
+    for (int c = 0; c < n; ++c) {
+      const float* pr[4];
+      const float* xc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pr[a] = p_now + c * kTileF + (rg + 16 * a) * LD;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xc[j] = x_tile + (c * T + cols[j]) * LD;
+      float y[4][4];
+      pruning::wide_product<S, false>(pr, xc, y);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[a][j] *= y[a][j];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kSaveallWideMaxChunk; ++c) {  // in child order
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] += ce[c][j];
+    }
+    __syncwarp();  // the warp read its columns of the x tiles
+    const int node = __ldg(order + i);
+    int fwd = -1;  // where node i is among step t + 1's children
+    if (last) {
+      for (int c = 0; c < n1; ++c) {
+        if (__ldg(edges + f1 + c) == node) fwd = c;
+      }
+    }
+    if (n1) stage_x(f1, n1, fwd);
+    pruning::cp_async_commit();
+    if (last) {
+      pruning::tile_rescale(acc, e);
+      if (fwd >= 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) x_tile[(fwd * T + cols[j]) * LD + rg + 16 * a] = acc[a][j];
+        }
+      }
+      const size_t row = static_cast<size_t>(node - n_leaves) * sites + site0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!live[j]) continue;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) xs[(row + cols[j]) * S + rg + 16 * a] = acc[a][j];
+        if (rg == 0) es[row + cols[j]] = e[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        e[j] = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc[a][j] = 1.0f;
+      }
+    }
+    i = i1;
+    c0 = c1;
+    f = f1;
+    cnt = cnt1;
+    n = n1;
   }
 }
 
@@ -295,7 +460,7 @@ pruning_saveall_kernel(const float* __restrict__ p,         // (B, n_nodes, K, S
 // or read from device memory. Launch on `stream`; returns
 // cudaGetLastError() after the launch (0 = ok), the error of granting the
 // shared memory, or cudaErrorInvalidValue without launching for a geometry
-// that is not compiled. S is 4, 20 or 64 (lanes 2 or 4 at 64). Batch
+// that is not compiled. S is 4, 20 or 64 (lanes 4 at 64). Batch
 // element b reads its leaves at leaves + b leaf_batch floats: 0 when the
 // batch shares one (n_leaves, sites, S) set, n_leaves sites S for leaves
 // (B, n_leaves, sites, S), one set a batch element (every entry point of
@@ -326,10 +491,12 @@ extern "C" int pruning_forward_f32(const void* p, const void* leaves,
 // the children of order[0], then of order[1], ..., counts[i] each. P is
 // staged in shared memory by chunks of `chunk` edges (kPStages x chunk x
 // S x S floats of dynamic shared memory, ops/cuda_pruning.py::
-// saveall_stage), with `lanes` lanes a column: 1 or 2 at S = 4 and 20, 2
-// or 4 at S = 64. Returns cudaGetLastError() after the launch (0 = ok), the
-// error of granting the shared memory, or cudaErrorInvalidValue without
-// launching for a lane or state count that is not compiled. S is 4, 20 or
+// saveall_stage), with `lanes` lanes a column: 1 or 2 at S = 4 and 20; 4
+// at S = 64, where pruning_saveall_wide_kernel stages `chunk` children a
+// step (at most kSaveallWideMaxChunk) and their x tiles. Returns
+// cudaGetLastError() after the launch (0 = ok), the error of granting the
+// shared memory, or cudaErrorInvalidValue without launching for a lane or
+// state count that is not compiled. S is 4, 20 or
 // 64. leaf_batch as pruning_forward_f32's.
 extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
                                    const void* order, const void* edges,
@@ -347,9 +514,7 @@ extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return pruning::dispatch_states(S, [&](auto s) {
     constexpr int kS = decltype(s)::value;
-    const auto launch = [&](auto kernel, int per_block) {
-      const size_t smem = static_cast<size_t>(pruning::kPStages) * chunk *
-                          pruning::p_block<kS>() * sizeof(float);
+    const auto launch = [&](auto kernel, int per_block, size_t smem) {
       if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -365,12 +530,17 @@ extern "C" int pruning_saveall_f32(const void* p, const void* leaves,
           sites, chunk, leaf_rows);
       return static_cast<int>(cudaGetLastError());
     };
-    if constexpr (kS == 64) {   // 64 accumulators a lane would cost warps
-      if (lanes == 2) return launch(pruning_saveall_kernel<kS, 2>, kThreads / 2);
-      if (lanes == 4) return launch(pruning_saveall_kernel<kS, 4>, kThreads / 4);
+    if constexpr (kS == 64) {  // kWideTile sites a block, 4 threads a column
+      if (lanes != 4 || chunk > kSaveallWideMaxChunk) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return launch(pruning_saveall_wide_kernel<kS>, pruning::kWideTile,
+                    saveall_wide_smem_floats<kS>(chunk) * sizeof(float));
     } else {
-      if (lanes == 1) return launch(pruning_saveall_kernel<kS, 1>, kThreads);
-      if (lanes == 2) return launch(pruning_saveall_kernel<kS, 2>, kThreads / 2);
+      const size_t smem = static_cast<size_t>(pruning::kPStages) * chunk *
+                          pruning::p_block<kS>() * sizeof(float);
+      if (lanes == 1) return launch(pruning_saveall_kernel<kS, 1>, kThreads, smem);
+      if (lanes == 2) return launch(pruning_saveall_kernel<kS, 2>, kThreads / 2, smem);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   });

@@ -48,11 +48,10 @@
 //   category keeps its own accumulators, exponent and rescale, and its
 //   fmaf chains in j order.
 // - kL adjacent lanes own a column: lane h forms rows [h S / kL, (h + 1) S /
-//   kL) of every category (at 64 states rows r kL + h, from P staged with
-//   rows 68 floats apart: pruning_common.cuh's lane_row and p_row), so a
-//   lane holds F S / kL accumulators, and the rescale's max takes exact
-//   shuffles; a launch of few columns (B = 1)
-//   still puts several warps on every SM. The lanes pass __syncwarp after
+//   kL) of every category, so a lane holds F S / kL accumulators, and the
+//   rescale's max takes exact shuffles; a launch of few columns (B = 1)
+//   still puts several warps on every SM. At 64 states a warp owns 8
+//   columns as 4 x 4 micro-tiles instead (row_walk_wide_kernel, below). The lanes pass __syncwarp after
 //   reading the children, before a lane writes a row that may be a
 //   child's, and again after writing it.
 // - Leaves shared by the batch, or one set a batch element (a stack of
@@ -65,7 +64,13 @@
 //   sm_90a; forward_ab.py, PERF.md section 6).
 // - One body: row_place gives a thread its place (RowPlace), row_edge runs
 //   one edge; row_walk_kernel loops over the edges' words around them, B8
-//   (csrc/pruning_static.cu) unrolls the walk with constant words.
+//   (csrc/pruning_static.cu) unrolls the walk with constant words. At 64
+//   states row_walk_wide_kernel (below) is the whole body: its first (four
+//   lanes a column, the child's row in every lane's registers, one LDS.128
+//   of P per four FMAs) took 2.25-2.40 ms at 100 taxa x 4096 codon sites
+//   (4 categories) for B1, B4, B8 and B9, 15-16% of the operations bound;
+//   the tiled body 1.32-1.35 ms for B1, B4 and B8 in turns
+//   (kernel_turns.py --states 64, NVIDIA H100 80GB HBM3, 700 W).
 // - `cols` columns (sites) of one (b, category group) a block, cols x kL
 //   threads; the host (ops/cuda_pruning.py::row_geometry) picks kL, cols,
 //   chunk, stage_leaves and smem_rows from the launch's shape. Threads
@@ -114,21 +119,16 @@ size_t row_smem_bytes(int s, int cols, int chunk, int stage_leaves,
           static_cast<size_t>(smem_rows) * fold * cols * (s + 1));
 }
 
-// A lane's kRows = S / kL entries of a row (lane_row's rows of the row
-// `dst`): the widest vectors they allow, interleaved scalars at 64 states.
+// A lane's kRows = S / kL entries of a row (rows h kRows ... of the row
+// `dst`), as the widest vectors they allow.
 template <int S, int kL>
 __device__ __forceinline__ void store_lane(float* dst, int h,
                                            const float (&v)[S / kL]) {
-  if constexpr (S == 64) {
-#pragma unroll
-    for (int r = 0; r < S / kL; ++r) dst[lane_row<S, kL>(h, r)] = v[r];
-  } else {
-    store_part<S / kL>(dst + h * (S / kL), v);
-  }
+  store_part<S / kL>(dst + h * (S / kL), v);
 }
 
-// acc[r] *= (P x)[lane_row(h, r)] for the kRows rows lane h forms, P an
-// S x S block staged in shared memory: each row's fmaf chain in j order.
+// acc[r] *= (P x)[h kRows + r] for the kRows rows lane h forms, P an S x S
+// block staged in shared memory: each row's fmaf chain in j order.
 template <int S, int kRows>
 __device__ __forceinline__ void times_rows(const float* pm, int h,
                                            const float (&x)[S],
@@ -138,7 +138,7 @@ __device__ __forceinline__ void times_rows(const float* pm, int h,
     float y = 0.0f;
 #pragma unroll
     for (int q = 0; q < S / 4; ++q) {
-      const float4 v = p_vec<S>(pm, lane_row<S, S / kRows>(h, r), q);
+      const float4 v = p_vec<S>(pm, h * kRows + r, q);
       y = fmaf(v.x, x[4 * q], y);
       y = fmaf(v.y, x[4 * q + 1], y);
       y = fmaf(v.z, x[4 * q + 2], y);
@@ -315,7 +315,8 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const RowWalk w) {
   constexpr int kRows = S / kL;   // rows a lane forms
   constexpr int kVecs = S / 4;    // 16-byte vectors of a row
   constexpr int kBlockVecs = F * S * S / 4;  // 16-byte vectors of an edge's P
-  static_assert(S % 4 == 0 && S % kL == 0, "rows are whole 16-byte vectors");
+  static_assert(S % 4 == 0 && S % kL == 0 && S < 64,
+                "rows are whole 16-byte vectors; 64 states: row_walk_wide_kernel");
   const int chunk = w.chunk;
   const RowPlace at = row_place<S, kL, F>(w, chunk);
 
@@ -329,14 +330,8 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const RowWalk w) {
       const int c = v / kBlockVecs;
       const int q = v - c * kBlockVecs;
       const int child = __ldg(w.edges + f0 + c);
-      if constexpr (S == 64) {   // rows p_row apart, F blocks an edge
-        cp_async16(dst + c * F * p_block<S>() + (q / (S * S / 4)) * p_block<S>() +
-                       p_stage_offset<S>(q % (S * S / 4)),
-                   at.pb + child * at.p_node_stride + 4 * q);
-      } else {
-        cp_async16(dst + c * F * S * S + 4 * q,
-                   at.pb + child * at.p_node_stride + 4 * q);
-      }
+      cp_async16(dst + c * F * S * S + 4 * q,
+                 at.pb + child * at.p_node_stride + 4 * q);
     }
     if (w.stage_leaves && at.live) {  // the column's lanes share its copies
       float* leaf_dst = dst + at.p_floats + at.col * S;
@@ -384,6 +379,231 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const RowWalk w) {
   }
 }
 
+// The live-row walk at 64 states (B1, B4, B8 past its unroll budget, B9;
+// codon's 61 or 60 states padded): the same walk and contract as
+// row_walk_kernel, each edge's contraction one product over the block's
+// `cols` columns in 4 x 4 micro-tiles, four threads a column
+// (pruning_common.cuh's tile_rg / tile_col: a warp owns 8 columns, a
+// column's 64 rows lie in one half-warp). The child's row is read where it
+// lies, not copied into every lane's registers: a row in shared memory
+// (64 floats a column: a quarter-warp reads one column, a broadcast), a
+// leaf row staged in the ring (stage_leaves), or a leaf or spilled row
+// from device memory through L1 by plain loads (a spilled row was written
+// by the warp that reads it, before __syncwarp), the next edge's leaf or
+// earlier spilled row prefetched into L1 during this one. 8 FMAs a 16-byte
+// load, where the lanes of the first 64-state body read one vector of P
+// per four. Steps of four j unrolled kUnroll times: once at F = 1
+// (unrolled twice, ptxas held B1's and B4's sources' kernel to 128
+// registers and spilled 8 bytes), twice at F = 2 (once, pruning_fold.cu's
+// was held to 128 and spilled 20; twice it took 178 and spilled nothing).
+// Each entry stays one fmaf chain in j order, the children's
+// product in child order, the max exact (4 shuffles within the half-warp),
+// so the roots keep B1's bits. Only a column's own warp reads its rows: the
+// rows need __syncwarp, and the ring one barrier a step.
+template <int F>
+__global__ void __launch_bounds__(kThreads) row_walk_wide_kernel(const RowWalk w) {
+  constexpr int S = 64;
+  constexpr int LD = p_row<S>();
+  constexpr int kVecs = S / 4;               // 16-byte vectors of a row
+  constexpr int kBlockVecs = F * S * S / 4;  // 16-byte vectors of an edge's P
+  constexpr int kUnroll = F == 1 ? 1 : 2;
+  extern __shared__ float4 row_smem_vec[];
+  float* smem = reinterpret_cast<float*>(row_smem_vec);
+  const int chunk = w.chunk;
+  const int cols = w.cols;
+  const int rg = tile_rg();
+  const int k0 = blockIdx.y * F;  // the block's categories k0 ... k0 + F - 1
+  const int b = blockIdx.z;
+  const size_t bk = static_cast<size_t>(b) * w.K + k0;
+  const float* __restrict__ pb = w.p + (static_cast<size_t>(b) * w.n_nodes * w.K + k0) * S * S;
+  const size_t p_node_stride = static_cast<size_t>(w.K) * S * S;
+  const int p_floats = chunk * F * p_block<S>();
+  const int stage_floats = row_stage_floats(S, cols, chunk, w.stage_leaves, F);
+  float* rows = smem + kPStages * stage_floats;           // (smem_rows, F, cols, S)
+  float* rows_e = rows + w.smem_rows * F * cols * S;      // (smem_rows, F, cols)
+  const size_t n_spill = static_cast<size_t>(w.n_rows - w.smem_rows);
+  float* spill = n_spill ? w.spill + bk * n_spill * w.sites * S : nullptr;
+  float* spill_e = n_spill ? w.spill_e + bk * n_spill * w.sites : nullptr;
+  const size_t leaf_stride = static_cast<size_t>(w.sites) * S;
+  const float* leaf0 = w.leaves + static_cast<size_t>(b) * w.leaf_rows * leaf_stride;
+  int col[4];
+  int site[4];   // the column's site, clamped to the last for a dead column
+  bool live[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    col[j] = tile_col(j);
+    const int s_ = blockIdx.x * cols + col[j];
+    live[j] = s_ < w.sites;
+    site[j] = live[j] ? s_ : w.sites - 1;
+  }
+
+  // step t stages edges [t chunk, (t + 1) chunk) into stage t % kPStages
+  int staged = 0;
+  auto stage_next = [&]() {
+    const int f0 = staged * chunk;
+    const int n = max(0, min(chunk, w.n_edges - f0));
+    float* dst = smem + (staged % kPStages) * stage_floats;
+    for (int v = threadIdx.x; v < n * kBlockVecs; v += blockDim.x) {
+      const int c = v / kBlockVecs;
+      const int q = v - c * kBlockVecs;   // rows p_row apart, F blocks an edge
+      cp_async16(dst + c * F * p_block<S>() + (q / (S * S / 4)) * p_block<S>() +
+                     p_stage_offset<S>(q % (S * S / 4)),
+                 pb + __ldg(w.edges + f0 + c) * p_node_stride + 4 * q);
+    }
+    if (w.stage_leaves) {   // the step's leaf rows at the block's live columns
+      for (int v = threadIdx.x; v < n * cols * kVecs; v += blockDim.x) {
+        const int c = v / (cols * kVecs);
+        const int cq = v - c * cols * kVecs;
+        const int cl = cq / kVecs;
+        const int q = cq - cl * kVecs;
+        const int child = __ldg(w.edges + f0 + c);
+        const int s_ = blockIdx.x * cols + cl;
+        if (child < w.n_leaves && s_ < w.sites) {
+          cp_async16(dst + p_floats + (c * cols + cl) * S + 4 * q,
+                     leaf0 + static_cast<size_t>(child) * leaf_stride +
+                         static_cast<size_t>(s_) * S + 4 * q);
+        }
+      }
+    }
+    ++staged;
+    cp_async_commit();
+  };
+  // an edge's child row at the thread's columns, in device memory (leaf or
+  // spilled), or null where it is in shared memory
+  auto global_row = [&](int src, int c, int j) -> const float* {
+    if (src < 0) {
+      return w.stage_leaves ? nullptr
+                            : leaf0 + static_cast<size_t>(-1 - src) * leaf_stride +
+                                  static_cast<size_t>(site[j]) * S;
+    }
+    if (src < w.smem_rows) return nullptr;
+    return spill + ((c * n_spill + (src - w.smem_rows)) * w.sites + site[j]) * S;
+  };
+  stage_next();
+  stage_next();
+
+  int step = -1;        // the step whose stage holds the edge
+  int in_step = chunk;  // edges of that step already read
+  const float* stage_now = smem;
+  int2 next = __ldg(w.eword);  // the next edge's word, read one edge ahead
+  float acc[F][4][4];
+  float e[F][4];
+#pragma unroll
+  for (int c = 0; c < F; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      e[c][j] = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) acc[c][a][j] = 1.0f;
+    }
+  }
+  for (int f = 0; f < w.n_edges; ++f, ++in_step) {
+    if (in_step == chunk) {
+      cp_async_wait_one();  // the next step's group has landed (this thread's part)
+      __syncthreads();      // ... and every other thread's
+      stage_next();         // into the stage the last step read
+      ++step;
+      stage_now = smem + (step % kPStages) * stage_floats;
+      in_step = 0;
+    }
+    const int2 word = next;
+    next = __ldg(w.eword + f + 1);
+    const int src = word.x;
+    const int dst = word.y;
+    // the next edge's row into L1 while this one computes: a leaf, or a
+    // spilled row this edge does not write (16 lanes, a 128-byte line each
+    // of the warp's 8 columns' rows)
+    const bool ahead = f + 1 < w.n_edges &&
+                       (next.x < 0 ? !w.stage_leaves
+                                   : next.x >= w.smem_rows && next.x != dst);
+    if (ahead && rg < 8) {   // lane rg: column j = rg % 4, line rg / 4
+#pragma unroll
+      for (int c = 0; c < (next.x < 0 ? 1 : F); ++c) {
+        const float* r = global_row(next.x, c, rg & 3) + 32 * (rg >> 2);
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(r));
+      }
+    }
+    const float* pm = stage_now + in_step * F * p_block<S>();
+#pragma unroll
+    for (int c = 0; c < F; ++c) {
+      const float* pr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pr[a] = pm + c * p_block<S>() + (rg + 16 * a) * LD;
+      const float* xc[4];
+      float y[4][4];
+      if (src >= 0 && src < w.smem_rows) {   // a row in shared memory
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int slot = (src * F + c) * cols + col[j];
+          xc[j] = rows + slot * S;
+          e[c][j] += rows_e[slot];
+        }
+        wide_product<S, false, false, kUnroll>(pr, xc, y);
+      } else if (src < 0 && w.stage_leaves) {   // a leaf row in the ring
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xc[j] = stage_now + p_floats + (in_step * cols + col[j]) * S;
+        wide_product<S, false, false, kUnroll>(pr, xc, y);
+      } else {   // a leaf or spilled row in device memory
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          xc[j] = global_row(src, c, j);
+          if (src >= 0) {
+            e[c][j] += live[j] ? spill_e[(c * n_spill + (src - w.smem_rows)) * w.sites + site[j]]
+                               : 0.0f;
+          }
+        }
+        wide_product<S, false, true, kUnroll>(pr, xc, y);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[c][a][j] *= y[a][j];
+      }
+    }
+    if (dst == -2) continue;  // more children of this node follow
+    // the node's last child: each category's rescale, then its store
+#pragma unroll
+    for (int c = 0; c < F; ++c) tile_rescale(acc[c], e[c]);
+    __syncwarp();  // the warp read the children (perhaps the row it writes)
+#pragma unroll
+    for (int c = 0; c < F; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* out;
+        float* out_e;
+        if (dst < 0) {   // the root
+          if (!live[j]) continue;
+          const size_t g = (bk + c) * w.sites + site[j];
+          out = w.root + g * S;
+          out_e = w.root_e + g;
+        } else if (dst < w.smem_rows) {
+          const int slot = (dst * F + c) * cols + col[j];
+          out = rows + slot * S;
+          out_e = rows_e + slot;
+        } else {
+          if (!live[j]) continue;
+          const size_t g = (c * n_spill + (dst - w.smem_rows)) * w.sites + site[j];
+          out = spill + g * S;
+          out_e = spill_e + g;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) out[rg + 16 * a] = acc[c][a][j];
+        if (rg == 0) *out_e = e[c][j];
+      }
+    }
+    __syncwarp();  // the row is whole before a lane reads it
+#pragma unroll
+    for (int c = 0; c < F; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        e[c][j] = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc[c][a][j] = 1.0f;
+      }
+    }
+  }
+}
+
 // Raises dynamic shared memory past 48 KB for `kernel` where `smem` needs
 // it; returns the error of granting it (0 = ok).
 template <typename K>
@@ -394,16 +614,29 @@ int grant_smem(K kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// The live-row kernel of S states, kL threads a column, F categories a
+// column; at 64 states row_walk_wide_kernel, whose four threads a column
+// are its only lane count.
 template <int S, int kL, int F>
 int launch_row_kernel(const RowWalk& w, int B, cudaStream_t stream) {
-  auto kernel = row_walk_kernel<S, kL, F>;
-  const size_t smem =
-      row_smem_bytes(S, w.cols, w.chunk, w.stage_leaves, w.smem_rows, F);
-  const int err = grant_smem(kernel, smem);
-  if (err) return err;
-  const dim3 grid((w.sites + w.cols - 1) / w.cols, w.K / F, B);
-  kernel<<<grid, w.cols * kL, smem, stream>>>(w);
-  return static_cast<int>(cudaGetLastError());
+  const auto launch = [&](auto kernel) {
+    const size_t smem =
+        row_smem_bytes(S, w.cols, w.chunk, w.stage_leaves, w.smem_rows, F);
+    const int err = grant_smem(kernel, smem);
+    if (err) return err;
+    const dim3 grid((w.sites + w.cols - 1) / w.cols, w.K / F, B);
+    kernel<<<grid, w.cols * kL, smem, stream>>>(w);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (S == 64) {
+    if constexpr (kL == 4) {
+      return launch(row_walk_wide_kernel<F>);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    return launch(row_walk_kernel<S, kL, F>);
+  }
 }
 
 // Whether a live-row launch of `w` over B batch elements with `lanes` lanes
@@ -417,19 +650,20 @@ inline bool row_launch_ok(const RowWalk& w, int B, int lanes, int F) {
          threads % 32 == 0 && w.smem_rows >= 0 && w.smem_rows <= w.n_rows;
 }
 
-// The lane counts compiled at S (1, 2, 4 at S = 4; 1, 2 at S = 20; 2, 4
-// at S = 64, where one lane's 64 accumulators beside its 64-entry child
-// row would leave few warps an SM) for F categories a column; any other
-// returns cudaErrorInvalidValue. (B9 compiles its own (F, lanes) pairs:
-// pruning_fold.cu.)
+// The lane counts compiled at S (1, 2, 4 at S = 4; 1, 2 at S = 20; 4 at
+// S = 64, row_walk_wide_kernel's four threads a column) for F categories
+// a column; any other returns cudaErrorInvalidValue. (B9 compiles its own
+// (F, lanes) pairs: pruning_fold.cu.)
 template <int S, int F>
 int launch_lanes(const RowWalk& w, int B, int lanes, cudaStream_t st) {
-  if constexpr (S != 64) {
-    if (lanes == 1) return launch_row_kernel<S, 1, F>(w, B, st);
-  }
-  if (lanes == 2) return launch_row_kernel<S, 2, F>(w, B, st);
-  if constexpr (S == 4 || S == 64) {
+  if constexpr (S == 64) {
     if (lanes == 4) return launch_row_kernel<S, 4, F>(w, B, st);
+  } else {
+    if (lanes == 1) return launch_row_kernel<S, 1, F>(w, B, st);
+    if (lanes == 2) return launch_row_kernel<S, 2, F>(w, B, st);
+    if constexpr (S == 4) {
+      if (lanes == 4) return launch_row_kernel<S, 4, F>(w, B, st);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

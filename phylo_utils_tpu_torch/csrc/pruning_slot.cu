@@ -80,7 +80,9 @@
 //   warps) and a round trip to L2 a node for the x rows staged after the
 //   node's last read.
 // The rows, the fmaf order and the rescale are B1's, so the roots keep
-// B1's bits. Threads past the last site stay in the loop for the barriers
+// B1's bits. pruning_slot_f32 (B4) is B1's live-row body over the slots
+// (pruning_rows.cuh; at 64 states its tiled row_walk_wide_kernel). Threads
+// past the last site stay in the loop for the barriers
 // and skip the loads and stores. Measured on an NVIDIA H100 80GB HBM3 at
 // 700 W (kernel_turns.py, PERF.md section 6): 1.65 ms at 512 taxa
 // x 8192 LG patterns, 25% of its operations bound (1.93 ms, 22%, before).
@@ -500,7 +502,7 @@ int launch_stream(const void* p, const void* leaves, const void* nslot,
 // n_rows = n_slots. Launch on `stream`; returns cudaGetLastError() after
 // the launch (0 = ok), the error of granting the shared memory, or
 // cudaErrorInvalidValue without launching for a geometry that is not
-// compiled. S is 4, 20 or 64 (lanes 2 or 4 at 64, B1's body: the walk
+// compiled. S is 4, 20 or 64 (lanes 4 at 64, B1's body: the walk
 // that PHYLO_FORCE_STREAM=0 takes past the classic budget at codon width,
 // as _pallas_forward takes _dynamic_slot_kernel there).
 extern "C" int pruning_slot_f32(const void* p, const void* leaves,

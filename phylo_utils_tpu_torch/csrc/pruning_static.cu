@@ -45,7 +45,7 @@
 // constant words remove. The step is fixed at compile time (topo::kChunk);
 // lanes, columns, smem_rows and leaf staging stay run-time choices of
 // ops/cuda_pruning.py::row_geometry. Each lane count row_geometry can pick
-// (1, 2, 4 at 4 states; 1, 2 at 20; 2, 4 at 64) is its own object
+// (1, 2, 4 at 4 states; 1, 2 at 20; 4 at 64) is its own object
 // (PRUNING_STATIC_LANES) with its own entry point, all compiled at once.
 // The child order and the fmaf order are B1's, so the root and exponent
 // count are bit for bit B1's. The price is the build: one nvcc per
@@ -200,8 +200,8 @@ int launch_static(const pruning::RowWalk& w, int B, cudaStream_t stream) {
 }  // namespace
 
 // This object's lane count: ops/_build.py compiles this file once per lane
-// count that row_geometry can pick (1, 2, 4 at 4 states; 1, 2 at 20; 2, 4
-// at 64, where every tree's walk is past kUnrolled), one
+// count that row_geometry can pick (1, 2, 4 at 4 states; 1, 2 at 20; 4 at
+// 64, where every tree's walk is past kUnrolled), one
 // nvcc each, all at once, and links the objects into the topology's library.
 #ifndef PRUNING_STATIC_LANES
 #error "compile with -DPRUNING_STATIC_LANES=1, 2 or 4 (ops/_build.py does)"

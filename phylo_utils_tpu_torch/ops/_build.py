@@ -62,6 +62,12 @@ PTXAS_FLAGS = {
     "pruning_fold.cu": ("-Xptxas", "--register-usage-level=10"),
     "pruning_static.cu": ("-Xptxas", "--register-usage-level=2"),
 }
+# B8 at 64 states, past its unroll budget at every tree: the tiled live-row
+# body (csrc/pruning_rows.cuh's row_walk_wide_kernel), at B9's level. At
+# level 2 it took 1.978 ms at 100 taxa x 4096 codon sites against 1.314
+# without its L1 prefetch (one call), and 1.316 at level 10 with it (NVIDIA
+# H100 80GB HBM3, 700 W; kernel_turns.py --states 64, PERF.md section 6)
+STATIC_PTXAS_64 = PTXAS_FLAGS["pruning_fold.cu"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -263,8 +269,9 @@ def load_static_library(edges, eword, n_rows: int, n_nodes: int,
     header = static_topology_header(edges, eword, n_rows, n_nodes, n_leaves,
                                     s, chunk)
     lanes = tuple(int(n) for n in lanes)
+    ptxas = STATIC_PTXAS_64 if s == 64 else PTXAS_FLAGS[STATIC_SOURCE.name]
     key = _digest([STATIC_SOURCE] + sorted(CSRC.glob("*.cuh")),
-                  header + f"lanes {lanes} {PTXAS_FLAGS[STATIC_SOURCE.name]}")
+                  header + f"lanes {lanes} {ptxas}")
     with _static_lock:
         if key in _static_libs:
             return _static_libs[key]
@@ -276,7 +283,7 @@ def load_static_library(edges, eword, n_rows: int, n_nodes: int,
         (include / STATIC_HEADER).write_text(header)
         return _compile([(STATIC_SOURCE, ("-I", str(include),
                                           f"-DPRUNING_STATIC_LANES={n}",
-                                          *PTXAS_FLAGS[STATIC_SOURCE.name]))
+                                          *ptxas))
                          for n in lanes], tmp)
 
     t0 = time.perf_counter()

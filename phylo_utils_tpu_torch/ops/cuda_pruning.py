@@ -124,6 +124,7 @@ __all__ = [
     "ReverseSchedule",
     "choose_walk",
     "padded_states",
+    "plain_contract",
     "row_geometry",
     "row_smem_bytes",
     "stream_smem_bytes",
@@ -170,11 +171,11 @@ STATIC_UNROLL_MAX = int(os.environ.get("PHYLO_STATIC_UNROLL_MAX", "0"))
 # (csrc/pruning_fold.cu's FoldWidths and fold_compiled): the lane counts
 # of _ROW_LANES at which ptxas takes the width without a spill (F = 4 at 4
 # states spilled at one and four lanes), where the TPU's fold stopped at
-# its 128 lanes (at 64 states F = 2, its widest there, at two lanes: four
-# spilled)
+# its 128 lanes (at 64 states F = 2, its widest there, on the tiled body's
+# four threads a column)
 FOLD_WIDTHS = {4: {2: (1, 2, 4), 4: (2,)},
                20: {2: (1, 2), 3: (1, 2), 4: (1, 2), 5: (1, 2)},
-               64: {2: (2,)}}
+               64: {2: (4,)}}
 
 # CUDA caps gridDim.z (the batch axis of the launch) at 65535
 _MAX_GRID_Z = 65535
@@ -203,8 +204,11 @@ _WIDE_TILE, _WIDE_ROW = 64, 68
 # 8192 LG patterns), one at 4 (0.246 against 0.276 ms at the flagship's
 # B = 64); 64 and 8 edges a step were the fastest or within 2% of it at
 # every shape (kernel_turns.py sweeps, NVIDIA H100 80GB HBM3, 700 W)
-# At 64 states four lanes (16 rows each beside the child's 64-entry row)
-# and 2 edges a step: a ring of 96 KB, two blocks an SM
+# At 64 states the tiled kernel (four threads a column, _WIDE_TILE columns
+# a block) and up to 2 children of a node a step: two stages of their P
+# blocks and one of their x tiles, 102 KB, two blocks an SM (1.007 ms at
+# 100 taxa x 4096 codon sites, against 1.105 at 1 child and 1.216 at 3,
+# in turns; same card, kernel_turns.py --states 64)
 _SAVEALL_CHUNK = {4: 64, 20: 8, 64: 2}
 _SAVEALL_LANES = {4: 1, 20: 2, 64: 4}
 # sites per block of the classic reverse kernel at 4 and 20 states: 128 was
@@ -241,10 +245,10 @@ _CLASSIC_STAGE_BYTES = _REVERSE_SMEM
 # rows a column cost warps (chip_smoke.py phase 16, PERF.md section 6)
 CLASSIC_SCRATCH_BUDGET = 50 * 2 ** 20
 # B1's and B4's launch geometry (row_geometry): the lanes a column may take
-# by state count (csrc/pruning_rows.cuh compiles these; at 64 states, B1
-# only, one lane's 64 accumulators would cost warps) and the edges a step
-# of the ring may copy ahead
-_ROW_LANES = {4: (1, 2, 4), 20: (1, 2), 64: (2, 4)}
+# by state count (csrc/pruning_rows.cuh compiles these; at 64 states the
+# tiled body's four threads a column, a warp's 8 columns in 4 x 4
+# micro-tiles) and the edges a step of the ring may copy ahead
+_ROW_LANES = {4: (1, 2, 4), 20: (1, 2), 64: (4,)}
 _ROW_CHUNKS = (2, 4, 8)
 # B8's step, compiled into its library (csrc/pruning_static.cu's kChunk): a
 # constant step lets each edge's stage and P offset fold to immediates; 8
@@ -656,16 +660,73 @@ def _not_differentiable(name: str, *tensors: torch.Tensor):
         )
 
 
+# products a plain contraction forms at once on the CPU (64 MB of f32);
+# past it, in slices of the widest output dim (the same bits)
+_PLAIN_CHUNK = 2 ** 24
+
+
+def _tree_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum of ``t`` (overwritten) over its last dim by a halving tree:
+    element i + h joins element i, h half the least power of two at or
+    above the length. Zeros appended to the dim leave the bits as they
+    were, since each only passes its partner on unchanged."""
+    n = t.shape[-1]
+    while n > 1:
+        h = 1 << ((n - 1).bit_length() - 1)
+        t[..., :n - h] += t[..., h:n]
+        n = h
+    return t[..., 0]
+
+
+def plain_contract(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` for the plain walks' contractions, which
+    sum over one index. On the card it is that einsum. On the CPU it forms
+    every product by an elementwise multiply and sums them by
+    ``_tree_sum``, elementwise adds in an order fixed by the summed
+    length: so its bits do not depend on the operands' memory layout, on
+    the other dims' sizes (a batch of B gives each element the bits it has
+    alone), or on zero states padded onto S (a BLAS kernel's order
+    depends on all three)."""
+    if a.device.type != "cpu":
+        return torch.einsum(eq, a, b)
+    ins, out = eq.split("->")
+    ia, ib = ins.split(",")
+    (summed,) = set(ia + ib) - set(out)
+    dims = out + summed
+
+    def aligned(t, idx):         # t's dims in the order of dims, 1 if absent
+        t = t.permute([idx.index(d) for d in dims if d in idx])
+        for j, d in enumerate(dims):
+            if d not in idx:
+                t = t.unsqueeze(j)
+        return t
+
+    xa, xb = aligned(a, ia), aligned(b, ib)
+    shape = torch.broadcast_shapes(xa.shape, xb.shape)
+    # the products at once, or in slices of the widest output dim
+    split = int(np.argmax(shape[:-1]))
+    step = max(1, _PLAIN_CHUNK * shape[split] // int(np.prod(shape)))
+    if step >= shape[split]:
+        return _tree_sum(xa * xb)
+
+    def part(t, i):
+        return t if t.shape[split] == 1 else t.narrow(
+            split, i, min(step, shape[split] - i))
+
+    return torch.cat([_tree_sum(part(xa, i) * part(xb, i))
+                      for i in range(0, shape[split], step)], dim=split)
+
+
 def _leaf_term(eq: str, a: torch.Tensor, leaves: torch.Tensor,
                c: int) -> torch.Tensor:
-    """``einsum(eq, a, leaf c's rows)`` over a batch (B, ...) of ``a``: with
-    leaves (n_leaves, sites, S) the rows every batch element shares; with
-    leaves (B, n_leaves, sites, S) batch element b's own rows, by the
-    product a walk with b's leaves alone forms, so that a batch of loci
-    gives each locus its own walk's bits."""
+    """``plain_contract(eq, a, leaf c's rows)`` over a batch (B, ...) of
+    ``a``: with leaves (n_leaves, sites, S) the rows every batch element
+    shares; with leaves (B, n_leaves, sites, S) batch element b's own rows,
+    by the product a walk with b's leaves alone forms, so that a batch of
+    loci gives each locus its own walk's bits."""
     if leaves.dim() == 3:
-        return torch.einsum(eq, a, leaves[c])
-    return torch.cat([torch.einsum(eq, a[b:b + 1], leaves[b, c])
+        return plain_contract(eq, a, leaves[c])
+    return torch.cat([plain_contract(eq, a[b:b + 1], leaves[b, c])
                       for b in range(leaves.shape[0])])
 
 
@@ -677,7 +738,7 @@ def _node_partials(pb, leaves, n_leaves, kids, x_of, e_of):
         if c < n_leaves:
             y = _leaf_term("bkij,sj->bksi", pb[:, c], leaves, c)
         else:
-            y = torch.einsum("bkij,bksj->bksi", pb[:, c], x_of(c))
+            y = plain_contract("bkij,bksj->bksi", pb[:, c], x_of(c))
             ec = e_of(c)
             esum = ec if esum is None else esum + ec
         acc = y if acc is None else acc * y
@@ -804,13 +865,13 @@ def _child_terms(pb, leaves, rx, n_leaves):
     def y_of(c):
         if c < n_leaves:
             return _leaf_term("bkij,sj->bksi", pb[:, c], leaves, c)
-        return torch.einsum("bkij,bksj->bksi", pb[:, c],
-                            rx[:, :, c - n_leaves])
+        return plain_contract("bkij,bksj->bksi", pb[:, c],
+                              rx[:, :, c - n_leaves])
 
     def dp_of(c, gy):
         if c < n_leaves:
             return _leaf_term("bksi,sj->bkij", gy, leaves, c)
-        return torch.einsum("bksi,bksj->bkij", gy, rx[:, :, c - n_leaves])
+        return plain_contract("bksi,bksj->bkij", gy, rx[:, :, c - n_leaves])
 
     return y_of, dp_of
 
@@ -844,7 +905,7 @@ def reverse_walk_reference(
         if node == walk.root:
             g = lm[..., None] * pi
         else:
-            g = torch.einsum("bkji,bksj->bksi", pb[:, node], gy[node])
+            g = plain_contract("bkji,bksj->bksi", pb[:, node], gy[node])
         esum = torch.zeros_like(lm)
         for c in kids:
             if c >= n_leaves:
@@ -862,7 +923,7 @@ def reverse_walk_reference(
     dleaf = None
     if want_dleaf:
         dleaf = torch.stack([
-            torch.einsum("bkji,bksj->bksi", pb[:, leaf], gy[leaf])
+            plain_contract("bkji,bksj->bksi", pb[:, leaf], gy[leaf])
             for leaf in range(n_leaves)], dim=2)
     if not batched:
         dp = dp[0]
@@ -936,7 +997,7 @@ def classic_reverse_walk_reference(
                     sib = sib * y_of(c2)
             gy = gn * sib * inv_m
             dp[:, c] += dp_of(c, gy)
-            gc = torch.einsum("bkji,bksj->bksi", pb[:, c], gy)
+            gc = plain_contract("bkji,bksj->bksi", pb[:, c], gy)
             g[c] = gc + g[c] if c in g else gc
     dleaf = None
     if want_dleaf:
@@ -1180,24 +1241,34 @@ def row_geometry(b: int, k: int, sites: int, s: int, rows: int, *,
     held_rows = rows if smem_rows is None else smem_rows
     if held_rows > _rows_that_fit(s, 32, min(chunks), stage_leaves, fold):
         held_rows = 0   # they do not fit: all in device memory
+    # at 64 states the tiled body reads a row in device memory through L1,
+    # prefetched an edge ahead: the rows leave the SM where that holds more
+    # warps (B4 at 100 taxa x 4096 codon sites, two blocks an SM with its 5
+    # slots in device memory against one with them on the SM: 1.323
+    # against 1.529 ms in turns; NVIDIA H100 80GB HBM3, 700 W,
+    # kernel_turns.py --states 64)
+    helds = ((held_rows, 0) if s == KERNEL_STATES[-1] and smem_rows is None
+             else (held_rows,))
     best = None
-    for n in (compiled if lanes is None else (lanes,)):
-        shapes = [(k_, c) for k_ in chunks for c in (
-            (256, 128, 64, 32) if cols is None else (cols,)) if c * n <= 256]
-        if cols is None:
-            shapes = [(k_, c) for k_, c in shapes
-                      if _rows_that_fit(s, c, k_, stage_leaves,
-                                        fold) >= held_rows]
-        # the most warps, then on the most SMs, the longest step, the
-        # widest block
-        (warps, _), k_, c = max(
-            (_occupancy(b, groups, sites, s, held_rows, n, c, k_,
-                        stage_leaves, fold), k_, c) for k_, c in shapes)
-        if best is None or warps > best[0]:
-            best = (warps, n, c, k_)
-        if warps >= _ROW_WARPS:
-            break
-    _, lanes, cols, chunk = best
+    for held in helds:
+        for n in (compiled if lanes is None else (lanes,)):
+            shapes = [(k_, c) for k_ in chunks for c in (
+                (256, 128, 64, 32) if cols is None else (cols,))
+                if c * n <= 256]
+            if cols is None:
+                shapes = [(k_, c) for k_, c in shapes
+                          if _rows_that_fit(s, c, k_, stage_leaves,
+                                            fold) >= held]
+            # the most warps, then on the most SMs, the longest step, the
+            # widest block
+            (warps, _), k_, c = max(
+                (_occupancy(b, groups, sites, s, held, n, c, k_,
+                            stage_leaves, fold), k_, c) for k_, c in shapes)
+            if best is None or warps > best[0]:
+                best = (warps, n, c, k_, held)
+            if warps >= _ROW_WARPS:
+                break
+    _, lanes, cols, chunk, held_rows = best
     if row_smem_bytes(s, cols, chunk, stage_leaves, 0, fold) > _REVERSE_SMEM:
         raise ValueError(f"a ring of {chunk} edges x {cols} columns does not "
                          f"fit a block's shared memory at {s} states")
@@ -1487,8 +1558,15 @@ def saveall_stage(s: int, n_edges: int) -> Tuple[int, int]:
     the kernel stages P in a ring of 3 steps, each the P blocks of
     ``_SAVEALL_CHUNK[s]`` consecutive edges of the walk (fewer where the
     walk has fewer), whatever node they belong to, so the ring does not
-    depend on the widest node's children (rows ``_p_row`` apart)."""
+    depend on the widest node's children (rows ``_p_row`` apart). At 64
+    states (``csrc/pruning_forward.cu`` ``saveall_wide_smem_floats``) a
+    step is up to ``chunk`` children of one node, and the block holds two
+    stages of their P blocks and one of their ``_WIDE_TILE``-column x
+    tiles, rows ``_WIDE_ROW`` floats apart: a node of any width runs in
+    steps."""
     chunk = max(1, min(n_edges, _SAVEALL_CHUNK[s]))
+    if s == KERNEL_STATES[-1]:
+        return chunk, 4 * 3 * chunk * _WIDE_TILE * _WIDE_ROW
     return chunk, 4 * 3 * chunk * s * _p_row(s)
 
 
