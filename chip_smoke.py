@@ -192,7 +192,7 @@ all at once) and runs, in order, printing one line per phase:
     positive sites first; 5 fit steps of M7 and M8 and
     ``positive_selection_test``; the CLI's ``site-test`` (m1a-m2a
     ``--sites --beb``, m7-m8 ``--sites``, ``--pruner cuda``) and
-    ``compare --models JC69,HKY85+G`` as subprocesses side by side;
+    ``compare --models JC69,HKY85+G`` as subprocesses (phase 37);
 32. topology sets, search and supports (``_search_path``): 1000 GTR+G4
     sites simulated on ``random_tree(64, seed=32)``, the search started
     from the NJ tree of their ML distances: 64 NNI candidates scored by
@@ -208,7 +208,7 @@ all at once) and runs, in order, printing one line per phase:
     ``bootstrap_tree_support`` with TBE and the consensus (Newton on the
     card, NJ on the host, timed apart); the CLI's ``topologies --test
     all``, ``search``, ``supports``, ``lmap``, ``consense`` and
-    ``build-tree --refine --bootstrap 10`` as subprocesses side by side;
+    ``build-tree --refine --bootstrap 10`` as subprocesses (phase 37);
 33. partitioned engines (``_partition_path``): a multi-gene matrix of 48
     GTR+G4 loci of 300-1500 sites (~43,000 in all, per-locus frequencies,
     rates, alpha and partition rates 0.3-3) simulated by
@@ -222,8 +222,9 @@ all at once) and runs, in order, printing one line per phase:
     engine a locus; 10 L-BFGS steps of the stacked fit; a DNA + protein
     ``PartitionedEngine`` (B1 at 4 states, B5 at 20) against f64; the
     CLI's ``loglik`` and ``fit --partitions`` (a RAxML-style file with
-    '+F' entries and a '\\3' stride) and ``partitionfinder`` side by side,
-    and the server's ``/partitions`` and ``/health``;
+    '+F' entries and a '\\3' stride) and ``partitionfinder`` as
+    subprocesses (phase 37), and the server's ``/partitions`` and
+    ``/health``;
 34. ancestral reconstruction, branch models and the clock
     (``_analyses_path``): ``ancestral_posteriors`` (B2's partials as the
     down pass), ``joint_ancestral_states`` and ``site_rate_posteriors`` at
@@ -240,8 +241,8 @@ all at once) and runs, in order, printing one line per phase:
     ``penalized_likelihood_dating`` of its free fit's phylogram on the
     card; ``site_rate_posteriors`` under B8, B9 and B4; the CLI's
     ``ancestral --joint``, ``branch-site-test``, ``clock-test`` and
-    ``date`` as subprocesses against the same calls in process, and the
-    server's ``/ancestral`` and ``/site_rates``;
+    ``date`` as subprocesses (phase 37) against the same calls in process,
+    and the server's ``/ancestral`` and ``/site_rates``;
 35. site sharding on one card (``_sharding_path``): 4 shards of the card
     (``make_mesh(["cuda:0"] * 4)``, one contiguous pattern slice a shard)
     at 64 taxa x 100,000 simulated GTR+G4+I sites, f32 ``pruner="cuda"``:
@@ -254,7 +255,8 @@ all at once) and runs, in order, printing one line per phase:
     --shard-sites`` in process against the library; two ranks of
     ``python -m phylo_utils_tpu_torch.parallel.multihost`` on gloo with
     CUDA tensors and the dry run ``python -m
-    phylo_utils_tpu_torch.parallel.dryrun 4`` as subprocesses;
+    phylo_utils_tpu_torch.parallel.dryrun 4`` as subprocesses (phase
+    37);
 36. the worked examples and the CLI's benchmark (``_examples_path``):
     ``phylo_utils_tpu_torch.examples``' ``full_analysis`` (10 taxa x 1500
     HKY85+G4 sites), ``uncertainty_analysis`` (8 x 1200 K80+G4) and
@@ -266,7 +268,12 @@ all at once) and runs, in order, printing one line per phase:
     memory; the CLI's ``benchmark --pruner cuda`` in process at the
     flagship and at 64 x 100,000, its ``step_ms`` against the value call
     timed by CUDA events (counted); each example as a fresh ``python -m``
-    process at cut sizes, side by side.
+    process at cut sizes (phase 37);
+37. the subprocesses that phases 31-36 queued, all started at once after
+    every phase's in-process work (none shares the card with an in-process
+    timing, and no phase waits on its slowest process): each phase's
+    checks on their output, in a line of that phase with
+    ``"stage": "subprocesses"`` and each process's wall seconds.
 
 Every check raises, so any failure exits non-zero without the final line.
 The launch counts are set to 0 just before each path and read just after
@@ -484,6 +491,93 @@ def _emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields,
                       "elapsed_s": round(time.perf_counter() - _T0, 2)}),
           flush=True)
+
+
+# Phases 31-36 queue their subprocesses (the CLI, the ranks, the examples)
+# here, and phase 37 starts them all at once when every phase's in-process
+# work is done: no subprocess shares the card with an in-process timing,
+# and no phase waits on its slowest process (each imports torch in ~8 s).
+_DEFERRED = []
+
+
+def _deferred_dir(name):
+    """A directory under ``build/`` for one phase's subprocess inputs;
+    phase 37 removes it after the phase's checks."""
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"chip_smoke_{name}_", dir=build)
+
+
+def _defer(phase, tmp, cmds, finish):
+    """Queue phase ``phase``'s subprocesses. ``cmds``: {name: arguments
+    after the interpreter}, or a function returning them when phase 37
+    starts them. ``finish(out)`` gets {name: stdout} once every process has
+    exited 0, raises if the output is wrong, and returns the fields of the
+    phase's ``stage="subprocesses"`` line. ``tmp`` (or None) is removed
+    after."""
+    _DEFERRED.append((phase, tmp, cmds, finish))
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _run_deferred():
+    """Phase 37: every queued subprocess side by side, then each phase's
+    checks on their output, one line a phase with each process's wall
+    seconds. Returns the group's wall seconds and its process count."""
+    import shutil
+
+    # one intra-op thread a process: ~22 processes share the host's cores,
+    # and each torch pool as wide as the machine would spin on all of them
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    logs = _deferred_dir("logs")
+    procs, walls = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for phase, _, cmds, _ in _DEFERRED:
+            for name, args in (cmds() if callable(cmds) else cmds).items():
+                stem = os.path.join(logs, f"{phase}_{name}")
+                with open(stem + ".out", "w") as fo, \
+                        open(stem + ".err", "w") as fe:
+                    procs[phase, name] = (time.perf_counter(),
+                                          subprocess.Popen(
+                        [sys.executable] + args, cwd=REPO, env=env,
+                        stdout=fo, stderr=fe))
+        # each process's own wall time: poll them all until the last ends
+        deadline = time.perf_counter() + 900
+        while len(walls) < len(procs) and time.perf_counter() < deadline:
+            for key, (t1, proc) in procs.items():
+                if key not in walls and proc.poll() is not None:
+                    walls[key] = time.perf_counter() - t1
+            time.sleep(0.1)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    out = {}
+    for (phase, name), (_, proc) in procs.items():
+        stem = os.path.join(logs, f"{phase}_{name}")
+        with open(stem + ".err") as fe:
+            stderr = fe.read()
+        _check((phase, name) in walls and proc.returncode == 0,
+               f"phase {phase}'s {name} exited {proc.returncode}: "
+               f"{stderr[-3000:]}")
+        with open(stem + ".out") as fo:
+            out[phase, name] = fo.read()
+    for phase, tmp, _, finish in _DEFERRED:
+        mine = {name: text for (p, name), text in out.items() if p == phase}
+        _emit(phase, stage="subprocesses", **finish(mine),
+              wall_s={name: walls[phase, name] for name in mine})
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(logs, ignore_errors=True)
+    _DEFERRED.clear()
+    return wall, len(procs)
 
 
 def _caterpillar(n, brlen):
@@ -754,9 +848,10 @@ def _examples_path(dev, reset_counts, read_counts, smi):
     flagship (TAXA x SITES) and at TAXA x BIG_SITES, GTR+G4+I sites
     simulated here: its six keys, its ``n_patterns`` the engine's, its
     ``step_ms`` within 2x of the same engine's value call timed here by
-    CUDA events (counted); (c) each example as a fresh process, side by
-    side (``python -m phylo_utils_tpu_torch.examples.<name> --pruner cuda``
-    at ``EXAMPLE_CLI_ARGS``): exit 0 and its lines (``EXAMPLE_LINES``).
+    CUDA events (counted); (c) each example as a fresh process, queued for
+    phase 37 (``python -m phylo_utils_tpu_torch.examples.<name> --pruner
+    cuda`` at ``EXAMPLE_CLI_ARGS``): exit 0 and its lines
+    (``EXAMPLE_LINES``).
     Returns the launch counts of (a) and (b)."""
     import numpy as np
     import torch
@@ -1034,32 +1129,27 @@ def _examples_path(dev, reset_counts, read_counts, smi):
             del eng
     stage_b = time.perf_counter() - t_b
 
-    # (c) each example as a fresh process, side by side ---------------------
-    t_c = time.perf_counter()
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    procs = {name: (time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", f"phylo_utils_tpu_torch.examples.{name}",
-         "--pruner", "cuda", "--device", dev.type] + args,
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)) for name, args in EXAMPLE_CLI_ARGS.items()}
-    fresh = {}
-    for name, (t1, proc) in procs.items():
-        stdout, stderr = proc.communicate(timeout=600)
-        lines = [ln.strip() for ln in stdout.splitlines()]
-        missing = [w for w in EXAMPLE_LINES[name]
-                   if not any(ln.startswith(w) for ln in lines)]
-        _check(proc.returncode == 0 and not missing,
-               f"python -m phylo_utils_tpu_torch.examples.{name} exited "
-               f"{proc.returncode}, lines missing {missing}: "
-               f"{stderr[-3000:]}")
-        fresh[name] = {"wall_s": time.perf_counter() - t1,
-                       "lines": len([ln for ln in lines if ln])}
-    stage_c = time.perf_counter() - t_c
+    # (c) each example as a fresh process, queued for phase 37 --------------
+    cmds = {name: ["-m", f"phylo_utils_tpu_torch.examples.{name}",
+                   "--pruner", "cuda", "--device", dev.type] + args
+            for name, args in EXAMPLE_CLI_ARGS.items()}
+
+    def finish(out):
+        fresh = {}
+        for name, stdout in out.items():
+            lines = [ln.strip() for ln in stdout.splitlines()]
+            missing = [w for w in EXAMPLE_LINES[name]
+                       if not any(ln.startswith(w) for ln in lines)]
+            _check(not missing,
+                   f"python -m phylo_utils_tpu_torch.examples.{name}: lines "
+                   f"missing {missing}")
+            fresh[name] = {"lines": len([ln for ln in lines if ln])}
+        return {"fresh_processes": fresh}
+
+    _defer(36, None, cmds, finish)
 
     _emit(36, path="examples", card=smi, examples=report, benchmark=bench,
-          fresh_processes=fresh,
-          stage_s={"examples": stage_a, "benchmark": stage_b,
-                   "fresh_processes": stage_c})
+          stage_s={"examples": stage_a, "benchmark": stage_b})
     return tuple(counts.values())
 
 
@@ -1403,7 +1493,8 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
     (d) 5 L-BFGS steps of M7 and of M8 as the CLI's m7-m8 frees them, and
     ``positive_selection_test``; (e) the CLI's ``site-test`` (m1a-m2a with
     ``--sites --beb``, m7-m8 with ``--sites``; ``--pruner cuda``) and
-    ``compare --models JC69,HKY85+G`` as subprocesses, all at once. (a),
+    ``compare --models JC69,HKY85+G`` as subprocesses, queued for phase
+    37. (a),
     (c) and (d) are counted. Returns their launch counts."""
     import numpy as np
     import torch
@@ -1667,7 +1758,7 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
     del e32, e64
     torch.cuda.empty_cache()
 
-    # (e) the CLI as subprocesses, all at once
+    # (e) the CLI as subprocesses, queued for phase 37
     t0 = time.perf_counter()
     cli_tree = random_tree(CLI_CODON_TAXA, seed=31)
     cli_aln, _ = simulate_mixture_alignment(
@@ -1677,77 +1768,55 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
     dna = simulate_alignment(33, cli_tree, models.HKY85, CLI_DNA_SITES,
                              params={"kappa": 3.0, "alpha": 0.5}, ncat=4,
                              device=dev)
-    build = REPO / "build"
-    build.mkdir(exist_ok=True)
-    cli_out, walls = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_site_",
-                                     dir=build) as tmp:
-        tree_path, codon_fa, dna_fa = (os.path.join(tmp, n_) for n_ in (
-            "t.nwk", "codon.fa", "dna.fa"))
-        with open(tree_path, "w") as fh:
-            fh.write(write_newick(cli_tree) + "\n")
-        write_fasta(cli_aln, path=codon_fa)
-        write_fasta(dna, path=dna_fa)
-        site = ["site-test", "--tree", tree_path, "--alignment", codon_fa,
-                "--max-steps", str(SITE_CLI_STEPS), "--sites", "--pruner",
-                "cuda"]
-        cmds = {
-            "site_test_m1a_m2a": site + ["--test", "m1a-m2a", "--beb"],
-            "site_test_m7_m8": site + ["--test", "m7-m8"],
-            "compare": ["compare", "--tree", tree_path, "--alignment",
-                        dna_fa, "--models", "JC69,HKY85+G", "--max-steps",
-                        "100"]}
-        env = {**os.environ, "PYTHONPATH": str(REPO)}
-        procs = {}
-        for name, cmd in cmds.items():
-            # the engines in float32, the walk's own precision
-            extra = ["--dtype", "float32"] if name.startswith("site") else []
-            with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
-                    open(os.path.join(tmp, f"{name}.err"), "w") as fe:
-                procs[name] = (time.perf_counter(), subprocess.Popen(
-                    [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
-                    + extra + ["--device", DEVICE], cwd=REPO, env=env,
-                    stdout=fo, stderr=fe))
-        try:
-            for name, (t1, proc) in procs.items():
-                proc.wait(timeout=600)
-                walls[name] = time.perf_counter() - t1
-        finally:
-            for _, proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for name, (_, proc) in procs.items():
-            with open(os.path.join(tmp, f"{name}.err")) as fe:
-                stderr = fe.read()
-            _check(proc.returncode == 0,
-                   f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
-            with open(os.path.join(tmp, f"{name}.out")) as fo:
-                cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
-    site_keys = {"test", "loglik_null", "loglik_alt", "lrt", "alt_params",
-                 "site_mean_omega", "site_positive_posterior"}
-    beb_keys = {"beb_positive_posterior", "beb_mean_omega"}
-    cli_summary = {}
-    for name, want_keys in (("site_test_m1a_m2a", site_keys | beb_keys),
-                            ("site_test_m7_m8", site_keys)):
-        got = cli_out[name]
-        _check(set(got) == want_keys
-               and 0.0 <= got["lrt"]["pvalue"] <= 1.0
-               and all(len(got[k]) == CLI_CODON_PATTERNS
-                       for k in want_keys - {"test", "loglik_null",
-                                             "loglik_alt", "lrt",
-                                             "alt_params"})
-               and math.isfinite(got["loglik_alt"]),
-               f"cli {name}: keys {sorted(got)}, lrt {got.get('lrt')}")
-        cli_summary[name] = {k: got[k] for k in ("loglik_null",
-                                                 "loglik_alt", "lrt")}
-    cmp_ = cli_out["compare"]
-    _check(set(cmp_) == {"ranked", "best", "criterion"}
-           and len(cmp_["ranked"]) == 2
-           and all(math.isfinite(r["loglik"]) for r in cmp_["ranked"]),
-           f"cli compare: {cmp_}")
-    cli_summary["compare"] = cmp_
-    stage_s["cli"] = time.perf_counter() - t0
+    tmp = _deferred_dir("site")
+    tree_path, codon_fa, dna_fa = (os.path.join(tmp, n_) for n_ in (
+        "t.nwk", "codon.fa", "dna.fa"))
+    with open(tree_path, "w") as fh:
+        fh.write(write_newick(cli_tree) + "\n")
+    write_fasta(cli_aln, path=codon_fa)
+    write_fasta(dna, path=dna_fa)
+    cli = ["-m", "phylo_utils_tpu_torch.cli"]
+    # the engines in float32, the walk's own precision
+    site = cli + ["site-test", "--tree", tree_path, "--alignment", codon_fa,
+                  "--max-steps", str(SITE_CLI_STEPS), "--sites", "--pruner",
+                  "cuda", "--dtype", "float32", "--device", DEVICE]
+    cmds = {
+        "site_test_m1a_m2a": site + ["--test", "m1a-m2a", "--beb"],
+        "site_test_m7_m8": site + ["--test", "m7-m8"],
+        "compare": cli + ["compare", "--tree", tree_path, "--alignment",
+                          dna_fa, "--models", "JC69,HKY85+G", "--max-steps",
+                          "100", "--device", DEVICE]}
+
+    def finish(out):
+        cli_out = {name: _last_json(text) for name, text in out.items()}
+        site_keys = {"test", "loglik_null", "loglik_alt", "lrt",
+                     "alt_params", "site_mean_omega",
+                     "site_positive_posterior"}
+        beb_keys = {"beb_positive_posterior", "beb_mean_omega"}
+        cli_summary = {}
+        for name, want_keys in (("site_test_m1a_m2a", site_keys | beb_keys),
+                                ("site_test_m7_m8", site_keys)):
+            got = cli_out[name]
+            _check(set(got) == want_keys
+                   and 0.0 <= got["lrt"]["pvalue"] <= 1.0
+                   and all(len(got[k]) == CLI_CODON_PATTERNS
+                           for k in want_keys - {"test", "loglik_null",
+                                                 "loglik_alt", "lrt",
+                                                 "alt_params"})
+                   and math.isfinite(got["loglik_alt"]),
+                   f"cli {name}: keys {sorted(got)}, lrt {got.get('lrt')}")
+            cli_summary[name] = {k: got[k] for k in ("loglik_null",
+                                                     "loglik_alt", "lrt")}
+        cmp_ = cli_out["compare"]
+        _check(set(cmp_) == {"ranked", "best", "criterion"}
+               and len(cmp_["ranked"]) == 2
+               and all(math.isfinite(r["loglik"]) for r in cmp_["ranked"]),
+               f"cli compare: {cmp_}")
+        cli_summary["compare"] = cmp_
+        return {"cli": cli_summary}
+
+    _defer(31, tmp, cmds, finish)
+    stage_s["cli_files"] = time.perf_counter() - t0
 
     counts = {k: sum(c.get(k, 0) for c in counted)
               for k in set().union(*counted)}
@@ -1756,8 +1825,8 @@ def _site_models_path(dev, reset_counts, read_counts, smi):
           engines=per, profiled=busy, b5_at_64=b5,
           scan_max_abs_err=scan_err,
           scan_bounds=bounds, scan_ranking=ranking, scan_ms=scan_ms,
-          fits=fits, m7_m8_lrt=lrt, cli=cli_summary, cli_wall_s=walls,
-          peak_allocated_bytes=peak, launches=counts, stage_s=stage_s)
+          fits=fits, m7_m8_lrt=lrt, peak_allocated_bytes=peak,
+          launches=counts, stage_s=stage_s)
     return counts
 
 
@@ -1841,8 +1910,8 @@ def _search_path(dev, reset_counts, read_counts, smi):
     replicates, TBE and the consensus, Newton on the card and NJ on the
     host timed apart; (e) the CLI's ``topologies --test all``, ``search``,
     ``supports``, ``lmap``, ``consense`` and ``build-tree --refine
-    --bootstrap`` as subprocesses side by side. Returns (a)'s launch
-    counts."""
+    --bootstrap`` as subprocesses, queued for phase 37. Returns (a)'s
+    launch counts."""
     import numpy as np
     import torch
 
@@ -2014,99 +2083,75 @@ def _search_path(dev, reset_counts, read_counts, smi):
            f"{boot['support']}, TBE {boot['tbe']}")
     stage_s["bootstrap"] = boot_s
 
-    # (e) the CLI as subprocesses, all at once
+    # (e) the CLI as subprocesses, queued for phase 37
     t0 = time.perf_counter()
-    build = REPO / "build"
-    build.mkdir(exist_ok=True)
-    cli_out, walls = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_search_",
-                                     dir=build) as tmp:
-        fa, start_nwk, final_nwk, cands_nwk = (os.path.join(tmp, n_) for n_
-                                               in ("aln.fa", "start.nwk",
-                                                   "final.nwk", "cands.nwk"))
-        write_fasta(aln, path=fa)
-        for path, tree in ((start_nwk, start), (final_nwk, current)):
-            with open(path, "w") as fh:
-                fh.write(write_newick(tree) + "\n")
-        with open(cands_nwk, "w") as fh:
-            fh.write("\n".join(write_newick(t) for t in
-                               cands[:CLI_TOPOLOGIES]) + "\n")
-        engine = ["--model", "GTR", "--ncat", "4"]
-        cmds = {
-            "topologies": ["topologies", "--trees", cands_nwk, "--alignment",
-                           fa, "--test", "all"] + engine,
-            "search": ["search", "--tree", start_nwk, "--alignment", fa,
-                       "--max-rounds", "1"] + engine,
-            "supports": ["supports", "--tree", final_nwk, "--alignment",
-                         fa] + engine,
-            "lmap": ["lmap", "--alignment", fa, "--model", "GTR"],
-            "consense": ["consense", "--trees", cands_nwk],
-            "build_tree": ["build-tree", "--alignment", fa, "--refine",
-                           "--bootstrap", str(CLI_BOOT_REPS)] + engine,
+    tmp = _deferred_dir("search")
+    fa, start_nwk, final_nwk, cands_nwk = (os.path.join(tmp, n_) for n_
+                                           in ("aln.fa", "start.nwk",
+                                               "final.nwk", "cands.nwk"))
+    write_fasta(aln, path=fa)
+    for path, tree in ((start_nwk, start), (final_nwk, current)):
+        with open(path, "w") as fh:
+            fh.write(write_newick(tree) + "\n")
+    with open(cands_nwk, "w") as fh:
+        fh.write("\n".join(write_newick(t) for t in
+                           cands[:CLI_TOPOLOGIES]) + "\n")
+    engine = ["--model", "GTR", "--ncat", "4"]
+    cmds = {
+        "topologies": ["topologies", "--trees", cands_nwk, "--alignment",
+                       fa, "--test", "all"] + engine,
+        "search": ["search", "--tree", start_nwk, "--alignment", fa,
+                   "--max-rounds", "1"] + engine,
+        "supports": ["supports", "--tree", final_nwk, "--alignment",
+                     fa] + engine,
+        "lmap": ["lmap", "--alignment", fa, "--model", "GTR"],
+        "consense": ["consense", "--trees", cands_nwk],
+        "build_tree": ["build-tree", "--alignment", fa, "--refine",
+                       "--bootstrap", str(CLI_BOOT_REPS)] + engine,
+    }
+    cmds = {name: ["-m", "phylo_utils_tpu_torch.cli"] + cmd
+            + ["--device", DEVICE] for name, cmd in cmds.items()}
+
+    def finish(out):
+        cli_out = {name: _last_json(text) for name, text in out.items()}
+        # the JAX CLI's keys, from its code (cli.py cmd_topologies,
+        # cmd_search, cmd_supports, cmd_lmap, cmd_consense, cmd_build_tree)
+        want_keys = {
+            "topologies": {"n_trees", "logliks", "best_index", "kh", "sh",
+                           "au"},
+            "search": {"loglik", "rounds", "tree"},
+            "supports": {"loglik", "tree", "edges"},
+            "lmap": {"basins", "resolved", "star", "n_quartets", "points"},
+            "consense": {"n_trees", "consensus"},
+            "build_tree": {"tree", "loglik", "method", "bootstrap_support",
+                           "tbe_support", "consensus_tree"},
         }
-        env = {**os.environ, "PYTHONPATH": str(REPO)}
-        procs = {}
-        for name, cmd in cmds.items():
-            with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
-                    open(os.path.join(tmp, f"{name}.err"), "w") as fe:
-                procs[name] = (time.perf_counter(), subprocess.Popen(
-                    [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
-                    + ["--device", DEVICE], cwd=REPO, env=env, stdout=fo,
-                    stderr=fe))
-        # each process's own wall time: poll them all until the last ends
-        deadline = time.perf_counter() + 900
-        try:
-            while len(walls) < len(procs) and time.perf_counter() < deadline:
-                for name, (t1, proc) in procs.items():
-                    if name not in walls and proc.poll() is not None:
-                        walls[name] = time.perf_counter() - t1
-                time.sleep(0.1)
-        finally:
-            for _, proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for name, (_, proc) in procs.items():
-            with open(os.path.join(tmp, f"{name}.err")) as fe:
-                stderr = fe.read()
-            _check(name in walls and proc.returncode == 0,
-                   f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
-            with open(os.path.join(tmp, f"{name}.out")) as fo:
-                cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
-    # the JAX CLI's keys, from its code (cli.py cmd_topologies, cmd_search,
-    # cmd_supports, cmd_lmap, cmd_consense, cmd_build_tree)
-    want_keys = {
-        "topologies": {"n_trees", "logliks", "best_index", "kh", "sh", "au"},
-        "search": {"loglik", "rounds", "tree"},
-        "supports": {"loglik", "tree", "edges"},
-        "lmap": {"basins", "resolved", "star", "n_quartets", "points"},
-        "consense": {"n_trees", "consensus"},
-        "build_tree": {"tree", "loglik", "method", "bootstrap_support",
-                       "tbe_support", "consensus_tree"},
-    }
-    for name, keys in want_keys.items():
-        _check(set(cli_out[name]) == keys,
-               f"cli {name}: keys {sorted(cli_out[name])}")
-    top = cli_out["topologies"]
-    _check(top["n_trees"] == CLI_TOPOLOGIES
-           and all(math.isfinite(v) for v in top["logliks"])
-           and len(cli_out["supports"]["edges"]) == SEARCH_TAXA - 3
-           and len(cli_out["build_tree"]["bootstrap_support"])
-           == SEARCH_TAXA - 3
-           and math.isfinite(cli_out["search"]["loglik"]),
-           f"cli outputs: topologies {top['n_trees']}, supports "
-           f"{len(cli_out['supports']['edges'])} edges")
-    cli_summary = {
-        "topologies_best": top["best_index"],
-        "topologies_au_p_of_best": top["au"]["pvalue"][top["best_index"]],
-        "search": {k: cli_out["search"][k] for k in ("loglik", "rounds")},
-        "supports_loglik": cli_out["supports"]["loglik"],
-        "lmap": {k: cli_out["lmap"][k] for k in ("basins", "resolved",
-                                                 "star")},
-        "build_tree": {"loglik": cli_out["build_tree"]["loglik"],
-                       "method": cli_out["build_tree"]["method"]},
-    }
-    stage_s["cli"] = time.perf_counter() - t0
+        for name, keys in want_keys.items():
+            _check(set(cli_out[name]) == keys,
+                   f"cli {name}: keys {sorted(cli_out[name])}")
+        top = cli_out["topologies"]
+        _check(top["n_trees"] == CLI_TOPOLOGIES
+               and all(math.isfinite(v) for v in top["logliks"])
+               and len(cli_out["supports"]["edges"]) == SEARCH_TAXA - 3
+               and len(cli_out["build_tree"]["bootstrap_support"])
+               == SEARCH_TAXA - 3
+               and math.isfinite(cli_out["search"]["loglik"]),
+               f"cli outputs: topologies {top['n_trees']}, supports "
+               f"{len(cli_out['supports']['edges'])} edges")
+        return {"cli": {
+            "topologies_best": top["best_index"],
+            "topologies_au_p_of_best": top["au"]["pvalue"][
+                top["best_index"]],
+            "search": {k: cli_out["search"][k] for k in ("loglik",
+                                                         "rounds")},
+            "supports_loglik": cli_out["supports"]["loglik"],
+            "lmap": {k: cli_out["lmap"][k] for k in ("basins", "resolved",
+                                                     "star")},
+            "build_tree": {"loglik": cli_out["build_tree"]["loglik"],
+                           "method": cli_out["build_tree"]["method"]}}}
+
+    _defer(32, tmp, cmds, finish)
+    stage_s["cli_files"] = time.perf_counter() - t0
 
     _emit(32, card=smi, taxa=SEARCH_TAXA, sites=SEARCH_SITES,
           patterns=int(len(set(zip(*aln.values())))),
@@ -2130,8 +2175,7 @@ def _search_path(dev, reset_counts, read_counts, smi):
                      "nj_s": split["nj"], "replicates": SUPPORT_REPS,
                      "median_support": float(np.median(boot["support"])),
                      "median_tbe": float(np.median(boot["tbe"]))},
-          cli=cli_summary, cli_wall_s=walls, launches=a_counts,
-          stage_s=stage_s)
+          launches=a_counts, stage_s=stage_s)
     return a_counts
 
 
@@ -2169,8 +2213,8 @@ def _partition_path(dev, reset_counts, read_counts, smi):
     (B1 at 4 states, B5 at 20) against f64 (counted). (f) The CLI's
     ``loglik`` and ``fit`` with a RAxML-style ``--partitions`` file ('+F'
     entries, a '\\3' stride) and ``partitionfinder`` (PF_SUBSETS subsets,
-    two candidates) side by side, with the JAX CLI's keys, against the
-    same engine in this process; ``EngineServer``'s ``/partitions`` and
+    two candidates) as subprocesses queued for phase 37, with the JAX
+    CLI's keys, against the same engine in this process; ``EngineServer``'s ``/partitions`` and
     ``/health`` in process. Returns ((a), (d) and (e)'s launch counts,
     {kernel: its batched-leaf entry for the kernels line})."""
     import numpy as np
@@ -2466,9 +2510,7 @@ def _partition_path(dev, reset_counts, read_counts, smi):
            f"mixed alphabets vs f64: logL {m_rel:.3e}, gradients {mg_err}")
     stage_s["mixed"] = time.perf_counter() - t0 - sum(stage_s.values())
 
-    # (f) the CLI side by side and the server in process ---------------------
-    build = REPO / "build"
-    build.mkdir(exist_ok=True)
+    # (f) the CLI, queued for phase 37, and the server in process ---------
     concat = {t: "".join(sim[n][t] for n in names) for t in tree.leaf_names}
     ends = np.cumsum(lengths)
     starts = ends - lengths + 1
@@ -2482,105 +2524,88 @@ def _partition_path(dev, reset_counts, read_counts, smi):
               for t in tree.leaf_names}
     pf_text = "".join(f"DNA, s{i} = {i * PF_SITES + 1}-{(i + 1) * PF_SITES}\n"
                       for i in range(PF_SUBSETS))
-    cli_out, walls = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_parts_",
-                                     dir=build) as tmp:
-        fa, pf_fa, nwk, parts_file, pf_file = (
-            os.path.join(tmp, n_) for n_ in ("aln.fa", "pf.fa", "tree.nwk",
-                                             "parts.txt", "subsets.txt"))
-        write_fasta(concat, path=fa)
-        write_fasta(pf_aln, path=pf_fa)
-        with open(nwk, "w") as fh:
-            fh.write(write_newick(tree) + "\n")
-        for path, text in ((parts_file, parts_text), (pf_file, pf_text)):
-            with open(path, "w") as fh:
-                fh.write(text)
-        engine = ["--tree", nwk, "--alignment", fa, "--partitions",
-                  parts_file, "--pruner", "cuda", "--dtype", "float32"]
-        cmds = {
-            "loglik": ["loglik"] + engine,
-            "fit": ["fit"] + engine + ["--max-steps",
-                                       str(CLI_PART_FIT_STEPS)],
-            "partitionfinder": ["partitionfinder", "--tree", nwk,
-                                "--alignment", pf_fa, "--subsets", pf_file,
-                                "--models", "JC69,HKY85+G", "--max-steps",
-                                str(PF_STEPS)],
-        }
-        env = {**os.environ, "PYTHONPATH": str(REPO)}
-        procs = {}
-        for name, cmd in cmds.items():
-            with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
-                    open(os.path.join(tmp, f"{name}.err"), "w") as fe:
-                procs[name] = (time.perf_counter(), subprocess.Popen(
-                    [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
-                    + ["--device", DEVICE], cwd=REPO, env=env, stdout=fo,
-                    stderr=fe))
-        # the server in this process while the CLI runs
+    tmp = _deferred_dir("parts")
+    fa, pf_fa, nwk, parts_file, pf_file = (
+        os.path.join(tmp, n_) for n_ in ("aln.fa", "pf.fa", "tree.nwk",
+                                         "parts.txt", "subsets.txt"))
+    write_fasta(concat, path=fa)
+    write_fasta(pf_aln, path=pf_fa)
+    with open(nwk, "w") as fh:
+        fh.write(write_newick(tree) + "\n")
+    for path, text in ((parts_file, parts_text), (pf_file, pf_text)):
+        with open(path, "w") as fh:
+            fh.write(text)
+    engine = ["--tree", nwk, "--alignment", fa, "--partitions",
+              parts_file, "--pruner", "cuda", "--dtype", "float32"]
+    cmds = {
+        "loglik": ["loglik"] + engine,
+        "fit": ["fit"] + engine + ["--max-steps", str(CLI_PART_FIT_STEPS)],
+        "partitionfinder": ["partitionfinder", "--tree", nwk, "--alignment",
+                            pf_fa, "--subsets", pf_file, "--models",
+                            "JC69,HKY85+G", "--max-steps", str(PF_STEPS)],
+    }
+    cmds = {name: ["-m", "phylo_utils_tpu_torch.cli"] + cmd
+            + ["--device", DEVICE] for name, cmd in cmds.items()}
+
+    def finish(out):
+        cli_out = {name: _last_json(text) for name, text in out.items()}
+        # the JAX CLI's keys (cli.py cmd_loglik, cmd_fit,
+        # cmd_partition_finder)
+        want_keys = {"loglik": {"loglik", "partition_logliks"},
+                     "fit": {"loglik", "n_steps", "converged", "params"},
+                     "partitionfinder": {"scheme", "score", "criterion",
+                                         "n_rounds", "merged_from"}}
+        for name, keys in want_keys.items():
+            _check(set(cli_out[name]) == keys,
+                   f"cli {name}: keys {sorted(cli_out[name])}")
         cli_parts, cli_init = partitions_from_file(parts_text, concat)
         cli_eng = StackedPartitionedEngine(tree, cli_parts, **kw32)
-        srv = EngineServer(stacked, port=0)
-        srv.start()
-        try:
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
-                health = json.loads(r.read())
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{srv.port}/partitions",
-                data=json.dumps({"params": truth}).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=120) as r:
-                served = json.loads(r.read())["partitions"]
-        finally:
-            srv.stop()
-        deadline = time.perf_counter() + 900
-        try:
-            while len(walls) < len(procs) and time.perf_counter() < deadline:
-                for name, (t1, proc) in procs.items():
-                    if name not in walls and proc.poll() is not None:
-                        walls[name] = time.perf_counter() - t1
-                time.sleep(0.1)
-        finally:
-            for _, proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for name, (_, proc) in procs.items():
-            with open(os.path.join(tmp, f"{name}.err")) as fe:
-                stderr = fe.read()
-            _check(name in walls and proc.returncode == 0,
-                   f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
-            with open(os.path.join(tmp, f"{name}.out")) as fo:
-                cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
-    # the JAX CLI's keys (cli.py cmd_loglik, cmd_fit,
-    # cmd_partition_finder) and the server's (server.py /health,
-    # /partitions)
-    want_keys = {"loglik": {"loglik", "partition_logliks"},
-                 "fit": {"loglik", "n_steps", "converged", "params"},
-                 "partitionfinder": {"scheme", "score", "criterion",
-                                     "n_rounds", "merged_from"}}
-    for name, keys in want_keys.items():
-        _check(set(cli_out[name]) == keys,
-               f"cli {name}: keys {sorted(cli_out[name])}")
-    cli_ll = cli_eng.loglikelihood(cli_init)
-    cli_rel = abs(cli_out["loglik"]["loglik"] - cli_ll) / abs(cli_ll)
-    fit_rel = abs(cli_out["fit"]["loglik"] - cli_eng.loglikelihood(
-        cli_out["fit"]["params"])) / abs(cli_ll)
-    rows = cli_out["partitionfinder"]["scheme"]
-    _check(cli_rel <= 1e-9 and fit_rel <= 1e-9
-           and cli_out["fit"]["loglik"] > cli_ll
-           and len(cli_out["loglik"]["partition_logliks"]) == PART_LOCI + 1
-           and all(set(r) == {"name", "model", "loglik", "k", "bic",
-                              "n_sites"} and math.isfinite(r["loglik"])
-                   for r in rows)
-           and sum(r["n_sites"] for r in rows) == PF_SUBSETS * PF_SITES,
-           f"cli: loglik {cli_rel:.3e} from the engine, fit {fit_rel:.3e}, "
-           f"partitionfinder rows {rows}")
+        cli_ll = cli_eng.loglikelihood(cli_init)
+        cli_rel = abs(cli_out["loglik"]["loglik"] - cli_ll) / abs(cli_ll)
+        fit_rel = abs(cli_out["fit"]["loglik"] - cli_eng.loglikelihood(
+            cli_out["fit"]["params"])) / abs(cli_ll)
+        rows = cli_out["partitionfinder"]["scheme"]
+        _check(cli_rel <= 1e-9 and fit_rel <= 1e-9
+               and cli_out["fit"]["loglik"] > cli_ll
+               and len(cli_out["loglik"]["partition_logliks"])
+               == PART_LOCI + 1
+               and all(set(r) == {"name", "model", "loglik", "k", "bic",
+                                  "n_sites"} and math.isfinite(r["loglik"])
+                       for r in rows)
+               and sum(r["n_sites"] for r in rows) == PF_SUBSETS * PF_SITES,
+               f"cli: loglik {cli_rel:.3e} from the engine, fit "
+               f"{fit_rel:.3e}, partitionfinder rows {rows}")
+        return {"cli": {"loglik_rel_err": cli_rel, "fit_rel_err": fit_rel,
+                        "fit_loglik": cli_out["fit"]["loglik"],
+                        "partitionfinder": {
+                            k: cli_out["partitionfinder"][k]
+                            for k in ("n_rounds", "merged_from", "score")},
+                        "partitionfinder_models": [r["model"]
+                                                   for r in rows]}}
+
+    _defer(33, tmp, cmds, finish)
+    # the server in this process; its keys are server.py's /health and
+    # /partitions
+    srv = EngineServer(stacked, port=0)
+    srv.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/partitions",
+            data=json.dumps({"params": truth}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served = json.loads(r.read())["partitions"]
+    finally:
+        srv.stop()
     _check(served == per_s and health["model"] == {
         n: "GTR" for n in names} and health["n_patterns"] == sum(
         stacked._n_patterns) and set(health) == {
         "status", "device", "device_name", "pruner", "model", "n_patterns"},
            f"server: /partitions {served == per_s}, /health {health}")
-    stage_s["cli_and_server"] = time.perf_counter() - t0 - sum(
+    stage_s["cli_files_and_server"] = time.perf_counter() - t0 - sum(
         stage_s.values())
 
     _emit(33, card=smi, taxa=PART_TAXA, loci=PART_LOCI,
@@ -2597,13 +2622,7 @@ def _partition_path(dev, reset_counts, read_counts, smi):
                "peak_allocated_bytes": fit_peak, "launches": fit_counts},
           mixed={"logl_rel_err": m_rel, "grad_rel_err": mg_err,
                  "value_launches": mixed_value_counts},
-          cli={"loglik_rel_err": cli_rel, "fit_rel_err": fit_rel,
-               "fit_loglik": cli_out["fit"]["loglik"],
-               "partitionfinder": {
-                   k: cli_out["partitionfinder"][k]
-                   for k in ("n_rounds", "merged_from", "score")},
-               "partitionfinder_models": [r["model"] for r in rows]},
-          cli_wall_s=walls, server={"health": health},
+          server={"health": health},
           stage_s=stage_s)
     return [value_counts, grad_counts, fit_counts, mixed_counts], batched
 
@@ -2728,7 +2747,7 @@ def _analyses_path(dev, reset_counts, read_counts, smi):
     forwards = ("LAUNCHES", "SLOT_LAUNCHES", "STREAM_LAUNCHES",
                 "STATIC_LAUNCHES", "FOLD_LAUNCHES")
     counted = []
-    tmp = tempfile.mkdtemp(prefix="phase34_")
+    tmp = _deferred_dir("analyses")
 
     def stage(name, t0):
         stage_s[name] = time.perf_counter() - t0
@@ -3038,7 +3057,7 @@ def _analyses_path(dev, reset_counts, read_counts, smi):
                <= POSTERIOR_TOL, f"{label} knob: {knobs[label]}")
     stage("clock", t0)
 
-    # (d) the CLI and the server, side by side ---------------------------
+    # (d) the CLI, queued for phase 37, and the server in process --------
     t0 = time.perf_counter()
     flag_nwk, flag_fa, flag_tree, flag_aln = files["flagship"]
     cmds = {
@@ -3057,16 +3076,8 @@ def _analyses_path(dev, reset_counts, read_counts, smi):
         "date": ["date", "--tree", gram_nwk, "--sites", str(SITES),
                  "--steps", str(DATE_STEPS)],
     }
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    procs, walls, cli_out = {}, {}, {}
-    for name, cmd in cmds.items():
-        with open(os.path.join(tmp, f"{name}.out"), "w") as fo, \
-                open(os.path.join(tmp, f"{name}.err"), "w") as fe:
-            procs[name] = (time.perf_counter(), subprocess.Popen(
-                [sys.executable, "-m", "phylo_utils_tpu_torch.cli"] + cmd
-                + ["--device", DEVICE], cwd=REPO, env=env, stdout=fo,
-                stderr=fe))
-    # the server in this process while the CLI runs
+    cmds = {name: ["-m", "phylo_utils_tpu_torch.cli"] + cmd
+            + ["--device", DEVICE] for name, cmd in cmds.items()}
     flag32 = engines32["flagship"]
     srv = EngineServer(flag32, port=0)
     srv.start()
@@ -3099,54 +3110,46 @@ def _analyses_path(dev, reset_counts, read_counts, smi):
                      for k in ("states", "log_prob", "category")),
         "/site_rates": np.array_equal(served["/site_rates"]["site_rates"],
                                       site_rates(flag32, FLAGSHIP_PARAMS))}
-    deadline = time.perf_counter() + 900
-    try:
-        while len(walls) < len(procs) and time.perf_counter() < deadline:
-            for name, (t1, proc) in procs.items():
-                if name not in walls and proc.poll() is not None:
-                    walls[name] = time.perf_counter() - t1
-            time.sleep(0.1)
-    finally:
-        for _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for name, (_, proc) in procs.items():
-        with open(os.path.join(tmp, f"{name}.err")) as fe:
-            stderr = fe.read()
-        _check(name in walls and proc.returncode == 0,
-               f"cli {name} exited {proc.returncode}: {stderr[-2000:]}")
-        with open(os.path.join(tmp, f"{name}.out")) as fo:
-            cli_out[name] = json.loads(fo.read().strip().splitlines()[-1])
     _check(all(server_ok.values()), f"server: {server_ok}")
+    # what the CLI's output is held against, as host values
+    want = {"bs_null": bs_test["null"].loglik, "bs_alt": bs_test["alt"].loglik,
+            "clock": ctest_f64["null"].loglik,
+            "unconstrained": ctest_f64["alt"].loglik, "df": ctest_f64["df"]}
+    del ctest_f64
 
-    def rel(a, b):
-        return abs(a - b) / max(abs(b), 1e-300)
+    def finish(out):
+        cli_out = {name: _last_json(text) for name, text in out.items()}
 
-    a_out = cli_out["ancestral"]
-    cli_err = {
-        "ancestral": max(
-            float(np.abs(np.asarray(a_out["max_posterior"])
-                         - post_f.max(axis=2)).max()),
-            float(np.max(np.abs(np.asarray(a_out["joint_log_prob"])
-                                - joint_f["log_prob"])))),
-        "branch-site-test": max(
-            rel(cli_out["branch-site-test"]["loglik_null"],
-                bs_test["null"].loglik),
-            rel(cli_out["branch-site-test"]["loglik_alt"],
-                bs_test["alt"].loglik)),
-        "clock-test": max(rel(cli_out["clock-test"]["loglik_clock"],
-                              ctest_f64["null"].loglik),
-                          rel(cli_out["clock-test"]["loglik_unconstrained"],
-                              ctest_f64["alt"].loglik)),
-        "date": max(rel(cli_out["date"]["ages"][str(k)], v)
-                    for k, v in ages.items() if v > 0)}
-    _check(a_out["map_states"] == post_f.argmax(axis=2).tolist()
-           and a_out["joint_states"] == joint_f["states"].tolist()
-           and cli_out["clock-test"]["df"] == ctest_f64["df"]
-           and max(cli_err.values()) <= 1e-8,
-           f"cli against the same calls in process: {cli_err}")
-    stage("cli_and_server", t0)
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 1e-300)
+
+        a_out = cli_out["ancestral"]
+        cli_err = {
+            "ancestral": max(
+                float(np.abs(np.asarray(a_out["max_posterior"])
+                             - post_f.max(axis=2)).max()),
+                float(np.max(np.abs(np.asarray(a_out["joint_log_prob"])
+                                    - joint_f["log_prob"])))),
+            "branch-site-test": max(
+                rel(cli_out["branch-site-test"]["loglik_null"],
+                    want["bs_null"]),
+                rel(cli_out["branch-site-test"]["loglik_alt"],
+                    want["bs_alt"])),
+            "clock-test": max(
+                rel(cli_out["clock-test"]["loglik_clock"], want["clock"]),
+                rel(cli_out["clock-test"]["loglik_unconstrained"],
+                    want["unconstrained"])),
+            "date": max(rel(cli_out["date"]["ages"][str(k)], v)
+                        for k, v in ages.items() if v > 0)}
+        _check(a_out["map_states"] == post_f.argmax(axis=2).tolist()
+               and a_out["joint_states"] == joint_f["states"].tolist()
+               and cli_out["clock-test"]["df"] == want["df"]
+               and max(cli_err.values()) <= 1e-8,
+               f"cli against the same calls in process: {cli_err}")
+        return {"cli_rel_err": cli_err}
+
+    _defer(34, tmp, cmds, finish)
+    stage("cli_files_and_server", t0)
 
     _emit(34, card=smi, ancestral=anc, branch_models=branch,
           beb={"d": ANC_BEB_D, "max_abs_err": beb_err, "seconds":
@@ -3175,8 +3178,7 @@ def _analyses_path(dev, reset_counts, read_counts, smi):
                  "dating": {"seconds": dating_ms / 1e3,
                             "steps": DATE_STEPS,
                             "objective": dating["objective"]}},
-          knobs=knobs, timing=timing, cli_rel_err=cli_err,
-          cli_wall_s=walls, server=server_ok, stage_s=stage_s,
+          knobs=knobs, timing=timing, server=server_ok, stage_s=stage_s,
           seconds=time.perf_counter() - t_start)
     return counted
 
@@ -3201,8 +3203,8 @@ def _sharding_path(dev, reset_counts, read_counts, smi):
     the unsharded engine, logL to BATCHED_RTOL and gradients to 1e-8 x
     max|g|; (e) the CLI's ``loglik --shard-sites --sitewise`` in process on
     (a)'s file, its JSON equal to the same call made through the library
-    (counted); (f) side by side, as subprocesses: two ranks of
-    ``python -m phylo_utils_tpu_torch.parallel.multihost loglik`` on gloo
+    (counted); (f) side by side, as subprocesses queued for phase 37: two
+    ranks of ``python -m phylo_utils_tpu_torch.parallel.multihost loglik`` on gloo
     with CUDA tensors (RANK_SHARDS shards each, f32 ``pruner="cuda"``) on
     (a)'s files, model and parameters: the global logL the same on both
     ranks and within LOGL_RTOL of each rank's unsharded engine and of
@@ -3362,77 +3364,74 @@ def _sharding_path(dev, reset_counts, read_counts, smi):
     stage_s["candidates"] = time.perf_counter() - t1
 
     # (e) the CLI's --shard-sites in process, counted; (f) two ranks and the
-    # dry run, as subprocesses side by side ----------------------------------
+    # dry run, as subprocesses queued for phase 37 --------------------------
     t1 = time.perf_counter()
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
-        env.pop(k, None)
-    with tempfile.TemporaryDirectory() as tmp:
-        fasta = os.path.join(tmp, "shard.fa")
-        tree_path = os.path.join(tmp, "shard.nwk")
-        write_fasta(aln, path=fasta)
-        Path(tree_path).write_text(write_newick(tree))
-        procs = {"dryrun": subprocess.Popen(
-            [sys.executable, "-m", "phylo_utils_tpu_torch.parallel.dryrun",
-             str(SHARDS), "--device", dev.type], cwd=REPO, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    tmp = _deferred_dir("shard")
+    fasta = os.path.join(tmp, "shard.fa")
+    tree_path = os.path.join(tmp, "shard.nwk")
+    write_fasta(aln, path=fasta)
+    Path(tree_path).write_text(write_newick(tree))
+
+    def cmds():
         import socket
 
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = str(sock.getsockname()[1])
+        out = {"dryrun": ["-m", "phylo_utils_tpu_torch.parallel.dryrun",
+                          str(SHARDS), "--device", dev.type]}
         # (a)'s data, model and parameters, each rank on its half
         for rank in range(2):
-            procs[f"rank{rank}"] = subprocess.Popen(
-                [sys.executable, "-m",
-                 "phylo_utils_tpu_torch.parallel.multihost", "loglik",
-                 str(rank), "2", port, "--device", dev_name, "--pruner",
-                 "cuda", "--dtype", "float32", "--shards",
-                 str(RANK_SHARDS), "--tree", tree_path, "--alignment",
-                 fasta, "--invariant-sites", "--params",
-                 json.dumps(params)], cwd=REPO, env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        args = ["loglik", "--tree", tree_path, "--alignment", fasta,
-                "--model", "GTR+G4+I", "--params", json.dumps(params),
-                "--dtype", "float32", "--pruner", "cuda", "--device",
-                dev.type, "--sitewise", "--shard-sites"]
-        out = io.StringIO()
-        reset_counts()
-        with contextlib.redirect_stdout(out):
-            rc = port_cli.main(args)
-        e_counts = read_counts()
-        _check(rc == 0, f"loglik --shard-sites returned {rc}")
-        got = json.loads(out.getvalue())
-        library = LikelihoodEngine(
-            tree, read_alignment(fasta), models.GTR, sharding=SiteSharding(
-                make_mesh(["cpu"] if dev.type == "cpu" else None)), **kw)
-        want = {"loglik": library.loglikelihood(params),
-                "sitewise": library.sitewise_loglikelihoods(params).tolist()}
-        _check(got == want and sum(e_counts[k] for k in forwards) >= 1,
-               f"loglik --shard-sites: {got['loglik']} against the "
-               f"library's {want['loglik']} (sitewise equal: "
-               f"{got['sitewise'] == want['sitewise']}), {e_counts}")
-        _check(abs(got["loglik"] - ll_s) / abs(ll_s) <= LOGL_RTOL,
-               f"loglik --shard-sites {got['loglik']} against {ll_s}")
-        del library
-        results = {}
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=600)
-            _check(proc.returncode == 0,
-                   f"{name} exited {proc.returncode}: {stderr[-3000:]}")
-            results[name] = json.loads(stdout.strip().splitlines()[-1])
-    ranks = [results["rank0"], results["rank1"]]
-    _check(all(r["backend"] == "gloo" and r["ingest_equal"]
-               and r["global_shards"] == 2 * RANK_SHARDS
-               and r["sitewise_patterns"] == ca.n_patterns for r in ranks)
-           and ranks[0]["sharded_loglik"] == ranks[1]["sharded_loglik"]
-           and all(max(abs(r["sharded_loglik"] - r["local_loglik"])
-                       / abs(r["local_loglik"]),
-                       abs(r["sharded_loglik"] - ll_s) / abs(ll_s),
-                       r["sitewise_max_rel"]) <= LOGL_RTOL
-                   and r["grad_max_rel"] <= GRAD_TOL for r in ranks),
-           f"two ranks on one card against (a)'s unsharded {ll_s}: {ranks}")
-    stage_s["cli_ranks_dryrun"] = time.perf_counter() - t1
+            out[f"rank{rank}"] = [
+                "-m", "phylo_utils_tpu_torch.parallel.multihost", "loglik",
+                str(rank), "2", port, "--device", dev_name, "--pruner",
+                "cuda", "--dtype", "float32", "--shards", str(RANK_SHARDS),
+                "--tree", tree_path, "--alignment", fasta,
+                "--invariant-sites", "--params", json.dumps(params)]
+        return out
+
+    def finish(out):
+        ranks = [_last_json(out["rank0"]), _last_json(out["rank1"])]
+        _check(all(r["backend"] == "gloo" and r["ingest_equal"]
+                   and r["global_shards"] == 2 * RANK_SHARDS
+                   and r["sitewise_patterns"] == n_patterns for r in ranks)
+               and ranks[0]["sharded_loglik"] == ranks[1]["sharded_loglik"]
+               and all(max(abs(r["sharded_loglik"] - r["local_loglik"])
+                           / abs(r["local_loglik"]),
+                           abs(r["sharded_loglik"] - ll_s) / abs(ll_s),
+                           r["sitewise_max_rel"]) <= LOGL_RTOL
+                       and r["grad_max_rel"] <= GRAD_TOL for r in ranks),
+               f"two ranks on one card against (a)'s unsharded {ll_s}: "
+               f"{ranks}")
+        return {"two_ranks": {"backend": "gloo", "ranks": ranks},
+                "dryrun": _last_json(out["dryrun"])}
+
+    n_patterns = ca.n_patterns
+    _defer(35, tmp, cmds, finish)
+    args = ["loglik", "--tree", tree_path, "--alignment", fasta,
+            "--model", "GTR+G4+I", "--params", json.dumps(params),
+            "--dtype", "float32", "--pruner", "cuda", "--device",
+            dev.type, "--sitewise", "--shard-sites"]
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = port_cli.main(args)
+    e_counts = read_counts()
+    _check(rc == 0, f"loglik --shard-sites returned {rc}")
+    got = json.loads(out.getvalue())
+    library = LikelihoodEngine(
+        tree, read_alignment(fasta), models.GTR, sharding=SiteSharding(
+            make_mesh(["cpu"] if dev.type == "cpu" else None)), **kw)
+    want = {"loglik": library.loglikelihood(params),
+            "sitewise": library.sitewise_loglikelihoods(params).tolist()}
+    _check(got == want and sum(e_counts[k] for k in forwards) >= 1,
+           f"loglik --shard-sites: {got['loglik']} against the "
+           f"library's {want['loglik']} (sitewise equal: "
+           f"{got['sitewise'] == want['sitewise']}), {e_counts}")
+    _check(abs(got["loglik"] - ll_s) / abs(ll_s) <= LOGL_RTOL,
+           f"loglik --shard-sites {got['loglik']} against {ll_s}")
+    del library
+    stage_s["cli"] = time.perf_counter() - t1
     _emit(35, path="sharding", card=smi, shards=SHARDS,
           devices=[str(d) for d in sharding.devices], taxa=SHARD_TAXA,
           sites=SHARD_SITES, patterns=int(ca.n_patterns),
@@ -3449,9 +3448,7 @@ def _sharding_path(dev, reset_counts, read_counts, smi):
                  **stack_times},
           candidates={"n": len(cands), "loglik_rel_err": tse_rel,
                       "grad_rel_err": tse_g, **tse_times},
-          cli={"launches": e_counts}, two_ranks={"backend": "gloo",
-                                                 "ranks": ranks},
-          dryrun=results["dryrun"], stage_s=stage_s)
+          cli={"launches": e_counts}, stage_s=stage_s)
     return a_counts, b_counts, c_counts, e_counts
 
 
@@ -5810,6 +5807,10 @@ def main():
 
     # 36. the worked examples and the CLI's benchmark, main path ----------
     example_counts = _examples_path(dev, reset_counts, read_counts, smi)
+
+    # 37. every subprocess of phases 31-36, side by side ------------------
+    late_s, late_n = _run_deferred()
+    _emit(37, path="subprocesses", processes=late_n, wall_s=late_s)
 
     path_counts = (serve_counts, grad_counts, config4_counts, dna_counts,
                    prot_counts, classic_counts, wide_counts, wide7_counts,

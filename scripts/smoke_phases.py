@@ -22,7 +22,9 @@ each ROOT in the order given, a fresh process with ROOT first on its path:
   path functions (30 ``_simulation_path``, 31 ``_site_models_path``, 32
   ``_search_path``, 33 ``_partition_path``, 34 ``_analyses_path``, 35
   ``_sharding_path``, 36 ``_examples_path``), each timed by the host clock;
-  they run their own checks, and a failed check ends the process.
+  they run their own checks, and a failed check ends the process; then,
+  where ROOT's script queues the phases' subprocesses, runs them side by
+  side (its phase 37, ``_run_deferred``), timed as "37".
 
 Prints the card's name and power limit, then one JSON line a ROOT (the
 phases' own lines go to ``--logs``, by default ``build/smoke_phases/``)
@@ -126,6 +128,11 @@ def _child(root: Path, phases, smi: str) -> dict:
         t0 = time.perf_counter()
         fn(*args)
         out["phase_s"][str(phase)] = time.perf_counter() - t0
+    if getattr(cs, "_DEFERRED", None):
+        # the subprocesses those phases queued, side by side (phase 37)
+        t0 = time.perf_counter()
+        cs._run_deferred()
+        out["phase_s"]["37"] = time.perf_counter() - t0
     return out
 
 

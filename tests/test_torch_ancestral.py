@@ -56,6 +56,8 @@ from phylo_utils_tpu_torch.profile_mixtures import ProfileMixtureEngine
 from phylo_utils_tpu_torch.simulate import simulate_alignment
 from phylo_utils_tpu_torch.trees import Tree
 
+from torch_threads import one_thread  # noqa: F401
+
 POSTERIOR_TOL = 2e-6
 T64 = dict(dtype="float64", device="cpu")
 T32 = dict(dtype="float32", pruner="cuda", device="cpu")
@@ -70,16 +72,6 @@ ALN = {
     "d": "ACGAAAGTATAATTGCGGTA",
 }
 CHARMAP = {"A": 0, "C": 1, "G": 2, "T": 3}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: small engines are thousands of tiny ops, which
-    several test workers' thread pools slow several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_tree(jtree):

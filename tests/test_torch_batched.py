@@ -33,6 +33,8 @@ from phylo_utils_tpu_torch.trees import (
     spr_neighbors,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)

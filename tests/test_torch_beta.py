@@ -24,6 +24,8 @@ import torch
 from phylo_utils_tpu.ops import beta as jbeta
 from phylo_utils_tpu_torch.ops import beta as tbeta
 
+from torch_threads import one_thread  # noqa: F401
+
 GRID = [0.3, 0.6, 0.9, 1.5, 4.0, 12.0]
 
 

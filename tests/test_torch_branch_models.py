@@ -55,21 +55,12 @@ from phylo_utils_tpu_torch.simulate import (
 )
 from phylo_utils_tpu_torch.trees import Tree
 
+from torch_threads import one_thread  # noqa: F401
+
 T64 = dict(dtype="float64", device="cpu")
 T32 = dict(dtype="float32", pruner="cuda", device="cpu")
 GRAD_TOL = 5e-4
 BEB_TOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: small engines and fits are thousands of tiny
-    ops, which several test workers' thread pools slow several times
-    over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_tree(jtree):

@@ -40,6 +40,8 @@ from phylo_utils_tpu_torch.ops.pmatrix import (
 from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
 from phylo_utils_tpu_torch.io import write_newick
 
+from torch_threads import one_thread  # noqa: F401
+
 GTR = {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0],
        "freqs": [0.3, 0.2, 0.22, 0.28]}
 RATES = np.array([0.1, 0.6, 1.2, 2.1])
@@ -146,7 +148,7 @@ def test_classic_reverse_matches_pallas_classic_vjp(case, monkeypatch):
     jfn = jpp.make_pallas_loglik_fn(
         j_compile_schedule(jio.parse_newick(newick)), n_states=s,
         diff_leaves=True)
-    _, vjp = jax.vjp(jfn, jnp.asarray(p), jnp.asarray(lp),
+    _, vjp = jax.vjp(jax.jit(jfn), jnp.asarray(p), jnp.asarray(lp),
                      jnp.asarray(freqs))
     want = [np.asarray(g) for g in vjp(jnp.asarray(ct))]
     for name, g, w in zip(("dP", "dleaf", "dfreqs"), got, want):
@@ -448,6 +450,7 @@ def test_wide_node_walks_match_jax_pruner(s, monkeypatch):
     prune = j_make_prune_fn(j_compile_schedule(jio.parse_newick(newick),
                                                binarize=False))
 
+    @jax.jit
     def jll(p, l, f):
         root, scale = prune(p, l)
         return jnp.log(root @ f) + scale

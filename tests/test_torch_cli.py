@@ -29,19 +29,10 @@ from phylo_utils_tpu_torch import cli
 from phylo_utils_tpu_torch.io import parse_newick, read_alignment, write_newick
 from phylo_utils_tpu_torch.trees import robinson_foulds
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TREE = "((a:0.1,b:0.2):0.05,(c:0.3,d:0.15):0.07);"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these fits are thousands of tiny ops, which
-    several test workers' thread pools, each as wide as the machine, slow
-    several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -451,11 +442,13 @@ def test_default_device_is_the_card(small_inputs):
 def test_module_entry_points(small_inputs):
     """``python -m phylo_utils_tpu_torch.cli`` and ``python -m
     phylo_utils_tpu_torch`` print the same JSON in a fresh process, which
-    imports nothing of JAX or the JAX package."""
+    imports nothing of JAX or the JAX package. The two processes run side
+    by side, each on one intra-op thread."""
     tree, fasta = small_inputs
     args = ["loglik", "--tree", tree, "--alignment", fasta, "--model",
             "HKY85", "--device", "cpu"]
-    outs = []
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    procs = []
     for mod in ("phylo_utils_tpu_torch.cli", "phylo_utils_tpu_torch"):
         probe = (
             "import runpy, sys\n"
@@ -468,12 +461,14 @@ def test_module_entry_points(small_inputs):
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'phylo_utils_tpu', 'oracle'))\n"
             "assert not bad, bad\n")
-        env = {**os.environ, "PYTHONPATH": REPO}
-        res = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
-                             env=env, capture_output=True, text=True,
-                             timeout=120)
-        assert res.returncode == 0, res.stderr
-        outs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", probe], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err
+        outs.append(json.loads(out.strip().splitlines()[-1]))
     assert outs[0] == outs[1] and outs[0]["loglik"] < 0
 
 

@@ -24,7 +24,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from phylo_utils_tpu import branch_models as jbm
 from phylo_utils_tpu.cli import main as jax_main
@@ -43,16 +42,10 @@ from phylo_utils_tpu_torch.io import (
 from phylo_utils_tpu_torch.models.codon import empirical_codon_frequencies
 from phylo_utils_tpu_torch.simulate import simulate_alignment
 
+from torch_threads import one_thread  # noqa: F401
+
 ULTRA = ("(((a:0.1,b:0.1):0.1,(c:0.1,d:0.1):0.1):0.05,"
          "(e:0.2,f:0.2):0.05);")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(main, args):

@@ -16,7 +16,6 @@ import urllib.request
 
 import jax
 import pytest
-import torch
 
 from phylo_utils_tpu import models as jmodels
 from phylo_utils_tpu.cli import main as jax_main
@@ -32,19 +31,13 @@ from phylo_utils_tpu_torch.partition import (
 )
 from phylo_utils_tpu_torch.server import EngineServer
 
+from torch_threads import one_thread  # noqa: F401
+
 TREE = "(a:0.1,b:0.2,(c:0.15,(d:0.1,(e:0.2,f:0.05):0.1):0.12):0.08);"
 # RAxML-style: a '+F' entry, a codon-position stride and gamma categories
 STACKED = ("DNA+G4+F, p12 = 1-120\\3, 2-120\\3\n"
            "DNA+G4, p3 = 3-120\\3\n")
 MIXED = "HKY85+G4, left = 1-60\nJC69, right = 61-120\n"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

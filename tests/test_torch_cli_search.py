@@ -38,13 +38,7 @@ from phylo_utils_tpu_torch.trees import (
     robinson_foulds,
 )
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _run(main, args):

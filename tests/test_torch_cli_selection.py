@@ -22,7 +22,6 @@ import json
 
 import jax
 import pytest
-import torch
 
 from phylo_utils_tpu import models as jmodels
 from phylo_utils_tpu.cli import main as jax_main
@@ -32,15 +31,9 @@ from phylo_utils_tpu.simulate import simulate_alignment
 from phylo_utils_tpu_torch import cli
 from phylo_utils_tpu_torch.io import parse_newick
 
+from torch_threads import one_thread  # noqa: F401
+
 TREE = "((a:0.1,b:0.2):0.05,(c:0.3,d:0.15):0.07);"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(main, args):

@@ -48,22 +48,14 @@ from phylo_utils_tpu_torch.optimize import fit
 from phylo_utils_tpu_torch.simulate import simulate_alignment
 from phylo_utils_tpu_torch.trees import Tree
 
+from torch_threads import one_thread  # noqa: F401
+
 T64 = dict(dtype="float64", device="cpu")
 T32 = dict(dtype="float32", pruner="cuda", device="cpu")
 ULTRA = ("(((a:0.1,b:0.1):0.1,(c:0.1,d:0.1):0.1):0.05,"
          "(e:0.2,f:0.2):0.05);")
 CLOCK_PARAMS = {"root_height": 0.3, "height_fractions": [0.6, 0.5, 0.4, 0.7],
                 "model": {"kappa": 3.0}, "alpha": 0.8}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the fits are thousands of tiny ops, which
-    several test workers' thread pools slow several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_tree(jtree):

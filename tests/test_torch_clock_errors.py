@@ -2,8 +2,8 @@
 (the delta method over ``optimize.fisher_covariance`` and the exact
 Jacobian of the height map) against the JAX package's at the port's fitted
 strict clock, on 600 HKY85 sites simulated by the port on an ultrametric
-6-taxon tree. Kept apart from ``tests/test_torch_clock.py``: the JAX
-reference's first Hessian takes ~30 s on the CPU.
+6-taxon tree. Kept apart from ``tests/test_torch_clock.py``, so that the
+test workers run the two side by side.
 
 Tolerances: 1e-4 relative with ``pruner="torch"`` (the port's exact
 Hessian with a frozen model, as JAX's); 1e-2 through the f32 walk
@@ -12,7 +12,6 @@ central differences of the gradient. JAX's bootstrap of the root age is
 not re-run.
 """
 import pytest
-import torch
 
 from phylo_utils_tpu import clock as jclock
 from phylo_utils_tpu import models as jmodels
@@ -24,18 +23,13 @@ from phylo_utils_tpu_torch.io import parse_newick
 from phylo_utils_tpu_torch.optimize import fit
 from phylo_utils_tpu_torch.simulate import simulate_alignment
 
+from jax_reference import jitted_hessian
+from torch_threads import one_thread  # noqa: F401
+
 T64 = dict(dtype="float64", device="cpu")
 T32 = dict(dtype="float32", pruner="cuda", device="cpu")
 ULTRA = ("(((a:0.1,b:0.1):0.1,(c:0.1,d:0.1):0.1):0.05,"
          "(e:0.2,f:0.2):0.05);")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -49,13 +43,15 @@ def ultra_case():
 @pytest.fixture(scope="module")
 def height_errors(ultra_case):
     """A port fit of the strict clock, and JAX's node-height SEs at the
-    fitted parameters (JAX's exact Hessian), built once."""
+    fitted parameters (JAX's exact Hessian, under one ``jax.jit``), built
+    once."""
     tree, aln = ultra_case
     ce = ClockEngine(tree, aln, models.HKY85, **T64)
     res = fit(ce, max_steps=100, patience=15)
     je = jclock.ClockEngine(j_parse_newick(ULTRA), aln, jmodels.HKY85,
                             dtype="float64")
-    want = jclock.node_height_errors(je, params_to_numpy(res.params))
+    with jitted_hessian():
+        want = jclock.node_height_errors(je, params_to_numpy(res.params))
     return res.params, want
 
 

@@ -32,6 +32,8 @@ from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 from phylo_utils_tpu_torch.models import codon as tcodon
 from phylo_utils_tpu_torch.ops import cuda_pruning
 
+from torch_threads import one_thread  # noqa: F401
+
 NUC_FREQS = [[0.3, 0.2, 0.3, 0.2], [0.25, 0.25, 0.25, 0.25],
              [0.15, 0.35, 0.2, 0.3]]
 

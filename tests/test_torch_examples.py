@@ -70,6 +70,8 @@ from phylo_utils_tpu_torch.examples import (
 from phylo_utils_tpu_torch.io import parse_newick, write_newick
 from phylo_utils_tpu_torch.trees import random_tree, robinson_foulds
 
+from torch_threads import one_thread  # noqa: F401
+
 F64 = 1e-10
 FIT_LOGL, FIT_PARAM = 1e-5, 2e-3       # tests/test_torch_optimize.py
 SE_TOL = 1e-7                          # tests/test_torch_uncertainty.py
@@ -80,17 +82,6 @@ _CODONS = [a + b + c for a in "TCAG" for b in "TCAG" for c in "TCAG"
 EXAMPLES = {"full_analysis": full_analysis,
             "uncertainty_analysis": uncertainty_analysis,
             "selection_analysis": selection_analysis}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these fits are thousands of tiny ops, which
-    several test workers' thread pools, each as wide as the machine, slow
-    several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jtree(tree):

@@ -26,6 +26,8 @@ from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 from phylo_utils_tpu_torch.ops.gamma import discrete_gamma
 from phylo_utils_tpu_torch.optimize import fit, ml_distance_matrix
 
+from torch_threads import one_thread  # noqa: F401
+
 CPU = dict(device="cpu")
 YANG94_ALPHA05_K4 = (0.0334, 0.2519, 0.8203, 2.8944)
 YANG_CME_N, YANG_CME_TS, YANG_CME_TV = 948, 84, 6

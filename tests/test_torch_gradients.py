@@ -10,6 +10,8 @@ as the JAX package holds its own Pallas gradients to its XLA ones; the f64
 engine 1e-10 relative; finite differences at the JAX package's own
 tolerances (``tests/test_gradients.py``).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,8 @@ from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 from phylo_utils_tpu_torch.ops import cuda_pruning
 from phylo_utils_tpu_torch.ops import gamma as tgamma
 from phylo_utils_tpu_torch.ops import pmatrix as tpmatrix
+
+from torch_threads import one_thread  # noqa: F401
 
 MODELS = {
     "JC69": {},
@@ -74,7 +78,8 @@ def test_p_matrices_reversible_grad_matches_jax(name):
         return jnp.sum(jpmatrix.p_matrices_reversible(sym, fr, tt) * w)
 
     jp = {k: jnp.asarray(v, jnp.float64) for k, v in MODELS[name].items()}
-    gj_params, gj_t = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(t))
+    gj_params, gj_t = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        jp, jnp.asarray(t))
     tp = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
           for k, v in MODELS[name].items()}
     tt = torch.tensor(t, requires_grad=True)
@@ -123,15 +128,23 @@ def test_dp_d2p_matrices_match_jax():
                                    rtol=0, atol=1e-12)
 
 
+@functools.cache
+def _jax_discrete_gamma_jacobian(ncat, median):
+    """jax.jacfwd of JAX's ``discrete_gamma`` at (ncat, median), compiled
+    once for the module: traced op by op it rebuilds its Newton scan at
+    every call."""
+    return jax.jit(jax.jacfwd(
+        lambda a: jgamma.discrete_gamma(a, ncat, median)))
+
+
 @pytest.mark.parametrize("alpha", [0.2, 0.5, 2.0, 50.0])
 def test_discrete_gamma_alpha_grad_matches_jax(alpha):
     """Plain autograd through the port's own gammainc (series / continued
     fraction, unrolled Newton quantile) against jax.jacfwd, 1e-10
     relative."""
     for ncat, median in ((4, False), (8, False), (4, True)):
-        want = np.asarray(jax.jacfwd(
-            lambda a: jgamma.discrete_gamma(a, ncat, median))(
-                jnp.float64(alpha)))
+        want = np.asarray(_jax_discrete_gamma_jacobian(ncat, median)(
+            jnp.float64(alpha)))
         got = torch.autograd.functional.jacobian(
             lambda a: tgamma.discrete_gamma(a, ncat, median),
             torch.tensor(alpha, dtype=torch.float64))
@@ -151,7 +164,8 @@ def test_gammainc_large_shape_matches_scipy():
     for alpha in (1e4, 1e5):
         got = tgamma.discrete_gamma(torch.tensor(alpha, dtype=torch.float64),
                                     4).numpy()
-        want = np.asarray(jgamma.discrete_gamma(jnp.float64(alpha), 4))
+        want = np.asarray(jax.jit(jgamma.discrete_gamma, static_argnums=1)(
+            jnp.float64(alpha), 4))
         np.testing.assert_allclose(got, want, rtol=1e-8)
 
 

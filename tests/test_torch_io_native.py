@@ -17,6 +17,8 @@ from phylo_utils_tpu import io as jio
 from phylo_utils_tpu_torch import io as tio
 from phylo_utils_tpu_torch import native
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def test_compress_chars_matches_numpy_unique():
     rng = np.random.default_rng(0)

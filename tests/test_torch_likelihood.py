@@ -29,6 +29,8 @@ from phylo_utils_tpu_torch.likelihood import (
     mixture_rates_and_p,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 GTR_PARAMS = {
     "model": {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0],
               "freqs": [0.3, 0.2, 0.22, 0.28]},

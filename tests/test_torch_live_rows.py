@@ -14,6 +14,7 @@ replay folds) the per-site log-likelihood agrees to 1e-5 absolute, as in
 ``tests/test_torch_pruning.py``. The kernels themselves run only on the card
 (tests marked ``gpu``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +46,8 @@ from phylo_utils_tpu_torch.ops.pmatrix import (
 )
 from phylo_utils_tpu_torch.ops.pruning import LN2
 from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
+
+from torch_threads import one_thread  # noqa: F401
 
 MODELS = {4: (tmodels.GTR, {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0],
                             "freqs": [0.3, 0.2, 0.22, 0.28]}),
@@ -156,8 +159,8 @@ def test_live_row_replay_matches_plain_walk_and_pallas(s, case, binarize):
     if not binarize and case == "wide_root":
         assert walk.children.shape[1] >= 10   # the root kept whole
     jsched = j_compile_schedule(jio.parse_newick(newick), binarize=binarize)
-    r, sc = make_pallas_prune_fn(jsched)(jnp.asarray(p.numpy()),
-                                         jnp.asarray(lp.numpy()))
+    r, sc = jax.jit(make_pallas_prune_fn(jsched))(
+        jnp.asarray(p.numpy()), jnp.asarray(lp.numpy()))
     freqs = np.full(s, 1.0 / s)
     jax_ll = np.log(np.asarray(r, np.float64) @ freqs) + np.asarray(sc)
     np.testing.assert_allclose(_site_ll(*want, freqs), jax_ll, rtol=0,
@@ -194,8 +197,8 @@ def test_fold_replay_matches_plain_walk_and_pallas(monkeypatch, s, k, fold,
     for name, value in knob.items():
         monkeypatch.setenv(name, value)
     jsched = j_compile_schedule(jio.parse_newick(newick), binarize=False)
-    r, sc = make_pallas_prune_fn(jsched)(jnp.asarray(p[1].numpy()),
-                                         jnp.asarray(lp.numpy()))
+    r, sc = jax.jit(make_pallas_prune_fn(jsched))(
+        jnp.asarray(p[1].numpy()), jnp.asarray(lp.numpy()))
     freqs = np.full(s, 1.0 / s)
     jax_ll = np.log(np.asarray(r, np.float64) @ freqs) + np.asarray(sc)
     np.testing.assert_allclose(_site_ll(want[0][1], want[1][1], freqs),

@@ -41,6 +41,8 @@ from phylo_utils_tpu_torch.ops.cuda_pruning import (
 )
 from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
 
+from torch_threads import one_thread  # noqa: F401
+
 MULTIFURCATING = (
     "((a:0.1,b:0.2,c:0.05):0.1,(d:0.3,e:0.1,f:0.2,g:0.15):0.2,"
     "(h:0.1,(i:0.2,j:0.3):0.05):0.1,k:0.4,l:0.25);"
@@ -372,10 +374,10 @@ def test_cuda_prune_fn_matches_pallas_prune_fn(monkeypatch, case):
     gradient is that one)."""
     newick, jsched, p, lp = CASES[case]["setup"]()
     _set_knob(monkeypatch, CASES[case]["knob"])
-    jxla = j_make_prune_fn(jsched)
+    jxla = jax.jit(j_make_prune_fn(jsched))
     r_xla, s_xla = jxla(jnp.asarray(p), jnp.asarray(lp))
-    r_pal, s_pal = jpp.make_pallas_prune_fn(jsched)(jnp.asarray(p),
-                                                    jnp.asarray(lp))
+    r_pal, s_pal = jax.jit(jpp.make_pallas_prune_fn(jsched))(
+        jnp.asarray(p), jnp.asarray(lp))
     calls = []
     _spy(monkeypatch, calls)
     prune = make_cuda_prune_fn(compile_schedule(tio.parse_newick(newick)))

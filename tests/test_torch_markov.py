@@ -20,6 +20,8 @@ from phylo_utils_tpu.markov import TransitionMatrix as JaxTransitionMatrix
 from phylo_utils_tpu_torch import models
 from phylo_utils_tpu_torch.markov import TransitionMatrix, sample_rows
 
+from torch_threads import one_thread  # noqa: F401
+
 CASES = [
     ("HKY85", {"kappa": 3.0}),
     ("GTR", {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0],

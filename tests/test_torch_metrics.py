@@ -12,6 +12,8 @@ from phylo_utils_tpu_torch import likelihood, models
 from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 from phylo_utils_tpu_torch.utils import Timer, enable_debug_checks, trace
 
+from torch_threads import one_thread  # noqa: F401
+
 TREE = "((a:0.1,b:0.2):0.05,(c:0.3,d:0.15):0.07);"
 ALN = {"a": "ACGTACGTGG", "b": "ACGTTGCAGG", "c": "AGGTACGAGT",
        "d": "ACGAACGTAT"}

@@ -53,6 +53,8 @@ from phylo_utils_tpu_torch.profile_mixtures import (
 )
 from phylo_utils_tpu_torch.trees import random_tree
 
+from torch_threads import one_thread  # noqa: F401
+
 AA = "ARNDCQEGHILKMFPSTWYV"
 TREE4 = "((a:0.1,b:0.2):0.05,(c:0.3,d:0.15):0.07);"
 ALN4 = {"a": "ACGTACGTGG", "b": "ACGTTGCAGG", "c": "AGGTACGAGT",

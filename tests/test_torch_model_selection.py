@@ -17,7 +17,6 @@ test holds the JAX test's verdicts, not its numbers. One intra-op thread.
 """
 import numpy as np
 import pytest
-import torch
 
 from phylo_utils_tpu import mixtures as jmix
 from phylo_utils_tpu import model_selection as jms
@@ -33,13 +32,7 @@ from phylo_utils_tpu_torch.optimize import fit
 from phylo_utils_tpu_torch.simulate import simulate_alignment
 from phylo_utils_tpu_torch.trees import random_tree
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,8 @@ from phylo_utils_tpu_torch.models.morphology import (
 )
 from phylo_utils_tpu_torch.ops import cuda_pruning
 
+from torch_threads import one_thread  # noqa: F401
+
 STATES = "0123456789ABCDEFGHIJKLMNOPQRSTUV"
 TREE3 = "(a:0.2,b:0.35,c:0.15);"
 

@@ -21,13 +21,21 @@ import sys
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_ports(n):
+    """``n`` distinct free ports, all bound at once while they are read."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 def _env():
@@ -39,21 +47,28 @@ def _env():
     return env
 
 
-def _spawn_pair(args):
-    port = str(_free_port())
-    procs = [
+def _start_pair(args, port):
+    return [
         subprocess.Popen(
             [sys.executable, "-m", "phylo_utils_tpu_torch.parallel.multihost",
-             args[0], str(rank), "2", port, *args[1:], "--device", "cpu"],
+             args[0], str(rank), "2", str(port), *args[1:], "--device",
+             "cpu"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=_env(),
             cwd=_REPO, text=True)
         for rank in range(2)
     ]
+
+
+def _finish_pair(procs):
     results = []
     for p in procs:
         out, err = p.communicate(timeout=280)
         results.append((p.returncode, out, err))
     return results
+
+
+def _spawn_pair(args):
+    return _finish_pair(_start_pair(args, _free_ports(1)[0]))
 
 
 def _rows(results):
@@ -81,13 +96,17 @@ def test_two_process_global_loglik():
 
 
 def test_two_process_fit_killed_and_resumed_bitexact(tmp_path):
-    ckpt = str(tmp_path / "fit.ckpt")
-    clean = _rows(_spawn_pair(["fit", "clean", ckpt]))
+    clean_ckpt, ckpt = (str(tmp_path / n) for n in ("clean.ckpt",
+                                                     "fit.ckpt"))
+    # the uninterrupted run and the run killed at step 7, side by side
+    clean_port, crash_port = _free_ports(2)
+    clean_pair = _start_pair(["fit", "clean", clean_ckpt], clean_port)
+    crashed = _finish_pair(_start_pair(["fit", "crash", ckpt], crash_port))
+    clean = _rows(_finish_pair(clean_pair))
     assert clean[0]["digest"] == clean[1]["digest"]
-    assert not os.path.exists(ckpt)
+    assert not os.path.exists(clean_ckpt)
 
     # killed at step 7: rank 0's step-6 checkpoint survives
-    crashed = _spawn_pair(["fit", "crash", ckpt])
     for rc, _, err in crashed:
         assert rc == 137, f"crash worker exited {rc}:\n{err[-2000:]}"
     assert os.path.exists(ckpt), "no checkpoint survived the kill"

@@ -14,6 +14,8 @@ import re
 
 import phylo_utils_tpu_torch
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # each JAX public name the port does not export yet -> its ROADMAP item:

@@ -7,6 +7,9 @@ discretization (two gammainc implementations, both at f64 roundoff);
 1e-13 absolute for f64 P(t) entries (probabilities <= 1) and 1e-6 with an
 f32 reconstruct (f32 rounding); 1e-12 relative for the f64 pruner.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +35,8 @@ from phylo_utils_tpu_torch.ops import pruning as tpruning
 from phylo_utils_tpu_torch.ops.cuda_pruning import (
     _postorder_arrays as t_postorder_arrays,
 )
+
+from torch_threads import one_thread  # noqa: F401
 
 MULTIFURCATING = (
     "((a:0.1,b:0.2,c:0.05):0.1,(d:0.3,e:0.1,f:0.2,g:0.15):0.2,"
@@ -133,12 +138,19 @@ def test_gammainc_matches_scipy():
     np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-300)
 
 
+@functools.cache
+def _jax_discrete_gamma(ncat, median):
+    """JAX's ``discrete_gamma`` at (ncat, median), compiled once for the
+    module: traced op by op it rebuilds its Newton scan at every call."""
+    return jax.jit(lambda a: jgamma.discrete_gamma(a, ncat, median))
+
+
 @pytest.mark.parametrize("alpha", [0.05, 0.5, 1.0, 5.0, 50.0])
 def test_discrete_gamma_matches_jax(alpha):
     for ncat in (1, 4, 8):
         for median in (False, True):
-            j = np.asarray(jgamma.discrete_gamma(
-                jnp.asarray(alpha, jnp.float64), ncat, median))
+            j = np.asarray(_jax_discrete_gamma(ncat, median)(
+                jnp.asarray(alpha, jnp.float64)))
             t = tgamma.discrete_gamma(
                 torch.tensor(alpha, dtype=torch.float64), ncat, median)
             assert t.dtype == torch.float64 and t.shape == (ncat,)
@@ -217,7 +229,8 @@ def _prune_inputs(tree_kind, dtype):
 @pytest.mark.parametrize("tree_kind", ["random", "multifurcating"])
 def test_make_prune_fn_f64_matches_jax(tree_kind):
     js, ts, p, lp = _prune_inputs(tree_kind, np.float64)
-    jr, jsc = jpruning.make_prune_fn(js)(jnp.asarray(p), jnp.asarray(lp))
+    jr, jsc = jax.jit(jpruning.make_prune_fn(js))(jnp.asarray(p),
+                                                  jnp.asarray(lp))
     tr, tsc = tpruning.make_prune_fn(ts)(torch.from_numpy(p),
                                          torch.from_numpy(lp))
     assert tr.shape == jr.shape and tsc.shape == jsc.shape

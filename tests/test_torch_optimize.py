@@ -32,6 +32,8 @@ from phylo_utils_tpu_torch.optimize import (
 )
 from phylo_utils_tpu_torch.utils.checkpoint import load_checkpoint
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _port_tree(jtree):
     return ttrees.Tree(jtree.names, jtree.parent, jtree.lengths,
@@ -42,17 +44,6 @@ def _aln(tree, sites, seed=0):
     rng = np.random.default_rng(seed)
     return {n: "".join(rng.choice(list("ACGT"), size=sites))
             for n in tree.leaf_names}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these fits are thousands of tiny ops, which
-    several test workers' thread pools, each as wide as the machine, slow
-    several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -37,17 +37,10 @@ from phylo_utils_tpu_torch.partition import (
 from phylo_utils_tpu_torch.simulate import simulate_alignment
 from phylo_utils_tpu_torch.trees import Tree
 
+from jax_reference import jitted_hessian
+from torch_threads import one_thread  # noqa: F401
+
 REL = 1e-10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the fits are thousands of tiny ops, which
-    several test workers' thread pools slow several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_tree(jtree):
@@ -88,6 +81,14 @@ def setup():
     return jtree, _port_tree(jtree), jparts, parts
 
 
+@pytest.fixture(scope="module")
+def jax_linked(setup):
+    """The JAX engine over ``setup``'s loci, rates linked (its default),
+    built once so its compiled calls serve every test that reads it."""
+    jtree, _, jparts, _ = setup
+    return jpart.PartitionedEngine(jtree, jparts)
+
+
 def test_partitioned_equals_sum_of_engines(setup):
     jtree, tree, jparts, parts = setup
     pe = PartitionedEngine(tree, parts, link_rates=False, device="cpu")
@@ -107,7 +108,7 @@ def test_partitioned_equals_sum_of_engines(setup):
         assert per[name] == pytest.approx(ll, rel=REL)
 
 
-def test_partition_rates_normalized(setup):
+def test_partition_rates_normalized(setup, jax_linked):
     jtree, tree, jparts, parts = setup
     pe = PartitionedEngine(tree, parts, device="cpu")  # link_rates=True
     base = pe.loglikelihood()
@@ -116,7 +117,7 @@ def test_partition_rates_normalized(setup):
     assert scaled == pytest.approx(base, abs=1e-9)
     uneq = {"partition_rates": np.array([0.3, 1.0, 2.0])}
     assert abs(pe.loglikelihood(uneq) - base) > 1e-6
-    jpe = jpart.PartitionedEngine(jtree, jparts)
+    jpe = jax_linked
     assert pe.loglikelihood(uneq) == pytest.approx(jpe.loglikelihood(uneq),
                                                    rel=REL)
     got = _by_path(pe.gradient(uneq))
@@ -127,7 +128,8 @@ def test_partition_rates_normalized(setup):
                                    err_msg=str(path))
 
 
-def test_partitioned_fit_improves_and_fits_per_partition_params(setup):
+def test_partitioned_fit_improves_and_fits_per_partition_params(setup,
+                                                                jax_linked):
     jtree, tree, jparts, parts = setup
     pe = PartitionedEngine(tree, parts, device="cpu")
     ll0 = pe.loglikelihood()
@@ -140,9 +142,8 @@ def test_partitioned_fit_improves_and_fits_per_partition_params(setup):
     r = fitted["partition_rates"].numpy()
     assert r.max() / r.min() > 1.0 + 1e-4
     # the JAX engine's logL at the fitted parameters
-    jpe = jpart.PartitionedEngine(jtree, jparts)
     assert res.loglik == pytest.approx(
-        jpe.loglikelihood(_numpy_params(fitted)), rel=1e-8)
+        jax_linked.loglikelihood(_numpy_params(fitted)), rel=1e-8)
 
 
 def test_mixed_alphabet_partitions(setup):
@@ -328,7 +329,8 @@ def test_partitioned_standard_errors():
     reverse rule has no second derivative), so ``fisher_covariance``
     inverts it on their orthogonal complement: the root edges read JAX's
     split SE, the partition rates JAX's SEs, and the root's own length nan
-    as in JAX."""
+    as in JAX. JAX's Hessian is taken under one ``jax.jit``
+    (``jax_reference.jitted_hessian``)."""
     newick = "((a:0.1,b:0.2):0.05,(c:0.3,d:0.15):0.07);"
     sim_eng = PartitionedEngine(newick, [
         Partition("g1", {t: "A" * 150 for t in "abcd"}, models.JC69),
@@ -352,8 +354,9 @@ def test_partitioned_standard_errors():
     jeng = jpart.PartitionedEngine(newick, [
         jpart.Partition("g1", sim["g1"], jmodels.JC69),
         jpart.Partition("g2", sim["g2"], jmodels.K80)])
-    want = _by_path(_jax_tree(jax_standard_errors(
-        jeng, jeng._full_params(_numpy_params(res.params)))))
+    with jitted_hessian():
+        want = _by_path(_jax_tree(jax_standard_errors(
+            jeng, jeng._full_params(_numpy_params(res.params)))))
     got = _by_path(se)
     assert set(got) == {p for p, w in want.items() if np.size(w)}
     for path, g in got.items():

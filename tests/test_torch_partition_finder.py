@@ -9,24 +9,15 @@ optima, as ``tests/test_torch_optimize.py`` holds them).
 """
 import numpy as np
 import pytest
-import torch
 
 from phylo_utils_tpu.model_selection import (
     partition_finder as jax_partition_finder,
 )
 from phylo_utils_tpu_torch.model_selection import partition_finder
 
+from torch_threads import one_thread  # noqa: F401
+
 TREE4 = "((a:0.12,b:0.23):0.05,(c:0.31,d:0.17):0.08);"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: each subset's fits are thousands of tiny ops,
-    which several test workers' thread pools slow several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _sim(seed, n, model="jc"):

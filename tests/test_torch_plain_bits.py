@@ -20,6 +20,8 @@ from phylo_utils_tpu_torch.ops.cuda_pruning import (
 )
 from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
 
+from torch_threads import one_thread  # noqa: F401
+
 SITES = 37
 K = 3
 # the plain walks' contractions: y = P x, P^T g and dP = sum_sites gy x^T,

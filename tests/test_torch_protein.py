@@ -33,6 +33,8 @@ from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 from phylo_utils_tpu_torch.ops import cuda_pruning
 from phylo_utils_tpu_torch.ops.pmatrix import transition_matrices
 
+from torch_threads import one_thread  # noqa: F401
+
 AMINO = "ARNDCQEGHILKMFPSTWYV"
 
 

@@ -42,6 +42,8 @@ from phylo_utils_tpu_torch.ops.pruning import LN2, make_prune_fn
 from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
 from phylo_utils_tpu_torch.io import write_newick
 
+from torch_threads import one_thread  # noqa: F401
+
 FREQS = np.array([0.3, 0.2, 0.22, 0.28])
 GTR = {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0], "freqs": list(FREQS)}
 RATES = np.array([0.1, 0.6, 1.2, 2.1])
@@ -84,7 +86,7 @@ def _site_ll_port(root_p, root_e):
 
 def _site_ll_jax(newick, p, lp):
     sched = j_compile_schedule(jio.parse_newick(newick))
-    prune = make_pallas_prune_fn(sched)
+    prune = jax.jit(make_pallas_prune_fn(sched))
     r, s = prune(jnp.asarray(p), jnp.asarray(lp))
     return np.log(np.asarray(r, np.float64) @ FREQS) + np.asarray(s, np.float64)
 
@@ -286,7 +288,8 @@ def _jax_vjp(newick, p, lp, freqs, ct):
     fn = jpp.make_pallas_loglik_fn(sched, n_states=4, diff_leaves=True)
     if p.ndim == 5:
         fn = jax.vmap(fn, in_axes=(0, None, None))
-    _, vjp = jax.vjp(fn, jnp.asarray(p), jnp.asarray(lp), jnp.asarray(freqs))
+    _, vjp = jax.vjp(jax.jit(fn), jnp.asarray(p), jnp.asarray(lp),
+                     jnp.asarray(freqs))
     return [np.asarray(g) for g in vjp(jnp.asarray(ct))]
 
 

@@ -11,7 +11,6 @@ intra-op thread: these are hundreds of small batched passes.
 import jax
 import numpy as np
 import pytest
-import torch
 
 from phylo_utils_tpu import models as jmodels
 from phylo_utils_tpu.batched import TopologySetEngine as JaxTSE
@@ -34,13 +33,7 @@ from phylo_utils_tpu_torch.trees import (
     robinson_foulds,
 )
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _jax_tree(tree):

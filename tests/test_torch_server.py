@@ -25,6 +25,8 @@ from phylo_utils_tpu_torch import server as server_module
 from phylo_utils_tpu_torch.server import EngineServer
 from phylo_utils_tpu_torch.trees import random_tree
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = {"model": {"rates": [1.2, 3.1, 0.7, 0.9, 4.2, 1.0],
                     "freqs": [0.3, 0.2, 0.22, 0.28]},

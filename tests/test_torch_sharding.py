@@ -37,15 +37,9 @@ from phylo_utils_tpu_torch.parallel import (
 from phylo_utils_tpu_torch.parallel.dryrun import dryrun
 from phylo_utils_tpu_torch.trees import random_tree
 
+from torch_threads import one_thread  # noqa: F401
+
 CROSS = 1e-10       # port against JAX, f64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -40,16 +40,7 @@ from phylo_utils_tpu_torch.simulate import (
 )
 from phylo_utils_tpu_torch.trees import random_tree
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these small fits are thousands of tiny ops,
-    which several test workers' thread pools, each as wide as the machine,
-    slow ~7x (a fit of 1 s alone took 96 s beside 6 busy processes)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
+from torch_threads import one_thread  # noqa: F401
 
 CHI2_BOUND = float(scipy.stats.chi2.isf(1e-6, 15))
 DNA_INDEX = {c: i for i, c in enumerate("ACGT")}

@@ -34,6 +34,8 @@ from phylo_utils_tpu_torch.ops import cuda_pruning
 from phylo_utils_tpu_torch.ops.beta import discrete_beta
 from phylo_utils_tpu_torch.simulate import simulate_mixture_alignment
 
+from torch_threads import one_thread  # noqa: F401
+
 # engine -> (its hyperparameters away from the defaults, constructor kw)
 ENGINES = {
     "M1a": ({"proportions": [0.65, 0.35], "omega0": 0.15}, {}),
@@ -44,17 +46,6 @@ ENGINES = {
            {"ncat": 4}),
     "M8a": ({"beta_p": 0.6, "beta_q": 1.8, "p0": 0.8}, {"ncat": 4}),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: these small engines are thousands of tiny ops,
-    which several test workers' thread pools, each as wide as the machine,
-    slow several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _flat(tree):

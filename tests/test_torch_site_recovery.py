@@ -6,8 +6,6 @@ must take omega > 1, the LRT reject M7, and the NEB and BEB scans rank the
 positive half above the purifying one. Kept apart from the parity file so
 that the test workers run the two side by side; one intra-op thread.
 """
-import pytest
-import torch
 
 from phylo_utils_tpu_torch import mixtures as tmix
 from phylo_utils_tpu_torch import models as tmodels
@@ -17,13 +15,7 @@ from phylo_utils_tpu_torch.optimize import fit
 from phylo_utils_tpu_torch.simulate import simulate_mixture_alignment
 from phylo_utils_tpu_torch.trees import random_tree
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_m7_m8_recovery_in_the_port():

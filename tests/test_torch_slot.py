@@ -12,6 +12,7 @@ both walks do the same f32 contraction and exact power-of-two rescale, but
 sum the contraction in another order (``tests/test_torch_pruning.py``). The
 kernels themselves run only on the card (tests marked ``gpu``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +44,8 @@ from phylo_utils_tpu_torch.ops.pmatrix import (
 )
 from phylo_utils_tpu_torch.ops.pruning import LN2
 from phylo_utils_tpu_torch.trees import compile_schedule, random_tree
+
+from torch_threads import one_thread  # noqa: F401
 
 MULTIFURCATING = (
     "((a:0.1,b:0.2,c:0.05):0.1,(d:0.3,e:0.1,f:0.2,g:0.15):0.2,"
@@ -155,8 +158,8 @@ def test_slot_walk_matches_pallas_slot_kernels(monkeypatch, kind, s, sites):
     budget = ((size["slot"] + size["fwd"]) // 2 if kind == "slot"
               else (size["stream"] + size["slot"]) // 2)
     monkeypatch.setattr(jpp, "VMEM_BUDGET", budget)
-    r, sc = jpp.make_pallas_prune_fn(jsched)(jnp.asarray(p.numpy()),
-                                             jnp.asarray(lp.numpy()))
+    r, sc = jax.jit(jpp.make_pallas_prune_fn(jsched))(
+        jnp.asarray(p.numpy()), jnp.asarray(lp.numpy()))
     freqs = np.full(s, 1.0 / s)
     want = np.log(np.asarray(r, np.float64) @ freqs) + np.asarray(sc)
     walk = WalkSchedule(sched)

@@ -37,22 +37,14 @@ from phylo_utils_tpu_torch.partition import (
 )
 from phylo_utils_tpu_torch.trees import Tree
 
+from torch_threads import one_thread  # noqa: F401
+
 PARAMS = {
     "partition_rates": [0.5, 1.5, 2.0],
     "partitions": {
         "locus1": {"model": {"freqs": [0.4, 0.2, 0.2, 0.2]}, "alpha": 0.7},
     },
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: small fits and gradients are many tiny ops,
-    which several test workers' thread pools slow several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_tree(jtree):
@@ -107,27 +99,38 @@ def test_stacked_matches_general(setup):
     _assert_grads_close(stk.gradient(), gen.gradient())
 
 
+@pytest.fixture(scope="module")
+def jax_at_params(setup):
+    """The JAX package's general and stacked engines at PARAMS, built and
+    evaluated once for both pruners' cases: the general engine's total,
+    per-partition logL and gradient, the stacked engine's total."""
+    jtree, _, jparts, _ = setup
+    jgen = JaxPartitioned(jtree, jparts)
+    return dict(total=jgen.loglikelihood(PARAMS),
+                stacked=JaxStacked(jtree, jparts).loglikelihood(PARAMS),
+                parts=jgen.partition_loglikelihoods(PARAMS),
+                gradient=jgen.gradient(jgen._full_params(PARAMS)))
+
+
 @pytest.mark.parametrize("pruner", ["torch", "cuda"])
-def test_stacked_matches_jax_with_params_and_rates(setup, pruner):
+def test_stacked_matches_jax_with_params_and_rates(setup, jax_at_params,
+                                                   pruner):
     """The JAX package's general and stacked engines at PARAMS: f64
     totals, per-partition logL and the gradient (``pruner="cuda"`` in f32:
     the walks' plain versions, held to the f64 JAX engine at f32
     bounds)."""
     jtree, tree, jparts, parts = setup
-    jgen = JaxPartitioned(jtree, jparts)
-    want = jgen.loglikelihood(PARAMS)
-    assert JaxStacked(jtree, jparts).loglikelihood(PARAMS) == pytest.approx(
-        want, rel=1e-12)
+    want = jax_at_params["total"]
+    assert jax_at_params["stacked"] == pytest.approx(want, rel=1e-12)
     dtype = "float32" if pruner == "cuda" else None
     stk = StackedPartitionedEngine(tree, parts, device="cpu", pruner=pruner,
                                    dtype=dtype)
     rel, grad_tol = (1e-10, 1e-8) if pruner == "torch" else (1e-6, 1e-3)
     assert stk.loglikelihood(PARAMS) == pytest.approx(want, rel=rel)
     got_parts = stk.partition_loglikelihoods(PARAMS)
-    for name, ll in jgen.partition_loglikelihoods(PARAMS).items():
+    for name, ll in jax_at_params["parts"].items():
         assert got_parts[name] == pytest.approx(ll, rel=rel)
-    _assert_grads_close(stk.gradient(PARAMS),
-                        jgen.gradient(jgen._full_params(PARAMS)),
+    _assert_grads_close(stk.gradient(PARAMS), jax_at_params["gradient"],
                         rtol=grad_tol, atol=grad_tol * 1e-2)
 
 

@@ -42,13 +42,7 @@ from phylo_utils_tpu_torch.trees import (
     robinson_foulds,
 )
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _jax_tree(tree):

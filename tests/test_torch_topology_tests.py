@@ -21,6 +21,8 @@ from phylo_utils_tpu_torch.batched import TopologySetEngine
 from phylo_utils_tpu_torch.io import write_newick
 from phylo_utils_tpu_torch.trees import nni_neighbors, random_tree
 
+from torch_threads import one_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def sitewise_matrix():

@@ -38,6 +38,8 @@ from phylo_utils_tpu_torch.convert import (
 from phylo_utils_tpu_torch.likelihood import LikelihoodEngine
 from phylo_utils_tpu_torch.nj import neighbor_joining
 
+from torch_threads import one_thread  # noqa: F401
+
 F64 = 1e-10
 
 

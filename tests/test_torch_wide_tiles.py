@@ -14,6 +14,8 @@ import pytest
 
 from phylo_utils_tpu_torch.ops import cuda_pruning
 
+from torch_threads import one_thread  # noqa: F401
+
 CSRC = Path(cuda_pruning.__file__).resolve().parent.parent / "csrc"
 SMEM = 232_448
 
